@@ -1,0 +1,139 @@
+"""The port's vision serving engine on the CPU: bucket admission,
+shedding, the two-level FIFO, one schedule solve per bucket, telemetry
+reconciliation and per-request logits against a direct apply."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
+from repro_torch.core import telemetry
+from repro_torch.models.mbconv import (
+    efficientnet_b0_apply,
+    efficientnet_b0_def,
+    effnet_schedules,
+)
+from repro_torch.models.param import materialize
+from repro_torch.serve import VisionEngine, VisionServeConfig
+
+RES = (16, 24, 32)
+
+
+@pytest.fixture(scope="module")
+def engine_parts():
+    cfg = efficientnet_b0_smoke(width_mult=0.125, num_classes=4)
+    params = materialize(efficientnet_b0_def(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    return cfg, params
+
+
+def _engine(engine_parts, **kw):
+    cfg, params = engine_parts
+    kw.setdefault("resolutions", RES)
+    kw.setdefault("batch_size", 2)
+    kw.setdefault("max_queue", 8)
+    return VisionEngine(params, cfg, VisionServeConfig(**kw), device="cpu")
+
+
+def _img(rng, side):
+    return rng.random((side, side, 3), np.float32)
+
+
+def test_bucket_admission(engine_parts):
+    telemetry.reset()
+    eng = _engine(engine_parts)
+    assert eng.bucket_for(14, 9) == 16
+    assert eng.bucket_for(16, 16) == 16
+    assert eng.bucket_for(17, 4) == 24     # longest side picks the bucket
+    assert eng.bucket_for(32, 32) == 32
+    assert eng.bucket_for(33, 1) is None   # above the largest bucket
+    rng = np.random.default_rng(0)
+    assert eng.submit(_img(rng, 12)) == 0
+    assert eng.submit(_img(rng, 40)) is None          # oversize -> shed
+    assert telemetry.get_telemetry().get("serve.shed.oversize") == 1
+    with pytest.raises(ValueError):
+        eng.submit(rng.random((8, 8), np.float32))    # not (H, W, 3)
+
+
+def test_load_shedding_at_queue_bound(engine_parts):
+    telemetry.reset()
+    eng = _engine(engine_parts, max_queue=3)
+    rng = np.random.default_rng(1)
+    rids = [eng.submit(_img(rng, 16)) for _ in range(4)]
+    rids.append(eng.submit(_img(rng, 16), priority=1))  # bound covers both
+    assert rids == [0, 1, 2, None, None]
+    t = telemetry.get_telemetry()
+    assert t.get("serve.shed.queue_full") == 2
+    assert t.get("serve.admitted") == 3
+    assert eng.shed == 2
+    eng.drain()
+    assert eng.submit(_img(rng, 16)) == 3              # admission resumes
+
+
+def test_priority_fifo_with_backfill(engine_parts):
+    telemetry.reset()
+    eng = _engine(engine_parts, batch_size=3)
+    rng = np.random.default_rng(2)
+    n0 = eng.submit(_img(rng, 16))          # normal, r16
+    n1 = eng.submit(_img(rng, 24))          # normal, r24
+    n2 = eng.submit(_img(rng, 24))          # normal, r24
+    p0 = eng.submit(_img(rng, 24), priority=1)
+    assert telemetry.get_telemetry().get("serve.admitted.priority") == 1
+    first = eng.step()                      # priority head picks r24 ...
+    assert [r.rid for r in first] == [p0, n1, n2]   # ... normal back-fills
+    assert {r.bucket for r in first} == {24}
+    second = eng.step()
+    assert [r.rid for r in second] == [n0]
+    assert eng.step() == [] and eng.pending() == 0
+
+
+def test_one_schedule_build_per_bucket_and_counters(engine_parts):
+    telemetry.reset()
+    eng = _engine(engine_parts)
+    rng = np.random.default_rng(3)
+    sides = (14, 16, 24, 20, 32, 30, 12)   # 3x r16, 2x r24, 2x r32
+    for side in sides:
+        eng.submit(_img(rng, side))
+    results = eng.drain()
+    assert sorted(r.rid for r in results) == list(range(len(sides)))
+    t = telemetry.get_telemetry()
+    for res, n_req, n_batch in ((16, 3, 2), (24, 2, 1), (32, 2, 1)):
+        assert t.get(f"serve.build.r{res}") == 1
+        assert t.get(f"serve.requests.r{res}") == n_req
+        assert t.get(f"serve.batches.r{res}") == n_batch
+        assert t.get(f"serve.pad_slots.r{res}") == 2 * n_batch - n_req
+        scheds = effnet_schedules(eng.cfg, 2, res, res)
+        assert eng.schedules_for(res) == scheds
+        for i, sch in enumerate(scheds):
+            assert t.get(f"serve.bytes.r{res}.block{i:02d}") == \
+                n_batch * sch.total_bytes
+    assert len(telemetry.series("serve.latency_s")) == len(sides)
+    pct = eng.latency_percentiles()
+    assert 0 < pct["p50"] <= pct["p90"] <= pct["p99"]
+    assert all(r.queue_wait_s <= r.latency_s for r in results)
+
+
+def test_request_logits_match_direct_apply(engine_parts):
+    telemetry.reset()
+    cfg, params = engine_parts
+    eng = _engine(engine_parts)
+    rng = np.random.default_rng(4)
+    img_a, img_b = _img(rng, 20), _img(rng, 24)
+    ra, rb = eng.submit(img_a), eng.submit(img_b)
+    got = {r.rid: r for r in eng.drain()}
+    padded = np.zeros((2, 24, 24, 3), np.float32)
+    padded[0, :20, :20] = img_a
+    padded[1] = img_b
+    direct = efficientnet_b0_apply(params, torch.from_numpy(padded),
+                                   cfg).numpy()
+    np.testing.assert_array_equal(got[ra].logits, direct[0])
+    np.testing.assert_array_equal(got[rb].logits, direct[1])
+
+
+def test_config_validation():
+    with pytest.raises(ValueError):
+        VisionServeConfig(resolutions=(32, 16))
+    with pytest.raises(ValueError):
+        VisionServeConfig(resolutions=())
+    with pytest.raises(ValueError):
+        VisionServeConfig(batch_size=0)
