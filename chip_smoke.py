@@ -5,30 +5,52 @@ Run from the repository root, with one card:  python3 chip_smoke.py
 
 Phases, each of which must pass (exit 1 otherwise):
 
-1. build   prints the card (name, power limit), torch / CUDA / nvcc versions,
-           turns TF32 off for the plain versions (cuDNN's convolutions default
-           to it) and builds the CUDA kernels from the sources.
-2. kernels full-width EfficientNet-B0, batch 8, at every serve bucket
-           (224, 384, 512): on every block, with the tiles and modes the
-           engine solves for that bucket, each kernel (pass 1 with and
-           without the DW write, the pool reduce, pass 2 recompute and
-           retain) against its plain PyTorch version on the same inputs on
-           the card, within 1e-4 * max|plain| + 1e-5.  At 224 each is also
-           timed: device time of 20 calls replayed from one CUDA graph
-           (kernel, plain version, and the one-call library version where
-           PyTorch has one), and the kernel's host-inclusive time of 20
-           eager calls, both on CUDA events.
-3. model   full-width B0 (1000 classes) at 224, batch 8, from a seeded
-           torch.Generator: the logits on the card against the same model on
-           the CPU through the plain versions, within 1e-3 relative; then the
-           forward timed on CUDA events and traced with torch.profiler
-           (device time by kernel, busy share).
-4. serve   the main path: VisionEngine at buckets (224, 384, 512), batch 8,
-           answering 12 mixed requests (one oversize, shed).  Launch counts
-           are zeroed just before and read just after; every kernel must have
-           run.  Each bucket's schedules are built once, and a padded request
-           of the 384 and of the 512 bucket match the CPU plain run of its
-           padded image within 1e-3 relative.
+1. build    prints the card (name, power limit), torch / CUDA / nvcc versions,
+            turns TF32 off for the plain versions (cuDNN's convolutions
+            default to it) and builds the CUDA kernels from the sources, one
+            nvcc per source, all started together.
+2. kernels  full-width EfficientNet-B0, batch 8, at every serve bucket
+            (224, 384, 512): on every block, with the tiles and modes the
+            engine solves for that bucket, each MBConv kernel (pass 1 with
+            and without the DW write, the pool reduce, pass 2 recompute and
+            retain), with the block's activation and SE, against its plain
+            PyTorch version on the same inputs on the card, within
+            1e-4 * max|plain| + 1e-5.  At 224 each is also timed: device
+            time of 20 calls replayed from one CUDA graph (kernel, plain
+            version, and the one-call library version where PyTorch has
+            one), and the kernel's host-inclusive time of 20 eager calls,
+            both on CUDA events.
+3. model    full-width B0 (1000 classes) at 224, batch 8, from a seeded
+            torch.Generator: the logits on the card against the same model on
+            the CPU through the plain versions, within 1e-3 relative; then the
+            forward timed on CUDA events.
+4. trace    the B0 forward traced with torch.profiler (device time by
+            kernel, busy share).
+5. serve    the B0 main path: VisionEngine at buckets (224, 384, 512), batch
+            8, answering 12 mixed requests (one oversize, shed).  Launch
+            counts are zeroed just before and read just after; every MBConv
+            kernel must have run.  Each bucket's schedules are built once,
+            and a padded request of the 384 and of the 512 bucket match the
+            CPU plain run of its padded image within 1e-3 relative.
+6. v2s-kernels  full-width EfficientNet-V2-S at 384x384, batch 8, with the
+            solved tiles: the Fused-MBConv kernel against its plain version
+            on each of the 10 fused blocks, and every MBConv kernel on each
+            of the 30 MBConv blocks, at the same bar.  The kernels each block
+            runs are timed as in phase 2.
+7. v2s-model    the V2-S main path: full-width V2-S at 384, batch 8, on the
+            card, launch counts zeroed just before and read just after
+            (exactly 10 Fused-MBConv launches, one per fused block); the
+            first 2 images' logits against the CPU plain run within 1e-3
+            relative; the forward timed on CUDA events and traced.
+8. v3-kernels   full-width MobileNet-V3-Large at 224, batch 8, with the
+            solved tiles: every MBConv kernel on each of the 15 blocks with
+            the block's activation (relu or hard_swish) and, on the 8 SE
+            blocks, a hard_sigmoid gate (the others run without partials,
+            pool reduce or gate), at the same bar; the variants the forward
+            runs are timed as in phase 2.
+9. v3-model     the V3 main path: full-width MobileNet-V3-Large at 224,
+            batch 8, on the card, launch counts zeroed just before and read
+            just after, against the CPU plain run within 1e-3 relative.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Per-block kernel numbers are also written to
@@ -52,14 +74,19 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5      # x max|plain|, absolute
 MODEL_RTOL = 1e-3                          # x max|cpu logits|
 BATCH, RES = 8, 224
 SERVE_RES = (224, 384, 512)                # the serve phase's buckets
+V2S_RES, V2S_CPU_IMAGES = 384, 2           # V2-S eval size; images on CPU
+V3_RES = 224
 DEVICE = "cuda"
 REPLACES = {
     "mbconv_pass1": "src/repro/kernels/convdk_mbconv.py:118",
     "mbconv_pool_reduce": "src/repro/kernels/convdk_mbconv.py:151",
     "mbconv_pass2_recompute": "src/repro/kernels/convdk_mbconv.py:169",
     "mbconv_pass2_retain": "src/repro/kernels/convdk_mbconv.py:220",
+    "fusedmb": "src/repro/kernels/convdk_fusedmb.py:59",
 }
-SOURCE = "src/repro_torch/kernels/csrc/mbconv.cu"
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCES = {k: f"{CSRC}/{'fusedmb' if k == 'fusedmb' else 'mbconv'}.cu"
+           for k in REPLACES}
 
 
 def _bound(nbytes: float, flops: float):
@@ -68,19 +95,19 @@ def _bound(nbytes: float, flops: float):
 
 
 class KernelStats:
-    """Every kernel check (one row per bucket, block and kernel variant),
-    with times and bounds on the timed 224 rows; sums over the blocks of
-    the 224 main path for the kernels line."""
+    """Every kernel check (one row per network, bucket, block and kernel
+    variant), with times and bounds on the timed rows; sums over the blocks
+    of a main path for the kernels line."""
 
     def __init__(self):
         self.rows = []
 
-    def add(self, kernel, res, block, on_path, err, tol, times=None,
+    def add(self, kernel, net, res, block, on_path, err, tol, times=None,
             nbytes=0, flops=0, **shape):
-        row = dict(kernel=kernel, res=res, block=block, on_path=on_path,
-                   max_abs_err=err, tol=tol, **shape)
-        line = (f"  r{res} block{block:02d} {kernel:24s} err {err:.3e} "
-                f"(tol {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        row = dict(kernel=kernel, net=net, res=res, block=block,
+                   on_path=on_path, max_abs_err=err, tol=tol, **shape)
+        line = (f"  {net} r{res} block{block:02d} {kernel:24s} err "
+                f"{err:.3e} (tol {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
         if times is not None:
             bound_ms, bytes_ms, ops_ms = _bound(nbytes, flops)
             row.update(times, bound_ms=bound_ms, bound_bytes_ms=bytes_ms,
@@ -92,30 +119,58 @@ class KernelStats:
         print(line + ("" if on_path else "  [off the main path]"))
         return err <= tol
 
+    def sums(self, kernel, net, res):
+        """Sums over the blocks of one network's main path at ``res``;
+        None when the path runs no block of ``kernel``."""
+        path = [r for r in self.rows if r["kernel"] == kernel
+                and r["net"] == net and r["res"] == res and r["on_path"]]
+        if not path:
+            return 0, None
+        lib = [r["library_ms"] for r in path]
+        by_bytes = sum(r["bound_bytes_ms"] for r in path)
+        by_ops = sum(r["bound_ops_ms"] for r in path)
+        return len(path), {
+            "ms": sum(r["ms"] for r in path),
+            "plain_ms": sum(r["plain_ms"] for r in path),
+            "bound_ms": sum(r["bound_ms"] for r in path),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": sum(lib) if all(v is not None for v in lib)
+            else None,
+            "host_ms": sum(r["host_ms"] for r in path),
+        }
+
     def summary(self, launches):
+        """The kernels line: each kernel over its main path (B0 serving for
+        the MBConv kernels, the V2-S forward for Fused-MBConv); the MBConv
+        kernels also carry their launches, and their sums where the path
+        runs them, over the V2-S and the MobileNet-V3 forwards.
+        ``launches[net]`` are the counts of that network's main path."""
         out = []
         for kernel in REPLACES:
-            rows = [r for r in self.rows if r["kernel"] == kernel]
-            path = [r for r in rows if r["on_path"] and r["res"] == RES]
-            lib = [r["library_ms"] for r in path]
-            by_bytes = sum(r["bound_bytes_ms"] for r in path)
-            by_ops = sum(r["bound_ops_ms"] for r in path)
-            out.append({
-                "name": kernel, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[kernel],
-                "launches": launches[kernel],
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": sum(r["ms"] for r in path),
-                "plain_ms": sum(r["plain_ms"] for r in path),
-                "bound_ms": sum(r["bound_ms"] for r in path),
-                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                "library_ms": sum(lib) if all(v is not None for v in lib)
-                else None,
-                "host_ms": sum(r["host_ms"] for r in path),
-                "shape": f"EfficientNet-B0 {RES}x{RES} batch {BATCH}, "
-                         f"{len(path)} blocks of the main path; checked at "
-                         f"{', '.join(map(str, SERVE_RES))}",
-            })
+            errs = [r["max_abs_err"] for r in self.rows
+                    if r["kernel"] == kernel]
+            entry = {"name": kernel, "route": "cuda",
+                     "source": SOURCES[kernel], "replaces": REPLACES[kernel],
+                     "max_abs_err": max(errs)}
+            if kernel == "fusedmb":
+                n, sums = self.sums(kernel, "v2s", V2S_RES)
+                entry.update(launches=launches["v2s"][kernel], **sums,
+                             shape=f"EfficientNet-V2-S {V2S_RES}x{V2S_RES} "
+                                   f"batch {BATCH}, {n} fused blocks")
+            else:
+                n, sums = self.sums(kernel, "b0", RES)
+                entry.update(launches=launches["b0"][kernel], **sums,
+                             shape=f"EfficientNet-B0 {RES}x{RES} batch "
+                                   f"{BATCH}, {n} blocks of the main path; "
+                                   f"checked at "
+                                   f"{', '.join(map(str, SERVE_RES))}, on "
+                                   f"V2-S and on MobileNet-V3")
+                for net, res in (("v2s", V2S_RES), ("v3", V3_RES)):
+                    n_net, net_sums = self.sums(kernel, net, res)
+                    entry[net] = dict(net_sums or {},
+                                      launches=launches[net][kernel],
+                                      blocks=n_net)
+            out.append(entry)
         return out
 
 
@@ -129,38 +184,30 @@ def _phase(name):
     return time.perf_counter()
 
 
-def kernel_phase(torch, tk, stats) -> bool:
-    """Every kernel on every block of every serve bucket against its plain
-    version; at RES also timed (device and host-inclusive) and bounded."""
-    ok = True
-    for res in SERVE_RES:
-        ok &= _kernel_bucket(torch, tk, stats, res, timed=res == RES)
-    return bool(ok)
+class _Harness:
+    """Inputs from one seeded generator, the error bar, and the timing
+    of a kernel beside its plain and library versions."""
 
+    def __init__(self, torch, seed):
+        self.torch = torch
+        self.gen = torch.Generator().manual_seed(seed)
+        self.dev = torch.device(DEVICE)
 
-def _kernel_bucket(torch, tk, stats, res, timed) -> bool:
-    from repro_torch.core.telemetry import measure
-    from repro_torch.models.mbconv import EffNetConfig, effnet_block_specs
-    from repro_torch.models.mbconv import effnet_chain_rows, effnet_schedules
+    def rand(self, *shape, scale=1.0):
+        return (self.torch.randn(*shape, generator=self.gen)
+                * scale).to(self.dev)
 
-    cfg = EffNetConfig()
-    # the blocks, tiles and modes the engine's bucket runs (serve/vision.py)
-    rows = effnet_chain_rows(effnet_block_specs(cfg), res // 2, res // 2)
-    schedules = effnet_schedules(cfg, BATCH, res, res)
-    gen = torch.Generator().manual_seed(res)
-    dev = torch.device(DEVICE)
-
-    def rand(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(dev)
-
+    @staticmethod
     def check(got, ref):
         err = float((got - ref).abs().max())
         return err, KERNEL_RTOL * float(ref.abs().max()) + KERNEL_ATOL
 
-    def times(kernel, plain, library=None):
+    @staticmethod
+    def times(timed, kernel, plain, library=None):
         """Device ms of 20 calls replayed from one CUDA graph (kernel,
         plain version, one-call library version) and the kernel's
-        host-inclusive ms of 20 eager calls; None at untimed buckets."""
+        host-inclusive ms of 20 eager calls; None when not ``timed``."""
+        from repro_torch.core.telemetry import measure
         if not timed:
             return None
         dev_ms = lambda fn: measure(fn, iters=20, graph=True).mean_ms  # noqa: E731
@@ -168,88 +215,171 @@ def _kernel_bucket(torch, tk, stats, res, timed) -> bool:
                 "library_ms": None if library is None else dev_ms(library),
                 "host_ms": measure(kernel, iters=20).mean_ms}
 
-    ok = True
-    for i, ((h, w, c_in, c_mid, c_out, k, s), sch) in enumerate(
-            zip(rows, schedules)):
-        identity = c_mid == c_in
-        geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", sch.tile_h,
-                                     sch.tile_w)
-        oh, ow, b = geo.out_h, geo.out_w, BATCH
-        x = rand(b, h, w, c_in)
-        w_exp = None if identity else rand(c_in, c_mid, scale=c_in ** -0.5)
-        w_dw = rand(k, k, c_mid, scale=k ** -1.0)
-        gate = torch.sigmoid(rand(b, c_mid))
-        w_proj = rand(c_mid, c_out, scale=c_mid ** -0.5)
-        acts = dict(exp_act=None if identity else "silu", dw_act="silu")
-        shape = dict(h=h, w=w, c_in=c_in, c_mid=c_mid, c_out=c_out, k=k,
-                     s=s, tile=f"{geo.tile_h}x{geo.tile_w}", mode=sch.mode)
-        x_b = 4 * b * h * w * c_in
-        dw_b = 4 * b * oh * ow * c_mid
-        part_b = 4 * b * geo.n_tiles * c_mid
-        w1_b = 4 * ((0 if identity else c_in * c_mid) + k * k * c_mid)
-        w2_b = 4 * (b * c_mid + c_mid * c_out)
-        out_b = 4 * b * oh * ow * c_out
-        exp_f = 0 if identity else 2 * b * h * w * c_in * c_mid
-        dw_f = 2 * b * oh * ow * c_mid * k * k
-        proj_f = 2 * b * oh * ow * c_mid * c_out + b * oh * ow * c_mid
-        print(f"r{res} block{i:02d} {shape}", flush=True)
 
-        for retain in (False, True):
-            got = tk.mbconv_pass1(x, w_exp, w_dw, geo, retain=retain, **acts)
-            ref = tk.mbconv_pass1_plain(x, w_exp, w_dw, geo, retain=retain,
-                                        **acts)
-            err, tol = check(got[0], ref[0])
-            if retain:
-                err2, tol2 = check(got[1], ref[1])
-                err, tol = (err2, tol2) if err2 - tol2 > err - tol \
-                    else (err, tol)
-            ok &= stats.add(
-                "mbconv_pass1", res, i, retain == (sch.mode == "retain"),
-                err, tol,
-                times(lambda: tk.mbconv_pass1(x, w_exp, w_dw, geo,
-                                              retain=retain, **acts),
-                      lambda: tk.mbconv_pass1_plain(x, w_exp, w_dw, geo,
-                                                    retain=retain, **acts)),
-                x_b + w1_b + part_b + (dw_b if retain else 0),
-                exp_f + dw_f + b * oh * ow * c_mid,
-                retain=retain, **shape)
-        partial, dw = ref
-        dw = dw.contiguous()
+def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
+    """Every MBConv kernel variant a block of spec ``sp`` can run, on one
+    block, against its plain version: the spec's activation, and with SE
+    (pool partials, the pool reduce, a gate of the spec's flavour) or
+    without (no partials, no pool reduce, ``gate=None``).  ``timed(on_path)``
+    says which are timed."""
+    h, w, c_in, c_mid, c_out, k, s = row[:7]
+    identity = c_mid == c_in
+    se = sp.has_se
+    geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", sch.tile_h, sch.tile_w)
+    oh, ow, b = geo.out_h, geo.out_w, BATCH
+    x = hx.rand(b, h, w, c_in)
+    w_exp = None if identity else hx.rand(c_in, c_mid, scale=c_in ** -0.5)
+    w_dw = hx.rand(k, k, c_mid, scale=k ** -1.0)
+    gate_fn = {"sigmoid": torch.sigmoid,
+               "hard_sigmoid": torch.nn.functional.hardsigmoid}[sp.gate_act]
+    gate = gate_fn(hx.rand(b, c_mid)) if se else None
+    w_proj = hx.rand(c_mid, c_out, scale=c_mid ** -0.5)
+    acts = dict(exp_act=None if identity else sp.act, dw_act=sp.act)
+    shape = dict(h=h, w=w, c_in=c_in, c_mid=c_mid, c_out=c_out, k=k,
+                 s=s, tile=f"{geo.tile_h}x{geo.tile_w}", mode=sch.mode,
+                 act=sp.act, se=se)
+    x_b = 4 * b * h * w * c_in
+    dw_b = 4 * b * oh * ow * c_mid
+    part_b = 4 * b * geo.n_tiles * c_mid if se else 0
+    w1_b = 4 * ((0 if identity else c_in * c_mid) + k * k * c_mid)
+    w2_b = 4 * ((b * c_mid if se else 0) + c_mid * c_out)
+    out_b = 4 * b * oh * ow * c_out
+    exp_f = 0 if identity else 2 * b * h * w * c_in * c_mid
+    dw_f = 2 * b * oh * ow * c_mid * k * k
+    gate_f = b * oh * ow * c_mid if se else 0    # pool adds, gate products
+    proj_f = 2 * b * oh * ow * c_mid * c_out + gate_f
+    print(f"{net} r{res} block{i:02d} {shape}", flush=True)
+
+    ok = True
+    # without SE, pass 1 runs only to write the DW tensor (retain)
+    for retain in ((False, True) if se else (True,)):
+        on_path = retain == (sch.mode == "retain")
+        got = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se, retain=retain,
+                              **acts)
+        ref = tk.mbconv_pass1_plain(x, w_exp, w_dw, geo, se=se,
+                                    retain=retain, **acts)
+        err, tol = max((hx.check(g, r) for g, r in zip(got, ref)
+                        if r is not None), key=lambda et: et[0] - et[1])
+        ok &= stats.add(
+            "mbconv_pass1", net, res, i, on_path, err, tol,
+            hx.times(timed(on_path),
+                     lambda: tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                             retain=retain, **acts),
+                     lambda: tk.mbconv_pass1_plain(x, w_exp, w_dw, geo,
+                                                   se=se, retain=retain,
+                                                   **acts)),
+            x_b + w1_b + part_b + (dw_b if retain else 0),
+            exp_f + dw_f + gate_f, retain=retain, **shape)
+    partial, dw = ref
+    dw = dw.contiguous()
+    if se:
         pool = tk.mbconv_pool_reduce(partial)
         err = float((pool - tk.mbconv_pool_reduce_plain(partial)).abs().max())
         ok &= stats.add(
-            "mbconv_pool_reduce", res, i, True, err, 0.0,
-            times(lambda: tk.mbconv_pool_reduce(partial),
-                  lambda: tk.mbconv_pool_reduce_plain(partial),
-                  lambda: partial.sum(dim=1)),
+            "mbconv_pool_reduce", net, res, i, True, err, 0.0,
+            hx.times(timed(True), lambda: tk.mbconv_pool_reduce(partial),
+                     lambda: tk.mbconv_pool_reduce_plain(partial),
+                     lambda: partial.sum(dim=1)),
             part_b + 4 * b * c_mid, b * geo.n_tiles * c_mid, **shape)
 
-        got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
-                                        **acts)
-        ref = tk.mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
-                                              geo, **acts)
-        ok &= stats.add(
-            "mbconv_pass2_recompute", res, i, sch.mode == "recompute",
-            *check(got, ref),
-            times(lambda: tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate,
-                                                    w_proj, geo, **acts),
-                  lambda: tk.mbconv_pass2_recompute_plain(
-                      x, w_exp, w_dw, gate, w_proj, geo, **acts)),
-            x_b + w1_b + w2_b + out_b, exp_f + dw_f + proj_f, **shape)
+    on_path = sch.mode == "recompute"
+    got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
+                                    **acts)
+    ref = tk.mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
+                                          geo, **acts)
+    ok &= stats.add(
+        "mbconv_pass2_recompute", net, res, i, on_path, *hx.check(got, ref),
+        hx.times(timed(on_path),
+                 lambda: tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate,
+                                                   w_proj, geo, **acts),
+                 lambda: tk.mbconv_pass2_recompute_plain(
+                     x, w_exp, w_dw, gate, w_proj, geo, **acts)),
+        x_b + w1_b + w2_b + out_b, exp_f + dw_f + proj_f, **shape)
 
-        got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
-        ref = tk.mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
-        ok &= stats.add(
-            "mbconv_pass2_retain", res, i, sch.mode == "retain",
-            *check(got, ref),
-            times(lambda: tk.mbconv_pass2_retain(dw, gate, w_proj, geo),
-                  lambda: tk.mbconv_pass2_retain_plain(dw, gate, w_proj,
-                                                       geo),
-                  lambda: torch.einsum("bhwc,bc,co->bhwo", dw, gate,
-                                       w_proj)),
-            dw_b + w2_b + out_b, proj_f, **shape)
-        _sync(torch)
+    on_path = sch.mode == "retain"
+    got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
+    ref = tk.mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
+    library = ((lambda: torch.einsum("bhwc,bc,co->bhwo", dw, gate, w_proj))
+               if se else (lambda: dw @ w_proj))
+    ok &= stats.add(
+        "mbconv_pass2_retain", net, res, i, on_path, *hx.check(got, ref),
+        hx.times(timed(on_path),
+                 lambda: tk.mbconv_pass2_retain(dw, gate, w_proj, geo),
+                 lambda: tk.mbconv_pass2_retain_plain(dw, gate, w_proj,
+                                                      geo),
+                 library),
+        dw_b + w2_b + out_b, proj_f, **shape)
+    _sync(torch)
+    return ok
+
+
+def _fusedmb_checks(torch, tf, stats, hx, net, res, i, row, sch):
+    """The Fused-MBConv kernel on one block against its plain version,
+    timed.  No single PyTorch call computes conv + act + projection, so
+    there is no library time."""
+    h, w, c_in, c_mid, c_out, k, s = row[:7]
+    geo = tf.MBConvGeometry.make(h, w, k, s, "SAME", sch.tile_h, sch.tile_w)
+    oh, ow, b = geo.out_h, geo.out_w, BATCH
+    x = hx.rand(b, h, w, c_in)
+    w_conv = hx.rand(k, k, c_in, c_mid, scale=(k * k * c_in) ** -0.5)
+    w_proj = hx.rand(c_mid, c_out, scale=c_mid ** -0.5)
+    shape = dict(h=h, w=w, c_in=c_in, c_mid=c_mid, c_out=c_out, k=k, s=s,
+                 tile=f"{geo.tile_h}x{geo.tile_w}")
+    print(f"{net} r{res} block{i:02d} {shape}", flush=True)
+    got = tf.fusedmb(x, w_conv, w_proj, geo, act="silu")
+    ref = tf.fusedmb_plain(x, w_conv, w_proj, geo, act="silu")
+    nbytes = 4 * (b * h * w * c_in + k * k * c_in * c_mid + c_mid * c_out
+                  + b * oh * ow * c_out)
+    flops = 2 * b * oh * ow * (k * k * c_in * c_mid + c_mid * c_out)
+    ok = stats.add(
+        "fusedmb", net, res, i, True, *hx.check(got, ref),
+        hx.times(True, lambda: tf.fusedmb(x, w_conv, w_proj, geo, act="silu"),
+                 lambda: tf.fusedmb_plain(x, w_conv, w_proj, geo,
+                                          act="silu")),
+        nbytes, flops, **shape)
+    _sync(torch)
+    return ok
+
+
+def chain_kernel_phase(torch, tk, tf, stats, net, specs, res, seed,
+                       timed) -> bool:
+    """Every kernel of each block of a network's chain at ``res``, batch
+    BATCH, against its plain version, with the tiles and modes the forward
+    solves for that size; ``timed(on_path)`` says which are timed."""
+    from repro_torch.models.mbconv import block_chain_rows, block_schedules
+
+    half = -(-res // 2)
+    rows = block_chain_rows(specs, half, half)
+    schedules = block_schedules(specs, BATCH, res, res)
+    hx = _Harness(torch, seed)
+    ok = True
+    for i, (row, sp, sch) in enumerate(zip(rows, specs, schedules)):
+        if sp.family == "fusedmb":
+            ok &= _fusedmb_checks(torch, tf, stats, hx, net, res, i, row,
+                                  sch)
+        else:
+            ok &= _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp,
+                                 sch, timed)
     return bool(ok)
+
+
+def kernel_phase(torch, tk, tf, stats) -> bool:
+    """Every MBConv kernel on every B0 block of every serve bucket against
+    its plain version; at RES also timed (device and host-inclusive) and
+    bounded."""
+    from repro_torch.models.mbconv import EffNetConfig, effnet_block_specs
+
+    specs = effnet_block_specs(EffNetConfig())
+    ok = True
+    for res in SERVE_RES:
+        ok &= chain_kernel_phase(torch, tk, tf, stats, "b0", specs, res, res,
+                                 lambda on_path, r=res: r == RES)
+    return bool(ok)
+
+
+def _cpu_tree(torch, tree):
+    return {k: (v.cpu() if torch.is_tensor(v) else _cpu_tree(torch, v))
+            for k, v in tree.items()}
 
 
 def model_phase(torch, tk):
@@ -263,9 +393,7 @@ def model_phase(torch, tk):
                          torch.Generator().manual_seed(0), DEVICE)
     images = torch.rand(BATCH, RES, RES, 3,
                         generator=torch.Generator().manual_seed(1))
-    params_cpu = {k: (v.cpu() if torch.is_tensor(v)
-                      else {kk: vv.cpu() for kk, vv in v.items()})
-                  for k, v in params.items()}
+    params_cpu = _cpu_tree(torch, params)
     ok = True
     with torch.inference_mode():
         ref = efficientnet_b0_apply(params_cpu, images, cfg)
@@ -295,26 +423,29 @@ def model_phase(torch, tk):
             if not all(launches[k] > 0 for k in ("mbconv_pass1",
                                                  "mbconv_pool_reduce")):
                 ok = False
-        images = images.to(DEVICE)
-        fwd = measure(lambda: efficientnet_b0_apply(params, images, cfg),
-                      iters=10, warmup=2)
+    images = images.to(DEVICE)
+
+    def forward():
+        return efficientnet_b0_apply(params, images, cfg)
+
+    with torch.inference_mode():
+        fwd = measure(forward, iters=10, warmup=2)
     print(f"  forward (B0 {RES}x{RES}, batch {BATCH}): {fwd.mean_ms:.3f} ms "
           "(CUDA events, mean of 10)")
-    return bool(ok), params, params_cpu, images, fwd.mean_ms
+    return bool(ok), params, params_cpu, forward, fwd.mean_ms
 
 
-def trace_phase(torch, params, images, fwd_ms):
-    """Device time by kernel over 3 forwards (torch.profiler); the busy
-    share is kernel time per forward over the event-timed forward."""
+def trace_phase(torch, forward, fwd_ms):
+    """Device time by kernel over 3 calls of ``forward`` (torch.profiler);
+    the busy share is kernel time per forward over the event-timed
+    forward."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models.mbconv import EffNetConfig, efficientnet_b0_apply
 
-    cfg = EffNetConfig()
     try:
         with torch.inference_mode(), profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
-                efficientnet_b0_apply(params, images, cfg)
+                forward()
             _sync(torch)
     except RuntimeError as exc:   # the trace is a diagnostic, not a check
         print(f"  the profiler failed ({exc}): not measured")
@@ -331,9 +462,7 @@ def trace_phase(torch, params, images, fwd_ms):
         return None
     groups = {}
     for name, ms in by_name.items():
-        group = next((k for k in ("mbconv_pass1", "mbconv_pool_reduce",
-                                  "mbconv_pass2_recompute",
-                                  "mbconv_pass2_retain") if k in name),
+        group = next((k for k in REPLACES if f"{k}_kernel" in name),
                      "other (cuDNN, cuBLAS, elementwise)")
         groups[group] = groups.get(group, 0.0) + ms
     device_ms = sum(by_name.values())
@@ -402,6 +531,79 @@ def serve_phase(torch, tk, params, params_cpu):
     return bool(ok), launches, pct
 
 
+def _net_on_card(torch, name, apply, params, cfg, images, n_cpu):
+    """One forward of a network on the card with the launch counts zeroed
+    just before and read just after (the network's main path), and its
+    first ``n_cpu`` images against the CPU plain run."""
+    from repro_torch.kernels import launches, reset_launches
+
+    with torch.inference_mode():
+        reset_launches()                        # the main path starts here
+        logits = apply(params, images.to(DEVICE), cfg)
+        _sync(torch)
+        counts = launches()                     # ... and ends here
+        ref = apply(_cpu_tree(torch, params), images[:n_cpu], cfg)
+    scale = float(ref.abs().max())
+    rel = float((logits[:n_cpu].cpu() - ref).abs().max()) / scale
+    good = (logits.shape == (images.shape[0], cfg.num_classes)
+            and bool(torch.isfinite(logits).all()) and rel <= MODEL_RTOL)
+    print(f"  {name}: logits {tuple(logits.shape)}, first {n_cpu} vs the "
+          f"CPU plain run: max|cpu| {scale:.4e} rel err {rel:.3e} "
+          f"(tol {MODEL_RTOL:g}) {'ok' if good else 'FAIL'}; "
+          f"launches {counts}")
+    return good, counts
+
+
+def v2s_model_phase(torch):
+    from repro_torch.core.telemetry import measure
+    from repro_torch.models.mbconv import (
+        EffNetV2Config, efficientnet_v2_s_apply, efficientnet_v2_s_def)
+    from repro_torch.models.param import materialize
+
+    cfg = EffNetV2Config()
+    params = materialize(efficientnet_v2_s_def(cfg),
+                         torch.Generator().manual_seed(0), DEVICE)
+    images = torch.rand(BATCH, V2S_RES, V2S_RES, 3,
+                        generator=torch.Generator().manual_seed(1))
+    ok, counts = _net_on_card(torch, f"V2-S {V2S_RES}x{V2S_RES} batch "
+                              f"{BATCH}", efficientnet_v2_s_apply, params,
+                              cfg, images, V2S_CPU_IMAGES)
+    n_mb = 30
+    ok &= counts["fusedmb"] == 10
+    ok &= counts["mbconv_pass1"] == n_mb == counts["mbconv_pool_reduce"]
+    ok &= (counts["mbconv_pass2_recompute"]
+           + counts["mbconv_pass2_retain"]) == n_mb
+    images = images.to(DEVICE)
+
+    def forward():
+        return efficientnet_v2_s_apply(params, images, cfg)
+
+    with torch.inference_mode():
+        fwd = measure(forward, iters=10, warmup=2)
+    print(f"  forward (V2-S {V2S_RES}x{V2S_RES}, batch {BATCH}): "
+          f"{fwd.mean_ms:.3f} ms (CUDA events, mean of 10)")
+    return bool(ok), counts, forward, fwd.mean_ms
+
+
+def v3_model_phase(torch):
+    from repro_torch.models.mbconv import (
+        MobileNetV3Config, mobilenet_v3_apply, mobilenet_v3_def)
+    from repro_torch.models.param import materialize
+
+    cfg = MobileNetV3Config()
+    params = materialize(mobilenet_v3_def(cfg),
+                         torch.Generator().manual_seed(0), DEVICE)
+    images = torch.rand(BATCH, V3_RES, V3_RES, 3,
+                        generator=torch.Generator().manual_seed(1))
+    ok, counts = _net_on_card(torch, f"MobileNet-V3-Large {V3_RES}x{V3_RES} "
+                              f"batch {BATCH}", mobilenet_v3_apply, params,
+                              cfg, images, BATCH)
+    ok &= (counts["mbconv_pass2_recompute"]
+           + counts["mbconv_pass2_retain"]) == 15
+    ok &= counts["mbconv_pool_reduce"] == 8      # the blocks with SE
+    return bool(ok), counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -421,6 +623,7 @@ def main() -> int:
         timeout=60).stdout.strip()
     print(smi)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import convdk_fusedmb as tf
     from repro_torch.kernels import convdk_mbconv as tk
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True,
@@ -432,40 +635,73 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tb = time.perf_counter()
-    _build.build(["mbconv"])
+    _build.build(["mbconv", "fusedmb"])
     tk._lib()
+    tf._lib()
     print(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s")
 
-    phases = {}
+    phases, marks = {}, [("build", t0)]
+
+    def phase(name, title):
+        marks.append((name, _phase(title)))
+
     stats = KernelStats()
-    t1 = _phase(f"kernels: B0 batch {BATCH}, every block at {SERVE_RES}, "
-                f"timed at {RES}")
-    phases["kernels"] = kernel_phase(torch, tk, stats)
-    t2 = _phase("model: B0 on the card vs the CPU plain run")
-    phases["model"], params, params_cpu, images, fwd_ms = model_phase(
+    phase("kernels", f"kernels: B0 batch {BATCH}, every block at "
+                     f"{SERVE_RES}, timed at {RES}")
+    phases["kernels"] = kernel_phase(torch, tk, tf, stats)
+    phase("model", "model: B0 on the card vs the CPU plain run")
+    phases["model"], params, params_cpu, forward, fwd_ms = model_phase(
         torch, tk)
-    t3 = _phase("trace: device time of the B0 forward by kernel")
-    trace = trace_phase(torch, params, images, fwd_ms)
-    t4 = _phase(f"serve: VisionEngine at {SERVE_RES}, the main path")
-    phases["serve"], launches, pct = serve_phase(torch, tk, params,
-                                                 params_cpu)
-    t5 = time.perf_counter()
-    print(f"\nphases {phases}; seconds build {t1 - t0:.1f} kernels "
-          f"{t2 - t1:.1f} model {t3 - t2:.1f} trace {t4 - t3:.1f} "
-          f"serve {t5 - t4:.1f}")
+    phase("trace", "trace: device time of the B0 forward by kernel")
+    trace = trace_phase(torch, forward, fwd_ms)
+    phase("serve", f"serve: VisionEngine at {SERVE_RES}, the B0 main path")
+    phases["serve"], b0_launches, pct = serve_phase(torch, tk, params,
+                                                    params_cpu)
+    del params, params_cpu, forward
+    phase("v2s-kernels", f"v2s-kernels: V2-S batch {BATCH} at {V2S_RES}, "
+                         "every block")
+    from repro_torch.models.mbconv import (
+        EffNetV2Config, MobileNetV3Config, effnet_v2_block_specs,
+        mobilenet_v3_specs)
+    phases["v2s-kernels"] = chain_kernel_phase(
+        torch, tk, tf, stats, "v2s", effnet_v2_block_specs(EffNetV2Config()),
+        V2S_RES, 1000 + V2S_RES, lambda on_path: on_path)
+    phase("v2s-model", "v2s-model: V2-S on the card (its main path) vs the "
+                       "CPU plain run")
+    phases["v2s-model"], v2s_launches, forward, v2s_ms = \
+        v2s_model_phase(torch)
+    phase("v2s-trace", "v2s-trace: device time of the V2-S forward by "
+                       "kernel")
+    v2s_trace = trace_phase(torch, forward, v2s_ms)
+    del forward
+    phase("v3-kernels", f"v3-kernels: MobileNet-V3-Large batch {BATCH} at "
+                        f"{V3_RES}, every block")
+    phases["v3-kernels"] = chain_kernel_phase(
+        torch, tk, tf, stats, "v3", mobilenet_v3_specs(MobileNetV3Config()),
+        V3_RES, 2000 + V3_RES, lambda on_path: on_path)
+    phase("v3-model", "v3-model: MobileNet-V3-Large on the card (its main "
+                      "path) vs the CPU plain run")
+    phases["v3-model"], v3_launches = v3_model_phase(torch)
+    marks.append(("end", time.perf_counter()))
+    print(f"\nphases {phases}; seconds " + " ".join(
+        f"{a[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])))
 
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "kernels.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "forward_ms": fwd_ms,
-                   "trace": trace, "serve_latency_s": pct,
-                   "rows": stats.rows}, f, indent=1)
+                   "trace": trace, "v2s_forward_ms": v2s_ms,
+                   "v2s_trace": v2s_trace, "serve_latency_s": pct,
+                   "v2s_launches": v2s_launches,
+                   "v3_launches": v3_launches, "rows": stats.rows}, f,
+                  indent=1)
     if not all(phases.values()):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(smi)
-    print(json.dumps({"kernels": stats.summary(launches)}))
+    print(json.dumps({"kernels": stats.summary(
+        {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
-"""HBM traffic model of the two-pass fused MBConv pipeline.
+"""HBM traffic model of the fused MBConv and Fused-MBConv pipelines.
 
-A copy of the MBConv pricing of ``repro.core.perfmodel`` (the port imports
-nothing of the JAX package): ``MBConvShape``, ``HBMTraffic``,
-``pick_channel_block`` and the per-pass / whole-block traffic of the
-retain and recompute modes, under the strip-staged (DMA) input residency
-the JAX package defaults to.  The retain/recompute choice of
-``core.autotune`` is priced here.
+A copy of the MBConv and Fused-MBConv pricing of ``repro.core.perfmodel``
+(the port imports nothing of the JAX package): ``MBConvShape``,
+``HBMTraffic``, ``pick_channel_block``, the per-pass / whole-block traffic
+of the retain and recompute modes, and the single-pass Fused-MBConv
+traffic, all under the strip-staged (DMA) input residency the JAX package
+defaults to.  The retain/recompute choice and the Fused-MBConv tile_h of
+``core.autotune`` are priced here.
 
 The model counts full-width row strips: it does not yet price the halo
 the Hopper kernels re-read along W when they tile the output in two
@@ -191,6 +192,52 @@ def mbconv_fused_traffic(
     """HBM traffic of the two-pass fused MBConv pipeline (one mode),
     defined as the sum of ``mbconv_pass_traffic``."""
     p1, p2 = mbconv_pass_traffic(shape, tile_h, mode, c_block)
+    return HBMTraffic(p1.read_words + p2.read_words,
+                      p1.write_words + p2.write_words,
+                      shape.dtype_bytes, p1.dma_issues + p2.dma_issues)
+
+
+# ---------------------------------------------------------------------------
+# Fused-MBConv (EfficientNet-V2): one dense k x k conv (C_in -> C_mid) in
+# place of expand + DW, never SE, so the whole block is ONE pass.  It is
+# priced through the same (pass1, pass2) interface as MBConv, with pass 1
+# carrying the entire block and pass 2 exactly zero.
+# ---------------------------------------------------------------------------
+
+def _require_no_se(shape: MBConvShape) -> None:
+    if shape.has_se:
+        raise ValueError(
+            f"Fused-MBConv never carries SE; got se_ratio="
+            f"{shape.se_ratio!r} — build the shape with se_ratio=0")
+
+
+def fusedmb_pass_traffic(
+    shape: MBConvShape, tile_h: int, c_block: int = 128,
+) -> Tuple[HBMTraffic, HBMTraffic]:
+    """Per-pass HBM traffic of the single-pass Fused-MBConv pipeline:
+    ``(whole_block, exactly_zero)``.
+
+    The one launch reads each input strip once per (c_mid, c_out) block
+    pair, refetches the dense conv weight per (strip, c_out) cell and the
+    projection weight per strip, and writes only the block output: the
+    expanded map never reaches HBM.
+    """
+    _require_no_se(shape)
+    (n_th, n_cm, n_co, strips, _e_rows, out, _w_exp, _w_dw, w_proj,
+     _pool) = _mbconv_common(shape, tile_h, c_block)
+    n_ci = _n_chan_blocks(shape.c_in, c_block)
+    w_conv = shape.k * shape.k * shape.c_in * shape.c_mid
+    reads = (strips * n_cm * n_co + w_conv * n_th * n_co + w_proj * n_th)
+    issues = shape.b * n_co * n_th * n_cm * n_ci
+    return (HBMTraffic(reads, out, shape.dtype_bytes, issues),
+            HBMTraffic(0, 0, shape.dtype_bytes, 0))
+
+
+def fusedmb_fused_traffic(shape: MBConvShape, tile_h: int,
+                          c_block: int = 128) -> HBMTraffic:
+    """HBM traffic of the single-pass Fused-MBConv pipeline, defined as
+    the sum of ``fusedmb_pass_traffic`` (whose pass 2 is exactly zero)."""
+    p1, p2 = fusedmb_pass_traffic(shape, tile_h, c_block)
     return HBMTraffic(p1.read_words + p2.read_words,
                       p1.write_words + p2.write_words,
                       shape.dtype_bytes, p1.dma_issues + p2.dma_issues)

@@ -1,11 +1,16 @@
-"""Shared helpers for the kernel wrappers: padding arithmetic and device
-resolution."""
+"""Shared helpers for the kernel wrappers: padding arithmetic, device
+resolution, the activation codes the CUDA kernels take, and the checks a
+wrapper makes before it launches a kernel."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
 import torch
+
+# the activation codes of kernels/csrc/*.cu (enum Act)
+ACT_CODES = {None: 0, "relu": 1, "relu6": 2, "silu": 3, "sigmoid": 4,
+             "hard_swish": 5, "hard_sigmoid": 6}
 
 
 def spatial_pads(
@@ -43,3 +48,33 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return torch.device("cuda")
+
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version); False for CUDA tensors (the
+    kernel); raises for any other device."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return False
+
+
+def check_cuda(*tensors: Optional[torch.Tensor]) -> None:
+    """What the kernels take: fp32, contiguous, 16-byte aligned tensors on
+    the current CUDA device (``None`` entries are skipped)."""
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device.type != "cuda" or t.device.index != torch.cuda.current_device():
+            raise ValueError(f"tensor on {t.device}, kernel launches on "
+                             f"cuda:{torch.cuda.current_device()}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"kernels take float32, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("kernels take contiguous 16-byte-aligned tensors")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """The device address a kernel takes (``None`` for an absent operand)."""
+    return None if t is None else t.data_ptr()

@@ -1,0 +1,146 @@
+"""Single-pass Fused-MBConv (EfficientNet-V2) through a hand-written CUDA
+kernel.
+
+Counterpart of ``repro.kernels.convdk_fusedmb``:
+
+    dense k x k / s conv (C_in -> C_mid) -> act -> project 1x1
+
+in ONE launch (``kernels/csrc/fusedmb.cu``): the expanded (C_mid) tensor
+never reaches device memory, there is no SE stage and no second pass.
+
+``fusedmb`` launches the kernel for CUDA tensors and runs
+``fusedmb_plain`` for CPU tensors; any other device raises.  ``LAUNCHES``
+counts kernel launches.  The kernel tiles the output in ``tile_h x
+tile_w`` pixels (see ``core.autotune.get_fusedmb_schedule``) and masks
+SAME padding and every ragged edge itself, so the wrapper pads nothing.
+Inference only: no gradient flows through the kernel yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..core.autotune import (
+    C_BLOCK,
+    FUSEDMB_PIXEL_STRIDE,
+    MAX_TILE_PIXELS,
+    fusedmb_window_smem_bytes,
+)
+from . import _build
+from .common import ACT_CODES, check_cuda, on_cpu, ptr
+from .convdk_mbconv import MBConvGeometry
+from .ref import _act_ref, pad_nhwc
+
+KERNELS: Tuple[str, ...] = ("fusedmb",)
+# kernel launches per wrapper (reset with ``reset_launches``)
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# (k, window rows, window cols, c_out) probes of the shared-memory check
+_SMEM_PROBES = ((3, 10, 10, 24), (3, 17, 17, 48), (5, 11, 19, 64),
+                (3, 3, 66, 130))
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fusedmb")
+    lib.fusedmb.argtypes = [_P] * 4 + [_I] * 15 + [_P]
+    lib.fusedmb.restype = ctypes.c_int
+    lib.fusedmb_error_string.argtypes = [ctypes.c_int]
+    lib.fusedmb_error_string.restype = ctypes.c_char_p
+    lib.fusedmb_smem_bytes.argtypes = [_I] * 4
+    lib.fusedmb_smem_bytes.restype = ctypes.c_size_t
+    built = (lib.fusedmb_channel_tile(), lib.fusedmb_max_tile_pixels(),
+             lib.fusedmb_pixel_stride())
+    want = (C_BLOCK, MAX_TILE_PIXELS, FUSEDMB_PIXEL_STRIDE)
+    if built != want:
+        raise RuntimeError(f"fusedmb.cu tiles {built} disagree with "
+                           f"core.autotune {want}")
+    # the solver's shared-memory budget against the launcher's, at windows
+    # of both kernel sizes and every c_out tile
+    for args in _SMEM_PROBES:
+        got = lib.fusedmb_smem_bytes(*args)
+        model = fusedmb_window_smem_bytes(*args)
+        if got != model:
+            raise RuntimeError(f"fusedmb.cu asks for {got} B of shared "
+                               f"memory at (k, rows, cols, c_out) {args}; "
+                               f"core.autotune budgets {model} B")
+    return lib
+
+
+def _check_shapes(x, w_conv, w_proj, geo: MBConvGeometry) -> None:
+    _, h, w, c_in = x.shape
+    k_h, k_w, ci_w, c_mid = w_conv.shape
+    if (h, w) != (geo.h, geo.w) or (k_h, k_w) != (geo.k, geo.k):
+        raise ValueError(f"x {tuple(x.shape)} / w_conv {tuple(w_conv.shape)} "
+                         f"do not match {geo}")
+    if ci_w != c_in or w_proj.shape[0] != c_mid:
+        raise ValueError(f"x {tuple(x.shape)}, w_conv {tuple(w_conv.shape)}, "
+                         f"w_proj {tuple(w_proj.shape)} do not chain")
+
+
+def fusedmb_plain(x, w_conv, w_proj, geo: MBConvGeometry, *,
+                  act: Optional[str]) -> torch.Tensor:
+    """Plain version of ``fusedmb``: zero-pad, dense conv, act, project."""
+    xp = pad_nhwc(x, geo.pads).permute(0, 3, 1, 2)
+    e = F.conv2d(xp, w_conv.permute(3, 2, 0, 1), stride=geo.s)
+    return _act_ref(e.permute(0, 2, 3, 1), act) @ w_proj
+
+
+def fusedmb(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
+            geo: MBConvGeometry, *, act: Optional[str]) -> torch.Tensor:
+    """Dense conv -> act -> projection -> (B, out_h, out_w, C_out)."""
+    _check_shapes(x, w_conv, w_proj, geo)
+    if on_cpu(x):
+        return fusedmb_plain(x, w_conv, w_proj, geo, act=act)
+    check_cuda(x, w_conv, w_proj)
+    b, h, w, c_in = x.shape
+    c_mid, c_out = w_proj.shape
+    out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)
+    lib = _lib()
+    err = lib.fusedmb(ptr(x), ptr(w_conv), ptr(w_proj), ptr(out), b, h, w,
+                      c_in, c_mid, c_out, geo.k, geo.s, geo.out_h, geo.out_w,
+                      geo.pads[0][0], geo.pads[1][0], geo.tile_h, geo.tile_w,
+                      ACT_CODES[act], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("fusedmb did not launch: "
+                           f"{lib.fusedmb_error_string(err).decode()}")
+    LAUNCHES["fusedmb"] += 1
+    return out
+
+
+def convdk_fusedmb_fused(
+    x: torch.Tensor,
+    w_conv: torch.Tensor,
+    w_proj: torch.Tensor,
+    *,
+    stride: int = 1,
+    padding: str = "SAME",
+    tile_h: int = 8,
+    tile_w: int = 8,
+    act: Optional[str] = "silu",
+) -> torch.Tensor:
+    """Single-pass fused Fused-MBConv block, no residual add (the model
+    layer owns it).  Layouts as ``repro.kernels.convdk_fusedmb_fused``:
+
+    x      : (B, H, W, C_in) NHWC
+    w_conv : (k, k, C_in, C_mid) HWIO dense conv
+    w_proj : (C_mid, C_out)
+    Returns (B, H', W', C_out).
+    """
+    k_h, k_w = w_conv.shape[:2]
+    if k_h != k_w:
+        raise ValueError(f"square dense kernels only, got {k_h}x{k_w}")
+    geo = MBConvGeometry.make(x.shape[1], x.shape[2], k_h, stride, padding,
+                              tile_h, tile_w)
+    return fusedmb(x, w_conv, w_proj, geo, act=act)

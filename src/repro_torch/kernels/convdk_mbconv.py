@@ -36,16 +36,13 @@ import torch
 from ..core.autotune import C_BLOCK, MAX_TILE_PIXELS
 from ..core.perfmodel import MBCONV_MODES
 from . import _build
-from .common import spatial_pads
+from .common import ACT_CODES, check_cuda, on_cpu, ptr, spatial_pads
 from .ref import _act_ref, depthwise_valid, pad_nhwc
 
 KERNELS: Tuple[str, ...] = ("mbconv_pass1", "mbconv_pool_reduce",
                             "mbconv_pass2_recompute", "mbconv_pass2_retain")
 # kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-
-ACT_CODES = {None: 0, "relu": 1, "relu6": 2, "silu": 3, "sigmoid": 4,
-             "hard_swish": 5, "hard_sigmoid": 6}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -83,35 +80,6 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} did not launch: "
                            f"{lib.mbconv_error_string(err).decode()}")
     LAUNCHES[name] += 1
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _on_cpu(x: torch.Tensor) -> bool:
-    """True for CPU tensors (plain version); False for CUDA tensors (the
-    kernel); raises for any other device."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return False
-
-
-def _check_cuda(*tensors: Optional[torch.Tensor]) -> None:
-    """What the kernels take: fp32, contiguous, 16-byte aligned tensors on
-    the current CUDA device."""
-    for t in tensors:
-        if t is None:
-            continue
-        if t.device.type != "cuda" or t.device.index != torch.cuda.current_device():
-            raise ValueError(f"tensor on {t.device}, kernel launches on "
-                             f"cuda:{torch.cuda.current_device()}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"kernels take float32, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("kernels take contiguous 16-byte-aligned tensors")
 
 
 @dataclass(frozen=True)
@@ -161,7 +129,7 @@ def _check_shapes(x, w_exp, w_dw, geo: MBConvGeometry) -> None:
             raise ValueError("identity expand needs C_in == C_mid")
     elif tuple(w_exp.shape) != (c_in, c_mid):
         raise ValueError(f"w_exp {tuple(w_exp.shape)} != {(c_in, c_mid)}")
-    if not _on_cpu(x) and c_in % 4:
+    if not on_cpu(x) and c_in % 4:
         raise ValueError(f"the kernels take C_in % 4 == 0, got {c_in}")
 
 
@@ -208,18 +176,18 @@ def mbconv_pass1(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     if not (se or retain):
         raise ValueError("se=off + recompute has no pass 1")
     _check_shapes(x, w_exp, w_dw, geo)
-    if _on_cpu(x):
+    if on_cpu(x):
         return mbconv_pass1_plain(x, w_exp, w_dw, geo, exp_act=exp_act,
                                   dw_act=dw_act, se=se, retain=retain)
-    _check_cuda(x, w_exp, w_dw)
+    check_cuda(x, w_exp, w_dw)
     b, h, w, c_in = x.shape
     c_mid = w_dw.shape[-1]
     partial = (torch.empty((b, geo.n_tiles, c_mid), device=x.device)
                if se else None)
     dw = (torch.empty((b, geo.out_h, geo.out_w, c_mid), device=x.device)
           if retain else None)
-    _launch("mbconv_pass1", _ptr(x), _ptr(w_exp), _ptr(w_dw), _ptr(partial),
-            _ptr(dw), b, h, w, c_in, c_mid, geo.k, geo.s, geo.out_h,
+    _launch("mbconv_pass1", ptr(x), ptr(w_exp), ptr(w_dw), ptr(partial),
+            ptr(dw), b, h, w, c_in, c_mid, geo.k, geo.s, geo.out_h,
             geo.out_w, geo.pads[0][0], geo.pads[1][0], geo.tile_h,
             geo.tile_w, int(w_exp is None), ACT_CODES[exp_act],
             ACT_CODES[dw_act])
@@ -236,12 +204,12 @@ def mbconv_pool_reduce_plain(partial: torch.Tensor) -> torch.Tensor:
 
 def mbconv_pool_reduce(partial: torch.Tensor) -> torch.Tensor:
     """(B, n_tiles, C) per-tile partials -> (B, C) sums, in tile order."""
-    if _on_cpu(partial):
+    if on_cpu(partial):
         return mbconv_pool_reduce_plain(partial)
-    _check_cuda(partial)
+    check_cuda(partial)
     b, n_tiles, c = partial.shape
     pool = torch.empty((b, c), device=partial.device)
-    _launch("mbconv_pool_reduce", _ptr(partial), _ptr(pool), b, n_tiles, c)
+    _launch("mbconv_pool_reduce", ptr(partial), ptr(pool), b, n_tiles, c)
     return pool
 
 
@@ -260,16 +228,16 @@ def mbconv_pass2_recompute(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     """Pass 2, recompute: expand + DW again, x gate (``None`` = se off),
     projection -> (B, out_h, out_w, C_out)."""
     _check_shapes(x, w_exp, w_dw, geo)
-    if _on_cpu(x):
+    if on_cpu(x):
         return mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
                                             geo, exp_act=exp_act,
                                             dw_act=dw_act)
-    _check_cuda(x, w_exp, w_dw, gate, w_proj)
+    check_cuda(x, w_exp, w_dw, gate, w_proj)
     b, h, w, c_in = x.shape
     c_mid, c_out = w_proj.shape
     out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)
-    _launch("mbconv_pass2_recompute", _ptr(x), _ptr(w_exp), _ptr(w_dw),
-            _ptr(gate), _ptr(w_proj), _ptr(out), b, h, w, c_in, c_mid, c_out,
+    _launch("mbconv_pass2_recompute", ptr(x), ptr(w_exp), ptr(w_dw),
+            ptr(gate), ptr(w_proj), ptr(out), b, h, w, c_in, c_mid, c_out,
             geo.k, geo.s, geo.out_h, geo.out_w, geo.pads[0][0],
             geo.pads[1][0], geo.tile_h, geo.tile_w, int(w_exp is None),
             ACT_CODES[exp_act], ACT_CODES[dw_act])
@@ -286,14 +254,14 @@ def mbconv_pass2_retain(dw: torch.Tensor, gate: Optional[torch.Tensor],
                         ) -> torch.Tensor:
     """Pass 2, retain: the DW tensor x gate (``None`` = se off),
     projection -> (B, out_h, out_w, C_out)."""
-    if _on_cpu(dw):
+    if on_cpu(dw):
         return mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
-    _check_cuda(dw, gate, w_proj)
+    check_cuda(dw, gate, w_proj)
     b, out_h, out_w, c_mid = dw.shape
     c_out = w_proj.shape[1]
     out = torch.empty((b, out_h, out_w, c_out), device=dw.device)
-    _launch("mbconv_pass2_retain", _ptr(dw), _ptr(gate), _ptr(w_proj),
-            _ptr(out), b, out_h, out_w, c_mid, c_out, geo.tile_h, geo.tile_w)
+    _launch("mbconv_pass2_retain", ptr(dw), ptr(gate), ptr(w_proj),
+            ptr(out), b, out_h, out_w, c_mid, c_out, geo.tile_h, geo.tile_w)
     return out
 
 

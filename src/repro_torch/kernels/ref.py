@@ -1,4 +1,5 @@
-"""Plain PyTorch oracles for the MBConv kernels (NHWC, JAX layouts).
+"""Plain PyTorch oracles for the MBConv and Fused-MBConv kernels (NHWC,
+JAX layouts).
 
 Counterparts of ``repro.kernels.ref``: the ground truth the kernels and
 the port's host glue are checked against.  Only torch primitives.
@@ -90,3 +91,23 @@ def mbconv_ref(
         gate = _act_ref(s1 @ w_se2.float() + b_se2.float(), gate_act)
         d = d * gate[:, None, None, :]
     return (d @ w_proj.float()).to(x.dtype)
+
+
+def fusedmb_ref(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
+                stride: int = 1, padding: str = "SAME",
+                act: Optional[str] = "silu") -> torch.Tensor:
+    """Fused-MBConv (EfficientNet-V2) block oracle WITHOUT the residual:
+
+        dense k x k / s conv (C_in -> C_mid) -> act -> project 1x1.
+
+    x: (B, H, W, C_in) NHWC; w_conv: (k, k, C_in, C_mid) HWIO; w_proj:
+    (C_mid, C_out).  SAME pads as ``spatial_pads`` (extra pad bottom/right);
+    all contractions in f32, as ``repro.kernels.ref.fusedmb_ref``.
+    """
+    k_h, k_w = w_conv.shape[:2]
+    _, _, pads = spatial_pads(x.shape[1], x.shape[2], k_h, k_w, stride,
+                              padding)
+    xp = pad_nhwc(x.float(), pads).permute(0, 3, 1, 2)
+    e = F.conv2d(xp, w_conv.float().permute(3, 2, 0, 1), stride=stride)
+    e = _act_ref(e.permute(0, 2, 3, 1), act)
+    return (e @ w_proj.float()).to(x.dtype)

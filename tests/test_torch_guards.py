@@ -1,9 +1,12 @@
-"""Guards of the port: it imports neither JAX nor the JAX package, its
-entry points raise rather than fall back to the CPU, its kernel counters
-stay at 0 on the CPU, ``chip_smoke.py`` fails without a card, and (on a
-card only) each kernel agrees with its plain version."""
+"""Guards of the port: no module of it, nor any module ``chip_smoke.py``
+imports, pulls in JAX or the JAX package; its entry points raise rather
+than fall back to the CPU; its kernel counters stay at 0 on the CPU;
+``chip_smoke.py`` fails without a card; and (on a card only) each kernel
+agrees with its plain version."""
 
+import ast
 import os
+import pkgutil
 import shutil
 import subprocess
 import sys
@@ -13,10 +16,18 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
+from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
+from repro_torch.kernels import convdk_fusedmb as tf
 from repro_torch.kernels import convdk_mbconv as tk
+from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.mbconv import EfficientNetB0, efficientnet_b0_def
+from repro_torch.models.mbconv import (
+    EfficientNetB0,
+    EfficientNetV2S,
+    efficientnet_b0_def,
+)
 from repro_torch.models.param import from_numpy, materialize
 from repro_torch.serve import VisionEngine
 
@@ -31,12 +42,38 @@ def _run(args, cwd, env_extra=None):
                           capture_output=True, text=True, timeout=300)
 
 
+def _smoke_imports():
+    """Every module ``chip_smoke.py`` imports, wherever in the file."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
 def test_port_imports_no_jax_and_no_repro():
+    mods = sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+    assert {"repro_torch.kernels.convdk_fusedmb",
+            "repro_torch.models.blockgraph",
+            "repro_torch.configs.efficientnet_v2_s"} <= set(mods)
+    smoke = sorted(_smoke_imports())
+    assert "repro_torch.models.mbconv" in smoke
+    assert not [m for m in smoke if m.split(".")[0] in ("jax", "repro")]
     code = (
-        "import sys\n"
-        "import repro_torch, repro_torch.serve.vision, "
-        "repro_torch.models.mbconv, repro_torch.kernels.convdk_mbconv, "
-        "repro_torch.core.telemetry, repro_torch.configs.efficientnet_b0\n"
+        "import importlib, importlib.util, sys\n"
+        "def is_module(m):\n"
+        "    try:\n"
+        "        return importlib.util.find_spec(m) is not None\n"
+        "    except (ImportError, AttributeError):\n"
+        "        return False  # a name imported from a module\n"
+        f"for m in {mods + ['repro_torch'] + smoke!r}:\n"
+        "    if is_module(m):\n"
+        "        importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -57,6 +94,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         from_numpy({"w": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="CUDA"):
         EfficientNetB0(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EfficientNetV2S(efficientnet_v2_s_smoke())
+    # no fallback: a tensor on neither the CPU nor a CUDA card raises
+    meta = lambda *sh: torch.empty(*sh, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        tf.convdk_fusedmb_fused(meta(1, 5, 5, 4), meta(3, 3, 4, 8),
+                                meta(8, 4))
     params = materialize(tree, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         VisionEngine(params, cfg)
@@ -64,7 +108,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_launch_counters_stay_zero_on_cpu():
-    tk.reset_launches()
+    reset_launches()
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
     for mode in ("retain", "recompute"):
@@ -72,8 +116,13 @@ def test_launch_counters_stay_zero_on_cpu():
             t(2, 9, 11, 8), t(8, 16), t(3, 3, 16), t(16, 2), t(2), t(2, 16),
             t(16), t(16, 8), stride=2, mode=mode)
         assert out.shape == (2, 5, 6, 8)
+    for s in (1, 2):
+        out = tf.convdk_fusedmb_fused(t(2, 9, 11, 6), t(3, 3, 6, 12),
+                                      t(12, 8), stride=s, tile_h=2, tile_w=4)
+        assert out.shape == (2, -(-9 // s), -(-11 // s), 8)
     assert set(tk.LAUNCHES) == set(tk.KERNELS)
-    assert all(n == 0 for n in tk.LAUNCHES.values())
+    assert set(launches()) == set(tk.KERNELS) | {"fusedmb"}
+    assert all(n == 0 for n in launches().values())
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -88,38 +137,81 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act,gate_act,se", [
+    ("silu", "sigmoid", True),             # EfficientNet
+    ("relu", "hard_sigmoid", True),        # MobileNet-V3 blocks with SE
+    ("hard_swish", None, False),           # ... and without
+])
 @pytest.mark.parametrize("identity", [False, True])
 @pytest.mark.parametrize("k,s", [(3, 1), (5, 2)])
-def test_kernels_match_plain_on_card(k, s, identity):
-    """Odd sizes, ragged tiles and ragged channel tiles on the card."""
+def test_kernels_match_plain_on_card(k, s, identity, act, gate_act, se):
+    """Odd sizes, ragged tiles and ragged channel tiles on the card, with
+    each activation and gate the networks use, and without SE (no
+    partials, no gate)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     g = torch.Generator().manual_seed(10 * k + s)
     c_in, c_out = 40, 36
     c_mid = c_in if identity else 72
-    r = lambda *sh: torch.randn(*sh, generator=g).cuda()
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
     x, w_dw, w_proj = r(3, 13, 10, c_in), r(k, k, c_mid) * 0.3, r(c_mid, c_out)
     w_exp = None if identity else r(c_in, c_mid) / c_in ** 0.5
-    gate = torch.rand(3, c_mid, generator=g).cuda()
+    gate = None
+    if se:
+        gate_fn = {"sigmoid": torch.sigmoid,
+                   "hard_sigmoid": torch.nn.functional.hardsigmoid}[gate_act]
+        gate = gate_fn(r(3, c_mid))
     geo = tk.MBConvGeometry.make(13, 10, k, s, "SAME", 3, 4)
-    acts = dict(exp_act=None if identity else "silu", dw_act="silu")
+    acts = dict(exp_act=None if identity else act, dw_act=act)
 
     def close(got, ref):
         tol = 1e-4 * float(ref.abs().max()) + 1e-5
         assert float((got - ref).abs().max()) <= tol
 
-    part, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, retain=True, **acts)
-    part_ref, dw_ref = tk.mbconv_pass1_plain(x, w_exp, w_dw, geo,
+    part, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se, retain=True,
+                               **acts)
+    part_ref, dw_ref = tk.mbconv_pass1_plain(x, w_exp, w_dw, geo, se=se,
                                              retain=True, **acts)
-    close(part, part_ref)
     close(dw, dw_ref)
-    torch.testing.assert_close(tk.mbconv_pool_reduce(part),
-                               tk.mbconv_pool_reduce_plain(part),
-                               rtol=0, atol=0)
+    if se:
+        close(part, part_ref)
+        torch.testing.assert_close(tk.mbconv_pool_reduce(part),
+                                   tk.mbconv_pool_reduce_plain(part),
+                                   rtol=0, atol=0)
+    else:
+        assert part is None
     close(tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
                                     **acts),
           tk.mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj, geo,
                                           **acts))
     close(tk.mbconv_pass2_retain(dw_ref.contiguous(), gate, w_proj, geo),
           tk.mbconv_pass2_retain_plain(dw_ref, gate, w_proj, geo))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_mid,c_out", [(3, 24, 24), (24, 96, 48),
+                                              (70, 200, 130)])
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 2)])
+def test_fusedmb_kernel_matches_plain_on_card(k, s, c_in, c_mid, c_out,
+                                             monkeypatch):
+    """B5 at odd shapes: ragged 23x23 maps and tiles, channel counts that
+    are not multiples of the 32-wide chunks, two c_out tiles (130)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    # the plain side's conv and matmul in full fp32, for this test only
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(100 * s + 10 * k + c_in)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x = r(3, 23, 23, c_in)
+    w_conv = r(k, k, c_in, c_mid) / (k * k * c_in) ** 0.5
+    w_proj = r(c_mid, c_out) / c_mid ** 0.5
+    for tile_h, tile_w in ((8, 8), (3, 5)):
+        geo = tk.MBConvGeometry.make(23, 23, k, s, "SAME", tile_h, tile_w)
+        for act in ("silu", "hard_swish"):
+            got = tf.fusedmb(x, w_conv, w_proj, geo, act=act)
+            ref = tf.fusedmb_plain(x, w_conv, w_proj, geo, act=act)
+            tol = 1e-4 * float(ref.abs().max()) + 1e-5
+            assert float((got - ref).abs().max()) <= tol
     torch.cuda.synchronize()
