@@ -51,6 +51,31 @@ Phases, each of which must pass (exit 1 otherwise):
 9. v3-model     the V3 main path: full-width MobileNet-V3-Large at 224,
             batch 8, on the card, launch counts zeroed just before and read
             just after, against the CPU plain run within 1e-3 relative.
+10. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
+            batch 8, and the trainer's 3 blocks at its batch 32, with the
+            solved tiles: the fused separable kernel (dw_act relu, act relu
+            and None, relu6 on one block) and the depthwise kernel over
+            the staged strips of the padded input, each against its plain
+            version at the phase-2 bar, timed as in phase 2 (the depthwise
+            kernel also beside F.conv2d(groups=C) on the unstaged input).
+11. grad        on the card, each op's input and weight gradients (fused
+            separable and depthwise at a MobileNet-V2 block, MBConv retain
+            and recompute with SE at a B0 block, MBConv without SE at a V3
+            block, Fused-MBConv at a V2-S block) against autograd through
+            its plain version on the card, within 1e-4 * max|plain grad| +
+            1e-5 per tensor; then the cross-entropy gradient of every
+            parameter of full-width B0 (1000 classes, 224, batch 2, seeded
+            weights and labels) against the CPU plain run, within 1e-3 *
+            max|cpu grad| per leaf; then B0 forward + backward at batch 8
+            timed on CUDA events and traced.
+12. train       the separable training path: the trainer
+            (repro_torch.examples.train_mobilenet_cim) on the card for 60
+            fused steps, which must print DESCENDED with exactly 3 fused
+            separable launches and no depthwise launch per step, then 20
+            --staged steps with exactly 3 depthwise launches and no fused
+            one per step (counts zeroed just before each run, read just
+            after); both runs' step-1 losses within 1e-5 relative, and the
+            fused run's within 1e-5 of a CPU plain run of the trainer.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Per-block kernel numbers are also written to
@@ -59,6 +84,8 @@ build/chip_smoke/kernels.json.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -76,6 +103,10 @@ BATCH, RES = 8, 224
 SERVE_RES = (224, 384, 512)                # the serve phase's buckets
 V2S_RES, V2S_CPU_IMAGES = 384, 2           # V2-S eval size; images on CPU
 V3_RES = 224
+MNV2_RES = 224                             # MobileNet-V2's published size
+TRAIN_STEPS, STAGED_STEPS = 60, 20         # the trainer's fused / staged runs
+GRAD_RTOL = 1e-3                           # x max|cpu grad|, per leaf
+GRAD_CPU_IMAGES = 2                        # B0 gradient images vs the CPU
 DEVICE = "cuda"
 REPLACES = {
     "mbconv_pass1": "src/repro/kernels/convdk_mbconv.py:118",
@@ -83,10 +114,14 @@ REPLACES = {
     "mbconv_pass2_recompute": "src/repro/kernels/convdk_mbconv.py:169",
     "mbconv_pass2_retain": "src/repro/kernels/convdk_mbconv.py:220",
     "fusedmb": "src/repro/kernels/convdk_fusedmb.py:59",
+    "fused_separable": "src/repro/kernels/convdk_fused.py:59",
+    "dw2d": "src/repro/kernels/convdk_dw.py:32",
 }
 CSRC = "src/repro_torch/kernels/csrc"
-SOURCES = {k: f"{CSRC}/{'fusedmb' if k == 'fusedmb' else 'mbconv'}.cu"
+SOURCES = {k: f"{CSRC}/{k if k == 'fusedmb' else 'mbconv'}.cu"
            for k in REPLACES}
+SOURCES.update(fused_separable=f"{CSRC}/separable.cu",
+               dw2d=f"{CSRC}/separable.cu")
 
 
 def _bound(nbytes: float, flops: float):
@@ -141,9 +176,10 @@ class KernelStats:
 
     def summary(self, launches):
         """The kernels line: each kernel over its main path (B0 serving for
-        the MBConv kernels, the V2-S forward for Fused-MBConv); the MBConv
-        kernels also carry their launches, and their sums where the path
-        runs them, over the V2-S and the MobileNet-V3 forwards.
+        the MBConv kernels, the V2-S forward for Fused-MBConv, the trainer
+        for the separable kernels, timed over the MobileNet-V2 blocks); the
+        MBConv kernels also carry their launches, and their sums where the
+        path runs them, over the V2-S and the MobileNet-V3 forwards.
         ``launches[net]`` are the counts of that network's main path."""
         out = []
         for kernel in REPLACES:
@@ -152,7 +188,17 @@ class KernelStats:
             entry = {"name": kernel, "route": "cuda",
                      "source": SOURCES[kernel], "replaces": REPLACES[kernel],
                      "max_abs_err": max(errs)}
-            if kernel == "fusedmb":
+            if kernel in ("fused_separable", "dw2d"):
+                n, sums = self.sums(kernel, "mnv2", MNV2_RES)
+                n_tr, tr_sums = self.sums(kernel, "trainer", 32)
+                entry.update(launches=launches["train"][kernel], **sums,
+                             shape=f"MobileNet-V2 {MNV2_RES}x{MNV2_RES} "
+                                   f"batch {BATCH}, {n} separable blocks; "
+                                   f"launches of the trainer's "
+                                   f"{TRAIN_STEPS} fused + {STAGED_STEPS} "
+                                   f"staged steps",
+                             trainer=dict(tr_sums, blocks=n_tr))
+            elif kernel == "fusedmb":
                 n, sums = self.sums(kernel, "v2s", V2S_RES)
                 entry.update(launches=launches["v2s"][kernel], **sums,
                              shape=f"EfficientNet-V2-S {V2S_RES}x{V2S_RES} "
@@ -435,14 +481,16 @@ def model_phase(torch, tk):
     return bool(ok), params, params_cpu, forward, fwd.mean_ms
 
 
-def trace_phase(torch, forward, fwd_ms):
-    """Device time by kernel over 3 calls of ``forward`` (torch.profiler);
-    the busy share is kernel time per forward over the event-timed
-    forward."""
+def trace_phase(torch, forward, fwd_ms, grad=False):
+    """Device time by kernel over 3 calls of ``forward`` (torch.profiler,
+    under ``inference_mode`` unless ``grad``, when ``forward`` takes a
+    backward too); the busy share is kernel time per call over the
+    event-timed call."""
     from torch.profiler import ProfilerActivity, profile
 
+    mode = contextlib.nullcontext() if grad else torch.inference_mode()
     try:
-        with torch.inference_mode(), profile(activities=[
+        with mode, profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 forward()
@@ -604,6 +652,338 @@ def v3_model_phase(torch):
     return bool(ok), counts
 
 
+def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
+                      c, c_out, k, s, acts):
+    """The fused separable kernel at each (dw_act, act) of ``acts`` (the
+    first timed: the trainer's) and the depthwise kernel over the staged
+    strips of the padded input, on one block, against their plain
+    versions.  No PyTorch call computes the whole separable block; one
+    grouped F.conv2d on the unstaged input computes the depthwise one."""
+    from repro_torch.core.autotune import get_fused_schedule
+    from repro_torch.kernels.convdk_mbconv import MBConvGeometry
+    from repro_torch.kernels.ref import pad_nhwc
+
+    sch = get_fused_schedule(b, h, w, c, c_out, k, s)
+    geo = MBConvGeometry.make(h, w, k, s, "SAME", sch.tile_h, sch.tile_w)
+    oh, ow = geo.out_h, geo.out_w
+    x = hx.rand(b, h, w, c)
+    w_dw = hx.rand(k, k, c, scale=1.0 / k)
+    w_pw = hx.rand(c, c_out, scale=c ** -0.5)
+    shape = dict(h=h, w=w, c_in=c, c_out=c_out, k=k, s=s, batch=b,
+                 tile=f"{geo.tile_h}x{geo.tile_w}")
+    print(f"{net} r{res} block{i:02d} {shape}", flush=True)
+    ok = True
+    nbytes = 4 * (b * h * w * c + k * k * c + c * c_out + b * oh * ow * c_out)
+    flops = 2 * b * oh * ow * (k * k * c + c * c_out)
+    for n, (dw_act, act) in enumerate(acts):
+        got = tfs.fused_separable(x, w_dw, w_pw, geo, dw_act=dw_act, act=act)
+        ref = tfs.fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
+                                        act=act)
+        ok &= stats.add(
+            "fused_separable", net, res, i, n == 0, *hx.check(got, ref),
+            hx.times(n == 0,
+                     lambda a=dw_act, z=act: tfs.fused_separable(
+                         x, w_dw, w_pw, geo, dw_act=a, act=z),
+                     lambda a=dw_act, z=act: tfs.fused_separable_plain(
+                         x, w_dw, w_pw, geo, dw_act=a, act=z)),
+            nbytes, flops, dw_act=dw_act, act=act, **shape)
+    xp = pad_nhwc(x, geo.pads)
+    strips = ops.stage_row_strips(xp, k, s, geo.tile_h)
+    kw = dict(stride=s, out_w=ow, tile_h=geo.tile_h)
+    out = td.dw2d(strips, w_dw, **kw)
+    x_nchw, w_oihw = xp.permute(0, 3, 1, 2), w_dw.permute(2, 0, 1)[:, None]
+    ok &= stats.add(
+        "dw2d", net, res, i, True,
+        *hx.check(out, td.dw2d_plain(strips, w_dw, **kw)),
+        hx.times(True, lambda: td.dw2d(strips, w_dw, **kw),
+                 lambda: td.dw2d_plain(strips, w_dw, **kw),
+                 lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, stride=s,
+                                                    groups=c)),
+        4 * (strips.numel() + k * k * c + out.numel()),
+        2 * k * k * out.numel(), strips=tuple(strips.shape), **shape)
+    _sync(torch)
+    return ok
+
+
+def sep_kernel_phase(torch, tfs, td, ops, stats) -> bool:
+    """Both separable kernels on the 17 MobileNet-V2 blocks at MNV2_RES,
+    batch BATCH, and on the trainer's 3 blocks at its batch."""
+    from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
+    from repro_torch.examples import train_mobilenet_cim as tr
+
+    hx = _Harness(torch, 3000 + MNV2_RES)
+    ok = True
+    last = len(MOBILENET_V2_SEPARABLE) - 1
+    for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE):
+        acts = [("relu", "relu"), ("relu", None)]
+        if i == last:
+            acts.append(("relu6", "relu6"))
+        ok &= _separable_checks(torch, tfs, td, ops, stats, hx, "mnv2",
+                                MNV2_RES, i, BATCH, layer.h, layer.w, layer.c,
+                                c_out, layer.k, layer.s, acts)
+    side, c = tr.SIDE // 2, tr.model_def()["stem"].shape[-1]
+    for i in range(3):
+        ok &= _separable_checks(torch, tfs, td, ops, stats, hx, "trainer",
+                                tr.SIDE, i, tr.BATCH, side >> i, side >> i,
+                                c << i, 2 * c << i, 3, 2, [("relu", "relu")])
+    return bool(ok)
+
+
+def _grad_case(torch, name, fn_name, op, plain, args):
+    """An op's gradients on the card (its Function: kernel forward, plain
+    backward) against autograd through its plain version on the card."""
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = op(*leaves)
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    leaves = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad((plain(*leaves) ** 2).sum(), leaves)
+    ok = type(out.grad_fn).__name__ == fn_name
+    worst = 0.0
+    for g, r in zip(got, want):
+        tol = KERNEL_RTOL * float(r.abs().max()) + KERNEL_ATOL
+        err = float((g - r).abs().max())
+        worst = max(worst, err / tol)
+        ok &= err <= tol
+    print(f"  {name:44s} grad_fn {type(out.grad_fn).__name__}, "
+          f"{len(got)} grads, worst err/tol {worst:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def grad_phase(torch):
+    """Each op's gradients on the card against its plain version, full-
+    width B0's parameter gradients against the CPU, and B0 forward +
+    backward timed."""
+    import torch.nn.functional as F
+    from repro_torch.core.autotune import get_fused_schedule
+    from repro_torch.core.telemetry import measure
+    from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
+    from repro_torch.kernels import (
+        convdk_depthwise2d, convdk_fused_separable, convdk_fusedmb_fused,
+        convdk_mbconv_fused, launches, reset_launches)
+    from repro_torch.kernels.convdk_mbconv import MBConvGeometry
+    from repro_torch.kernels.ref import (
+        depthwise2d_ref, fusedmb_ref, mbconv_ref, separable_ref)
+    from repro_torch.models.mbconv import (
+        EffNetConfig, EffNetV2Config, MobileNetV3Config, block_chain_rows,
+        block_schedules, efficientnet_b0_apply, efficientnet_b0_def,
+        effnet_block_specs, effnet_v2_block_specs, mobilenet_v3_specs)
+    from repro_torch.models.param import materialize
+
+    hx = _Harness(torch, 4000)
+    ok = True
+    # B4 at MobileNet-V2 block 13 (576 -> 160, two c_out tiles), B6 at 3
+    layer, c_out = MOBILENET_V2_SEPARABLE[13]
+    sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c, c_out,
+                             layer.k, layer.s)
+    kw = dict(stride=layer.s, dw_act="relu", act="relu")
+    ok &= _grad_case(
+        torch, f"fused separable, MobileNet-V2 block 13 b{BATCH}",
+        "_FusedSeparableFnBackward",
+        lambda *a: convdk_fused_separable(*a, tile_h=sch.tile_h,
+                                          tile_w=sch.tile_w, **kw),
+        lambda *a: separable_ref(*a, **kw),
+        (hx.rand(BATCH, layer.h, layer.w, layer.c),
+         hx.rand(3, 3, layer.c, scale=1 / 3),
+         hx.rand(layer.c, c_out, scale=layer.c ** -0.5)))
+    layer, c_out = MOBILENET_V2_SEPARABLE[3]
+    sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c, c_out,
+                             layer.k, layer.s)
+    ok &= _grad_case(
+        torch, f"depthwise, MobileNet-V2 block 3 b{BATCH}",
+        "_DepthwiseFnBackward",
+        lambda *a: convdk_depthwise2d(*a, stride=layer.s,
+                                      tile_h=sch.tile_h),
+        lambda *a: depthwise2d_ref(*a, layer.s),
+        (hx.rand(BATCH, layer.h, layer.w, layer.c),
+         hx.rand(3, 3, layer.c, scale=1 / 3)))
+
+    def mbconv_case(net, specs, res, i, modes):
+        sp = specs[i]
+        h, w, c_in, c_mid, c_out, k, s = block_chain_rows(
+            specs, -(-res // 2), -(-res // 2))[i][:7]
+        sch = block_schedules(specs, BATCH, res, res)[i]
+        acts = dict(exp_act=sp.act, dw_act=sp.act)
+        se = dict(se_act=sp.se_act, gate_act=sp.gate_act)
+        args = [hx.rand(BATCH, h, w, c_in),
+                hx.rand(c_in, c_mid, scale=c_in ** -0.5),
+                hx.rand(k, k, c_mid, scale=1 / k)]
+        if sp.has_se:
+            args += [hx.rand(c_mid, sp.c_se, scale=c_mid ** -0.5),
+                     hx.rand(sp.c_se, scale=0.1),
+                     hx.rand(sp.c_se, c_mid, scale=sp.c_se ** -0.5),
+                     hx.rand(c_mid, scale=0.1)]
+        args.append(hx.rand(c_mid, c_out, scale=c_mid ** -0.5))
+        n_se = 4 if sp.has_se else 0
+        good = True
+        for mode in modes:
+            def op(*a, m=mode):
+                x, w_exp, w_dw, *rest = a
+                se_w = rest[:n_se] if n_se else [None] * 4
+                return convdk_mbconv_fused(
+                    x, w_exp, w_dw, *se_w, rest[-1], stride=s,
+                    tile_h=sch.tile_h, tile_w=sch.tile_w, mode=m, **acts,
+                    **se)
+
+            def plain(*a):
+                x, w_exp, w_dw, *rest = a
+                se_w = rest[:n_se] if n_se else [None] * 4
+                return mbconv_ref(x, w_exp, w_dw, *se_w, rest[-1], stride=s,
+                                  **acts, **se)
+
+            good &= _grad_case(
+                torch, f"MBConv {mode}{' + SE' if sp.has_se else ', no SE'}, "
+                       f"{net} block {i} b{BATCH}", "_MBConvFnBackward", op,
+                plain, args)
+        return good
+
+    ok &= mbconv_case("B0", effnet_block_specs(EffNetConfig()), RES, 3,
+                      ("retain", "recompute"))
+    v3 = mobilenet_v3_specs(MobileNetV3Config())
+    i_v3 = next(i for i, sp in enumerate(v3)
+                if not sp.has_se and sp.c_mid != sp.c_in)
+    ok &= mbconv_case("V3", v3, V3_RES, i_v3, ("retain",))
+    v2s = effnet_v2_block_specs(EffNetV2Config())
+    i_v2 = next(i for i, sp in enumerate(v2s)
+                if sp.family == "fusedmb" and sp.s == 2)
+    h, w, c_in, c_mid, c_out, k, s = block_chain_rows(
+        v2s, -(-V2S_RES // 2), -(-V2S_RES // 2))[i_v2][:7]
+    sch = block_schedules(v2s, BATCH, V2S_RES, V2S_RES)[i_v2]
+    ok &= _grad_case(
+        torch, f"Fused-MBConv, V2-S block {i_v2} b{BATCH}",
+        "_FusedMBFnBackward",
+        lambda *a: convdk_fusedmb_fused(*a, stride=s, tile_h=sch.tile_h,
+                                        tile_w=sch.tile_w, act="silu"),
+        lambda *a: fusedmb_ref(*a, s, "SAME", "silu"),
+        (hx.rand(BATCH, h, w, c_in),
+         hx.rand(k, k, c_in, c_mid, scale=(k * k * c_in) ** -0.5),
+         hx.rand(c_mid, c_out, scale=c_mid ** -0.5)))
+
+    # full-width B0: every parameter's gradient on the card vs the CPU
+    cfg = EffNetConfig()
+    params = materialize(efficientnet_b0_def(cfg),
+                         torch.Generator().manual_seed(0), DEVICE)
+    params_cpu = _cpu_tree(torch, params)
+    names = sorted(_flat_tree(params))
+    images = torch.rand(BATCH, RES, RES, 3,
+                        generator=torch.Generator().manual_seed(1))
+    labels = torch.randint(0, cfg.num_classes, (BATCH,),
+                           generator=torch.Generator().manual_seed(2))
+
+    def grads(tree, x, y):
+        # fresh leaves per call, so each call's AccumulateGrad nodes live
+        # on the stream it runs on (measure() warms up on a side stream)
+        tree = _fresh_leaves(tree)
+        flat = _flat_tree(tree)
+        loss = F.cross_entropy(efficientnet_b0_apply(tree, x, cfg), y)
+        return loss, torch.autograd.grad(loss, [flat[n] for n in names])
+
+    n = GRAD_CPU_IMAGES
+    reset_launches()
+    loss, got = grads(params, images[:n].to(DEVICE), labels[:n].to(DEVICE))
+    _sync(torch)
+    counts = launches()
+    loss_cpu, want = grads(params_cpu, images[:n], labels[:n])
+    worst, bad = 0.0, []
+    for name, g, r in zip(names, got, want):
+        err = float((g.cpu() - r).abs().max())
+        tol = GRAD_RTOL * float(r.abs().max())
+        worst = max(worst, err / tol if tol else float(err > 0))
+        if err > tol:
+            bad.append(name)
+    good = not bad and counts["mbconv_pass1"] > 0
+    print(f"  B0 {RES}x{RES} batch {n}, 1000 classes: loss card "
+          f"{loss.item():.6f} cpu {loss_cpu.item():.6f}; {len(names)} "
+          f"parameter gradients vs the CPU plain run, worst err/tol "
+          f"{worst:.3e} (tol {GRAD_RTOL:g} x max|cpu grad|) "
+          f"{'ok' if good else 'FAIL ' + str(bad[:5])}; launches {counts}")
+    ok &= good
+
+    x8, y8 = images.to(DEVICE), labels.to(DEVICE)
+    fwd_bwd = measure(lambda: grads(params, x8, y8), iters=10, warmup=2)
+    print(f"  B0 forward + backward ({RES}x{RES}, batch {BATCH}): "
+          f"{fwd_bwd.mean_ms:.3f} ms (CUDA events, mean of 10)")
+    trace = trace_phase(torch, lambda: grads(params, x8, y8),
+                        fwd_bwd.mean_ms, grad=True)
+    return bool(ok), {"forward_backward_ms": fwd_bwd.mean_ms,
+                      "trace": trace}
+
+
+def _fresh_leaves(tree):
+    """The same tree with each tensor detached, requiring grad."""
+    return {k: _fresh_leaves(v) if isinstance(v, dict)
+            else v.detach().requires_grad_() for k, v in tree.items()}
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def train_phase(torch):
+    """The trainer on the card: TRAIN_STEPS fused steps, then STAGED_STEPS
+    --staged steps, each run with the launch counts zeroed just before and
+    read just after; then one step of each route timed."""
+    from repro_torch.core.telemetry import measure
+    from repro_torch.examples import train_mobilenet_cim as tr
+    from repro_torch.kernels import launches, reset_launches
+
+    runs = {}
+    for staged, steps in ((False, TRAIN_STEPS), (True, STAGED_STEPS)):
+        argv = ["--steps", str(steps), "--device", DEVICE] + (
+            ["--staged"] if staged else [])
+        buf = io.StringIO()
+        reset_launches()                        # the main path starts here
+        with contextlib.redirect_stdout(buf):
+            losses = tr.main(argv)
+        _sync(torch)
+        counts = launches()                     # ... and ends here
+        print("  " + buf.getvalue().strip().replace("\n", "\n  "))
+        print(f"  launches {counts}")
+        runs[staged] = (losses, counts, buf.getvalue())
+    (fused, f_counts, f_out), (staged, s_counts, _) = runs[False], runs[True]
+    others = [k for k in f_counts if k not in ("fused_separable", "dw2d")]
+    ok = "(DESCENDED)" in f_out
+    ok &= (f_counts["fused_separable"] == 3 * TRAIN_STEPS
+           and f_counts["dw2d"] == 0)
+    ok &= s_counts["dw2d"] == 3 * STAGED_STEPS \
+        and s_counts["fused_separable"] == 0
+    ok &= not any(f_counts[k] or s_counts[k] for k in others)
+    rel1 = abs(fused[0] - staged[0]) / abs(fused[0])
+    ok &= rel1 <= 1e-5
+    print(f"  step 1 loss fused {fused[0]!r} staged {staged[0]!r}: rel "
+          f"{rel1:.3e} (tol 1e-05)")
+    for step in (10, 20):
+        print(f"  step {step} loss fused {fused[step - 1]:.6f} staged "
+              f"{staged[step - 1]:.6f}")
+    # the same run on the CPU through the plain versions: step 1 is one
+    # forward on the same weights; later steps drift with the rounding
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = tr.main(["--steps", "10", "--device", "cpu"])
+    rel_cpu = [abs(a - b) / abs(b) for a, b in zip(fused, cpu)]
+    ok &= rel_cpu[0] <= 1e-5
+    print(f"  fused on the card vs the CPU plain run: step 1 rel "
+          f"{rel_cpu[0]:.3e} (tol 1e-05); steps 1-10 largest rel "
+          f"{max(rel_cpu):.3e}")
+    params = tr.init_params(DEVICE)
+    x, y = tr.batch(0, DEVICE)
+    step_ms = {route: measure(lambda f=f: tr.sgd_step(params, x, y, fused=f),
+                              iters=10, warmup=2).mean_ms
+               for route, f in (("fused", True), ("staged", False))}
+    print(f"  one SGD step at batch {tr.BATCH} (CUDA events, mean of 10, "
+          f"host included): fused {step_ms['fused']:.3f} ms, staged "
+          f"{step_ms['staged']:.3f} ms")
+    print(f"  train phase {'ok' if ok else 'FAIL'}")
+    return bool(ok), {"fused_separable": f_counts["fused_separable"],
+                      "dw2d": s_counts["dw2d"]}, \
+        {"fused": fused, "staged": staged, "step_ms": step_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -634,10 +1014,14 @@ def main() -> int:
           f"{torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import convdk_dw as td
+    from repro_torch.kernels import convdk_fused as tfs
+    from repro_torch.kernels import ops
     tb = time.perf_counter()
-    _build.build(["mbconv", "fusedmb"])
+    _build.build(["mbconv", "fusedmb", "separable"])
     tk._lib()
     tf._lib()
+    tfs._lib()
     print(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s")
 
     phases, marks = {}, [("build", t0)]
@@ -682,6 +1066,16 @@ def main() -> int:
     phase("v3-model", "v3-model: MobileNet-V3-Large on the card (its main "
                       "path) vs the CPU plain run")
     phases["v3-model"], v3_launches = v3_model_phase(torch)
+    phase("sep-kernels", f"sep-kernels: MobileNet-V2 batch {BATCH} at "
+                         f"{MNV2_RES}, every separable block; the trainer's "
+                         "blocks")
+    phases["sep-kernels"] = sep_kernel_phase(torch, tfs, td, ops, stats)
+    phase("grad", "grad: each op's gradients on the card vs its plain "
+                  "version; B0's vs the CPU")
+    phases["grad"], b0_train = grad_phase(torch)
+    phase("train", f"train: the separable trainer on the card, "
+                   f"{TRAIN_STEPS} fused then {STAGED_STEPS} staged steps")
+    phases["train"], train_launches, train = train_phase(torch)
     marks.append(("end", time.perf_counter()))
     print(f"\nphases {phases}; seconds " + " ".join(
         f"{a[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])))
@@ -694,14 +1088,18 @@ def main() -> int:
                    "trace": trace, "v2s_forward_ms": v2s_ms,
                    "v2s_trace": v2s_trace, "serve_latency_s": pct,
                    "v2s_launches": v2s_launches,
-                   "v3_launches": v3_launches, "rows": stats.rows}, f,
+                   "v3_launches": v3_launches,
+                   "b0_forward_backward": b0_train,
+                   "train": train, "train_launches": train_launches,
+                   "rows": stats.rows}, f,
                   indent=1)
     if not all(phases.values()):
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(smi)
     print(json.dumps({"kernels": stats.summary(
-        {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches})}))
+        {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches,
+         "train": train_launches})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

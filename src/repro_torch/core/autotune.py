@@ -1,10 +1,11 @@
-"""Per-layer MBConv and Fused-MBConv schedules for the Hopper kernels.
+"""Per-layer separable, MBConv and Fused-MBConv schedules for the Hopper
+kernels.
 
-Counterpart of ``repro.core.autotune``'s MBConv and Fused-MBConv solvers,
-handed a Hopper budget instead of the TPU one.  The kernels
-(``kernels/csrc/mbconv.cu``, ``kernels/csrc/fusedmb.cu``) tile the output
-in two dimensions, ``tile_h x tile_w`` pixels, because a full-width
-window does not fit a CTA's shared memory.  The solvers pick:
+Counterpart of ``repro.core.autotune``'s separable, MBConv and
+Fused-MBConv solvers, handed a Hopper budget instead of the TPU one.  The
+kernels (``kernels/csrc/separable.cu``, ``mbconv.cu``, ``fusedmb.cu``) tile
+the output in two dimensions, ``tile_h x tile_w`` pixels, because a
+full-width window does not fit a CTA's shared memory.  The solvers pick:
 
 * ``tile_h`` (and for MBConv the ``mode``, retain | recompute) from the
   copied traffic model (``core.perfmodel``), least bytes first, ties to
@@ -13,9 +14,9 @@ window does not fit a CTA's shared memory.  The solvers pick:
   tile stays within the kernels' per-CTA pixel cap, staging the fewest
   input columns over the row (ties to the wider tile).
 
-Fused-MBConv has no mode axis (one pass), and on one card neither family
-has a residency or collective axis.  Schedules are cached in-process by
-family, shape and mode pin.
+The separable and Fused-MBConv blocks have no mode axis (one pass), and on
+one card no family has a residency or collective axis.  Schedules are
+cached in-process by family, shape and mode pin.
 """
 
 from __future__ import annotations
@@ -26,21 +27,33 @@ from typing import Callable, Dict, Optional
 from .perfmodel import (
     MBCONV_MODES,
     MBConvShape,
+    SeparableShape,
+    fused_separable_traffic,
     fusedmb_fused_traffic,
     mbconv_fused_traffic,
 )
 
 
 # Budget of one H100 CTA for the kernels.  C_BLOCK, MAX_TILE_PIXELS and
-# FUSEDMB_PIXEL_STRIDE are compiled into kernels/csrc/mbconv.cu and
-# fusedmb.cu (the channel tile, the per-CTA output-pixel cap, the padded
-# floats per staged pixel); the wrappers check them against the built
-# libraries.
+# PIXEL_STRIDE are compiled into kernels/csrc/*.cu (the channel tile, the
+# per-CTA output-pixel cap, the padded floats per staged pixel); the
+# wrappers check them against the built libraries.
 SMEM_BYTES = 232448                 # 227 KB dynamic smem per CTA
 C_BLOCK = 32                        # one warp lane per channel
 MAX_TILE_PIXELS = 64                # tile_h * tile_w cap
-FUSEDMB_PIXEL_STRIDE = C_BLOCK + 4  # padded against bank conflicts
+PIXEL_STRIDE = C_BLOCK + 4          # padded against bank conflicts
 TILE_H_CANDIDATES = (1, 2, 4, 8)
+
+
+@dataclass(frozen=True)
+class FusedSchedule:
+    """One separable block's schedule: output tile, the c_out tile of one
+    CTA, modeled bytes."""
+
+    tile_h: int
+    tile_w: int
+    co_tile: int
+    total_bytes: int
 
 
 @dataclass(frozen=True)
@@ -76,9 +89,10 @@ def smem_bytes(shape: MBConvShape, tile_h: int, tile_w: int) -> int:
     return (window + MAX_TILE_PIXELS) * C_BLOCK * 4
 
 
-def fusedmb_co_tile(c_out: int) -> int:
-    """Output channels one Fused-MBConv CTA projects (fusedmb.cu's
-    template choice): the smallest of 32, 64, 128 covering ``c_out``."""
+def co_tile(c_out: int) -> int:
+    """Output channels one fused-separable or Fused-MBConv CTA projects
+    (separable.cu's and fusedmb.cu's template choice): the smallest of 32,
+    64, 128 covering ``c_out``."""
     return next((t for t in (32, 64) if c_out <= t), 128)
 
 
@@ -89,8 +103,8 @@ def fusedmb_window_smem_bytes(k: int, in_rows: int, in_cols: int,
     the wrapper checks against this): the padded window of one c_in chunk
     and the padded (pixels, 32) activated conv tile, one (k, k, 32, 32)
     dense-conv weight chunk and one (32, co_tile) projection chunk."""
-    floats = ((in_rows * in_cols + MAX_TILE_PIXELS) * FUSEDMB_PIXEL_STRIDE
-              + k * k * C_BLOCK * C_BLOCK + C_BLOCK * fusedmb_co_tile(c_out))
+    floats = ((in_rows * in_cols + MAX_TILE_PIXELS) * PIXEL_STRIDE
+              + k * k * C_BLOCK * C_BLOCK + C_BLOCK * co_tile(c_out))
     return floats * 4
 
 
@@ -101,9 +115,29 @@ def fusedmb_smem_bytes(shape: MBConvShape, tile_h: int, tile_w: int) -> int:
         window_extent(tile_w, shape.k, shape.s), shape.c_out)
 
 
-def _pick_tile_w(shape: MBConvShape, tile_h: int,
-                 smem: Callable[[MBConvShape, int, int], int] = smem_bytes
-                 ) -> Optional[int]:
+def fused_separable_window_smem_bytes(k: int, in_rows: int, in_cols: int,
+                                     c_out: int) -> int:
+    """Dynamic shared memory of one fused-separable launch staging an
+    ``in_rows x in_cols`` window (separable.cu's
+    ``fused_separable_smem_bytes``, which the wrapper checks against this):
+    the padded window of one c_in chunk and the padded (pixels, 32) DW
+    tile, one chunk's (k, k, 32) taps and one (32, co_tile) pointwise
+    chunk."""
+    floats = ((in_rows * in_cols + MAX_TILE_PIXELS) * PIXEL_STRIDE
+              + k * k * C_BLOCK + C_BLOCK * co_tile(c_out))
+    return floats * 4
+
+
+def fused_separable_smem_bytes(shape: SeparableShape, tile_h: int,
+                               tile_w: int) -> int:
+    """Dynamic shared memory of the fused-separable kernel at one tile."""
+    return fused_separable_window_smem_bytes(
+        shape.k, window_extent(tile_h, shape.k, shape.s),
+        window_extent(tile_w, shape.k, shape.s), shape.c_out)
+
+
+def _pick_tile_w(shape, tile_h: int,
+                 smem: Callable[..., int] = smem_bytes) -> Optional[int]:
     cap = min(shape.out_w, MAX_TILE_PIXELS // tile_h)
     fits = [tw for tw in range(1, cap + 1)
             if smem(shape, tile_h, tw) <= SMEM_BYTES]
@@ -113,7 +147,7 @@ def _pick_tile_w(shape: MBConvShape, tile_h: int,
         -(-shape.out_w // tw) * window_extent(tw, shape.k, shape.s), -tw))
 
 
-def _tile_h_candidates(shape: MBConvShape):
+def _tile_h_candidates(shape):
     return sorted({max(1, min(t, shape.out_h)) for t in TILE_H_CANDIDATES})
 
 
@@ -151,7 +185,37 @@ def select_fusedmb_schedule(shape: MBConvShape) -> FusedMBSchedule:
     return min(cands, key=lambda c: (c.total_bytes, -c.tile_h))
 
 
+def select_fused_schedule(shape: SeparableShape) -> FusedSchedule:
+    """Least modeled bytes over tile_h, ties to the larger tile.  The
+    traffic is priced with 128-wide c_out blocks, which is the kernel's
+    c_out tiling wherever C_out > 64 and one block below."""
+    cands = []
+    for th in _tile_h_candidates(shape):
+        tw = _pick_tile_w(shape, th, fused_separable_smem_bytes)
+        if tw is not None:
+            cands.append(FusedSchedule(
+                th, tw, co_tile(shape.c_out),
+                fused_separable_traffic(shape, th).total_bytes))
+    if not cands:
+        raise ValueError(f"no fused separable tile fits the CTA budget: "
+                         f"{shape}")
+    return min(cands, key=lambda c: (c.total_bytes, -c.tile_h))
+
+
 _CACHE: Dict[tuple, object] = {}
+
+
+def get_fused_schedule(b: int, h: int, w: int, c_in: int, c_out: int,
+                       k: int, s: int, dtype_bytes: int = 4
+                       ) -> FusedSchedule:
+    """Cached per-layer-shape separable-block schedule lookup (the fused
+    kernel's tile; the staged route takes its tile_h too)."""
+    shape = SeparableShape(b=b, h=h, w=w, c_in=c_in, c_out=c_out, k=k, s=s,
+                           dtype_bytes=dtype_bytes)
+    key = ("separable", shape)
+    if key not in _CACHE:
+        _CACHE[key] = select_fused_schedule(shape)
+    return _CACHE[key]
 
 
 def get_mbconv_schedule(

@@ -1,12 +1,15 @@
-"""HBM traffic model of the fused MBConv and Fused-MBConv pipelines.
+"""HBM traffic model of the separable, fused MBConv and Fused-MBConv
+pipelines.
 
-A copy of the MBConv and Fused-MBConv pricing of ``repro.core.perfmodel``
-(the port imports nothing of the JAX package): ``MBConvShape``,
-``HBMTraffic``, ``pick_channel_block``, the per-pass / whole-block traffic
+A copy of the separable, MBConv and Fused-MBConv pricing of
+``repro.core.perfmodel`` (the port imports nothing of the JAX package):
+``SeparableShape``, ``MBConvShape``, ``HBMTraffic``, ``pick_channel_block``,
+the staged and fused separable traffic, the per-pass / whole-block traffic
 of the retain and recompute modes, and the single-pass Fused-MBConv
 traffic, all under the strip-staged (DMA) input residency the JAX package
-defaults to.  The retain/recompute choice and the Fused-MBConv tile_h of
-``core.autotune`` are priced here.
+defaults to and the Hopper kernels match.  The separable and Fused-MBConv
+tile_h and the retain/recompute choice of ``core.autotune`` are priced
+here.
 
 The model counts full-width row strips: it does not yet price the halo
 the Hopper kernels re-read along W when they tile the output in two
@@ -108,7 +111,37 @@ class MBConvShape:
         return 2 * self.c_mid * self.c_se + self.c_se + self.c_mid
 
 
-def _strip_counts(shape: MBConvShape, tile_h: int) -> Tuple[int, int]:
+@dataclass(frozen=True)
+class SeparableShape:
+    """One depthwise-separable block instance as the kernels see it."""
+
+    b: int          # batch
+    h: int          # ifmap height (pre-padding)
+    w: int          # ifmap width
+    c_in: int       # depthwise / expanded channels
+    c_out: int      # pointwise projection channels
+    k: int          # square kernel
+    s: int          # stride
+    dtype_bytes: int = 4
+
+    @property
+    def out_h(self) -> int:
+        return -(-self.h // self.s)
+
+    @property
+    def out_w(self) -> int:
+        return -(-self.w // self.s)
+
+    @property
+    def padded_w(self) -> int:
+        return (self.out_w - 1) * self.s + self.k
+
+    @property
+    def padded_h(self) -> int:
+        return (self.out_h - 1) * self.s + self.k
+
+
+def _strip_counts(shape, tile_h: int) -> Tuple[int, int]:
     """(n_th, in_rows): row-strip count and staged rows per strip."""
     tile_h = max(1, min(tile_h, shape.out_h))
     n_th = -(-shape.out_h // tile_h)
@@ -123,6 +156,49 @@ def _n_co_blocks(c_out: int, c_block: int) -> int:
 def _n_chan_blocks(c: int, c_block: int) -> int:
     cb = pick_channel_block(c, c_block)
     return _round_up(c, cb) // cb
+
+
+def staged_separable_traffic(shape: SeparableShape,
+                             tile_h: int) -> HBMTraffic:
+    """HBM traffic of the staged two-kernel pipeline.
+
+    1. stage_row_strips: read the padded input once, WRITE the overlapping
+       strips tensor (halo rows duplicated in HBM),
+    2. DW kernel: read the strips + DW taps, write the DW output,
+    3. PW matmul: re-read the DW output + PW weight, write the block output.
+    """
+    n_th, in_rows = _strip_counts(shape, tile_h)
+    strips = shape.b * n_th * in_rows * shape.padded_w * shape.c_in
+    ifmap = shape.b * shape.padded_h * shape.padded_w * shape.c_in
+    tile_h_eff = max(1, min(tile_h, shape.out_h))
+    dw_out = shape.b * n_th * tile_h_eff * shape.out_w * shape.c_in
+    out = shape.b * shape.out_h * shape.out_w * shape.c_out
+    w_dw = shape.k * shape.k * shape.c_in
+    w_pw = shape.c_in * shape.c_out
+    reads = ifmap + strips + w_dw + dw_out + w_pw
+    writes = strips + dw_out + out
+    return HBMTraffic(reads, writes, shape.dtype_bytes)
+
+
+def fused_separable_traffic(
+    shape: SeparableShape, tile_h: int, c_block: int = 128,
+) -> HBMTraffic:
+    """HBM traffic of the fused single-pass pipeline under the strip-DMA
+    residencies: each (strip, c_in block) window is read once per c_out
+    block straight from the unstaged input (halo rows re-read across
+    strips, never written), the DW output lives and dies on chip, the only
+    activation write is the block output, and weight blocks are re-read per
+    revisiting strip (DW taps per c_out block too)."""
+    n_th, in_rows = _strip_counts(shape, tile_h)
+    n_co = -(-shape.c_out // min(c_block, max(8, shape.c_out)))
+    n_ci = _n_chan_blocks(shape.c_in, c_block)
+    strips = shape.b * n_th * in_rows * shape.padded_w * shape.c_in
+    out = shape.b * shape.out_h * shape.out_w * shape.c_out
+    w_dw = shape.k * shape.k * shape.c_in * n_th * n_co
+    w_pw = shape.c_in * shape.c_out * n_th
+    issues = shape.b * n_th * n_co * n_ci
+    return HBMTraffic(strips * n_co + w_dw + w_pw, out, shape.dtype_bytes,
+                      issues)
 
 
 def _mbconv_common(shape: MBConvShape, tile_h: int, c_block: int):

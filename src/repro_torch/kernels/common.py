@@ -1,10 +1,11 @@
 """Shared helpers for the kernel wrappers: padding arithmetic, device
-resolution, the activation codes the CUDA kernels take, and the checks a
-wrapper makes before it launches a kernel."""
+resolution, the activation codes the CUDA kernels take, the checks a
+wrapper makes before it launches a kernel, and the backward the ops'
+autograd Functions share."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -78,3 +79,31 @@ def check_cuda(*tensors: Optional[torch.Tensor]) -> None:
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """The device address a kernel takes (``None`` for an absent operand)."""
     return None if t is None else t.data_ptr()
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd records and some operand requires grad: the ops
+    then go through their ``torch.autograd.Function``; otherwise (serving,
+    ``inference_mode``) they call the kernel wrapper directly."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def vjp_through(ref: Callable[..., torch.Tensor],
+                inputs: Sequence[Optional[torch.Tensor]],
+                grad_out: torch.Tensor,
+                needs: Sequence[bool]) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward of a kernel whose plain reference ``ref`` computes the
+    same function: autograd through ``ref(*inputs)`` on detached copies,
+    against ``grad_out``.  Returns one gradient per input, ``None`` for an
+    absent input or one that ``needs`` says wants none.  The JAX package's
+    ``custom_vjp`` backwards do the same with ``jax.vjp`` of its oracles.
+    """
+    leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+              for t, n in zip(inputs, needs)]
+    wanted = [t for t in leaves if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        out = ref(*leaves)
+    grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)

@@ -13,7 +13,11 @@ never reaches device memory, there is no SE stage and no second pass.
 counts kernel launches.  The kernel tiles the output in ``tile_h x
 tile_w`` pixels (see ``core.autotune.get_fusedmb_schedule``) and masks
 SAME padding and every ragged edge itself, so the wrapper pads nothing.
-Inference only: no gradient flows through the kernel yet.
+
+``convdk_fusedmb_fused`` is differentiable: when an operand requires grad
+it goes through an autograd Function whose backward is autograd through
+``fusedmb_ref``, as the JAX package's ``custom_vjp`` backward is
+``jax.vjp`` of its oracle.
 """
 
 from __future__ import annotations
@@ -27,14 +31,21 @@ import torch.nn.functional as F
 
 from ..core.autotune import (
     C_BLOCK,
-    FUSEDMB_PIXEL_STRIDE,
     MAX_TILE_PIXELS,
+    PIXEL_STRIDE,
     fusedmb_window_smem_bytes,
 )
 from . import _build
-from .common import ACT_CODES, check_cuda, on_cpu, ptr
+from .common import (
+    ACT_CODES,
+    check_cuda,
+    needs_grad,
+    on_cpu,
+    ptr,
+    vjp_through,
+)
 from .convdk_mbconv import MBConvGeometry
-from .ref import _act_ref, pad_nhwc
+from .ref import _act_ref, fusedmb_ref, pad_nhwc
 
 KERNELS: Tuple[str, ...] = ("fusedmb",)
 # kernel launches per wrapper (reset with ``reset_launches``)
@@ -62,7 +73,7 @@ def _lib() -> ctypes.CDLL:
     lib.fusedmb_smem_bytes.restype = ctypes.c_size_t
     built = (lib.fusedmb_channel_tile(), lib.fusedmb_max_tile_pixels(),
              lib.fusedmb_pixel_stride())
-    want = (C_BLOCK, MAX_TILE_PIXELS, FUSEDMB_PIXEL_STRIDE)
+    want = (C_BLOCK, MAX_TILE_PIXELS, PIXEL_STRIDE)
     if built != want:
         raise RuntimeError(f"fusedmb.cu tiles {built} disagree with "
                            f"core.autotune {want}")
@@ -119,6 +130,26 @@ def fusedmb(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
     return out
 
 
+class _FusedMBFn(torch.autograd.Function):
+    """``fusedmb`` forward; backward through ``fusedmb_ref``."""
+
+    @staticmethod
+    def forward(ctx, x, w_conv, w_proj, geo, padding, act):
+        ctx.save_for_backward(x, w_conv, w_proj)
+        ctx.conf = (geo.s, padding, act)
+        return fusedmb(x, w_conv, w_proj, geo, act=act)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        stride, padding, act = ctx.conf
+
+        def ref(x, w_conv, w_proj):
+            return fusedmb_ref(x, w_conv, w_proj, stride, padding, act)
+
+        return (*vjp_through(ref, ctx.saved_tensors, grad_out,
+                             ctx.needs_input_grad[:3]), None, None, None)
+
+
 def convdk_fusedmb_fused(
     x: torch.Tensor,
     w_conv: torch.Tensor,
@@ -143,4 +174,6 @@ def convdk_fusedmb_fused(
         raise ValueError(f"square dense kernels only, got {k_h}x{k_w}")
     geo = MBConvGeometry.make(x.shape[1], x.shape[2], k_h, stride, padding,
                               tile_h, tile_w)
+    if needs_grad(x, w_conv, w_proj):
+        return _FusedMBFn.apply(x, w_conv, w_proj, geo, padding, act)
     return fusedmb(x, w_conv, w_proj, geo, act=act)

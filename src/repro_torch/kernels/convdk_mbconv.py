@@ -20,8 +20,13 @@ other device raises.  ``LAUNCHES`` counts kernel launches per wrapper.
 
 The kernels tile the output in ``tile_h x tile_w`` pixels (see
 ``core.autotune``); SAME padding, ragged tiles and ragged channel tiles
-are masked inside the kernels, so the wrappers pad nothing.  Inference
-only: no gradient flows through the kernels yet.
+are masked inside the kernels, so the wrappers pad nothing.
+
+``convdk_mbconv_fused`` is differentiable: when an operand requires grad
+it goes through an autograd Function whose forward is the two passes above
+and whose backward is autograd through ``mbconv_ref``, as the JAX
+package's ``custom_vjp`` backward is ``jax.vjp`` of its oracle (the
+kernels have no backward of their own, nor had the Pallas ones).
 """
 
 from __future__ import annotations
@@ -36,8 +41,16 @@ import torch
 from ..core.autotune import C_BLOCK, MAX_TILE_PIXELS
 from ..core.perfmodel import MBCONV_MODES
 from . import _build
-from .common import ACT_CODES, check_cuda, on_cpu, ptr, spatial_pads
-from .ref import _act_ref, depthwise_valid, pad_nhwc
+from .common import (
+    ACT_CODES,
+    check_cuda,
+    needs_grad,
+    on_cpu,
+    ptr,
+    spatial_pads,
+    vjp_through,
+)
+from .ref import _act_ref, depthwise_valid, mbconv_ref, pad_nhwc
 
 KERNELS: Tuple[str, ...] = ("mbconv_pass1", "mbconv_pool_reduce",
                             "mbconv_pass2_recompute", "mbconv_pass2_retain")
@@ -302,6 +315,32 @@ def _mbconv_impl(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj, *,
                                   exp_act=exp_act, dw_act=dw_act)
 
 
+class _MBConvFn(torch.autograd.Function):
+    """``_mbconv_impl`` forward; backward through ``mbconv_ref``."""
+
+    @staticmethod
+    def forward(ctx, x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj,
+                conf):
+        ctx.save_for_backward(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2,
+                              w_proj)
+        ctx.conf = conf
+        return _mbconv_impl(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2,
+                            w_proj, **conf)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        c = ctx.conf
+
+        def ref(*args):
+            return mbconv_ref(*args, stride=c["stride"],
+                              padding=c["padding"], exp_act=c["exp_act"],
+                              dw_act=c["dw_act"], se_act=c["se_act"],
+                              gate_act=c["gate_act"])
+
+        return (*vjp_through(ref, ctx.saved_tensors, grad_out,
+                             ctx.needs_input_grad[:8]), None)
+
+
 def convdk_mbconv_fused(
     x: torch.Tensor,
     w_exp: Optional[torch.Tensor],
@@ -335,7 +374,10 @@ def convdk_mbconv_fused(
     mode   : "retain" | "recompute" (``core.autotune`` picks per layer)
     Returns (B, H', W', C_out).
     """
-    return _mbconv_impl(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj,
-                        stride=stride, padding=padding, tile_h=tile_h,
-                        tile_w=tile_w, mode=mode, exp_act=exp_act,
-                        dw_act=dw_act, se_act=se_act, gate_act=gate_act)
+    args = (x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj)
+    conf = dict(stride=stride, padding=padding, tile_h=tile_h,
+                tile_w=tile_w, mode=mode, exp_act=exp_act, dw_act=dw_act,
+                se_act=se_act, gate_act=gate_act)
+    if needs_grad(*args):
+        return _MBConvFn.apply(*args, conf)
+    return _mbconv_impl(*args, **conf)

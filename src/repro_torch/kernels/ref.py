@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the MBConv and Fused-MBConv kernels (NHWC,
-JAX layouts).
+"""Plain PyTorch oracles for the separable, MBConv and Fused-MBConv kernels
+(NHWC, JAX layouts).
 
 Counterparts of ``repro.kernels.ref``: the ground truth the kernels and
 the port's host glue are checked against.  Only torch primitives.
@@ -58,9 +58,22 @@ def depthwise2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return depthwise_valid(pad_nhwc(x, pads), w, stride)
 
 
+def separable_ref(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
+                  stride: int = 1, padding: str = "SAME",
+                  dw_act: Optional[str] = None,
+                  act: Optional[str] = None) -> torch.Tensor:
+    """Depthwise-separable block oracle: DW conv -> dw_act -> 1x1 PW -> act.
+
+    x: (B, H, W, C_in); w_dw: (k_h, k_w, C_in); w_pw: (C_in, C_out).  The PW
+    contraction in f32, as ``repro.kernels.ref.separable_ref``.
+    """
+    y = _act_ref(depthwise2d_ref(x, w_dw, stride, padding).float(), dw_act)
+    return _act_ref(y @ w_pw.float(), act).to(x.dtype)
+
+
 def mbconv_ref(
     x: torch.Tensor,
-    w_exp: torch.Tensor,
+    w_exp: Optional[torch.Tensor],
     w_dw: torch.Tensor,
     w_se1: Optional[torch.Tensor],
     b_se1: Optional[torch.Tensor],
@@ -81,9 +94,11 @@ def mbconv_ref(
            output; skipped when ``w_se1 is None``) -> project 1x1.
 
     Shapes as ``repro.kernels.ref.mbconv_ref``; all contractions in f32.
-    The DW stage zero-pads the EXPANDED tensor, as the JAX oracle does.
+    ``w_exp=None`` is the identity expand of expansion-ratio-1 blocks.  The
+    DW stage zero-pads the EXPANDED tensor, as the JAX oracle does.
     """
-    e = _act_ref(x.float() @ w_exp.float(), exp_act)
+    e = x.float() if w_exp is None else x.float() @ w_exp.float()
+    e = _act_ref(e, exp_act)
     d = _act_ref(depthwise2d_ref(e, w_dw.float(), stride, padding), dw_act)
     if w_se1 is not None:
         pooled = d.mean(dim=(1, 2))

@@ -2,7 +2,8 @@
 imports, pulls in JAX or the JAX package; its entry points raise rather
 than fall back to the CPU; its kernel counters stay at 0 on the CPU;
 ``chip_smoke.py`` fails without a card; and (on a card only) each kernel
-agrees with its plain version."""
+agrees with its plain version, and each op's gradient on the card with
+autograd through its plain version."""
 
 import ast
 import os
@@ -19,15 +20,20 @@ import torch
 import repro_torch
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
+from repro_torch.examples import train_mobilenet_cim
+from repro_torch.kernels import convdk_dw as td
+from repro_torch.kernels import convdk_fused as tfs
 from repro_torch.kernels import convdk_fusedmb as tf
 from repro_torch.kernels import convdk_mbconv as tk
-from repro_torch.kernels import launches, reset_launches
+from repro_torch.kernels import launches, ops, reset_launches
+from repro_torch.kernels.ref import depthwise2d_ref, mbconv_ref, pad_nhwc
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.mbconv import (
     EfficientNetB0,
     EfficientNetV2S,
     efficientnet_b0_def,
 )
+from repro_torch.models.common import separable_block
 from repro_torch.models.param import from_numpy, materialize
 from repro_torch.serve import VisionEngine
 
@@ -60,7 +66,12 @@ def test_port_imports_no_jax_and_no_repro():
         repro_torch.__path__, "repro_torch."))
     assert {"repro_torch.kernels.convdk_fusedmb",
             "repro_torch.models.blockgraph",
-            "repro_torch.configs.efficientnet_v2_s"} <= set(mods)
+            "repro_torch.configs.efficientnet_v2_s",
+            "repro_torch.kernels.convdk_fused",
+            "repro_torch.kernels.convdk_dw", "repro_torch.kernels.ops",
+            "repro_torch.models.common",
+            "repro_torch.core.workloads",
+            "repro_torch.examples.train_mobilenet_cim"} <= set(mods)
     smoke = sorted(_smoke_imports())
     assert "repro_torch.models.mbconv" in smoke
     assert not [m for m in smoke if m.split(".")[0] in ("jax", "repro")]
@@ -96,11 +107,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         EfficientNetB0(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         EfficientNetV2S(efficientnet_v2_s_smoke())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_mobilenet_cim.main(["--steps", "1"])
     # no fallback: a tensor on neither the CPU nor a CUDA card raises
     meta = lambda *sh: torch.empty(*sh, device="meta")  # noqa: E731
     with pytest.raises(ValueError, match="unsupported device"):
         tf.convdk_fusedmb_fused(meta(1, 5, 5, 4), meta(3, 3, 4, 8),
                                 meta(8, 4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfs.convdk_fused_separable(meta(1, 5, 5, 4), meta(3, 3, 4),
+                                   meta(4, 8))
+    with pytest.raises(ValueError, match="unsupported device"):
+        td.dw2d(meta(1, 2, 4, 7, 4), meta(3, 3, 4), stride=1, out_w=5,
+                tile_h=2)
     params = materialize(tree, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         VisionEngine(params, cfg)
@@ -120,8 +139,14 @@ def test_launch_counters_stay_zero_on_cpu():
         out = tf.convdk_fusedmb_fused(t(2, 9, 11, 6), t(3, 3, 6, 12),
                                       t(12, 8), stride=s, tile_h=2, tile_w=4)
         assert out.shape == (2, -(-9 // s), -(-11 // s), 8)
+        for fused in (True, False):
+            out = separable_block(
+                t(2, 9, 11, 6), {"dw": t(3, 3, 6), "pw": t(6, 10)},
+                stride=s, fused=fused)
+            assert out.shape == (2, -(-9 // s), -(-11 // s), 10)
     assert set(tk.LAUNCHES) == set(tk.KERNELS)
-    assert set(launches()) == set(tk.KERNELS) | {"fusedmb"}
+    assert set(launches()) == set(tk.KERNELS) | {"fusedmb",
+                                                 "fused_separable", "dw2d"}
     assert all(n == 0 for n in launches().values())
 
 
@@ -214,4 +239,91 @@ def test_fusedmb_kernel_matches_plain_on_card(k, s, c_in, c_mid, c_out,
             ref = tf.fusedmb_plain(x, w_conv, w_proj, geo, act=act)
             tol = 1e-4 * float(ref.abs().max()) + 1e-5
             assert float((got - ref).abs().max()) <= tol
+    torch.cuda.synchronize()
+
+
+def _close_on_card(got, ref):
+    tol = 1e-4 * float(ref.abs().max()) + 1e-5
+    assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c_in,c_out", [(13, 10, 40, 36), (9, 1, 3, 130),
+                                            (23, 23, 70, 200)])
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 2)])
+def test_separable_kernels_match_plain_on_card(k, s, h, w, c_in, c_out,
+                                               monkeypatch):
+    """B4 and B6 at odd shapes: ragged maps and tiles, a width-1 map,
+    channel counts that are not multiples of 4 or of the 32-wide chunks,
+    and two c_out tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(100 * s + 10 * k + c_in)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x, w_dw = r(3, h, w, c_in), r(k, k, c_in) / k
+    w_pw = r(c_in, c_out) / c_in ** 0.5
+    for tile_h, tile_w in ((8, 8), (3, 5)):
+        geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+        for dw_act, act in (("relu", "relu"), ("relu6", None)):
+            _close_on_card(
+                tfs.fused_separable(x, w_dw, w_pw, geo, dw_act=dw_act,
+                                    act=act),
+                tfs.fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
+                                          act=act))
+        strips = ops.stage_row_strips(pad_nhwc(x, geo.pads), k, s,
+                                      geo.tile_h)
+        kw = dict(stride=s, out_w=geo.out_w, tile_h=geo.tile_h)
+        _close_on_card(td.dw2d(strips, w_dw, **kw),
+                       td.dw2d_plain(strips, w_dw, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ops_take_gradients_on_card(monkeypatch):
+    """A CUDA output of each op carries its Function's grad_fn (the kernel
+    ran forward), and its gradients match autograd through the plain
+    version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(0)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x8, x12, dw12 = r(2, 11, 9, 8), r(2, 11, 9, 12), r(3, 3, 12) * 0.3
+    geo = tk.MBConvGeometry.make(11, 9, 3, 2, "SAME", 2, 4)
+    cases = [
+        ("_FusedSeparableFnBackward",
+         lambda a, b, c: tfs.convdk_fused_separable(
+             a, b, c, stride=2, tile_h=2, tile_w=4, dw_act="relu"),
+         lambda a, b, c: tfs.fused_separable_plain(a, b, c, geo,
+                                                   dw_act="relu", act=None),
+         (x12, dw12, r(12, 20))),
+        ("_DepthwiseFnBackward",
+         lambda a, b: ops.convdk_depthwise2d(a, b, stride=2, tile_h=2),
+         lambda a, b: depthwise2d_ref(a, b, 2), (x12, dw12)),
+        ("_FusedMBFnBackward",
+         lambda a, b, c: tf.convdk_fusedmb_fused(a, b, c, stride=2,
+                                                 tile_h=2, tile_w=4),
+         lambda a, b, c: tf.fusedmb_plain(a, b, c, geo, act="silu"),
+         (x8, r(3, 3, 8, 16) * 0.2, r(16, 12) * 0.25)),
+    ]
+    for mode in ("retain", "recompute"):
+        cases.append((
+            "_MBConvFnBackward",
+            lambda *a, m=mode: tk.convdk_mbconv_fused(
+                *a, stride=2, tile_h=2, tile_w=4, mode=m),
+            lambda *a: mbconv_ref(*a, stride=2),
+            (x8, r(8, 24) * 0.35, r(3, 3, 24) * 0.3, r(24, 2), r(2) * 0.1,
+             r(2, 24), r(24) * 0.1, r(24, 12) * 0.2)))
+    for name, op, plain, args in cases:
+        leaves = [a.clone().requires_grad_() for a in args]
+        out = op(*leaves)
+        assert type(out.grad_fn).__name__ == name
+        got = torch.autograd.grad((out ** 2).sum(), leaves)
+        leaves = [a.clone().requires_grad_() for a in args]
+        want = torch.autograd.grad((plain(*leaves) ** 2).sum(), leaves)
+        for a, b in zip(got, want):
+            _close_on_card(a, b)
     torch.cuda.synchronize()
