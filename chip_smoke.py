@@ -76,6 +76,27 @@ Phases, each of which must pass (exit 1 otherwise):
             one per step (counts zeroed just before each run, read just
             after); both runs' step-1 losses within 1e-5 relative, and the
             fused run's within 1e-5 of a CPU plain run of the trainer.
+13. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
+            layer (D 5120, 128, 128; k 4; SiLU; bias) at batch 1 x 32768
+            tokens, in bf16 (within 1 bf16 ulp of the plain version's
+            fp32 sum rounded once) and in fp32 (the phase-2 bar), timed as
+            in phase 2 beside grouped F.conv1d + F.silu.
+14. lm-model    full-width Mamba-2 2.7B (64 layers, seeded fp32 weights,
+            materialized once and timed): the prefill forward with the
+            kernel (exactly 192 conv1d launches, 3 per layer) and without it
+            (none), counts zeroed just before and read just after; in fp32
+            at batch 2 x 2048 the kernel path's logits against the plain
+            path's within 1e-3 relative; a 2-layer full-width copy at 2 x 256
+            against the CPU plain run within 1e-3 relative; then the bf16
+            prefill step at 1 x 32768 (the main path of the conv1d kernel)
+            timed on CUDA events and traced.
+15. lm-serve    the LM engine at full width in bf16: generate_many on 8
+            mixed requests (prompts of 12, 20, 28, 30, 40, 60, 300 and 300
+            tokens, 16 new tokens each, LITTLE below 256), every one
+            answered, with prefill tokens/s and decode ms per token; then
+            in fp32 the engine's decode-loop prefill of 2 prompts of 32
+            tokens against the kernel path's forward (last row) within
+            1e-3 relative.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Per-block kernel numbers are also written to
@@ -107,6 +128,12 @@ MNV2_RES = 224                             # MobileNet-V2's published size
 TRAIN_STEPS, STAGED_STEPS = 60, 20         # the trainer's fused / staged runs
 GRAD_RTOL = 1e-3                           # x max|cpu grad|, per leaf
 GRAD_CPU_IMAGES = 2                        # B0 gradient images vs the CPU
+LM_TOKENS = 32768                          # the bf16 prefill: 1 x 32768
+LM_CHECK = (2, 2048)                       # fp32 kernel vs plain path
+LM_CPU = (2, 256)                          # 2-layer copy vs the CPU
+LM_CONVS = (("conv_x", 5120), ("conv_b", 128), ("conv_c", 128))
+LM_REQUESTS = (12, 20, 28, 30, 40, 60, 300, 300)   # lm-serve prompt lengths
+LM_NEW_TOKENS = 16
 DEVICE = "cuda"
 REPLACES = {
     "mbconv_pass1": "src/repro/kernels/convdk_mbconv.py:118",
@@ -116,12 +143,13 @@ REPLACES = {
     "fusedmb": "src/repro/kernels/convdk_fusedmb.py:59",
     "fused_separable": "src/repro/kernels/convdk_fused.py:59",
     "dw2d": "src/repro/kernels/convdk_dw.py:32",
+    "conv1d": "src/repro/kernels/convdk_conv1d.py:27",
 }
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCES = {k: f"{CSRC}/{k if k == 'fusedmb' else 'mbconv'}.cu"
            for k in REPLACES}
 SOURCES.update(fused_separable=f"{CSRC}/separable.cu",
-               dw2d=f"{CSRC}/separable.cu")
+               dw2d=f"{CSRC}/separable.cu", conv1d=f"{CSRC}/conv1d.cu")
 
 
 def _bound(nbytes: float, flops: float):
@@ -138,11 +166,14 @@ class KernelStats:
         self.rows = []
 
     def add(self, kernel, net, res, block, on_path, err, tol, times=None,
-            nbytes=0, flops=0, **shape):
+            nbytes=0, flops=0, good=None, **shape):
+        """``good`` overrides the verdict ``err <= tol`` where the bar is
+        not one absolute tolerance (bf16: 1 ulp per element)."""
+        good = err <= tol if good is None else good
         row = dict(kernel=kernel, net=net, res=res, block=block,
                    on_path=on_path, max_abs_err=err, tol=tol, **shape)
         line = (f"  {net} r{res} block{block:02d} {kernel:24s} err "
-                f"{err:.3e} (tol {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+                f"{err:.3e} (tol {tol:.3e}) {'ok' if good else 'FAIL'}")
         if times is not None:
             bound_ms, bytes_ms, ops_ms = _bound(nbytes, flops)
             row.update(times, bound_ms=bound_ms, bound_bytes_ms=bytes_ms,
@@ -152,7 +183,7 @@ class KernelStats:
             line += f"  bound_ms {bound_ms:.4f}"
         self.rows.append(row)
         print(line + ("" if on_path else "  [off the main path]"))
-        return err <= tol
+        return good
 
     def sums(self, kernel, net, res):
         """Sums over the blocks of one network's main path at ``res``;
@@ -188,7 +219,20 @@ class KernelStats:
             entry = {"name": kernel, "route": "cuda",
                      "source": SOURCES[kernel], "replaces": REPLACES[kernel],
                      "max_abs_err": max(errs)}
-            if kernel in ("fused_separable", "dw2d"):
+            if kernel == "conv1d":
+                n, layer = self.sums(kernel, "mamba2", LM_TOKENS)
+                n_layers = launches["lm"][kernel] // len(LM_CONVS)
+                entry.update(
+                    launches=launches["lm"][kernel],
+                    **{k: v * n_layers if isinstance(v, float) else v
+                       for k, v in layer.items()},
+                    per_layer=dict(layer, launches=n),
+                    shape=f"Mamba-2 2.7B bf16 prefill, batch 1 x {LM_TOKENS} "
+                          f"tokens: {n_layers} layers x the {n} convs of a "
+                          f"layer (D {', '.join(str(d) for _, d in LM_CONVS)}, "
+                          f"k 4, SiLU), each timed once; library: grouped "
+                          f"F.conv1d + F.silu")
+            elif kernel in ("fused_separable", "dw2d"):
                 n, sums = self.sums(kernel, "mnv2", MNV2_RES)
                 n_tr, tr_sums = self.sums(kernel, "trainer", 32)
                 entry.update(launches=launches["train"][kernel], **sums,
@@ -984,6 +1028,249 @@ def train_phase(torch):
         {"fused": fused, "staged": staged, "step_ms": step_ms}
 
 
+def _bf16_ulps(got, ref):
+    """Largest |got - ref| in units of one bf16 ulp of ``ref`` (the spacing
+    of bf16 numbers at ref's binade; 2^-133 at 0)."""
+    import torch
+    ref32 = ref.float()
+    _, exp = torch.frexp(ref32)
+    ulp = torch.where(ref32 == 0, torch.full_like(ref32, 2.0 ** -133),
+                      torch.ldexp(torch.ones_like(ref32), exp - 8))
+    return float(((got.float() - ref32).abs() / ulp).max())
+
+
+def lm_kernel_phase(torch, tc, stats) -> bool:
+    """The conv1d kernel on every conv of a Mamba-2 2.7B layer at batch 1
+    x LM_TOKENS (k 4, SiLU, bias) against its plain version, in bf16 (the
+    main path's type; timed) and in fp32; the library yardstick is grouped
+    F.conv1d on a channels-first copy made outside the timed region, then
+    F.silu."""
+    import torch.nn.functional as F
+
+    hx = _Harness(torch, 5000)
+    ok = True
+    k, tile = 4, min(512, -(-LM_TOKENS // 8) * 8)
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, d) in enumerate(LM_CONVS):
+            x = hx.rand(1, LM_TOKENS, d).to(dtype)
+            w = hx.rand(k, d, scale=0.5)
+            bias = hx.rand(d, scale=0.1)
+            got = tc.conv1d(x, w, bias, "silu", tile)
+            ref = tc.conv1d_plain(x, w, bias, "silu")
+            err = float((got.float() - ref.float()).abs().max())
+            if dtype == torch.float32:
+                _, tol = hx.check(got, ref)
+                good, bar = None, {}
+            else:
+                # the bar is 1 ulp per element; tol shows the ulp at the
+                # largest |plain| value
+                ulps = _bf16_ulps(got, ref)
+                tol = 2.0 ** (int(torch.frexp(ref.float().abs().max())[1]) - 8)
+                good, bar = ulps <= 1.0, {"bf16_ulps": ulps}
+                print(f"  {name} bf16: worst {ulps:.3f} bf16 ulp (bar 1 ulp)")
+            xt = x.transpose(1, 2).contiguous()
+            w_lib = w.t().unsqueeze(1).to(dtype)
+            b_lib = bias.to(dtype)
+            elt = x.element_size()
+            ok &= stats.add(
+                "conv1d", "mamba2", LM_TOKENS, i, dtype == torch.bfloat16,
+                err, tol,
+                hx.times(True,
+                         lambda: tc.conv1d(x, w, bias, "silu", tile),
+                         lambda: tc.conv1d_plain(x, w, bias, "silu"),
+                         lambda: F.silu(F.conv1d(xt, w_lib, b_lib,
+                                                 padding=k - 1,
+                                                 groups=d)[..., :LM_TOKENS])),
+                2 * elt * x.numel() + 4 * (k * d + d),
+                (2 * k + 5) * x.numel(), good=good, conv=name, d=d, k=k,
+                tile_l=tile, dtype=str(dtype).split(".")[-1], **bar)
+            del x, got, ref, xt
+    _sync(torch)
+    return bool(ok)
+
+
+def lm_init(torch):
+    """Full-width Mamba-2 2.7B, fp32 weights from a seeded CPU generator,
+    materialized once for the LM phases."""
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.models.model import model_def
+    from repro_torch.models.param import count_params, materialize
+
+    t0 = time.perf_counter()
+    params = materialize(model_def(CONFIG), torch.Generator().manual_seed(0),
+                         DEVICE)
+    _sync(torch)
+    n = count_params(params)
+    print(f"  Mamba-2 2.7B ({CONFIG.n_layers} layers, d_model "
+          f"{CONFIG.d_model}): {n} parameters, {4 * n / 1e9:.2f} GB fp32, "
+          f"materialized in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _first_layers(tree, n):
+    """The model with its first ``n`` stacked layers (views)."""
+    if isinstance(tree, dict):
+        return {k: v if k in ("embed", "final_norm", "head")
+                else _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _rel(got, ref):
+    return float((got.float().cpu() - ref.float().cpu()).abs().max()) \
+        / float(ref.float().abs().max())
+
+
+def lm_model_phase(torch, params):
+    """The prefill forward at full width: launch counts of the kernel and
+    plain paths, fp32 kernel vs plain on the card, a 2-layer copy vs the
+    CPU, then the bf16 prefill step at 1 x LM_TOKENS timed and traced."""
+    import dataclasses
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.core.telemetry import measure
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.model import forward
+    from repro_torch.train.step import make_prefill_step
+
+    per_forward = len(LM_CONVS) * CONFIG.n_layers
+    gen = torch.Generator().manual_seed(6)
+    ok = True
+    f32 = dataclasses.replace(CONFIG, dtype="float32")
+    with torch.inference_mode():
+        tokens = torch.randint(0, CONFIG.vocab, LM_CHECK, generator=gen)
+        out = {}
+        for kernel in (True, False):
+            cfg = dataclasses.replace(f32, use_convdk_kernel=kernel)
+            reset_launches()                    # the main path starts here
+            out[kernel] = forward(params, {"tokens": tokens.to(DEVICE)}, cfg)
+            _sync(torch)
+            counts = launches()                 # ... and ends here
+            want = per_forward if kernel else 0
+            good = (counts["conv1d"] == want
+                    and not any(v for k, v in counts.items()
+                                if k != "conv1d"))
+            print(f"  fp32 forward {LM_CHECK[0]} x {LM_CHECK[1]}, kernel "
+                  f"{kernel}: logits {tuple(out[kernel].shape)}, launches "
+                  f"{counts} (want {want} conv1d) {'ok' if good else 'FAIL'}")
+            ok &= good
+        rel = _rel(out[True], out[False])
+        good = (bool(torch.isfinite(out[True]).all()) and rel <= MODEL_RTOL
+                and out[True].shape == (*LM_CHECK, CONFIG.vocab))
+        print(f"  kernel path vs plain path on the card: rel err {rel:.3e} "
+              f"(tol {MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        del out
+
+        two = dataclasses.replace(f32, n_layers=2, use_convdk_kernel=True)
+        p2 = _first_layers(params, 2)
+        tokens = torch.randint(0, CONFIG.vocab, LM_CPU, generator=gen)
+        got = forward(p2, {"tokens": tokens.to(DEVICE)}, two)
+        ref = forward(_cpu_tree(torch, p2), {"tokens": tokens}, two)
+        rel = _rel(got, ref)
+        good = bool(torch.isfinite(got).all()) and rel <= MODEL_RTOL
+        print(f"  2-layer full-width copy, {LM_CPU[0]} x {LM_CPU[1]}, vs the "
+              f"CPU plain run: max|cpu| {float(ref.abs().max()):.4e} rel err "
+              f"{rel:.3e} (tol {MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        del got, ref, p2
+
+        cfg = dataclasses.replace(CONFIG, use_convdk_kernel=True)   # bf16
+        step = make_prefill_step(cfg)
+        batch = {"tokens": torch.randint(0, CONFIG.vocab, (1, LM_TOKENS),
+                                         generator=gen).to(DEVICE)}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                        # the main path starts here
+        nxt = step(params, batch)
+        _sync(torch)
+        counts = launches()                     # ... and ends here
+        good = (counts["conv1d"] == per_forward and nxt.shape == (1,)
+                and 0 <= int(nxt) < CONFIG.vocab)
+        print(f"  bf16 prefill step 1 x {LM_TOKENS}: next token "
+              f"{int(nxt)}, launches {counts} (want {per_forward} conv1d), "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        fwd = measure(lambda: step(params, batch), iters=3, warmup=1)
+    print(f"  bf16 prefill step (1 x {LM_TOKENS}): {fwd.mean_ms:.3f} ms "
+          f"(CUDA events, mean of 3), {LM_TOKENS / fwd.mean_ms * 1e3:.0f} "
+          f"tokens/s")
+    trace = trace_phase(torch, lambda: step(params, batch), fwd.mean_ms)
+    return bool(ok), counts, {"prefill_ms": fwd.mean_ms, "trace": trace}
+
+
+def lm_serve_phase(torch, params):
+    """The engine at full width in bf16 on LM_REQUESTS, then its fp32
+    decode-loop prefill against the kernel path's forward."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.model import forward, init_decode_state
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = dataclasses.replace(CONFIG, use_convdk_kernel=True)
+    eng = Engine(cfg, params, ServeConfig(max_new_tokens=LM_NEW_TOKENS,
+                                          little_threshold=256),
+                 device=DEVICE)
+    spent = {"prefill": 0.0, "decode": 0.0}
+    work = {"prefill": 0, "decode": 0}
+
+    def timed(fn, key, count):
+        def wrapper(*args):
+            _sync(torch)
+            t = time.perf_counter()
+            out = fn(*args)
+            _sync(torch)
+            spent[key] += time.perf_counter() - t
+            work[key] += count(*args)
+            return out
+        return wrapper
+
+    eng.prefill = timed(eng.prefill, "prefill", lambda tok, st: tok.numel())
+    eng._step = timed(eng._step, "decode", lambda st, tok, g: tok.numel())
+    rng = np.random.default_rng(7)
+    reqs = [rng.integers(0, CONFIG.vocab, n).astype(np.int32)
+            for n in LM_REQUESTS]
+    batches = eng.schedule(reqs)
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate_many(reqs)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    ok = (len(outs) == len(reqs)
+          and all(o.shape == (LM_NEW_TOKENS,) and (o >= 0).all()
+                  and (o < CONFIG.vocab).all() for o in outs))
+    stats = {"wall_s": wall, "batches": batches,
+             "prefill_tokens": work["prefill"],
+             "prefill_tokens_per_s": work["prefill"] / spent["prefill"],
+             "decode_tokens": work["decode"],
+             "decode_ms_per_token": spent["decode"] / work["decode"] * 1e3,
+             "decode_steps_s": spent["decode"]}
+    print(f"  {len(reqs)} requests ({', '.join(map(str, LM_REQUESTS))} "
+          f"tokens) in batches {batches}: all answered "
+          f"{'ok' if ok else 'FAIL'} in {wall:.2f} s; launches {counts}")
+    print(f"  prefill {work['prefill']} tokens (padded) in "
+          f"{spent['prefill']:.2f} s: {stats['prefill_tokens_per_s']:.1f} "
+          f"tokens/s; decode {work['decode']} tokens in "
+          f"{spent['decode']:.2f} s: {stats['decode_ms_per_token']:.2f} ms "
+          f"per token (host clock, synchronized)")
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    eng32 = Engine(f32, params, device=DEVICE)
+    tokens = torch.randint(0, CONFIG.vocab, (2, 32),
+                           generator=torch.Generator().manual_seed(8))
+    with torch.inference_mode():
+        state = init_decode_state(f32, 2, 32, torch.float32, DEVICE)
+        _, last = eng32.prefill(tokens.to(DEVICE), state)
+        full = forward(params, {"tokens": tokens.to(DEVICE)}, f32)[:, -1]
+    rel = _rel(last, full)
+    good = bool(torch.isfinite(last).all()) and rel <= MODEL_RTOL
+    print(f"  fp32 decode-loop prefill of 2 x 32 tokens vs the kernel "
+          f"path's forward: rel err {rel:.3e} (tol {MODEL_RTOL:g}) "
+          f"{'ok' if good else 'FAIL'}")
+    return bool(ok and good), dict(stats, fp32_prefill_rel_err=rel)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1014,14 +1301,16 @@ def main() -> int:
           f"{torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import convdk_conv1d as tc
     from repro_torch.kernels import convdk_dw as td
     from repro_torch.kernels import convdk_fused as tfs
     from repro_torch.kernels import ops
     tb = time.perf_counter()
-    _build.build(["mbconv", "fusedmb", "separable"])
+    _build.build(["mbconv", "fusedmb", "separable", "conv1d"])
     tk._lib()
     tf._lib()
     tfs._lib()
+    tc._lib()
     print(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s")
 
     phases, marks = {}, [("build", t0)]
@@ -1076,6 +1365,16 @@ def main() -> int:
     phase("train", f"train: the separable trainer on the card, "
                    f"{TRAIN_STEPS} fused then {STAGED_STEPS} staged steps")
     phases["train"], train_launches, train = train_phase(torch)
+    phase("lm-kernels", f"lm-kernels: the conv1d kernel on a Mamba-2 2.7B "
+                        f"layer's convs, 1 x {LM_TOKENS} tokens")
+    phases["lm-kernels"] = lm_kernel_phase(torch, tc, stats)
+    phase("lm-model", "lm-model: full-width Mamba-2 2.7B prefill, kernel vs "
+                      "plain path, vs the CPU, timed")
+    lm_params = lm_init(torch)
+    phases["lm-model"], lm_launches, lm = lm_model_phase(torch, lm_params)
+    phase("lm-serve", "lm-serve: the LM engine at full width")
+    phases["lm-serve"], lm_serve = lm_serve_phase(torch, lm_params)
+    del lm_params
     marks.append(("end", time.perf_counter()))
     print(f"\nphases {phases}; seconds " + " ".join(
         f"{a[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])))
@@ -1091,7 +1390,8 @@ def main() -> int:
                    "v3_launches": v3_launches,
                    "b0_forward_backward": b0_train,
                    "train": train, "train_launches": train_launches,
-                   "rows": stats.rows}, f,
+                   "lm": lm, "lm_launches": lm_launches,
+                   "lm_serve": lm_serve, "rows": stats.rows}, f,
                   indent=1)
     if not all(phases.values()):
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1099,7 +1399,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": stats.summary(
         {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches,
-         "train": train_launches})}))
+         "train": train_launches, "lm": lm_launches}),
+        "lm_launches_per_prefill_forward": lm_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -61,17 +61,24 @@ def on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def check_cuda(*tensors: Optional[torch.Tensor]) -> None:
-    """What the kernels take: fp32, contiguous, 16-byte aligned tensors on
-    the current CUDA device (``None`` entries are skipped)."""
+# the dtypes of the MBConv, Fused-MBConv and separable kernels
+FP32: Tuple[torch.dtype, ...] = (torch.float32,)
+
+
+def check_cuda(*tensors: Optional[torch.Tensor],
+               dtypes: Tuple[torch.dtype, ...]) -> None:
+    """What a kernel takes: contiguous, 16-byte aligned tensors of one of
+    ``dtypes`` (each wrapper names its kernel's) on the current CUDA device
+    (``None`` entries are skipped)."""
     for t in tensors:
         if t is None:
             continue
         if t.device.type != "cuda" or t.device.index != torch.cuda.current_device():
             raise ValueError(f"tensor on {t.device}, kernel launches on "
                              f"cuda:{torch.cuda.current_device()}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"kernels take float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"kernel takes {', '.join(map(str, dtypes))}, "
+                             f"got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernels take contiguous 16-byte-aligned tensors")
 

@@ -17,7 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .common import check_cuda, on_cpu, ptr
+from .common import FP32, check_cuda, on_cpu, ptr
 from .convdk_fused import _lib, launch_error
 from .ref import depthwise_valid
 
@@ -61,7 +61,7 @@ def dw2d(x_strips: torch.Tensor, w: torch.Tensor, *, stride: int,
     if on_cpu(x_strips):
         return dw2d_plain(x_strips, w, stride=stride, out_w=out_w,
                           tile_h=tile_h)
-    check_cuda(x_strips, w)
+    check_cuda(x_strips, w, dtypes=FP32)
     b, n_th, in_rows, w_pad, c = x_strips.shape
     out = torch.empty((b, n_th, tile_h, out_w, c), device=x_strips.device)
     lib = _lib()

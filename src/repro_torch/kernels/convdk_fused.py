@@ -40,6 +40,7 @@ from ..core.autotune import (
 from . import _build
 from .common import (
     ACT_CODES,
+    FP32,
     check_cuda,
     needs_grad,
     on_cpu,
@@ -128,7 +129,7 @@ def fused_separable(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
     if on_cpu(x):
         return fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
                                      act=act)
-    check_cuda(x, w_dw, w_pw)
+    check_cuda(x, w_dw, w_pw, dtypes=FP32)
     b, h, w, c_in = x.shape
     c_out = w_pw.shape[1]
     out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)

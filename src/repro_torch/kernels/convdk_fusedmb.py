@@ -38,6 +38,7 @@ from ..core.autotune import (
 from . import _build
 from .common import (
     ACT_CODES,
+    FP32,
     check_cuda,
     needs_grad,
     on_cpu,
@@ -114,7 +115,7 @@ def fusedmb(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
     _check_shapes(x, w_conv, w_proj, geo)
     if on_cpu(x):
         return fusedmb_plain(x, w_conv, w_proj, geo, act=act)
-    check_cuda(x, w_conv, w_proj)
+    check_cuda(x, w_conv, w_proj, dtypes=FP32)
     b, h, w, c_in = x.shape
     c_mid, c_out = w_proj.shape
     out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)

@@ -43,6 +43,7 @@ from ..core.perfmodel import MBCONV_MODES
 from . import _build
 from .common import (
     ACT_CODES,
+    FP32,
     check_cuda,
     needs_grad,
     on_cpu,
@@ -192,7 +193,7 @@ def mbconv_pass1(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     if on_cpu(x):
         return mbconv_pass1_plain(x, w_exp, w_dw, geo, exp_act=exp_act,
                                   dw_act=dw_act, se=se, retain=retain)
-    check_cuda(x, w_exp, w_dw)
+    check_cuda(x, w_exp, w_dw, dtypes=FP32)
     b, h, w, c_in = x.shape
     c_mid = w_dw.shape[-1]
     partial = (torch.empty((b, geo.n_tiles, c_mid), device=x.device)
@@ -219,7 +220,7 @@ def mbconv_pool_reduce(partial: torch.Tensor) -> torch.Tensor:
     """(B, n_tiles, C) per-tile partials -> (B, C) sums, in tile order."""
     if on_cpu(partial):
         return mbconv_pool_reduce_plain(partial)
-    check_cuda(partial)
+    check_cuda(partial, dtypes=FP32)
     b, n_tiles, c = partial.shape
     pool = torch.empty((b, c), device=partial.device)
     _launch("mbconv_pool_reduce", ptr(partial), ptr(pool), b, n_tiles, c)
@@ -245,7 +246,7 @@ def mbconv_pass2_recompute(x: torch.Tensor, w_exp: Optional[torch.Tensor],
         return mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
                                             geo, exp_act=exp_act,
                                             dw_act=dw_act)
-    check_cuda(x, w_exp, w_dw, gate, w_proj)
+    check_cuda(x, w_exp, w_dw, gate, w_proj, dtypes=FP32)
     b, h, w, c_in = x.shape
     c_mid, c_out = w_proj.shape
     out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)
@@ -269,7 +270,7 @@ def mbconv_pass2_retain(dw: torch.Tensor, gate: Optional[torch.Tensor],
     projection -> (B, out_h, out_w, C_out)."""
     if on_cpu(dw):
         return mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
-    check_cuda(dw, gate, w_proj)
+    check_cuda(dw, gate, w_proj, dtypes=FP32)
     b, out_h, out_w, c_mid = dw.shape
     c_out = w_proj.shape[1]
     out = torch.empty((b, out_h, out_w, c_out), device=dw.device)

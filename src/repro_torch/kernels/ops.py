@@ -1,6 +1,7 @@
-"""The staged separable pipeline and the standalone depthwise op.
+"""The staged separable pipeline, the standalone depthwise op and the
+causal conv1d op.
 
-Counterpart of ``repro.kernels.ops``' 2-D part:
+Counterpart of ``repro.kernels.ops``:
 
 * ``stage_row_strips`` lays the padded input out as overlapping row
   strips, a PyTorch gather that WRITES the duplicated halo rows to device
@@ -11,11 +12,17 @@ Counterpart of ``repro.kernels.ops``' 2-D part:
 * ``convdk_separable_staged`` is the staged baseline: the depthwise
   output round-trips device memory into a separate ``torch.matmul`` for
   the pointwise projection (a plain product, which the JAX package also
-  leaves to XLA).
+  leaves to XLA);
+* ``stage_seq_strips`` is the JAX path's causal (B, L, D) -> strips
+  staging step, kept for parity: the conv1d kernel reads the unstaged input
+  and loads its own halo, so ``convdk_causal_conv1d`` never stages;
+* ``convdk_causal_conv1d`` runs the causal conv1d kernel
+  (``kernels.convdk_conv1d``), the Mamba-2 / RecurrentGemma stem.
 
-``convdk_depthwise2d`` is differentiable: when an operand requires grad it
-goes through an autograd Function whose backward is autograd through
-``depthwise2d_ref``, as the JAX package's ``custom_vjp`` backward is.
+``convdk_depthwise2d`` and ``convdk_causal_conv1d`` are differentiable:
+when an operand requires grad they go through an autograd Function whose
+backward is autograd through ``depthwise2d_ref`` / ``causal_conv1d_ref``,
+as the JAX package's ``custom_vjp`` backwards are.
 """
 
 from __future__ import annotations
@@ -26,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from .common import needs_grad, spatial_pads, vjp_through
+from .convdk_conv1d import conv1d
 from .convdk_dw import dw2d
-from .ref import _act_ref, depthwise2d_ref, pad_nhwc
+from .ref import _act_ref, causal_conv1d_ref, depthwise2d_ref, pad_nhwc
 
 
 def stage_row_strips(x: torch.Tensor, k: int, stride: int,
@@ -44,6 +52,18 @@ def stage_row_strips(x: torch.Tensor, k: int, stride: int,
     starts = torch.arange(n_th, device=x.device) * (tile_h * stride)
     idx = starts[:, None] + torch.arange(in_rows, device=x.device)[None, :]
     return x[:, idx]                                    # gather rows
+
+
+def stage_seq_strips(x: torch.Tensor, k: int, tile_l: int) -> torch.Tensor:
+    """(B, L, D) -> causal strips (B, n_tl, tile_l + k - 1, D): strip t
+    holds the left-padded positions [t*tile_l - k + 1, (t+1)*tile_l)."""
+    l = x.shape[1]
+    n_tl = -(-l // tile_l)
+    xp = F.pad(x, (0, 0, k - 1, n_tl * tile_l - l))
+    starts = torch.arange(n_tl, device=x.device) * tile_l
+    idx = starts[:, None] + torch.arange(tile_l + k - 1,
+                                         device=x.device)[None, :]
+    return xp[:, idx]
 
 
 def _dw2d_impl(x: torch.Tensor, w: torch.Tensor, stride: int, padding: str,
@@ -110,3 +130,41 @@ def convdk_separable_staged(
     y = convdk_depthwise2d(x, w_dw, stride=stride, padding=padding,
                            tile_h=tile_h)
     return _act_ref(torch.matmul(_act_ref(y, dw_act), w_pw), act)
+
+
+def _conv1d_impl(x: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor], activation: Optional[str],
+                 tile_l: int) -> torch.Tensor:
+    # the JAX wrapper's effective tile: whole sequences shorter than tile_l
+    tile = min(tile_l, -(-x.shape[1] // 8) * 8)
+    return conv1d(x.contiguous(), w, bias, activation, tile)
+
+
+class _CausalConv1dFn(torch.autograd.Function):
+    """``_conv1d_impl`` forward; backward through ``causal_conv1d_ref``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, activation, tile_l):
+        ctx.save_for_backward(x, w, bias)
+        ctx.activation = activation
+        return _conv1d_impl(x, w, bias, activation, tile_l)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        def ref(x, w, bias):
+            return causal_conv1d_ref(x, w, bias, ctx.activation).to(x.dtype)
+
+        return (*vjp_through(ref, ctx.saved_tensors, grad_out,
+                             ctx.needs_input_grad[:3]), None, None)
+
+
+def convdk_causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None, *,
+                         activation: Optional[str] = None,
+                         tile_l: int = 512) -> torch.Tensor:
+    """Causal depthwise Conv1D (+ fused bias / SiLU) through the conv1d
+    kernel.  x: (B, L, D); w: (k, D); bias: (D,) or None.  Returns
+    (B, L, D) in x's dtype."""
+    if needs_grad(x, w, bias):
+        return _CausalConv1dFn.apply(x, w, bias, activation, tile_l)
+    return _conv1d_impl(x, w, bias, activation, tile_l)

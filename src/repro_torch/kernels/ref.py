@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the separable, MBConv and Fused-MBConv kernels
-(NHWC, JAX layouts).
+"""Plain PyTorch oracles for the separable, MBConv, Fused-MBConv and causal
+conv1d kernels (NHWC and (B, L, D), JAX layouts).
 
 Counterparts of ``repro.kernels.ref``: the ground truth the kernels and
 the port's host glue are checked against.  Only torch primitives.
@@ -7,7 +7,7 @@ the port's host glue are checked against.  Only torch primitives.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -126,3 +126,41 @@ def fusedmb_ref(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
     e = F.conv2d(xp, w_conv.float().permute(3, 2, 0, 1), stride=stride)
     e = _act_ref(e.permute(0, 2, 3, 1), act)
     return (e @ w_proj.float()).to(x.dtype)
+
+
+def causal_conv1d_ref(x: torch.Tensor, w: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      activation: Optional[str] = None) -> torch.Tensor:
+    """Causal depthwise Conv1D oracle (the Mamba-2 / RecurrentGemma stem).
+
+    x: (B, L, D); w: (k, D); out[t] = sum_i w[i] * x[t - k + 1 + i].  The
+    dtypes promote as in ``repro.kernels.ref.causal_conv1d_ref``: with x and
+    w in bf16 every partial sum rounds to bf16; with fp32 w the result is
+    fp32.
+    """
+    k, l = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + l, :] * w[i]
+    if bias is not None:
+        out = out + bias
+    if activation == "silu":
+        out = out * torch.sigmoid(out)
+    return out
+
+
+def causal_conv1d_update_ref(
+    state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None, activation: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token decode step.  state: (B, k-1, D) last inputs; x_t:
+    (B, D).  Returns (y_t, new_state)."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)       # (B, k, D)
+    dtype = torch.promote_types(window.dtype, w.dtype)       # as jnp.einsum
+    y = torch.einsum("bkd,kd->bd", window.to(dtype), w.to(dtype))
+    if bias is not None:
+        y = y + bias
+    if activation == "silu":
+        y = y * torch.sigmoid(y)
+    return y, window[:, 1:, :]

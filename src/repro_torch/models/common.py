@@ -1,12 +1,19 @@
-"""The depthwise-separable block (the MobileNet building block).
+"""Shared building blocks: RMSNorm, dense projections, embeddings and the
+depthwise-separable block (the MobileNet building block).
 
-Counterpart of the separable part of ``repro.models.common``:
-``separable_def`` declares one block's parameters and ``separable_block``
-applies it, through the fused kernel (``kernels.convdk_fused``) or, with
-``fused=False``, the staged pipeline (``kernels.ops``) that the JAX
-package selects with ``ConvKernelConfig.fused_separable``.  The tile comes
-from ``core.autotune.get_fused_schedule``.  Single device: the mesh, the
-schedule pin and the layouts of the JAX block are not ported yet.
+Counterpart of ``repro.models.common``:
+
+* ``rmsnorm`` (fp32 inside, the input's dtype out), ``dense`` (the weight
+  cast to the input's dtype on every call, as the JAX package writes it),
+  ``embed`` / ``unembed`` / ``head_def``, with their ``*_def``
+  declarations;
+* ``separable_def`` declares one separable block's parameters and
+  ``separable_block`` applies it, through the fused kernel
+  (``kernels.convdk_fused``) or, with ``fused=False``, the staged pipeline
+  (``kernels.ops``) that the JAX package selects with
+  ``ConvKernelConfig.fused_separable``.  The tile comes from
+  ``core.autotune.get_fused_schedule``.  Single device: the mesh, the
+  schedule pin and the layouts of the JAX block are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +26,46 @@ from ..core.autotune import FusedSchedule, get_fused_schedule
 from ..kernels.convdk_fused import convdk_fused_separable
 from ..kernels.ops import convdk_separable_staged
 from .param import P
+
+
+def rmsnorm_def(d: int) -> dict:
+    return {"scale": P((d,), init="ones")}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].float()).to(dtype)
+
+
+def dense_def(d_in: int, d_out: int) -> dict:
+    return {"w": P((d_in, d_out))}
+
+
+def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["w"].to(x.dtype)
+
+
+def embed_def(vocab: int, d: int) -> dict:
+    return {"table": P((vocab, d), init="embed")}
+
+
+def embed(params: dict, tokens: torch.Tensor,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    # the rows, then the cast: the same values as the JAX package's cast
+    # of the whole table, then the rows
+    return params["table"][tokens.long()].to(dtype)
+
+
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits via the (possibly tied) embedding table."""
+    return x @ params["table"].to(x.dtype).T
+
+
+def head_def(d: int, vocab: int) -> dict:
+    return {"w": P((d, vocab))}
 
 
 def separable_def(c_in: int, c_out: int, k: int = 3) -> dict:

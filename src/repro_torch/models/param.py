@@ -28,7 +28,9 @@ ParamTree = Any  # nested dict of P (defs) or torch.Tensor (materialized)
 class P:
     """One parameter declaration.
 
-    init  : "normal" (trunc-normal at +-2 std, fan-in scaled) or "zeros".
+    init  : "normal" (trunc-normal at +-2 std, fan-in scaled), "zeros",
+            "ones", "constant" (every entry ``scale or 0.0``) or "embed" (a
+            standard normal times ``scale``, default 1).
     scale : multiplies the fan-in std (default 1).
     """
 
@@ -45,13 +47,18 @@ def _fan_in(shape: Tuple[int, ...]) -> int:
 def _init_leaf(p: P, generator: torch.Generator) -> torch.Tensor:
     if p.init == "zeros":
         return torch.zeros(p.shape)
+    if p.init == "ones":
+        return torch.ones(p.shape)
+    if p.init == "constant":
+        return torch.full(p.shape, p.scale or 0.0)
+    scale = p.scale if p.scale is not None else 1.0
+    if p.init == "embed":
+        return torch.randn(p.shape, generator=generator).mul_(scale)
     if p.init != "normal":
         raise ValueError(f"unsupported init {p.init!r}")
-    std = (p.scale if p.scale is not None else 1.0) / math.sqrt(
-        max(1, _fan_in(p.shape)))
     t = torch.empty(p.shape)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t * std
+    return t.mul_(scale / math.sqrt(max(1, _fan_in(p.shape))))
 
 
 def _map(tree: ParamTree, fn) -> ParamTree:
@@ -62,12 +69,27 @@ def _map(tree: ParamTree, fn) -> ParamTree:
     return fn(tree)
 
 
+def count_params(tree: ParamTree) -> int:
+    """Entries over every leaf of a definition (or tensor) tree."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return int(np.prod(tree.shape))
+
+
+def stack_defs(tree: ParamTree, n: int) -> ParamTree:
+    """Prepend a layer dimension of size ``n`` to every leaf: the layout of
+    a stack of identical layers (as ``repro.models.param.stack_defs``)."""
+    return _map(tree, lambda p: P((n,) + p.shape, init=p.init,
+                                  scale=p.scale))
+
+
 def materialize(tree: ParamTree, generator: torch.Generator,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> ParamTree:
     """Initialize every leaf from ``generator`` (a CPU generator, so the
     same seed gives the same weights on every device), then move them to
-    ``device`` (default CUDA; raises when CUDA is absent)."""
+    ``device`` (default CUDA; raises when CUDA is absent).  Leaf by leaf,
+    so the host holds one leaf at a time."""
     dev = resolve_device(device)
     return _map(tree, lambda p: _init_leaf(p, generator).to(dev))
 

@@ -2,8 +2,8 @@
 imports, pulls in JAX or the JAX package; its entry points raise rather
 than fall back to the CPU; its kernel counters stay at 0 on the CPU;
 ``chip_smoke.py`` fails without a card; and (on a card only) each kernel
-agrees with its plain version, and each op's gradient on the card with
-autograd through its plain version."""
+agrees with its plain version (B7 in fp32 and bf16), and each op's
+gradient on the card with autograd through its plain version."""
 
 import ast
 import os
@@ -18,24 +18,33 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import mamba2_2p7b
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
 from repro_torch.examples import train_mobilenet_cim
+from repro_torch.kernels import convdk_conv1d as tc
 from repro_torch.kernels import convdk_dw as td
 from repro_torch.kernels import convdk_fused as tfs
 from repro_torch.kernels import convdk_fusedmb as tf
 from repro_torch.kernels import convdk_mbconv as tk
 from repro_torch.kernels import launches, ops, reset_launches
-from repro_torch.kernels.ref import depthwise2d_ref, mbconv_ref, pad_nhwc
+from repro_torch.kernels.ref import (
+    causal_conv1d_ref,
+    depthwise2d_ref,
+    mbconv_ref,
+    pad_nhwc,
+)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.mbconv import (
     EfficientNetB0,
     EfficientNetV2S,
     efficientnet_b0_def,
 )
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import model as lm
 from repro_torch.models.common import separable_block
 from repro_torch.models.param import from_numpy, materialize
-from repro_torch.serve import VisionEngine
+from repro_torch.serve import Engine, VisionEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -71,7 +80,11 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.convdk_dw", "repro_torch.kernels.ops",
             "repro_torch.models.common",
             "repro_torch.core.workloads",
-            "repro_torch.examples.train_mobilenet_cim"} <= set(mods)
+            "repro_torch.examples.train_mobilenet_cim",
+            "repro_torch.kernels.convdk_conv1d", "repro_torch.models.ssd",
+            "repro_torch.models.model", "repro_torch.serve.engine",
+            "repro_torch.train.step", "repro_torch.launch.serve",
+            "repro_torch.configs.mamba2_2p7b"} <= set(mods)
     smoke = sorted(_smoke_imports())
     assert "repro_torch.models.mbconv" in smoke
     assert not [m for m in smoke if m.split(".")[0] in ("jax", "repro")]
@@ -109,6 +122,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         EfficientNetV2S(efficientnet_v2_s_smoke())
     with pytest.raises(RuntimeError, match="CUDA"):
         train_mobilenet_cim.main(["--steps", "1"])
+    smoke = mamba2_2p7b.SMOKE
+    with pytest.raises(RuntimeError, match="CUDA"):
+        materialize(lm.model_def(smoke), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(smoke, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", "mamba2-2.7b", "--smoke"])
     # no fallback: a tensor on neither the CPU nor a CUDA card raises
     meta = lambda *sh: torch.empty(*sh, device="meta")  # noqa: E731
     with pytest.raises(ValueError, match="unsupported device"):
@@ -120,6 +140,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         td.dw2d(meta(1, 2, 4, 7, 4), meta(3, 3, 4), stride=1, out_w=5,
                 tile_h=2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.convdk_causal_conv1d(meta(1, 9, 4), meta(4, 4), meta(4),
+                                 activation="silu")
     params = materialize(tree, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         VisionEngine(params, cfg)
@@ -144,9 +167,14 @@ def test_launch_counters_stay_zero_on_cpu():
                 t(2, 9, 11, 6), {"dw": t(3, 3, 6), "pw": t(6, 10)},
                 stride=s, fused=fused)
             assert out.shape == (2, -(-9 // s), -(-11 // s), 10)
+    for bias in (None, t(6)):
+        out = ops.convdk_causal_conv1d(t(2, 19, 6), t(4, 6), bias,
+                                       activation="silu", tile_l=8)
+        assert out.shape == (2, 19, 6)
     assert set(tk.LAUNCHES) == set(tk.KERNELS)
     assert set(launches()) == set(tk.KERNELS) | {"fusedmb",
-                                                 "fused_separable", "dw2d"}
+                                                 "fused_separable", "dw2d",
+                                                 "conv1d"}
     assert all(n == 0 for n in launches().values())
 
 
@@ -281,6 +309,41 @@ def test_separable_kernels_match_plain_on_card(k, s, h, w, c_in, c_out,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [40, 42, 128, 5120])
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_conv1d_kernel_matches_plain_on_card(k, d, dtype):
+    """B7 at odd lengths (1, 7, 513 and 4097 tokens: one row, a ragged
+    tile, a ragged last tile of 512), a ragged D (42: not a multiple of
+    the 4-channel group, the scalar path), both activations, with and
+    without bias.  fp32 within 1e-4 * max|plain| + 1e-5; bf16 within 1
+    bf16 ulp of the plain version's fp32 sum rounded once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    g = torch.Generator().manual_seed(100 * k + d)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    w, bias = r(k, d) * 0.5, r(d) * 0.1
+    for l in (1, 7, 513, 4097):
+        x = r(2, l, d).to(dtype)
+        for act in (None, "silu"):
+            for b in (bias, None):
+                got = tc.conv1d(x, w, b, act, min(512, -(-l // 8) * 8))
+                ref = tc.conv1d_plain(x, w, b, act)
+                assert got.dtype == dtype
+                if dtype == torch.float32:
+                    _close_on_card(got, ref)
+                else:
+                    ref32 = ref.float()
+                    exp = torch.frexp(ref32)[1]
+                    ulp = torch.where(ref32 == 0,
+                                      torch.full_like(ref32, 2.0 ** -133),
+                                      torch.ldexp(torch.ones_like(ref32),
+                                                  exp - 8))
+                    assert bool(((got.float() - ref32).abs() <= ulp).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_ops_take_gradients_on_card(monkeypatch):
     """A CUDA output of each op carries its Function's grad_fn (the kernel
     ran forward), and its gradients match autograd through the plain
@@ -309,6 +372,13 @@ def test_ops_take_gradients_on_card(monkeypatch):
          lambda a, b, c: tf.fusedmb_plain(a, b, c, geo, act="silu"),
          (x8, r(3, 3, 8, 16) * 0.2, r(16, 12) * 0.25)),
     ]
+    for act in (None, "silu"):
+        cases.append((
+            "_CausalConv1dFnBackward",
+            lambda a, b, c, z=act: ops.convdk_causal_conv1d(
+                a, b, c, activation=z, tile_l=8),
+            lambda a, b, c, z=act: causal_conv1d_ref(a, b, c, z),
+            (r(2, 19, 40), r(4, 40) * 0.5, r(40) * 0.1)))
     for mode in ("retain", "recompute"):
         cases.append((
             "_MBConvFnBackward",
