@@ -8,12 +8,17 @@ Phases, each of which must pass (exit 1 otherwise):
 1. build    prints the card (name, power limit), torch / CUDA / nvcc versions,
             turns TF32 off for the plain versions (cuDNN's convolutions
             default to it) and builds the CUDA kernels from the sources, one
-            nvcc per source, all started together.
+            nvcc per source, all started together, beside one more build of
+            mbconv.cu with -Xptxas -v whose registers, shared memory and
+            spills of the pass-1, retain and split-K kernels are printed.
 2. kernels  full-width EfficientNet-B0, batch 8, at every serve bucket
             (224, 384, 512): on every block, with the tiles and modes the
             engine solves for that bucket, each MBConv kernel (pass 1 with
-            and without the DW write, the pool reduce, pass 2 recompute and
-            retain), with the block's activation and SE, against its plain
+            and without the DW write, the pool reduce, pass 2 recompute at
+            the tile a recompute pin solves and retain, which must repeat
+            bit for bit, and retain's split-K reduce where the block's plan
+            splits C_mid, exactly), with the block's activation and SE,
+            against its plain
             PyTorch version on the same inputs on the card, within
             1e-4 * max|plain| + 1e-5.  At 224 each is also timed: device
             time of 20 calls replayed from one CUDA graph (kernel, plain
@@ -109,6 +114,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -140,6 +146,7 @@ REPLACES = {
     "mbconv_pool_reduce": "src/repro/kernels/convdk_mbconv.py:151",
     "mbconv_pass2_recompute": "src/repro/kernels/convdk_mbconv.py:169",
     "mbconv_pass2_retain": "src/repro/kernels/convdk_mbconv.py:220",
+    "mbconv_splitk_reduce": "src/repro/kernels/convdk_mbconv.py:245",
     "fusedmb": "src/repro/kernels/convdk_fusedmb.py:59",
     "fused_separable": "src/repro/kernels/convdk_fused.py:59",
     "dw2d": "src/repro/kernels/convdk_dw.py:32",
@@ -264,6 +271,59 @@ class KernelStats:
         return out
 
 
+PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_retain_kernel",
+                 "mbconv_splitk_reduce_kernel")
+
+
+def start_ptxas_report(nvcc, out_dir):
+    """Starts one extra ``nvcc -Xptxas -v`` build of mbconv.cu (beside the
+    kernels' own builds), for the registers, shared memory and spills of
+    the pass-1 and retain kernels."""
+    from repro_torch.kernels import _build
+    os.makedirs(out_dir, exist_ok=True)
+    return subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         os.path.join(out_dir, "mbconv_ptxas.so"),
+         os.path.join(ROOT, CSRC, "mbconv.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_ptxas_report(proc):
+    """Per instantiation of PTXAS_KERNELS: registers, static shared
+    memory, stack and spill bytes, as ptxas printed them."""
+    import re
+    out, _ = proc.communicate(timeout=600)
+    names, rows, fn = {}, {}, None
+    for line in out.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or not any(k in fn for k in PTXAS_KERNELS):
+            continue
+        row = rows.setdefault(fn, {})
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            v = re.search(pat, line)
+            if v:
+                row[key] = int(v.group(1))
+    if rows and shutil.which("c++filt"):
+        dem = subprocess.run(["c++filt"], input="\n".join(rows),
+                             capture_output=True, text=True).stdout.split("\n")
+        names = dict(zip(rows, dem))
+    short = lambda n: (re.search(r"mbconv_\w+<[^>]*>", n)  # noqa: E731
+                       or re.search(r".*", n)).group(0)
+    report = {short(names.get(fn, fn)): row for fn, row in rows.items()}
+    print(f"  nvcc -Xptxas -v mbconv.cu (rc {proc.returncode}):")
+    for fn, row in sorted(report.items()):
+        print(f"    {fn[:110]}: {row}")
+    return report
+
+
 def _sync(torch):
     if DEVICE == "cuda":
         torch.cuda.synchronize()
@@ -312,6 +372,8 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
     (pool partials, the pool reduce, a gate of the spec's flavour) or
     without (no partials, no pool reduce, ``gate=None``).  ``timed(on_path)``
     says which are timed."""
+    from repro_torch.core.autotune import get_mbconv_schedule
+
     h, w, c_in, c_mid, c_out, k, s = row[:7]
     identity = c_mid == c_in
     se = sp.has_se
@@ -373,21 +435,33 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
             part_b + 4 * b * c_mid, b * geo.n_tiles * c_mid, **shape)
 
     on_path = sch.mode == "recompute"
-    got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
+    # a retain block's pass-1 tile may pass B2's cap: off the path, the
+    # recompute kernel runs at the tile a recompute pin would solve
+    pin = get_mbconv_schedule(b, h, w, c_in, c_mid, c_out, k, s,
+                              se_ratio=sp.se_ratio, mode="recompute")
+    g2 = geo if on_path else tk.MBConvGeometry.make(
+        h, w, k, s, "SAME", pin.tile_h, pin.tile_w)
+    got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, g2,
                                     **acts)
     ref = tk.mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
-                                          geo, **acts)
+                                          g2, **acts)
     ok &= stats.add(
         "mbconv_pass2_recompute", net, res, i, on_path, *hx.check(got, ref),
         hx.times(timed(on_path),
                  lambda: tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate,
-                                                   w_proj, geo, **acts),
+                                                   w_proj, g2, **acts),
                  lambda: tk.mbconv_pass2_recompute_plain(
-                     x, w_exp, w_dw, gate, w_proj, geo, **acts)),
-        x_b + w1_b + w2_b + out_b, exp_f + dw_f + proj_f, **shape)
+                     x, w_exp, w_dw, gate, w_proj, g2, **acts)),
+        x_b + w1_b + w2_b + out_b, exp_f + dw_f + proj_f,
+        **dict(shape, tile=f"{g2.tile_h}x{g2.tile_w}"))
 
     on_path = sch.mode == "retain"
     got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
+    again = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
+    if not torch.equal(got, again):
+        print(f"  {net} r{res} block{i:02d} retain does not repeat bit for "
+              "bit: FAIL")
+        ok = False
     ref = tk.mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
     library = ((lambda: torch.einsum("bhwc,bc,co->bhwo", dw, gate, w_proj))
                if se else (lambda: dw @ w_proj))
@@ -399,6 +473,21 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
                                                       geo),
                  library),
         dw_b + w2_b + out_b, proj_f, **shape)
+
+    # retain's split-K reduce, where the plan splits C_mid, on partials of
+    # the shape the split launch writes; it must equal its plain version
+    splits = tk.retain_plan(b * oh * ow, c_mid, c_out)[2]
+    if splits > 1:
+        part = hx.rand(splits, b, oh, ow, c_out)
+        red = tk.mbconv_splitk_reduce(part)
+        err = float((red - tk.mbconv_splitk_reduce_plain(part)).abs().max())
+        ok &= stats.add(
+            "mbconv_splitk_reduce", net, res, i, on_path, err, 0.0,
+            hx.times(timed(on_path), lambda: tk.mbconv_splitk_reduce(part),
+                     lambda: tk.mbconv_splitk_reduce_plain(part),
+                     lambda: part.sum(dim=0)),
+            4 * (splits + 1) * b * oh * ow * c_out,
+            (splits - 1) * b * oh * ow * c_out, splits=splits, **shape)
     _sync(torch)
     return ok
 
@@ -846,7 +935,6 @@ def grad_phase(torch):
         sp = specs[i]
         h, w, c_in, c_mid, c_out, k, s = block_chain_rows(
             specs, -(-res // 2), -(-res // 2))[i][:7]
-        sch = block_schedules(specs, BATCH, res, res)[i]
         acts = dict(exp_act=sp.act, dw_act=sp.act)
         se = dict(se_act=sp.se_act, gate_act=sp.gate_act)
         args = [hx.rand(BATCH, h, w, c_in),
@@ -861,7 +949,10 @@ def grad_phase(torch):
         n_se = 4 if sp.has_se else 0
         good = True
         for mode in modes:
-            def op(*a, m=mode):
+            # each mode at the tile the forward solves when pinned to it
+            sch = block_schedules(specs, BATCH, res, res, mode=mode)[i]
+
+            def op(*a, m=mode, sch=sch):
                 x, w_exp, w_dw, *rest = a
                 se_w = rest[:n_se] if n_se else [None] * 4
                 return convdk_mbconv_fused(
@@ -1306,12 +1397,15 @@ def main() -> int:
     from repro_torch.kernels import convdk_fused as tfs
     from repro_torch.kernels import ops
     tb = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    ptxas = start_ptxas_report(_build.nvcc_path(), out_dir)
     _build.build(["mbconv", "fusedmb", "separable", "conv1d"])
     tk._lib()
     tf._lib()
     tfs._lib()
     tc._lib()
     print(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s")
+    ptxas = finish_ptxas_report(ptxas)
 
     phases, marks = {}, [("build", t0)]
 
@@ -1379,10 +1473,8 @@ def main() -> int:
     print(f"\nphases {phases}; seconds " + " ".join(
         f"{a[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])))
 
-    out_dir = os.path.join(ROOT, "build", "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "kernels.json"), "w") as f:
-        json.dump({"card": smi, "torch": torch.__version__,
+        json.dump({"card": smi, "torch": torch.__version__, "ptxas": ptxas,
                    "cuda": torch.version.cuda, "forward_ms": fwd_ms,
                    "trace": trace, "v2s_forward_ms": v2s_ms,
                    "v2s_trace": v2s_trace, "serve_latency_s": pct,

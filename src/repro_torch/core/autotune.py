@@ -14,6 +14,10 @@ full-width window does not fit a CTA's shared memory.  The solvers pick:
   tile stays within the kernels' per-CTA pixel cap, staging the fewest
   input columns over the row (ties to the wider tile).
 
+An MBConv block solved to retain runs its pass 2 as a GEMM with no tile,
+so its tile is pass 1's alone (``pass1_tile``: occupancy and halo, not
+bytes); the retain GEMM's tile and K splits come from ``retain_plan``.
+
 The separable and Fused-MBConv blocks have no mode axis (one pass), and on
 one card no family has a residency or collective axis.  Schedules are
 cached in-process by family, shape and mode pin.
@@ -21,8 +25,9 @@ cached in-process by family, shape and mode pin.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 from .perfmodel import (
     MBCONV_MODES,
@@ -43,6 +48,24 @@ C_BLOCK = 32                        # one warp lane per channel
 MAX_TILE_PIXELS = 64                # tile_h * tile_w cap
 PIXEL_STRIDE = C_BLOCK + 4          # padded against bank conflicts
 TILE_H_CANDIDATES = (1, 2, 4, 8)
+
+# The redesigned MBConv pass 1 and retain kernels (kernels/csrc/mbconv.cu,
+# P1_* and R_BK there; the wrapper checks them against the built library).
+SM_COUNT = 132                      # H100 SXM
+P1_CI_CHUNK = 16                    # C_in chunk per cp.async ring slot
+P1_MAX_TILE_PIXELS = 128            # pass-1 tile_h * tile_w cap
+P1_PAD = 4                          # padding floats per staged pixel
+P1_THREADS = 256
+P1_SLOTS = 3                        # cp.async ring slots over C_in
+P1_PIXEL_BLOCK = 4                  # expand pixels per register block
+P1_MAX_BLOCKS = 4                   # register blocks per thread and pass
+P1_CTAS_PER_SM = 3                  # resident pass-1 CTAs the planner wants
+SMEM_PER_SM = 233472                # 228 KB, 1 KB of it reserved per CTA
+P1_SMEM_TARGET = SMEM_PER_SM // P1_CTAS_PER_SM - 1024
+RETAIN_K_CHUNK = 32                 # retain's K chunk (C_mid)
+RETAIN_TILES = ((128, 64), (64, 64), (128, 32), (64, 32))   # (BM, BN)
+RETAIN_MIN_CTAS = 2 * SM_COUNT      # split K below about two waves
+RETAIN_MIN_SPLIT_CHUNKS = 2         # K chunks each split sums at least
 
 
 @dataclass(frozen=True)
@@ -81,9 +104,9 @@ def window_extent(tile: int, k: int, s: int) -> int:
 
 
 def smem_bytes(shape: MBConvShape, tile_h: int, tile_w: int) -> int:
-    """Dynamic shared memory of the larger of the two expand+DW kernels:
-    the f32 expanded window plus the per-tile DW block (pass 2) or the
-    pool reduction rows (pass 1, never larger)."""
+    """Dynamic shared memory of the recompute kernel (B2), whose tile
+    pass 1 shares on recompute blocks: the f32 expanded window of one
+    32-channel tile plus the per-tile DW block."""
     window = (window_extent(tile_h, shape.k, shape.s)
               * window_extent(tile_w, shape.k, shape.s))
     return (window + MAX_TILE_PIXELS) * C_BLOCK * 4
@@ -136,6 +159,103 @@ def fused_separable_smem_bytes(shape: SeparableShape, tile_h: int,
         window_extent(tile_w, shape.k, shape.s), shape.c_out)
 
 
+def pass1_cm_tile(c_mid: int) -> int:
+    """c_mid channels one pass-1 CTA owns (mbconv.cu's ``p1_cm_tile``): 64,
+    or 32 where 64-wide tiles would pad C_mid by more than an eighth."""
+    pad64 = -(-c_mid // 64) * 64 - c_mid
+    return 64 if c_mid >= 64 and pad64 * 8 <= c_mid else 32
+
+
+def pass1_smem_bytes(k: int, s: int, tile_h: int, tile_w: int, c_in: int,
+                     c_mid: int) -> int:
+    """Dynamic shared memory of one pass-1 CTA with an expand (mbconv.cu's
+    ``p1_smem_floats``; an identity expand takes no more): the expanded
+    window (pixels rounded up to P1_PIXEL_BLOCK, padded), then one region
+    holding the staged x and w_exp chunks (P1_SLOTS ring slots, fewer where
+    C_in has fewer chunks) during the expand and the DW tile and pool rows
+    after it."""
+    cmt = pass1_cm_tile(c_mid)
+    q4 = (-(-(window_extent(tile_h, k, s) * window_extent(tile_w, k, s))
+            // P1_PIXEL_BLOCK) * P1_PIXEL_BLOCK)
+    slots = min(P1_SLOTS, -(-c_in // P1_CI_CHUNK))
+    stage = slots * (q4 * (P1_CI_CHUNK + P1_PAD) + P1_CI_CHUNK * cmt)
+    after = tile_h * tile_w * (cmt + P1_PAD) + P1_THREADS // (cmt // 4) * cmt
+    return (q4 * (cmt + P1_PAD) + max(stage, after)) * 4
+
+
+def pass1_single_pass(k: int, s: int, tile_h: int, tile_w: int,
+                      c_mid: int) -> bool:
+    """True where pass 1 expands the tile's whole window in one pass, its
+    sums in registers (at most P1_MAX_BLOCKS pixel blocks per thread)."""
+    lanes = P1_THREADS // (pass1_cm_tile(c_mid) // 4)
+    window = window_extent(tile_h, k, s) * window_extent(tile_w, k, s)
+    return window <= P1_MAX_BLOCKS * P1_PIXEL_BLOCK * lanes
+
+
+def pass1_ctas(b: int, out_h: int, out_w: int, c_mid: int, tile_h: int,
+               tile_w: int) -> int:
+    """CTAs of one pass-1 launch: tiles x c_mid tiles x batch."""
+    return (-(-out_h // tile_h) * -(-out_w // tile_w)
+            * -(-c_mid // pass1_cm_tile(c_mid)) * b)
+
+
+def pass1_tile(b: int, out_h: int, out_w: int, c_in: int, c_mid: int,
+               k: int, s: int) -> Tuple[int, int]:
+    """The pass-1 tile of a retain block.  Among tiles of at most
+    P1_MAX_TILE_PIXELS whose CTA fits P1_SMEM_TARGET (P1_CTAS_PER_SM CTAs
+    resident on an SM, so one CTA's staging overlaps another's arithmetic),
+    whose window takes one pass and whose launch gives at least one CTA
+    per SM, the one expanding the fewest window pixels over the whole map
+    (the halo recompute; ties to fewer tiles, then to the taller tile).
+    Where none does: the most CTAs within the target, else within the
+    CTA's budget."""
+    cands = []
+    for th in range(1, min(out_h, P1_MAX_TILE_PIXELS) + 1):
+        for tw in range(1, min(out_w, P1_MAX_TILE_PIXELS // th) + 1):
+            smem = pass1_smem_bytes(k, s, th, tw, c_in, c_mid)
+            if smem > SMEM_BYTES:
+                continue
+            n = -(-out_h // th) * -(-out_w // tw)
+            expanded = n * window_extent(th, k, s) * window_extent(tw, k, s)
+            cands.append((smem <= P1_SMEM_TARGET
+                          and pass1_single_pass(k, s, th, tw, c_mid),
+                          pass1_ctas(b, out_h, out_w, c_mid, th, tw),
+                          expanded, n, -th, tw))
+    if not cands:
+        raise ValueError(f"no pass-1 tile fits the CTA budget: {out_h}x"
+                         f"{out_w}, c_mid {c_mid}, k {k}, s {s}")
+    full = [c for c in cands if c[0] and c[1] >= SM_COUNT]
+    best = (min(full, key=lambda c: c[2:]) if full
+            else max(cands, key=lambda c: (c[0], c[1], -c[2])))
+    return -best[4], best[5]
+
+
+@functools.lru_cache(maxsize=None)
+def retain_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
+    """(BM, BN, splits) of the retain GEMM, M = B * out_h * out_w rows,
+    K = C_mid, N = C_out.  BN 32 below C_out 64, else 64; BM 128 for the
+    deep GEMMs (K >= 512, M >= 1024: V2-S's late stages), whose per-thread
+    8 x 4 tile reads shared memory least per product, else 64; then the
+    fewest K splits that reach RETAIN_MIN_CTAS CTAs, each split summing at
+    least RETAIN_MIN_SPLIT_CHUNKS K chunks (the most such splits where none
+    reaches it).  Only split counts that leave no split empty are taken:
+    ``splits = ceil(chunks / ceil(chunks / splits))``.  Chosen from a
+    sweep of every tile and split count on the card over the B0 and V2-S
+    blocks."""
+    bn = 32 if n < 64 else 64
+    bm = 128 if k >= 512 and m >= 1024 else 64
+    tiles = -(-m // bm) * -(-n // bn)
+    chunks = -(-k // RETAIN_K_CHUNK)
+    splits = 1
+    for cand in range(1, max(1, chunks // RETAIN_MIN_SPLIT_CHUNKS) + 1):
+        if -(-chunks // -(-chunks // cand)) != cand:
+            continue            # some split would be empty
+        splits = cand
+        if tiles * cand >= RETAIN_MIN_CTAS:
+            break
+    return bm, bn, splits
+
+
 def _pick_tile_w(shape, tile_h: int,
                  smem: Callable[..., int] = smem_bytes) -> Optional[int]:
     cap = min(shape.out_w, MAX_TILE_PIXELS // tile_h)
@@ -168,8 +288,16 @@ def select_mbconv_schedule(shape: MBConvShape,
             cands.append(MBConvSchedule(th, tw, m, total))
     if not cands:
         raise ValueError(f"no MBConv tile fits the CTA budget: {shape}")
-    return min(cands, key=lambda c: (c.total_bytes, -c.tile_h,
+    best = min(cands, key=lambda c: (c.total_bytes, -c.tile_h,
                                      c.mode != "retain"))
+    if best.mode != "retain":
+        return best
+    # retain's pass 2 is a GEMM with no tile: the tile is pass 1's alone
+    th, tw = pass1_tile(shape.b, -(-shape.h // shape.s),
+                        -(-shape.w // shape.s), shape.c_in, shape.c_mid,
+                        shape.k, shape.s)
+    return MBConvSchedule(th, tw, "retain", mbconv_fused_traffic(
+        shape, th, "retain", C_BLOCK).total_bytes)
 
 
 def select_fusedmb_schedule(shape: MBConvShape) -> FusedMBSchedule:

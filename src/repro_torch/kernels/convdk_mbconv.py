@@ -11,16 +11,20 @@ Counterpart of ``repro.kernels.convdk_mbconv``:
   order, so the SE pool repeats bit for bit.
 * **SE MLP** between the passes, in PyTorch: two tiny FCs on (B, C_mid).
 * **Pass 2** folds the SE gate into the projection, reading the DW tensor
-  back (``mbconv_pass2_retain``) or recomputing expand + DW from the input
-  (``mbconv_pass2_recompute``).
+  back (``mbconv_pass2_retain``, a GEMM over the flattened pixels, split
+  over C_mid where the card would be short of CTAs) or recomputing
+  expand + DW from the input (``mbconv_pass2_recompute``).
+* **Split-K reduce** (``mbconv_splitk_reduce``): sums retain's per-split
+  partials in split order, so retain repeats bit for bit.
 
 Each pass wrapper launches its kernel (``kernels/csrc/mbconv.cu``) for
 CUDA tensors and runs its plain PyTorch version for CPU tensors; any
 other device raises.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-The kernels tile the output in ``tile_h x tile_w`` pixels (see
-``core.autotune``); SAME padding, ragged tiles and ragged channel tiles
-are masked inside the kernels, so the wrappers pad nothing.
+Pass 1 and recompute tile the output in ``tile_h x tile_w`` pixels, and
+retain takes its GEMM tile and split count from ``core.autotune.
+retain_plan``; SAME padding, ragged tiles and ragged channel tiles are
+masked inside the kernels, so the wrappers pad nothing.
 
 ``convdk_mbconv_fused`` is differentiable: when an operand requires grad
 it goes through an autograd Function whose forward is the two passes above
@@ -38,7 +42,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..core.autotune import C_BLOCK, MAX_TILE_PIXELS
+from ..core.autotune import (
+    C_BLOCK,
+    MAX_TILE_PIXELS,
+    P1_CI_CHUNK,
+    P1_MAX_TILE_PIXELS,
+    RETAIN_K_CHUNK,
+    pass1_cm_tile,
+    pass1_smem_bytes,
+    retain_plan,
+)
 from ..core.perfmodel import MBCONV_MODES
 from . import _build
 from .common import (
@@ -54,17 +67,24 @@ from .common import (
 from .ref import _act_ref, depthwise_valid, mbconv_ref, pad_nhwc
 
 KERNELS: Tuple[str, ...] = ("mbconv_pass1", "mbconv_pool_reduce",
-                            "mbconv_pass2_recompute", "mbconv_pass2_retain")
+                            "mbconv_pass2_recompute", "mbconv_pass2_retain",
+                            "mbconv_splitk_reduce")
 # kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "mbconv_pass1": [_P] * 5 + [_I] * 16 + [_P],
     "mbconv_pool_reduce": [_P, _P, _I, _I, _I, _P],
     "mbconv_pass2_recompute": [_P] * 6 + [_I] * 17 + [_P],
     "mbconv_pass2_retain": [_P] * 4 + [_I] * 7 + [_P],
+    "mbconv_splitk_reduce": [_P, _P, _I, _L, _P],
 }
+# (k, s, tile_h, tile_w, c_in, c_mid) at which _lib() holds the built
+# pass-1 shared-memory formula against core.autotune's
+_SMEM_PROBES = ((3, 1, 8, 8, 16, 32), (5, 2, 7, 4, 112, 672),
+                (5, 1, 12, 8, 192, 1152), (3, 2, 4, 8, 16, 96),
+                (5, 2, 4, 4, 24, 144))
 
 
 def reset_launches() -> None:
@@ -80,10 +100,19 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.mbconv_error_string.argtypes = [ctypes.c_int]
     lib.mbconv_error_string.restype = ctypes.c_char_p
-    built = (lib.mbconv_channel_tile(), lib.mbconv_max_tile_pixels())
-    if built != (C_BLOCK, MAX_TILE_PIXELS):
-        raise RuntimeError(f"mbconv.cu tiles {built} disagree with "
-                           f"core.autotune {(C_BLOCK, MAX_TILE_PIXELS)}")
+    lib.mbconv_pass1_smem_bytes.argtypes = [_I] * 7
+    lib.mbconv_pass1_smem_bytes.restype = ctypes.c_longlong
+    built = (lib.mbconv_channel_tile(), lib.mbconv_max_tile_pixels(),
+             lib.mbconv_pass1_ci_chunk(), lib.mbconv_pass1_max_tile_pixels(),
+             lib.mbconv_retain_k_chunk(), lib.mbconv_pass1_cm_tile(40),
+             lib.mbconv_pass1_cm_tile(96),
+             *(lib.mbconv_pass1_smem_bytes(*p, 0) for p in _SMEM_PROBES))
+    want = (C_BLOCK, MAX_TILE_PIXELS, P1_CI_CHUNK, P1_MAX_TILE_PIXELS,
+            RETAIN_K_CHUNK, pass1_cm_tile(40), pass1_cm_tile(96),
+            *(pass1_smem_bytes(*p) for p in _SMEM_PROBES))
+    if built != want:
+        raise RuntimeError(f"mbconv.cu constants {built} disagree with "
+                           f"core.autotune {want}")
     return lib
 
 
@@ -247,6 +276,9 @@ def mbconv_pass2_recompute(x: torch.Tensor, w_exp: Optional[torch.Tensor],
                                             geo, exp_act=exp_act,
                                             dw_act=dw_act)
     check_cuda(x, w_exp, w_dw, gate, w_proj, dtypes=FP32)
+    if geo.tile_h * geo.tile_w > MAX_TILE_PIXELS:
+        raise ValueError(f"the recompute kernel takes tiles of at most "
+                         f"{MAX_TILE_PIXELS} pixels, got {geo}")
     b, h, w, c_in = x.shape
     c_mid, c_out = w_proj.shape
     out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)
@@ -267,15 +299,41 @@ def mbconv_pass2_retain(dw: torch.Tensor, gate: Optional[torch.Tensor],
                         w_proj: torch.Tensor, geo: MBConvGeometry
                         ) -> torch.Tensor:
     """Pass 2, retain: the DW tensor x gate (``None`` = se off),
-    projection -> (B, out_h, out_w, C_out)."""
+    projection -> (B, out_h, out_w, C_out).  ``geo`` is checked against
+    ``dw``'s shape only: the GEMM's tile and K splits come from
+    ``retain_plan``, and a split launch ends in ``mbconv_splitk_reduce``."""
+    b, out_h, out_w, c_mid = dw.shape
+    if (out_h, out_w) != (geo.out_h, geo.out_w):
+        raise ValueError(f"dw {tuple(dw.shape)} does not match {geo}")
     if on_cpu(dw):
         return mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
     check_cuda(dw, gate, w_proj, dtypes=FP32)
-    b, out_h, out_w, c_mid = dw.shape
     c_out = w_proj.shape[1]
-    out = torch.empty((b, out_h, out_w, c_out), device=dw.device)
+    m = b * out_h * out_w
+    bm, bn, splits = retain_plan(m, c_mid, c_out)
+    out = torch.empty((splits, b, out_h, out_w, c_out), device=dw.device)
     _launch("mbconv_pass2_retain", ptr(dw), ptr(gate), ptr(w_proj),
-            ptr(out), b, out_h, out_w, c_mid, c_out, geo.tile_h, geo.tile_w)
+            ptr(out), m, c_mid, c_out, out_h * out_w, bm, bn, splits)
+    return out[0] if splits == 1 else mbconv_splitk_reduce(out)
+
+
+def mbconv_splitk_reduce_plain(partial: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mbconv_splitk_reduce``, in the kernel's order."""
+    acc = partial[0].clone()
+    for z in range(1, partial.shape[0]):
+        acc = acc + partial[z]
+    return acc
+
+
+def mbconv_splitk_reduce(partial: torch.Tensor) -> torch.Tensor:
+    """(splits, ...) per-split partial products -> their sum, taken in
+    split order."""
+    if on_cpu(partial):
+        return mbconv_splitk_reduce_plain(partial)
+    check_cuda(partial, dtypes=FP32)
+    out = torch.empty(partial.shape[1:], device=partial.device)
+    _launch("mbconv_splitk_reduce", ptr(partial), ptr(out), partial.shape[0],
+            out.numel())
     return out
 
 

@@ -18,10 +18,11 @@ stacked tensors layer by layer (views, no copies); ``remat`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..kernels.common import resolve_device
 from . import ssd as ssd_mod
 from .common import (
     dense, embed, embed_def, head_def, rmsnorm, rmsnorm_def, unembed,
@@ -252,10 +253,13 @@ def forward(params: dict, batch: Dict[str, torch.Tensor],
 
 def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
                       dtype: torch.dtype = torch.bfloat16,
-                      device: Union[str, torch.device] = "cpu") -> dict:
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> dict:
     """Per-layer state tree, stacked along the layer axis for the stack.
-    ``s_max`` sizes attention caches; the SSM state is constant-size."""
+    ``s_max`` sizes attention caches; the SSM state is constant-size.
+    ``device`` defaults to the card (``resolve_device``)."""
     _require_ported(cfg)
+    device = resolve_device(device)
     n_prefix, n_stack = _layer_groups(cfg)
 
     def layer():

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..kernels.common import resolve_device
 from ..kernels.ops import convdk_causal_conv1d
 from ..kernels.ref import causal_conv1d_ref, causal_conv1d_update_ref
 from .common import dense, dense_def, rmsnorm, rmsnorm_def
@@ -188,7 +189,11 @@ class SSDState(NamedTuple):
 
 def init_ssd_state(batch: int, cfg: SSDConfig,
                    dtype: torch.dtype = torch.bfloat16,
-                   device: Union[str, torch.device] = "cpu") -> SSDState:
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> SSDState:
+    """Zero decode state of one layer; ``device`` defaults to the card
+    (``resolve_device``)."""
+    device = resolve_device(device)
     gn = cfg.n_groups * cfg.d_state
     kw = dict(dtype=dtype, device=device)
     return SSDState(

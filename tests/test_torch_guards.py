@@ -21,6 +21,7 @@ import repro_torch
 from repro_torch.configs import mamba2_2p7b
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
+from repro_torch.core.autotune import retain_plan
 from repro_torch.examples import train_mobilenet_cim
 from repro_torch.kernels import convdk_conv1d as tc
 from repro_torch.kernels import convdk_dw as td
@@ -44,6 +45,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model as lm
 from repro_torch.models.common import separable_block
 from repro_torch.models.param import from_numpy, materialize
+from repro_torch.models.ssd import init_ssd_state
 from repro_torch.serve import Engine, VisionEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -127,6 +129,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         materialize(lm.model_def(smoke), torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(smoke, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_decode_state(smoke, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_ssd_state(2, smoke.ssd_cfg())
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "mamba2-2.7b", "--smoke"])
     # no fallback: a tensor on neither the CPU nor a CUDA card raises
@@ -239,6 +245,70 @@ def test_kernels_match_plain_on_card(k, s, identity, act, gate_act, se):
                                           **acts))
     close(tk.mbconv_pass2_retain(dw_ref.contiguous(), gate, w_proj, geo),
           tk.mbconv_pass2_retain_plain(dw_ref, gate, w_proj, geo))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    # retain (B, out_h, out_w, C_mid, C_out): M not a multiple of BM and
+    # C_mid not of the 16-deep K chunk, with C_out 24 and 40
+    ("retain", (3, 7, 9, 72, 24)),
+    ("retain", (2, 13, 11, 100, 40)),
+    ("retain", (8, 28, 28, 144, 40)),     # B0 block 3: no split
+    ("retain", (1, 7, 7, 1152, 320)),     # B = 1, split K
+    ("retain", (8, 7, 7, 1152, 192)),     # B0 block 13: split K
+    ("retain", (2, 5, 7, 42, 30)),        # C_mid, C_out not multiples of 4
+    # pass 1 (H, W, C_in, C_mid, k, s, tile_h, tile_w, identity) on retain
+    # geometries with tiles above B2's 64-pixel cap
+    ("pass1", (28, 28, 40, 120, 5, 1, 10, 10, False)),
+    ("pass1", (28, 28, 40, 240, 5, 1, 14, 7, False)),
+    ("pass1", (29, 27, 24, 42, 3, 2, 7, 12, False)),
+    ("pass1", (23, 25, 72, 72, 3, 1, 11, 11, True)),
+])
+def test_redesigned_kernels_match_plain_on_card(kind, shape):
+    """The redesigned retain GEMM (B3, with its split-K reduce) and pass 1
+    (B1) at ragged shapes, with and without the SE gate: within
+    1e-4 * max|plain| + 1e-5 of their plain versions; retain and the
+    split-K reduce repeat bit for bit on a second call, and the reduce
+    equals its plain version exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    g = torch.Generator().manual_seed(sum(shape) + len(kind))
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    if kind == "retain":
+        b, oh, ow, c_mid, c_out = shape
+        dw, w_proj = r(b, oh, ow, c_mid), r(c_mid, c_out) / c_mid ** 0.5
+        geo = tk.MBConvGeometry.make(oh, ow, 1, 1, "SAME", 8, 8)
+        for gate in (torch.sigmoid(r(b, c_mid)), None):
+            got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
+            _close_on_card(got, tk.mbconv_pass2_retain_plain(dw, gate,
+                                                             w_proj, geo))
+            assert torch.equal(got, tk.mbconv_pass2_retain(dw, gate, w_proj,
+                                                           geo))
+        splits = retain_plan(b * oh * ow, c_mid, c_out)[2]
+        part = r(splits, b, oh, ow, c_out)
+        red = tk.mbconv_splitk_reduce(part)
+        torch.testing.assert_close(red, tk.mbconv_splitk_reduce_plain(part),
+                                   rtol=0, atol=0)
+        assert torch.equal(red, tk.mbconv_splitk_reduce(part))
+    else:
+        h, w, c_in, c_mid, k, s, tile_h, tile_w, identity = shape
+        x, w_dw = r(2, h, w, c_in), r(k, k, c_mid) * 0.3
+        w_exp = None if identity else r(c_in, c_mid) / c_in ** 0.5
+        geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+        assert geo.tile_h * geo.tile_w > 64
+        acts = dict(exp_act=None if identity else "silu", dw_act="silu")
+        for se in (True, False):
+            part, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                       retain=True, **acts)
+            part_ref, dw_ref = tk.mbconv_pass1_plain(x, w_exp, w_dw, geo,
+                                                     se=se, retain=True,
+                                                     **acts)
+            _close_on_card(dw, dw_ref)
+            if se:
+                _close_on_card(part, part_ref)
+            else:
+                assert part is None
     torch.cuda.synchronize()
 
 

@@ -134,7 +134,7 @@ def test_decode_step_matches_jax(weights):
     against the JAX package's after each step."""
     jparams, params = weights
     tokens = np.random.default_rng(5).integers(0, SMOKE.vocab, (3, 6))
-    state = model.init_decode_state(SMOKE, 3, 6, torch.float32)
+    state = model.init_decode_state(SMOKE, 3, 6, torch.float32, "cpu")
     jstate = jax_model.init_decode_state(jax_configs.SMOKE, 3, 6, jnp.float32)
     for t in range(6):
         logits, state = model.decode_step(

@@ -25,12 +25,24 @@ from repro_torch.core import perfmodel as tperf
 from repro_torch.core.autotune import (
     C_BLOCK,
     MAX_TILE_PIXELS,
+    P1_MAX_TILE_PIXELS,
+    P1_SMEM_TARGET,
+    RETAIN_K_CHUNK,
+    RETAIN_MIN_CTAS,
+    RETAIN_MIN_SPLIT_CHUNKS,
+    RETAIN_TILES,
+    SM_COUNT,
     SMEM_BYTES,
     get_mbconv_schedule,
+    pass1_ctas,
+    pass1_smem_bytes,
+    retain_plan,
     select_mbconv_schedule,
     smem_bytes,
+    window_extent,
 )
 from repro_torch.kernels import convdk_mbconv as tk
+from repro_torch.models import mbconv as tmb
 from repro_torch.kernels.ref import _act_ref as torch_act
 from repro_torch.kernels.ref import mbconv_ref as torch_mbconv_ref
 
@@ -174,18 +186,131 @@ def test_copied_traffic_model_equals_jax(mode, tile_h):
 
 
 def test_hopper_schedules_fit_and_use_both_modes():
-    """Every B0 block at 224/b8 gets a tile within the kernels' pixel cap
-    and the CTA's shared memory, and the chain runs both pass-2 kernels."""
+    """Every B0 block at 224/b8 gets a tile within its kernels' pixel cap
+    and the CTA's shared memory (recompute blocks: B2's cap, which pass 1
+    shares; retain blocks: pass 1's), and the chain runs both pass-2
+    kernels."""
     modes = set()
     for sh in _b0_shapes():
         sch = get_mbconv_schedule(**sh)
         shape = tperf.MBConvShape(**sh)
-        assert sch.tile_h * sch.tile_w <= MAX_TILE_PIXELS
-        assert smem_bytes(shape, sch.tile_h, sch.tile_w) <= SMEM_BYTES
+        if sch.mode == "recompute":
+            assert sch.tile_h * sch.tile_w <= MAX_TILE_PIXELS
+            assert smem_bytes(shape, sch.tile_h, sch.tile_w) <= SMEM_BYTES
+        assert sch.tile_h * sch.tile_w <= P1_MAX_TILE_PIXELS
+        assert pass1_smem_bytes(shape.k, shape.s, sch.tile_h, sch.tile_w,
+                                shape.c_in, shape.c_mid) <= SMEM_BYTES
         assert sch.total_bytes == tperf.mbconv_fused_traffic(
             shape, sch.tile_h, sch.mode, C_BLOCK).total_bytes
         modes.add(sch.mode)
     assert modes == {"retain", "recompute"}
+
+
+# the networks and sizes the port serves, batch 8
+_NETS = [("b0", 224), ("b0", 384), ("b0", 512), ("v2s", 384), ("v3", 224)]
+
+
+def _port_blocks(net, res, batch=8):
+    """(row, schedule) of every MBConv block of the port's ``net`` at
+    ``res``, as the forward solves them."""
+    specs = {"b0": lambda: tmb.effnet_block_specs(tmb.EffNetConfig()),
+             "v2s": lambda: tmb.effnet_v2_block_specs(tmb.EffNetV2Config()),
+             "v3": lambda: tmb.mobilenet_v3_specs(
+                 tmb.MobileNetV3Config())}[net]()
+    half = -(-res // 2)
+    rows = tmb.block_chain_rows(specs, half, half)
+    schedules = tmb.block_schedules(specs, batch, res, res)
+    return [(r, sch) for r, sp, sch in zip(rows, specs, schedules)
+            if sp.family != "fusedmb"]
+
+
+def _achievable_splits(k):
+    """Split counts of K = ``k`` that leave no split empty, each split
+    summing at least RETAIN_MIN_SPLIT_CHUNKS chunks (or one split)."""
+    chunks = -(-k // RETAIN_K_CHUNK)
+    return [s for s in range(1, max(1, chunks // RETAIN_MIN_SPLIT_CHUNKS) + 1)
+            if -(-chunks // -(-chunks // s)) == s]
+
+
+@pytest.mark.parametrize("net,res", _NETS)
+def test_retain_plan_fills_a_wave_with_fewest_splits(net, res):
+    """Each block's retain GEMM plan takes a tile the kernel has, leaves no
+    split empty, gives at least one wave of CTAs on the card (or splits as
+    far as allowed), and takes no more splits than needed to reach
+    RETAIN_MIN_CTAS."""
+    for r, _ in _port_blocks(net, res):
+        out_h, out_w = -(-r.h // r.s), -(-r.w // r.s)
+        m, k, n = 8 * out_h * out_w, r.c_mid, r.c_out
+        bm, bn, splits = retain_plan(m, k, n)
+        assert (bm, bn) in RETAIN_TILES
+        tiles = -(-m // bm) * -(-n // bn)
+        ok = _achievable_splits(k)
+        assert splits in ok
+        assert tiles * splits >= SM_COUNT or splits == max(ok), (r, splits)
+        assert all(tiles * s < RETAIN_MIN_CTAS for s in ok if s < splits)
+
+
+@pytest.mark.parametrize("net,res", _NETS)
+def test_pass1_tiles_fit_and_keep_a_wave(net, res):
+    """Every block's tile fits pass 1's shared memory and pixel cap;
+    recompute blocks stay within B2's cap and budget.  A retain block's
+    pass-1 tile leaves room for P1_CTAS_PER_SM CTAs per SM and keeps a wave
+    of CTAs (these networks always have such a tile), and expands no more
+    window pixels than B2's tile would where that tile does the same."""
+    for r, sch in _port_blocks(net, res):
+        shape = tperf.MBConvShape(b=8, h=r.h, w=r.w, c_in=r.c_in,
+                                  c_mid=r.c_mid, c_out=r.c_out, k=r.k,
+                                  s=r.s)
+        th, tw = sch.tile_h, sch.tile_w
+        smem = pass1_smem_bytes(r.k, r.s, th, tw, r.c_in, r.c_mid)
+        assert th * tw <= P1_MAX_TILE_PIXELS and smem <= SMEM_BYTES
+        if sch.mode == "recompute":
+            assert th * tw <= MAX_TILE_PIXELS
+            assert smem_bytes(shape, th, tw) <= SMEM_BYTES
+            continue
+        out_h, out_w = -(-r.h // r.s), -(-r.w // r.s)
+        assert smem <= P1_SMEM_TARGET
+        assert pass1_ctas(8, out_h, out_w, r.c_mid, th, tw) >= SM_COUNT
+
+        def expanded(a, b):
+            return (-(-out_h // a) * -(-out_w // b)
+                    * window_extent(a, r.k, r.s) * window_extent(b, r.k, r.s))
+
+        b2 = select_mbconv_schedule(shape, "recompute")
+        if (pass1_smem_bytes(r.k, r.s, b2.tile_h, b2.tile_w, r.c_in,
+                             r.c_mid) <= P1_SMEM_TARGET
+                and pass1_ctas(8, out_h, out_w, r.c_mid, b2.tile_h,
+                               b2.tile_w) >= SM_COUNT):
+            assert expanded(th, tw) <= expanded(b2.tile_h, b2.tile_w)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+def test_splitk_reduce_plain_sums_in_split_order(splits):
+    """The split-K reduce's plain version (and so the CPU wrapper) is the
+    plain sum of the splits in split order, bit for bit."""
+    rng = np.random.default_rng(splits)
+    p = (rng.normal(size=(splits, 3, 5, 7, 9))
+         * 10.0 ** rng.integers(-3, 4, size=(splits, 1, 1, 1, 1))
+         ).astype(np.float32)
+    want = p[0].copy()
+    for z in range(1, splits):
+        want = want + p[z]
+    got = tk.mbconv_splitk_reduce(torch.from_numpy(p))
+    assert got.shape == (3, 5, 7, 9)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tk.mbconv_splitk_reduce_plain(torch.from_numpy(p)).numpy(), want)
+
+
+def test_retain_checks_geometry_against_dw():
+    """``geo`` only checks the DW tensor's shape: a mismatch raises."""
+    geo = tk.MBConvGeometry.make(9, 11, 3, 2, "SAME", 2, 4)
+    dw = torch.zeros(2, geo.out_h, geo.out_w, 8)
+    w = torch.zeros(8, 4)
+    assert tk.mbconv_pass2_retain(dw, None, w, geo).shape == \
+        (2, geo.out_h, geo.out_w, 4)
+    with pytest.raises(ValueError, match="does not match"):
+        tk.mbconv_pass2_retain(dw[:, :-1].contiguous(), None, w, geo)
 
 
 def test_schedule_mode_pin_and_cache():

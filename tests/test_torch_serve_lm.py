@@ -55,7 +55,7 @@ def test_prefill_matches_forward(weights):
     against the JAX engine's prefill (1e-4 * max + 1e-6)."""
     jeng, eng = _engines(weights, max_new_tokens=2)
     prompts = _prompts(1, (2, 12))
-    state = model.init_decode_state(SMOKE, 2, 16, torch.float32)
+    state = model.init_decode_state(SMOKE, 2, 16, torch.float32, "cpu")
     _, last = eng.prefill(torch.from_numpy(prompts).long(), state)
     full = model.forward(weights[1], {"tokens": torch.from_numpy(prompts)},
                          SMOKE)
@@ -146,7 +146,7 @@ def test_prefill_and_serve_steps_match_jax(weights):
     want = jax_step.make_prefill_step(JCFG)(jparams,
                                             {"tokens": jnp.asarray(prompts)})
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    state = model.init_decode_state(SMOKE, 2, 8, torch.float32)
+    state = model.init_decode_state(SMOKE, 2, 8, torch.float32, "cpu")
     jstate = jax_model.init_decode_state(JCFG, 2, 8, jnp.float32)
     serve, jserve = step.make_serve_step(SMOKE), jax_step.make_serve_step(JCFG)
     tok, jtok = torch.from_numpy(prompts[:, 0]), jnp.asarray(prompts[:, 0])
