@@ -9,8 +9,9 @@ Phases, each of which must pass (exit 1 otherwise):
             turns TF32 off for the plain versions (cuDNN's convolutions
             default to it) and builds the CUDA kernels from the sources, one
             nvcc per source, all started together, beside one more build of
-            mbconv.cu with -Xptxas -v whose registers, shared memory and
-            spills of the pass-1, retain and split-K kernels are printed.
+            each of mbconv.cu, fusedmb.cu and separable.cu with -Xptxas -v
+            whose registers, shared memory and spills per kernel are
+            printed.
 2. kernels  full-width EfficientNet-B0, batch 8, at every serve bucket
             (224, 384, 512): on every block, with the tiles and modes the
             engine solves for that bucket, each MBConv kernel (pass 1 with
@@ -39,9 +40,10 @@ Phases, each of which must pass (exit 1 otherwise):
             CPU plain run of its padded image within 1e-3 relative.
 6. v2s-kernels  full-width EfficientNet-V2-S at 384x384, batch 8, with the
             solved tiles: the Fused-MBConv kernel against its plain version
-            on each of the 10 fused blocks, and every MBConv kernel on each
-            of the 30 MBConv blocks, at the same bar.  The kernels each block
-            runs are timed as in phase 2.
+            on each of the 10 fused blocks (and bit for bit on a second
+            call), and every MBConv kernel on each of the 30 MBConv blocks,
+            at the same bar.  The kernels each block runs are timed as in
+            phase 2.
 7. v2s-model    the V2-S main path: full-width V2-S at 384, batch 8, on the
             card, launch counts zeroed just before and read just after
             (exactly 10 Fused-MBConv launches, one per fused block); the
@@ -58,11 +60,20 @@ Phases, each of which must pass (exit 1 otherwise):
             just after, against the CPU plain run within 1e-3 relative.
 10. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
             batch 8, and the trainer's 3 blocks at its batch 32, with the
-            solved tiles: the fused separable kernel (dw_act relu, act relu
-            and None, relu6 on one block) and the depthwise kernel over
-            the staged strips of the padded input, each against its plain
-            version at the phase-2 bar, timed as in phase 2 (the depthwise
-            kernel also beside F.conv2d(groups=C) on the unstaged input).
+            solved tiles and C_in splits: the fused separable kernel (with
+            its split reduce where the block splits; dw_act relu, act relu
+            and None, relu6 on one block; bit for bit on a second call), the
+            split reduce alone on partials of the block's shape (exactly
+            its plain version) and the depthwise kernel over the staged
+            strips of the padded input, each against its plain version at
+            the phase-2 bar, timed as in phase 2 (the fused rows include
+            the reduce; the depthwise kernel also beside F.conv2d(groups=C)
+            on the unstaged input); the depthwise kernel in bf16 on the
+            trainer's blocks within 1 bf16 ulp of the fp32 sum rounded once,
+            timed; then the 17 blocks through separable_block (the path of
+            the split reduce), counts zeroed just before and read just
+            after: exactly 17 fused separable launches and one reduce per
+            split block.
 11. grad        on the card, each op's input and weight gradients (fused
             separable and depthwise at a MobileNet-V2 block, MBConv retain
             and recompute with SE at a B0 block, MBConv without SE at a V3
@@ -73,14 +84,22 @@ Phases, each of which must pass (exit 1 otherwise):
             weights and labels) against the CPU plain run, within 1e-3 *
             max|cpu grad| per leaf; then B0 forward + backward at batch 8
             timed on CUDA events and traced.
-12. train       the separable training path: the trainer
-            (repro_torch.examples.train_mobilenet_cim) on the card for 60
-            fused steps, which must print DESCENDED with exactly 3 fused
-            separable launches and no depthwise launch per step, then 20
-            --staged steps with exactly 3 depthwise launches and no fused
-            one per step (counts zeroed just before each run, read just
-            after); both runs' step-1 losses within 1e-5 relative, and the
-            fused run's within 1e-5 of a CPU plain run of the trainer.
+12. train       the separable training path, under deterministic
+            algorithms (cuDNN deterministic, no cuDNN benchmark,
+            torch.use_deterministic_algorithms, CUBLAS_WORKSPACE_CONFIG set
+            before torch is imported; the first two restored after the
+            phase): the trainer (repro_torch.examples.train_mobilenet_cim)
+            on the card for 60 fused steps twice, with exactly 3 fused
+            separable launches, no split reduce (its blocks never split)
+            and no depthwise launch per step, the two runs' losses bit for
+            bit equal; then 30 --staged steps with exactly 3 depthwise
+            launches and no fused one per step (counts zeroed just before
+            each run, read just after); every loss of steps 1-30 of the
+            fused and the staged runs within 1e-3 relative of a 30-step
+            CPU plain run of the trainer, and step 1 within 1e-5 of it and
+            of each other.  The fused run's DESCENDED/check verdict and
+            step-60 ratio are printed: a single step of the chaotic lr 0.5
+            trajectory is not a check of the code.
 13. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
             layer (D 5120, 128, 128; k 4; SiLU; bias) at batch 1 x 32768
             tokens, in bf16 (within 1 bf16 ulp of the plain version's
@@ -119,6 +138,10 @@ import subprocess
 import sys
 import time
 
+# cuBLAS's deterministic workspace for the train phase's pinned run: read
+# when cuBLAS first initialises, so set before torch is imported
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, HBM3
@@ -131,7 +154,8 @@ SERVE_RES = (224, 384, 512)                # the serve phase's buckets
 V2S_RES, V2S_CPU_IMAGES = 384, 2           # V2-S eval size; images on CPU
 V3_RES = 224
 MNV2_RES = 224                             # MobileNet-V2's published size
-TRAIN_STEPS, STAGED_STEPS = 60, 20         # the trainer's fused / staged runs
+TRAIN_STEPS, STAGED_STEPS = 60, 30         # the trainer's fused / staged runs
+TRAIN_CPU_STEPS, TRAIN_RTOL = 30, 1e-3     # card vs CPU plain run, per step
 GRAD_RTOL = 1e-3                           # x max|cpu grad|, per leaf
 GRAD_CPU_IMAGES = 2                        # B0 gradient images vs the CPU
 LM_TOKENS = 32768                          # the bf16 prefill: 1 x 32768
@@ -149,6 +173,7 @@ REPLACES = {
     "mbconv_splitk_reduce": "src/repro/kernels/convdk_mbconv.py:245",
     "fusedmb": "src/repro/kernels/convdk_fusedmb.py:59",
     "fused_separable": "src/repro/kernels/convdk_fused.py:59",
+    "fused_separable_reduce": "src/repro/kernels/convdk_fused.py:107",
     "dw2d": "src/repro/kernels/convdk_dw.py:32",
     "conv1d": "src/repro/kernels/convdk_conv1d.py:27",
 }
@@ -156,6 +181,7 @@ CSRC = "src/repro_torch/kernels/csrc"
 SOURCES = {k: f"{CSRC}/{k if k == 'fusedmb' else 'mbconv'}.cu"
            for k in REPLACES}
 SOURCES.update(fused_separable=f"{CSRC}/separable.cu",
+               fused_separable_reduce=f"{CSRC}/separable.cu",
                dw2d=f"{CSRC}/separable.cu", conv1d=f"{CSRC}/conv1d.cu")
 
 
@@ -239,16 +265,27 @@ class KernelStats:
                           f"layer (D {', '.join(str(d) for _, d in LM_CONVS)}, "
                           f"k 4, SiLU), each timed once; library: grouped "
                           f"F.conv1d + F.silu")
+            elif kernel == "fused_separable_reduce":
+                n, sums = self.sums(kernel, "mnv2", MNV2_RES)
+                entry.update(launches=launches["mnv2"][kernel], **sums,
+                             shape=f"MobileNet-V2 {MNV2_RES}x{MNV2_RES} "
+                                   f"batch {BATCH}: the {n} blocks whose "
+                                   f"C_in is split; launches of the 17 "
+                                   f"blocks through separable_block (the "
+                                   f"trainer's blocks never split)")
             elif kernel in ("fused_separable", "dw2d"):
                 n, sums = self.sums(kernel, "mnv2", MNV2_RES)
                 n_tr, tr_sums = self.sums(kernel, "trainer", 32)
+                note = (" (times with the split reduce)"
+                        if kernel == "fused_separable" else "")
                 entry.update(launches=launches["train"][kernel], **sums,
                              shape=f"MobileNet-V2 {MNV2_RES}x{MNV2_RES} "
-                                   f"batch {BATCH}, {n} separable blocks; "
-                                   f"launches of the trainer's "
+                                   f"batch {BATCH}, {n} separable blocks"
+                                   f"{note}; launches of the trainer's "
                                    f"{TRAIN_STEPS} fused + {STAGED_STEPS} "
                                    f"staged steps",
-                             trainer=dict(tr_sums, blocks=n_tr))
+                             trainer=dict(tr_sums, blocks=n_tr),
+                             mnv2_path_launches=launches["mnv2"][kernel])
             elif kernel == "fusedmb":
                 n, sums = self.sums(kernel, "v2s", V2S_RES)
                 entry.update(launches=launches["v2s"][kernel], **sums,
@@ -271,56 +308,65 @@ class KernelStats:
         return out
 
 
+PTXAS_SOURCES = ("mbconv", "fusedmb", "separable")
 PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_retain_kernel",
-                 "mbconv_splitk_reduce_kernel")
+                 "mbconv_splitk_reduce_kernel", "fusedmb_kernel",
+                 "fused_separable_kernel", "fused_separable_reduce_kernel",
+                 "dw2d_kernel")
 
 
 def start_ptxas_report(nvcc, out_dir):
-    """Starts one extra ``nvcc -Xptxas -v`` build of mbconv.cu (beside the
-    kernels' own builds), for the registers, shared memory and spills of
-    the pass-1 and retain kernels."""
+    """Starts one extra ``nvcc -Xptxas -v`` build of each of PTXAS_SOURCES
+    (beside the kernels' own builds), for the registers, shared memory and
+    spills of PTXAS_KERNELS."""
     from repro_torch.kernels import _build
     os.makedirs(out_dir, exist_ok=True)
-    return subprocess.Popen(
+    return {name: subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         os.path.join(out_dir, "mbconv_ptxas.so"),
-         os.path.join(ROOT, CSRC, "mbconv.cu")],
+         os.path.join(out_dir, f"{name}_ptxas.so"),
+         os.path.join(ROOT, CSRC, f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in PTXAS_SOURCES}
 
 
-def finish_ptxas_report(proc):
+def finish_ptxas_report(procs):
     """Per instantiation of PTXAS_KERNELS: registers, static shared
     memory, stack and spill bytes, as ptxas printed them."""
     import re
-    out, _ = proc.communicate(timeout=600)
-    names, rows, fn = {}, {}, None
-    for line in out.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for)"
-                      r" '?([\w$]+)'?", line)
-        if m:
-            fn = m.group(1)
-            continue
-        if fn is None or not any(k in fn for k in PTXAS_KERNELS):
-            continue
-        row = rows.setdefault(fn, {})
-        for key, pat in (("stack", r"(\d+) bytes stack frame"),
-                         ("spill_stores", r"(\d+) bytes spill stores"),
-                         ("spill_loads", r"(\d+) bytes spill loads"),
-                         ("registers", r"Used (\d+) registers"),
-                         ("smem", r"(\d+) bytes smem")):
-            v = re.search(pat, line)
-            if v:
-                row[key] = int(v.group(1))
-    if rows and shutil.which("c++filt"):
-        dem = subprocess.run(["c++filt"], input="\n".join(rows),
-                             capture_output=True, text=True).stdout.split("\n")
-        names = dict(zip(rows, dem))
-    short = lambda n: (re.search(r"mbconv_\w+<[^>]*>", n)  # noqa: E731
-                       or re.search(r".*", n)).group(0)
-    report = {short(names.get(fn, fn)): row for fn, row in rows.items()}
-    print(f"  nvcc -Xptxas -v mbconv.cu (rc {proc.returncode}):")
-    for fn, row in sorted(report.items()):
-        print(f"    {fn[:110]}: {row}")
+    report = {}
+    for source, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        names, rows, fn = {}, {}, None
+        for line in out.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line)
+            if m:
+                fn = m.group(1)
+                continue
+            if fn is None or not any(k in fn for k in PTXAS_KERNELS):
+                continue
+            row = rows.setdefault(fn, {})
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem")):
+                v = re.search(pat, line)
+                if v:
+                    row[key] = int(v.group(1))
+        if rows and shutil.which("c++filt"):
+            dem = subprocess.run(["c++filt"], input="\n".join(rows),
+                                 capture_output=True,
+                                 text=True).stdout.split("\n")
+            names = dict(zip(rows, dem))
+        kernel = "|".join(PTXAS_KERNELS)
+        short = lambda n: (re.search(rf"(?:{kernel})<[^>]*>", n)  # noqa: E731
+                           or re.search(r".*", n)).group(0)
+        print(f"  nvcc -Xptxas -v {source}.cu (rc {proc.returncode}):")
+        for fn, row in sorted((short(names.get(f, f)), r)
+                              for f, r in rows.items()):
+            print(f"    {fn[:110]}: {row}")
+            report[fn] = row
     return report
 
 
@@ -503,10 +549,16 @@ def _fusedmb_checks(torch, tf, stats, hx, net, res, i, row, sch):
     w_conv = hx.rand(k, k, c_in, c_mid, scale=(k * k * c_in) ** -0.5)
     w_proj = hx.rand(c_mid, c_out, scale=c_mid ** -0.5)
     shape = dict(h=h, w=w, c_in=c_in, c_mid=c_mid, c_out=c_out, k=k, s=s,
-                 tile=f"{geo.tile_h}x{geo.tile_w}")
+                 tile=f"{geo.tile_h}x{geo.tile_w}", chunk=sch.chunk,
+                 ci_chunk=sch.ci_chunk)
     print(f"{net} r{res} block{i:02d} {shape}", flush=True)
     got = tf.fusedmb(x, w_conv, w_proj, geo, act="silu")
     ref = tf.fusedmb_plain(x, w_conv, w_proj, geo, act="silu")
+    repeats = torch.equal(got, tf.fusedmb(x, w_conv, w_proj, geo,
+                                          act="silu"))
+    if not repeats:
+        print(f"  {net} r{res} block{i:02d} fusedmb does not repeat bit for "
+              "bit: FAIL")
     nbytes = 4 * (b * h * w * c_in + k * k * c_in * c_mid + c_mid * c_out
                   + b * oh * ow * c_out)
     flops = 2 * b * oh * ow * (k * k * c_in * c_mid + c_mid * c_out)
@@ -517,7 +569,7 @@ def _fusedmb_checks(torch, tf, stats, hx, net, res, i, row, sch):
                                           act="silu")),
         nbytes, flops, **shape)
     _sync(torch)
-    return ok
+    return ok and repeats
 
 
 def chain_kernel_phase(torch, tk, tf, stats, net, specs, res, seed,
@@ -787,11 +839,13 @@ def v3_model_phase(torch):
 
 def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
                       c, c_out, k, s, acts):
-    """The fused separable kernel at each (dw_act, act) of ``acts`` (the
-    first timed: the trainer's) and the depthwise kernel over the staged
-    strips of the padded input, on one block, against their plain
-    versions.  No PyTorch call computes the whole separable block; one
-    grouped F.conv2d on the unstaged input computes the depthwise one."""
+    """The fused separable kernel (with its split reduce where the block
+    splits C_in) at each (dw_act, act) of ``acts`` (the first timed: the
+    trainer's), the split reduce alone, and the depthwise kernel over the
+    staged strips of the padded input, on one block, against their plain
+    versions.  No PyTorch call computes the whole separable block, nor a
+    sum of partials with an activation; one grouped F.conv2d on the
+    unstaged input computes the depthwise one."""
     from repro_torch.core.autotune import get_fused_schedule
     from repro_torch.kernels.convdk_mbconv import MBConvGeometry
     from repro_torch.kernels.ref import pad_nhwc
@@ -802,14 +856,25 @@ def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
     x = hx.rand(b, h, w, c)
     w_dw = hx.rand(k, k, c, scale=1.0 / k)
     w_pw = hx.rand(c, c_out, scale=c ** -0.5)
+    # the split route's partials (written once, read once by the reduce)
+    # against the depthwise tensor the staged route writes
     shape = dict(h=h, w=w, c_in=c, c_out=c_out, k=k, s=s, batch=b,
-                 tile=f"{geo.tile_h}x{geo.tile_w}")
+                 tile=f"{geo.tile_h}x{geo.tile_w}", co_tile=sch.co_tile,
+                 splits=sch.splits,
+                 partial_bytes=4 * sch.splits * b * oh * ow * c_out
+                 if sch.splits > 1 else 0, dw_bytes=4 * b * oh * ow * c)
     print(f"{net} r{res} block{i:02d} {shape}", flush=True)
     ok = True
-    nbytes = 4 * (b * h * w * c + k * k * c + c * c_out + b * oh * ow * c_out)
+    out_b = 4 * b * oh * ow * c_out
+    nbytes = 4 * (b * h * w * c + k * k * c + c * c_out) + out_b
     flops = 2 * b * oh * ow * (k * k * c + c * c_out)
     for n, (dw_act, act) in enumerate(acts):
         got = tfs.fused_separable(x, w_dw, w_pw, geo, dw_act=dw_act, act=act)
+        if not torch.equal(got, tfs.fused_separable(x, w_dw, w_pw, geo,
+                                                    dw_act=dw_act, act=act)):
+            print(f"  {net} r{res} block{i:02d} fused_separable does not "
+                  "repeat bit for bit: FAIL")
+            ok = False
         ref = tfs.fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
                                         act=act)
         ok &= stats.add(
@@ -820,6 +885,21 @@ def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
                      lambda a=dw_act, z=act: tfs.fused_separable_plain(
                          x, w_dw, w_pw, geo, dw_act=a, act=z)),
             nbytes, flops, dw_act=dw_act, act=act, **shape)
+    if sch.splits > 1:
+        # the reduce on the plain partials of this block: exactly its plain
+        # version; its bytes are the partials read and the output written
+        part = tfs.fused_separable_partials_plain(
+            x, w_dw, w_pw, geo, splits=sch.splits, dw_act=acts[0][0])
+        act = acts[0][1]
+        red = tfs.fused_separable_reduce(part, act=act)
+        err = float((red - tfs.fused_separable_reduce_plain(
+            part, act=act)).abs().max())
+        ok &= stats.add(
+            "fused_separable_reduce", net, res, i, True, err, 0.0,
+            hx.times(True, lambda: tfs.fused_separable_reduce(part, act=act),
+                     lambda: tfs.fused_separable_reduce_plain(part, act=act)),
+            (sch.splits + 1) * out_b, (sch.splits - 1) * out_b // 4,
+            act=act, **shape)
     xp = pad_nhwc(x, geo.pads)
     strips = ops.stage_row_strips(xp, k, s, geo.tile_h)
     kw = dict(stride=s, out_w=ow, tile_h=geo.tile_h)
@@ -838,11 +918,55 @@ def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
     return ok
 
 
-def sep_kernel_phase(torch, tfs, td, ops, stats) -> bool:
-    """Both separable kernels on the 17 MobileNet-V2 blocks at MNV2_RES,
-    batch BATCH, and on the trainer's 3 blocks at its batch."""
+def _dw2d_bf16_check(torch, td, ops, stats, hx, res, i, b, h, w, c, k, s):
+    """The depthwise kernel in bf16 (strips, taps and output) on one block:
+    within 1 bf16 ulp of the plain version's fp32 sum of the same bf16
+    values, timed beside the plain version and grouped F.conv2d in bf16."""
+    from repro_torch.core.autotune import get_fused_schedule
+    from repro_torch.kernels.common import spatial_pads
+    from repro_torch.kernels.ref import pad_nhwc
+
+    tile_h = get_fused_schedule(b, h, w, c, 2 * c, k, s).tile_h
+    oh, ow, pads = spatial_pads(h, w, k, k, s, "SAME")
+    tile_h = min(tile_h, oh)
+    xp = pad_nhwc(hx.rand(b, h, w, c).bfloat16(), pads)
+    w_dw = hx.rand(k, k, c, scale=1.0 / k).bfloat16()
+    strips = ops.stage_row_strips(xp, k, s, tile_h)
+    kw = dict(stride=s, out_w=ow, tile_h=tile_h)
+    got = td.dw2d(strips, w_dw, **kw)
+    ref = td.dw2d_plain(strips.float(), w_dw.float(), **kw)
+    ulps = _bf16_ulps(got, ref)
+    good = got.dtype == torch.bfloat16 and ulps <= 1.0
+    x_nchw, w_oihw = xp.permute(0, 3, 1, 2), w_dw.permute(2, 0, 1)[:, None]
+    ok = stats.add(
+        "dw2d", "trainer_bf16", res, i, False,
+        float((got.float() - ref).abs().max()),
+        2.0 ** (int(torch.frexp(ref.abs().max())[1]) - 8),
+        hx.times(True, lambda: td.dw2d(strips, w_dw, **kw),
+                 lambda: td.dw2d_plain(strips, w_dw, **kw),
+                 lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, stride=s,
+                                                    groups=c)),
+        2 * (strips.numel() + k * k * c + got.numel()),
+        2 * k * k * got.numel(), good=good, bf16_ulps=ulps, h=h, w=w,
+        c_in=c, k=k, s=s, batch=b, dtype="bfloat16",
+        strips=tuple(strips.shape))
+    print(f"  trainer block{i:02d} dw2d bf16: worst {ulps:.3f} bf16 ulp "
+          f"(bar 1 ulp) {'ok' if good else 'FAIL'}")
+    _sync(torch)
+    return ok
+
+
+def sep_kernel_phase(torch, tfs, td, ops, stats):
+    """Both separable kernels (and the split reduce) on the 17 MobileNet-V2
+    blocks at MNV2_RES, batch BATCH, and on the trainer's 3 blocks at its
+    batch, the depthwise kernel also in bf16 on the trainer's blocks; then
+    the 17 blocks through ``separable_block``, the split reduce's path,
+    with the launch counts zeroed just before and read just after."""
+    from repro_torch.core.autotune import get_fused_schedule
     from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
     from repro_torch.examples import train_mobilenet_cim as tr
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.common import separable_block
 
     hx = _Harness(torch, 3000 + MNV2_RES)
     ok = True
@@ -859,7 +983,28 @@ def sep_kernel_phase(torch, tfs, td, ops, stats) -> bool:
         ok &= _separable_checks(torch, tfs, td, ops, stats, hx, "trainer",
                                 tr.SIDE, i, tr.BATCH, side >> i, side >> i,
                                 c << i, 2 * c << i, 3, 2, [("relu", "relu")])
-    return bool(ok)
+    for i in range(3):
+        ok &= _dw2d_bf16_check(torch, td, ops, stats, hx, tr.SIDE, i,
+                               tr.BATCH, side >> i, side >> i, c << i, 3, 2)
+
+    inputs = [(hx.rand(BATCH, layer.h, layer.w, layer.c),
+               {"dw": hx.rand(layer.k, layer.k, layer.c, scale=1 / layer.k),
+                "pw": hx.rand(layer.c, c_out, scale=layer.c ** -0.5)},
+               layer.s) for layer, c_out in MOBILENET_V2_SEPARABLE]
+    n_split = sum(get_fused_schedule(BATCH, layer.h, layer.w, layer.c, c_out,
+                                     layer.k, layer.s).splits > 1
+                  for layer, c_out in MOBILENET_V2_SEPARABLE)
+    with torch.inference_mode():
+        reset_launches()                        # the path starts here
+        outs = [separable_block(x, p, stride=st) for x, p, st in inputs]
+        _sync(torch)
+        counts = launches()                     # ... and ends here
+    want = {"fused_separable": len(inputs), "fused_separable_reduce": n_split}
+    good = (all(counts[k] == want.get(k, 0) for k in counts)
+            and all(bool(torch.isfinite(o).all()) for o in outs))
+    print(f"  the {len(inputs)} MobileNet-V2 blocks through separable_block: "
+          f"launches {counts} (want {want}) {'ok' if good else 'FAIL'}")
+    return bool(ok and good), counts
 
 
 def _grad_case(torch, name, fn_name, op, plain, args):
@@ -1061,15 +1206,36 @@ def _flat_tree(tree, prefix=""):
 
 
 def train_phase(torch):
-    """The trainer on the card: TRAIN_STEPS fused steps, then STAGED_STEPS
-    --staged steps, each run with the launch counts zeroed just before and
-    read just after; then one step of each route timed."""
+    """The trainer on the card under deterministic algorithms (the cuDNN
+    flags restored after): TRAIN_STEPS fused steps twice, then
+    STAGED_STEPS --staged steps, each run with the launch counts zeroed
+    just before and read just after, each against a TRAIN_CPU_STEPS CPU
+    plain run; then one step of each route timed."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _train_runs(torch)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        torch.use_deterministic_algorithms(False)
+
+
+def _train_runs(torch):
+    from repro_torch.core.autotune import get_fused_schedule
     from repro_torch.core.telemetry import measure
     from repro_torch.examples import train_mobilenet_cim as tr
     from repro_torch.kernels import launches, reset_launches
 
-    runs = {}
-    for staged, steps in ((False, TRAIN_STEPS), (True, STAGED_STEPS)):
+    # the trainer's blocks' split reduces per step (C_out = 2 C_in: none)
+    side, c = tr.SIDE // 2, tr.model_def()["stem"].shape[-1]
+    reduces = sum(get_fused_schedule(tr.BATCH, side >> i, side >> i, c << i,
+                                     2 * c << i, 3, 2).splits > 1
+                  for i in range(3))
+    runs = []
+    for staged, steps in ((False, TRAIN_STEPS), (False, TRAIN_STEPS),
+                          (True, STAGED_STEPS)):
         argv = ["--steps", str(steps), "--device", DEVICE] + (
             ["--staged"] if staged else [])
         buf = io.StringIO()
@@ -1080,31 +1246,42 @@ def train_phase(torch):
         counts = launches()                     # ... and ends here
         print("  " + buf.getvalue().strip().replace("\n", "\n  "))
         print(f"  launches {counts}")
-        runs[staged] = (losses, counts, buf.getvalue())
-    (fused, f_counts, f_out), (staged, s_counts, _) = runs[False], runs[True]
-    others = [k for k in f_counts if k not in ("fused_separable", "dw2d")]
-    ok = "(DESCENDED)" in f_out
-    ok &= (f_counts["fused_separable"] == 3 * TRAIN_STEPS
-           and f_counts["dw2d"] == 0)
-    ok &= s_counts["dw2d"] == 3 * STAGED_STEPS \
-        and s_counts["fused_separable"] == 0
-    ok &= not any(f_counts[k] or s_counts[k] for k in others)
+        runs.append((losses, counts, buf.getvalue()))
+    (fused, f_counts, f_out), (again, a_counts, _) = runs[0], runs[1]
+    staged, s_counts, _ = runs[2]
+    want_f = {"fused_separable": 3 * TRAIN_STEPS,
+              "fused_separable_reduce": reduces * TRAIN_STEPS}
+    want_s = {"dw2d": 3 * STAGED_STEPS}
+    ok = all(f_counts[k] == a_counts[k] == want_f.get(k, 0) for k in f_counts)
+    ok &= all(s_counts[k] == want_s.get(k, 0) for k in s_counts)
+    print(f"  launches per step: fused {3} fused separable, {reduces} split "
+          f"reduce; staged 3 depthwise: {'ok' if ok else 'FAIL'}")
+    same = fused == again
+    ok &= same
+    print(f"  two fused {TRAIN_STEPS}-step runs: losses bit for bit equal "
+          f"{'ok' if same else 'FAIL'}")
+    ratio = fused[-1] / fused[0]
+    print(f"  fused step {TRAIN_STEPS} / step 1 loss {ratio:.4f} "
+          f"({'DESCENDED' if '(DESCENDED)' in f_out else 'check'}; the "
+          f"0.7 bar reads one step of a chaotic trajectory and gates only "
+          f"the CPU test)")
+    # the same run on the CPU through the plain versions: step 1 is one
+    # forward on the same weights, later steps drift with the rounding
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = tr.main(["--steps", str(TRAIN_CPU_STEPS), "--device", "cpu"])
+    for name, losses in (("fused", fused), ("staged", staged)):
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu)]
+        good = (len(rel) == TRAIN_CPU_STEPS and rel[0] <= 1e-5
+                and max(rel) <= TRAIN_RTOL)
+        ok &= good
+        print(f"  {name} on the card vs the CPU plain run: step 1 rel "
+              f"{rel[0]:.3e} (tol 1e-05), steps 1-{TRAIN_CPU_STEPS} largest "
+              f"rel {max(rel):.3e} (tol {TRAIN_RTOL:g}) "
+              f"{'ok' if good else 'FAIL'}")
     rel1 = abs(fused[0] - staged[0]) / abs(fused[0])
     ok &= rel1 <= 1e-5
     print(f"  step 1 loss fused {fused[0]!r} staged {staged[0]!r}: rel "
           f"{rel1:.3e} (tol 1e-05)")
-    for step in (10, 20):
-        print(f"  step {step} loss fused {fused[step - 1]:.6f} staged "
-              f"{staged[step - 1]:.6f}")
-    # the same run on the CPU through the plain versions: step 1 is one
-    # forward on the same weights; later steps drift with the rounding
-    with contextlib.redirect_stdout(io.StringIO()):
-        cpu = tr.main(["--steps", "10", "--device", "cpu"])
-    rel_cpu = [abs(a - b) / abs(b) for a, b in zip(fused, cpu)]
-    ok &= rel_cpu[0] <= 1e-5
-    print(f"  fused on the card vs the CPU plain run: step 1 rel "
-          f"{rel_cpu[0]:.3e} (tol 1e-05); steps 1-10 largest rel "
-          f"{max(rel_cpu):.3e}")
     params = tr.init_params(DEVICE)
     x, y = tr.batch(0, DEVICE)
     step_ms = {route: measure(lambda f=f: tr.sgd_step(params, x, y, fused=f),
@@ -1114,9 +1291,11 @@ def train_phase(torch):
           f"host included): fused {step_ms['fused']:.3f} ms, staged "
           f"{step_ms['staged']:.3f} ms")
     print(f"  train phase {'ok' if ok else 'FAIL'}")
-    return bool(ok), {"fused_separable": f_counts["fused_separable"],
-                      "dw2d": s_counts["dw2d"]}, \
-        {"fused": fused, "staged": staged, "step_ms": step_ms}
+    return bool(ok), {k: f_counts[k] for k in ("fused_separable",
+                                               "fused_separable_reduce")} | {
+        "dw2d": s_counts["dw2d"]}, \
+        {"fused": fused, "staged": staged, "cpu": cpu, "step_ms": step_ms,
+         "fused_repeats": same}
 
 
 def _bf16_ulps(got, ref):
@@ -1452,12 +1631,14 @@ def main() -> int:
     phase("sep-kernels", f"sep-kernels: MobileNet-V2 batch {BATCH} at "
                          f"{MNV2_RES}, every separable block; the trainer's "
                          "blocks")
-    phases["sep-kernels"] = sep_kernel_phase(torch, tfs, td, ops, stats)
+    phases["sep-kernels"], mnv2_launches = sep_kernel_phase(torch, tfs, td,
+                                                            ops, stats)
     phase("grad", "grad: each op's gradients on the card vs its plain "
                   "version; B0's vs the CPU")
     phases["grad"], b0_train = grad_phase(torch)
     phase("train", f"train: the separable trainer on the card, "
-                   f"{TRAIN_STEPS} fused then {STAGED_STEPS} staged steps")
+                   f"{TRAIN_STEPS} fused steps twice then {STAGED_STEPS} "
+                   f"staged, deterministic")
     phases["train"], train_launches, train = train_phase(torch)
     phase("lm-kernels", f"lm-kernels: the conv1d kernel on a Mamba-2 2.7B "
                         f"layer's convs, 1 x {LM_TOKENS} tokens")
@@ -1482,6 +1663,7 @@ def main() -> int:
                    "v3_launches": v3_launches,
                    "b0_forward_backward": b0_train,
                    "train": train, "train_launches": train_launches,
+                   "mnv2_launches": mnv2_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "rows": stats.rows}, f,
                   indent=1)
@@ -1491,7 +1673,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": stats.summary(
         {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches,
-         "train": train_launches, "lm": lm_launches}),
+         "train": train_launches, "mnv2": mnv2_launches,
+         "lm": lm_launches}),
         "lm_launches_per_prefill_forward": lm_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ baseline's IB->TRF analogue), one launch of ``dw2d_kernel``
 (``kernels/csrc/separable.cu``) for CUDA tensors and ``dw2d_plain`` for
 CPU tensors; any other device raises.  ``LAUNCHES`` counts kernel
 launches.  Ragged channel counts are masked in the kernel, so nothing is
-padded to a channel block.
+padded to a channel block.  The strips and taps are fp32 or bf16 (one
+dtype for both); the sums are fp32 and the output is rounded once to that
+dtype, as the Pallas kernel writes ``o_ref.dtype``.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from .common import FP32, check_cuda, on_cpu, ptr
+from .common import check_cuda, on_cpu, ptr
 from .convdk_fused import _lib, launch_error
 from .ref import depthwise_valid
 
 KERNELS: Tuple[str, ...] = ("dw2d",)
+DTYPES: Tuple[torch.dtype, ...] = (torch.float32, torch.bfloat16)
 # kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -46,11 +49,14 @@ def _check_shapes(x_strips, w, stride: int, out_w: int, tile_h: int) -> None:
 
 def dw2d_plain(x_strips: torch.Tensor, w: torch.Tensor, *, stride: int,
                out_w: int, tile_h: int) -> torch.Tensor:
-    """Plain version of ``dw2d``: an unpadded depthwise conv per strip."""
+    """Plain version of ``dw2d``: an unpadded depthwise conv per strip,
+    summed in fp32 and rounded once to the strips' dtype."""
     b, n_th, in_rows, w_pad, c = x_strips.shape
-    out = depthwise_valid(x_strips.reshape(b * n_th, in_rows, w_pad, c), w,
-                          stride)
-    return out[:, :, :out_w].reshape(b, n_th, tile_h, out_w, c)
+    out = depthwise_valid(
+        x_strips.reshape(b * n_th, in_rows, w_pad, c).float(), w.float(),
+        stride)
+    return out[:, :, :out_w].reshape(b, n_th, tile_h, out_w, c) \
+        .to(x_strips.dtype)
 
 
 def dw2d(x_strips: torch.Tensor, w: torch.Tensor, *, stride: int,
@@ -61,13 +67,18 @@ def dw2d(x_strips: torch.Tensor, w: torch.Tensor, *, stride: int,
     if on_cpu(x_strips):
         return dw2d_plain(x_strips, w, stride=stride, out_w=out_w,
                           tile_h=tile_h)
-    check_cuda(x_strips, w, dtypes=FP32)
+    check_cuda(x_strips, w, dtypes=DTYPES)
+    if w.dtype != x_strips.dtype:
+        raise ValueError(f"strips {x_strips.dtype} and taps {w.dtype}: the "
+                         f"kernel takes one dtype")
     b, n_th, in_rows, w_pad, c = x_strips.shape
-    out = torch.empty((b, n_th, tile_h, out_w, c), device=x_strips.device)
+    out = torch.empty((b, n_th, tile_h, out_w, c), device=x_strips.device,
+                      dtype=x_strips.dtype)
     lib = _lib()
     launch_error(lib, "dw2d", lib.dw2d(
         ptr(x_strips), ptr(w), ptr(out), b, n_th, in_rows, w_pad, c,
         w.shape[0], stride, tile_h, out_w,
+        int(x_strips.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream))
     LAUNCHES["dw2d"] += 1
     return out

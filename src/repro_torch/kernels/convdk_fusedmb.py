@@ -11,8 +11,10 @@ never reaches device memory, there is no SE stage and no second pass.
 ``fusedmb`` launches the kernel for CUDA tensors and runs
 ``fusedmb_plain`` for CPU tensors; any other device raises.  ``LAUNCHES``
 counts kernel launches.  The kernel tiles the output in ``tile_h x
-tile_w`` pixels (see ``core.autotune.get_fusedmb_schedule``) and masks
-SAME padding and every ragged edge itself, so the wrapper pads nothing.
+tile_w`` pixels (see ``core.autotune.get_fusedmb_schedule``), walks C_mid
+in chunks of ``core.autotune.fusedmb_chunk`` channels (also its c_out
+tile) and masks SAME padding and every ragged edge itself, so the wrapper
+pads nothing.
 
 ``convdk_fusedmb_fused`` is differentiable: when an operand requires grad
 it goes through an autograd Function whose backward is autograd through
@@ -30,9 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.autotune import (
-    C_BLOCK,
-    MAX_TILE_PIXELS,
-    PIXEL_STRIDE,
+    FMB_CHUNK_LANES,
+    FMB_MAX_TILE_PIXELS,
+    FMB_PIXELS_PER_THREAD,
+    FMB_SLOTS,
+    fusedmb_launch_plan,
     fusedmb_window_smem_bytes,
 )
 from . import _build
@@ -53,9 +57,10 @@ KERNELS: Tuple[str, ...] = ("fusedmb",)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (k, window rows, window cols, c_out) probes of the shared-memory check
-_SMEM_PROBES = ((3, 10, 10, 24), (3, 17, 17, 48), (5, 11, 19, 64),
-                (3, 3, 66, 130))
+# (window rows, window cols, ci_chunk, chunk) probes of the shared-memory
+# check: whole and chunked windows, every chunk
+_SMEM_PROBES = ((10, 10, 24, 24), (17, 33, 24, 48), (10, 14, 48, 48),
+                (8, 10, 64, 64), (11, 19, 70, 32), (19, 19, 40, 64))
 
 
 def reset_launches() -> None:
@@ -66,27 +71,29 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fusedmb")
-    lib.fusedmb.argtypes = [_P] * 4 + [_I] * 15 + [_P]
+    lib.fusedmb.argtypes = [_P] * 4 + [_I] * 17 + [_P]
     lib.fusedmb.restype = ctypes.c_int
     lib.fusedmb_error_string.argtypes = [ctypes.c_int]
     lib.fusedmb_error_string.restype = ctypes.c_char_p
     lib.fusedmb_smem_bytes.argtypes = [_I] * 4
     lib.fusedmb_smem_bytes.restype = ctypes.c_size_t
-    built = (lib.fusedmb_channel_tile(), lib.fusedmb_max_tile_pixels(),
-             lib.fusedmb_pixel_stride())
-    want = (C_BLOCK, MAX_TILE_PIXELS, PIXEL_STRIDE)
+    built = (lib.fusedmb_max_tile_pixels(), lib.fusedmb_pixels_per_thread(),
+             lib.fusedmb_ring_slots(),
+             {nc: lib.fusedmb_chunk_lanes(nc) for nc in FMB_CHUNK_LANES})
+    want = (FMB_MAX_TILE_PIXELS, FMB_PIXELS_PER_THREAD, FMB_SLOTS,
+            FMB_CHUNK_LANES)
     if built != want:
         raise RuntimeError(f"fusedmb.cu tiles {built} disagree with "
                            f"core.autotune {want}")
-    # the solver's shared-memory budget against the launcher's, at windows
-    # of both kernel sizes and every c_out tile
+    # the solver's shared-memory budget against the launcher's
     for args in _SMEM_PROBES:
         got = lib.fusedmb_smem_bytes(*args)
         model = fusedmb_window_smem_bytes(*args)
         if got != model:
             raise RuntimeError(f"fusedmb.cu asks for {got} B of shared "
-                               f"memory at (k, rows, cols, c_out) {args}; "
-                               f"core.autotune budgets {model} B")
+                               f"memory at (rows, cols, ci_chunk, chunk) "
+                               f"{args}; core.autotune budgets "
+                               f"{model} B")
     return lib
 
 
@@ -118,12 +125,15 @@ def fusedmb(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
     check_cuda(x, w_conv, w_proj, dtypes=FP32)
     b, h, w, c_in = x.shape
     c_mid, c_out = w_proj.shape
+    nc, ci_chunk = fusedmb_launch_plan(c_in, c_mid, c_out, geo.k, geo.s,
+                                       geo.tile_h, geo.tile_w)
     out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)
     lib = _lib()
     err = lib.fusedmb(ptr(x), ptr(w_conv), ptr(w_proj), ptr(out), b, h, w,
                       c_in, c_mid, c_out, geo.k, geo.s, geo.out_h, geo.out_w,
                       geo.pads[0][0], geo.pads[1][0], geo.tile_h, geo.tile_w,
-                      ACT_CODES[act], torch.cuda.current_stream().cuda_stream)
+                      nc, ci_chunk, ACT_CODES[act],
+                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("fusedmb did not launch: "
                            f"{lib.fusedmb_error_string(err).decode()}")

@@ -17,43 +17,57 @@
 // c_in-blk) carries both reductions across sequential grid steps in VMEM
 // scratch; CTAs have no order, so both loop inside one CTA.  A CTA owns one
 // batch element, one tile_h x tile_w pixel tile (at most MAXP pixels) and
-// one c_out tile of COT channels (32, 64 or 128, the smallest covering
-// C_out), so at EfficientNet-V2-S's widths (C_out <= 64) the dense conv is
-// computed exactly once.  For each 32-wide c_mid chunk it accumulates the
-// dense conv in registers over 32-wide c_in chunks (each step stages the
-// halo'd input window and the (k, k, 32, 32) weight slice in shared
-// memory), applies the activation, writes the (pixels, 32) tile to shared
-// memory and adds its projection into per-thread register accumulators
-// that the CTA keeps for its whole pixels x COT tile.  The output is
-// written once at the end.
+// one c_out tile of NC channels.  NC is also the c_mid chunk: the wrapper
+// picks it from {24, 32, 48, 64} so that it divides C_mid and covers C_out
+// where it can (core.autotune.fusedmb_chunk), so at EfficientNet-V2-S's
+// widths no FMA is spent on padding.  Both products are one register-tiled
+// GEMM step: a thread owns TP = 4 pixels x TC channels (TC = NC / LC, the
+// warp laid out as LP pixel lanes x LC channel lanes), reads each operand
+// as float4 from shared memory (a warp's LP distinct pixels and LC
+// distinct channel groups, the rest broadcast) and does 4 * TP * TC FMAs
+// per TP + TC loads.
 //
-// SAME padding is a bounds mask: an input pixel outside the image reads as
-// 0 and the activation comes after the conv; stride 2 has the extra pad at
-// the bottom/right (the wrapper passes the top/left pads).  Ragged pixel,
-// c_in, c_mid and c_out edges are masked here; the wrapper pads nothing.
+// The halo'd input window is staged once per CTA across all of C_in (a
+// chunked c_in fallback restages it per chunk where a whole window does
+// not fit).  The weights stream through a two-slot cp.async ring, one step
+// per (c_mid chunk, c_in chunk, tap) slice of w_conv (c_in rows x NC) and
+// one per c_mid chunk for the (NC x NC) w_proj slice: the next step loads
+// while this one computes, with one barrier per step.  After a chunk's last
+// conv step each thread applies the activation to its sums in registers;
+// the projection step reads them across the warp by shuffles (the LC lanes
+// of a pixel lane hold all NC channels of its pixels), so the activated
+// chunk never touches shared memory, and multiplies them into register
+// accumulators kept for the whole CTA.  The output is written once at the
+// end.
+//
+// SAME padding is a bounds mask (cp.async zero-fills an input pixel outside
+// the image, and the activation comes after the conv); stride 2 has the
+// extra pad at the bottom/right (the wrapper passes the top/left pads).
+// Ragged pixel, c_in, c_mid and c_out edges are masked here; the wrapper
+// pads nothing.
 //
 // Bound.  At V2-S widths the dense conv makes the kernel bound by
-// operations (9 C_in C_mid FMAs per output pixel).  fp32 FMA on CUDA cores,
-// no tensor cores and no TF32 (the JAX suite's 1e-4 fp32 bar).  Each thread
-// holds a register tile (2 pixels x 4 c_mid channels in the conv, PPT pixels
-// x 4 c_out channels in the projection) fed by float4 shared-memory loads,
-// so the inner loops issue about one load per five FMAs; the staged pixel
-// stride is padded to 36 floats so a warp's float4 loads of neighbouring
-// pixels fall in different banks.  wgmma, TMA and cp.async pipelining are
-// later work.
+// operations (k^2 C_in C_mid FMAs per output pixel).  fp32 FMA on CUDA
+// cores, no tensor cores and no TF32 (the JAX suite's 1e-4 fp32 bar).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int CT = 32;                  // c_in and c_mid chunk
-constexpr int NTHREADS = 256;
-constexpr int MAXP = 64;                // output pixels per CTA tile
-constexpr int XS = CT + 4;              // floats per staged pixel (padded)
-constexpr int NCG = CT / 4;             // conv: 4-channel groups of a chunk
-constexpr int NPG = NTHREADS / NCG;     // conv: pixel groups (2 pixels each)
-static_assert(NPG * 2 == MAXP, "each conv thread owns 2 pixels");
+constexpr int MAXP = 128;               // output pixels per CTA tile
+constexpr int TP = 4;                   // pixels per thread
+constexpr int SLOTS = 2;                // cp.async ring slots over the weights
+
+// channel lanes of a warp at chunk NC: each thread owns NC / LC channels,
+// as float4 groups 4 * LC apart
+__host__ __device__ constexpr int chunk_lanes(int NC) {
+  return NC == 24 ? 2 : NC == 32 ? 4 : NC == 48 ? 4 : NC == 64 ? 8 : 0;
+}
+__host__ __device__ constexpr int pixels_per_warp(int NC) { return TP * 32 / chunk_lanes(NC); }
+__host__ __device__ constexpr int max_threads(int NC) { return MAXP / pixels_per_warp(NC) * 32; }
+// resident CTAs per SM the register budget is set for
+__host__ __device__ constexpr int min_ctas(int NC) { return NC == 64 ? 2 : NC == 24 ? 6 : 3; }
 
 enum Act {
   ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2, ACT_SILU = 3, ACT_SIGMOID = 4,
@@ -64,8 +78,10 @@ __device__ __forceinline__ float act_apply(float v, int act) {
   switch (act) {
     case ACT_RELU: return fmaxf(v, 0.f);
     case ACT_RELU6: return fminf(fmaxf(v, 0.f), 6.f);
-    case ACT_SILU: return v * (1.f / (1.f + expf(-v)));
-    case ACT_SIGMOID: return 1.f / (1.f + expf(-v));
+    // fast exp and divide: a few ulp, far inside the 1e-4 fp32 bar (past
+    // exp's range the divide by inf gives 0, the limit)
+    case ACT_SILU: return __fdividef(v, 1.f + __expf(-v));
+    case ACT_SIGMOID: return __fdividef(1.f, 1.f + __expf(-v));
     case ACT_HARD_SWISH: return v * fminf(fmaxf(v + 3.f, 0.f), 6.f) * (1.f / 6.f);
     case ACT_HARD_SIGMOID: return fminf(fmaxf(v + 3.f, 0.f), 6.f) * (1.f / 6.f);
     default: return v;
@@ -76,188 +92,325 @@ struct Geom {
   int B, H, W, C_in, C_mid, C_out;
   int out_h, out_w, pad_top, pad_left;
   int tile_h, tile_w, n_tw, in_rows, in_cols;
+  int ci_chunk;                         // c_in channels per staged window
 };
 
-// acc[0..3] += a * w.{x,y,z,w}
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& w) {
-  acc[0] = fmaf(a, w.x, acc[0]);
-  acc[1] = fmaf(a, w.y, acc[1]);
-  acc[2] = fmaf(a, w.z, acc[2]);
-  acc[3] = fmaf(a, w.w, acc[3]);
+// cp.async copies of 16 or 4 bytes; bytes past src_bytes are zero-filled
+// (src_bytes 0 reads nothing, so src need only be a valid address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
 }
 
-// the c_out tile of one CTA: the smallest of 32, 64, 128 covering C_out
-int co_tile(int C_out) { return C_out <= 32 ? 32 : C_out <= 64 ? 64 : 128; }
-
-size_t smem_floats(int K, int in_rows, int in_cols, int COT) {
-  return (size_t)(in_rows * in_cols + MAXP) * XS + (size_t)K * K * CT * CT + (size_t)CT * COT;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
 }
 
-// grid (n_tiles, ceil(C_out / COT), B), NTHREADS threads.
-template <int K, int S, int COT>
-__global__ void __launch_bounds__(NTHREADS, 2)
-fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
-               const float* __restrict__ w_proj, float* __restrict__ out, Geom g,
-               int act) {
-  constexpr int OCG = COT / 4;          // projection: 4-channel groups
-  constexpr int OPG = NTHREADS / OCG;   // projection: pixel groups
-  constexpr int PPT = MAXP / OPG;       // projection: pixels per thread
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  extern __shared__ float4 smem4[];
-  float* x_s = reinterpret_cast<float*>(smem4);       // in_rows*in_cols x XS
-  float* e_s = x_s + g.in_rows * g.in_cols * XS;      // MAXP x XS
-  float* wc_s = e_s + MAXP * XS;                      // (K*K*CT) x CT
-  float* wp_s = wc_s + K * K * CT * CT;               // CT x COT
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
 
-  const int tile = blockIdx.x, co0 = blockIdx.y * COT, b = blockIdx.z;
-  const int oh0 = (tile / g.n_tw) * g.tile_h, ow0 = (tile % g.n_tw) * g.tile_w;
-  const int ih0 = oh0 * S - g.pad_top, iw0 = ow0 * S - g.pad_left;
-  const int t = threadIdx.x;
-  const int P = g.tile_h * g.tile_w;
-  const int Q = g.in_rows * g.in_cols;
+__host__ __device__ constexpr int ceil4(int n) { return (n + 3) / 4 * 4; }
 
-  // conv role: channels 4 * cg .. + 3 of the c_mid chunk, pixels pg, pg + NPG
-  const int cg = t % NCG, pg = t / NCG;
-  int xoff[2];                          // window pixel of each pixel's (0, 0) tap
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int p = pg + NPG * j;
-    xoff[j] = p < P ? (p / g.tile_w) * S * g.in_cols + (p % g.tile_w) * S : 0;
-  }
-  // projection role: channels co0 + 4 * og .. + 3, pixels opg + OPG * j
-  const int og = t % OCG, opg = t / OCG;
-  float acc[PPT][4];
-#pragma unroll
-  for (int j = 0; j < PPT; ++j)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[j][u] = 0.f;
+// floats per staged window pixel: the chunk rounded up to 4, padded so the
+// stride in float4s is odd and a warp's float4 loads of neighbouring pixels
+// fall in different banks
+__host__ __device__ constexpr int window_stride(int ci_chunk) {
+  return ceil4(ci_chunk) + ((ceil4(ci_chunk) / 4) % 2 ? 8 : 4);
+}
 
-  const float4* x4 = reinterpret_cast<const float4*>(x_s);
-  const float4* w4 = reinterpret_cast<const float4*>(wc_s);
-  for (int cm0 = 0; cm0 < g.C_mid; cm0 += CT) {
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int ci0 = 0; ci0 < g.C_in; ci0 += CT) {
-      const int nci = min(CT, g.C_in - ci0);
-      __syncthreads();                  // the last chunk's readers are done
-      // the halo'd input window, channels [ci0, ci0 + CT), 0 off the image
-      for (int i = t; i < Q * CT; i += NTHREADS) {
-        const int q = i / CT, ci = i % CT;
-        const int ih = ih0 + q / g.in_cols, iw = iw0 + q % g.in_cols;
-        float v = 0.f;
-        if (ci < nci && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
-          v = __ldg(x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci0 + ci);
-        x_s[q * XS + ci] = v;
-      }
-      // w_conv[:, :, ci0:ci0+CT, cm0:cm0+CT] as rows (tap, ci) of CT c_mid
-      for (int i = t; i < K * K * CT * CT; i += NTHREADS) {
-        const int m = i % CT, r = i / CT;
-        const int ci = r % CT, tap = r / CT;
-        float v = 0.f;
-        if (ci < nci && cm0 + m < g.C_mid)
-          v = __ldg(w_conv + ((size_t)tap * g.C_in + ci0 + ci) * g.C_mid + cm0 + m);
-        wc_s[i] = v;
-      }
-      __syncthreads();
-      const int nc4 = (nci + 3) / 4;
-#pragma unroll 1
-      for (int kh = 0; kh < K; ++kh) {
-#pragma unroll
-        for (int kw = 0; kw < K; ++kw) {
-          const float4* xa = x4 + (xoff[0] + kh * g.in_cols + kw) * (XS / 4);
-          const float4* xb = x4 + (xoff[1] + kh * g.in_cols + kw) * (XS / 4);
-          const float4* wt = w4 + (kh * K + kw) * CT * NCG + cg;
+// shared memory: the window and SLOTS ring slots of max(c_in rows, NC
+// rows) x NC weights
+size_t smem_floats(int in_rows, int in_cols, int ci_chunk, int NC) {
+  const int rows = ceil4(ci_chunk) > NC ? ceil4(ci_chunk) : NC;
+  return (size_t)in_rows * in_cols * window_stride(ci_chunk) + (size_t)SLOTS * rows * NC;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc[j][c] += sum_k a[j][k] * b[k][c] over n4 * 4 rows k: a row j at
+// a_s + aoff[j] (k contiguous), b row k at b_s + k * NC, this thread's
+// channels 4 * lc + 4 * LC * u + (0..3)
+template <int NC, int TC = NC / chunk_lanes(NC)>
+__device__ __forceinline__ void gemm_step(float (&acc)[TP][TC],
+                                          const float* __restrict__ a_s,
+                                          const int (&aoff)[TP],
+                                          const float* __restrict__ b_s, int lc, int n4) {
+  constexpr int LC = chunk_lanes(NC);
+  const float* b0 = b_s + 4 * lc;
 #pragma unroll 4
-          for (int c4 = 0; c4 < nc4; ++c4) {
-            const float4 va = xa[c4], vb = xb[c4];
-            const float4 w0 = wt[(4 * c4) * NCG], w1 = wt[(4 * c4 + 1) * NCG];
-            const float4 w2 = wt[(4 * c4 + 2) * NCG], w3 = wt[(4 * c4 + 3) * NCG];
-            fma4(c[0], va.x, w0); fma4(c[1], vb.x, w0);
-            fma4(c[0], va.y, w1); fma4(c[1], vb.y, w1);
-            fma4(c[0], va.z, w2); fma4(c[1], vb.z, w2);
-            fma4(c[0], va.w, w3); fma4(c[1], vb.w, w3);
+  for (int c4 = 0; c4 < n4; ++c4) {
+    float4 a[TP];
+#pragma unroll
+    for (int j = 0; j < TP; ++j)
+      a[j] = *reinterpret_cast<const float4*>(a_s + aoff[j] + 4 * c4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* brow = b0 + (4 * c4 + kk) * NC;
+#pragma unroll
+      for (int u = 0; u < TC / 4; ++u) {
+        const float4 b = *reinterpret_cast<const float4*>(brow + 4 * LC * u);
+#pragma unroll
+        for (int j = 0; j < TP; ++j) {
+          const float av = comp(a[j], kk);
+          acc[j][4 * u] = fmaf(av, b.x, acc[j][4 * u]);
+          acc[j][4 * u + 1] = fmaf(av, b.y, acc[j][4 * u + 1]);
+          acc[j][4 * u + 2] = fmaf(av, b.z, acc[j][4 * u + 2]);
+          acc[j][4 * u + 3] = fmaf(av, b.w, acc[j][4 * u + 3]);
+        }
+      }
+    }
+  }
+}
+
+// acc[j][c] += sum_m e[j][m] * b[m][c] over the chunk's NC channels m,
+// where e[j][m] is held by lane (lp, (m / 4) % LC) of this warp as its
+// e[j][4 * (m / (4 * LC)) + m % 4]; b row m at b_s + m * NC
+template <int NC, int TC = NC / chunk_lanes(NC)>
+__device__ __forceinline__ void project_step(float (&acc)[TP][TC], const float (&e)[TP][TC],
+                                             const float* __restrict__ b_s, int lp, int lc) {
+  constexpr int LC = chunk_lanes(NC);
+  const float* b0 = b_s + 4 * lc;
+#pragma unroll
+  for (int uo = 0; uo < TC / 4; ++uo) {
+#pragma unroll 1
+    for (int lo = 0; lo < LC; ++lo) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int m = 4 * lo + 4 * LC * uo + v;
+        float ev[TP];
+#pragma unroll
+        for (int j = 0; j < TP; ++j) ev[j] = __shfl_sync(0xffffffffu, e[j][4 * uo + v], lp * LC + lo);
+        const float* brow = b0 + m * NC;
+#pragma unroll
+        for (int u = 0; u < TC / 4; ++u) {
+          const float4 b = *reinterpret_cast<const float4*>(brow + 4 * LC * u);
+#pragma unroll
+          for (int j = 0; j < TP; ++j) {
+            acc[j][4 * u] = fmaf(ev[j], b.x, acc[j][4 * u]);
+            acc[j][4 * u + 1] = fmaf(ev[j], b.y, acc[j][4 * u + 1]);
+            acc[j][4 * u + 2] = fmaf(ev[j], b.z, acc[j][4 * u + 2]);
+            acc[j][4 * u + 3] = fmaf(ev[j], b.w, acc[j][4 * u + 3]);
           }
         }
       }
     }
-    // act; channels past C_mid are 0 (act(0) need not be)
+  }
+}
+
+// grid (n_tiles, ceil(C_out / NC), B); 32 * ceil(pixels / pixels_per_warp)
+// threads, each owning TP pixels x NC / LC channels of both products.
+template <int K, int S, int NC>
+__global__ void __launch_bounds__(max_threads(NC), min_ctas(NC))
+fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
+               const float* __restrict__ w_proj, float* __restrict__ out, Geom g,
+               int act) {
+  constexpr int LC = chunk_lanes(NC), TC = NC / LC, LP = 32 / LC;
+  constexpr int PPW = TP * LP;
+  constexpr int KK = K * K;
+
+  const int P = g.tile_h * g.tile_w, Q = g.in_rows * g.in_cols;
+  const int XS = window_stride(g.ci_chunk);
+  const int rows = ceil4(g.ci_chunk) > NC ? ceil4(g.ci_chunk) : NC;
+  extern __shared__ float4 smem4[];
+  float* x_s = reinterpret_cast<float*>(smem4);       // Q x XS
+  float* w_s = x_s + Q * XS;                          // SLOTS x rows x NC
+
+  const int tile = blockIdx.x, co0 = blockIdx.y * NC, b = blockIdx.z;
+  const int oh0 = (tile / g.n_tw) * g.tile_h, ow0 = (tile % g.n_tw) * g.tile_w;
+  const int ih0 = oh0 * S - g.pad_top, iw0 = ow0 * S - g.pad_left;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int lane = t % 32, lp = lane / LC, lc = lane % LC;
+
+  // At stride 2 the window's even columns are stored before its odd ones,
+  // so a warp's neighbouring output pixels read neighbouring window pixels
+  // (distinct banks) at every tap: window column col sits at wcol(col).
+  const int half = (g.in_cols + 1) / 2;
+  auto wcol = [&](int col) { return S == 2 ? (col & 1) * half + (col >> 1) : col; };
+  // this thread's pixels (a pixel past the tile reads pixel P - 1 and is
+  // never written): offsets of their (0, 0) taps in the window
+  int xoff[TP];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float4 v;
-      const int cm = cm0 + 4 * cg;
-      v.x = cm < g.C_mid ? act_apply(c[j][0], act) : 0.f;
-      v.y = cm + 1 < g.C_mid ? act_apply(c[j][1], act) : 0.f;
-      v.z = cm + 2 < g.C_mid ? act_apply(c[j][2], act) : 0.f;
-      v.w = cm + 3 < g.C_mid ? act_apply(c[j][3], act) : 0.f;
-      reinterpret_cast<float4*>(e_s + (pg + NPG * j) * XS)[cg] = v;
-    }
-    // w_proj[cm0:cm0+CT, co0:co0+COT]
-    for (int i = t; i < CT * COT; i += NTHREADS) {
-      const int m = i / COT, o = i % COT;
-      float v = 0.f;
-      if (cm0 + m < g.C_mid && co0 + o < g.C_out)
-        v = __ldg(w_proj + (size_t)(cm0 + m) * g.C_out + co0 + o);
-      wp_s[i] = v;
-    }
-    __syncthreads();
-    const float4* e4 = reinterpret_cast<const float4*>(e_s);
-    const float4* p4 = reinterpret_cast<const float4*>(wp_s) + og;
-#pragma unroll 2
-    for (int m4 = 0; m4 < CT / 4; ++m4) {
-      const float4 w0 = p4[(4 * m4) * OCG], w1 = p4[(4 * m4 + 1) * OCG];
-      const float4 w2 = p4[(4 * m4 + 2) * OCG], w3 = p4[(4 * m4 + 3) * OCG];
+  for (int j = 0; j < TP; ++j) {
+    const int p = min((t / 32) * PPW + lp + LP * j, P - 1);
+    xoff[j] = ((p / g.tile_w) * S * g.in_cols + wcol((p % g.tile_w) * S)) * XS;
+  }
+
+  const int n_ci = (g.C_in + g.ci_chunk - 1) / g.ci_chunk;
+  const int per_chunk = n_ci * KK + 1;  // conv steps, then the projection
+  const int n_steps = (g.C_mid + NC - 1) / NC * per_chunk;
+  const bool vec_x = g.C_in % 4 == 0, vec_m = g.C_mid % 4 == 0, vec_o = g.C_out % 4 == 0;
+
+  // the halo'd window, channels [i * ci_chunk, + ci_chunk), 0 off the image
+  auto stage_window = [&](int i) {
+    const int ci0 = i * g.ci_chunk, nci = min(g.ci_chunk, g.C_in - ci0);
+    const int n4 = (nci + 3) / 4;
+    for (int e = t; e < Q * n4; e += nt) {
+      const int q = e / n4, c = 4 * (e % n4);
+      const int r = q / g.in_cols, col = q % g.in_cols;
+      const int ih = ih0 + r, iw = iw0 + col;
+      const bool in = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
+      const float* src = x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci0 + c;
+      float* dst = x_s + (r * g.in_cols + wcol(col)) * XS + c;
+      if (vec_x) {
+        cp_async16(dst, in ? src : x, in ? 16 : 0);
+      } else {
 #pragma unroll
-      for (int j = 0; j < PPT; ++j) {
-        const float4 e = e4[(opg + OPG * j) * (XS / 4) + m4];
-        fma4(acc[j], e.x, w0);
-        fma4(acc[j], e.y, w1);
-        fma4(acc[j], e.z, w2);
-        fma4(acc[j], e.w, w3);
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = in && c + u < nci;
+          cp_async4(dst + u, ok ? src + u : x, ok ? 4 : 0);
+        }
       }
+    }
+  };
+  // NC-wide rows [r0, r0 + n_rows) (r < r_end valid) of a row-major matrix
+  // with ld columns, columns [col0, col0 + NC) (col < ld valid)
+  auto stage_rows = [&](float* dst, const float* m, int ld, int r0, int n_rows, int r_end,
+                        int col0, bool vec) {
+    for (int e = t; e < n_rows * (NC / 4); e += nt) {
+      const int r = e / (NC / 4), c = 4 * (e % (NC / 4));
+      const int row = r0 + r, col = col0 + c;
+      const float* src = m + (size_t)row * ld + col;
+      if (vec) {
+        const bool ok = row < r_end && col < ld;
+        cp_async16(dst + r * NC + c, ok ? src : m, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = row < r_end && col + u < ld;
+          cp_async4(dst + r * NC + c + u, ok ? src + u : m, ok ? 4 : 0);
+        }
+      }
+    }
+  };
+  // ring step s: w_conv[tap, c_in chunk, c_mid chunk] or w_proj[c_mid chunk, c_out tile]
+  auto stage_step = [&](int s) {
+    float* dst = w_s + (s % SLOTS) * rows * NC;
+    const int c = s / per_chunk, r = s % per_chunk;
+    if (r < n_ci * KK) {
+      const int ci0 = (r / KK) * g.ci_chunk, tap = r % KK;
+      const int nci = min(g.ci_chunk, g.C_in - ci0);
+      // rows of this tap: (tap * C_in + ci0 + ci) of the (k*k*C_in, C_mid) matrix
+      stage_rows(dst, w_conv, g.C_mid, tap * g.C_in + ci0, ceil4(nci),
+                 tap * g.C_in + ci0 + nci, c * NC, vec_m);
+    } else {
+      stage_rows(dst, w_proj, g.C_out, c * NC, NC, g.C_mid, co0, vec_o);
+    }
+  };
+
+  float acc[TP][TC], oacc[TP][TC];
+#pragma unroll
+  for (int j = 0; j < TP; ++j)
+#pragma unroll
+    for (int u = 0; u < TC; ++u) oacc[j][u] = 0.f;
+
+  stage_window(0);
+  stage_step(0);
+  cp_async_commit();
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();                    // step s landed; step s - 1 is read
+    const int c = s / per_chunk, r = s % per_chunk;
+    const bool conv = r < n_ci * KK;
+    if (conv && r % KK == 0 && n_ci > 1 && s > 0) {
+      stage_window(r / KK);             // chunked fallback: restage
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    if (s + 1 < n_steps) stage_step(s + 1);
+    cp_async_commit();
+    const float* w_slot = w_s + (s % SLOTS) * rows * NC;
+    if (conv) {
+      const int tap = r % KK, i = r / KK;
+      if (r == 0) {
+#pragma unroll
+        for (int j = 0; j < TP; ++j)
+#pragma unroll
+          for (int u = 0; u < TC; ++u) acc[j][u] = 0.f;
+      }
+      const int nci = min(g.ci_chunk, g.C_in - i * g.ci_chunk);
+      // the tap's offset from a pixel's (0, 0) tap: wcol(S * pc + kw) is
+      // wcol(S * pc) + wcol(kw) at both strides
+      gemm_step<NC>(acc, x_s + ((tap / K) * g.in_cols + wcol(tap % K)) * XS, xoff, w_slot,
+                    lc, (nci + 3) / 4);
+      if (r == n_ci * KK - 1) {
+        // act; channels past C_mid are 0 (act(0) need not be)
+#pragma unroll
+        for (int u = 0; u < TC; ++u) {
+          const bool in = c * NC + 4 * lc + 4 * LC * (u / 4) + u % 4 < g.C_mid;
+#pragma unroll
+          for (int j = 0; j < TP; ++j) acc[j][u] = in ? act_apply(acc[j][u], act) : 0.f;
+        }
+      }
+    } else {
+      project_step<NC>(oacc, acc, w_slot, lp, lc);
     }
   }
 
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int p = opg + OPG * j;
+  for (int j = 0; j < TP; ++j) {
+    const int p = (t / 32) * PPW + lp + LP * j;
     if (p >= P) continue;
     const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
     if (oh >= g.out_h || ow >= g.out_w) continue;
     float* o = out + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int co = co0 + 4 * og + u;
-      if (co < g.C_out) o[co] = acc[j][u];
+    for (int u = 0; u < TC / 4; ++u) {
+      const int co = co0 + 4 * lc + 4 * LC * u;
+      if (vec_o && co < g.C_out) {
+        *reinterpret_cast<float4*>(o + co) =
+            make_float4(oacc[j][4 * u], oacc[j][4 * u + 1], oacc[j][4 * u + 2],
+                        oacc[j][4 * u + 3]);
+      } else if (!vec_o) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (co + v < g.C_out) o[co + v] = oacc[j][4 * u + v];
+      }
     }
   }
 }
 
 constexpr size_t MAX_SMEM = 232448;     // 227 KB: the per-CTA opt-in maximum
 
-template <int K, int S, int COT>
+template <int K, int S, int NC>
 cudaError_t launch(const float* x, const float* w_conv, const float* w_proj,
                    float* out, const Geom& g, int act, cudaStream_t stream) {
-  const size_t smem = smem_floats(K, g.in_rows, g.in_cols, COT) * sizeof(float);
+  const int pixels = g.tile_h * g.tile_w;
+  const size_t smem = smem_floats(g.in_rows, g.in_cols, g.ci_chunk, NC) * sizeof(float);
   // once per instance (a function-local static), so no attribute call lands
   // inside a CUDA graph capture
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      fusedmb_kernel<K, S, COT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fusedmb_kernel<K, S, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)MAX_SMEM);
   if (smem_set != cudaSuccess) return smem_set;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int n_tiles = ((g.out_h + g.tile_h - 1) / g.tile_h) * g.n_tw;
-  const dim3 grid(n_tiles, (g.C_out + COT - 1) / COT, g.B);
-  fusedmb_kernel<K, S, COT><<<grid, NTHREADS, smem, stream>>>(x, w_conv, w_proj, out,
-                                                               g, act);
+  const int threads = (pixels + pixels_per_warp(NC) - 1) / pixels_per_warp(NC) * 32;
+  const dim3 grid(n_tiles, (g.C_out + NC - 1) / NC, g.B);
+  fusedmb_kernel<K, S, NC><<<grid, threads, smem, stream>>>(x, w_conv, w_proj, out, g,
+                                                             act);
   return cudaGetLastError();
 }
 
 template <int K, int S>
-cudaError_t launch_co(const float* x, const float* w_conv, const float* w_proj,
-                      float* out, const Geom& g, int act, cudaStream_t stream) {
-  switch (co_tile(g.C_out)) {
+cudaError_t launch_nc(const float* x, const float* w_conv, const float* w_proj,
+                      float* out, const Geom& g, int nc, int act, cudaStream_t stream) {
+  switch (nc) {
+    case 24: return launch<K, S, 24>(x, w_conv, w_proj, out, g, act, stream);
     case 32: return launch<K, S, 32>(x, w_conv, w_proj, out, g, act, stream);
+    case 48: return launch<K, S, 48>(x, w_conv, w_proj, out, g, act, stream);
     case 64: return launch<K, S, 64>(x, w_conv, w_proj, out, g, act, stream);
-    default: return launch<K, S, 128>(x, w_conv, w_proj, out, g, act, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -267,13 +420,14 @@ cudaError_t launch_co(const float* x, const float* w_conv, const float* w_proj,
 // returns cudaGetLastError() after the launch (0 = launched).
 extern "C" {
 
-int fusedmb_channel_tile() { return CT; }
 int fusedmb_max_tile_pixels() { return MAXP; }
-int fusedmb_pixel_stride() { return XS; }
+int fusedmb_pixels_per_thread() { return TP; }
+int fusedmb_ring_slots() { return SLOTS; }
+int fusedmb_chunk_lanes(int nc) { return chunk_lanes(nc); }
 // the dynamic shared memory one launch asks for (the schedule solver's
 // budget check must agree with it)
-size_t fusedmb_smem_bytes(int K, int in_rows, int in_cols, int C_out) {
-  return smem_floats(K, in_rows, in_cols, co_tile(C_out)) * sizeof(float);
+size_t fusedmb_smem_bytes(int in_rows, int in_cols, int ci_chunk, int nc) {
+  return smem_floats(in_rows, in_cols, ci_chunk, nc) * sizeof(float);
 }
 const char* fusedmb_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -282,23 +436,26 @@ const char* fusedmb_error_string(int code) {
 int fusedmb(const float* x, const float* w_conv, const float* w_proj, float* out,
             int B, int H, int W, int C_in, int C_mid, int C_out, int K, int S,
             int out_h, int out_w, int pad_top, int pad_left, int tile_h, int tile_w,
-            int act, void* stream) {
+            int nc, int ci_chunk, int act, void* stream) {
   Geom g;
   g.B = B; g.H = H; g.W = W; g.C_in = C_in; g.C_mid = C_mid; g.C_out = C_out;
   g.out_h = out_h; g.out_w = out_w; g.pad_top = pad_top; g.pad_left = pad_left;
-  g.tile_h = tile_h; g.tile_w = tile_w;
+  g.tile_h = tile_h; g.tile_w = tile_w; g.ci_chunk = ci_chunk;
+  // a chunk smaller than C_in is a multiple of 4, so every window chunk
+  // but the last is whole float4s
   if (B <= 0 || B > 65535 || C_in <= 0 || C_mid <= 0 || C_out <= 0 || out_h <= 0 ||
-      out_w <= 0 || tile_h <= 0 || tile_w <= 0 || tile_h * tile_w > MAXP)
+      out_w <= 0 || tile_h <= 0 || tile_w <= 0 || tile_h * tile_w > MAXP ||
+      ci_chunk <= 0 || (ci_chunk < C_in && ci_chunk % 4))
     return (int)cudaErrorInvalidValue;
   g.n_tw = (out_w + tile_w - 1) / tile_w;
   g.in_rows = (tile_h - 1) * S + K;
   g.in_cols = (tile_w - 1) * S + K;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (K * 10 + S) {
-    case 31: return (int)launch_co<3, 1>(x, w_conv, w_proj, out, g, act, st);
-    case 32: return (int)launch_co<3, 2>(x, w_conv, w_proj, out, g, act, st);
-    case 51: return (int)launch_co<5, 1>(x, w_conv, w_proj, out, g, act, st);
-    case 52: return (int)launch_co<5, 2>(x, w_conv, w_proj, out, g, act, st);
+    case 31: return (int)launch_nc<3, 1>(x, w_conv, w_proj, out, g, nc, act, st);
+    case 32: return (int)launch_nc<3, 2>(x, w_conv, w_proj, out, g, nc, act, st);
+    case 51: return (int)launch_nc<5, 1>(x, w_conv, w_proj, out, g, nc, act, st);
+    case 52: return (int)launch_nc<5, 2>(x, w_conv, w_proj, out, g, nc, act, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

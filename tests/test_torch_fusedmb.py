@@ -15,10 +15,18 @@ from repro.models.mbconv import EffNetV2Config, effnet_v2_block_specs
 from repro_torch.core import perfmodel as tperf
 from repro_torch.core.autotune import (
     C_BLOCK,
-    MAX_TILE_PIXELS,
+    FMB_CHUNK_LANES,
+    FMB_MAX_TILE_PIXELS,
     SMEM_BYTES,
+    fusedmb_chunk,
+    fusedmb_executed_fmas,
+    fusedmb_fmas_per_pixel,
+    fusedmb_launch_plan,
     fusedmb_smem_bytes,
+    fusedmb_threads,
+    fusedmb_window_smem_bytes,
     get_fusedmb_schedule,
+    window_extent,
 )
 from repro_torch.kernels import convdk_fusedmb as tf
 from repro_torch.kernels.ref import fusedmb_ref as torch_fusedmb_ref
@@ -126,13 +134,56 @@ def test_copied_fusedmb_traffic_equals_jax(tile_h):
 
 @pytest.mark.parametrize("res", [224, 300, 384])
 def test_hopper_fused_schedules_fit_shared_memory(res):
+    """The solved tiles fit the CTA: at most FMB_MAX_TILE_PIXELS pixels,
+    and the launcher's shared memory (the window of the launch plan's
+    c_in chunk and the weight ring) within the budget,
+    with the whole of C_in staged at once at V2-S's widths."""
     for sh in _v2s_fused_shapes(res):
         sch = get_fusedmb_schedule(**sh)
         shape = tperf.MBConvShape(**sh, se_ratio=0.0)
-        assert sch.tile_h * sch.tile_w <= MAX_TILE_PIXELS
-        assert sch.tile_h <= shape.out_h and sch.tile_w <= shape.out_w
-        assert fusedmb_smem_bytes(shape, sch.tile_h, sch.tile_w) \
-            <= SMEM_BYTES
+        th, tw = sch.tile_h, sch.tile_w
+        assert th * tw <= FMB_MAX_TILE_PIXELS
+        assert th <= shape.out_h and tw <= shape.out_w
+        nc, ci = fusedmb_launch_plan(sh["c_in"], sh["c_mid"], sh["c_out"],
+                                     sh["k"], sh["s"], th, tw)
+        assert (sch.chunk, sch.ci_chunk) == (nc, ci) and ci == sh["c_in"]
+        smem = fusedmb_window_smem_bytes(
+            window_extent(th, sh["k"], sh["s"]),
+            window_extent(tw, sh["k"], sh["s"]), ci, nc)
+        assert fusedmb_smem_bytes(shape, th, tw) == smem <= SMEM_BYTES
         assert sch.total_bytes == tperf.fusedmb_fused_traffic(
-            shape, sch.tile_h, C_BLOCK).total_bytes
+            shape, th, C_BLOCK).total_bytes
         assert get_fusedmb_schedule(**sh) is sch
+
+
+@pytest.mark.parametrize("res", [224, 300, 384])
+def test_fusedmb_chunks_fit_v2s_widths(res):
+    """The chunk divides every V2-S C_mid and equals C_out, so the kernel
+    executes exactly the work's FMAs per output pixel (k^2 C_in C_mid +
+    C_mid C_out, no padded channel); at 384, the main path's size, the
+    solved tiles also cover the maps with no idle pixel lane, so the
+    executed FMAs of the 10 blocks equal their work (36.5 G)."""
+    total_exec = total_work = 0
+    for sh in _v2s_fused_shapes(res):
+        c_in, c_mid, c_out, k = sh["c_in"], sh["c_mid"], sh["c_out"], sh["k"]
+        nc = fusedmb_chunk(c_in, c_mid, c_out, k)
+        assert nc in FMB_CHUNK_LANES and c_mid % nc == 0 and c_out == nc
+        work = k * k * c_in * c_mid + c_mid * c_out
+        assert fusedmb_fmas_per_pixel(c_in, c_mid, c_out, k) == work
+        sch = get_fusedmb_schedule(**sh)
+        shape = tperf.MBConvShape(**sh, se_ratio=0.0)
+        total_exec += fusedmb_executed_fmas(shape, sch.tile_h, sch.tile_w)
+        total_work += sh["b"] * shape.out_h * shape.out_w * work
+    if res == 384:
+        assert total_exec == total_work
+        assert round(total_work / 1e9, 1) == 36.5
+    else:
+        assert total_exec >= total_work
+
+
+def test_fusedmb_threads_cover_the_tile():
+    """Whole warps of 4 pixels per thread across the chunk's pixel lanes:
+    128 pixels take 8 warps at chunk 64, 4 at 48 and 32, 2 at 24."""
+    assert [fusedmb_threads(nc, 128) for nc in (64, 48, 32, 24)] == \
+        [256, 128, 128, 64]
+    assert fusedmb_threads(48, 33) == 64 and fusedmb_threads(24, 1) == 32

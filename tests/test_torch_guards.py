@@ -21,6 +21,7 @@ import repro_torch
 from repro_torch.configs import mamba2_2p7b
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
+from repro_torch.core.autotune import fused_separable_launch_plan as launch_plan
 from repro_torch.core.autotune import retain_plan
 from repro_torch.examples import train_mobilenet_cim
 from repro_torch.kernels import convdk_conv1d as tc
@@ -178,9 +179,9 @@ def test_launch_counters_stay_zero_on_cpu():
                                        activation="silu", tile_l=8)
         assert out.shape == (2, 19, 6)
     assert set(tk.LAUNCHES) == set(tk.KERNELS)
-    assert set(launches()) == set(tk.KERNELS) | {"fusedmb",
-                                                 "fused_separable", "dw2d",
-                                                 "conv1d"}
+    assert set(launches()) == set(tk.KERNELS) | {
+        "fusedmb", "fused_separable", "fused_separable_reduce", "dw2d",
+        "conv1d"}
     assert all(n == 0 for n in launches().values())
 
 
@@ -313,13 +314,16 @@ def test_redesigned_kernels_match_plain_on_card(kind, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_mid,c_out", [(3, 24, 24), (24, 96, 48),
-                                              (70, 200, 130)])
+@pytest.mark.parametrize("c_in,c_mid,c_out", [
+    (3, 24, 24), (24, 24, 24), (24, 96, 48), (40, 72, 40), (48, 96, 48),
+    (16, 32, 32), (24, 128, 64), (70, 200, 130)])
 @pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 2)])
 def test_fusedmb_kernel_matches_plain_on_card(k, s, c_in, c_mid, c_out,
                                              monkeypatch):
-    """B5 at odd shapes: ragged 23x23 maps and tiles, channel counts that
-    are not multiples of the 32-wide chunks, two c_out tiles (130)."""
+    """B5 at odd shapes: ragged 23x23 maps and tiles (3x5, 8x8, 8x16),
+    every chunk (24, 32, 48, 64), C_in / C_mid / C_out that are not
+    multiples of 4 or of the chunk, several c_out tiles (130), and the
+    chunked c_in window (C_in 70, 5x5, stride 2 at 8x16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     # the plain side's conv and matmul in full fp32, for this test only
@@ -330,13 +334,14 @@ def test_fusedmb_kernel_matches_plain_on_card(k, s, c_in, c_mid, c_out,
     x = r(3, 23, 23, c_in)
     w_conv = r(k, k, c_in, c_mid) / (k * k * c_in) ** 0.5
     w_proj = r(c_mid, c_out) / c_mid ** 0.5
-    for tile_h, tile_w in ((8, 8), (3, 5)):
+    for tile_h, tile_w in ((8, 8), (3, 5), (8, 16)):
         geo = tk.MBConvGeometry.make(23, 23, k, s, "SAME", tile_h, tile_w)
         for act in ("silu", "hard_swish"):
             got = tf.fusedmb(x, w_conv, w_proj, geo, act=act)
             ref = tf.fusedmb_plain(x, w_conv, w_proj, geo, act=act)
-            tol = 1e-4 * float(ref.abs().max()) + 1e-5
-            assert float((got - ref).abs().max()) <= tol
+            _close_on_card(got, ref)
+            assert torch.equal(got, tf.fusedmb(x, w_conv, w_proj, geo,
+                                               act=act))
     torch.cuda.synchronize()
 
 
@@ -346,14 +351,17 @@ def _close_on_card(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,c_in,c_out", [(13, 10, 40, 36), (9, 1, 3, 130),
-                                            (23, 23, 70, 200)])
+@pytest.mark.parametrize("h,w,c_in,c_out", [
+    (13, 10, 40, 36), (9, 1, 3, 130), (23, 23, 70, 200), (13, 10, 24, 24),
+    (11, 11, 48, 48), (9, 7, 200, 24), (7, 7, 384, 40)])
 @pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 2)])
 def test_separable_kernels_match_plain_on_card(k, s, h, w, c_in, c_out,
                                                monkeypatch):
-    """B4 and B6 at odd shapes: ragged maps and tiles, a width-1 map,
-    channel counts that are not multiples of 4 or of the 32-wide chunks,
-    and two c_out tiles."""
+    """B4 and B6 at odd shapes: ragged maps and tiles (8x8, 3x5), a
+    width-1 map, channel counts that are not multiples of 4 or of the
+    32-wide chunks, several c_out tiles, and C_in split across CTAs (200
+    and 384 channels into 24 and 40) with the reduce (B4'); B4 repeats bit
+    for bit, and the reduce equals its plain version exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -365,16 +373,74 @@ def test_separable_kernels_match_plain_on_card(k, s, h, w, c_in, c_out,
     for tile_h, tile_w in ((8, 8), (3, 5)):
         geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
         for dw_act, act in (("relu", "relu"), ("relu6", None)):
-            _close_on_card(
-                tfs.fused_separable(x, w_dw, w_pw, geo, dw_act=dw_act,
-                                    act=act),
-                tfs.fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
-                                          act=act))
+            got = tfs.fused_separable(x, w_dw, w_pw, geo, dw_act=dw_act,
+                                      act=act)
+            _close_on_card(got, tfs.fused_separable_plain(
+                x, w_dw, w_pw, geo, dw_act=dw_act, act=act))
+            assert torch.equal(got, tfs.fused_separable(
+                x, w_dw, w_pw, geo, dw_act=dw_act, act=act))
         strips = ops.stage_row_strips(pad_nhwc(x, geo.pads), k, s,
                                       geo.tile_h)
         kw = dict(stride=s, out_w=geo.out_w, tile_h=geo.tile_h)
         _close_on_card(td.dw2d(strips, w_dw, **kw),
                        td.dw2d_plain(strips, w_dw, **kw))
+    for splits in (2, 5):
+        part = r(splits, 3, h, w, c_out)
+        for act in (None, "relu6"):
+            assert torch.equal(tfs.fused_separable_reduce(part, act=act),
+                               tfs.fused_separable_reduce_plain(part,
+                                                                act=act))
+    torch.cuda.synchronize()
+
+
+def test_separable_guard_cases_split_c_in():
+    """Two of the card cases above run the split route (C_in 200 and 384
+    against C_out 24 and 40) at both of their tiles."""
+    for h, w, c_in, c_out in ((9, 7, 200, 24), (7, 7, 384, 40)):
+        for tile_h, tile_w in ((8, 8), (3, 5)):
+            geo = tk.MBConvGeometry.make(h, w, 3, 1, "SAME", tile_h, tile_w)
+            _, splits = launch_plan(3, h, w, c_in, c_out, 3, 1, geo.tile_h,
+                                    geo.tile_w)
+            assert 1 < splits and splits * c_out < c_in
+
+
+def _within_bf16_ulp(got, ref32):
+    """|got - ref32| at most 1 bf16 ulp of the fp32 value, everywhere."""
+    exp = torch.frexp(ref32)[1]
+    ulp = torch.where(ref32 == 0, torch.full_like(ref32, 2.0 ** -133),
+                      torch.ldexp(torch.ones_like(ref32), exp - 8))
+    return bool(((got.float() - ref32).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(13, 10, 40), (9, 1, 3), (16, 16, 16),
+                                   (23, 23, 70)])
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 2)])
+def test_dw2d_bf16_matches_fp32_sum_on_card(k, s, h, w, c, monkeypatch):
+    """B6 in bf16: strips and taps in bf16, the output in bf16 within 1
+    bf16 ulp of the plain version's fp32 sum (the fp32 conv of the same
+    bf16 values) rounded once; ragged channels (3, 70) take the scalar
+    path.  Through the op, ``convdk_depthwise2d`` returns bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    g = torch.Generator().manual_seed(1000 + 10 * k + c)
+    x = torch.randn(3, h, w, c, generator=g).cuda().bfloat16()
+    w_dw = (torch.randn(k, k, c, generator=g) / k).cuda().bfloat16()
+    for tile_h in (8, 3):
+        geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, w)
+        strips = ops.stage_row_strips(pad_nhwc(x, geo.pads), k, s,
+                                      geo.tile_h)
+        kw = dict(stride=s, out_w=geo.out_w, tile_h=geo.tile_h)
+        got = td.dw2d(strips, w_dw, **kw)
+        assert got.dtype == torch.bfloat16
+        assert _within_bf16_ulp(got, td.dw2d_plain(strips.float(),
+                                                   w_dw.float(), **kw))
+    out = ops.convdk_depthwise2d(x, w_dw, stride=s, tile_h=4)
+    assert out.dtype == torch.bfloat16
+    assert _within_bf16_ulp(out, depthwise2d_ref(x.float(), w_dw.float(), s))
+    with pytest.raises(ValueError, match="one dtype"):
+        td.dw2d(strips, w_dw.float(), **kw)
     torch.cuda.synchronize()
 
 

@@ -18,16 +18,22 @@ from repro.kernels.ops import stage_row_strips as jax_stage_row_strips
 from repro.kernels.ref import separable_ref as jax_separable_ref
 from repro_torch.core import perfmodel as tperf
 from repro_torch.core.autotune import (
-    MAX_TILE_PIXELS,
+    SEP_CHUNK_LANES,
+    SEP_MAX_TILE_PIXELS,
+    SM_COUNT,
     SMEM_BYTES,
-    co_tile,
+    fused_separable_chunk,
+    fused_separable_launch_plan,
     fused_separable_smem_bytes,
+    fused_separable_window_smem_bytes,
     get_fused_schedule,
+    window_extent,
 )
 from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
 from repro_torch.kernels import convdk_dw as td
 from repro_torch.kernels import convdk_fused as tf
 from repro_torch.kernels import ops
+from repro_torch.kernels.convdk_mbconv import MBConvGeometry
 from repro_torch.kernels.ref import separable_ref
 
 TOL = 1e-4   # the JAX suite's fp32 kernel-vs-ref bar (max abs error)
@@ -168,23 +174,112 @@ def test_copied_separable_traffic_equals_jax(tile_h):
             (want.read_words, want.write_words), sh
 
 
+def _trainer_shapes(batch):
+    return [dict(b=batch, h=16 >> i, w=16 >> i, c_in=16 << i,
+                 c_out=32 << i, k=3, s=2) for i in range(3)]
+
+
 @pytest.mark.parametrize("batch", [1, 8, 32])
 def test_hopper_separable_schedules_fit_shared_memory(batch):
-    """Every MobileNet-V2 block and the trainer's three blocks; at the
-    solved tile the fused pipeline moves fewer modeled bytes than the
-    staged one (the JAX suite's per-layer claim)."""
-    trainer = [dict(b=batch, h=16 >> i, w=16 >> i, c_in=16 << i,
-                    c_out=32 << i, k=3, s=2) for i in range(3)]
-    for sh in _mnv2_shapes(batch) + trainer:
+    """Every MobileNet-V2 block and the trainer's three blocks: the solved
+    tile fits the CTA (the launcher's shared memory: the three-slot ring
+    of window, taps and pointwise rows, and two depthwise tiles), its c_out
+    tile and splits are the launch plan's; at the solved tile the fused
+    pipeline moves fewer modeled bytes than the staged one (the JAX
+    suite's per-layer claim)."""
+    for sh in _mnv2_shapes(batch) + _trainer_shapes(batch):
         sch = get_fused_schedule(**sh)
         shape = tperf.SeparableShape(**sh)
-        assert sch.tile_h * sch.tile_w <= MAX_TILE_PIXELS
-        assert sch.tile_h <= shape.out_h and sch.tile_w <= shape.out_w
-        assert fused_separable_smem_bytes(shape, sch.tile_h, sch.tile_w) \
-            <= SMEM_BYTES
-        assert sch.co_tile == co_tile(sh["c_out"])
+        th, tw = sch.tile_h, sch.tile_w
+        assert th * tw <= SEP_MAX_TILE_PIXELS
+        assert th <= shape.out_h and tw <= shape.out_w
+        smem = fused_separable_window_smem_bytes(
+            sh["k"], window_extent(th, sh["k"], sh["s"]),
+            window_extent(tw, sh["k"], sh["s"]), th * tw, sch.co_tile)
+        assert fused_separable_smem_bytes(shape, th, tw) == smem <= SMEM_BYTES
+        assert sch.co_tile == fused_separable_chunk(sh["c_out"], sh["k"])
+        assert (sch.co_tile, sch.splits) == fused_separable_launch_plan(
+            batch, sh["h"], sh["w"], sh["c_in"], sh["c_out"], sh["k"],
+            sh["s"], th, tw)
         assert sch.total_bytes == tperf.fused_separable_traffic(
-            shape, sch.tile_h).total_bytes
+            shape, th).total_bytes
         assert sch.total_bytes < tperf.staged_separable_traffic(
-            shape, sch.tile_h).total_bytes
+            shape, th).total_bytes
         assert get_fused_schedule(**sh) is sch
+
+
+def test_separable_splits_and_grids_at_224_batch_8():
+    """MobileNet-V2 at 224 batch 8 and the trainer at batch 32: every
+    split keeps splits * C_out < C_in (the partials are smaller than the
+    depthwise tensor the staged route writes), and the late blocks (the
+    28x28 / s2 block onward: 14x14 and 7x7 outputs) run at least one CTA
+    per SM.  The trainer's blocks (C_out = 2 C_in) never split."""
+    for n, sh in enumerate(_mnv2_shapes(8) + _trainer_shapes(32)):
+        sch = get_fused_schedule(**sh)
+        shape = tperf.SeparableShape(**sh)
+        assert sch.co_tile in SEP_CHUNK_LANES
+        assert sch.splits == 1 or sch.splits * sh["c_out"] < sh["c_in"]
+        ctas = (-(-shape.out_h // sch.tile_h) * -(-shape.out_w // sch.tile_w)
+                * -(-sh["c_out"] // sch.co_tile) * sh["b"] * sch.splits)
+        if n < 17 and shape.out_h <= 14:
+            assert ctas >= SM_COUNT, sh
+    assert all(get_fused_schedule(**sh).splits == 1
+               for sh in _trainer_shapes(32))
+    assert any(get_fused_schedule(**sh).splits > 1 for sh in _mnv2_shapes(8))
+
+
+def test_split_reduce_plain_sums_in_split_order():
+    """B4's plain reduce is the direct sum of the partials in split order,
+    bit for bit (a sequential fp32 sum), then act."""
+    part = np.random.default_rng(9).normal(size=(5, 2, 3, 4, 7)) \
+        .astype(np.float32)
+    want = part[0].copy()
+    for s in range(1, 5):
+        want += part[s]
+    got = tf.fused_separable_reduce(torch.from_numpy(part), act=None)
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = tf.fused_separable_reduce(torch.from_numpy(part), act="relu6")
+    np.testing.assert_array_equal(got.numpy(), np.clip(want, 0, 6))
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+def test_split_route_matches_jax_interpret(splits):
+    """The split route on the CPU (per-split partials, then the reduce)
+    against the JAX fused op in interpret mode: 70 channels in chunks of
+    32 (the last split ragged), stride 2, within 1e-5."""
+    rng = np.random.default_rng(splits)
+    x, w_dw, w_pw = _inputs(rng, h=9, w=11, c_in=70, c_out=12, k=3)
+    ref = jax_fused(jnp.asarray(x), jnp.asarray(w_dw), jnp.asarray(w_pw),
+                    stride=2, tile_h=2, dw_act="relu", act="relu6",
+                    interpret=True)
+    geo = MBConvGeometry.make(9, 11, 3, 2, "SAME", 2, 4)
+    part = tf.fused_separable_partials_plain(*_t(x, w_dw, w_pw), geo,
+                                             splits=splits, dw_act="relu")
+    assert part.shape == (splits, 2, 5, 6, 12)
+    assert tf.split_channels(70, splits)[-1][1] == 70
+    port = tf.fused_separable_reduce_plain(part, act="relu6")
+    assert port.shape == ref.shape
+    assert _max_err(port, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_depthwise2d_dtypes_match_jax_interpret(dtype):
+    """The CPU twin of the JAX suite's ``test_dw2d_dtypes``: the port's
+    ``convdk_depthwise2d`` in fp32 and bf16 (bf16 in, bf16 out) against
+    the JAX op in interpret mode, on the same bf16-rounded inputs, within
+    the reference's tolerance (1e-5 fp32, 2e-2 bf16)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 16, 16, 16)).astype(np.float32)
+    w = rng.normal(size=(3, 3, 16)).astype(np.float32)
+    jdt = jnp.float32 if dtype is np.float32 else jnp.bfloat16
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    jx, jw = jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt)
+    ref = jax_depthwise2d(jx, jw, stride=2, padding="SAME", interpret=True)
+    tx = torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(tdt)
+    tw = torch.from_numpy(np.asarray(jw.astype(jnp.float32))).to(tdt)
+    port = ops.convdk_depthwise2d(tx, tw, stride=2, padding="SAME")
+    assert port.dtype == tdt and port.shape == ref.shape
+    tol = 1e-5 if dtype is np.float32 else 2e-2
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
