@@ -15,17 +15,20 @@ Phases, each of which must pass (exit 1 otherwise):
 2. kernels  full-width EfficientNet-B0, batch 8, at every serve bucket
             (224, 384, 512): on every block, with the tiles and modes the
             engine solves for that bucket, each MBConv kernel (pass 1 with
-            and without the DW write, the pool reduce, pass 2 recompute at
-            the tile a recompute pin solves and retain, which must repeat
-            bit for bit, and retain's split-K reduce where the block's plan
-            splits C_mid, exactly), with the block's activation and SE,
-            against its plain
+            and without the DW write, its folded SE pool exactly the
+            tile-order sum of its partials, pass 2 recompute at the tile a
+            recompute pin solves with its c_out tiles and C_mid splits, and
+            retain, both of which must repeat bit for bit, and retain's
+            split-K reduce where the block's plan splits C_mid, exactly),
+            with the block's activation and SE, against its plain
             PyTorch version on the same inputs on the card, within
             1e-4 * max|plain| + 1e-5.  At 224 each is also timed: device
             time of 20 calls replayed from one CUDA graph (kernel, plain
             version, and the one-call library version where PyTorch has
             one), and the kernel's host-inclusive time of 20 eager calls,
-            both on CUDA events.
+            both on CUDA events; then per block the two pass-2 routes side
+            by side (pass 1 + recompute against pass 1 with the DW write +
+            retain, its split-K reduce included).
 3. model    full-width B0 (1000 classes) at 224, batch 8, from a seeded
             torch.Generator: the logits on the card against the same model on
             the CPU through the plain versions, within 1e-3 relative; then the
@@ -35,7 +38,8 @@ Phases, each of which must pass (exit 1 otherwise):
 5. serve    the B0 main path: VisionEngine at buckets (224, 384, 512), batch
             8, answering 12 mixed requests (one oversize, shed).  Launch
             counts are zeroed just before and read just after; every MBConv
-            kernel must have run.  Each bucket's schedules are built once,
+            kernel must have run, and no SE pool reduce (folded into pass
+            1).  Each bucket's schedules are built once,
             and a padded request of the 384 and of the 512 bucket match the
             CPU plain run of its padded image within 1e-3 relative.
 6. v2s-kernels  full-width EfficientNet-V2-S at 384x384, batch 8, with the
@@ -53,11 +57,13 @@ Phases, each of which must pass (exit 1 otherwise):
             solved tiles: every MBConv kernel on each of the 15 blocks with
             the block's activation (relu or hard_swish) and, on the 8 SE
             blocks, a hard_sigmoid gate (the others run without partials,
-            pool reduce or gate), at the same bar; the variants the forward
-            runs are timed as in phase 2.
+            pool or gate), at the same bar, each timed as in phase 2 with
+            the two pass-2 routes side by side.
 9. v3-model     the V3 main path: full-width MobileNet-V3-Large at 224,
             batch 8, on the card, launch counts zeroed just before and read
-            just after, against the CPU plain run within 1e-3 relative.
+            just after (one pass 1 on each SE or retain block), against the
+            CPU plain run within 1e-3 relative; the forward timed on CUDA
+            events and traced.
 10. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
             batch 8, and the trainer's 3 blocks at its batch 32, with the
             solved tiles and C_in splits: the fused separable kernel (with
@@ -122,7 +128,8 @@ Phases, each of which must pass (exit 1 otherwise):
             tokens against the kernel path's forward (last row) within
             1e-3 relative.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]} (the SE pool reduce listed
+as folded into pass 1: no launches, no time of its own); the last line is
 {"ok": true, "device": {...}}.  Per-block kernel numbers are also written to
 build/chip_smoke/kernels.json.
 """
@@ -219,24 +226,57 @@ class KernelStats:
         return good
 
     def sums(self, kernel, net, res):
-        """Sums over the blocks of one network's main path at ``res``;
-        None when the path runs no block of ``kernel``."""
+        """Sums over the blocks of one network's main path at ``res`` (a
+        time None where any block's is); None when the path runs no block
+        of ``kernel``."""
         path = [r for r in self.rows if r["kernel"] == kernel
                 and r["net"] == net and r["res"] == res and r["on_path"]]
         if not path:
             return 0, None
-        lib = [r["library_ms"] for r in path]
         by_bytes = sum(r["bound_bytes_ms"] for r in path)
         by_ops = sum(r["bound_ops_ms"] for r in path)
+
+        def total(key):
+            vals = [r[key] for r in path]
+            return None if None in vals else sum(vals)
+
         return len(path), {
-            "ms": sum(r["ms"] for r in path),
-            "plain_ms": sum(r["plain_ms"] for r in path),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": sum(r["bound_ms"] for r in path),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": sum(lib) if all(v is not None for v in lib)
-            else None,
-            "host_ms": sum(r["host_ms"] for r in path),
+            "library_ms": total("library_ms"), "host_ms": total("host_ms"),
         }
+
+    def both_modes(self, net, res):
+        """Per block of ``net`` at ``res``, the device ms of its two pass-2
+        routes from the timed rows: pass 1 (where SE needs it) + recompute,
+        against pass 1 with the DW write + retain (its split-K reduce
+        included), and the solver's mode; printed and returned."""
+        def ms(kernel, block, **match):
+            rows = [r for r in self.rows if r["kernel"] == kernel
+                    and r["net"] == net and r["res"] == res
+                    and r["block"] == block and r.get("ms") is not None
+                    and all(r.get(k) == v for k, v in match.items())]
+            return rows[0]["ms"] if rows else None
+
+        table = []
+        for block in sorted({r["block"] for r in self.rows
+                             if r["net"] == net and r["res"] == res}):
+            b2 = ms("mbconv_pass2_recompute", block)
+            b3 = ms("mbconv_pass2_retain", block)
+            ret1 = ms("mbconv_pass1", block, retain=True)
+            row = next(r for r in self.rows if r["net"] == net
+                       and r["res"] == res and r["block"] == block)
+            rec1 = ms("mbconv_pass1", block, retain=False) if row["se"] \
+                else 0.0
+            if None in (b2, b3, ret1, rec1):
+                continue
+            table.append(dict(block=block, mode=row["mode"],
+                              recompute_ms=rec1 + b2, retain_ms=ret1 + b3))
+            print(f"  {net} r{res} block{block:02d} pass 1 + recompute "
+                  f"{rec1 + b2:.4f} ms, pass 1 + retain {ret1 + b3:.4f} ms "
+                  f"(solved: {row['mode']})")
+        return table
 
     def summary(self, launches):
         """The kernels line: each kernel over its main path (B0 serving for
@@ -291,6 +331,17 @@ class KernelStats:
                 entry.update(launches=launches["v2s"][kernel], **sums,
                              shape=f"EfficientNet-V2-S {V2S_RES}x{V2S_RES} "
                                    f"batch {BATCH}, {n} fused blocks")
+            elif kernel == "mbconv_pool_reduce":
+                n, sums = self.sums(kernel, "b0", RES)
+                entry.update(launches=0, folded_into="mbconv_pass1", **sums,
+                             shape=f"EfficientNet-B0 {RES}x{RES} batch "
+                                   f"{BATCH}, {n} SE blocks: folded into "
+                                   f"pass 1's epilogue (its time is in "
+                                   f"mbconv_pass1's ms), checked exact "
+                                   f"against the plain tile-order sum on "
+                                   f"every SE block of B0, V2-S and V3; "
+                                   f"plain and library times on pass 1's "
+                                   f"partials")
             else:
                 n, sums = self.sums(kernel, "b0", RES)
                 entry.update(launches=launches["b0"][kernel], **sums,
@@ -309,7 +360,8 @@ class KernelStats:
 
 
 PTXAS_SOURCES = ("mbconv", "fusedmb", "separable")
-PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_retain_kernel",
+PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_recompute_kernel",
+                 "mbconv_pass2_retain_kernel",
                  "mbconv_splitk_reduce_kernel", "fusedmb_kernel",
                  "fused_separable_kernel", "fused_separable_reduce_kernel",
                  "dw2d_kernel")
@@ -402,23 +454,26 @@ class _Harness:
     def times(timed, kernel, plain, library=None):
         """Device ms of 20 calls replayed from one CUDA graph (kernel,
         plain version, one-call library version) and the kernel's
-        host-inclusive ms of 20 eager calls; None when not ``timed``."""
+        host-inclusive ms of 20 eager calls; None when not ``timed``, and
+        the kernel's times None where it is None (folded into another)."""
         from repro_torch.core.telemetry import measure
         if not timed:
             return None
-        dev_ms = lambda fn: measure(fn, iters=20, graph=True).mean_ms  # noqa: E731
+        dev_ms = lambda fn: None if fn is None else measure(  # noqa: E731
+            fn, iters=20, graph=True).mean_ms
         return {"ms": dev_ms(kernel), "plain_ms": dev_ms(plain),
-                "library_ms": None if library is None else dev_ms(library),
-                "host_ms": measure(kernel, iters=20).mean_ms}
+                "library_ms": dev_ms(library),
+                "host_ms": None if kernel is None
+                else measure(kernel, iters=20).mean_ms}
 
 
 def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
     """Every MBConv kernel variant a block of spec ``sp`` can run, on one
     block, against its plain version: the spec's activation, and with SE
-    (pool partials, the pool reduce, a gate of the spec's flavour) or
-    without (no partials, no pool reduce, ``gate=None``).  ``timed(on_path)``
+    (pool partials, the folded pool, a gate of the spec's flavour) or
+    without (no partials, no pool, ``gate=None``).  ``timed(on_path)``
     says which are timed."""
-    from repro_torch.core.autotune import get_mbconv_schedule
+    from repro_torch.core.autotune import get_mbconv_schedule, recompute_plan
 
     h, w, c_in, c_mid, c_out, k, s = row[:7]
     identity = c_mid == c_in
@@ -468,17 +523,20 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
                                                    **acts)),
             x_b + w1_b + part_b + (dw_b if retain else 0),
             exp_f + dw_f + gate_f, retain=retain, **shape)
-    partial, dw = ref
-    dw = dw.contiguous()
     if se:
-        pool = tk.mbconv_pool_reduce(partial)
+        # the SE pool reduce, folded into pass 1: its pool is exactly the
+        # tile-order sum of its own partials (no launch, no time of its
+        # own; its plain and library versions timed on those partials)
+        partial, pool = got[:2]
         err = float((pool - tk.mbconv_pool_reduce_plain(partial)).abs().max())
         ok &= stats.add(
             "mbconv_pool_reduce", net, res, i, True, err, 0.0,
-            hx.times(timed(True), lambda: tk.mbconv_pool_reduce(partial),
+            hx.times(timed(True), None,
                      lambda: tk.mbconv_pool_reduce_plain(partial),
                      lambda: partial.sum(dim=1)),
-            part_b + 4 * b * c_mid, b * geo.n_tiles * c_mid, **shape)
+            part_b + 4 * b * c_mid, b * geo.n_tiles * c_mid,
+            folded_into="mbconv_pass1", **shape)
+    dw = ref[2].contiguous()
 
     on_path = sch.mode == "recompute"
     # a retain block's pass-1 tile may pass B2's cap: off the path, the
@@ -487,8 +545,15 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
                               se_ratio=sp.se_ratio, mode="recompute")
     g2 = geo if on_path else tk.MBConvGeometry.make(
         h, w, k, s, "SAME", pin.tile_h, pin.tile_w)
+    co_tile, b2_splits = recompute_plan(b, oh, ow, c_mid, c_out, g2.tile_h,
+                                        g2.tile_w)
     got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, g2,
                                     **acts)
+    if not torch.equal(got, tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate,
+                                                      w_proj, g2, **acts)):
+        print(f"  {net} r{res} block{i:02d} recompute does not repeat bit "
+              "for bit: FAIL")
+        ok = False
     ref = tk.mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
                                           g2, **acts)
     ok &= stats.add(
@@ -499,7 +564,9 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
                  lambda: tk.mbconv_pass2_recompute_plain(
                      x, w_exp, w_dw, gate, w_proj, g2, **acts)),
         x_b + w1_b + w2_b + out_b, exp_f + dw_f + proj_f,
-        **dict(shape, tile=f"{g2.tile_h}x{g2.tile_w}"))
+        **dict(shape, tile=f"{g2.tile_h}x{g2.tile_w}",
+               co_tiles=-(-c_out // co_tile), co_tile=co_tile,
+               splits=b2_splits))
 
     on_path = sch.mode == "retain"
     got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
@@ -616,7 +683,8 @@ def _cpu_tree(torch, tree):
 def model_phase(torch, tk):
     from repro_torch.core.telemetry import measure
     from repro_torch.models.mbconv import (
-        EffNetConfig, efficientnet_b0_apply, efficientnet_b0_def)
+        EffNetConfig, efficientnet_b0_apply, efficientnet_b0_def,
+        effnet_block_specs)
     from repro_torch.models.param import materialize
 
     cfg = EffNetConfig()
@@ -651,8 +719,9 @@ def model_phase(torch, tk):
                                   ("mbconv_pass2_retain", "retain")):
                     if launches[kern] == 0:
                         modes.append(pin)
-            if not all(launches[k] > 0 for k in ("mbconv_pass1",
-                                                 "mbconv_pool_reduce")):
+            # every B0 block has SE: one pass 1 (with its folded pool) each
+            if (launches["mbconv_pass1"] != len(effnet_block_specs(cfg))
+                    or "mbconv_pool_reduce" in launches):
                 ok = False
     images = images.to(DEVICE)
 
@@ -803,7 +872,8 @@ def v2s_model_phase(torch):
                               cfg, images, V2S_CPU_IMAGES)
     n_mb = 30
     ok &= counts["fusedmb"] == 10
-    ok &= counts["mbconv_pass1"] == n_mb == counts["mbconv_pool_reduce"]
+    ok &= counts["mbconv_pass1"] == n_mb         # each with SE: its pool
+    ok &= "mbconv_pool_reduce" not in counts
     ok &= (counts["mbconv_pass2_recompute"]
            + counts["mbconv_pass2_retain"]) == n_mb
     images = images.to(DEVICE)
@@ -819,8 +889,10 @@ def v2s_model_phase(torch):
 
 
 def v3_model_phase(torch):
+    from repro_torch.core.telemetry import measure
     from repro_torch.models.mbconv import (
-        MobileNetV3Config, mobilenet_v3_apply, mobilenet_v3_def)
+        MobileNetV3Config, block_schedules, mobilenet_v3_apply,
+        mobilenet_v3_def, mobilenet_v3_specs)
     from repro_torch.models.param import materialize
 
     cfg = MobileNetV3Config()
@@ -833,8 +905,22 @@ def v3_model_phase(torch):
                               cfg, images, BATCH)
     ok &= (counts["mbconv_pass2_recompute"]
            + counts["mbconv_pass2_retain"]) == 15
-    ok &= counts["mbconv_pool_reduce"] == 8      # the blocks with SE
-    return bool(ok), counts
+    # one pass 1 on each block with SE (its pool folded in) or on retain
+    specs = mobilenet_v3_specs(cfg)
+    ok &= counts["mbconv_pass1"] == sum(
+        sp.has_se or sch.mode == "retain" for sp, sch in zip(
+            specs, block_schedules(specs, BATCH, V3_RES, V3_RES)))
+    ok &= "mbconv_pool_reduce" not in counts
+    images = images.to(DEVICE)
+
+    def forward():
+        return mobilenet_v3_apply(params, images, cfg)
+
+    with torch.inference_mode():
+        fwd = measure(forward, iters=10, warmup=2)
+    print(f"  forward (MobileNet-V3-Large {V3_RES}x{V3_RES}, batch {BATCH}): "
+          f"{fwd.mean_ms:.3f} ms (CUDA events, mean of 10)")
+    return bool(ok), counts, forward, fwd.mean_ms
 
 
 def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
@@ -1595,6 +1681,7 @@ def main() -> int:
     phase("kernels", f"kernels: B0 batch {BATCH}, every block at "
                      f"{SERVE_RES}, timed at {RES}")
     phases["kernels"] = kernel_phase(torch, tk, tf, stats)
+    both_modes = {"b0": stats.both_modes("b0", RES)}
     phase("model", "model: B0 on the card vs the CPU plain run")
     phases["model"], params, params_cpu, forward, fwd_ms = model_phase(
         torch, tk)
@@ -1624,10 +1711,14 @@ def main() -> int:
                         f"{V3_RES}, every block")
     phases["v3-kernels"] = chain_kernel_phase(
         torch, tk, tf, stats, "v3", mobilenet_v3_specs(MobileNetV3Config()),
-        V3_RES, 2000 + V3_RES, lambda on_path: on_path)
+        V3_RES, 2000 + V3_RES, lambda on_path: True)
+    both_modes["v3"] = stats.both_modes("v3", V3_RES)
     phase("v3-model", "v3-model: MobileNet-V3-Large on the card (its main "
                       "path) vs the CPU plain run")
-    phases["v3-model"], v3_launches = v3_model_phase(torch)
+    phases["v3-model"], v3_launches, forward, v3_ms = v3_model_phase(torch)
+    phase("v3-trace", "v3-trace: device time of the V3 forward by kernel")
+    v3_trace = trace_phase(torch, forward, v3_ms)
+    del forward
     phase("sep-kernels", f"sep-kernels: MobileNet-V2 batch {BATCH} at "
                          f"{MNV2_RES}, every separable block; the trainer's "
                          "blocks")
@@ -1660,12 +1751,14 @@ def main() -> int:
                    "trace": trace, "v2s_forward_ms": v2s_ms,
                    "v2s_trace": v2s_trace, "serve_latency_s": pct,
                    "v2s_launches": v2s_launches,
-                   "v3_launches": v3_launches,
+                   "v3_launches": v3_launches, "v3_forward_ms": v3_ms,
+                   "v3_trace": v3_trace,
                    "b0_forward_backward": b0_train,
                    "train": train, "train_launches": train_launches,
                    "mnv2_launches": mnv2_launches,
                    "lm": lm, "lm_launches": lm_launches,
-                   "lm_serve": lm_serve, "rows": stats.rows}, f,
+                   "lm_serve": lm_serve, "both_modes": both_modes,
+                   "rows": stats.rows}, f,
                   indent=1)
     if not all(phases.values()):
         print("chip_smoke: FAILED", file=sys.stderr)

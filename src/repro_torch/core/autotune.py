@@ -45,13 +45,10 @@ from .perfmodel import (
 )
 
 
-# Budget of one H100 CTA for the kernels.  C_BLOCK and MAX_TILE_PIXELS are
-# compiled into kernels/csrc/mbconv.cu (the channel tile and the per-CTA
-# output-pixel cap of the recompute kernel); the wrapper checks them
-# against the built library.
+# Budget of one H100 CTA for the kernels.  C_BLOCK is the copied traffic
+# model's channel block (the JAX solvers' twin), not a kernel tile.
 SMEM_BYTES = 232448                 # 227 KB dynamic smem per CTA
-C_BLOCK = 32                        # one warp lane per channel
-MAX_TILE_PIXELS = 64                # tile_h * tile_w cap
+C_BLOCK = 32
 TILE_H_CANDIDATES = (1, 2, 4, 8)
 
 # The redesigned MBConv pass 1 and retain kernels (kernels/csrc/mbconv.cu,
@@ -71,6 +68,15 @@ RETAIN_K_CHUNK = 32                 # retain's K chunk (C_mid)
 RETAIN_TILES = ((128, 64), (64, 64), (128, 32), (64, 32))   # (BM, BN)
 RETAIN_MIN_CTAS = 2 * SM_COUNT      # split K below about two waves
 RETAIN_MIN_SPLIT_CHUNKS = 2         # K chunks each split sums at least
+
+# The redesigned recompute kernel (B2; kernels/csrc/mbconv.cu, R2_* there,
+# checked against the built library by the wrapper): pass 1's expand and
+# depthwise per c_mid chunk of pass1_cm_tile channels, then the projection
+# into a c_out tile of one of RECOMPUTE_CO_TILES channels, w_proj streamed
+# RECOMPUTE_K_CHUNK rows per cp.async ring slot.
+MAX_TILE_PIXELS = 64                # B2's tile_h * tile_w cap
+RECOMPUTE_CO_TILES = (16, 32, 64, 128)
+RECOMPUTE_K_CHUNK = 16
 
 # The redesigned Fused-MBConv kernel (kernels/csrc/fusedmb.cu; the wrapper
 # checks these against the built library).  NC, one of FMB_CHUNKS, is both
@@ -148,11 +154,9 @@ def window_extent(tile: int, k: int, s: int) -> int:
 
 def smem_bytes(shape: MBConvShape, tile_h: int, tile_w: int) -> int:
     """Dynamic shared memory of the recompute kernel (B2), whose tile
-    pass 1 shares on recompute blocks: the f32 expanded window of one
-    32-channel tile plus the per-tile DW block."""
-    window = (window_extent(tile_h, shape.k, shape.s)
-              * window_extent(tile_w, shape.k, shape.s))
-    return (window + MAX_TILE_PIXELS) * C_BLOCK * 4
+    pass 1 shares on recompute blocks."""
+    return recompute_smem_bytes(shape.k, shape.s, tile_h, tile_w,
+                                shape.c_in, shape.c_mid, shape.c_out)
 
 
 def fusedmb_chunk(c_in: int, c_mid: int, c_out: int, k: int) -> int:
@@ -376,21 +380,56 @@ def pass1_cm_tile(c_mid: int) -> int:
     return 64 if c_mid >= 64 and pad64 * 8 <= c_mid else 32
 
 
-def pass1_smem_bytes(k: int, s: int, tile_h: int, tile_w: int, c_in: int,
-                     c_mid: int) -> int:
-    """Dynamic shared memory of one pass-1 CTA with an expand (mbconv.cu's
-    ``p1_smem_floats``; an identity expand takes no more): the expanded
-    window (pixels rounded up to P1_PIXEL_BLOCK, padded), then one region
-    holding the staged x and w_exp chunks (P1_SLOTS ring slots, fewer where
-    C_in has fewer chunks) during the expand and the DW tile and pool rows
-    after it."""
+def _expand_smem_floats(k: int, s: int, tile_h: int, tile_w: int,
+                        c_in: int, c_mid: int) -> Tuple[int, int]:
+    """(expanded window, staging ring) floats of the expand that pass 1 and
+    B2 share: the window's pixels rounded up to P1_PIXEL_BLOCK and padded,
+    and P1_SLOTS ring slots (fewer where C_in has fewer chunks) of staged x
+    and w_exp chunks."""
     cmt = pass1_cm_tile(c_mid)
     q4 = (-(-(window_extent(tile_h, k, s) * window_extent(tile_w, k, s))
             // P1_PIXEL_BLOCK) * P1_PIXEL_BLOCK)
     slots = min(P1_SLOTS, -(-c_in // P1_CI_CHUNK))
-    stage = slots * (q4 * (P1_CI_CHUNK + P1_PAD) + P1_CI_CHUNK * cmt)
+    return (q4 * (cmt + P1_PAD),
+            slots * (q4 * (P1_CI_CHUNK + P1_PAD) + P1_CI_CHUNK * cmt))
+
+
+def pass1_smem_bytes(k: int, s: int, tile_h: int, tile_w: int, c_in: int,
+                     c_mid: int) -> int:
+    """Dynamic shared memory of one pass-1 CTA with an expand (mbconv.cu's
+    ``p1_smem_floats``; an identity expand takes no more): the expanded
+    window, then one region holding the staging ring during the expand and
+    the DW tile and pool rows after it."""
+    cmt = pass1_cm_tile(c_mid)
+    window, stage = _expand_smem_floats(k, s, tile_h, tile_w, c_in, c_mid)
     after = tile_h * tile_w * (cmt + P1_PAD) + P1_THREADS // (cmt // 4) * cmt
-    return (q4 * (cmt + P1_PAD) + max(stage, after)) * 4
+    return (window + max(stage, after)) * 4
+
+
+def recompute_co_tile(c_out: int) -> int:
+    """B2's c_out tile (mbconv.cu's ``r2_co_tile``): the narrowest of
+    RECOMPUTE_CO_TILES covering C_out, else the widest."""
+    return next((t for t in RECOMPUTE_CO_TILES if t >= c_out),
+                RECOMPUTE_CO_TILES[-1])
+
+
+def recompute_smem_bytes(k: int, s: int, tile_h: int, tile_w: int,
+                         c_in: int, c_mid: int, c_out: int) -> int:
+    """Dynamic shared memory of one B2 CTA with an expand (mbconv.cu's
+    ``r2_smem_floats``; an identity expand takes no more): pass 1's
+    expanded window, then one region holding the staging ring during the
+    expand and, after it, the gated DW tile and the w_proj ring (up to
+    P1_SLOTS slots of RECOMPUTE_K_CHUNK rows x the c_out tile), then the
+    projection sums kept between c_mid chunks (4 floats per thread and
+    pixel it owns)."""
+    cmt, co = pass1_cm_tile(c_mid), recompute_co_tile(c_out)
+    window, stage = _expand_smem_floats(k, s, tile_h, tile_w, c_in, c_mid)
+    after = (tile_h * tile_w * (cmt + P1_PAD)
+             + min(P1_SLOTS, cmt // RECOMPUTE_K_CHUNK) * RECOMPUTE_K_CHUNK
+             * co)
+    lanes = P1_THREADS // (co // 4)
+    sums = -(-tile_h * tile_w // lanes) * P1_THREADS * 4
+    return (window + max(stage, after) + sums) * 4
 
 
 def pass1_single_pass(k: int, s: int, tile_h: int, tile_w: int,
@@ -464,6 +503,28 @@ def retain_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
         if tiles * cand >= RETAIN_MIN_CTAS:
             break
     return bm, bn, splits
+
+
+@functools.lru_cache(maxsize=None)
+def recompute_plan(b: int, out_h: int, out_w: int, c_mid: int, c_out: int,
+                   tile_h: int, tile_w: int) -> Tuple[int, int]:
+    """(c_out tile, splits) of one B2 launch: ``recompute_co_tile``, then
+    the fewest C_mid splits (whole pass-1 c_mid chunks each, none empty:
+    ``splits = ceil(chunks / ceil(chunks / splits))``) that give SM_COUNT
+    CTAs (pixel tiles x c_out tiles x batch x splits), the most such
+    splits where none does.  A split launch writes per-split partial
+    projections that ``mbconv_splitk_reduce`` sums in split order."""
+    co = recompute_co_tile(c_out)
+    ctas = -(-out_h // tile_h) * -(-out_w // tile_w) * -(-c_out // co) * b
+    chunks = -(-c_mid // pass1_cm_tile(c_mid))
+    splits = 1
+    for cand in range(1, chunks + 1):
+        if -(-chunks // -(-chunks // cand)) != cand:
+            continue            # some split would be empty
+        splits = cand
+        if ctas * cand >= SM_COUNT:
+            break
+    return co, splits
 
 
 def _pick_tile_w(shape: MBConvShape, tile_h: int) -> Optional[int]:

@@ -6,24 +6,25 @@ Counterpart of ``repro.kernels.convdk_mbconv``:
     -> project 1x1
 
 * **Pass 1** (``mbconv_pass1``): expand + DW per output tile; per-tile SE
-  pool partial sums, and under ``mode="retain"`` the DW tensor.
-* **Pool reduce** (``mbconv_pool_reduce``): sums the partials in a fixed
-  order, so the SE pool repeats bit for bit.
+  pool partial sums and the pool, their sum in tile order taken by the
+  last CTA of each (image, c_mid tile) (so the pool repeats bit for bit),
+  and under ``mode="retain"`` the DW tensor.
 * **SE MLP** between the passes, in PyTorch: two tiny FCs on (B, C_mid).
 * **Pass 2** folds the SE gate into the projection, reading the DW tensor
-  back (``mbconv_pass2_retain``, a GEMM over the flattened pixels, split
-  over C_mid where the card would be short of CTAs) or recomputing
-  expand + DW from the input (``mbconv_pass2_recompute``).
-* **Split-K reduce** (``mbconv_splitk_reduce``): sums retain's per-split
-  partials in split order, so retain repeats bit for bit.
+  back (``mbconv_pass2_retain``, a GEMM over the flattened pixels) or
+  recomputing expand + DW from the input (``mbconv_pass2_recompute``);
+  each splits C_mid over the grid where the card would be short of CTAs.
+* **Split-K reduce** (``mbconv_splitk_reduce``): sums either pass 2's
+  per-split partials in split order, so pass 2 repeats bit for bit.
 
 Each pass wrapper launches its kernel (``kernels/csrc/mbconv.cu``) for
 CUDA tensors and runs its plain PyTorch version for CPU tensors; any
 other device raises.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-Pass 1 and recompute tile the output in ``tile_h x tile_w`` pixels, and
-retain takes its GEMM tile and split count from ``core.autotune.
-retain_plan``; SAME padding, ragged tiles and ragged channel tiles are
+Pass 1 and recompute tile the output in ``tile_h x tile_w`` pixels;
+recompute takes its c_out tile and split count from ``core.autotune.
+recompute_plan``, retain its GEMM tile and split count from
+``retain_plan``.  SAME padding, ragged tiles and ragged channel tiles are
 masked inside the kernels, so the wrappers pad nothing.
 
 ``convdk_mbconv_fused`` is differentiable: when an operand requires grad
@@ -43,13 +44,16 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.autotune import (
-    C_BLOCK,
     MAX_TILE_PIXELS,
     P1_CI_CHUNK,
     P1_MAX_TILE_PIXELS,
+    RECOMPUTE_K_CHUNK,
     RETAIN_K_CHUNK,
     pass1_cm_tile,
     pass1_smem_bytes,
+    recompute_co_tile,
+    recompute_plan,
+    recompute_smem_bytes,
     retain_plan,
 )
 from ..core.perfmodel import MBCONV_MODES
@@ -66,25 +70,31 @@ from .common import (
 )
 from .ref import _act_ref, depthwise_valid, mbconv_ref, pad_nhwc
 
-KERNELS: Tuple[str, ...] = ("mbconv_pass1", "mbconv_pool_reduce",
-                            "mbconv_pass2_recompute", "mbconv_pass2_retain",
-                            "mbconv_splitk_reduce")
+KERNELS: Tuple[str, ...] = ("mbconv_pass1", "mbconv_pass2_recompute",
+                            "mbconv_pass2_retain", "mbconv_splitk_reduce")
 # kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "mbconv_pass1": [_P] * 5 + [_I] * 16 + [_P],
-    "mbconv_pool_reduce": [_P, _P, _I, _I, _I, _P],
-    "mbconv_pass2_recompute": [_P] * 6 + [_I] * 17 + [_P],
+    "mbconv_pass1": [_P] * 7 + [_I] * 16 + [_P],
+    "mbconv_pass2_recompute": [_P] * 6 + [_I] * 19 + [_P],
     "mbconv_pass2_retain": [_P] * 4 + [_I] * 7 + [_P],
     "mbconv_splitk_reduce": [_P, _P, _I, _L, _P],
 }
 # (k, s, tile_h, tile_w, c_in, c_mid) at which _lib() holds the built
-# pass-1 shared-memory formula against core.autotune's
+# pass-1 shared-memory formula against core.autotune's, and with a c_out
+# (k, s, tile_h, tile_w, c_in, c_mid, c_out) the recompute one
 _SMEM_PROBES = ((3, 1, 8, 8, 16, 32), (5, 2, 7, 4, 112, 672),
                 (5, 1, 12, 8, 192, 1152), (3, 2, 4, 8, 16, 96),
                 (5, 2, 4, 4, 24, 144))
+_R2_SMEM_PROBES = ((3, 1, 8, 8, 32, 32, 16), (3, 1, 8, 8, 24, 144, 24),
+                   (5, 2, 8, 7, 24, 144, 40), (5, 1, 7, 7, 192, 1152, 320),
+                   (3, 2, 8, 8, 16, 64, 24), (3, 2, 4, 16, 40, 240, 80))
+# SE pool arrival counters: one int per (image, pass-1 c_mid tile) of a
+# launch, in one zeroed buffer per device that every launch leaves zeroed
+POOL_COUNTERS = 1 << 16
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -102,14 +112,20 @@ def _lib() -> ctypes.CDLL:
     lib.mbconv_error_string.restype = ctypes.c_char_p
     lib.mbconv_pass1_smem_bytes.argtypes = [_I] * 7
     lib.mbconv_pass1_smem_bytes.restype = ctypes.c_longlong
-    built = (lib.mbconv_channel_tile(), lib.mbconv_max_tile_pixels(),
+    lib.mbconv_recompute_smem_bytes.argtypes = [_I] * 8
+    lib.mbconv_recompute_smem_bytes.restype = ctypes.c_longlong
+    built = (lib.mbconv_max_tile_pixels(), lib.mbconv_recompute_k_chunk(),
              lib.mbconv_pass1_ci_chunk(), lib.mbconv_pass1_max_tile_pixels(),
              lib.mbconv_retain_k_chunk(), lib.mbconv_pass1_cm_tile(40),
              lib.mbconv_pass1_cm_tile(96),
-             *(lib.mbconv_pass1_smem_bytes(*p, 0) for p in _SMEM_PROBES))
-    want = (C_BLOCK, MAX_TILE_PIXELS, P1_CI_CHUNK, P1_MAX_TILE_PIXELS,
-            RETAIN_K_CHUNK, pass1_cm_tile(40), pass1_cm_tile(96),
-            *(pass1_smem_bytes(*p) for p in _SMEM_PROBES))
+             *(lib.mbconv_pass1_smem_bytes(*p, 0) for p in _SMEM_PROBES),
+             *(lib.mbconv_recompute_smem_bytes(*p[:-1], recompute_co_tile(
+                 p[-1]), 0) for p in _R2_SMEM_PROBES))
+    want = (MAX_TILE_PIXELS, RECOMPUTE_K_CHUNK, P1_CI_CHUNK,
+            P1_MAX_TILE_PIXELS, RETAIN_K_CHUNK, pass1_cm_tile(40),
+            pass1_cm_tile(96),
+            *(pass1_smem_bytes(*p) for p in _SMEM_PROBES),
+            *(recompute_smem_bytes(*p) for p in _R2_SMEM_PROBES))
     if built != want:
         raise RuntimeError(f"mbconv.cu constants {built} disagree with "
                            f"core.autotune {want}")
@@ -123,6 +139,25 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} did not launch: "
                            f"{lib.mbconv_error_string(err).decode()}")
     LAUNCHES[name] += 1
+
+
+def _pool_counters(device: torch.device, needed: int) -> torch.Tensor:
+    """The device's zeroed SE pool counters, allocated (outside any CUDA
+    graph capture) at its first pass-1 launch with SE."""
+    if needed > POOL_COUNTERS:
+        raise ValueError(f"pass 1 needs {needed} pool counters (batch x "
+                         f"c_mid tiles), more than the {POOL_COUNTERS} "
+                         f"allocated")
+    buf = _COUNTERS.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the SE pool counters are allocated at the "
+                               "first eager pass-1 launch on a device: run "
+                               "one before capturing a CUDA graph")
+        buf = torch.zeros(POOL_COUNTERS, dtype=torch.int32, device=device)
+        torch.cuda.current_stream(device).synchronize()
+        _COUNTERS[device] = buf
+    return buf
 
 
 @dataclass(frozen=True)
@@ -196,7 +231,7 @@ def mbconv_pass1_plain(x, w_exp, w_dw, geo: MBConvGeometry, *, exp_act,
                        dw_act, se=True, retain=False):
     """Plain version of ``mbconv_pass1``."""
     d = _expand_dw_plain(x, w_exp, w_dw, geo, exp_act, dw_act)
-    partial = None
+    partial = pool = None
     if se:
         # per-tile sums, tile-major in (row tile, column tile) order
         b, _, _, c = d.shape
@@ -205,17 +240,20 @@ def mbconv_pass1_plain(x, w_exp, w_dw, geo: MBConvGeometry, *, exp_act,
                 0, geo.n_th * geo.tile_h - geo.out_h))
         partial = dp.reshape(b, geo.n_th, geo.tile_h, geo.n_tw, geo.tile_w,
                              c).sum(dim=(2, 4)).reshape(b, geo.n_tiles, c)
-    return partial, (d if retain else None)
+        pool = mbconv_pool_reduce_plain(partial)
+    return partial, pool, (d if retain else None)
 
 
 def mbconv_pass1(x: torch.Tensor, w_exp: Optional[torch.Tensor],
                  w_dw: torch.Tensor, geo: MBConvGeometry, *,
                  exp_act: Optional[str], dw_act: Optional[str],
                  se: bool = True, retain: bool = False
-                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Pass 1: (SE pool partials (B, n_tiles, C_mid) or None, DW tensor
-    (B, out_h, out_w, C_mid) or None).  ``w_exp=None`` is the identity
-    expand of expansion-ratio-1 blocks."""
+                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                            Optional[torch.Tensor]]:
+    """Pass 1: (SE pool partials (B, n_tiles, C_mid), the pool (B, C_mid):
+    the partials summed in tile order; both None without SE, and the DW
+    tensor (B, out_h, out_w, C_mid) or None).  ``w_exp=None`` is the
+    identity expand of expansion-ratio-1 blocks."""
     if not (se or retain):
         raise ValueError("se=off + recompute has no pass 1")
     _check_shapes(x, w_exp, w_dw, geo)
@@ -225,35 +263,29 @@ def mbconv_pass1(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     check_cuda(x, w_exp, w_dw, dtypes=FP32)
     b, h, w, c_in = x.shape
     c_mid = w_dw.shape[-1]
-    partial = (torch.empty((b, geo.n_tiles, c_mid), device=x.device)
-               if se else None)
+    partial = pool = counters = None
+    if se:
+        partial = torch.empty((b, geo.n_tiles, c_mid), device=x.device)
+        pool = torch.empty((b, c_mid), device=x.device)
+        counters = _pool_counters(x.device,
+                                  b * -(-c_mid // pass1_cm_tile(c_mid)))
     dw = (torch.empty((b, geo.out_h, geo.out_w, c_mid), device=x.device)
           if retain else None)
     _launch("mbconv_pass1", ptr(x), ptr(w_exp), ptr(w_dw), ptr(partial),
-            ptr(dw), b, h, w, c_in, c_mid, geo.k, geo.s, geo.out_h,
-            geo.out_w, geo.pads[0][0], geo.pads[1][0], geo.tile_h,
-            geo.tile_w, int(w_exp is None), ACT_CODES[exp_act],
+            ptr(pool), ptr(counters), ptr(dw), b, h, w, c_in, c_mid, geo.k,
+            geo.s, geo.out_h, geo.out_w, geo.pads[0][0], geo.pads[1][0],
+            geo.tile_h, geo.tile_w, int(w_exp is None), ACT_CODES[exp_act],
             ACT_CODES[dw_act])
-    return partial, dw
+    return partial, pool, dw
 
 
 def mbconv_pool_reduce_plain(partial: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``mbconv_pool_reduce``, in the kernel's order."""
+    """(B, n_tiles, C) per-tile partials -> (B, C) sums, in tile order: the
+    plain version of pass 1's pool."""
     acc = torch.zeros_like(partial[:, 0])
     for t in range(partial.shape[1]):
         acc = acc + partial[:, t]
     return acc
-
-
-def mbconv_pool_reduce(partial: torch.Tensor) -> torch.Tensor:
-    """(B, n_tiles, C) per-tile partials -> (B, C) sums, in tile order."""
-    if on_cpu(partial):
-        return mbconv_pool_reduce_plain(partial)
-    check_cuda(partial, dtypes=FP32)
-    b, n_tiles, c = partial.shape
-    pool = torch.empty((b, c), device=partial.device)
-    _launch("mbconv_pool_reduce", ptr(partial), ptr(pool), b, n_tiles, c)
-    return pool
 
 
 def mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
@@ -263,13 +295,31 @@ def mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
     return _gated(d, gate) @ w_proj
 
 
+def mbconv_pass2_recompute_partials_plain(x, w_exp, w_dw, gate, w_proj,
+                                          geo: MBConvGeometry, splits: int,
+                                          *, exp_act, dw_act):
+    """Plain version of a split recompute launch's partials (splits, B,
+    out_h, out_w, C_out): split z projects pass 1's c_mid chunks
+    [z * per, (z + 1) * per), per = ceil(chunks / splits)."""
+    d = _gated(_expand_dw_plain(x, w_exp, w_dw, geo, exp_act, dw_act), gate)
+    c_mid = w_proj.shape[0]
+    cmt = pass1_cm_tile(c_mid)
+    chunks = -(-c_mid // cmt)
+    per = -(-chunks // splits) * cmt
+    return torch.stack([d[..., z * per:(z + 1) * per]
+                        @ w_proj[z * per:(z + 1) * per]
+                        for z in range(splits)])
+
+
 def mbconv_pass2_recompute(x: torch.Tensor, w_exp: Optional[torch.Tensor],
                            w_dw: torch.Tensor, gate: Optional[torch.Tensor],
                            w_proj: torch.Tensor, geo: MBConvGeometry, *,
                            exp_act: Optional[str], dw_act: Optional[str]
                            ) -> torch.Tensor:
     """Pass 2, recompute: expand + DW again, x gate (``None`` = se off),
-    projection -> (B, out_h, out_w, C_out)."""
+    projection -> (B, out_h, out_w, C_out).  The c_out tile and C_mid
+    splits come from ``recompute_plan``; a split launch ends in
+    ``mbconv_splitk_reduce``."""
     _check_shapes(x, w_exp, w_dw, geo)
     if on_cpu(x):
         return mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
@@ -281,13 +331,16 @@ def mbconv_pass2_recompute(x: torch.Tensor, w_exp: Optional[torch.Tensor],
                          f"{MAX_TILE_PIXELS} pixels, got {geo}")
     b, h, w, c_in = x.shape
     c_mid, c_out = w_proj.shape
-    out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)
+    co_tile, splits = recompute_plan(b, geo.out_h, geo.out_w, c_mid, c_out,
+                                     geo.tile_h, geo.tile_w)
+    out = torch.empty((splits, b, geo.out_h, geo.out_w, c_out),
+                      device=x.device)
     _launch("mbconv_pass2_recompute", ptr(x), ptr(w_exp), ptr(w_dw),
             ptr(gate), ptr(w_proj), ptr(out), b, h, w, c_in, c_mid, c_out,
             geo.k, geo.s, geo.out_h, geo.out_w, geo.pads[0][0],
             geo.pads[1][0], geo.tile_h, geo.tile_w, int(w_exp is None),
-            ACT_CODES[exp_act], ACT_CODES[dw_act])
-    return out
+            ACT_CODES[exp_act], ACT_CODES[dw_act], co_tile, splits)
+    return out[0] if splits == 1 else mbconv_splitk_reduce(out)
 
 
 def mbconv_pass2_retain_plain(dw, gate, w_proj, geo: MBConvGeometry):
@@ -357,15 +410,15 @@ def _mbconv_impl(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj, *,
     geo = MBConvGeometry.make(x.shape[1], x.shape[2], k_h, stride, padding,
                               tile_h, tile_w)
     se = w_se1 is not None
-    partial, dw = None, None
+    pool, dw = None, None
     if se or mode == "retain":
-        partial, dw = mbconv_pass1(x, w_exp, w_dw, geo, exp_act=exp_act,
+        _, pool, dw = mbconv_pass1(x, w_exp, w_dw, geo, exp_act=exp_act,
                                    dw_act=dw_act, se=se,
                                    retain=mode == "retain")
     gate = None
     if se:
         # SE MLP on the pool (the mean divides by the true out_h * out_w)
-        mean = mbconv_pool_reduce(partial) / float(geo.out_h * geo.out_w)
+        mean = pool / float(geo.out_h * geo.out_w)
         s1 = _act_ref(mean @ w_se1 + b_se1, se_act)
         gate = _act_ref(s1 @ w_se2 + b_se2, gate_act).contiguous()
     if mode == "retain":

@@ -2,8 +2,10 @@
 imports, pulls in JAX or the JAX package; its entry points raise rather
 than fall back to the CPU; its kernel counters stay at 0 on the CPU;
 ``chip_smoke.py`` fails without a card; and (on a card only) each kernel
-agrees with its plain version (B7 in fp32 and bf16), and each op's
-gradient on the card with autograd through its plain version."""
+agrees with its plain version (B7 in fp32 and bf16), pass 1's folded SE
+pool is its partials' tile-order sum eagerly and under CUDA graph replay,
+and each op's gradient on the card matches autograd through its plain
+version."""
 
 import ast
 import os
@@ -22,7 +24,7 @@ from repro_torch.configs import mamba2_2p7b
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
 from repro_torch.core.autotune import fused_separable_launch_plan as launch_plan
-from repro_torch.core.autotune import retain_plan
+from repro_torch.core.autotune import recompute_plan, retain_plan
 from repro_torch.examples import train_mobilenet_cim
 from repro_torch.kernels import convdk_conv1d as tc
 from repro_torch.kernels import convdk_dw as td
@@ -179,6 +181,7 @@ def test_launch_counters_stay_zero_on_cpu():
                                        activation="silu", tile_l=8)
         assert out.shape == (2, 19, 6)
     assert set(tk.LAUNCHES) == set(tk.KERNELS)
+    assert "mbconv_pool_reduce" not in launches()   # folded into pass 1
     assert set(launches()) == set(tk.KERNELS) | {
         "fusedmb", "fused_separable", "fused_separable_reduce", "dw2d",
         "conv1d"}
@@ -228,18 +231,17 @@ def test_kernels_match_plain_on_card(k, s, identity, act, gate_act, se):
         tol = 1e-4 * float(ref.abs().max()) + 1e-5
         assert float((got - ref).abs().max()) <= tol
 
-    part, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se, retain=True,
-                               **acts)
-    part_ref, dw_ref = tk.mbconv_pass1_plain(x, w_exp, w_dw, geo, se=se,
-                                             retain=True, **acts)
+    part, pool, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                     retain=True, **acts)
+    part_ref, _, dw_ref = tk.mbconv_pass1_plain(x, w_exp, w_dw, geo, se=se,
+                                                retain=True, **acts)
     close(dw, dw_ref)
     if se:
         close(part, part_ref)
-        torch.testing.assert_close(tk.mbconv_pool_reduce(part),
-                                   tk.mbconv_pool_reduce_plain(part),
+        torch.testing.assert_close(pool, tk.mbconv_pool_reduce_plain(part),
                                    rtol=0, atol=0)
     else:
-        assert part is None
+        assert part is None and pool is None
     close(tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
                                     **acts),
           tk.mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj, geo,
@@ -300,17 +302,101 @@ def test_redesigned_kernels_match_plain_on_card(kind, shape):
         assert geo.tile_h * geo.tile_w > 64
         acts = dict(exp_act=None if identity else "silu", dw_act="silu")
         for se in (True, False):
-            part, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
-                                       retain=True, **acts)
-            part_ref, dw_ref = tk.mbconv_pass1_plain(x, w_exp, w_dw, geo,
-                                                     se=se, retain=True,
-                                                     **acts)
+            part, pool, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                             retain=True, **acts)
+            part_ref, _, dw_ref = tk.mbconv_pass1_plain(
+                x, w_exp, w_dw, geo, se=se, retain=True, **acts)
             _close_on_card(dw, dw_ref)
             if se:
                 _close_on_card(part, part_ref)
+                assert torch.equal(pool, tk.mbconv_pool_reduce_plain(part))
             else:
-                assert part is None
+                assert part is None and pool is None
     torch.cuda.synchronize()
+
+
+# B2 cases (B, H, W, C_in, C_mid, C_out, k, s, tile_h, tile_w, identity):
+# ragged maps, tiles and channel tiles, C_mid and C_out not multiples of 4,
+# two c_out tiles, and the deep split route (C_mid 1152 in 18 chunks)
+_RECOMPUTE_CASES = [
+    (3, 13, 10, 40, 72, 36, 3, 1, 3, 4, False),
+    (3, 13, 10, 40, 40, 36, 3, 2, 3, 4, True),
+    (2, 23, 25, 24, 144, 24, 5, 2, 8, 7, False),
+    (2, 15, 17, 16, 42, 30, 5, 1, 4, 16, False),
+    (2, 9, 9, 16, 64, 130, 3, 2, 8, 8, False),
+    (2, 11, 11, 72, 72, 16, 5, 1, 8, 8, True),
+    (8, 7, 7, 192, 1152, 320, 5, 1, 7, 7, False),
+    (1, 7, 7, 192, 1152, 320, 3, 1, 7, 7, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _RECOMPUTE_CASES)
+def test_recompute_kernel_matches_plain_on_card(case):
+    """The redesigned recompute kernel (B2) with and without the SE gate,
+    identity expand or not, k 3 and 5, stride 1 and 2: within
+    1e-4 * max|plain| + 1e-5 of its plain version, bit for bit on a second
+    call (the split route through the split-K reduce too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    b, h, w, c_in, c_mid, c_out, k, s, tile_h, tile_w, identity = case
+    g = torch.Generator().manual_seed(sum(case[:8]))
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x, w_dw = r(b, h, w, c_in), r(k, k, c_mid) * 0.3
+    w_exp = None if identity else r(c_in, c_mid) / c_in ** 0.5
+    w_proj = r(c_mid, c_out) / c_mid ** 0.5
+    geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+    for gate, act in ((torch.sigmoid(r(b, c_mid)), "silu"),
+                      (None, "hard_swish")):
+        acts = dict(exp_act=None if identity else act, dw_act=act)
+        got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
+                                        **acts)
+        _close_on_card(got, tk.mbconv_pass2_recompute_plain(
+            x, w_exp, w_dw, gate, w_proj, geo, **acts))
+        assert torch.equal(got, tk.mbconv_pass2_recompute(
+            x, w_exp, w_dw, gate, w_proj, geo, **acts))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c_in,c_mid,k,s,tile_h,tile_w", [
+    (3, 13, 10, 40, 72, 3, 1, 3, 4),        # ragged tiles, 2 c_mid tiles
+    (8, 56, 56, 24, 144, 3, 1, 8, 8),       # B0 block 2: 49 tiles
+    (2, 14, 14, 112, 672, 5, 2, 7, 7),      # 1 tile
+    (5, 29, 27, 24, 42, 3, 2, 7, 12),       # C_mid not a multiple of 4
+])
+def test_pass1_pool_fold_exact_on_card(b, h, w, c_in, c_mid, k, s, tile_h,
+                                       tile_w):
+    """Pass 1's folded SE pool equals the tile-order sum of its partials
+    exactly, on two eager calls and on three replays of one captured CUDA
+    graph with new inputs copied in before each (the arrival counters reset
+    themselves)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    g = torch.Generator().manual_seed(b + h + c_mid)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x, w_exp = r(b, h, w, c_in), r(c_in, c_mid) / c_in ** 0.5
+    w_dw = r(k, k, c_mid) * 0.3
+    geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+    acts = dict(exp_act="silu", dw_act="silu")
+    for _ in range(2):
+        part, pool, _ = tk.mbconv_pass1(x, w_exp, w_dw, geo, **acts)
+        assert torch.equal(pool, tk.mbconv_pool_reduce_plain(part))
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.mbconv_pass1(x, w_exp, w_dw, geo, **acts)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        part, pool, _ = tk.mbconv_pass1(x, w_exp, w_dw, geo, **acts)
+    for _ in range(3):
+        x.copy_(r(b, h, w, c_in))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(pool, tk.mbconv_pool_reduce_plain(part))
+        _close_on_card(part, tk.mbconv_pass1_plain(x, w_exp, w_dw, geo,
+                                                   **acts)[0])
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's MBConv stack against the JAX package on the same inputs:
 activations, the MBConv oracle, the two-pass host glue (plain versions on
 the CPU) against the interpret-mode Pallas path, the pass-1 pool, the
-copied traffic model, and the Hopper schedule solver."""
+copied traffic model, and the Hopper schedule solver and recompute
+plan."""
 
 import warnings
 
@@ -27,6 +28,7 @@ from repro_torch.core.autotune import (
     MAX_TILE_PIXELS,
     P1_MAX_TILE_PIXELS,
     P1_SMEM_TARGET,
+    RECOMPUTE_CO_TILES,
     RETAIN_K_CHUNK,
     RETAIN_MIN_CTAS,
     RETAIN_MIN_SPLIT_CHUNKS,
@@ -34,8 +36,10 @@ from repro_torch.core.autotune import (
     SM_COUNT,
     SMEM_BYTES,
     get_mbconv_schedule,
+    pass1_cm_tile,
     pass1_ctas,
     pass1_smem_bytes,
+    recompute_plan,
     retain_plan,
     select_mbconv_schedule,
     smem_bytes,
@@ -134,18 +138,18 @@ def test_fused_matches_jax_fused(mode, se):
 
 
 def test_pass1_pool_matches_jax_pass1():
-    """The port's plain pass-1 per-tile partials, reduced by the pool
-    wrapper, equal the JAX pass-1 kernel's strip-accumulated pool (rows
+    """The port's plain pass-1 pool (its per-tile partials summed in tile
+    order) equals the JAX pass-1 kernel's strip-accumulated pool (rows
     past out_h masked in both)."""
     rng = np.random.default_rng(3)
     x, w_exp, w_dw, *_ = _mbconv_inputs(rng, h=9, w=11, c_in=8, expand=4,
                                         c_out=12, k=3, se=True)
     geo = tk.MBConvGeometry.make(9, 11, 3, 1, "SAME", 4, 3)
-    partial, _ = tk.mbconv_pass1(
+    partial, pool, _ = tk.mbconv_pass1(
         torch.from_numpy(x), torch.from_numpy(w_exp),
         torch.from_numpy(w_dw), geo, exp_act="silu", dw_act="silu")
     assert partial.shape == (2, geo.n_tiles, 32)
-    pool = tk.mbconv_pool_reduce(partial)
+    assert pool.shape == (2, 32)
 
     (top, bottom), (left, right) = geo.pads
     tile_h, n_th = 4, 3
@@ -210,16 +214,16 @@ def test_hopper_schedules_fit_and_use_both_modes():
 _NETS = [("b0", 224), ("b0", 384), ("b0", 512), ("v2s", 384), ("v3", 224)]
 
 
-def _port_blocks(net, res, batch=8):
+def _port_blocks(net, res, batch=8, mode=None):
     """(row, schedule) of every MBConv block of the port's ``net`` at
-    ``res``, as the forward solves them."""
+    ``res``, as the forward solves them (``mode`` pins pass 2)."""
     specs = {"b0": lambda: tmb.effnet_block_specs(tmb.EffNetConfig()),
              "v2s": lambda: tmb.effnet_v2_block_specs(tmb.EffNetV2Config()),
              "v3": lambda: tmb.mobilenet_v3_specs(
                  tmb.MobileNetV3Config())}[net]()
     half = -(-res // 2)
     rows = tmb.block_chain_rows(specs, half, half)
-    schedules = tmb.block_schedules(specs, batch, res, res)
+    schedules = tmb.block_schedules(specs, batch, res, res, mode=mode)
     return [(r, sch) for r, sp, sch in zip(rows, specs, schedules)
             if sp.family != "fusedmb"]
 
@@ -282,6 +286,100 @@ def test_pass1_tiles_fit_and_keep_a_wave(net, res):
                 and pass1_ctas(8, out_h, out_w, r.c_mid, b2.tile_h,
                                b2.tile_w) >= SM_COUNT):
             assert expanded(th, tw) <= expanded(b2.tile_h, b2.tile_w)
+
+
+def _recompute_splits(c_mid):
+    """Split counts of C_mid over B2's c_mid chunks that leave no split
+    empty."""
+    chunks = -(-c_mid // pass1_cm_tile(c_mid))
+    return [s for s in range(1, chunks + 1)
+            if -(-chunks // -(-chunks // s)) == s]
+
+
+@pytest.mark.parametrize("net,res", _NETS)
+def test_recompute_plan_fills_a_wave_with_fewest_splits(net, res):
+    """Every block pinned to recompute gets a tile within B2's pixel cap and
+    shared memory, a c_out tile covering C_out up to 128 channels (at most 3
+    of them), no empty C_mid split, and a wave of CTAs on the card (or
+    every split allowed) with the fewest splits; the blocks the solver sends
+    to recompute get one c_out tile and one split."""
+    solved = [sch.mode for _, sch in _port_blocks(net, res)]
+    for (r, sch), mode in zip(_port_blocks(net, res, mode="recompute"),
+                              solved):
+        shape = tperf.MBConvShape(b=8, h=r.h, w=r.w, c_in=r.c_in,
+                                  c_mid=r.c_mid, c_out=r.c_out, k=r.k,
+                                  s=r.s)
+        th, tw = sch.tile_h, sch.tile_w
+        assert th * tw <= MAX_TILE_PIXELS
+        assert smem_bytes(shape, th, tw) <= SMEM_BYTES
+        out_h, out_w = -(-r.h // r.s), -(-r.w // r.s)
+        co, splits = recompute_plan(8, out_h, out_w, r.c_mid, r.c_out, th,
+                                    tw)
+        n_co = -(-r.c_out // co)
+        assert co in RECOMPUTE_CO_TILES
+        assert co >= r.c_out or co == max(RECOMPUTE_CO_TILES)
+        assert n_co <= 3
+        ok = _recompute_splits(r.c_mid)
+        assert splits in ok
+        ctas = -(-out_h // th) * -(-out_w // tw) * n_co * 8
+        assert ctas * splits >= SM_COUNT or splits == max(ok), (r, splits)
+        assert all(ctas * s < SM_COUNT for s in ok if s < splits)
+        if mode == "recompute":
+            assert (n_co, splits) == (1, 1), r
+
+
+def test_recompute_guard_cases_split():
+    """The deep card cases of B2 run the split route: 7x7, C_in 192,
+    C_mid 1152, C_out 320 at batch 8 and 1."""
+    assert recompute_plan(8, 7, 7, 1152, 320, 7, 7) == (128, 6)
+    assert recompute_plan(1, 7, 7, 1152, 320, 7, 7) == (128, 18)
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+@pytest.mark.parametrize("se", [True, False])
+def test_recompute_split_route_matches_plain_and_jax(se, splits):
+    """The CPU split route: the plain per-split partial projections over
+    C_mid 96 (three 32-channel chunks), summed in split order by the
+    split-K reduce's plain version, stay within 1e-5 relative of the
+    unsplit plain version, and within the 1e-4 bar of the JAX recompute
+    op (interpret mode); the SE gate comes from pass 1's pool and the SE
+    MLP as the port's host glue computes it."""
+    rng = np.random.default_rng(40 + 2 * splits + se)
+    args = _mbconv_inputs(rng, h=9, w=11, c_in=8, expand=12, c_out=12, k=3,
+                          se=se)
+    x, w_exp, w_dw, w1, b1, w2, b2, w_proj = _torch(args)
+    geo = tk.MBConvGeometry.make(9, 11, 3, 2, "SAME", 2, 4)
+    acts = dict(exp_act="silu", dw_act="silu")
+    gate = None
+    if se:
+        _, pool, _ = tk.mbconv_pass1(x, w_exp, w_dw, geo, **acts)
+        mean = pool / float(geo.out_h * geo.out_w)
+        gate = torch_act(torch_act(mean @ w1 + b1, "silu") @ w2 + b2,
+                         "sigmoid")
+    parts = tk.mbconv_pass2_recompute_partials_plain(
+        x, w_exp, w_dw, gate, w_proj, geo, splits, **acts)
+    assert parts.shape == (splits, 2, geo.out_h, geo.out_w, 12)
+    got = tk.mbconv_splitk_reduce_plain(parts)
+    want = tk.mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
+                                           geo, **acts)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    ref = jax_fused(*_jnp(args), stride=2, tile_h=2, mode="recompute")
+    assert _max_err(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("tile_h,tile_w", [(4, 3), (2, 4), (9, 11)])
+def test_pass1_pool_is_the_tile_order_sum_on_cpu(tile_h, tile_w):
+    """On the CPU, pass 1's pool is its partials summed in tile order by
+    the pool's plain version, bit for bit (the kernel's fold sums in the
+    same order)."""
+    rng = np.random.default_rng(tile_h * 10 + tile_w)
+    x, w_exp, w_dw, *_ = _torch(_mbconv_inputs(
+        rng, h=9, w=11, c_in=8, expand=6, c_out=12, k=5, se=True))
+    geo = tk.MBConvGeometry.make(9, 11, 5, 1, "SAME", tile_h, tile_w)
+    partial, pool, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, exp_act="silu",
+                                        dw_act="silu", retain=True)
+    assert partial.shape == (2, geo.n_tiles, 48) and dw is not None
+    assert torch.equal(pool, tk.mbconv_pool_reduce_plain(partial))
 
 
 @pytest.mark.parametrize("splits", [1, 2, 7])
