@@ -64,7 +64,27 @@ Phases, each of which must pass (exit 1 otherwise):
             just after (one pass 1 on each SE or retain block), against the
             CPU plain run within 1e-3 relative; the forward timed on CUDA
             events and traced.
-10. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
+10. paper       the paper's dataflow: (a) the executable ConvDK twin
+            (repro_torch.core.convdk) at full width on the card against its
+            grouped-conv oracle (MobileNet-V2's two depthwise layers of
+            largest map, a k=5 s=2 layer of B0), within the phase-2 bar;
+            (b) every block of B0 224, MobileNet-V3-Large 224 and V2-S 384,
+            batch 8, fused and staged (the depthwise kernel over staged
+            strips, cuBLAS / cuDNN for the rest) on the same fp32 inputs and
+            weights, each and each other within 1e-4 of max|oracle|
+            (kernels.ref), and the depthwise kernel against its plain
+            version at each staged MBConv block's shape (the phase-2 bar),
+            timed warm (20 calls replayed from one CUDA graph)
+            and cold (a 128 MiB scratch write between 5 graph replays,
+            outside the timed window), beside the modeled bytes and the
+            staged working set against the 50 MB L2, with the peak memory
+            per network; (c) each of the three forwards fused and staged:
+            logits within 1e-3 relative, the staged route's launches counted
+            (one depthwise per MBConv block, nothing else), each route timed
+            on CUDA events and traced; (d) the CIM model's Figs. 7-8
+            (host arithmetic) beside the paper's bands, the WS
+            buffer-traffic reduction inside its band.  Speed never fails it.
+11. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
             batch 8, and the trainer's 3 blocks at its batch 32, with the
             solved tiles and C_in splits: the fused separable kernel (with
             its split reduce where the block splits; dw_act relu, act relu
@@ -80,7 +100,7 @@ Phases, each of which must pass (exit 1 otherwise):
             the split reduce), counts zeroed just before and read just
             after: exactly 17 fused separable launches and one reduce per
             split block.
-11. grad        on the card, each op's input and weight gradients (fused
+12. grad        on the card, each op's input and weight gradients (fused
             separable and depthwise at a MobileNet-V2 block, MBConv retain
             and recompute with SE at a B0 block, MBConv without SE at a V3
             block, Fused-MBConv at a V2-S block) against autograd through
@@ -90,7 +110,7 @@ Phases, each of which must pass (exit 1 otherwise):
             weights and labels) against the CPU plain run, within 1e-3 *
             max|cpu grad| per leaf; then B0 forward + backward at batch 8
             timed on CUDA events and traced.
-12. train       the separable training path, under deterministic
+13. train       the separable training path, under deterministic
             algorithms (cuDNN deterministic, no cuDNN benchmark,
             torch.use_deterministic_algorithms, CUBLAS_WORKSPACE_CONFIG set
             before torch is imported; the first two restored after the
@@ -106,12 +126,12 @@ Phases, each of which must pass (exit 1 otherwise):
             of each other.  The fused run's DESCENDED/check verdict and
             step-60 ratio are printed: a single step of the chaotic lr 0.5
             trajectory is not a check of the code.
-13. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
+14. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
             layer (D 5120, 128, 128; k 4; SiLU; bias) at batch 1 x 32768
             tokens, in bf16 (within 1 bf16 ulp of the plain version's
             fp32 sum rounded once) and in fp32 (the phase-2 bar), timed as
             in phase 2 beside grouped F.conv1d + F.silu.
-14. lm-model    full-width Mamba-2 2.7B (64 layers, seeded fp32 weights,
+15. lm-model    full-width Mamba-2 2.7B (64 layers, seeded fp32 weights,
             materialized once and timed): the prefill forward with the
             kernel (exactly 192 conv1d launches, 3 per layer) and without it
             (none), counts zeroed just before and read just after; in fp32
@@ -120,7 +140,7 @@ Phases, each of which must pass (exit 1 otherwise):
             against the CPU plain run within 1e-3 relative; then the bf16
             prefill step at 1 x 32768 (the main path of the conv1d kernel)
             timed on CUDA events and traced.
-15. lm-serve    the LM engine at full width in bf16: generate_many on 8
+16. lm-serve    the LM engine at full width in bf16: generate_many on 8
             mixed requests (prompts of 12, 20, 28, 30, 40, 60, 300 and 300
             tokens, 16 new tokens each, LITTLE below 256), every one
             answered, with prefill tokens/s and decode ms per token; then
@@ -326,6 +346,9 @@ class KernelStats:
                                    f"staged steps",
                              trainer=dict(tr_sums, blocks=n_tr),
                              mnv2_path_launches=launches["mnv2"][kernel])
+                if kernel == "dw2d":
+                    entry["paper_staged_launches"] = \
+                        launches["paper_staged_dw2d"]
             elif kernel == "fusedmb":
                 n, sums = self.sums(kernel, "v2s", V2S_RES)
                 entry.update(launches=launches["v2s"][kernel], **sums,
@@ -921,6 +944,183 @@ def v3_model_phase(torch):
     print(f"  forward (MobileNet-V3-Large {V3_RES}x{V3_RES}, batch {BATCH}): "
           f"{fwd.mean_ms:.3f} ms (CUDA events, mean of 10)")
     return bool(ok), counts, forward, fwd.mean_ms
+
+
+def _convdk_on_card(torch):
+    """(a) The executable ConvDK dataflow at full width on the card against
+    its grouped-conv oracle: MobileNet-V2's two depthwise layers of largest
+    map and a k=5, s=2 layer of B0."""
+    from repro_torch.core.convdk import dwconv2d_convdk, dwconv2d_oracle
+    from repro_torch.core.workloads import EFFICIENTNET_B0, MOBILENET_V2
+
+    hx = _Harness(torch, 5000)
+    ok = True
+    for name, layer in (("MobileNet-V2 dw0", MOBILENET_V2[0]),
+                        ("MobileNet-V2 dw1", MOBILENET_V2[1]),
+                        ("EfficientNet-B0 dw3", EFFICIENTNET_B0[3])):
+        x = hx.rand(layer.c, layer.h, layer.w)
+        kern = hx.rand(layer.c, layer.k, layer.k, scale=1 / layer.k)
+        got = dwconv2d_convdk(x, kern, stride=layer.s)
+        ref = dwconv2d_oracle(x, kern, stride=layer.s)
+        err, tol = hx.check(got, ref)
+        good = got.shape == ref.shape and got.is_cuda and err <= tol
+        print(f"  ConvDK {name} ({layer.c}x{layer.h}x{layer.w}, k{layer.k} "
+              f"s{layer.s}) on {got.device}: err {err:.3e} (tol {tol:.3e}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+PAPER_NETS = (("b0", "EfficientNet-B0", RES), ("v3l", "MobileNet-V3-Large",
+                                               V3_RES),
+              ("v2s", "EfficientNet-V2-S", V2S_RES))
+
+
+def _dw2d_at_staged_blocks(torch, stats):
+    """B6 against its plain version on the card at the shape of every
+    staged MBConv block of PAPER_NETS: the expanded width, the block's
+    kernel and stride, strips at the schedule's tile_h."""
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.kernels import convdk_dw as td
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.convdk_mbconv import MBConvGeometry
+    from repro_torch.kernels.ref import pad_nhwc
+
+    hx = _Harness(torch, 7000)
+    ok = True
+    for net, _, res in PAPER_NETS:
+        _, rows, schedules = kb.family_chain(net, BATCH, res)
+        for i, (r, sch) in enumerate(zip(rows, schedules)):
+            if r.family != "mbconv":
+                continue
+            geo = MBConvGeometry.make(r.h, r.w, r.k, r.s, "SAME", sch.tile_h,
+                                      r.w)
+            x = hx.rand(BATCH, r.h, r.w, r.c_mid)
+            w = hx.rand(r.k, r.k, r.c_mid, scale=1 / r.k)
+            strips = ops.stage_row_strips(pad_nhwc(x, geo.pads), r.k, r.s,
+                                          geo.tile_h)
+            kw = dict(stride=r.s, out_w=geo.out_w, tile_h=geo.tile_h)
+            ok &= stats.add("dw2d", f"{net}-staged", res, i, True,
+                            *hx.check(td.dw2d(strips, w, **kw),
+                                      td.dw2d_plain(strips, w, **kw)),
+                            h=r.h, w=r.w, c=r.c_mid, k=r.k, s=r.s,
+                            tile_h=geo.tile_h)
+    _sync(torch)
+    return ok
+
+
+def _forwards_both_ways(torch):
+    """(c) Each network's forward fused and staged on the same weights and
+    images: logits within MODEL_RTOL, the staged route's launches (one
+    depthwise per MBConv block, no fused kernel), CUDA-event ms and the
+    profiler's device time per route."""
+    from repro_torch.core.telemetry import measure
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import mbconv as tm
+    from repro_torch.models.param import materialize
+
+    nets = {"b0": (tm.EffNetConfig(), tm.efficientnet_b0_def,
+                   tm.efficientnet_b0_apply, tm.effnet_block_specs),
+            "v3l": (tm.MobileNetV3Config(), tm.mobilenet_v3_def,
+                    tm.mobilenet_v3_apply, tm.mobilenet_v3_specs),
+            "v2s": (tm.EffNetV2Config(), tm.efficientnet_v2_s_def,
+                    tm.efficientnet_v2_s_apply, tm.effnet_v2_block_specs)}
+    ok, out, staged_dw = True, {}, 0
+    for net, title, res in PAPER_NETS:
+        cfg, define, apply, specs = nets[net]
+        n_mb = sum(sp.family == "mbconv" for sp in specs(cfg))
+        params = materialize(define(cfg), torch.Generator().manual_seed(0),
+                             DEVICE)
+        images = torch.rand(BATCH, res, res, 3,
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(DEVICE)
+        route = {}
+        with torch.inference_mode():
+            fused = apply(params, images, cfg)
+            reset_launches()                    # the staged path starts here
+            staged = apply(params, images, cfg, fused=False)
+            _sync(torch)
+            counts = launches()                 # ... and ends here
+        staged_dw += counts["dw2d"]
+        scale = float(fused.abs().max())
+        rel = float((staged - fused).abs().max()) / scale
+        good = (staged.shape == fused.shape == (BATCH, cfg.num_classes)
+                and bool(torch.isfinite(staged).all())
+                and bool(torch.isfinite(fused).all()) and rel <= MODEL_RTOL
+                and counts["dw2d"] == n_mb
+                and all(v == 0 for k, v in counts.items() if k != "dw2d"))
+        print(f"  {title} {res}x{res} batch {BATCH}: staged vs fused logits "
+              f"rel err {rel:.3e} (tol {MODEL_RTOL:g}); staged launches "
+              f"{counts} (want dw2d {n_mb}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        for fused_route in (True, False):
+            name = "fused" if fused_route else "staged"
+
+            def forward(f=fused_route):
+                return apply(params, images, cfg, fused=f)
+
+            with torch.inference_mode():
+                ms = measure(forward, iters=10, warmup=2).mean_ms
+            print(f"  {title} {name}: {ms:.3f} ms (CUDA events, mean of 10)")
+            route[name] = {"forward_ms": ms,
+                           "trace": trace_phase(torch, forward, ms)}
+        out[net] = dict(route, rel_err=rel, staged_launches=counts)
+        del params, images, fused, staged
+    return ok, out, staged_dw
+
+
+def paper_phase(torch, stats):
+    """The paper's dataflow on the card: (a) ConvDK at full width against
+    its oracle, (b) every block of B0 224, MobileNet-V3-Large 224 and V2-S
+    384 (batch BATCH) fused and staged on the same inputs and weights, each
+    within 1e-4 of max|oracle| of ``kernels.ref`` and of each other, timed
+    warm (CUDA graph replays) and cold (a 128 MiB scratch write between
+    calls), beside the modeled bytes and the staged working set, and B6
+    against its plain version at every staged MBConv block's shape, (c)
+    the three forwards both ways, (d) the CIM model's Figs. 7-8 beside the
+    paper's bands (host arithmetic).  Speed never fails the phase."""
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.benchmarks.cim_tables import run_all
+    from repro_torch.examples.cim_dataflow_analysis import band_rows
+
+    ok = _convdk_on_card(torch)
+    ok &= _dw2d_at_staged_blocks(torch, stats)
+    blocks, peaks = [], {}
+    for n, (net, title, res) in enumerate(PAPER_NETS):
+        print(f"  -- {title} {res}x{res} batch {BATCH}, every block")
+        torch.cuda.reset_peak_memory_stats()
+        good, rows = kb.measure_family(net, BATCH, res, torch.device(DEVICE),
+                                       seed=6000 + n)
+        peaks[net] = torch.cuda.max_memory_allocated()
+        ok &= good
+        blocks += rows
+
+        def total(key, rows=rows):
+            return sum(r[key] for r in rows)
+
+        print(f"  {title}: {len(rows)} blocks, fused {total('fused_ms'):.4f} "
+              f"ms, staged {total('staged_ms'):.4f} ms warm; "
+              f"{total('fused_cold_ms'):.4f} / {total('staged_cold_ms'):.4f} "
+              f"ms cold; staged faster at "
+              f"{sum(r['staged_ms'] < r['fused_ms'] for r in rows)} warm and "
+              f"{sum(r['staged_cold_ms'] < r['fused_cold_ms'] for r in rows)}"
+              f" cold; modeled fused below staged at "
+              f"{sum(r['fused_bytes'] < r['staged_bytes'] for r in rows)}; "
+              f"staged working set above L2 at "
+              f"{sum(r['staged_working_set_bytes'] > kb.L2_BYTES for r in rows)}"
+              f"; peak memory {peaks[net] / 2**30:.2f} GiB "
+              f"{'ok' if good else 'FAIL'}")
+    good, forwards, staged_dw = _forwards_both_ways(torch)
+    ok &= good
+    bands = band_rows(run_all(quiet=True))
+    for band, lo, hi, p_lo, p_hi in bands:
+        inside = p_lo <= lo and hi <= p_hi
+        print(f"  CIM {band:38s} ours {lo:6.2f}..{hi:6.2f} paper "
+              f"{p_lo:.1f}..{p_hi:.1f} {'inside' if inside else 'outside'}")
+        if band == "buffer_traffic_reduction_ws":
+            ok &= inside                 # the paper's headline claim
+    return bool(ok), {"blocks": blocks, "peak_memory_bytes": peaks,
+                      "forwards": forwards, "bands": bands}, staged_dw
 
 
 def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
@@ -1719,6 +1919,9 @@ def main() -> int:
     phase("v3-trace", "v3-trace: device time of the V3 forward by kernel")
     v3_trace = trace_phase(torch, forward, v3_ms)
     del forward
+    phase("paper", "paper: ConvDK on the card; every B0, V3 and V2-S block "
+                   "fused and staged; the forwards both ways; the CIM model")
+    phases["paper"], paper, paper_dw = paper_phase(torch, stats)
     phase("sep-kernels", f"sep-kernels: MobileNet-V2 batch {BATCH} at "
                          f"{MNV2_RES}, every separable block; the trainer's "
                          "blocks")
@@ -1758,7 +1961,7 @@ def main() -> int:
                    "mnv2_launches": mnv2_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "both_modes": both_modes,
-                   "rows": stats.rows}, f,
+                   "paper": paper, "rows": stats.rows}, f,
                   indent=1)
     if not all(phases.values()):
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1767,7 +1970,7 @@ def main() -> int:
     print(json.dumps({"kernels": stats.summary(
         {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches,
          "train": train_launches, "mnv2": mnv2_launches,
-         "lm": lm_launches}),
+         "lm": lm_launches, "paper_staged_dw2d": paper_dw}),
         "lm_launches_per_prefill_forward": lm_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 from .perfmodel import (
     MBCONV_MODES,
@@ -145,6 +145,23 @@ class MBConvSchedule:
     tile_w: int
     mode: str
     total_bytes: int
+
+
+class BlockRow(NamedTuple):
+    """One block of a chain at its input dims: what a schedule solve
+    needs (counterpart of ``repro.core.autotune.BlockRow``).  ``family``
+    is "mbconv" or "fusedmb"; ``se_ratio <= 0`` means no SE."""
+
+    h: int
+    w: int
+    c_in: int
+    c_mid: int
+    c_out: int
+    k: int
+    s: int
+    family: str = "mbconv"
+    act: str = "silu"
+    se_ratio: float = 0.25
 
 
 def window_extent(tile: int, k: int, s: int) -> int:

@@ -6,8 +6,8 @@ from typing import Dict
 from . import (convdk_conv1d, convdk_dw, convdk_fused, convdk_fusedmb,
                convdk_mbconv)
 from .convdk_fused import convdk_fused_separable
-from .convdk_fusedmb import convdk_fusedmb_fused
-from .convdk_mbconv import convdk_mbconv_fused
+from .convdk_fusedmb import convdk_fusedmb_fused, convdk_fusedmb_staged
+from .convdk_mbconv import convdk_mbconv_fused, convdk_mbconv_staged
 from .ops import (
     convdk_causal_conv1d,
     convdk_depthwise2d,
@@ -21,7 +21,8 @@ _MODULES = (convdk_mbconv, convdk_fusedmb, convdk_fused, convdk_dw,
 
 __all__ = ["convdk_causal_conv1d", "convdk_depthwise2d",
            "convdk_fused_separable", "convdk_fusedmb_fused",
-           "convdk_mbconv_fused",
+           "convdk_fusedmb_staged", "convdk_mbconv_fused",
+           "convdk_mbconv_staged",
            "convdk_separable_staged", "launches", "reset_launches",
            "stage_row_strips", "stage_seq_strips"]
 

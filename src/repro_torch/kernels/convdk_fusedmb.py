@@ -188,3 +188,25 @@ def convdk_fusedmb_fused(
     if needs_grad(x, w_conv, w_proj):
         return _FusedMBFn.apply(x, w_conv, w_proj, geo, padding, act)
     return fusedmb(x, w_conv, w_proj, geo, act=act)
+
+
+def convdk_fusedmb_staged(
+    x: torch.Tensor,
+    w_conv: torch.Tensor,
+    w_proj: torch.Tensor,
+    *,
+    stride: int = 1,
+    padding: str = "SAME",
+    tile_h: int = 8,
+    act: Optional[str] = "silu",
+) -> torch.Tensor:
+    """The STAGED Fused-MBConv pipeline (comparison baseline,
+    differentiable), counterpart of ``repro.kernels.convdk_fusedmb_staged``:
+    dense conv (``F.conv2d``) -> device memory -> act -> projection matmul.
+    The expanded (B, H', W', C_mid) tensor round-trips device memory, which
+    ``convdk_fusedmb_fused`` removes.  ``tile_h`` is accepted for call-site
+    symmetry with the fused entry and ignored: the staged rendering has no
+    strips.  Layouts as ``convdk_fusedmb_fused``.  These are the very
+    calls of the oracle ``fusedmb_ref``, each writing its tensor out."""
+    del tile_h
+    return fusedmb_ref(x, w_conv, w_proj, stride, padding, act)

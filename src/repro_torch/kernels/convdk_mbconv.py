@@ -493,3 +493,48 @@ def convdk_mbconv_fused(
     if needs_grad(*args):
         return _MBConvFn.apply(*args, conf)
     return _mbconv_impl(*args, **conf)
+
+
+def convdk_mbconv_staged(
+    x: torch.Tensor,
+    w_exp: Optional[torch.Tensor],
+    w_dw: torch.Tensor,
+    w_se1: Optional[torch.Tensor],
+    b_se1: Optional[torch.Tensor],
+    w_se2: Optional[torch.Tensor],
+    b_se2: Optional[torch.Tensor],
+    w_proj: torch.Tensor,
+    *,
+    stride: int = 1,
+    padding: str = "SAME",
+    tile_h: int = 8,
+    exp_act: Optional[str] = "silu",
+    dw_act: Optional[str] = "silu",
+    se_act: Optional[str] = "silu",
+    gate_act: Optional[str] = "sigmoid",
+) -> torch.Tensor:
+    """The STAGED MBConv pipeline (comparison baseline, differentiable),
+    counterpart of ``repro.kernels.convdk_mbconv_staged``.
+
+    expand matmul -> device memory -> row strips -> the depthwise kernel
+    (``kernels.ops.convdk_depthwise2d``) -> device memory -> SE mean pool
+    over the whole DW tensor, MLP and gate -> device memory -> projection
+    matmul: the DW tensor round-trips device memory as in the paper's
+    weight-stationary baseline, which ``convdk_mbconv_fused`` removes.  The
+    matmuls and the SE stay PyTorch calls, as the JAX baseline leaves them
+    to XLA.  Layouts as ``convdk_mbconv_fused`` (``w_exp=None`` is the
+    identity expand; the four SE operands ``None`` for a no-SE block).
+    """
+    from .ops import convdk_depthwise2d
+
+    e = x.float() if w_exp is None else x.float() @ w_exp.float()
+    e = _act_ref(e, exp_act)
+    d = convdk_depthwise2d(e, w_dw.float(), stride=stride, padding=padding,
+                           tile_h=tile_h)
+    d = _act_ref(d, dw_act)
+    if w_se1 is not None:
+        pooled = d.mean(dim=(1, 2))
+        s1 = _act_ref(pooled @ w_se1.float() + b_se1.float(), se_act)
+        gate = _act_ref(s1 @ w_se2.float() + b_se2.float(), gate_act)
+        d = d * gate[:, None, None, :]
+    return (d @ w_proj.float()).to(x.dtype)

@@ -13,7 +13,12 @@ activations are data on ``MBConvSpec``:
   ``core.autotune.get_fusedmb_schedule``;
 
 both add the identity residual when s == 1 and C_in == C_out;
-``apply_block`` picks one by the spec's family.  Each network runs its
+``apply_block`` picks one by the spec's family.  With ``fused=False``
+either block runs its staged baseline instead
+(``kernels.convdk_mbconv_staged``, ``kernels.convdk_fusedmb_staged``): the
+expanded tensor round-trips device memory, the comparison the paper's
+claim is about.  The argument is the counterpart of the JAX package's
+process-global ``ConvKernelConfig.fused_mbconv``.  Each network runs its
 block chain in order (``models.blockgraph`` holds the same chain as a
 dataflow graph, for the network plan to come).  The stem
 conv, the SE MLP and the head stay PyTorch calls, as the JAX package
@@ -24,21 +29,30 @@ from __future__ import annotations
 
 import dataclasses
 from typing import (
-    Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union,
+    Any, Callable, Dict, List, Optional, Sequence, Tuple, Union,
 )
 
 import torch
 import torch.nn.functional as F
 
 from ..core.autotune import (
+    BlockRow,
     FusedMBSchedule,
     MBConvSchedule,
     get_fusedmb_schedule,
     get_mbconv_schedule,
 )
+from ..core.workloads import (
+    EFFICIENTNET_V2_S_STAGES,
+    MOBILENET_V3_LARGE,
+    MOBILENET_V3_LARGE_META,
+)
 from ..kernels.common import spatial_pads
-from ..kernels.convdk_fusedmb import convdk_fusedmb_fused
-from ..kernels.convdk_mbconv import convdk_mbconv_fused
+from ..kernels.convdk_fusedmb import (
+    convdk_fusedmb_fused,
+    convdk_fusedmb_staged,
+)
+from ..kernels.convdk_mbconv import convdk_mbconv_fused, convdk_mbconv_staged
 from ..kernels.ref import pad_nhwc
 from .param import P, materialize
 
@@ -137,21 +151,6 @@ class MBConvSpec:
         return self.s == 1 and self.c_in == self.c_out
 
 
-class BlockRow(NamedTuple):
-    """One block of a chain at its input dims: what a schedule solve
-    needs (counterpart of ``repro.core.autotune.BlockRow``)."""
-
-    h: int
-    w: int
-    c_in: int
-    c_mid: int
-    c_out: int
-    k: int
-    s: int
-    family: str = "mbconv"
-    se_ratio: float = 0.25
-
-
 def effnet_block_specs(cfg: EffNetConfig) -> List[MBConvSpec]:
     """The per-block MBConv table of one EfficientNet config."""
     specs: List[MBConvSpec] = []
@@ -178,12 +177,13 @@ def effnet_chain_rows(specs: Sequence[MBConvSpec], h: int, w: int
 def block_chain_rows(specs: Sequence[MBConvSpec], h: int, w: int
                      ) -> Tuple[BlockRow, ...]:
     """Family-generic chain rows from the STEM-OUTPUT dims ``h``/``w``:
-    like ``effnet_chain_rows`` but carrying each spec's family and SE
+    like ``effnet_chain_rows`` but carrying each spec's family, act and SE
     ratio."""
     rows, hh, ww = [], h, w
     for sp in specs:
         rows.append(BlockRow(hh, ww, sp.c_in, sp.c_mid, sp.c_out, sp.k,
-                             sp.s, family=sp.family, se_ratio=sp.se_ratio))
+                             sp.s, family=sp.family, act=sp.act,
+                             se_ratio=sp.se_ratio))
         hh, ww = -(-hh // sp.s), -(-ww // sp.s)
     return tuple(rows)
 
@@ -275,9 +275,11 @@ def mbconv_block(
     dw_act: Optional[str] = "silu",
     se_act: Optional[str] = "silu",
     gate_act: Optional[str] = "sigmoid",
+    fused: bool = True,
 ) -> torch.Tensor:
     """Apply one MBConv block (SAME padding) through the two-pass fused
-    kernels.
+    kernels, or with ``fused=False`` through the staged baseline (its
+    depthwise kernel at the schedule's tile_h).
 
     The (tile_h, tile_w, mode) schedule comes from ``schedule`` when the
     caller solved it already, else from ``get_mbconv_schedule`` for this
@@ -302,12 +304,18 @@ def mbconv_block(
             raise ValueError(f"identity expand with c_in {c_in} != "
                              f"c_mid {c_mid}")
         w_exp, exp_act = None, None
-    out = convdk_mbconv_fused(
-        x, w_exp, params["dw"], params.get("se_w1"), params.get("se_b1"),
-        params.get("se_w2"), params.get("se_b2"), params["proj"],
-        stride=stride, tile_h=schedule.tile_h, tile_w=schedule.tile_w,
-        mode=schedule.mode, exp_act=exp_act, dw_act=dw_act, se_act=se_act,
-        gate_act=gate_act)
+    args = (x, w_exp, params["dw"], params.get("se_w1"),
+            params.get("se_b1"), params.get("se_w2"), params.get("se_b2"),
+            params["proj"])
+    acts = dict(exp_act=exp_act, dw_act=dw_act, se_act=se_act,
+                gate_act=gate_act)
+    if fused:
+        out = convdk_mbconv_fused(
+            *args, stride=stride, tile_h=schedule.tile_h,
+            tile_w=schedule.tile_w, mode=schedule.mode, **acts)
+    else:
+        out = convdk_mbconv_staged(*args, stride=stride,
+                                   tile_h=schedule.tile_h, **acts)
     return _residual(out, x, stride)
 
 
@@ -318,34 +326,42 @@ def fusedmb_block(
     stride: int = 1,
     act: Optional[str] = "silu",
     schedule: Optional[FusedMBSchedule] = None,
+    fused: bool = True,
 ) -> torch.Tensor:
     """Apply one Fused-MBConv block (SAME padding) through the single-pass
     kernel, with the (tile_h, tile_w) schedule from ``schedule`` or from
-    ``get_fusedmb_schedule``.  x: (B, H, W, C_in) NHWC."""
+    ``get_fusedmb_schedule``; with ``fused=False`` through the staged
+    baseline.  x: (B, H, W, C_in) NHWC."""
     b, h, w, c_in = x.shape
     k, _, _, c_mid = params["conv"].shape
     c_out = params["proj"].shape[-1]
     if schedule is None:
         schedule = get_fusedmb_schedule(b, h, w, c_in, c_mid, c_out, k,
                                         stride, dtype_bytes=x.element_size())
-    out = convdk_fusedmb_fused(
-        x, params["conv"], params["proj"], stride=stride,
-        tile_h=schedule.tile_h, tile_w=schedule.tile_w, act=act)
+    if fused:
+        out = convdk_fusedmb_fused(
+            x, params["conv"], params["proj"], stride=stride,
+            tile_h=schedule.tile_h, tile_w=schedule.tile_w, act=act)
+    else:
+        out = convdk_fusedmb_staged(x, params["conv"], params["proj"],
+                                    stride=stride, act=act)
     return _residual(out, x, stride)
 
 
 def apply_block(x: torch.Tensor, sp: MBConvSpec, params: dict, *,
                 mode: Optional[str] = None,
-                schedule: Optional[Schedule] = None) -> torch.Tensor:
+                schedule: Optional[Schedule] = None,
+                fused: bool = True) -> torch.Tensor:
     """One spec'd block by family: ``fusedmb_block`` with the spec's act,
     or ``mbconv_block`` with the spec's act and SE activations and the
-    ``mode`` pin; ``schedule`` when the caller solved it."""
+    ``mode`` pin; ``schedule`` when the caller solved it; ``fused=False``
+    for the staged baselines."""
     if sp.family == "fusedmb":
         return fusedmb_block(x, params, stride=sp.s, act=sp.act,
-                             schedule=schedule)
+                             schedule=schedule, fused=fused)
     return mbconv_block(x, params, stride=sp.s, mode=mode, schedule=schedule,
                         exp_act=sp.act, dw_act=sp.act, se_act=sp.se_act,
-                        gate_act=sp.gate_act)
+                        gate_act=sp.gate_act, fused=fused)
 
 
 # ---------------------------------------------------------------------------
@@ -365,15 +381,18 @@ def stem_conv(images: torch.Tensor, w_stem: torch.Tensor) -> torch.Tensor:
 
 def _chain(params: dict, images: torch.Tensor, specs: List[MBConvSpec],
            stem_act: str, mode: Optional[str] = None,
-           schedules: Optional[Sequence[Schedule]] = None) -> torch.Tensor:
-    """Stem conv + act, then the blocks in chain order."""
+           schedules: Optional[Sequence[Schedule]] = None,
+           fused: bool = True) -> torch.Tensor:
+    """Stem conv + act, then the blocks in chain order (``fused=False``:
+    each through its staged baseline)."""
     if schedules is not None and len(schedules) != len(specs):
         raise ValueError(f"{len(schedules)} schedules for {len(specs)} "
                          "blocks")
     x = _ACTS[stem_act](stem_conv(images.float(), params["stem"]))
     for i, sp in enumerate(specs):
         x = apply_block(x, sp, params[f"block{i}"], mode=mode,
-                        schedule=None if schedules is None else schedules[i])
+                        schedule=None if schedules is None else schedules[i],
+                        fused=fused)
     return x
 
 
@@ -416,32 +435,28 @@ def efficientnet_b0_def(cfg: EffNetConfig = EffNetConfig()) -> dict:
 def efficientnet_b0_apply(params: dict, images: torch.Tensor,
                           cfg: EffNetConfig = EffNetConfig(), *,
                           mode: Optional[str] = None,
-                          schedules: Optional[Sequence[MBConvSchedule]] = None
-                          ) -> torch.Tensor:
+                          schedules: Optional[Sequence[MBConvSchedule]] = None,
+                          fused: bool = True) -> torch.Tensor:
     """(B, H, W, 3) NHWC images -> (B, num_classes) logits, on the device
     the params and images lie on.
 
     ``schedules`` passes the per-block schedules solved once by the caller
     (the serving engine does, per resolution bucket); otherwise each block
-    looks its own up, with ``mode`` pinning the pass-2 variant."""
+    looks its own up, with ``mode`` pinning the pass-2 variant.
+    ``fused=False`` runs every block through the staged baseline."""
     x = _chain(params, images, effnet_block_specs(cfg), "silu", mode,
-               schedules)
+               schedules, fused)
     return _classify(params, x, "silu")
 
 
 # ----------------------------- EfficientNet-V2-S -----------------------------
 
 # (family, expand_ratio, k, s, c_out, repeats) — EfficientNet-V2-S body
-# [arXiv:2104.00298, Table 2]: Fused-MBConv stages 1-3 (no SE), MBConv
-# tail with SE 0.25.  The first block of a stage carries the stride.
-EFFNET_V2_S_STAGES: Tuple[Tuple[str, int, int, int, int, int], ...] = (
-    ("fusedmb", 1, 3, 1, 24, 2),
-    ("fusedmb", 4, 3, 2, 48, 4),
-    ("fusedmb", 4, 3, 2, 64, 4),
-    ("mbconv", 4, 3, 2, 128, 6),
-    ("mbconv", 6, 3, 1, 160, 9),
-    ("mbconv", 6, 3, 2, 256, 15),
-)
+# [arXiv:2104.00298, Table 2], the table of ``core.workloads``:
+# Fused-MBConv stages 1-3 (no SE), MBConv tail with SE 0.25.  The first
+# block of a stage carries the stride.
+EFFNET_V2_S_STAGES: Tuple[Tuple[str, int, int, int, int, int], ...] = \
+    tuple(EFFICIENTNET_V2_S_STAGES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -490,40 +505,29 @@ def efficientnet_v2_s_def(cfg: EffNetV2Config = EffNetV2Config()) -> dict:
 
 
 def efficientnet_v2_s_apply(params: dict, images: torch.Tensor,
-                            cfg: EffNetV2Config = EffNetV2Config()
-                            ) -> torch.Tensor:
+                            cfg: EffNetV2Config = EffNetV2Config(), *,
+                            fused: bool = True) -> torch.Tensor:
     """(B, H, W, 3) NHWC images -> (B, num_classes) logits: stem 3x3/2 +
     silu, the Fused-MBConv blocks through the single-pass kernel and the
-    MBConv tail through the two-pass kernels (one mixed-family graph),
-    head 1x1 + silu, mean pool, classifier."""
-    x = _chain(params, images, effnet_v2_block_specs(cfg), "silu")
+    MBConv tail through the two-pass kernels (one mixed-family graph;
+    ``fused=False``: both through their staged baselines), head 1x1 +
+    silu, mean pool, classifier."""
+    x = _chain(params, images, effnet_v2_block_specs(cfg), "silu",
+               fused=fused)
     return _classify(params, x, "silu")
 
 
 # ---------------------------- MobileNet-V3-Large ----------------------------
 
 # (c_mid, c_out, k, s, SE, act) per block — MobileNet-V3-Large
-# [arXiv:1905.02244, Table 1]; c_in threads from the previous block (stem
-# 16).  The expanded widths are not integer multiples of c_in, so the
-# specs pin c_mid.
+# [arXiv:1905.02244, Table 1], from the tables of ``core.workloads``; c_in
+# threads from the previous block (stem 16).  The expanded widths are not
+# integer multiples of c_in, so the specs pin c_mid.
 MOBILENET_V3_LARGE_BLOCKS: Tuple[
-        Tuple[int, int, int, int, bool, str], ...] = (
-    (16, 16, 3, 1, False, "relu"),
-    (64, 24, 3, 2, False, "relu"),
-    (72, 24, 3, 1, False, "relu"),
-    (72, 40, 5, 2, True, "relu"),
-    (120, 40, 5, 1, True, "relu"),
-    (120, 40, 5, 1, True, "relu"),
-    (240, 80, 3, 2, False, "hard_swish"),
-    (200, 80, 3, 1, False, "hard_swish"),
-    (184, 80, 3, 1, False, "hard_swish"),
-    (184, 80, 3, 1, False, "hard_swish"),
-    (480, 112, 3, 1, True, "hard_swish"),
-    (672, 112, 3, 1, True, "hard_swish"),
-    (672, 160, 5, 2, True, "hard_swish"),
-    (960, 160, 5, 1, True, "hard_swish"),
-    (960, 160, 5, 1, True, "hard_swish"),
-)
+        Tuple[int, int, int, int, bool, str], ...] = tuple(
+    (dw.c, c_out, dw.k, dw.s, se, act)
+    for dw, (_c_in, c_out, se, act) in zip(MOBILENET_V3_LARGE,
+                                           MOBILENET_V3_LARGE_META))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -569,12 +573,14 @@ def mobilenet_v3_def(cfg: MobileNetV3Config = MobileNetV3Config()) -> dict:
 
 
 def mobilenet_v3_apply(params: dict, images: torch.Tensor,
-                       cfg: MobileNetV3Config = MobileNetV3Config()
-                       ) -> torch.Tensor:
+                       cfg: MobileNetV3Config = MobileNetV3Config(), *,
+                       fused: bool = True) -> torch.Tensor:
     """(B, H, W, 3) NHWC images -> (B, num_classes) logits: stem 3x3/2 +
-    hard_swish, the blocks with their own act and SE, head 1x1 +
-    hard_swish, mean pool, fc + hard_swish, classifier."""
-    x = _chain(params, images, mobilenet_v3_specs(cfg), "hard_swish")
+    hard_swish, the blocks with their own act and SE (``fused=False``:
+    through the staged baseline), head 1x1 + hard_swish, mean pool, fc +
+    hard_swish, classifier."""
+    x = _chain(params, images, mobilenet_v3_specs(cfg), "hard_swish",
+               fused=fused)
     return _classify(params, x, "hard_swish")
 
 

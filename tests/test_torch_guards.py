@@ -25,7 +25,12 @@ from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
 from repro_torch.core.autotune import fused_separable_launch_plan as launch_plan
 from repro_torch.core.autotune import recompute_plan, retain_plan
-from repro_torch.examples import train_mobilenet_cim
+from repro_torch.benchmarks import kernel_bench
+from repro_torch.examples import (
+    efficientnet_mbconv,
+    quickstart,
+    train_mobilenet_cim,
+)
 from repro_torch.kernels import convdk_conv1d as tc
 from repro_torch.kernels import convdk_dw as td
 from repro_torch.kernels import convdk_fused as tfs
@@ -89,9 +94,19 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.convdk_conv1d", "repro_torch.models.ssd",
             "repro_torch.models.model", "repro_torch.serve.engine",
             "repro_torch.train.step", "repro_torch.launch.serve",
-            "repro_torch.configs.mamba2_2p7b"} <= set(mods)
+            "repro_torch.configs.mamba2_2p7b",
+            "repro_torch.core.schedule", "repro_torch.core.tiling",
+            "repro_torch.core.convdk", "repro_torch.core.perfmodel",
+            "repro_torch.benchmarks.cim_tables",
+            "repro_torch.benchmarks.kernel_bench",
+            "repro_torch.examples.cim_dataflow_analysis",
+            "repro_torch.examples.efficientnet_mbconv",
+            "repro_torch.examples.quickstart"} <= set(mods)
     smoke = sorted(_smoke_imports())
-    assert "repro_torch.models.mbconv" in smoke
+    assert {"repro_torch.models.mbconv", "repro_torch.core.convdk",
+            "repro_torch.benchmarks.cim_tables",
+            "repro_torch.benchmarks.kernel_bench",
+            "repro_torch.examples.cim_dataflow_analysis"} <= set(smoke)
     assert not [m for m in smoke if m.split(".")[0] in ("jax", "repro")]
     code = (
         "import importlib, importlib.util, sys\n"
@@ -127,6 +142,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         EfficientNetV2S(efficientnet_v2_s_smoke())
     with pytest.raises(RuntimeError, match="CUDA"):
         train_mobilenet_cim.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        efficientnet_mbconv.main(["--staged"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_bench.main(["--fused", "--measure"])
     smoke = mamba2_2p7b.SMOKE
     with pytest.raises(RuntimeError, match="CUDA"):
         materialize(lm.model_def(smoke), torch.Generator().manual_seed(0))
@@ -167,9 +188,16 @@ def test_launch_counters_stay_zero_on_cpu():
             t(2, 9, 11, 8), t(8, 16), t(3, 3, 16), t(16, 2), t(2), t(2, 16),
             t(16), t(16, 8), stride=2, mode=mode)
         assert out.shape == (2, 5, 6, 8)
+        out = tk.convdk_mbconv_staged(
+            t(2, 9, 11, 8), t(8, 16), t(3, 3, 16), t(16, 2), t(2), t(2, 16),
+            t(16), t(16, 8), stride=2)
+        assert out.shape == (2, 5, 6, 8)
     for s in (1, 2):
         out = tf.convdk_fusedmb_fused(t(2, 9, 11, 6), t(3, 3, 6, 12),
                                       t(12, 8), stride=s, tile_h=2, tile_w=4)
+        assert out.shape == (2, -(-9 // s), -(-11 // s), 8)
+        out = tf.convdk_fusedmb_staged(t(2, 9, 11, 6), t(3, 3, 6, 12),
+                                       t(12, 8), stride=s)
         assert out.shape == (2, -(-9 // s), -(-11 // s), 8)
         for fused in (True, False):
             out = separable_block(
@@ -527,6 +555,45 @@ def test_dw2d_bf16_matches_fp32_sum_on_card(k, s, h, w, c, monkeypatch):
     assert _within_bf16_ulp(out, depthwise2d_ref(x.float(), w_dw.float(), s))
     with pytest.raises(ValueError, match="one dtype"):
         td.dw2d(strips, w_dw.float(), **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,k,s", [
+    (8, 7, 7, 1152, 5, 1),      # B0's last stage
+    (8, 12, 12, 1536, 3, 1),    # V2-S's last stage at 384
+    (8, 56, 56, 144, 5, 2),     # B0 block 3
+    (8, 56, 56, 72, 3, 1),      # MobileNet-V3's ragged widths
+    (8, 28, 28, 120, 5, 1),
+    (8, 14, 14, 184, 3, 1),
+    (8, 14, 14, 200, 3, 1),
+])
+def test_dw2d_at_mbconv_widths_on_card(b, h, w, c, k, s, monkeypatch):
+    """B6 at the staged MBConv route's widths (C up to 1536, k 5 at s 2,
+    channel counts that are not multiples of its 32-channel block): within
+    1e-4 * max|plain| + 1e-5 of its plain version, and the staged MBConv
+    entry through it within the same bar of the oracle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(b + h + c + k)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x, w_dw = r(b, h, w, c), r(k, k, c) / k
+    for tile_h in (8, 3):
+        geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, w)
+        strips = ops.stage_row_strips(pad_nhwc(x, geo.pads), k, s,
+                                      geo.tile_h)
+        kw = dict(stride=s, out_w=geo.out_w, tile_h=geo.tile_h)
+        _close_on_card(td.dw2d(strips, w_dw, **kw),
+                       td.dw2d_plain(strips, w_dw, **kw))
+    c_in, c_out = max(8, c // 6), 40
+    args = (r(b, h, w, c_in), r(c_in, c) / c_in ** 0.5, w_dw,
+            r(c, c_in // 4) / c ** 0.5, r(c_in // 4) * 0.1,
+            r(c_in // 4, c) / (c_in // 4) ** 0.5, r(c) * 0.1,
+            r(c, c_out) / c ** 0.5)
+    _close_on_card(tk.convdk_mbconv_staged(*args, stride=s, tile_h=4),
+                   mbconv_ref(*args, stride=s))
     torch.cuda.synchronize()
 
 
