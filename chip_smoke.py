@@ -84,7 +84,26 @@ Phases, each of which must pass (exit 1 otherwise):
             on CUDA events and traced; (d) the CIM model's Figs. 7-8
             (host arithmetic) beside the paper's bands, the WS
             buffer-traffic reduction inside its band.  Speed never fails it.
-11. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
+11. bench       the port's measurement record: the per-block sweep
+            (kernel_bench.measure_sweep: every block of B0 224, V3 224 and
+            V2-S 384 at batch 8, each schedule point of the sweep checked
+            against the oracle within 1e-4 x max|oracle|, then timed from
+            CUDA graph replays) written as build/chip_smoke/BENCH_<host>.json,
+            checked by validate_bench and diffed against the committed
+            baseline results/bench_torch/BENCH_*.json (modeled bytes and
+            axes must match; wall time gated only between comparable
+            hosts); the calibration fit and rank agreement
+            (roofline_bench.calibration_report); per block the Hopper
+            model's device-memory and global bytes of the fused route and
+            the staged model's bytes beside the paper phase's fused and
+            staged ms, with the blocks where the model's sign and the
+            card's agree, warm and cold; then serve_report at (224, 384,
+            512) through VisionEngine (2 warm batches per bucket left out,
+            then 400 requests on a Poisson schedule at 0.5 per mean warm
+            batch time, latency from arrival), its gate passing, with the
+            MBConv kernels' launches counted (zeroed just before, read just
+            after).
+12. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
             batch 8, and the trainer's 3 blocks at its batch 32, with the
             solved tiles and C_in splits: the fused separable kernel (with
             its split reduce where the block splits; dw_act relu, act relu
@@ -100,7 +119,7 @@ Phases, each of which must pass (exit 1 otherwise):
             the split reduce), counts zeroed just before and read just
             after: exactly 17 fused separable launches and one reduce per
             split block.
-12. grad        on the card, each op's input and weight gradients (fused
+13. grad        on the card, each op's input and weight gradients (fused
             separable and depthwise at a MobileNet-V2 block, MBConv retain
             and recompute with SE at a B0 block, MBConv without SE at a V3
             block, Fused-MBConv at a V2-S block) against autograd through
@@ -110,7 +129,7 @@ Phases, each of which must pass (exit 1 otherwise):
             weights and labels) against the CPU plain run, within 1e-3 *
             max|cpu grad| per leaf; then B0 forward + backward at batch 8
             timed on CUDA events and traced.
-13. train       the separable training path, under deterministic
+14. train       the separable training path, under deterministic
             algorithms (cuDNN deterministic, no cuDNN benchmark,
             torch.use_deterministic_algorithms, CUBLAS_WORKSPACE_CONFIG set
             before torch is imported; the first two restored after the
@@ -126,12 +145,12 @@ Phases, each of which must pass (exit 1 otherwise):
             of each other.  The fused run's DESCENDED/check verdict and
             step-60 ratio are printed: a single step of the chaotic lr 0.5
             trajectory is not a check of the code.
-14. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
+15. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
             layer (D 5120, 128, 128; k 4; SiLU; bias) at batch 1 x 32768
             tokens, in bf16 (within 1 bf16 ulp of the plain version's
             fp32 sum rounded once) and in fp32 (the phase-2 bar), timed as
             in phase 2 beside grouped F.conv1d + F.silu.
-15. lm-model    full-width Mamba-2 2.7B (64 layers, seeded fp32 weights,
+16. lm-model    full-width Mamba-2 2.7B (64 layers, seeded fp32 weights,
             materialized once and timed): the prefill forward with the
             kernel (exactly 192 conv1d launches, 3 per layer) and without it
             (none), counts zeroed just before and read just after; in fp32
@@ -140,7 +159,7 @@ Phases, each of which must pass (exit 1 otherwise):
             against the CPU plain run within 1e-3 relative; then the bf16
             prefill step at 1 x 32768 (the main path of the conv1d kernel)
             timed on CUDA events and traced.
-16. lm-serve    the LM engine at full width in bf16: generate_many on 8
+17. lm-serve    the LM engine at full width in bf16: generate_many on 8
             mixed requests (prompts of 12, 20, 28, 30, 40, 60, 300 and 300
             tokens, 16 new tokens each, LITTLE below 256), every one
             answered, with prefill tokens/s and decode ms per token; then
@@ -1105,7 +1124,9 @@ def paper_phase(torch, stats):
               f"{sum(r['staged_ms'] < r['fused_ms'] for r in rows)} warm and "
               f"{sum(r['staged_cold_ms'] < r['fused_cold_ms'] for r in rows)}"
               f" cold; modeled fused below staged at "
-              f"{sum(r['fused_bytes'] < r['staged_bytes'] for r in rows)}; "
+              f"{sum(r['hopper_dram_bytes'] < r['staged_bytes'] for r in rows)}"
+              f" (the copied model: "
+              f"{sum(r['fused_bytes'] < r['staged_bytes'] for r in rows)}); "
               f"staged working set above L2 at "
               f"{sum(r['staged_working_set_bytes'] > kb.L2_BYTES for r in rows)}"
               f"; peak memory {peaks[net] / 2**30:.2f} GiB "
@@ -1121,6 +1142,89 @@ def paper_phase(torch, stats):
             ok &= inside                 # the paper's headline claim
     return bool(ok), {"blocks": blocks, "peak_memory_bytes": peaks,
                       "forwards": forwards, "bands": bands}, staged_dw
+
+
+BENCH_BASELINE_GLOB = os.path.join("results", "bench_torch", "BENCH_*.json")
+BENCH_BLOCKS = 16 + 15 + 40                # B0, V3-Large, V2-S
+
+
+def bench_phase(torch, tk, paper):
+    """The port's measurement record: the per-block sweep written as a
+    BENCH artifact, validated and diffed against the committed baseline,
+    the calibration, the model's sign against the card's per block (from
+    the paper phase's rows), and the serving report at SERVE_RES."""
+    import glob
+
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.benchmarks.roofline_bench import calibration_report
+    from repro_torch.benchmarks.serve_report import serve_report
+    from repro_torch.core.trajectory import diff_bench, load_bench, write_bench
+
+    t0 = time.perf_counter()
+    records = kb.measure_sweep(kb.FAMILY_CHOICES, torch.device(DEVICE),
+                               seed=7000, log=lambda line: print("  " + line))
+    path = write_bench(os.path.join(ROOT, "build", "chip_smoke"), records,
+                       config=kb.BENCH_CONFIG)
+    bench = load_bench(path)                 # validate_bench
+    ok = len(bench["records"]) == BENCH_BLOCKS
+    print(f"  sweep {time.perf_counter() - t0:.1f} s: {len(records)} records,"
+          f" {sum(len(r['candidates']) for r in records)} points -> {path}")
+    baselines = sorted(glob.glob(os.path.join(ROOT, BENCH_BASELINE_GLOB)))
+    diff = None
+    if len(baselines) != 1:
+        print(f"  FAIL: want one committed baseline {BENCH_BASELINE_GLOB}, "
+              f"found {baselines}")
+        ok = False
+    else:
+        diff = diff_bench(load_bench(baselines[0]), bench)
+        print("  vs " + os.path.relpath(baselines[0], ROOT) + "\n  "
+              + diff.format().replace("\n", "\n  "))
+        ok &= diff.ok
+    calibration = calibration_report(path)
+
+    agree = {"warm": 0, "cold": 0}
+    sweep_us = {r["name"]: r["walltime_us"] for r in records}
+    for row in paper["blocks"]:
+        model = row["hopper_dram_bytes"] < row["staged_bytes"]
+        warm = row["fused_ms"] < row["staged_ms"]
+        cold = row["fused_cold_ms"] < row["staged_cold_ms"]
+        name = f"{row['net']}_block{row['block']:02d}"
+        agree["warm"] += model == warm
+        agree["cold"] += model == cold
+        print(f"  {row['net']} block{row['block']:02d} fused "
+              f"{row['hopper_dram_bytes'] / 2**20:.2f} MiB device memory, "
+              f"{row['hopper_global_bytes'] / 2**20:.2f} global; staged "
+              f"{row['staged_bytes'] / 2**20:.2f} MiB; fused / staged "
+              f"{row['fused_ms']:.4f} / {row['staged_ms']:.4f} ms warm, "
+              f"{row['fused_cold_ms']:.4f} / {row['staged_cold_ms']:.4f} cold"
+              f" (sweep {sweep_us[name] / 1e3:.4f})"
+              f"; sign {'agrees' if model == warm else 'differs'} warm, "
+              f"{'agrees' if model == cold else 'differs'} cold")
+    n = len(paper["blocks"])
+    print(f"  the model's sign agrees with the card's at {agree['warm']} of "
+          f"{n} blocks warm, {agree['cold']} cold")
+
+    tk.reset_launches()                      # the serving path starts here
+    report = serve_report(SERVE_RES, device=DEVICE,
+                          log=lambda line: print("  " + line))
+    _sync(torch)
+    launches = dict(tk.LAUNCHES)             # ... and ends here
+    ran = all(launches[k] > 0 for k in ("mbconv_pass1", "mbconv_pass2_retain",
+                                         "mbconv_pass2_recompute"))
+    print(f"  serve_report launches {launches} "
+          f"{'ok' if report['ok'] and ran else 'FAIL'}")
+    ok &= report["ok"] and ran
+    return bool(ok), {
+        "artifact": os.path.relpath(path, ROOT),
+        "diff_ok": diff is not None and diff.ok,
+        "diff_notes": len(diff.notes) if diff else None,
+        "calibration": calibration, "sign_agreement": agree,
+        "serve_report": {k: report[k] for k in
+                         ("ok", "requests", "rate_rps", "throughput_rps",
+                          "warm_batch_s", "latency_s", "queue_wait_s",
+                          "bucket_latency_s", "served", "shed")},
+        "serve_report_launches": launches,
+        "seconds": time.perf_counter() - t0}
 
 
 def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
@@ -1922,6 +2026,9 @@ def main() -> int:
     phase("paper", "paper: ConvDK on the card; every B0, V3 and V2-S block "
                    "fused and staged; the forwards both ways; the CIM model")
     phases["paper"], paper, paper_dw = paper_phase(torch, stats)
+    phase("bench", "bench: the per-block sweep as a BENCH artifact, its diff "
+                   "against the baseline, the calibration, serve_report")
+    phases["bench"], bench = bench_phase(torch, tk, paper)
     phase("sep-kernels", f"sep-kernels: MobileNet-V2 batch {BATCH} at "
                          f"{MNV2_RES}, every separable block; the trainer's "
                          "blocks")
@@ -1961,7 +2068,8 @@ def main() -> int:
                    "mnv2_launches": mnv2_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "both_modes": both_modes,
-                   "paper": paper, "rows": stats.rows}, f,
+                   "paper": paper, "bench": bench,
+                   "rows": stats.rows}, f,
                   indent=1)
     if not all(phases.values()):
         print("chip_smoke: FAILED", file=sys.stderr)

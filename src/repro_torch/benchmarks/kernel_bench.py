@@ -1,32 +1,48 @@
 """Fused against staged, per block: the paper's claim as modeled bytes and,
-on the card, as device time.
+on the card, as device time; and the measured per-block sweep that writes
+the ``BENCH_<host>.json`` trajectory.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --fused \\
         [--family b0,v3l,v2s] [--measure]
+    PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --measure \\
+        [--family b0,v3l,v2s] [--bench-out DIR]
 
-Counterpart of the ``--fused`` / ``--family`` part of the JAX package's
-``benchmarks/kernel_bench.py``.  For every MobileNet-V2 separable block
-(and the k=7 EfficientNet-V2 stem rows) it prints the Hopper schedule of
-the fused separable kernel and the modeled fused and staged bytes; for
-every block of each ``--family`` chain (EfficientNet-B0 at 224,
-MobileNet-V3-Large at 224, EfficientNet-V2-S at its published 384, all
-at batch 8) the Hopper schedule (tile_h, tile_w, mode), the modeled fused
-and staged bytes, and the bytes the staged route writes and reads back
-(its working set, beside the card's 50 MB L2).  It exits 1 when the
-modeled fused bytes are not strictly below the staged bytes at some
-block: the JAX package's gate.
+Counterpart of the ``--fused`` / ``--family`` / ``--measure`` parts of the
+JAX package's ``benchmarks/kernel_bench.py``.  ``--fused`` prints, for
+every MobileNet-V2 separable block (and the k=7 EfficientNet-V2 stem rows)
+and every block of each ``--family`` chain (EfficientNet-B0 at 224,
+MobileNet-V3-Large at 224, EfficientNet-V2-S at its published 384, all at
+batch 8), the Hopper schedule, the fused route's device-memory bytes
+(``core.hopper_traffic``: the kernels at their own tiles) against the
+staged model's bytes, and beside them the fused route's global-load bytes
+and the copied TPU model's fused bytes (``core.perfmodel``, what the solver
+ranks by), and for the families the bytes the staged route writes and
+reads back (its working set, beside the card's 50 MB L2).  It exits 1 when
+the fused route's device-memory bytes are not strictly below the staged
+bytes at some block: the JAX package's gate, read at the Hopper level.
 
-``--measure`` runs each family block on the card, fused
+``--fused --measure`` runs each family block on the card, fused
 (``models.mbconv.apply_block``) and staged (``fused=False``) on the same
-fp32 inputs and weights, checks both against the oracle
-(``kernels.ref``) and each other within 1e-4 of max|oracle|, and prints
-their device ms (20 calls replayed from one CUDA graph, inputs warm in L2)
-and their cold-L2 ms (a 128 MiB scratch write between calls, outside the
-timed window; CUDA events over 5 replays of a one-call graph), with
-staged / fused.  TF32 is off for cuBLAS and cuDNN, so the staged matmuls
-are fp32 like the kernels.  The modeled report needs no device; the
-measurement runs on the card and raises without CUDA (CUDA events cannot
-time the CPU).
+fp32 inputs and weights, checks both against the oracle (``kernels.ref``)
+and each other within 1e-4 of max|oracle|, and prints their device ms (20
+calls replayed from one CUDA graph, inputs warm in L2) and their cold-L2 ms
+(a 128 MiB scratch write between calls, outside the timed window; CUDA
+events over 5 replays of a one-call graph), with staged / fused.
+
+``--measure`` alone is the twin of the JAX ``measure_b0``: over every block
+of each ``--family`` chain at full width, batch 8 and the family's side, it
+times each schedule point of the sweep (``core.autotune.
+benchmark_mbconv_sweep``: the solver's pick under each pinned mode and the
+other mode at each of those tiles; a Fused-MBConv block's pick alone) from
+CUDA graph replays, each point first checked against the oracle within
+1e-4 of max|oracle| (a miss raises), and records the modeled bytes of each
+point beside its time; ``--bench-out DIR`` writes them as ``BENCH_<host>.json``
+(``core.trajectory``).  The gated record fields (modeled bytes, axes) are
+arithmetic; the stopwatch's winner is kept apart as ``measured_best``.
+
+TF32 is off for cuBLAS and cuDNN when measuring, so the staged matmuls are
+fp32 like the kernels.  The modeled reports need no device; the
+measurements run on the card and raise without CUDA.
 """
 
 from __future__ import annotations
@@ -37,7 +53,22 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.autotune import C_BLOCK, BlockRow, get_fused_schedule
+from ..core.autotune import (
+    C_BLOCK,
+    L2_BYTES,
+    BlockRow,
+    SWEEP_CHECK_RTOL,
+    MBConvSchedule,
+    benchmark_mbconv_sweep,
+    get_fused_schedule,
+    mbconv_sweep_candidates,
+)
+from ..core.hopper_traffic import (
+    HopperTraffic,
+    fusedmb_hopper_traffic,
+    mbconv_hopper_traffic,
+    separable_hopper_traffic,
+)
 from ..core.perfmodel import (
     HBMTraffic,
     MBConvShape,
@@ -52,7 +83,10 @@ from ..core.workloads import (
     EFFICIENTNET_V2_K7_SEPARABLE,
     MOBILENET_V2_SEPARABLE,
 )
+from ..core.telemetry import measure
+from ..core.trajectory import write_bench
 from ..kernels.common import resolve_device
+from ..kernels.convdk_fusedmb import convdk_fusedmb_fused
 from ..kernels.ref import fusedmb_ref, mbconv_ref
 from ..models.mbconv import (
     EffNetConfig,
@@ -74,10 +108,11 @@ FAMILY_CHOICES = ("b0", "v3l", "v2s")
 # each family's published input side
 FAMILY_RES = {"b0": 224, "v3l": 224, "v2s": 384}
 BATCH = 8
-L2_BYTES = 50 * 2 ** 20            # H100's L2
 FLUSH_BYTES = 128 * 2 ** 20        # the cold-L2 scratch write
-CHECK_RTOL = 1e-4                  # x max|oracle|
+CHECK_RTOL = SWEEP_CHECK_RTOL      # x max|oracle|
 WARM_ITERS, COLD_ITERS = 20, 5
+# the bench config: what the artifact's deterministic fields mean
+BENCH_CONFIG = {"scale": 1, "mesh": "1x1", "batch": BATCH, "dtype_bytes": 4}
 
 
 def family_specs(family: str) -> List[MBConvSpec]:
@@ -112,13 +147,22 @@ def _shape(r: BlockRow, batch: int) -> MBConvShape:
 def block_traffic(r: BlockRow, sch: Schedule, batch: int
                   ) -> Tuple[HBMTraffic, HBMTraffic]:
     """(fused, staged) modeled traffic of one block at its schedule's
-    tile_h (the port's traffic model at its channel block)."""
+    tile_h: the copied TPU model at its channel block (``C_BLOCK``)."""
     shape = _shape(r, batch)
     if r.family == "fusedmb":
         return (fusedmb_fused_traffic(shape, sch.tile_h, C_BLOCK),
                 fusedmb_staged_traffic(shape, sch.tile_h, C_BLOCK))
     return (mbconv_fused_traffic(shape, sch.tile_h, sch.mode, C_BLOCK),
             mbconv_staged_traffic(shape, sch.tile_h, C_BLOCK))
+
+
+def hopper_traffic(r: BlockRow, sch: Schedule, batch: int
+                   ) -> HopperTraffic:
+    """The fused route's traffic at the Hopper kernels' own tiles."""
+    shape = _shape(r, batch)
+    if r.family == "fusedmb":
+        return fusedmb_hopper_traffic(shape, sch)
+    return mbconv_hopper_traffic(shape, sch)
 
 
 def staged_working_set(r: BlockRow, staged: HBMTraffic, batch: int) -> int:
@@ -130,12 +174,14 @@ def staged_working_set(r: BlockRow, staged: HBMTraffic, batch: int) -> int:
 
 
 def separable_report(batch: int) -> bool:
-    """Modeled bytes, fused against staged, of every MobileNet-V2
-    separable block and the k=7 stem rows at the fused separable kernel's
-    schedule; True iff fused is strictly below staged on every row."""
+    """Fused against staged bytes of every MobileNet-V2 separable block and
+    the k=7 stem rows at the fused separable kernel's schedule; True iff
+    the fused route's device-memory bytes (Hopper model) are strictly below
+    the staged model's on every row."""
     print(f"# separable blocks, batch {batch}")
-    print("layer,c_in,hw,k,s,c_out,tile_h,tile_w,splits,fused_bytes,"
-          "staged_bytes,saving_pct")
+    print("layer,c_in,hw,k,s,c_out,tile_h,tile_w,splits,hopper_dram_bytes,"
+          "staged_bytes,saving_pct,hopper_global_bytes,"
+          "copied_model_fused_bytes")
     table = ([(f"mbv2_dw{i}", layer, c_out)
               for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE)]
              + [(f"effv2_k7_dw{i}", layer, c_out)
@@ -147,35 +193,42 @@ def separable_report(batch: int) -> bool:
                                  layer.k, layer.s)
         shape = SeparableShape(b=batch, h=layer.h, w=layer.w, c_in=layer.c,
                                c_out=c_out, k=layer.k, s=layer.s)
-        f = sch.total_bytes
+        hop = separable_hopper_traffic(shape, sch)
+        f = hop.dram_bytes
         st = staged_separable_traffic(shape, sch.tile_h).total_bytes
         ok &= f < st
         print(f"{name},{layer.c},{layer.h},{layer.k},{layer.s},{c_out},"
               f"{sch.tile_h},{sch.tile_w},{sch.splits},{f},{st},"
-              f"{100 * (1 - f / st):.1f}")
+              f"{100 * (1 - f / st):.1f},{hop.global_bytes},"
+              f"{sch.total_bytes}")
     print(f"# fused strictly below staged on every separable block: {ok}")
     return ok
 
 
 def traffic_report(family: str, batch: int, res: int) -> bool:
-    """Per block of one family: the Hopper schedule, the modeled fused and
-    staged bytes and the staged working set.  True iff fused is strictly
-    below staged on every block."""
+    """Per block of one family: the Hopper schedule, the fused route's
+    device-memory bytes against the staged model's, the fused route's
+    global-load bytes and the copied model's fused bytes beside them, and
+    the staged working set.  True iff the fused device-memory bytes are
+    strictly below the staged bytes on every block."""
     specs, rows, schedules = family_chain(family, batch, res)
     print(f"# family={family} {res}x{res} batch {batch}")
     print("block,family,c_in,c_mid,c_out,hw,k,s,act,se,tile_h,tile_w,mode,"
-          "fused_bytes,staged_bytes,saving_pct,staged_working_set_mb")
+          "hopper_dram_bytes,staged_bytes,saving_pct,hopper_global_bytes,"
+          "copied_model_fused_bytes,staged_working_set_mb")
     ok = True
     for i, (sp, r, sch) in enumerate(zip(specs, rows, schedules)):
-        fused, staged = block_traffic(r, sch, batch)
-        f, st = fused.total_bytes, staged.total_bytes
+        copied, staged = block_traffic(r, sch, batch)
+        hop = hopper_traffic(r, sch, batch)
+        f, st = hop.dram_bytes, staged.total_bytes
         ws = staged_working_set(r, staged, batch)
         ok &= f < st
         mode = getattr(sch, "mode", "-")
         print(f"{family}_{r.family}{i},{r.family},{r.c_in},{r.c_mid},"
               f"{r.c_out},{r.h},{r.k},{r.s},{sp.act},"
               f"{'on' if sp.has_se else 'off'},{sch.tile_h},{sch.tile_w},"
-              f"{mode},{f},{st},{100 * (1 - f / st):.1f},{ws / 2**20:.1f}")
+              f"{mode},{f},{st},{100 * (1 - f / st):.1f},{hop.global_bytes},"
+              f"{copied.total_bytes},{ws / 2**20:.1f}")
     print(f"# fused strictly below staged on every block [family={family}]: "
           f"{ok}")
     return ok
@@ -236,8 +289,6 @@ def measure_block(sp: MBConvSpec, r: BlockRow, sch: Schedule, batch: int,
     On a Fused-MBConv block the staged route makes the very calls of the
     oracle ``fusedmb_ref``, so its staged error is 0 by construction: there
     only fused against the oracle and against staged carry a check."""
-    from ..core.telemetry import measure
-
     params = materialize(block_def(sp), generator, device)
     x = torch.randn(batch, r.h, r.w, r.c_in, generator=generator).to(device)
 
@@ -278,6 +329,7 @@ def measure_family(family: str, batch: int, res: int, device: torch.device,
     ok, out = True, []
     for i, (sp, r, sch) in enumerate(zip(specs, rows, schedules)):
         fused_t, staged_t = block_traffic(r, sch, batch)
+        hop = hopper_traffic(r, sch, batch)
         ws = staged_working_set(r, staged_t, batch)
         m = measure_block(sp, r, sch, batch, gen, device, flush)
         ok &= m["ok"]
@@ -286,6 +338,8 @@ def measure_family(family: str, batch: int, res: int, device: torch.device,
                    s=r.s, act=sp.act, se=sp.has_se, tile_h=sch.tile_h,
                    tile_w=sch.tile_w, mode=getattr(sch, "mode", "-"),
                    fused_bytes=fused_t.total_bytes,
+                   hopper_dram_bytes=hop.dram_bytes,
+                   hopper_global_bytes=hop.global_bytes,
                    staged_bytes=staged_t.total_bytes,
                    staged_working_set_bytes=ws, **m)
         out.append(row)
@@ -295,9 +349,10 @@ def measure_family(family: str, batch: int, res: int, device: torch.device,
             f"fused {m['fused_ms']:.4f} ms staged {m['staged_ms']:.4f} ms "
             f"({m['staged_ms'] / m['fused_ms']:.2f}x); cold "
             f"{m['fused_cold_ms']:.4f} / {m['staged_cold_ms']:.4f} ms "
-            f"({m['staged_cold_ms'] / m['fused_cold_ms']:.2f}x); modeled "
-            f"{fused_t.total_bytes / 2**20:.2f} / "
-            f"{staged_t.total_bytes / 2**20:.2f} MiB; staged working set "
+            f"({m['staged_cold_ms'] / m['fused_cold_ms']:.2f}x); fused "
+            f"{hop.dram_bytes / 2**20:.2f} MiB device memory, "
+            f"{hop.global_bytes / 2**20:.2f} global, staged "
+            f"{staged_t.total_bytes / 2**20:.2f}; staged working set "
             f"{ws / 2**20:.1f} MiB "
             f"({'above' if ws > L2_BYTES else 'within'} L2); errs "
             f"{m['fused_err']:.2e} {m['staged_err']:.2e} "
@@ -305,6 +360,127 @@ def measure_family(family: str, batch: int, res: int, device: torch.device,
             f"{'ok' if m['ok'] else 'FAIL'}")
     del flush
     return ok, out
+
+
+def _axes(r: BlockRow, sch) -> Dict:
+    """A schedule point's axes: tile and mode, or tile and B5's chunk."""
+    if r.family == "fusedmb":
+        return {"tile_h": sch.tile_h, "tile_w": sch.tile_w,
+                "chunk": sch.chunk}
+    return {"tile_h": sch.tile_h, "tile_w": sch.tile_w, "mode": sch.mode}
+
+
+def _point(r: BlockRow, sch, batch: int) -> Dict:
+    """A schedule point's axes with its modeled fields (Hopper model)."""
+    hop = hopper_traffic(r, sch, batch)
+    return {"axes": _axes(r, sch), "modeled_bytes": hop.dram_bytes,
+            "modeled_global_bytes": hop.global_bytes,
+            "modeled_dma_issues": hop.issues}
+
+
+def bench_record(family: str, i: int, r: BlockRow, sch: Schedule,
+                 batch: int) -> Dict:
+    """The deterministic fields of one block's BENCH record: name, shape,
+    the solver's axes, the Hopper model's bytes at them (whole block and
+    per pass) and issues, and the sweep's candidates with their modeled
+    fields.  ``measure_sweep`` adds the times."""
+    axes = _axes(r, sch)
+    cands = ([_point(r, MBConvSchedule(c["tile_h"], c["tile_w"], c["mode"],
+                                       0), batch)
+              for c in mbconv_sweep_candidates(_shape(r, batch))]
+             if r.family == "mbconv" else [])
+    if not any(c["axes"] == axes for c in cands):
+        cands.append(_point(r, sch, batch))
+    hop = hopper_traffic(r, sch, batch)
+    p1, p2 = hop.pass_bytes()
+    return {
+        "name": f"{family}_block{i:02d}",
+        "shape": {"b": batch, "h": r.h, "w": r.w, "c_in": r.c_in,
+                  "c_mid": r.c_mid, "c_out": r.c_out, "k": r.k, "s": r.s,
+                  "family": r.family, "act": r.act,
+                  "se": r.family == "mbconv" and r.se_ratio > 0},
+        "axes": axes,
+        "modeled_bytes": hop.dram_bytes,
+        "modeled_global_bytes": hop.global_bytes,
+        "modeled_pass1_bytes": p1,
+        "modeled_pass2_bytes": p2,
+        "modeled_dma_issues": hop.issues,
+        "collective_bytes": 0,
+        "candidates": cands,
+    }
+
+
+def _sweep_times(sp: MBConvSpec, r: BlockRow, sch: Schedule,
+                 cands: List[Dict], batch: int, generator: torch.Generator,
+                 device: torch.device) -> List[Tuple[float, float]]:
+    """(seconds per call, max|err| against the oracle) of each candidate
+    on the card, on one set of seeded inputs: each is checked within
+    CHECK_RTOL x max|oracle| before it is timed (CUDA graph replays of
+    WARM_ITERS calls), and a miss raises."""
+    params = materialize(block_def(sp), generator, device)
+    x = torch.randn(batch, r.h, r.w, r.c_in, generator=generator).to(device)
+    with torch.inference_mode():
+        if sp.family == "fusedmb":
+            def fn():
+                return convdk_fusedmb_fused(
+                    x, params["conv"], params["proj"], stride=sp.s,
+                    tile_h=sch.tile_h, tile_w=sch.tile_w, act=sp.act)
+
+            ref = fusedmb_ref(x, params["conv"], params["proj"], sp.s,
+                              "SAME", sp.act)
+            err = float((fn() - ref).abs().max())
+            tol = CHECK_RTOL * float(ref.abs().max())
+            if not err <= tol:
+                raise RuntimeError(
+                    f"B5 at {sch.tile_h}x{sch.tile_w} disagrees with "
+                    f"fusedmb_ref: max|err| {err:.3e} > {tol:.3e}")
+            return [(measure(fn, iters=WARM_ITERS, graph=True).mean_ms
+                     / 1e3, err)]
+        identity = "exp" not in params
+        results = benchmark_mbconv_sweep(
+            x, params.get("exp"), params["dw"], params.get("se_w1"),
+            params.get("se_b1"), params.get("se_w2"), params.get("se_b2"),
+            params["proj"], stride=sp.s, se_ratio=sp.se_ratio,
+            iters=WARM_ITERS, candidates=[c["axes"] for c in cands],
+            exp_act=None if identity else sp.act, dw_act=sp.act,
+            se_act=sp.se_act, gate_act=sp.gate_act)
+    return [(res["seconds"], res["max_abs_err"]) for res in results]
+
+
+def measure_sweep(families: Sequence[str], device: torch.device,
+                  seed: int = 0, log=print) -> List[Dict]:
+    """The BENCH records of every block of each family (full width, batch
+    BATCH, the family's side): ``bench_record`` with each candidate's
+    device time, ``walltime_us`` at the solver's point and the
+    stopwatch's winner as ``measured_best``; one line per block."""
+    records = []
+    for n, fam in enumerate(families):
+        specs, rows, schedules = family_chain(fam, BATCH, FAMILY_RES[fam])
+        gen = torch.Generator().manual_seed(seed + n)
+        for i, (sp, r, sch) in enumerate(zip(specs, rows, schedules)):
+            rec = bench_record(fam, i, r, sch, BATCH)
+            times = _sweep_times(sp, r, sch, rec["candidates"], BATCH, gen,
+                                 device)
+            for c, (t, _) in zip(rec["candidates"], times):
+                c["walltime_us"] = t * 1e6
+            at = next(c for c in rec["candidates"]
+                      if c["axes"] == rec["axes"])
+            best = min(rec["candidates"], key=lambda c: c["walltime_us"])
+            rec["walltime_us"] = at["walltime_us"]
+            rec["measured_best"] = dict(best["axes"],
+                                        walltime_us=best["walltime_us"])
+            records.append(rec)
+            verdict = "agree" if best["axes"] == rec["axes"] else "DISAGREE"
+            log(f"{rec['name']},{r.h},{rec['axes']},"
+                f"{rec['walltime_us']:.2f}us,"
+                f"{rec['modeled_bytes'] / 2**20:.2f}MiB,measured_best="
+                f"{best['axes']}@{best['walltime_us']:.2f}us,{verdict},"
+                f"max_err={max(e for _, e in times):.2e}")
+    off = sum(r["measured_best"].get("mode") != r["axes"].get("mode")
+              for r in records)
+    log(f"# measured {len(records)} blocks; the stopwatch disagrees with "
+        f"the solver's mode on {off}")
+    return records
 
 
 def _parse_families(text: str) -> List[str]:
@@ -319,22 +495,34 @@ def _parse_families(text: str) -> List[str]:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--fused", action="store_true",
-                    help="print the fused-vs-staged report (the only part "
-                         "of the JAX benchmark this one ports)")
+                    help="print the fused-vs-staged report")
     ap.add_argument("--family", default="b0", metavar="FAM[,FAM...]",
                     help="b0 (EfficientNet-B0), v3l (MobileNet-V3-Large), "
                          "v2s (EfficientNet-V2-S), or a comma list")
     ap.add_argument("--measure", action="store_true",
-                    help="time fused and staged per block on the card")
+                    help="with --fused: time fused and staged per block on "
+                         "the card; alone: the measured per-block sweep")
+    ap.add_argument("--bench-out", default=None, metavar="DIR",
+                    help="with --measure alone: write BENCH_<host>.json "
+                         "into DIR")
     args = ap.parse_args(argv)
-    if not args.fused:
-        ap.error("only the --fused report is ported: pass --fused")
+    if not (args.fused or args.measure):
+        ap.error("pass --fused (the report) or --measure (the sweep)")
+    if args.bench_out and (args.fused or not args.measure):
+        ap.error("--bench-out goes with --measure alone")
     families = _parse_families(args.family)
     device = None
     if args.measure:
         device = resolve_device(None)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if not args.fused:
+        print(f"# sweep on {torch.cuda.get_device_name(0)}, batch {BATCH}")
+        records = measure_sweep(families, device)
+        if args.bench_out:
+            print(f"# BENCH artifact: "
+                  f"{write_bench(args.bench_out, records, config=BENCH_CONFIG)}")
+        return 0
     ok = True
     if "b0" in families:
         ok &= separable_report(BATCH)

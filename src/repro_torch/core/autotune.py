@@ -25,14 +25,16 @@ bytes); the retain GEMM's tile and K splits come from ``retain_plan``.
 
 The separable and Fused-MBConv blocks have no mode axis (one pass), and on
 one card no family has a residency or collective axis.  Schedules are
-cached in-process by family, shape and mode pin.
+cached in-process by family, shape and mode pin.  ``benchmark_mbconv_sweep``
+times the points ``mbconv_sweep_candidates`` names on the card (the BENCH
+trajectory's candidates), each checked against the oracle first.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 from .perfmodel import (
     MBCONV_MODES,
@@ -54,6 +56,7 @@ TILE_H_CANDIDATES = (1, 2, 4, 8)
 # The redesigned MBConv pass 1 and retain kernels (kernels/csrc/mbconv.cu,
 # P1_* and R_BK there; the wrapper checks them against the built library).
 SM_COUNT = 132                      # H100 SXM
+L2_BYTES = 50 * 2 ** 20             # H100's L2
 P1_CI_CHUNK = 16                    # C_in chunk per cp.async ring slot
 P1_MAX_TILE_PIXELS = 128            # pass-1 tile_h * tile_w cap
 P1_PAD = 4                          # padding floats per staged pixel
@@ -656,6 +659,99 @@ def select_fused_schedule(shape: SeparableShape) -> FusedSchedule:
     th, tw, nc, splits = min(cands)[4:]
     return FusedSchedule(th, tw, nc, splits,
                          fused_separable_traffic(shape, th).total_bytes)
+
+
+def mbconv_tile_fits(shape: MBConvShape, tile_h: int, tile_w: int,
+                     mode: str) -> bool:
+    """True where both passes of ``mode`` launch at this tile: pass 1
+    within P1_MAX_TILE_PIXELS and the CTA's shared memory, and under
+    recompute B2 within MAX_TILE_PIXELS and its own budget."""
+    if (tile_h * tile_w > P1_MAX_TILE_PIXELS
+            or pass1_smem_bytes(shape.k, shape.s, tile_h, tile_w, shape.c_in,
+                                shape.c_mid) > SMEM_BYTES):
+        return False
+    return mode == "retain" or (tile_h * tile_w <= MAX_TILE_PIXELS and
+                                smem_bytes(shape, tile_h, tile_w)
+                                <= SMEM_BYTES)
+
+
+SWEEP_CHECK_RTOL = 1e-4             # x max|oracle|: the sweep's check bar
+
+
+def mbconv_sweep_candidates(shape: MBConvShape) -> Tuple[dict, ...]:
+    """The schedule points ``benchmark_mbconv_sweep`` times by default:
+    the solver's pick under each pinned mode, then the other mode at each
+    of those tiles where it fits (``mbconv_tile_fits``), so each tile
+    gives a pair that differs only in the mode."""
+    picks = [select_mbconv_schedule(shape, m) for m in MBCONV_MODES]
+    points = [(p.tile_h, p.tile_w, p.mode) for p in picks]
+    for p in picks:
+        for m in MBCONV_MODES:
+            if mbconv_tile_fits(shape, p.tile_h, p.tile_w, m):
+                points.append((p.tile_h, p.tile_w, m))
+    seen, out = set(), []
+    for th, tw, m in points:
+        if (th, tw, m) not in seen:
+            seen.add((th, tw, m))
+            out.append({"tile_h": th, "tile_w": tw, "mode": m})
+    return tuple(out)
+
+
+def benchmark_mbconv_sweep(
+    x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj, *, stride: int,
+    candidates: Sequence[dict], se_ratio: float = 0.25, iters: int = 20,
+    exp_act: Optional[str] = "silu", dw_act: Optional[str] = "silu",
+    se_act: Optional[str] = "silu", gate_act: Optional[str] = "sigmoid",
+) -> Tuple[dict, ...]:
+    """Measured MBConv sweep: time the two-pass kernels per schedule point
+    on the card, device time of ``iters`` calls replayed from one CUDA graph
+    (``core.telemetry.measure(..., graph=True)``).
+
+    ``candidates`` is a sequence of ``{"tile_h", "tile_w", "mode"}`` dicts
+    (``mbconv_sweep_candidates``).  Before its capture each candidate runs
+    once against ``kernels.ref.mbconv_ref`` and must agree within
+    SWEEP_CHECK_RTOL x max|oracle|, else the sweep raises: no point is
+    timed unchecked.  Returns one result per candidate, its axes plus
+    ``seconds`` (mean per call), ``max_abs_err`` and ``tol``.
+    Counterpart of ``repro.core.autotune.benchmark_mbconv_sweep`` without
+    its residency axis and schedule cache (TPU axes).  The tensors lie on
+    the card; ``measure`` raises without CUDA."""
+    from ..kernels.convdk_mbconv import convdk_mbconv_fused
+    from ..kernels.ref import mbconv_ref
+    from .telemetry import measure
+
+    b, h, w_in, c_in = x.shape
+    c_mid, c_out = w_proj.shape
+    shape = MBConvShape(b=b, h=h, w=w_in, c_in=c_in, c_mid=c_mid,
+                        c_out=c_out, k=w_dw.shape[0], s=stride,
+                        se_ratio=se_ratio if w_se1 is not None else 0.0,
+                        dtype_bytes=x.element_size())
+    weights = (x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj)
+    acts = dict(exp_act=exp_act, dw_act=dw_act, se_act=se_act,
+                gate_act=gate_act)
+    ref = mbconv_ref(*weights, stride, "SAME", **acts)
+    tol = SWEEP_CHECK_RTOL * float(ref.abs().max())
+    results = []
+    for cand in candidates:
+        th, tw, md = int(cand["tile_h"]), int(cand["tile_w"]), cand["mode"]
+        if not mbconv_tile_fits(shape, th, tw, md):
+            raise ValueError(f"{md} does not launch at {th}x{tw}: {shape}")
+
+        def fn(th=th, tw=tw, md=md):
+            return convdk_mbconv_fused(*weights, stride=stride,
+                                       padding="SAME", tile_h=th, tile_w=tw,
+                                       mode=md, **acts)
+
+        err = float((fn() - ref).abs().max())
+        if not err <= tol:
+            raise RuntimeError(
+                f"{md} at {th}x{tw} disagrees with mbconv_ref: max|err| "
+                f"{err:.3e} > {tol:.3e} ({shape})")
+        m = measure(fn, iters=iters, graph=True)
+        results.append({"tile_h": th, "tile_w": tw, "mode": md,
+                        "seconds": m.mean_ms / 1e3, "max_abs_err": err,
+                        "tol": tol})
+    return tuple(results)
 
 
 _CACHE: Dict[tuple, object] = {}

@@ -19,9 +19,14 @@ package), in two halves:
   The separable and Fused-MBConv tile_h and the retain/recompute choice
   of ``core.autotune`` are priced here.
 
-The HBM model counts full-width row strips: it does not yet price the halo
-the Hopper kernels re-read along W when they tile the output in two
-dimensions.
+* **The calibration**: ``PerfCoefficients``, ``fit_perf_coefficients``
+  and ``predict_walltime_us``, which fit measured wall time onto modeled
+  bytes and staging issues (``benchmarks.roofline_bench --bench``).
+
+The HBM model counts full-width row strips at a channel block: it does not
+price the tiles the Hopper kernels run.  ``core.hopper_traffic`` does; the
+gates of ``benchmarks.kernel_bench`` read it, while the solver still ranks
+by this model.
 
 CIM model accounting rules (each rule cites the paper sentence it encodes):
 
@@ -742,3 +747,92 @@ def fusedmb_staged_traffic(
     reads = x_words + w_conv + xe + w_proj
     writes = xe + out
     return HBMTraffic(reads, writes, shape.dtype_bytes)
+
+
+# ---------------------------------------------------------------------------
+# Measured calibration: fitting walltime coefficients onto the byte model
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PerfCoefficients:
+    """Least-squares fit of measured walltime onto the modeled cost terms.
+
+    ``walltime_us ~ base_us + us_per_mb * bytes/1e6
+                  + us_per_dma_issue * dma_issues
+                  + us_per_collective_mb * collective_bytes/1e6``
+
+    The two non-byte terms are the costs the byte model cannot see: the
+    per-issue overhead of staging (on the card, one cp.async ring stage of
+    one CTA: ``core.hopper_traffic``'s ``issues``) and the latency of a
+    collective word relative to a device-memory word (0 on one card until
+    the sharded wrappers are ported).  ``rms_us`` is the fit residual —
+    report it next to the coefficients, a fit that explains nothing should
+    not decide knobs.  Counterpart of ``repro.core.perfmodel``'s; its
+    CPU-interpret default coefficients are not carried over.
+    """
+
+    base_us: float
+    us_per_mb: float
+    us_per_dma_issue: float
+    us_per_collective_mb: float
+    n_samples: int
+    rms_us: float
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "base_us": self.base_us,
+            "us_per_mb": self.us_per_mb,
+            "us_per_dma_issue": self.us_per_dma_issue,
+            "us_per_collective_mb": self.us_per_collective_mb,
+            "n_samples": self.n_samples,
+            "rms_us": self.rms_us,
+        }
+
+
+def fit_perf_coefficients(samples: Iterable[dict]) -> PerfCoefficients:
+    """Fit :class:`PerfCoefficients` from measured samples.
+
+    Each sample is a dict with ``walltime_us`` and ``modeled_bytes``
+    (required) plus optional ``dma_issues`` and ``collective_bytes``.
+    Cost columns that are constant across the sample set are dropped
+    from the regression (their coefficient is reported as 0.0 — the
+    data cannot identify them), so a single-card sweep with no
+    collectives still yields a well-posed byte/issue fit.
+    """
+    import numpy as np
+
+    rows = [(float(s["walltime_us"]), float(s["modeled_bytes"]) / 1e6,
+             float(s.get("dma_issues", 0)),
+             float(s.get("collective_bytes", 0)) / 1e6)
+            for s in samples]
+    if not rows:
+        raise ValueError("fit_perf_coefficients needs at least one sample")
+    y = np.array([r[0] for r in rows])
+    cols = {"us_per_mb": np.array([r[1] for r in rows]),
+            "us_per_dma_issue": np.array([r[2] for r in rows]),
+            "us_per_collective_mb": np.array([r[3] for r in rows])}
+    active = [k for k, v in cols.items() if float(v.max() - v.min()) > 0]
+    design = np.column_stack(
+        [np.ones(len(rows))] + [cols[k] for k in active])
+    if len(rows) < design.shape[1]:
+        raise ValueError(
+            f"fit needs >= {design.shape[1]} samples for "
+            f"{design.shape[1]} free terms, got {len(rows)}")
+    coef, *_ = np.linalg.lstsq(design, y, rcond=None)
+    fitted = dict.fromkeys(cols, 0.0)
+    for name, value in zip(active, coef[1:]):
+        fitted[name] = float(value)
+    rms = float(np.sqrt(np.mean((design @ coef - y) ** 2)))
+    return PerfCoefficients(
+        base_us=float(coef[0]), n_samples=len(rows), rms_us=rms, **fitted)
+
+
+def predict_walltime_us(coeffs: PerfCoefficients, *, modeled_bytes: float,
+                        dma_issues: float = 0,
+                        collective_bytes: float = 0) -> float:
+    """Walltime the calibrated model expects for one cost point."""
+    return (coeffs.base_us
+            + coeffs.us_per_mb * modeled_bytes / 1e6
+            + coeffs.us_per_dma_issue * dma_issues
+            + coeffs.us_per_collective_mb * collective_bytes / 1e6)

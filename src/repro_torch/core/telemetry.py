@@ -4,18 +4,24 @@ Counterpart of ``repro.core.telemetry``: the same process-wide registry
 (``counter``/``span``/``record``/``series``/``percentiles``/``reset``/
 ``snapshot``), with ``measure`` timing on CUDA events after a
 ``torch.cuda.synchronize()`` in place of ``jax.block_until_ready``.
-PyTorch runs eagerly, so every counter ticks per call.
+PyTorch runs eagerly, so every counter ticks per call.  ``host_fingerprint``
+and ``host_slug`` name where a measurement ran, for the ``BENCH_<host>.json``
+artifacts of ``core.trajectory``.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import platform
+import re
+import subprocess
 import threading
 import time
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,6 +32,8 @@ __all__ = [
     "Telemetry",
     "counter",
     "get_telemetry",
+    "host_fingerprint",
+    "host_slug",
     "measure",
     "percentiles",
     "record",
@@ -220,3 +228,62 @@ def measure(fn: Callable[[], object], *, iters: int = 20, warmup: int = 3,
     end.record()
     end.synchronize()
     return Measurement(iters=iters, total_ms=start.elapsed_time(end))
+
+
+# ---------------------------------------------------------------------------
+# host identity (BENCH_<host>.json artifacts)
+# ---------------------------------------------------------------------------
+
+
+def _first_line(cmd: Sequence[str], last: bool = False) -> Optional[str]:
+    """The first (or last) non-empty output line of ``cmd``, None where it
+    cannot run."""
+    try:
+        out = subprocess.run(list(cmd), capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = [line.strip() for line in out.splitlines() if line.strip()]
+    return (lines[-1] if last else lines[0]) if lines else None
+
+
+def host_fingerprint() -> Dict[str, object]:
+    """Where a measurement ran: the fields two BENCH artifacts must share
+    for their wall times to be comparable (the differ gates the byte and
+    axis fields regardless).  ``gpu`` and ``power_limit`` are what
+    ``nvidia-smi --query-gpu=name,power.limit`` prints, None without a
+    card; ``nvcc`` its version line, None without the toolkit."""
+    from ..kernels import _build
+
+    try:
+        nvcc = _first_line([_build.nvcc_path(), "--version"], last=True)
+    except RuntimeError:
+        nvcc = None
+    gpu = power = None
+    if torch.cuda.is_available():
+        smi = _first_line(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"])
+        if smi:
+            gpu, _, power = (t.strip() for t in smi.partition(","))
+    return {
+        "node": platform.node() or "unknown",
+        "system": platform.system(),
+        "machine": platform.machine(),
+        "python": platform.python_version(),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "nvcc": nvcc,
+        "backend": "cuda" if torch.cuda.is_available() else "cpu",
+        "gpu": gpu,
+        "power_limit": power or None,
+        "cpu_count": os.cpu_count() or 0,
+    }
+
+
+def host_slug(fingerprint: Optional[Dict[str, object]] = None) -> str:
+    """Filesystem-safe host tag for ``BENCH_<host>.json`` file names."""
+    fp = fingerprint or host_fingerprint()
+    raw = f"{fp.get('node', 'unknown')}-{fp.get('backend', 'unknown')}"
+    slug = re.sub(r"[^A-Za-z0-9_.-]+", "-", str(raw))
+    slug = re.sub(r"-{2,}", "-", slug).strip("-")
+    return slug or "unknown"

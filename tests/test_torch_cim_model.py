@@ -257,10 +257,10 @@ def test_staged_and_best_fused_models_equal_jax(batch):
         assert fused.total_bytes == sch.total_bytes
 
 
-# The blocks where the port's modeled fused bytes (the copied TPU byte
-# model at the solver's 32-channel block and the Hopper tiles) are not
-# below the staged model's, at batch 8 and each family's published side:
-# ROADMAP C, PERF.md.  The gate reports exactly these.
+# The blocks where the copied TPU byte model's fused bytes (at the
+# solver's 32-channel block and the Hopper tiles) are not below the staged
+# model's, at batch 8 and each family's published side: ROADMAP C,
+# PERF.md.
 MODEL_ABOVE_STAGED = {
     "b0": [9, 10, 11, 12, 13, 14, 15],
     "v3l": [7, 8, 9, 13, 14],
@@ -269,9 +269,11 @@ MODEL_ABOVE_STAGED = {
 
 
 def test_modeled_gate_fails_exactly_at_the_recorded_blocks():
-    """Pins the open fault ROADMAP C records, not the contract: the
-    repair (a Hopper byte model) must replace this list, and a gate that
-    then passes at every block is that repair, not a loosened test."""
+    """The record of where the copied TPU byte model alone puts fused at
+    or above staged (ROADMAP C's fault).  The gate no longer reads this
+    model: ``kernel_bench``'s gates read the Hopper model
+    (``core.hopper_traffic``), under which fused is below staged at every
+    block.  The copied model stays the JAX twin the solver ranks by."""
     above = {fam: [] for fam in FAMILY_CHOICES}
     for fam in FAMILY_CHOICES:
         _, rows, schedules = family_chain(fam, 8, FAMILY_RES[fam])

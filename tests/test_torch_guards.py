@@ -25,7 +25,8 @@ from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
 from repro_torch.core.autotune import fused_separable_launch_plan as launch_plan
 from repro_torch.core.autotune import recompute_plan, retain_plan
-from repro_torch.benchmarks import kernel_bench
+from repro_torch.benchmarks import kernel_bench, serve_report
+from repro_torch.core.autotune import benchmark_mbconv_sweep
 from repro_torch.examples import (
     efficientnet_mbconv,
     quickstart,
@@ -101,12 +102,20 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.benchmarks.kernel_bench",
             "repro_torch.examples.cim_dataflow_analysis",
             "repro_torch.examples.efficientnet_mbconv",
-            "repro_torch.examples.quickstart"} <= set(mods)
+            "repro_torch.examples.quickstart",
+            "repro_torch.core.hopper_traffic", "repro_torch.core.trajectory",
+            "repro_torch.core.telemetry",
+            "repro_torch.benchmarks.roofline_bench",
+            "repro_torch.benchmarks.serve_report",
+            "repro_torch.benchmarks.run"} <= set(mods)
     smoke = sorted(_smoke_imports())
     assert {"repro_torch.models.mbconv", "repro_torch.core.convdk",
             "repro_torch.benchmarks.cim_tables",
             "repro_torch.benchmarks.kernel_bench",
-            "repro_torch.examples.cim_dataflow_analysis"} <= set(smoke)
+            "repro_torch.examples.cim_dataflow_analysis",
+            "repro_torch.benchmarks.roofline_bench",
+            "repro_torch.benchmarks.serve_report",
+            "repro_torch.core.trajectory"} <= set(smoke)
     assert not [m for m in smoke if m.split(".")[0] in ("jax", "repro")]
     code = (
         "import importlib, importlib.util, sys\n"
@@ -148,6 +157,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         efficientnet_mbconv.main(["--staged"])
     with pytest.raises(RuntimeError, match="CUDA"):
         kernel_bench.main(["--fused", "--measure"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_bench.main(["--measure", "--bench-out", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_report.main(["--smoke"])
+    x = torch.zeros(1, 4, 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmark_mbconv_sweep(
+            x, None, torch.zeros(3, 3, 4), None, None, None, None,
+            torch.zeros(4, 4), stride=1,
+            candidates=[{"tile_h": 4, "tile_w": 4, "mode": "retain"}])
     smoke = mamba2_2p7b.SMOKE
     with pytest.raises(RuntimeError, match="CUDA"):
         materialize(lm.model_def(smoke), torch.Generator().manual_seed(0))

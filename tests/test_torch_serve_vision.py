@@ -137,3 +137,56 @@ def test_config_validation():
         VisionServeConfig(resolutions=())
     with pytest.raises(ValueError):
         VisionServeConfig(batch_size=0)
+
+
+def test_serve_report_gate_on_cpu(capsys, monkeypatch):
+    """The serving report at its CPU-sized buckets: every request of the
+    timed stream served, one schedule build per bucket, every block's byte
+    counter equal to the bucket's batches x its modeled bytes, rc 0; the
+    latencies are counted from the scheduled arrivals of the timed stream
+    alone (warm-up left out); and the gate catches a counter that drifts
+    from the schedules."""
+    from repro_torch.benchmarks import serve_report
+
+    monkeypatch.setattr(serve_report, "REQUESTS", 24)
+    assert serve_report.main(["--smoke", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "24 served / 24 admitted / 0 shed" in out
+    assert "gate: OK" in out and "get_network_plan" in out
+    assert "copied TPU model's bytes" in out
+    warm = serve_report.WARMUP_ROUNDS * serve_report.BATCH_SIZE
+    summary = {line.split(",")[0]: line.split(",")[1:5]
+               for line in out.splitlines()
+               if line.startswith("r") and line.count(",") == 5}
+    for res in serve_report.SMOKE_RES:
+        # the stream is round-robin over the buckets: 8 timed per bucket
+        _, requests, _, builds = summary[f"r{res}"]
+        assert (int(requests), int(builds)) == (warm + 8, 1)
+    report = serve_report.serve_report(serve_report.SMOKE_RES, smoke=True,
+                                       device="cpu", requests=15,
+                                       log=lambda line: None)
+    assert report["ok"] and report["served"] == report["requests"] == 15
+    assert set(report["latency_s"]) == {"p50", "p90", "p99"}
+    assert set(report["bucket_latency_s"]) == set(serve_report.SMOKE_RES)
+    assert set(report["warm_batch_s"]) == set(serve_report.SMOKE_RES)
+    # latency from arrival covers the wait and the batch
+    assert report["latency_s"]["p99"] >= report["queue_wait_s"]["p99"] >= 0
+    assert report["rate_rps"] > 0 and report["throughput_rps"] > 0
+    t = telemetry.get_telemetry()
+    for res in serve_report.SMOKE_RES:
+        # the stream is round-robin over the buckets: 5 timed per bucket
+        assert t.get(f"serve.requests.r{res}") == warm + 5
+        assert t.get(f"serve.build.r{res}") == 1
+
+    import repro_torch.serve.vision as vision
+
+    real = telemetry.counter
+
+    def drifting(name, value=1):
+        real(name, value + (name == "serve.bytes.r28.block00"))
+
+    monkeypatch.setattr(vision.telemetry, "counter", drifting)
+    drifted = serve_report.serve_report(serve_report.SMOKE_RES, smoke=True,
+                                        device="cpu", requests=6, log=print)
+    assert not drifted["ok"]
+    assert "GATE FAIL: r28.block00 counter" in capsys.readouterr().out
