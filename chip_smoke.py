@@ -167,6 +167,33 @@ Phases, each of which must pass (exit 1 otherwise):
             tokens against the kernel path's forward (last row) within
             1e-3 relative.
 
+18. mesh        the sharded wrappers and the network plan over
+            torch.distributed, parity runs (one H100 has no model axis):
+            first a one-rank NCCL mesh (1, 1) runs full-width B0 at 224,
+            batch 8, through the sharded path of every block, its logits
+            equal to the unsharded fused forward's bit for bit with the
+            same kernel launches; then, for the meshes (1, 2) and (2, 1),
+            two ranks spawned on the one card over gloo (the kernels built
+            above, before the spawn) run full-width B0 224 b8,
+            MobileNet-V3-Large 224 b8, V2-S 384 b8 and the 17 MobileNet-V2
+            separable blocks at 224 b8 (through the separable wrapper), each
+            gathered to its global result and held to the single-device
+            fused result within 1e-4 x max|ref|: every block of each
+            network on the single-device activation it takes (its plan's
+            schedule, layouts and counted words), the separable blocks, and
+            the B0 and V3 logits; at (2, 1), where each rank runs a batch-4
+            half, every network's logits are also held to the single card's
+            two batch-4 halves.  V2-S's logits amplify the order of fp32
+            sums to percents at full width (printed: the card's fused batch
+            8, its halves and its staged forward, each against the plain
+            forward on the CPU), so at (1, 2) they are printed beside the
+            single card's own spread, not gated.  Every rank's counted
+            model-axis collectives per forward equal the words the network
+            plan prices (none for the separable blocks).  It prints each
+            rank's forward ms (a parity run's time, not a speed) and the
+            transport gloo used for each collective of CUDA tensors (native
+            or through the host), and tears torch.distributed down.
+
 The line before the last is {"kernels": [...]} (the SE pool reduce listed
 as folded into pass 1: no launches, no time of its own); the last line is
 {"ok": true, "device": {...}}.  Per-block kernel numbers are also written to
@@ -210,6 +237,8 @@ LM_CPU = (2, 256)                          # 2-layer copy vs the CPU
 LM_CONVS = (("conv_x", 5120), ("conv_b", 128), ("conv_c", 128))
 LM_REQUESTS = (12, 20, 28, 30, 40, 60, 300, 300)   # lm-serve prompt lengths
 LM_NEW_TOKENS = 16
+MESH_SHAPES = ((1, 2), (2, 1))             # the mesh phase's two-rank meshes
+MESH_RTOL = 1e-4                           # x max|single-device result|
 DEVICE = "cuda"
 REPLACES = {
     "mbconv_pass1": "src/repro/kernels/convdk_mbconv.py:118",
@@ -1931,6 +1960,331 @@ def lm_serve_phase(torch, params):
     return bool(ok and good), dict(stats, fp32_prefill_rel_err=rel)
 
 
+
+# ---------------------------------------------------------------------------
+# mesh: the sharded wrappers and the network plan over torch.distributed
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_nets():
+    """(name, config, def, apply, side, stem activation) of the networks
+    the mesh phase runs, full width."""
+    from repro_torch.models.mbconv import (
+        EffNetConfig, EffNetV2Config, MobileNetV3Config,
+        efficientnet_b0_apply, efficientnet_b0_def, efficientnet_v2_s_apply,
+        efficientnet_v2_s_def, mobilenet_v3_apply, mobilenet_v3_def)
+    return (("b0", EffNetConfig(), efficientnet_b0_def,
+             efficientnet_b0_apply, RES, "silu"),
+            ("v3", MobileNetV3Config(), mobilenet_v3_def,
+             mobilenet_v3_apply, V3_RES, "hard_swish"),
+            ("v2s", EffNetV2Config(), efficientnet_v2_s_def,
+             efficientnet_v2_s_apply, V2S_RES, "silu"))
+
+
+def _mesh_inputs(torch, def_fn, cfg, side, seed):
+    from repro_torch.models.param import materialize
+    params = materialize(def_fn(cfg), torch.Generator().manual_seed(seed),
+                         DEVICE)
+    images = torch.rand(BATCH, side, side, 3,
+                        generator=torch.Generator().manual_seed(seed + 1))
+    return params, images.to(DEVICE)
+
+
+def _mnv2_blocks(torch):
+    """The 17 MobileNet-V2 separable blocks at MNV2_RES, batch BATCH:
+    (input, taps, pointwise weight, layer, c_out), seeded."""
+    from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
+    hx = _Harness(torch, 4000 + MNV2_RES)
+    return [(hx.rand(BATCH, layer.h, layer.w, layer.c),
+             hx.rand(layer.k, layer.k, layer.c, scale=1 / layer.k),
+             hx.rand(layer.c, c_out, scale=layer.c ** -0.5), layer, c_out)
+            for layer, c_out in MOBILENET_V2_SEPARABLE]
+
+
+def _block_parity(torch, S, mesh, specs, params, images, plan, stem_act):
+    """Every block of the chain on the mesh at the plan's schedule and
+    layouts, fed the single-device activation its single-device twin
+    takes, so no difference compounds through the chain: (worst max|err|
+    over 1e-4 x max|ref| and its block, every block's counted model-axis
+    words and out layout as the plan prices them)."""
+    from repro_torch.models.mbconv import apply_block, stem_conv
+    act = {"silu": torch.nn.functional.silu,
+           "hard_swish": torch.nn.functional.hardswish}[stem_act]
+    dp = S.conv_mesh_shape(mesh)[0]
+    x = act(stem_conv(images, params["stem"]))
+    worst, words_ok = (0.0, -1), True
+    for i, (sp, bp) in enumerate(zip(specs, plan.blocks)):
+        p = params[f"block{i}"]
+        want = apply_block(x, sp, p)[0]
+        mesh.reset_counts()
+        y, layout = apply_block(S.shard_to_layout(x, mesh, bp.in_layout),
+                                sp, p, schedule=bp.schedule, mesh=mesh,
+                                in_layout=bp.in_layout)
+        sch = bp.schedule
+        words_ok &= (dp * mesh.model_wire_words()
+                     == (sch.collective_bytes + sch.transition_bytes) // 4
+                     and layout == bp.out_layout)
+        got = S.gather_global(y, mesh, layout, sp.c_out)
+        ratio = (float((got - want).abs().max())
+                 / (MESH_RTOL * float(want.abs().max())))
+        worst = max(worst, (ratio, i))
+        x = want
+    return worst, words_ok
+
+
+def _mesh_rank(rank, shape, port, out_dir):
+    """One of two ranks on the one card (gloo): every network forward and
+    the 17 separable blocks on the mesh, each gathered; rank 0 saves the
+    results, every rank its forward ms."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core.autotune import get_fused_schedule
+    from repro_torch.kernels import convdk_sharded as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.mbconv import network_plan
+
+    mesh = make_mesh(shape, device=DEVICE, backend="gloo",
+                     init_method=f"tcp://localhost:{port}", rank=rank,
+                     world_size=2)
+    dp = S.conv_mesh_shape(mesh)[0]
+    res = {"nets": {}, "sep": [], "transports": None}
+    try:
+        with torch.inference_mode():
+            for name, cfg, def_fn, apply, side, stem_act in _mesh_nets():
+                params, images = _mesh_inputs(torch, def_fn, cfg, side, 10)
+                specs = _net_specs(name, cfg)
+                plan = network_plan(specs, BATCH, side, side,
+                                    S.conv_mesh_shape(mesh))
+                worst, words_ok = _block_parity(torch, S, mesh, specs, params,
+                                                images, plan, stem_act)
+                apply(params, images, cfg, mesh=mesh)       # warm
+                mesh.reset_counts()
+                _sync(torch)
+                t0 = time.perf_counter()
+                logits = apply(params, images, cfg, mesh=mesh)
+                _sync(torch)
+                ms = (time.perf_counter() - t0) * 1e3
+                res["nets"][name] = dict(
+                    logits=logits.cpu(), ms=ms,
+                    wire_words=dp * mesh.model_wire_words(),
+                    plan_words=plan.interconnect_words,
+                    counts={k: (c.calls, c.elements)
+                            for k, c in mesh.counts.items()},
+                    stem=plan.stem_layout, worst_block=worst,
+                    block_words_ok=words_ok,
+                    layouts=[(p.in_layout, p.out_layout)
+                             for p in plan.blocks])
+                del params, images
+            for x, w_dw, w_pw, layer, c_out in _mnv2_blocks(torch):
+                sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c,
+                                         c_out, layer.k, layer.s,
+                                         mesh_shape=S.conv_mesh_shape(mesh))
+                mesh.reset_counts()
+                out = S.convdk_fused_separable_sharded(
+                    S.shard_to_layout(x, mesh), w_dw, w_pw, mesh=mesh,
+                    stride=layer.s, tile_h=sch.tile_h, tile_w=sch.tile_w,
+                    dw_act="relu6", act=None)
+                words = dp * mesh.model_wire_words()
+                res["sep"].append(dict(out=S.gather_global(
+                    out, mesh, "model_sharded", c_out).cpu(),
+                    wire_words=words))
+        res["transports"] = dict(mesh.transports)
+        res["rank_ms"] = {n: r["ms"] for n, r in res["nets"].items()}
+        tag = "x".join(map(str, shape))
+        torch.save(res["rank_ms"], os.path.join(out_dir,
+                                                f"mesh_{tag}_{rank}_ms.pt"))
+        if rank == 0:
+            torch.save(res, os.path.join(out_dir, f"mesh_{tag}.pt"))
+    finally:
+        mesh.close()
+
+
+def _net_specs(name, cfg):
+    from repro_torch.models.mbconv import (
+        effnet_block_specs, effnet_v2_block_specs, mobilenet_v3_specs)
+    return {"b0": effnet_block_specs, "v3": mobilenet_v3_specs,
+            "v2s": effnet_v2_block_specs}[name](cfg)
+
+
+def _one_rank_nccl(torch, tk):
+    """B0 224 b8 through the sharded path on a one-rank NCCL mesh (1, 1):
+    bit for bit the unsharded fused forward, with the same launches."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+
+    name, cfg, def_fn, apply, side, _ = _mesh_nets()[0]
+    params, images = _mesh_inputs(torch, def_fn, cfg, side, 10)
+    with torch.inference_mode():
+        reset_launches()
+        ref = apply(params, images, cfg)
+        _sync(torch)
+        want = launches()
+        mesh = make_mesh((1, 1), device=DEVICE, init_method=f"tcp://"
+                         f"localhost:{_free_port()}", rank=0, world_size=1)
+        try:
+            from repro_torch.core import telemetry
+            telemetry.reset()
+            reset_launches()
+            got = apply(params, images, cfg, mesh=mesh)
+            _sync(torch)
+            counts = launches()
+            dispatched = telemetry.get_telemetry().get(
+                "sharded.dispatch.mbconv")
+        finally:
+            mesh.close()
+    same = bool(torch.equal(got, ref))
+    good = same and counts == want and dispatched == 16
+    print(f"  one-rank NCCL mesh (1, 1), B0 {side} batch {BATCH}: "
+          f"{int(dispatched)} blocks through the sharded wrapper; logits "
+          f"{'equal' if same else 'DIFFER from'} the unsharded forward's "
+          f"bit for bit; launches {counts} (unsharded {want}) "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def _v2s_witness(torch, apply, params, images, cfg, fused, halves):
+    """What V2-S's logits amount to at full width with seeded random
+    weights: the card's fused forward at batch 8, its two batch-4 halves
+    and its staged forward at batch 8, each against the plain PyTorch
+    forward on the host's CPU.  All three miss it by percents of
+    max|logit| alike, so the order of fp32 sums alone moves them; printed
+    as the evidence for holding V2-S's logits block by block at (1, 2).
+    Fails only on a non-finite result."""
+    staged = apply(params, images, cfg, fused=False).cpu()
+    host = apply(_cpu_tree(torch, params), images.cpu(), cfg)
+    errs = {n: float((t - host).abs().max())
+            for n, t in (("fused b8", fused), ("fused b4+b4", halves),
+                         ("staged b8", staged))}
+    good = all(bool(torch.isfinite(t).all()) for t in (staged, host))
+    print(f"  V2-S {V2S_RES} b{BATCH} against the plain forward on the CPU "
+          f"(max|logit| {float(host.abs().max())!r}): max|err| "
+          + ", ".join(f"{n} {e!r}" for n, e in errs.items())
+          + f"; the card's fused against its staged "
+          f"{float((fused - staged).abs().max())!r} "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def mesh_phase(torch, tk):
+    """The one-rank NCCL mesh, then two gloo ranks on the card at each of
+    MESH_SHAPES against the single-device fused results (parity runs)."""
+    import torch.multiprocessing as mp
+    from repro_torch.kernels.convdk_fused import convdk_fused_separable
+    from repro_torch.core.autotune import get_fused_schedule
+
+    ok = _one_rank_nccl(torch, tk)
+    refs, halves, spread = {}, {}, {}
+    half = BATCH // 2
+    with torch.inference_mode():
+        for name, cfg, def_fn, apply, side, _ in _mesh_nets():
+            params, images = _mesh_inputs(torch, def_fn, cfg, side, 10)
+            refs[name] = apply(params, images, cfg).cpu()
+            # the single card against itself: two half batches, whose
+            # solved tiles may differ, and so the order of the fp32 sums;
+            # at (2, 1) each rank runs one such half
+            halves[name] = torch.cat([apply(params, images[:half], cfg),
+                                      apply(params, images[half:], cfg)]
+                                     ).cpu()
+            spread[name] = float((halves[name] - refs[name]).abs().max())
+            if name == "v2s":
+                ok &= _v2s_witness(torch, apply, params, images, cfg,
+                                   refs[name], halves[name])
+            del params, images
+        sep_refs = []
+        for x, w_dw, w_pw, layer, c_out in _mnv2_blocks(torch):
+            sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c,
+                                     c_out, layer.k, layer.s)
+            sep_refs.append(convdk_fused_separable(
+                x, w_dw, w_pw, stride=layer.s, tile_h=sch.tile_h,
+                tile_w=sch.tile_w, dw_act="relu6", act=None).cpu())
+        _sync(torch)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    summary = {}
+    for shape in MESH_SHAPES:
+        tag = "x".join(map(str, shape))
+        t0 = time.perf_counter()
+        mp.start_processes(_mesh_rank, args=(shape, _free_port(), out_dir),
+                           nprocs=2, start_method="spawn")
+        res = torch.load(os.path.join(out_dir, f"mesh_{tag}.pt"),
+                         weights_only=False)
+        rank_ms = [torch.load(os.path.join(out_dir, f"mesh_{tag}_{r}_ms.pt"))
+                   for r in range(2)]
+        print(f"  mesh {tag}, 2 ranks on the one card over gloo "
+              f"({time.perf_counter() - t0:.1f} s with the spawn); "
+              f"transports {res['transports']}")
+        for name, r in res["nets"].items():
+            ref = refs[name]
+            scale = float(ref.abs().max())
+            err = float((r["logits"] - ref).abs().max())
+            ratio, block = r["worst_block"]
+            # V2-S's logits at full width amplify the order of fp32 sums to
+            # percents (the single card against itself: ``spread``), so at
+            # (1, 2) its parity is held block by block; at (2, 1) each rank
+            # runs the single card's batch-4 half, and its logits are held
+            # to those halves.  B0's and V3's logits to the batch-8 forward
+            half_err = float((r["logits"] - halves[name]).abs().max())
+            half_scale = float(halves[name].abs().max())
+            if shape[1] == 1:
+                logits_ok = half_err <= MESH_RTOL * half_scale
+                if name != "v2s":
+                    logits_ok &= err <= MESH_RTOL * scale
+            else:
+                logits_ok = name == "v2s" or err <= MESH_RTOL * scale
+            gated = shape[1] == 1 or name != "v2s"
+            good = (r["logits"].shape == ref.shape
+                    and bool(torch.isfinite(r["logits"]).all())
+                    and logits_ok and ratio <= 1.0 and r["block_words_ok"]
+                    and r["wire_words"] == r["plan_words"])
+            ok &= good
+            print(f"    {name}: stem {r['stem']}, block 0 "
+                  f"{r['layouts'][0][0]}->{r['layouts'][0][1]}; every block "
+                  f"on the single-device input: worst max|err| "
+                  f"{ratio:.3f} x its tol (block {block}), words and layouts "
+                  f"{'as planned' if r['block_words_ok'] else 'NOT planned'};"
+                  f" logits vs single-device max|err| {err:.3e} (tol "
+                  f"{MESH_RTOL * scale:.3e}"
+                  f"{'' if name != 'v2s' or not gated else ', not gated'}"
+                  f"; the single card's two half batches against its batch "
+                  f"{BATCH}: {spread[name]:.3e}); vs those halves max|err| "
+                  f"{half_err!r} (tol {MESH_RTOL * half_scale:.3e}"
+                  f"{'' if shape[1] == 1 else ', not gated'}"
+                  f"{', bit for bit' if half_err == 0 else ''}); "
+                  f"model-axis words {r['wire_words']} "
+                  f"(plan {r['plan_words']}); collectives {r['counts']}; "
+                  f"forward ms per rank (parity run) "
+                  f"{' / '.join(f'{m[name]:.3f}' for m in rank_ms)} "
+                  f"{'ok' if good else 'FAIL'}")
+        errs, good = [], True
+        for r, ref in zip(res["sep"], sep_refs):
+            err = float((r["out"] - ref).abs().max())
+            errs.append(err)
+            good &= (r["out"].shape == ref.shape
+                     and err <= MESH_RTOL * float(ref.abs().max())
+                     and r["wire_words"] == 0)
+        ok &= good
+        print(f"    MobileNet-V2's {len(sep_refs)} separable blocks: max|err| "
+              f"{max(errs):.3e}, no model-axis words "
+              f"{'ok' if good else 'FAIL'}")
+        summary[tag] = {"transports": res["transports"],
+                        "rank_ms": rank_ms, "single_card_spread": spread,
+                        "vs_halves": {n: float((r["logits"] - halves[n])
+                                               .abs().max())
+                                      for n, r in res["nets"].items()},
+                        "worst_block": {n: r["worst_block"]
+                                        for n, r in res["nets"].items()},
+                        "words": {n: r["wire_words"]
+                                  for n, r in res["nets"].items()}}
+    return bool(ok), summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2051,6 +2405,10 @@ def main() -> int:
     phase("lm-serve", "lm-serve: the LM engine at full width")
     phases["lm-serve"], lm_serve = lm_serve_phase(torch, lm_params)
     del lm_params
+    phase("mesh", f"mesh: the sharded wrappers and the network plan over "
+                  f"torch.distributed on the one card, meshes (1, 1) NCCL "
+                  f"and {MESH_SHAPES} gloo (parity runs)")
+    phases["mesh"], mesh = mesh_phase(torch, tk)
     marks.append(("end", time.perf_counter()))
     print(f"\nphases {phases}; seconds " + " ".join(
         f"{a[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])))
@@ -2068,7 +2426,7 @@ def main() -> int:
                    "mnv2_launches": mnv2_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "both_modes": both_modes,
-                   "paper": paper, "bench": bench,
+                   "paper": paper, "bench": bench, "mesh": mesh,
                    "rows": stats.rows}, f,
                   indent=1)
     if not all(phases.values()):

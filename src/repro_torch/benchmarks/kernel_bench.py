@@ -3,7 +3,8 @@ on the card, as device time; and the measured per-block sweep that writes
 the ``BENCH_<host>.json`` trajectory.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --fused \\
-        [--family b0,v3l,v2s] [--measure]
+        [--family b0,v3l,v2s] [--measure] [--mesh DxM [--collective MODE]]
+        [--network]
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --measure \\
         [--family b0,v3l,v2s] [--bench-out DIR]
 
@@ -20,6 +21,25 @@ ranks by), and for the families the bytes the staged route writes and
 reads back (its working set, beside the card's 50 MB L2).  It exits 1 when
 the fused route's device-memory bytes are not strictly below the staged
 bytes at some block: the JAX package's gate, read at the Hopper level.
+
+``--fused --mesh DxM`` prices the same blocks SHARDED over a (data, model)
+mesh of that shape, at batch 8 (host arithmetic: one card has no model
+axis): per block the schedule solved at the shard shape, the fused route's
+bytes (the Hopper model at the shard, times the devices, plus the
+collective and entry-gather bytes of ``core.perfmodel``'s mesh half)
+against the staged model partitioned identically, which pays the same
+collectives; with the copied model's mesh-wide fused bytes (what the
+solver ranks by) beside them.  It exits 1 where fused is not strictly
+below staged on a block the mesh divides (a mesh that divides none fails).
+``--collective`` pins the projection's reduction; ``auto`` (the default)
+lets the solver pick and, on a model-sharded mesh, runs the report again
+ring-pinned and gates the picked total at or below the ring total per
+block.  ``--network`` solves each family's layout DP
+(``core.autotune.solve_network_schedule``) and prints it beside the
+greedy per-layer plan: the solved total must be at or below greedy's, and
+on a model-sharded mesh strictly below with at least one boundary kept
+sharded where the chain has an identity-expand block, or else every
+Fused-MBConv entry replicated.
 
 ``--fused --measure`` runs each family block on the card, fused
 (``models.mbconv.apply_block``) and staged (``fused=False``) on the same
@@ -59,9 +79,14 @@ from ..core.autotune import (
     BlockRow,
     SWEEP_CHECK_RTOL,
     MBConvSchedule,
+    _kernel_shape,
     benchmark_mbconv_sweep,
     get_fused_schedule,
+    get_fusedmb_schedule,
+    get_mbconv_schedule,
+    greedy_network_schedule,
     mbconv_sweep_candidates,
+    solve_network_schedule,
 )
 from ..core.hopper_traffic import (
     HopperTraffic,
@@ -70,10 +95,17 @@ from ..core.hopper_traffic import (
     separable_hopper_traffic,
 )
 from ..core.perfmodel import (
+    COLLECTIVE_MODES,
     HBMTraffic,
     MBConvShape,
     SeparableShape,
     fusedmb_fused_traffic,
+    fusedmb_shard,
+    mbconv_shard,
+    separable_shard,
+    sharded_fusedmb_staged_traffic,
+    sharded_mbconv_staged_traffic,
+    sharded_separable_staged_traffic,
     fusedmb_staged_traffic,
     mbconv_fused_traffic,
     mbconv_staged_traffic,
@@ -173,11 +205,15 @@ def staged_working_set(r: BlockRow, staged: HBMTraffic, batch: int) -> int:
     return (staged.write_words - out) * staged.dtype_bytes
 
 
-def separable_report(batch: int) -> bool:
+def separable_report(batch: int, mesh_shape=(1, 1)) -> bool:
     """Fused against staged bytes of every MobileNet-V2 separable block and
     the k=7 stem rows at the fused separable kernel's schedule; True iff
     the fused route's device-memory bytes (Hopper model) are strictly below
-    the staged model's on every row."""
+    the staged model's on every row.  On a mesh: each device's shard
+    (c_out over "model", collective-free) times the devices, against the
+    staged model partitioned identically."""
+    if tuple(mesh_shape) != (1, 1):
+        return _separable_mesh_report(batch, tuple(mesh_shape))
     print(f"# separable blocks, batch {batch}")
     print("layer,c_in,hw,k,s,c_out,tile_h,tile_w,splits,hopper_dram_bytes,"
           "staged_bytes,saving_pct,hopper_global_bytes,"
@@ -231,6 +267,198 @@ def traffic_report(family: str, batch: int, res: int) -> bool:
               f"{copied.total_bytes},{ws / 2**20:.1f}")
     print(f"# fused strictly below staged on every block [family={family}]: "
           f"{ok}")
+    return ok
+
+
+def _mesh_label(eff, fallback: bool) -> str:
+    label = f"{eff[0]}x{eff[1]}"
+    return f"{label} (fallback)" if fallback else label
+
+
+def _mesh_gate(ok: bool, fallbacks: int, rows: int) -> bool:
+    if fallbacks:
+        print(f"# {fallbacks} fallback row(s) (an axis does not divide "
+              f"the grid: one device) excluded from the gate")
+        if fallbacks == rows:
+            print("# every row fell back: nothing was gated -> FAIL")
+            return False
+    return ok
+
+
+def _separable_mesh_report(batch: int, mesh_shape) -> bool:
+    print(f"# separable blocks, batch {batch}, mesh "
+          f"{mesh_shape[0]}x{mesh_shape[1]}")
+    print("layer,c_in,hw,k,s,c_out,tile_h,tile_w,splits,mesh,"
+          "hopper_dram_bytes_per_device,fused_bytes,staged_bytes,"
+          "saving_pct")
+    table = ([(f"mbv2_dw{i}", layer, c_out)
+              for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE)]
+             + [(f"effv2_k7_dw{i}", layer, c_out)
+                for i, (layer, c_out) in enumerate(
+                    EFFICIENTNET_V2_K7_SEPARABLE)])
+    ok, fallbacks = True, 0
+    for name, layer, c_out in table:
+        shape = SeparableShape(b=batch, h=layer.h, w=layer.w, c_in=layer.c,
+                               c_out=c_out, k=layer.k, s=layer.s)
+        sch = get_fused_schedule(batch, layer.h, layer.w, layer.c, c_out,
+                                 layer.k, layer.s, mesh_shape=mesh_shape)
+        local, eff = separable_shard(shape, mesh_shape)
+        dev = separable_hopper_traffic(local, sch).dram_bytes
+        f = dev * eff[0] * eff[1]
+        st = sharded_separable_staged_traffic(shape, sch.tile_h,
+                                              mesh_shape).total_bytes
+        fallback = eff != mesh_shape
+        fallbacks += fallback
+        ok &= fallback or f < st
+        print(f"{name},{layer.c},{layer.h},{layer.k},{layer.s},{c_out},"
+              f"{sch.tile_h},{sch.tile_w},{sch.splits},"
+              f"{_mesh_label(eff, fallback)},{dev},{f},{st},"
+              f"{100 * (1 - f / st):.1f}")
+    ok = _mesh_gate(ok, fallbacks, len(table))
+    print(f"# fused strictly below staged on every sharded separable "
+          f"block: {ok}")
+    return ok
+
+
+def mesh_block_rows(family: str, batch: int, res: int, mesh_shape,
+                    collective: Optional[str] = None) -> List[Dict]:
+    """Per block of one family on a (data, model) mesh: the schedule the
+    solver picks there (``collective`` pins its reduction), the fused
+    route's bytes (the Hopper model at the kernels' shard, times the
+    devices, plus the collective and entry-gather bytes) against the
+    staged model partitioned identically, which pays the same
+    collectives, and whether the mesh fell back to one device."""
+    _, rows, _ = family_chain(family, batch, res)
+    out = []
+    for i, r in enumerate(rows):
+        shape = _shape(r, batch)
+        args = (batch, r.h, r.w, r.c_in, r.c_mid, r.c_out, r.k, r.s)
+        if r.family == "fusedmb":
+            sch = get_fusedmb_schedule(*args, mesh_shape=mesh_shape,
+                                       collective=collective)
+            local, eff = fusedmb_shard(shape, mesh_shape)
+            dev = fusedmb_hopper_traffic(local, sch).dram_bytes
+            staged = sharded_fusedmb_staged_traffic(
+                shape, sch.tile_h, mesh_shape, C_BLOCK, sch.collective)
+        else:
+            sch = get_mbconv_schedule(*args, se_ratio=r.se_ratio,
+                                      mesh_shape=mesh_shape,
+                                      collective=collective)
+            local, eff = mbconv_shard(shape, mesh_shape)
+            dev = mbconv_hopper_traffic(_kernel_shape(shape, local),
+                                        sch).dram_bytes
+            staged = sharded_mbconv_staged_traffic(
+                shape, sch.tile_h, mesh_shape, C_BLOCK, sch.collective)
+        out.append(dict(
+            name=f"{family}_{r.family}{i}", row=r, schedule=sch, eff=eff,
+            fallback=eff != tuple(mesh_shape), device_bytes=dev,
+            fused=(dev * eff[0] * eff[1] + sch.collective_bytes
+                   + sch.transition_bytes),
+            staged=staged.total_bytes))
+    return out
+
+
+def mesh_traffic_report(family: str, batch: int, res: int, mesh_shape,
+                        collective: Optional[str] = None
+                        ) -> Tuple[bool, Dict[str, Optional[int]]]:
+    """``mesh_block_rows`` printed as CSV.  Returns (fused strictly below
+    staged on every block the mesh divides, block -> fused bytes, None for
+    a fallback row)."""
+    print(f"# family={family} {res}x{res} batch {batch} mesh "
+          f"{mesh_shape[0]}x{mesh_shape[1]} collective="
+          f"{collective or 'auto'}")
+    print("block,family,c_in,c_mid,c_out,hw,k,s,tile_h,tile_w,mode,"
+          "collective,mesh,hopper_dram_bytes_per_device,collective_bytes,"
+          "fused_bytes,staged_bytes,saving_pct,copied_model_fused_bytes")
+    rows = mesh_block_rows(family, batch, res, mesh_shape, collective)
+    ok, fallbacks, totals = True, 0, {}
+    for m in rows:
+        r, sch, f, st = m["row"], m["schedule"], m["fused"], m["staged"]
+        fallbacks += m["fallback"]
+        ok &= m["fallback"] or f < st
+        totals[m["name"]] = None if m["fallback"] else f
+        print(f"{m['name']},{r.family},{r.c_in},{r.c_mid},{r.c_out},{r.h},"
+              f"{r.k},{r.s},{sch.tile_h},{sch.tile_w},"
+              f"{getattr(sch, 'mode', '-')},{sch.collective},"
+              f"{_mesh_label(m['eff'], m['fallback'])},{m['device_bytes']},"
+              f"{sch.collective_bytes},{f},{st},{100 * (1 - f / st):.1f},"
+              f"{sch.total_bytes}")
+    ok = _mesh_gate(ok, fallbacks, len(rows))
+    print(f"# fused strictly below staged on every sharded block "
+          f"[family={family}, collective={collective or 'auto'}]: {ok}")
+    return ok, totals
+
+
+def collective_sweep(family: str, batch: int, res: int, mesh_shape) -> bool:
+    """``mesh_traffic_report`` with the solver's collective and again
+    ring-pinned: both gates, and the picked total at or below the ring
+    total on every sharded block."""
+    auto_ok, auto = mesh_traffic_report(family, batch, res, mesh_shape)
+    print()
+    ring_ok, ring = mesh_traffic_report(family, batch, res, mesh_shape,
+                                        "ring_allreduce")
+    worse = [n for n, t in auto.items()
+             if t is not None and ring.get(n) is not None and t > ring[n]]
+    print(f"# autotuned collective <= ring-pinned on every sharded block "
+          f"[family={family}]: {not worse}"
+          + (f" (worse: {','.join(worse)})" if worse else ""))
+    return auto_ok and ring_ok and not worse
+
+
+def network_report(family: str, batch: int, res: int, mesh_shape) -> bool:
+    """The layout DP over one family's chain against the greedy per-layer
+    plan (every block alone, each sharded exit repaid at the next entry),
+    element by element, with the totals.  Gate: solved at or below greedy;
+    on a model-sharded mesh, strictly below with at least one boundary
+    kept sharded where the chain has an identity-expand MBConv block, else
+    every Fused-MBConv entry replicated."""
+    _, rows, _ = family_chain(family, batch, res)
+    solved = solve_network_schedule(rows, batch, mesh_shape)
+    greedy = greedy_network_schedule(rows, batch, mesh_shape)
+    mb = 1e6
+    print(f"# network layout plan [{family}]: {res}x{res} batch {batch} "
+          f"mesh {mesh_shape[0]}x{mesh_shape[1]}, stem + {len(rows)} "
+          f"blocks (the copied model's bytes, what the solver ranks by)")
+    print("element,family,c_in,c_mid,c_out,hw,in_layout,out_layout,mode,"
+          "collective,overlap,block_mb,transition_mb")
+    for plan, tag in ((solved, "solved"), (greedy, "greedy")):
+        r0 = rows[0]
+        print(f"stem[{tag}],,3,,{r0.c_in},{r0.h},,{plan.stem_layout},,,,"
+              f"{plan.stem_bytes / mb:.3f},0.000")
+        for p in plan.blocks:
+            sh = p.shape
+            trans = p.boundary_bytes + p.schedule.transition_bytes
+            print(f"{family}_{p.family}{p.index}[{tag}],{p.family},"
+                  f"{sh.c_in},{sh.c_mid},{sh.c_out},{sh.h},{p.in_layout},"
+                  f"{p.out_layout},{getattr(p.schedule, 'mode', '-')},"
+                  f"{p.schedule.collective},{p.entry_overlap},"
+                  f"{p.schedule.total_bytes / mb:.3f},{trans / mb:.3f}")
+        print(f"head[{tag}],,,,,,,,,,,0.000,"
+              f"{plan.head_boundary_words * plan.dtype_bytes / mb:.3f}")
+        print(f"# {tag} totals: stem={plan.stem_bytes / mb:.3f} MB, "
+              f"blocks={plan.block_bytes / mb:.3f} MB, "
+              f"transitions={plan.transition_bytes / mb:.3f} MB, "
+              f"end-to-end={plan.total_bytes / mb:.3f} MB, pipelined "
+              f"boundaries={len(plan.pipelined_boundaries)}")
+    pairs = solved.sharded_pairs
+    print("# sharded boundary pairs (solved): " + (",".join(
+        f"{'stem' if a < 0 else f'block{a}'}->block{b}" for a, b in pairs)
+        or "none"))
+    ok = solved.total_bytes <= greedy.total_bytes
+    identity = any(r.family == "mbconv" and r.c_mid == r.c_in for r in rows)
+    if mesh_shape[1] > 1 and identity:
+        ok &= solved.total_bytes < greedy.total_bytes and len(pairs) >= 1
+        print(f"# solved strictly below greedy with >=1 sharded pair: {ok} "
+              f"({solved.total_bytes / mb:.3f} vs "
+              f"{greedy.total_bytes / mb:.3f} MB)")
+    elif mesh_shape[1] > 1:
+        bad = [p.index for p in solved.blocks
+               if p.family == "fusedmb" and p.in_layout != "replicated"]
+        ok &= not bad
+        print(f"# no identity-expand block: solved <= greedy and every "
+              f"fusedmb entry replicated: {ok}")
+    else:
+        print(f"# solved <= greedy (no model axis): {ok}")
     return ok
 
 
@@ -293,7 +521,8 @@ def measure_block(sp: MBConvSpec, r: BlockRow, sch: Schedule, batch: int,
     x = torch.randn(batch, r.h, r.w, r.c_in, generator=generator).to(device)
 
     def run(fused):
-        return lambda: apply_block(x, sp, params, schedule=sch, fused=fused)
+        return lambda: apply_block(x, sp, params, schedule=sch,
+                                   fused=fused)[0]
 
     with torch.inference_mode():
         ref = _oracle(x, sp, params)
@@ -492,6 +721,16 @@ def _parse_families(text: str) -> List[str]:
     return families
 
 
+def _parse_mesh(text: str) -> Tuple[int, int]:
+    try:
+        dp, mp = (int(t) for t in text.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DxM (e.g. 2x4), got {text!r}")
+    if dp < 1 or mp < 1:
+        raise SystemExit(f"--mesh factors must be >= 1, got {text!r}")
+    return dp, mp
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--fused", action="store_true",
@@ -505,11 +744,35 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--bench-out", default=None, metavar="DIR",
                     help="with --measure alone: write BENCH_<host>.json "
                          "into DIR")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="with --fused: price the blocks sharded over a "
+                         "(data, model) mesh of this shape (host "
+                         "arithmetic)")
+    ap.add_argument("--collective", default="auto", metavar="MODE",
+                    help="with --mesh DxM, M > 1: the projection's "
+                         "reduction, auto (the solver's pick, gated against "
+                         f"a ring-pinned rerun) or one of {COLLECTIVE_MODES}")
+    ap.add_argument("--network", action="store_true",
+                    help="with --fused: the network layout DP against the "
+                         "greedy per-layer plan, per family")
     args = ap.parse_args(argv)
     if not (args.fused or args.measure):
         ap.error("pass --fused (the report) or --measure (the sweep)")
     if args.bench_out and (args.fused or not args.measure):
         ap.error("--bench-out goes with --measure alone")
+    if (args.mesh or args.network) and not args.fused:
+        ap.error("--mesh and --network go with --fused")
+    mesh_shape = _parse_mesh(args.mesh) if args.mesh else (1, 1)
+    if mesh_shape != (1, 1) and args.measure:
+        ap.error("--mesh prices the blocks on the host; it does not "
+                 "measure")
+    collective = None if args.collective == "auto" else args.collective
+    if collective is not None:
+        if collective not in COLLECTIVE_MODES:
+            ap.error(f"--collective wants auto or one of "
+                     f"{COLLECTIVE_MODES}, got {collective!r}")
+        if mesh_shape[1] <= 1:
+            ap.error("--collective needs --mesh DxM with M > 1")
     families = _parse_families(args.family)
     device = None
     if args.measure:
@@ -525,14 +788,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0
     ok = True
     if "b0" in families:
-        ok &= separable_report(BATCH)
+        ok &= separable_report(BATCH, mesh_shape)
         print()
     for fam in families:
-        ok &= traffic_report(fam, BATCH, FAMILY_RES[fam])
+        res = FAMILY_RES[fam]
+        if mesh_shape == (1, 1):
+            ok &= traffic_report(fam, BATCH, res)
+        elif collective is None and mesh_shape[1] > 1:
+            ok &= collective_sweep(fam, BATCH, res, mesh_shape)
+        else:
+            ok &= mesh_traffic_report(fam, BATCH, res, mesh_shape,
+                                      collective)[0]
         if device is not None:
             print(f"# measured on {torch.cuda.get_device_name(0)}")
-            ok &= measure_family(fam, BATCH, FAMILY_RES[fam], device)[0]
+            ok &= measure_family(fam, BATCH, res, device)[0]
         print()
+    if args.network:
+        for fam in families:
+            ok &= network_report(fam, BATCH, FAMILY_RES[fam], mesh_shape)
+            print()
     return 0 if ok else 1
 
 

@@ -6,13 +6,15 @@
 
 Counterpart of the JAX package's ``benchmarks/serve_report.py``.  Output:
 
-* **top (bucket x block) traffic rows**: the bytes the engine charged while
+* **top (bucket x layer) traffic rows**: the bytes the engine charged while
   serving, in the copied TPU model's bytes (``core.perfmodel``: what the
   solver ranks by and ``serve.bytes.*`` count, not the Hopper
   ``dram_bytes`` of ``core.hopper_traffic`` that ``kernel_bench``'s gate
-  and the BENCH records read): counter value = batches x the block
-  schedule's modeled bytes, sorted descending;
-* **per-bucket summary**: batches, requests, pad slots and schedule builds
+  and the BENCH records read): counter value = batches x the layer's
+  modeled bytes (the stem output, each block's schedule, the boundary
+  all-gathers of the bucket's network plan), with the collective bytes
+  beside them, sorted descending;
+* **per-bucket summary**: batches, requests, pad slots and plan builds
   per bucket (warm-up batches included), with the shed counts;
 * **latency**: after WARMUP_ROUNDS full batches per bucket (the first
   calls' library loads and schedule solves, left out of the timing),
@@ -22,13 +24,12 @@ Counterpart of the JAX package's ``benchmarks/serve_report.py``.  Output:
   after a device synchronize), overall and per bucket.
 
 The exit status is the gate: nonzero unless (a) the table is non-empty,
-(b) every bucket's schedules were built exactly once (``serve.build.r<res>``
-is 1), (c) every ``serve.bytes.r<res>.block<NN>`` counter equals the
-bucket's batches x ``VisionEngine.modeled_block_bytes(res)``, and (d) every
-admitted request of the timed stream was served.  The latencies are
-reported, not gated.  The JAX gate's ``plan_for`` total and its collective
-column wait for the port of ``get_network_plan`` (the sharded wrappers);
-the report says so.
+(b) every bucket's plan was built exactly once (``serve.build.r<res>`` is
+1), (c) every ``serve.bytes.r<res>.<layer>`` and
+``serve.collective.r<res>.<layer>`` counter equals the bucket's batches x
+``VisionEngine.modeled_layer_bytes(res)``, (d) each bucket's layer rows sum
+to its plan's ``total_bytes``, and (e) every admitted request of the timed
+stream was served.  The latencies are reported, not gated.
 
 Default: full-width EfficientNet-B0 at the buckets 224/384/512 on the card.
 ``--smoke`` serves buckets 28/48/64 at width 0.25 (10 classes), small
@@ -50,6 +51,7 @@ from ..core import telemetry
 from ..models.mbconv import efficientnet_b0_def
 from ..models.param import materialize
 from ..serve import VisionEngine, VisionResult, VisionServeConfig
+from ..serve.vision import layer_names
 
 FULL_RES = (224, 384, 512)
 SMOKE_RES = (28, 48, 64)
@@ -145,17 +147,20 @@ def serve_report(resolutions: Sequence[int] = FULL_RES, smoke: bool = False,
     rows = []
     for res in resolutions:
         if t.get(f"serve.batches.r{res}"):
-            for layer in eng.modeled_block_bytes(res):
+            for layer in layer_names(len(eng.specs)):
                 rows.append((f"r{res}", layer,
                              int(t.get(f"serve.bytes.r{res}.{layer}")),
+                             int(t.get(f"serve.collective.r{res}.{layer}")),
                              int(t.get(f"serve.batches.r{res}"))))
     rows.sort(key=lambda r: -r[2])
     log(f"# serve_report: {len(results)} served / {admitted} admitted / "
         f"{eng.shed} shed; buckets={','.join(map(str, resolutions))} "
         f"batch={BATCH_SIZE} width={cfg.width_mult}")
     log("# traffic: the copied TPU model's bytes (core.perfmodel, what the "
-        "solver ranks by), not kernel_bench's Hopper dram_bytes")
-    log("shape_class,layer,copied_model_bytes,batches")
+        "solver ranks by), not kernel_bench's Hopper dram_bytes, of the "
+        "stem, each block and the boundary all-gathers of each bucket's "
+        "plan (core.autotune.get_network_plan)")
+    log("shape_class,layer,copied_model_bytes,collective_bytes,batches")
     for r in rows[:TOP]:
         log(",".join(map(str, r)))
     log("")
@@ -197,21 +202,30 @@ def serve_report(resolutions: Sequence[int] = FULL_RES, smoke: bool = False,
         if not nb:
             continue
         if t.get(f"serve.build.r{res}") != 1:
-            log(f"GATE FAIL: r{res} schedules built "
+            log(f"GATE FAIL: r{res} plan built "
                 f"{int(t.get(f'serve.build.r{res}'))} times")
             ok = False
-        for layer, total in eng.modeled_block_bytes(res).items():
+        modeled = eng.modeled_layer_bytes(res)
+        for layer, (total, coll) in modeled.items():
             got = t.get(f"serve.bytes.r{res}.{layer}")
             if got != nb * total:
                 log(f"GATE FAIL: r{res}.{layer} counter {int(got)} != "
                     f"{nb} x modeled {total}")
                 ok = False
-    log("note: the plan total and the collective column of the JAX gate "
-        "wait for get_network_plan (the sharded wrappers)")
+            got_c = t.get(f"serve.collective.r{res}.{layer}")
+            if got_c != nb * coll:
+                log(f"GATE FAIL: r{res}.{layer} collective {int(got_c)} "
+                    f"!= {nb} x modeled {coll}")
+                ok = False
+        if sum(tb for tb, _ in modeled.values()) != \
+                eng.plan_for(res).total_bytes:
+            log(f"GATE FAIL: r{res} layer rows do not sum to the plan's "
+                f"total_bytes")
+            ok = False
     log("")
     log(f"gate: {'OK' if ok else 'FAIL'}: counters "
         f"{'reconcile exactly with' if ok else 'DRIFTED from'} the "
-        f"schedules' copied-model bytes, every admitted request served")
+        f"plans' copied-model bytes, every admitted request served")
     return {"ok": ok, "requests": requests, "rate_rps": 1 / gap_s,
             "throughput_rps": len(results) / elapsed, "warm_batch_s": warm_s,
             "latency_s": lat, "queue_wait_s": wait,

@@ -23,27 +23,69 @@ An MBConv block solved to retain runs its pass 2 as a GEMM with no tile,
 so its tile is pass 1's alone (``pass1_tile``: occupancy and halo, not
 bytes); the retain GEMM's tile and K splits come from ``retain_plan``.
 
-The separable and Fused-MBConv blocks have no mode axis (one pass), and on
-one card no family has a residency or collective axis.  Schedules are
-cached in-process by family, shape and mode pin.  ``benchmark_mbconv_sweep``
-times the points ``mbconv_sweep_candidates`` names on the card (the BENCH
-trajectory's candidates), each checked against the oracle first.
+The separable and Fused-MBConv blocks have no mode axis (one pass).  On a
+("data", "model") mesh (``mesh_shape``) the solvers price every candidate
+with the mesh half of ``core.perfmodel`` (each device's bytes, the
+collectives and any entry gather) and solve the tiles at the SHARD shape
+(batch / data, the channel grid / model), because the kernels run at that
+shape; the MBConv and Fused-MBConv solvers then also pick the projection's
+``collective`` (ring all-reduce or reduce-scatter), and every schedule
+carries its collective, its in and out layouts and its collective and
+transition bytes.  At mesh (1, 1) these are the ring, replicated and 0,
+and every schedule is the single-card one.
+
+``solve_network_schedule`` is the JAX package's network layout DP over a
+block chain (the stem's layout, each block's in and out layout and
+collective, the boundary all-gathers), with ``_annotate_overlap`` marking
+the boundaries a chain executor could pipeline.  The residency axis (the
+TPU's strip-staging modes) and the persistent JSON schedule cache are not
+ported: the Hopper kernels stage by one cp.async ring each, so the axis has
+no second value on the card, and schedules are cached in-process by family,
+shape, mesh and pins.  ``benchmark_mbconv_sweep`` times the points
+``mbconv_sweep_candidates`` names on the card (the BENCH trajectory's
+candidates), each checked against the oracle first.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from dataclasses import dataclass, replace
+from typing import (
+    Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union,
+)
 
+from . import telemetry
 from .perfmodel import (
+    COLLECTIVE_MODES,
+    DEFAULT_COLLECTIVE,
+    DEFAULT_LAYOUT,
+    DEFAULT_OVERLAP,
     MBCONV_MODES,
+    MBConvPassCosts,
     MBConvShape,
+    MeshShape,
+    PerfCoefficients,
     SeparableShape,
+    ShardedTraffic,
+    boundary_overlap_us,
+    can_psum_scatter,
+    can_shard_input,
     fused_separable_traffic,
-    fusedmb_fused_traffic,
-    mbconv_fused_traffic,
+    fusedmb_shard,
+    layout_transition_words,
+    mbconv_pass_us,
+    mbconv_shard,
+    separable_shard,
+    shard_factors,
+    sharded_fusedmb_pass_costs,
+    sharded_fusedmb_traffic,
+    sharded_mbconv_pass_costs,
+    sharded_mbconv_traffic,
+    sharded_separable_traffic,
     staged_separable_traffic,
+    validate_collective,
+    validate_layout,
+    validate_overlap,
 )
 
 
@@ -68,6 +110,7 @@ P1_CTAS_PER_SM = 3                  # resident pass-1 CTAs the planner wants
 SMEM_PER_SM = 233472                # 228 KB, 1 KB of it reserved per CTA
 P1_SMEM_TARGET = SMEM_PER_SM // P1_CTAS_PER_SM - 1024
 RETAIN_K_CHUNK = 32                 # retain's K chunk (C_mid)
+RETAIN_STAGES = 3                   # retain's cp.async ring depth
 RETAIN_TILES = ((128, 64), (64, 64), (128, 32), (64, 32))   # (BM, BN)
 RETAIN_MIN_CTAS = 2 * SM_COUNT      # split K below about two waves
 RETAIN_MIN_SPLIT_CHUNKS = 2         # K chunks each split sums at least
@@ -115,8 +158,32 @@ SEP_DW_ITEM_CLOCKS = 400            # a thread's depthwise item (9 taps)
 SEP_BYTES_PER_CLK = 1900            # the card's device-memory bytes per clock
 
 
+@dataclass(frozen=True, kw_only=True)
+class _MeshTerms:
+    """What a schedule carries of its partitioning: the effective (data,
+    model) factors, the projection's collective, the in and out layouts,
+    and the collective and entry-gather bytes inside ``total_bytes`` (every
+    device's bytes plus both).  At mesh (1, 1): the ring, replicated, 0."""
+
+    collective: str = DEFAULT_COLLECTIVE
+    in_layout: str = DEFAULT_LAYOUT
+    out_layout: str = DEFAULT_LAYOUT
+    collective_bytes: int = 0
+    transition_bytes: int = 0
+    mesh_shape: MeshShape = (1, 1)
+
+
+def _mesh_terms(st: ShardedTraffic) -> dict:
+    """A schedule's ``total_bytes`` and mesh terms from its pricing."""
+    return dict(total_bytes=st.total_bytes, collective=st.collective,
+                in_layout=st.in_layout, out_layout=st.out_layout,
+                collective_bytes=st.collective_bytes,
+                transition_bytes=st.transition_bytes,
+                mesh_shape=st.mesh_shape)
+
+
 @dataclass(frozen=True)
-class FusedSchedule:
+class FusedSchedule(_MeshTerms):
     """One separable block's schedule: output tile, the c_out tile of one
     CTA, the C_in splits (partials summed by the reduce where above 1),
     modeled bytes."""
@@ -129,7 +196,7 @@ class FusedSchedule:
 
 
 @dataclass(frozen=True)
-class FusedMBSchedule:
+class FusedMBSchedule(_MeshTerms):
     """One Fused-MBConv block's schedule: output tile, the kernel's chunk
     (c_mid chunk and c_out tile) and c_in window chunk, modeled bytes."""
 
@@ -141,13 +208,16 @@ class FusedMBSchedule:
 
 
 @dataclass(frozen=True)
-class MBConvSchedule:
+class MBConvSchedule(_MeshTerms):
     """One block's schedule: output tile, pass-2 mode, modeled bytes."""
 
     tile_h: int
     tile_w: int
     mode: str
     total_bytes: int
+
+
+Schedule = Union[MBConvSchedule, FusedMBSchedule]
 
 
 class BlockRow(NamedTuple):
@@ -499,6 +569,15 @@ def pass1_tile(b: int, out_h: int, out_w: int, c_in: int, c_mid: int,
     return -best[4], best[5]
 
 
+def retain_smem_bytes(bm: int, bn: int) -> int:
+    """Dynamic shared memory of one retain GEMM CTA (mbconv.cu's retain
+    traits): RETAIN_STAGES ring slots of the (BM, K chunk) A tile, padded,
+    and the (K chunk, BN) B tile, and two K-major copies of the A tile."""
+    k = RETAIN_K_CHUNK
+    return 4 * (RETAIN_STAGES * bm * (k + 4) + RETAIN_STAGES * k * bn
+                + 2 * k * bm)
+
+
 @functools.lru_cache(maxsize=None)
 def retain_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
     """(BM, BN, splits) of the retain GEMM, M = B * out_h * out_w rows,
@@ -561,37 +640,84 @@ def _tile_h_candidates(shape):
     return sorted({max(1, min(t, shape.out_h)) for t in TILE_H_CANDIDATES})
 
 
-def select_mbconv_schedule(shape: MBConvShape,
-                           mode: Optional[str] = None) -> MBConvSchedule:
-    """Least modeled bytes over (tile_h, mode); ``mode`` pins the pass-2
-    variant."""
+# Ties between byte-equal collectives go to the ring: its output is
+# replicated, which any consumer takes.
+_COLLECTIVE_RANK = {"ring_allreduce": 0, "psum_scatter": 1}
+
+
+def _collective_set(shape: MBConvShape, eff: MeshShape,
+                    collective: Optional[str]) -> Tuple[str, ...]:
+    """Collectives the solver may price at this partitioning: the ring
+    alone off the model axis (nothing crosses devices, a pin is ignored),
+    else the pin, else both (a c_out the factor does not divide pads)."""
+    _dp, mp = eff
+    if mp <= 1:
+        return (DEFAULT_COLLECTIVE,)
+    if collective is None:
+        if can_psum_scatter(shape, eff):
+            return COLLECTIVE_MODES
+        return (DEFAULT_COLLECTIVE,)
+    validate_collective(collective)
+    return (collective,)
+
+
+def _kernel_shape(shape: MBConvShape, local: MBConvShape) -> MBConvShape:
+    """The shape the MBConv kernels run at on one device: the shard, with
+    an identity expand's input cut to its c_mid slice (the sharded wrapper
+    slices a replicated input; the pricing keeps the JAX package's full
+    c_in there)."""
+    if shape.has_expand:
+        return local
+    return replace(local, c_in=local.c_mid)
+
+
+def select_mbconv_schedule(shape: MBConvShape, mode: Optional[str] = None,
+                           mesh_shape: MeshShape = (1, 1),
+                           collective: Optional[str] = None,
+                           in_layout: str = DEFAULT_LAYOUT
+                           ) -> MBConvSchedule:
+    """Least modeled bytes over (tile_h, mode, collective); ``mode`` pins
+    the pass-2 variant, ``collective`` the projection's reduction, and
+    ``in_layout`` states how the input arrives.  Tiles are solved at the
+    shard shape; the bytes are the mesh-wide total."""
     if mode is not None and mode not in MBCONV_MODES:
         raise ValueError(mode)
+    validate_layout(in_layout)
     modes = MBCONV_MODES if mode is None else (mode,)
+    local, eff = mbconv_shard(shape, mesh_shape, in_layout)
+    kern = _kernel_shape(shape, local)
+    colls = _collective_set(shape, eff, collective)
     cands = []
-    for th in _tile_h_candidates(shape):
-        tw = _pick_tile_w(shape, th)
+    for th in _tile_h_candidates(kern):
+        tw = _pick_tile_w(kern, th)
         if tw is None:
             continue
         for m in modes:
-            total = mbconv_fused_traffic(shape, th, m, C_BLOCK).total_bytes
-            cands.append(MBConvSchedule(th, tw, m, total))
+            for coll in colls:
+                st = sharded_mbconv_traffic(shape, th, m, eff, C_BLOCK, coll,
+                                            in_layout)
+                cands.append(MBConvSchedule(th, tw, m, **_mesh_terms(st)))
     if not cands:
         raise ValueError(f"no MBConv tile fits the CTA budget: {shape}")
     best = min(cands, key=lambda c: (c.total_bytes, -c.tile_h,
-                                     c.mode != "retain"))
+                                     c.mode != "retain",
+                                     _COLLECTIVE_RANK[c.collective]))
     if best.mode != "retain":
         return best
     # retain's pass 2 is a GEMM with no tile: the tile is pass 1's alone
-    th, tw = pass1_tile(shape.b, -(-shape.h // shape.s),
-                        -(-shape.w // shape.s), shape.c_in, shape.c_mid,
-                        shape.k, shape.s)
-    return MBConvSchedule(th, tw, "retain", mbconv_fused_traffic(
-        shape, th, "retain", C_BLOCK).total_bytes)
+    th, tw = pass1_tile(kern.b, kern.out_h, kern.out_w, kern.c_in,
+                        kern.c_mid, kern.k, kern.s)
+    return MBConvSchedule(th, tw, "retain", **_mesh_terms(
+        sharded_mbconv_traffic(shape, th, "retain", eff, C_BLOCK,
+                               best.collective, in_layout)))
 
 
-def select_fusedmb_schedule(shape: MBConvShape) -> FusedMBSchedule:
-    """Among tiles of at most FMB_MAX_TILE_PIXELS whose CTAs run no idle
+def select_fusedmb_schedule(shape: MBConvShape,
+                            mesh_shape: MeshShape = (1, 1),
+                            collective: Optional[str] = None
+                            ) -> FusedMBSchedule:
+    """At the shard shape (c_mid / model; the input is always replicated),
+    among tiles of at most FMB_MAX_TILE_PIXELS whose CTAs run no idle
     pixel lane (tiles that divide the map and fill whole warps; every tile
     where none does) and whose ``fusedmb_cost`` (SM clocks: CTAs on the
     busiest SM, their start, executed FMAs, resident warps) is within
@@ -600,7 +726,11 @@ def select_fusedmb_schedule(shape: MBConvShape) -> FusedMBSchedule:
     over the map.  The band holds the tiles the model cannot tell apart;
     among them the card ran the better-occupied and then the larger tiles
     faster (fewer CTA starts and weight streams per pixel), a sweep over
-    V2-S's fused blocks at 384 batch 8 shows."""
+    V2-S's fused blocks at 384 batch 8 shows.  The collective (a ``pin``,
+    else the one of least mesh-wide bytes, ties to the ring) does not move
+    the tile: both run the same kernel."""
+    full = shape
+    shape, eff = fusedmb_shard(full, mesh_shape)
     nc = fusedmb_chunk(shape.c_in, shape.c_mid, shape.c_out, shape.k)
     exact = shape.b * shape.out_h * shape.out_w * fusedmb_fmas_per_pixel(
         shape.c_in, shape.c_mid, shape.c_out, shape.k)
@@ -629,18 +759,28 @@ def select_fusedmb_schedule(shape: MBConvShape) -> FusedMBSchedule:
                  key=lambda c: c[2:5])[5:]
     _, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
                                 shape.k, shape.s, th, tw)
-    return FusedMBSchedule(
-        th, tw, nc, ci,
-        fusedmb_fused_traffic(shape, th, C_BLOCK).total_bytes)
+    st = min((sharded_fusedmb_traffic(full, th, eff, C_BLOCK, coll)
+              for coll in _collective_set(full, eff, collective)),
+             key=lambda t: (t.total_bytes, _COLLECTIVE_RANK[t.collective]))
+    return FusedMBSchedule(th, tw, nc, ci, **_mesh_terms(st))
 
 
-def select_fused_schedule(shape: SeparableShape) -> FusedSchedule:
+def select_fused_schedule(shape: SeparableShape,
+                          mesh_shape: MeshShape = (1, 1),
+                          in_layout: str = DEFAULT_LAYOUT,
+                          collective: str = DEFAULT_COLLECTIVE
+                          ) -> FusedSchedule:
     """The tile of least ``fused_separable_cost`` (SM clocks of the busiest
     SM, the reduce included) at its launch plan's splits, among tiles of at
     most SEP_MAX_TILE_PIXELS whose height keeps the copied traffic model's
     fused bytes below its staged bytes (the paper's per-layer claim; every
     height where none does); ties to the larger tile, then to the taller
-    one.  ``total_bytes`` is the traffic model's at the tile's height."""
+    one.  On a mesh the tile is solved at the shard shape: c_out / model
+    for a replicated input, c_in / model for a model-sharded one (whose
+    pointwise partial reduces per ``collective``).  ``total_bytes`` is the
+    traffic model's at the tile's height, mesh-wide."""
+    full = shape
+    shape, eff = separable_shard(full, mesh_shape, in_layout)
     out_h, out_w = -(-shape.h // shape.s), -(-shape.w // shape.s)
     cands = []
     for th in range(1, min(out_h, SEP_MAX_TILE_PIXELS) + 1):
@@ -657,8 +797,9 @@ def select_fused_schedule(shape: SeparableShape) -> FusedSchedule:
         raise ValueError(f"no fused separable tile fits the CTA budget: "
                          f"{shape}")
     th, tw, nc, splits = min(cands)[4:]
-    return FusedSchedule(th, tw, nc, splits,
-                         fused_separable_traffic(shape, th).total_bytes)
+    return FusedSchedule(th, tw, nc, splits, **_mesh_terms(
+        sharded_separable_traffic(full, th, eff, in_layout=in_layout,
+                                  collective=collective)))
 
 
 def mbconv_tile_fits(shape: MBConvShape, tile_h: int, tile_w: int,
@@ -758,41 +899,508 @@ _CACHE: Dict[tuple, object] = {}
 
 
 def get_fused_schedule(b: int, h: int, w: int, c_in: int, c_out: int,
-                       k: int, s: int, dtype_bytes: int = 4
+                       k: int, s: int, dtype_bytes: int = 4,
+                       mesh_shape: MeshShape = (1, 1),
+                       in_layout: str = DEFAULT_LAYOUT,
+                       collective: str = DEFAULT_COLLECTIVE
                        ) -> FusedSchedule:
     """Cached per-layer-shape separable-block schedule lookup (the fused
     kernel's tile; the staged route takes its tile_h too)."""
     shape = SeparableShape(b=b, h=h, w=w, c_in=c_in, c_out=c_out, k=k, s=s,
                            dtype_bytes=dtype_bytes)
-    key = ("separable", shape)
+    key = ("separable", shape, tuple(mesh_shape), in_layout, collective)
     if key not in _CACHE:
-        _CACHE[key] = select_fused_schedule(shape)
+        _CACHE[key] = select_fused_schedule(shape, mesh_shape, in_layout,
+                                            collective)
     return _CACHE[key]
 
 
 def get_mbconv_schedule(
     b: int, h: int, w: int, c_in: int, c_mid: int, c_out: int, k: int,
     s: int, se_ratio: float = 0.25, dtype_bytes: int = 4,
-    mode: Optional[str] = None,
+    mode: Optional[str] = None, mesh_shape: MeshShape = (1, 1),
+    collective: Optional[str] = None, in_layout: str = DEFAULT_LAYOUT,
 ) -> MBConvSchedule:
-    """Cached per-layer-shape schedule lookup."""
+    """Cached per-layer-shape schedule lookup (mesh, pins and the arrival
+    layout are key axes)."""
     shape = MBConvShape(b=b, h=h, w=w, c_in=c_in, c_mid=c_mid, c_out=c_out,
                         k=k, s=s, se_ratio=se_ratio, dtype_bytes=dtype_bytes)
-    key = ("mbconv", shape, mode)
+    key = ("mbconv", shape, mode, tuple(mesh_shape), collective, in_layout)
     if key not in _CACHE:
-        _CACHE[key] = select_mbconv_schedule(shape, mode)
+        _CACHE[key] = select_mbconv_schedule(shape, mode, mesh_shape,
+                                             collective, in_layout)
     return _CACHE[key]
 
 
 def get_fusedmb_schedule(
     b: int, h: int, w: int, c_in: int, c_mid: int, c_out: int, k: int,
-    s: int, dtype_bytes: int = 4,
+    s: int, dtype_bytes: int = 4, mesh_shape: MeshShape = (1, 1),
+    collective: Optional[str] = None,
 ) -> FusedMBSchedule:
     """Cached per-layer-shape Fused-MBConv schedule lookup (the shape
     carries se_ratio 0: the family never has SE)."""
     shape = MBConvShape(b=b, h=h, w=w, c_in=c_in, c_mid=c_mid, c_out=c_out,
                         k=k, s=s, se_ratio=0.0, dtype_bytes=dtype_bytes)
-    key = ("fusedmb", shape)
+    key = ("fusedmb", shape, tuple(mesh_shape), collective)
     if key not in _CACHE:
-        _CACHE[key] = select_fusedmb_schedule(shape)
+        _CACHE[key] = select_fusedmb_schedule(shape, mesh_shape, collective)
     return _CACHE[key]
+
+
+# ---------------------------------------------------------------------------
+# network-level layout solving (the JAX package's chain DP)
+#
+# A per-layer solve flips every on-mesh block to psum_scatter, but no
+# consumer keeps the c_out-sharded output: the next real-expand entry
+# gathers it back and scatter + gather == ring, word for word.  The DP
+# solves the CHAIN: states are boundary layouts, each element is priced by
+# the per-block selector under a pinned (collective, in_layout), and each
+# boundary by ``perfmodel.layout_transition_words``.  It wins strictly
+# where that identity does not hold: at the stem (a sharded stem output is
+# written once per element, not once per device of each model group) and at
+# identity-expand entries, which consume a sharded arrival free.
+# ---------------------------------------------------------------------------
+
+CHAIN_FAMILIES: Tuple[str, ...] = ("mbconv", "fusedmb")
+SMEM_RESERVED = 1024                # shared memory the card keeps per CTA
+
+
+@dataclass(frozen=True)
+class BlockPlan:
+    """One chain element's solved assignment inside a ``NetworkPlan``."""
+
+    index: int
+    shape: MBConvShape
+    in_layout: str               # arrival layout the entry consumes
+    out_layout: str              # layout the output leaves in
+    schedule: Schedule           # the per-block solve under the pins
+    boundary_words: int          # all-gather repaid AT this entry
+    # the boundary entering this block (upstream pass 2 against this
+    # block's pass 1): "pipelined" only where ``_annotate_overlap`` proved
+    # it eligible
+    entry_overlap: str = DEFAULT_OVERLAP
+    pass_costs: Optional[MBConvPassCosts] = None
+    family: str = "mbconv"
+    act: str = "silu"
+
+    @property
+    def boundary_bytes(self) -> int:
+        return self.boundary_words * self.shape.dtype_bytes
+
+
+@dataclass(frozen=True)
+class NetworkPlan:
+    """A solved (or greedy) layout chain: the stem output, then every block
+    with its schedule and the boundary all-gather its entry paid;
+    ``head_boundary_words`` is the gather before a replicated head."""
+
+    mesh_shape: MeshShape
+    stem_layout: str
+    stem_words: int              # the stem output written, mesh-wide
+    blocks: Tuple[BlockPlan, ...]
+    head_boundary_words: int
+    dtype_bytes: int = 4
+    policy: str = "solved"       # "solved" (DP) | "greedy" (per layer)
+
+    @property
+    def stem_bytes(self) -> int:
+        return self.stem_words * self.dtype_bytes
+
+    @property
+    def block_bytes(self) -> int:
+        return sum(p.schedule.total_bytes for p in self.blocks)
+
+    @property
+    def boundary_words(self) -> int:
+        return (sum(p.boundary_words for p in self.blocks)
+                + self.head_boundary_words)
+
+    @property
+    def transition_bytes(self) -> int:
+        """Every layout-transition byte of the chain: the boundary gathers
+        (the head's too) and the entry gathers inside the schedules."""
+        return (self.boundary_words * self.dtype_bytes
+                + sum(p.schedule.transition_bytes for p in self.blocks))
+
+    @property
+    def total_bytes(self) -> int:
+        return (self.stem_bytes + self.block_bytes
+                + self.boundary_words * self.dtype_bytes)
+
+    @property
+    def interconnect_words(self) -> int:
+        """The words the plan moves between devices: every block's
+        collectives and entry gathers and every boundary all-gather, the
+        head's included (what a mesh forward's collectives carry)."""
+        return (sum(p.schedule.collective_bytes + p.schedule.transition_bytes
+                    for p in self.blocks) // self.dtype_bytes
+                + self.boundary_words)
+
+    @property
+    def sharded_pairs(self) -> Tuple[Tuple[int, int], ...]:
+        """Adjacent (producer, consumer) chain positions whose boundary
+        stays model-sharded; the stem is -1."""
+        pairs = []
+        prev_idx, prev_lay = -1, self.stem_layout
+        for p in self.blocks:
+            if prev_lay == "model_sharded" and p.in_layout == "model_sharded":
+                pairs.append((prev_idx, p.index))
+            prev_idx, prev_lay = p.index, p.out_layout
+        return tuple(pairs)
+
+    @property
+    def pipelined_boundaries(self) -> Tuple[int, ...]:
+        """Block indices whose entry boundary pipelines."""
+        return tuple(p.index for p in self.blocks
+                     if p.entry_overlap == "pipelined")
+
+    def _costs(self, p: BlockPlan) -> MBConvPassCosts:
+        if p.pass_costs is not None:
+            return p.pass_costs
+        return _block_pass_costs(p.shape, p.schedule, self.mesh_shape,
+                                 p.family)
+
+    def block_pass_us(self, index: int, coeffs: PerfCoefficients
+                      ) -> Tuple[float, float]:
+        """(pass1_us, pass2_us) of one block under a calibration (the port
+        keeps no default one: pass the card's fit)."""
+        pc = self._costs(self.blocks[index])
+        return (mbconv_pass_us(coeffs, pc.pass1, pc.pass1_collective_words),
+                mbconv_pass_us(coeffs, pc.pass2, pc.pass2_collective_words))
+
+    def serial_latency_us(self, coeffs: PerfCoefficients) -> float:
+        """Modeled chain time with every boundary serial."""
+        return sum(sum(self.block_pass_us(i, coeffs))
+                   for i in range(len(self.blocks)))
+
+    def pipelined_latency_us(self, coeffs: PerfCoefficients) -> float:
+        """Modeled chain time honoring ``entry_overlap``: each pipelined
+        boundary hides min(producer pass 2, consumer pass 1)."""
+        total = self.serial_latency_us(coeffs)
+        for i in range(1, len(self.blocks)):
+            if self.blocks[i].entry_overlap != "pipelined":
+                continue
+            _p1_prev, p2_prev = self.block_pass_us(i - 1, coeffs)
+            p1_cur, _p2_cur = self.block_pass_us(i, coeffs)
+            total -= min(p2_prev, p1_cur)
+        return total
+
+    def boundary_latencies(self, coeffs: PerfCoefficients
+                           ) -> Tuple[dict, ...]:
+        """Per interior boundary: the two overlapped pass times, the serial
+        and the overlap-honoring boundary time, and the mark."""
+        out = []
+        for i in range(1, len(self.blocks)):
+            _p1, p2_prev = self.block_pass_us(i - 1, coeffs)
+            p1_cur, _p2 = self.block_pass_us(i, coeffs)
+            ov = self.blocks[i].entry_overlap
+            out.append({
+                "boundary": (self.blocks[i - 1].index, self.blocks[i].index),
+                "pass2_us": p2_prev, "pass1_us": p1_cur,
+                "serialized_us": boundary_overlap_us(p2_prev, p1_cur,
+                                                     "serial"),
+                "overlap_us": boundary_overlap_us(p2_prev, p1_cur, ov),
+                "overlap": ov,
+            })
+        return tuple(out)
+
+
+def _stem_words(b: int, h: int, w: int, c: int, mesh_shape: MeshShape,
+                layout: str) -> int:
+    """Mesh-wide words the stem output is written in: mp copies when
+    replicated, each element once when model-sharded (where c divides)."""
+    validate_layout(layout)
+    _dp, mp = shard_factors(b, c, mesh_shape)
+    full = b * h * w * c
+    if layout == "model_sharded" and mp > 1:
+        return full
+    return full * max(1, mesh_shape[1])
+
+
+def _chain_shapes(rows: Sequence, b: int, se_ratio: float, dtype_bytes: int
+                  ) -> Tuple[Tuple[MBConvShape, str, str], ...]:
+    """(shape, family, act) per chain row: ``BlockRow``s carry their own
+    family, act and SE ratio; plain (h, w, c_in, c_mid, c_out, k, s)
+    tuples are MBConv rows at the chain-wide ``se_ratio``, silu."""
+    out = []
+    for row in rows:
+        if isinstance(row, BlockRow):
+            if row.family not in CHAIN_FAMILIES:
+                raise ValueError(f"family must be one of {CHAIN_FAMILIES}, "
+                                 f"got {row.family!r}")
+            se = 0.0 if row.family == "fusedmb" else row.se_ratio
+            out.append((MBConvShape(b=b, h=row.h, w=row.w, c_in=row.c_in,
+                                    c_mid=row.c_mid, c_out=row.c_out,
+                                    k=row.k, s=row.s, se_ratio=se,
+                                    dtype_bytes=dtype_bytes),
+                        row.family, row.act))
+        else:
+            h, w, ci, cm, co, k, s = row
+            out.append((MBConvShape(b=b, h=h, w=w, c_in=ci, c_mid=cm,
+                                    c_out=co, k=k, s=s, se_ratio=se_ratio,
+                                    dtype_bytes=dtype_bytes),
+                        "mbconv", "silu"))
+    return tuple(out)
+
+
+def network_rows_from_table(
+    table: Sequence[Tuple[int, int, int, int, int, int]]
+) -> Tuple[Tuple[int, int, int, int, int, int, int], ...]:
+    """(h, w, c_in, c_mid, c_out, k, s) chain rows from a
+    ``core.workloads`` MBConv table of (c_in, c_out, expand, k, s, hw)."""
+    return tuple((hw, hw, ci, ci * e, co, k, s)
+                 for ci, co, e, k, s, hw in table)
+
+
+def _allowed_in_layouts(shape: MBConvShape,
+                        mesh_shape: MeshShape) -> Tuple[str, ...]:
+    """Arrivals worth offering: replicated, and model-sharded only where
+    the entry takes it free (an identity expand; a real expand's entry
+    gather is byte-identical to the boundary repay)."""
+    if can_shard_input(shape, mesh_shape):
+        return (DEFAULT_LAYOUT, "model_sharded")
+    return (DEFAULT_LAYOUT,)
+
+
+def _allowed_out_layouts(shape: MBConvShape,
+                         mesh_shape: MeshShape) -> Tuple[str, ...]:
+    _dp, mp = shard_factors(shape.b, shape.c_mid, mesh_shape)
+    if mp > 1:
+        return (DEFAULT_LAYOUT, "model_sharded")
+    return (DEFAULT_LAYOUT,)
+
+
+def _block_pass_costs(shape: MBConvShape, sch, mesh_shape: MeshShape,
+                      family: str = "mbconv") -> MBConvPassCosts:
+    if family == "fusedmb":
+        return sharded_fusedmb_pass_costs(shape, sch.tile_h, mesh_shape,
+                                          C_BLOCK, sch.collective)
+    return sharded_mbconv_pass_costs(shape, sch.tile_h, sch.mode, mesh_shape,
+                                     C_BLOCK, sch.collective, sch.in_layout)
+
+
+BlockSelector = Callable[[MBConvShape, str, MeshShape, Optional[str], str],
+                         Schedule]
+
+
+def select_block_schedule(shape: MBConvShape, family: str,
+                          mesh_shape: MeshShape, collective: Optional[str],
+                          in_layout: str) -> Schedule:
+    """The per-block selector the DP calls: the family's cached solve under
+    the pinned collective and arrival layout."""
+    if family == "fusedmb":
+        return get_fusedmb_schedule(
+            shape.b, shape.h, shape.w, shape.c_in, shape.c_mid, shape.c_out,
+            shape.k, shape.s, shape.dtype_bytes, mesh_shape, collective)
+    return get_mbconv_schedule(
+        shape.b, shape.h, shape.w, shape.c_in, shape.c_mid, shape.c_out,
+        shape.k, shape.s, shape.se_ratio, shape.dtype_bytes,
+        mesh_shape=mesh_shape, collective=collective, in_layout=in_layout)
+
+
+def _pass2_smem_bytes(p: BlockPlan, mesh_shape: MeshShape) -> int:
+    """Shared memory of one CTA of a two-pass block's pass 2 at its
+    shard."""
+    local, _ = mbconv_shard(p.shape, mesh_shape, p.in_layout)
+    kern = _kernel_shape(p.shape, local)
+    sch = p.schedule
+    if sch.mode == "retain":
+        bm, bn, _ = retain_plan(kern.b * kern.out_h * kern.out_w,
+                                kern.c_mid, kern.c_out)
+        return retain_smem_bytes(bm, bn)
+    return recompute_smem_bytes(kern.k, kern.s, sch.tile_h, sch.tile_w,
+                                kern.c_in, kern.c_mid, kern.c_out)
+
+
+def _pass1_smem_bytes(p: BlockPlan, mesh_shape: MeshShape) -> int:
+    """Shared memory of one CTA of a block's first launch at its shard (a
+    Fused-MBConv block's single pass)."""
+    sch = p.schedule
+    if p.family == "fusedmb":
+        local, _ = fusedmb_shard(p.shape, mesh_shape)
+        return fusedmb_smem_bytes(local, sch.tile_h, sch.tile_w)
+    local, _ = mbconv_shard(p.shape, mesh_shape, p.in_layout)
+    kern = _kernel_shape(p.shape, local)
+    return pass1_smem_bytes(kern.k, kern.s, sch.tile_h, sch.tile_w,
+                            kern.c_in, kern.c_mid)
+
+
+def _annotate_overlap(plan: NetworkPlan) -> NetworkPlan:
+    """Mark every boundary a chain executor could pipeline: the consumer's
+    first launch beside the producer's pass 2 (they share no buffer but the
+    activation streamed between them, which ``models.blockgraph`` proves).
+    Boundary i-1 -> i pipelines iff
+
+    * the producer has a pass 2 (a single-pass Fused-MBConv does not) and
+      both the producer's pass 2 and the consumer's pass 1 launch (a no-SE
+      recompute block has no pass 1);
+    * the consumer's entry gathers nothing (a boundary repay or an entry
+      all-gather is a barrier its first load waits on);
+    * one CTA of each fits one SM's shared memory together, the card's
+      twin of the JAX package's halved VMEM budget, so the two can be
+      resident at once.
+
+    Overlap moves time, never bytes: the schedules stay as solved.  The
+    JAX package also asks its calibration whether the overlap hides time;
+    the port has no default calibration (``NetworkPlan.block_pass_us``
+    takes the card's fit), and both passes launching is what that check
+    reads under a fit with a positive base."""
+    blocks = list(plan.blocks)
+    for i in range(1, len(blocks)):
+        prev, cur = blocks[i - 1], blocks[i]
+        if prev.family == "fusedmb":
+            continue
+        if cur.boundary_words != 0 or cur.schedule.transition_bytes != 0:
+            continue
+        if (plan._costs(prev).pass2.total_words == 0
+                or plan._costs(cur).pass1.total_words == 0):
+            continue
+        smem = (_pass2_smem_bytes(prev, plan.mesh_shape)
+                + _pass1_smem_bytes(cur, plan.mesh_shape)
+                + 2 * SMEM_RESERVED)
+        if smem > SMEM_PER_SM:
+            continue
+        blocks[i] = replace(cur, entry_overlap="pipelined")
+        telemetry.counter("autotune.network_plan.pipelined_boundary")
+    return replace(plan, blocks=tuple(blocks))
+
+
+def _block_plan(i: int, shape: MBConvShape, family: str, act: str, sch,
+                bwords: int, mesh_shape: MeshShape) -> BlockPlan:
+    return BlockPlan(index=i, shape=shape, in_layout=sch.in_layout,
+                     out_layout=sch.out_layout, schedule=sch,
+                     boundary_words=bwords,
+                     pass_costs=_block_pass_costs(shape, sch, mesh_shape,
+                                                  family),
+                     family=family, act=act)
+
+
+def solve_network_schedule(
+    rows: Sequence, b: int, mesh_shape: MeshShape = (1, 1),
+    dtype_bytes: int = 4, se_ratio: float = 0.25,
+    select: BlockSelector = select_block_schedule,
+) -> NetworkPlan:
+    """DP over the block chain choosing each block's (collective, in
+    layout, out layout) jointly for the fewest modeled bytes end to end.
+
+    ``rows`` are ``BlockRow``s or (h, w, c_in, c_mid, c_out, k, s) MBConv
+    tuples; the stem boundary is seeded from the first block's input.
+    Each (state, in layout, out layout) candidate costs the boundary
+    transition plus ``select(shape, family, mesh_shape, collective,
+    in_layout)``, the per-block solve under those pins (a Fused-MBConv
+    entry is replicated only).  Byte ties keep boundaries replicated:
+    candidates come replicated first and only a strict improvement
+    replaces a state.  Then ``_annotate_overlap`` marks the boundaries
+    that can pipeline."""
+    chain = _chain_shapes(rows, b, se_ratio, dtype_bytes)
+    if not chain:
+        raise ValueError("network solve needs at least one block row")
+    first = chain[0][0]
+    h0, w0, c0 = first.h, first.w, first.c_in
+    _dp0, mp0 = shard_factors(b, c0, mesh_shape)
+    stem_opts = [DEFAULT_LAYOUT] + (["model_sharded"] if mp0 > 1 else [])
+    # boundary layout -> (bytes so far, stem layout, block plans)
+    states: Dict[str, tuple] = {}
+    for lay in stem_opts:
+        cost = _stem_words(b, h0, w0, c0, mesh_shape, lay) * dtype_bytes
+        cur = states.get(lay)
+        if cur is None or cost < cur[0]:
+            states[lay] = (cost, lay, ())
+    prev_dims = (h0, w0, c0)
+    for i, (shape, family, act) in enumerate(chain):
+        in_lays = ((DEFAULT_LAYOUT,) if family == "fusedmb"
+                   else _allowed_in_layouts(shape, mesh_shape))
+        new_states: Dict[str, tuple] = {}
+        for prev_lay, (cost, stem_lay, plans) in states.items():
+            for in_lay in in_lays:
+                bwords = layout_transition_words(
+                    b, prev_dims[0], prev_dims[1], prev_dims[2],
+                    mesh_shape, prev_lay, in_lay)
+                for out_lay in _allowed_out_layouts(shape, mesh_shape):
+                    coll = ("psum_scatter" if out_lay == "model_sharded"
+                            else DEFAULT_COLLECTIVE)
+                    sch = select(shape, family, mesh_shape, coll, in_lay)
+                    total = cost + bwords * dtype_bytes + sch.total_bytes
+                    cur = new_states.get(sch.out_layout)
+                    if cur is None or total < cur[0]:
+                        new_states[sch.out_layout] = (
+                            total, stem_lay, plans + (_block_plan(
+                                i, shape, family, act, sch, bwords,
+                                mesh_shape),))
+        states = new_states
+        prev_dims = (shape.out_h, shape.out_w, shape.c_out)
+    best = None
+    for lay, (cost, stem_lay, plans) in states.items():
+        head_words = layout_transition_words(
+            b, prev_dims[0], prev_dims[1], prev_dims[2], mesh_shape,
+            lay, DEFAULT_LAYOUT)
+        total = cost + head_words * dtype_bytes
+        if best is None or total < best[0]:
+            best = (total, stem_lay, plans, head_words)
+    total, stem_lay, plans, head_words = best
+    plan = NetworkPlan(
+        mesh_shape=tuple(mesh_shape), stem_layout=stem_lay,
+        stem_words=_stem_words(b, h0, w0, c0, mesh_shape, stem_lay),
+        blocks=plans, head_boundary_words=head_words,
+        dtype_bytes=dtype_bytes, policy="solved")
+    assert plan.total_bytes == total   # the parts re-sum to the DP's cost
+    plan = _annotate_overlap(plan)
+    assert plan.total_bytes == total   # overlap moves time, never bytes
+    return plan
+
+
+def greedy_network_schedule(
+    rows: Sequence, b: int, mesh_shape: MeshShape = (1, 1),
+    dtype_bytes: int = 4, se_ratio: float = 0.25,
+    select: BlockSelector = select_block_schedule,
+) -> NetworkPlan:
+    """The per-layer reference the DP is gated against: every block solved
+    alone (replicated arrival, free collective: psum_scatter wherever it
+    runs), the stem replicated, and every sharded exit repaid by an
+    all-gather at the next entry."""
+    chain = _chain_shapes(rows, b, se_ratio, dtype_bytes)
+    if not chain:
+        raise ValueError("network solve needs at least one block row")
+    first = chain[0][0]
+    h0, w0, c0 = first.h, first.w, first.c_in
+    plans = []
+    prev_lay, prev_dims = DEFAULT_LAYOUT, (h0, w0, c0)
+    for i, (shape, family, act) in enumerate(chain):
+        sch = select(shape, family, mesh_shape, None, DEFAULT_LAYOUT)
+        bwords = layout_transition_words(
+            b, prev_dims[0], prev_dims[1], prev_dims[2], mesh_shape,
+            prev_lay, DEFAULT_LAYOUT)
+        plans.append(_block_plan(i, shape, family, act, sch, bwords,
+                                 mesh_shape))
+        prev_lay = sch.out_layout
+        prev_dims = (shape.out_h, shape.out_w, shape.c_out)
+    head_words = layout_transition_words(
+        b, prev_dims[0], prev_dims[1], prev_dims[2], mesh_shape,
+        prev_lay, DEFAULT_LAYOUT)
+    return NetworkPlan(
+        mesh_shape=tuple(mesh_shape), stem_layout=DEFAULT_LAYOUT,
+        stem_words=_stem_words(b, h0, w0, c0, mesh_shape, DEFAULT_LAYOUT),
+        blocks=tuple(plans), head_boundary_words=head_words,
+        dtype_bytes=dtype_bytes, policy="greedy")
+
+
+@functools.lru_cache(maxsize=64)
+def _network_plan_cached(rows: tuple, b: int, mesh_shape: MeshShape,
+                         dtype_bytes: int, se_ratio: float) -> NetworkPlan:
+    return solve_network_schedule(rows, b, mesh_shape, dtype_bytes,
+                                  se_ratio)
+
+
+def get_network_plan(rows: Sequence, b: int, mesh_shape: MeshShape = (1, 1),
+                     dtype_bytes: int = 4, se_ratio: float = 0.25
+                     ) -> NetworkPlan:
+    """Cached network solve; ``autotune.network_plan.solve`` counts a fresh
+    DP, ``autotune.network_plan.reuse`` a cache hit."""
+    misses = _network_plan_cached.cache_info().misses
+    frozen = tuple(r if isinstance(r, BlockRow) else tuple(r) for r in rows)
+    plan = _network_plan_cached(frozen, b, tuple(mesh_shape), dtype_bytes,
+                                se_ratio)
+    solved = _network_plan_cached.cache_info().misses > misses
+    telemetry.counter("autotune.network_plan.solve" if solved
+                      else "autotune.network_plan.reuse")
+    return plan

@@ -19,6 +19,12 @@ package), in two halves:
   The separable and Fused-MBConv tile_h and the retain/recompute choice
   of ``core.autotune`` are priced here.
 
+* **The mesh half**: ``ShardedTraffic`` and the per-device and
+  collective pricing of the separable, MBConv and Fused-MBConv blocks
+  partitioned over a ("data", "model") mesh (``shard_factors`` ...
+  ``sharded_fusedmb_staged_traffic``), the layout transitions between
+  blocks, and the per-pass split the cross-block overlap reads
+  (``MBConvPassCosts`` ... ``overlap_saving_us``).
 * **The calibration**: ``PerfCoefficients``, ``fit_perf_coefficients``
   and ``predict_walltime_us``, which fit measured wall time onto modeled
   bytes and staging issues (``benchmarks.roofline_bench --bench``).
@@ -69,7 +75,7 @@ the JAX package):
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, Iterable, List, Tuple
 
 from .tiling import (
@@ -750,6 +756,468 @@ def fusedmb_staged_traffic(
 
 
 # ---------------------------------------------------------------------------
+# Sharded traffic: per-device bytes and collective words
+#
+# ``kernels.convdk_sharded`` partitions the fused pipelines over the
+# ("data", "model") mesh of ``launch.mesh`` (a "pod" axis folds into the
+# data factor): batch on "data" for every family, c_out on "model" for the
+# separable block (collective-free: its c_in reduction is local) and c_mid
+# on "model" for MBConv and Fused-MBConv (the SE squeeze and the projection
+# reduce over the whole expanded width, so each becomes a reduction across
+# the model group).  Per-device traffic is the single-device model at the
+# shard shape; collective words follow the schedule's collective:
+#
+# * ``ring_allreduce``: 2*(mp-1) words per reduced word per model group
+#   (reduce-scatter + all-gather; the result lands replicated);
+# * ``psum_scatter`` (the projection only): (mp-1) words per reduced word,
+#   the output leaving c_out-sharded, padded to the model factor.  The SE
+#   squeeze always rings: the excite FC needs it replicated.
+#
+# Words are summed over the dp model groups; an axis that does not divide
+# its grid drops the whole layer to (1, 1).  The same arithmetic, in the
+# same order, as ``repro.core.perfmodel``'s mesh half, at the strip-staged
+# residency this module fixes.
+# ---------------------------------------------------------------------------
+
+MeshShape = Tuple[int, int]     # ("data", "model") factors, (1, 1) = 1 card
+
+COLLECTIVE_MODES: Tuple[str, ...] = ("ring_allreduce", "psum_scatter")
+DEFAULT_COLLECTIVE = "ring_allreduce"
+
+# How a block's activation sits across the "model" group at a block
+# boundary: ``replicated`` (every device holds its data group's whole
+# (B_local, H, W, C) slice) or ``model_sharded`` (the channels split over
+# "model": what a psum_scatter exit leaves, and what an identity-expand
+# MBConv or a sharded-c_in separable entry consumes collective-free).
+LAYOUT_MODES: Tuple[str, ...] = ("replicated", "model_sharded")
+DEFAULT_LAYOUT = "replicated"
+
+
+def validate_collective(collective: str) -> str:
+    if collective not in COLLECTIVE_MODES:
+        raise ValueError(
+            f"collective must be one of {COLLECTIVE_MODES}, "
+            f"got {collective!r}")
+    return collective
+
+
+def validate_layout(layout: str) -> str:
+    if layout not in LAYOUT_MODES:
+        raise ValueError(
+            f"layout must be one of {LAYOUT_MODES}, got {layout!r}")
+    return layout
+
+
+@dataclass(frozen=True)
+class ShardedTraffic:
+    """One fused block under one (data, model) partitioning."""
+
+    device: HBMTraffic           # traffic of ONE device's shard
+    collective_words: int        # interconnect words, summed over the mesh
+    n_devices: int
+    mesh_shape: MeshShape = (1, 1)
+    collective: str = DEFAULT_COLLECTIVE   # reduction layout priced above
+    in_layout: str = DEFAULT_LAYOUT        # how the input arrives
+    transition_words: int = 0    # entry-side layout repay (all-gather words)
+
+    @property
+    def dtype_bytes(self) -> int:
+        return self.device.dtype_bytes
+
+    @property
+    def per_device_bytes(self) -> int:
+        return self.device.total_bytes
+
+    @property
+    def collective_bytes(self) -> int:
+        return self.collective_words * self.dtype_bytes
+
+    @property
+    def transition_bytes(self) -> int:
+        return self.transition_words * self.dtype_bytes
+
+    @property
+    def out_layout(self) -> str:
+        """The layout the output leaves in: c_out-sharded after a
+        psum_scatter, replicated otherwise."""
+        _dp, mp = self.mesh_shape
+        if mp > 1 and self.collective == "psum_scatter":
+            return "model_sharded"
+        return DEFAULT_LAYOUT
+
+    @property
+    def total_bytes(self) -> int:
+        """Every device's bytes plus the interconnect words (reductions and
+        any entry-side layout repay)."""
+        return (self.device.total_bytes * self.n_devices
+                + self.collective_bytes + self.transition_bytes)
+
+
+def shard_factors(batch: int, channels: int,
+                  mesh_shape: MeshShape) -> MeshShape:
+    """Effective (data, model) split, as ``kernels.can_shard_fused`` routes:
+    all or nothing, so a layer either axis does not divide prices (and
+    runs) as (1, 1)."""
+    dp, mp = mesh_shape
+    if dp < 1 or mp < 1 or batch % dp != 0 or channels % mp != 0:
+        return 1, 1
+    return dp, mp
+
+
+def separable_shard(
+    shape: SeparableShape, mesh_shape: MeshShape,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> Tuple[SeparableShape, MeshShape]:
+    """(per-device shard shape, effective factors) of the separable block:
+    batch over "data", and c_out over "model" for a replicated input or
+    c_in over "model" for a model-sharded one."""
+    validate_layout(in_layout)
+    if in_layout == "model_sharded":
+        dp, mp = shard_factors(shape.b, shape.c_in, mesh_shape)
+        if mp > 1:
+            return replace(shape, b=shape.b // dp,
+                           c_in=shape.c_in // mp), (dp, mp)
+        return replace(shape, b=shape.b // dp), (dp, mp)
+    dp, mp = shard_factors(shape.b, shape.c_out, mesh_shape)
+    return replace(shape, b=shape.b // dp, c_out=shape.c_out // mp), (dp, mp)
+
+
+def can_shard_input(shape: MBConvShape, mesh_shape: MeshShape) -> bool:
+    """True iff the MBConv block consumes a c_in-sharded input with no entry
+    collective: only an identity expand (c_mid == c_in) does, its slice of
+    c_in being exactly its slice of c_mid."""
+    _dp, mp = shard_factors(shape.b, shape.c_mid, mesh_shape)
+    return mp > 1 and not shape.has_expand
+
+
+def mbconv_shard(
+    shape: MBConvShape, mesh_shape: MeshShape,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> Tuple[MBConvShape, MeshShape]:
+    """(per-device shard shape, effective factors) of the MBConv block:
+    batch over "data", c_mid over "model", and c_in with it for a
+    model-sharded input to an identity expand."""
+    validate_layout(in_layout)
+    dp, mp = shard_factors(shape.b, shape.c_mid, mesh_shape)
+    local = replace(shape, b=shape.b // dp, c_mid=shape.c_mid // mp)
+    if in_layout == "model_sharded" and mp > 1 and not shape.has_expand:
+        local = replace(local, c_in=shape.c_in // mp)
+    return local, (dp, mp)
+
+
+def scatter_c_out(c_out: int, mp: int) -> int:
+    """Channel width a psum_scatter moves: c_out rounded up to the model
+    factor (the padding columns are zero projection columns)."""
+    if mp <= 1:
+        return c_out
+    return _round_up(c_out, mp)
+
+
+def _separable_collective_words(shape: SeparableShape, dp: int, mp: int,
+                                collective: str) -> int:
+    """Words of the sharded-c_in separable form: the pointwise partial over
+    each device's c_in rows, reduced across the model group per
+    ``collective``."""
+    validate_collective(collective)
+    if mp <= 1:
+        return 0
+    b_local = shape.b // dp
+    out = b_local * shape.out_h * shape.out_w * shape.c_out
+    if collective == "psum_scatter":
+        return dp * (mp - 1) * (b_local * shape.out_h * shape.out_w
+                                * scatter_c_out(shape.c_out, mp))
+    return dp * 2 * (mp - 1) * out
+
+
+def sharded_separable_traffic(
+    shape: SeparableShape, tile_h: int, mesh_shape: MeshShape = (1, 1),
+    c_block: int = 128, in_layout: str = DEFAULT_LAYOUT,
+    collective: str = DEFAULT_COLLECTIVE,
+) -> ShardedTraffic:
+    """Per-device traffic of the sharded fused separable block: collective
+    free for a replicated input (c_out on "model"); for a model-sharded
+    input (c_in on "model") each device reads its slice and the pointwise
+    partial reduces per ``collective``."""
+    validate_layout(in_layout)
+    local, (dp, mp) = separable_shard(shape, mesh_shape, in_layout)
+    if in_layout == "model_sharded" and mp > 1:
+        return ShardedTraffic(
+            device=fused_separable_traffic(local, tile_h, c_block),
+            collective_words=_separable_collective_words(
+                shape, dp, mp, collective),
+            n_devices=dp * mp, mesh_shape=(dp, mp), collective=collective,
+            in_layout=in_layout)
+    return ShardedTraffic(
+        device=fused_separable_traffic(local, tile_h, c_block),
+        collective_words=0, n_devices=dp * mp, mesh_shape=(dp, mp))
+
+
+def sharded_separable_staged_traffic(
+    shape: SeparableShape, tile_h: int, mesh_shape: MeshShape = (1, 1),
+) -> ShardedTraffic:
+    """The staged separable pipeline under the same partitioning (its
+    pointwise reduction is c_in-local too: collective-free)."""
+    local, (dp, mp) = separable_shard(shape, mesh_shape)
+    return ShardedTraffic(
+        device=staged_separable_traffic(local, tile_h),
+        collective_words=0, n_devices=dp * mp, mesh_shape=(dp, mp))
+
+
+def can_psum_scatter(shape: MBConvShape, mesh_shape: MeshShape) -> bool:
+    """True iff the psum_scatter exit runs at this partitioning: the layer
+    shards on "model" (a c_out the factor does not divide pads)."""
+    _dp, mp = shard_factors(shape.b, shape.c_mid, mesh_shape)
+    return mp > 1
+
+
+def layout_transition_words(
+    b: int, h: int, w: int, c: int, mesh_shape: MeshShape,
+    producer_layout: str, consumer_layout: str,
+) -> int:
+    """Words to move a (b, h, w, c) activation from the producer's boundary
+    layout to the consumer's: an all-gather of the missing (mp-1)/mp
+    slices per model group (summed over the dp groups) where a sharded
+    output feeds a replicated entry; free otherwise (a replicated output
+    feeding a sharded entry slices locally)."""
+    validate_layout(producer_layout)
+    validate_layout(consumer_layout)
+    dp, mp = mesh_shape
+    if (mp <= 1 or producer_layout != "model_sharded"
+            or consumer_layout == "model_sharded"):
+        return 0
+    b_local = b // dp if dp > 1 and b % dp == 0 else b
+    # (mp-1) words per gathered word per group: scatter + gather == ring
+    return dp * (mp - 1) * b_local * h * w * scatter_c_out(c, mp)
+
+
+def _mbconv_entry_transition_words(shape: MBConvShape, dp: int, mp: int,
+                                   in_layout: str) -> int:
+    """Entry-side all-gather where a c_in-sharded input feeds a real expand
+    (dense over all of c_in); zero for the identity expand and for
+    replicated arrivals."""
+    if mp <= 1 or in_layout != "model_sharded" or not shape.has_expand:
+        return 0
+    b_local = shape.b // dp
+    return dp * (mp - 1) * b_local * shape.h * shape.w * shape.c_in
+
+
+def _mbconv_collective_split(
+    shape: MBConvShape, dp: int, mp: int,
+    collective: str = DEFAULT_COLLECTIVE,
+) -> Tuple[int, int]:
+    """Mesh-wide ``(squeeze, projection)`` words: the (B_local, C_se) SE
+    squeeze partial rings (pass 1: the gate waits on it); the (B_local,
+    H', W', C_out) projection partial rings or reduce-scatters (pass 2)."""
+    validate_collective(collective)
+    if mp <= 1:
+        return 0, 0
+    b_local = shape.b // dp
+    squeeze = b_local * shape.c_se          # 0 for a block without SE
+    proj = b_local * shape.out_h * shape.out_w * shape.c_out
+    if collective == "psum_scatter":
+        proj_words = (mp - 1) * (b_local * shape.out_h * shape.out_w
+                                 * scatter_c_out(shape.c_out, mp))
+    else:
+        proj_words = 2 * (mp - 1) * proj
+    return dp * 2 * (mp - 1) * squeeze, dp * proj_words
+
+
+def _mbconv_collective_words(shape: MBConvShape, dp: int, mp: int,
+                             collective: str = DEFAULT_COLLECTIVE) -> int:
+    """The two c_mid reductions' words: ``_mbconv_collective_split``
+    summed."""
+    squeeze, proj = _mbconv_collective_split(shape, dp, mp, collective)
+    return squeeze + proj
+
+
+def sharded_mbconv_traffic(
+    shape: MBConvShape, tile_h: int, mode: str = "retain",
+    mesh_shape: MeshShape = (1, 1), c_block: int = 128,
+    collective: str = DEFAULT_COLLECTIVE,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> ShardedTraffic:
+    """Per-device traffic and collective words of the sharded two-pass
+    MBConv: batch over "data", c_mid over "model", the SE squeeze and the
+    projection reduced across the model group.  ``in_layout`` prices the
+    entry: an identity expand takes a model-sharded input free (c_in shards
+    with c_mid), a real expand gathers it back (``transition_words``)."""
+    validate_layout(in_layout)
+    local, (dp, mp) = mbconv_shard(shape, mesh_shape, in_layout)
+    eff_layout = in_layout if mp > 1 else DEFAULT_LAYOUT
+    return ShardedTraffic(
+        device=mbconv_fused_traffic(local, tile_h, mode, c_block),
+        collective_words=_mbconv_collective_words(shape, dp, mp, collective),
+        n_devices=dp * mp, mesh_shape=(dp, mp), collective=collective,
+        in_layout=eff_layout,
+        transition_words=_mbconv_entry_transition_words(
+            shape, dp, mp, eff_layout))
+
+
+def sharded_mbconv_staged_traffic(
+    shape: MBConvShape, tile_h: int, mesh_shape: MeshShape = (1, 1),
+    c_block: int = 128, collective: str = DEFAULT_COLLECTIVE,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> ShardedTraffic:
+    """The staged MBConv pipeline under the same partitioning: the same
+    collectives and entry, so fused against staged stays a comparison of
+    device bytes."""
+    validate_layout(in_layout)
+    local, (dp, mp) = mbconv_shard(shape, mesh_shape, in_layout)
+    eff_layout = in_layout if mp > 1 else DEFAULT_LAYOUT
+    return ShardedTraffic(
+        device=mbconv_staged_traffic(local, tile_h, c_block),
+        collective_words=_mbconv_collective_words(shape, dp, mp, collective),
+        n_devices=dp * mp, mesh_shape=(dp, mp), collective=collective,
+        in_layout=eff_layout,
+        transition_words=_mbconv_entry_transition_words(
+            shape, dp, mp, eff_layout))
+
+
+def fusedmb_shard(
+    shape: MBConvShape, mesh_shape: MeshShape,
+) -> Tuple[MBConvShape, MeshShape]:
+    """(per-device shard shape, effective factors) of the Fused-MBConv
+    block: batch over "data", c_mid over "model"; c_in never shards (the
+    dense conv contracts over all of it)."""
+    _require_no_se(shape)
+    dp, mp = shard_factors(shape.b, shape.c_mid, mesh_shape)
+    return replace(shape, b=shape.b // dp, c_mid=shape.c_mid // mp), (dp, mp)
+
+
+def _fusedmb_collective_words(shape: MBConvShape, dp: int, mp: int,
+                              collective: str) -> int:
+    """The Fused-MBConv's one reduction, the projection partial, priced as
+    MBConv's."""
+    validate_collective(collective)
+    if mp <= 1:
+        return 0
+    b_local = shape.b // dp
+    if collective == "psum_scatter":
+        return dp * (mp - 1) * (b_local * shape.out_h * shape.out_w
+                                * scatter_c_out(shape.c_out, mp))
+    out = b_local * shape.out_h * shape.out_w * shape.c_out
+    return dp * 2 * (mp - 1) * out
+
+
+def _replicated_only(in_layout: str) -> None:
+    validate_layout(in_layout)
+    if in_layout != DEFAULT_LAYOUT:
+        raise ValueError(
+            f"fusedmb consumes replicated arrivals only, got {in_layout!r}")
+
+
+def sharded_fusedmb_traffic(
+    shape: MBConvShape, tile_h: int, mesh_shape: MeshShape = (1, 1),
+    c_block: int = 128, collective: str = DEFAULT_COLLECTIVE,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> ShardedTraffic:
+    """Per-device traffic and collective words of the sharded Fused-MBConv
+    (replicated input only: a sharded producer repays at the boundary)."""
+    _replicated_only(in_layout)
+    local, (dp, mp) = fusedmb_shard(shape, mesh_shape)
+    return ShardedTraffic(
+        device=fusedmb_fused_traffic(local, tile_h, c_block),
+        collective_words=_fusedmb_collective_words(shape, dp, mp, collective),
+        n_devices=dp * mp, mesh_shape=(dp, mp), collective=collective,
+        in_layout=DEFAULT_LAYOUT)
+
+
+def sharded_fusedmb_staged_traffic(
+    shape: MBConvShape, tile_h: int, mesh_shape: MeshShape = (1, 1),
+    c_block: int = 128, collective: str = DEFAULT_COLLECTIVE,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> ShardedTraffic:
+    """The staged Fused-MBConv pipeline under the same partitioning and
+    collective."""
+    _replicated_only(in_layout)
+    local, (dp, mp) = fusedmb_shard(shape, mesh_shape)
+    return ShardedTraffic(
+        device=fusedmb_staged_traffic(local, tile_h, c_block),
+        collective_words=_fusedmb_collective_words(shape, dp, mp, collective),
+        n_devices=dp * mp, mesh_shape=(dp, mp), collective=collective,
+        in_layout=DEFAULT_LAYOUT)
+
+
+# ---------------------------------------------------------------------------
+# Cross-block overlap: per-pass costs of a sharded block
+#
+# Pass 2 of block i and pass 1 of block i+1 touch disjoint buffers but the
+# activation between them, so a chain executor may run the consumer's
+# pass 1 beside the producer's pass 2; a pipelined boundary then costs
+# max(pass2_us, pass1_us) instead of their sum.
+# ---------------------------------------------------------------------------
+
+OVERLAP_MODES: Tuple[str, ...] = ("serial", "pipelined")
+DEFAULT_OVERLAP = "serial"
+
+
+def validate_overlap(overlap: str) -> str:
+    if overlap not in OVERLAP_MODES:
+        raise ValueError(
+            f"overlap must be one of {OVERLAP_MODES}, got {overlap!r}")
+    return overlap
+
+
+@dataclass(frozen=True)
+class MBConvPassCosts:
+    """One sharded block's costs split by pass: per-device traffic and the
+    mesh-wide collective words each pass waits on (they sum to the block's
+    ``ShardedTraffic``)."""
+
+    pass1: HBMTraffic            # one device's pass-1 (+ SE MLP) traffic
+    pass2: HBMTraffic            # one device's pass-2 traffic
+    pass1_collective_words: int  # SE squeeze ring + any entry gather
+    pass2_collective_words: int  # projection reduction (ring or scatter)
+
+    @property
+    def dtype_bytes(self) -> int:
+        return self.pass1.dtype_bytes
+
+    @property
+    def pass1_collective_bytes(self) -> int:
+        return self.pass1_collective_words * self.dtype_bytes
+
+    @property
+    def pass2_collective_bytes(self) -> int:
+        return self.pass2_collective_words * self.dtype_bytes
+
+
+def sharded_mbconv_pass_costs(
+    shape: MBConvShape, tile_h: int, mode: str = "retain",
+    mesh_shape: MeshShape = (1, 1), c_block: int = 128,
+    collective: str = DEFAULT_COLLECTIVE,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> MBConvPassCosts:
+    """``sharded_mbconv_traffic`` split by pass: squeeze and any entry
+    gather on pass 1, the projection reduction on pass 2."""
+    validate_layout(in_layout)
+    local, (dp, mp) = mbconv_shard(shape, mesh_shape, in_layout)
+    eff_layout = in_layout if mp > 1 else DEFAULT_LAYOUT
+    p1, p2 = mbconv_pass_traffic(local, tile_h, mode, c_block)
+    squeeze, proj = _mbconv_collective_split(shape, dp, mp, collective)
+    entry = _mbconv_entry_transition_words(shape, dp, mp, eff_layout)
+    return MBConvPassCosts(pass1=p1, pass2=p2,
+                           pass1_collective_words=squeeze + entry,
+                           pass2_collective_words=proj)
+
+
+def sharded_fusedmb_pass_costs(
+    shape: MBConvShape, tile_h: int, mesh_shape: MeshShape = (1, 1),
+    c_block: int = 128, collective: str = DEFAULT_COLLECTIVE,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> MBConvPassCosts:
+    """``sharded_fusedmb_traffic`` split by pass: the whole single-pass
+    block, its collective too, on pass 1; pass 2 is zero."""
+    _replicated_only(in_layout)
+    local, (dp, mp) = fusedmb_shard(shape, mesh_shape)
+    p1, p2 = fusedmb_pass_traffic(local, tile_h, c_block)
+    proj = _fusedmb_collective_words(shape, dp, mp, collective)
+    return MBConvPassCosts(pass1=p1, pass2=p2,
+                           pass1_collective_words=proj,
+                           pass2_collective_words=0)
+
+
+# ---------------------------------------------------------------------------
 # Measured calibration: fitting walltime coefficients onto the byte model
 # ---------------------------------------------------------------------------
 
@@ -765,8 +1233,8 @@ class PerfCoefficients:
     The two non-byte terms are the costs the byte model cannot see: the
     per-issue overhead of staging (on the card, one cp.async ring stage of
     one CTA: ``core.hopper_traffic``'s ``issues``) and the latency of a
-    collective word relative to a device-memory word (0 on one card until
-    the sharded wrappers are ported).  ``rms_us`` is the fit residual —
+    collective word relative to a device-memory word (0 where a sweep
+    has no collectives, as on one card).  ``rms_us`` is the fit residual —
     report it next to the coefficients, a fit that explains nothing should
     not decide knobs.  Counterpart of ``repro.core.perfmodel``'s; its
     CPU-interpret default coefficients are not carried over.
@@ -836,3 +1304,28 @@ def predict_walltime_us(coeffs: PerfCoefficients, *, modeled_bytes: float,
             + coeffs.us_per_mb * modeled_bytes / 1e6
             + coeffs.us_per_dma_issue * dma_issues
             + coeffs.us_per_collective_mb * collective_bytes / 1e6)
+
+
+def mbconv_pass_us(coeffs: PerfCoefficients, traffic: HBMTraffic,
+                   collective_words: int = 0) -> float:
+    """Calibrated time of ONE pass, floored at zero (a fit may go negative
+    at small extrapolated points; a pass never takes negative time)."""
+    return max(0.0, predict_walltime_us(
+        coeffs, modeled_bytes=traffic.total_bytes,
+        dma_issues=traffic.dma_issues,
+        collective_bytes=collective_words * traffic.dtype_bytes))
+
+
+def boundary_overlap_us(pass2_us: float, pass1_us: float,
+                        overlap: str = DEFAULT_OVERLAP) -> float:
+    """Modeled time of one block boundary: the producer's pass 2 plus the
+    consumer's pass 1 when serial, their max when pipelined."""
+    validate_overlap(overlap)
+    if overlap == "pipelined":
+        return max(pass2_us, pass1_us)
+    return pass2_us + pass1_us
+
+
+def overlap_saving_us(pass2_us: float, pass1_us: float) -> float:
+    """Time a pipelined boundary hides against a serial one."""
+    return min(pass2_us, pass1_us)

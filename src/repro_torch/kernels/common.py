@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 # the activation codes of kernels/csrc/*.cu (enum Act)
 ACT_CODES = {None: 0, "relu": 1, "relu6": 2, "silu": 3, "sigmoid": 4,
@@ -114,3 +115,22 @@ def vjp_through(ref: Callable[..., torch.Tensor],
     grads = iter(torch.autograd.grad(out, wanted, grad_out))
     return tuple(next(grads) if t is not None and t.requires_grad else None
                  for t in leaves)
+
+
+def reduce_partial(out: torch.Tensor, mesh, collective: str,
+                   width: int = 0) -> torch.Tensor:
+    """A projection partial (..., C_out), each rank's contraction over its
+    slice of the reduced channels, summed across the mesh's "model" group:
+    all-reduced (``ring_allreduce``: the full C_out on every rank) or
+    reduce-scattered (``psum_scatter``: this rank's slice of C_out padded
+    with zero columns to ``width``, the next multiple of the model factor),
+    as the JAX package's ``psum`` / ``psum_scatter`` do."""
+    if collective == "psum_scatter":
+        cw = width or out.shape[-1]
+        if out.shape[-1] < cw:
+            out = F.pad(out, (0, cw - out.shape[-1]))
+        return mesh.reduce_scatter(out, "model", dim=-1)
+    if collective != "ring_allreduce":
+        raise ValueError(f"collective must be ring_allreduce or "
+                         f"psum_scatter, got {collective!r}")
+    return mesh.all_reduce(out, "model")

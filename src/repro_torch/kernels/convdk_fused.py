@@ -58,6 +58,7 @@ from .common import (
     needs_grad,
     on_cpu,
     ptr,
+    reduce_partial,
     vjp_through,
 )
 from .convdk_mbconv import MBConvGeometry
@@ -213,6 +214,24 @@ def fused_separable(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
         ACT_CODES[act], torch.cuda.current_stream().cuda_stream))
     LAUNCHES["fused_separable"] += 1
     return out[0] if splits == 1 else fused_separable_reduce(out, act=act)
+
+
+def _fused_impl(x, w_dw, w_pw, geo: MBConvGeometry, *,
+                dw_act: Optional[str], act: Optional[str], mesh=None,
+                collective: str = "ring_allreduce",
+                scatter_width: int = 0) -> torch.Tensor:
+    """``fused_separable`` on one device, or, when ``mesh`` is given, on
+    one rank's slice of C_in (the sharded-in route of
+    ``kernels.convdk_sharded``): the depthwise is channel-local on the
+    slice, the pointwise partial over the local C_in rows crosses the
+    "model" group per ``collective`` (``common.reduce_partial``), and
+    ``act``, being nonlinear, is applied after the reduction (the kernel
+    runs with none)."""
+    if mesh is None:
+        return fused_separable(x, w_dw, w_pw, geo, dw_act=dw_act, act=act)
+    out = fused_separable(x, w_dw, w_pw, geo, dw_act=dw_act, act=None)
+    return _act_ref(reduce_partial(out, mesh, collective, scatter_width),
+                    act)
 
 
 class _FusedSeparableFn(torch.autograd.Function):

@@ -47,6 +47,7 @@ from .common import (
     needs_grad,
     on_cpu,
     ptr,
+    reduce_partial,
     vjp_through,
 )
 from .convdk_mbconv import MBConvGeometry
@@ -138,6 +139,21 @@ def fusedmb(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
         raise RuntimeError("fusedmb did not launch: "
                            f"{lib.fusedmb_error_string(err).decode()}")
     LAUNCHES["fusedmb"] += 1
+    return out
+
+
+def _fusedmb_impl(x, w_conv, w_proj, geo: MBConvGeometry, *,
+                  act: Optional[str], mesh=None,
+                  collective: str = "ring_allreduce",
+                  scatter_width: int = 0) -> torch.Tensor:
+    """``fusedmb`` on one device, or on one rank's slice of the c_mid grid
+    when ``mesh`` is given: the dense conv is channel-local there (each
+    rank holds all of c_in), and the projection partial crosses the
+    "model" group per ``collective`` (``common.reduce_partial``).  There is
+    no SE stage, so no other collective."""
+    out = fusedmb(x, w_conv, w_proj, geo, act=act)
+    if mesh is not None:
+        out = reduce_partial(out, mesh, collective, scatter_width)
     return out
 
 

@@ -65,6 +65,7 @@ from .common import (
     needs_grad,
     on_cpu,
     ptr,
+    reduce_partial,
     spatial_pads,
     vjp_through,
 )
@@ -396,8 +397,17 @@ def mbconv_splitk_reduce(partial: torch.Tensor) -> torch.Tensor:
 
 def _mbconv_impl(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj, *,
                  stride, padding, tile_h, tile_w, mode, exp_act, dw_act,
-                 se_act, gate_act):
-    """Two-pass fused MBConv on one device.
+                 se_act, gate_act, mesh=None,
+                 collective="ring_allreduce", scatter_width=0):
+    """Two-pass fused MBConv on one device, or on one rank's slice of the
+    c_mid grid when ``mesh`` is given (``kernels.convdk_sharded``).
+
+    On a mesh the two contractions over the whole expanded width cross
+    the "model" group: the SE squeeze ``mean @ w_se1`` is all-reduced
+    before its bias and nonlinearity (the pool leaves the card once, as a
+    (B, C_se) partial), and the projection partial is reduced per
+    ``collective`` (``common.reduce_partial``: all-reduced, or
+    reduce-scattered at ``scatter_width`` channels).
 
     ``w_se1 is None`` switches SE off: no pool, no MLP, no gate — and
     under ``mode="recompute"`` pass 1 is skipped entirely.
@@ -419,12 +429,19 @@ def _mbconv_impl(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj, *,
     if se:
         # SE MLP on the pool (the mean divides by the true out_h * out_w)
         mean = pool / float(geo.out_h * geo.out_w)
-        s1 = _act_ref(mean @ w_se1 + b_se1, se_act)
+        squeeze = mean @ w_se1
+        if mesh is not None:
+            squeeze = mesh.all_reduce(squeeze, "model")
+        s1 = _act_ref(squeeze + b_se1, se_act)
         gate = _act_ref(s1 @ w_se2 + b_se2, gate_act).contiguous()
     if mode == "retain":
-        return mbconv_pass2_retain(dw, gate, w_proj, geo)
-    return mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
-                                  exp_act=exp_act, dw_act=dw_act)
+        out = mbconv_pass2_retain(dw, gate, w_proj, geo)
+    else:
+        out = mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
+                                     exp_act=exp_act, dw_act=dw_act)
+    if mesh is not None:
+        out = reduce_partial(out, mesh, collective, scatter_width)
+    return out
 
 
 class _MBConvFn(torch.autograd.Function):

@@ -4,15 +4,19 @@ Counterpart of ``repro.models.blockgraph``.  Every block becomes a
 ``BlockNode`` carrying the device-memory buffers each of its passes reads
 and writes (``StageIO``) plus the block's apply closure; ``validate()``
 checks the chain (each node's pass 1 reads its entry activation and the
-pass that ends the block writes its exit activation) and ``lower(x)`` runs
+pass that ends the block writes its exit activation) and ``lower`` runs
 the nodes in chain order.  Two-pass MBConv nodes and one-pass Fused-MBConv
 nodes (an empty pass 2) mix in one chain.
 
-The port has no network plan yet, so every boundary is serial and lowering
-is exactly the sequential block loop that the networks' forwards in
-``models.mbconv`` run themselves: the graph stays off the forward path
-until a plan reads its buffer sets, and the JAX package's
-pipelined-boundary checks come with that plan.
+Every network forward in ``models.mbconv`` lowers its chain through
+this graph.  The graph holds no weights and no mesh: ``lower(x, params,
+mesh)`` hands each node its block's params and the mesh, so
+``block_graph`` builds and validates one graph per (chain, mode pin,
+plan, fused) and every later forward reuses it.  With a plan
+(``core.autotune.NetworkPlan``) each node carries its block's schedule,
+layouts and ``entry_overlap``, and ``validate()`` proves every pipelined
+boundary hazard-free; ``lower()`` still runs the chain in order, as the
+JAX package's does.
 
 Buffer names: ``act{i}`` the activation entering node *i* (node *i* writes
 ``act{i+1}``), ``dw{i}`` its retained DW tensor (retain mode), ``pool{i}``
@@ -24,13 +28,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, FrozenSet, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, FrozenSet, Optional, Tuple
 
 import torch
 
+from ..core import telemetry
+from ..core.perfmodel import DEFAULT_LAYOUT, DEFAULT_OVERLAP, validate_overlap
+
 
 class GraphValidationError(ValueError):
-    """A BlockGraph chain is ill-formed."""
+    """A BlockGraph chain or overlap annotation is ill-formed."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,15 +54,22 @@ class StageIO:
 
 @dataclasses.dataclass(frozen=True)
 class BlockNode:
-    """One block of the chain: per-pass buffer sets + the apply closure
-    (excluded from equality, so nodes compare structurally)."""
+    """One block of the chain: per-pass buffer sets + the apply closure,
+    called with the entry activation, the block's params and the mesh
+    (excluded from equality, so nodes compare structurally).
+    ``entry_overlap`` marks the boundary entering the node, as the plan's
+    ``BlockPlan.entry_overlap`` does."""
 
     index: int
     name: str
     pass1: StageIO
     pass2: StageIO
-    apply: Optional[Callable[[torch.Tensor], torch.Tensor]] = \
+    entry_overlap: str = DEFAULT_OVERLAP
+    apply: Optional[Callable[[torch.Tensor, dict, Any], torch.Tensor]] = \
         dataclasses.field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        validate_overlap(self.entry_overlap)
 
     @property
     def input_buffer(self) -> str:
@@ -109,10 +123,20 @@ class BlockGraph:
 
     nodes: Tuple[BlockNode, ...]
 
+    @property
+    def pipelined_boundaries(self) -> Tuple[int, ...]:
+        """Node indices whose entry boundary is pipelined."""
+        return tuple(n.index for n in self.nodes[1:]
+                     if n.entry_overlap == "pipelined")
+
     def validate(self) -> None:
         """Node indices run 0..n-1 in order, each node's pass 1 reads its
         entry activation, and the pass that ends the block (pass 2, or
-        pass 1 of a one-pass node) writes its exit activation."""
+        pass 1 of a one-pass node) writes its exit activation.  Each
+        pipelined boundary (producer pass 2 beside consumer pass 1) needs a
+        two-pass producer, exactly the boundary activation flowing between
+        the two stages, no buffer both write, and nothing the consumer's
+        pass 1 writes that the producer's pass 2 still reads."""
         for i, node in enumerate(self.nodes):
             if node.index != i:
                 raise GraphValidationError(
@@ -128,40 +152,136 @@ class BlockGraph:
                     f"{node.name}: "
                     f"{'pass 1' if node.one_pass else 'pass 2'} does not "
                     f"write its exit activation {node.output_buffer!r}")
+        if self.nodes and self.nodes[0].entry_overlap == "pipelined":
+            raise GraphValidationError(
+                f"{self.nodes[0].name}: the first node has no producer "
+                "to overlap with")
+        for node in self.nodes[1:]:
+            if node.entry_overlap != "pipelined":
+                continue
+            prev = self.nodes[node.index - 1]
+            where = f"boundary {prev.name}->{node.name}"
+            if prev.one_pass:
+                raise GraphValidationError(
+                    f"{where}: the producer is single-pass (no pass 2 to "
+                    "overlap with)")
+            streamed = prev.pass2.writes & node.pass1.reads
+            if streamed != {node.input_buffer}:
+                raise GraphValidationError(
+                    f"{where}: pipelining needs exactly the activation "
+                    f"{node.input_buffer!r} to flow producer pass 2 -> "
+                    f"consumer pass 1, got {sorted(streamed)}")
+            waw = prev.pass2.writes & node.pass1.writes
+            if waw:
+                raise GraphValidationError(
+                    f"{where}: both overlapped stages write {sorted(waw)}")
+            war = node.pass1.writes & prev.pass2.reads
+            if war:
+                raise GraphValidationError(
+                    f"{where}: consumer pass 1 overwrites {sorted(war)} "
+                    "while producer pass 2 still reads it")
 
-    def lower(self, x: torch.Tensor) -> torch.Tensor:
-        """Thread ``x`` through every node's apply closure in order."""
+    def lower(self, x: torch.Tensor, params: dict,
+              mesh=None) -> torch.Tensor:
+        """Thread ``x`` through every node's apply closure in order, node
+        *i* with ``params[f"block{i}"]``, on ``mesh`` where the plan has
+        one."""
+        telemetry.counter("blockgraph.lower")
+        telemetry.counter("blockgraph.pipelined_boundaries",
+                          len(self.pipelined_boundaries))
         for node in self.nodes:
             if node.apply is None:
                 raise GraphValidationError(
                     f"{node.name}: no apply closure bound; build the "
                     "graph through build_block_graph to lower it")
-            x = node.apply(x)
+            x = node.apply(x, params[f"block{node.index}"], mesh)
         return x
 
 
-def build_block_graph(specs, params: dict, *, mode: Optional[str] = None,
-                      schedules: Optional[Sequence] = None) -> BlockGraph:
-    """The ``BlockGraph`` of a block chain (stem and head stay in the
-    caller).  Each node applies its block through ``models.mbconv.
-    apply_block`` with the ``mode`` pin and, when the caller solved them,
-    ``schedules[i]``.  An MBConv node's buffer sets follow its scheduled
-    mode, else the pin, else retain."""
+def _apply_planned(x, params, mesh, *, sp, schedule, fused, arrival,
+                   in_layout, out_layout):
+    """One node of a planned chain: gather a sharded arrival the entry
+    takes replicated, run the block, check the layout it leaves in."""
+    from ..kernels.convdk_sharded import gather_global
     from .mbconv import apply_block
 
+    if arrival == "model_sharded" and in_layout == DEFAULT_LAYOUT:
+        x = gather_global(x, mesh, arrival, sp.c_in, batch=False)
+    y, layout = apply_block(x, sp, params, schedule=schedule, fused=fused,
+                            mesh=mesh, in_layout=in_layout)
+    if layout != out_layout:
+        raise GraphValidationError(
+            f"block left in {layout}, the plan says {out_layout}")
+    return y
+
+
+def _apply_unplanned(x, params, mesh, *, sp, mode, fused):
+    from .mbconv import apply_block
+
+    if mesh is not None:
+        raise GraphValidationError("a chain on a mesh runs a network plan")
+    return apply_block(x, sp, params, mode=mode, fused=fused)[0]
+
+
+def build_block_graph(specs, *, mode: Optional[str] = None, plan=None,
+                      fused: bool = True) -> BlockGraph:
+    """The ``BlockGraph`` of a block chain (stem and head stay in the
+    caller).  Each node applies its block through ``models.mbconv.
+    apply_block``: with a ``plan`` (``core.autotune.NetworkPlan``) at the
+    plan's schedule, layouts and entry overlap; else with the ``mode``
+    pin, each block looking its schedule
+    up.  An MBConv node's buffer sets follow the plan's mode, else the
+    pin, else retain; ``fused=False`` runs the staged baselines."""
+    if plan is not None and len(plan.blocks) != len(specs):
+        raise GraphValidationError(
+            f"plan covers {len(plan.blocks)} blocks, chain has "
+            f"{len(specs)}")
     nodes = []
     for i, sp in enumerate(specs):
-        sch = None if schedules is None else schedules[i]
-        apply = functools.partial(apply_block, sp=sp,
-                                  params=params[f"block{i}"], mode=mode,
-                                  schedule=sch)
+        overlap, node_mode = DEFAULT_OVERLAP, mode or "retain"
+        if plan is not None:
+            bp = plan.blocks[i]
+            overlap = bp.entry_overlap
+            if sp.family != "fusedmb":
+                node_mode = bp.schedule.mode
+            arrival = plan.stem_layout if i == 0 else \
+                plan.blocks[i - 1].out_layout
+            apply = functools.partial(
+                _apply_planned, sp=sp, schedule=bp.schedule, fused=fused,
+                arrival=arrival, in_layout=bp.in_layout,
+                out_layout=bp.out_layout)
+        else:
+            apply = functools.partial(_apply_unplanned, sp=sp, mode=mode,
+                                      fused=fused)
         if sp.family == "fusedmb":
             (p1, p2), name = fusedmb_stage_io(i), f"fusedmb{i}"
         else:
-            node_mode = sch.mode if sch is not None else (mode or "retain")
             (p1, p2), name = mbconv_stage_io(
                 i, mode=node_mode, residual=sp.has_residual,
                 se=sp.has_se), f"mbconv{i}"
         nodes.append(BlockNode(index=i, name=name, pass1=p1, pass2=p2,
-                               apply=apply))
+                               entry_overlap=overlap, apply=apply))
     return BlockGraph(nodes=tuple(nodes))
+
+
+_GRAPHS: Dict[tuple, Tuple[Any, BlockGraph]] = {}
+_GRAPHS_MAX = 64
+
+
+def block_graph(specs, *, mode: Optional[str] = None, plan=None,
+                fused: bool = True) -> BlockGraph:
+    """``build_block_graph``'s graph, validated, built once per (chain,
+    mode pin, plan, fused) and reused by every later forward.  The plan
+    keys by identity (hashing a plan walks every block); the cache holds
+    it, so an identity is never reused while cached."""
+    key = (tuple(specs), mode, id(plan), fused)
+    hit = _GRAPHS.get(key)
+    if hit is not None:
+        return hit[1]
+    graph = build_block_graph(specs, mode=mode, plan=plan, fused=fused)
+    graph.validate()
+    if len(_GRAPHS) >= _GRAPHS_MAX:
+        del _GRAPHS[next(iter(_GRAPHS))]
+    _GRAPHS[key] = (plan, graph)
+    telemetry.counter("blockgraph.build")
+    return graph

@@ -12,17 +12,33 @@ activations are data on ``MBConvSpec``:
   (``kernels.convdk_fusedmb``) with a schedule from
   ``core.autotune.get_fusedmb_schedule``;
 
-both add the identity residual when s == 1 and C_in == C_out;
-``apply_block`` picks one by the spec's family.  With ``fused=False``
-either block runs its staged baseline instead
+both add the identity residual when s == 1 and C_in == C_out and return
+``(y, out_layout)``; ``apply_block`` picks one by the spec's family.  With
+``fused=False`` either block runs its staged baseline instead
 (``kernels.convdk_mbconv_staged``, ``kernels.convdk_fusedmb_staged``): the
 expanded tensor round-trips device memory, the comparison the paper's
 claim is about.  The argument is the counterpart of the JAX package's
-process-global ``ConvKernelConfig.fused_mbconv``.  Each network runs its
-block chain in order (``models.blockgraph`` holds the same chain as a
-dataflow graph, for the network plan to come).  The stem
-conv, the SE MLP and the head stay PyTorch calls, as the JAX package
-leaves them to XLA.  Like the JAX package, no network has batch norm.
+process-global ``ConvKernelConfig.fused_mbconv``.
+
+Given a ``mesh`` (``launch.mesh``), a block whose global batch and c_mid
+divide the mesh's factors runs the sharded wrappers
+(``kernels.convdk_sharded``) on this rank's tensors: ``in_layout`` says
+whether its input holds all channels or the rank's slice, and the output
+leaves model-sharded after a psum_scatter.  The residual adds rank-local
+tensors, so a replicated operand is cut to the rank's channel slice when
+the other is sharded; where a block takes a sharded input and leaves
+replicated, its projection is reduce-scattered, the residual added on the
+slice and the sum all-gathered, the ring's words exactly.
+
+Each network lowers its block chain through ``models.blockgraph``.  Given
+a ``mesh`` or a ``plan`` (``core.autotune.NetworkPlan``; solved per call
+by ``get_network_plan`` where a mesh comes without one) the forward takes
+global images, runs this rank's batch slice, keeps the stem output's
+channel slice where the plan shards it, threads the plan's layouts through
+the chain, gathers before the head where the last block leaves sharded,
+and returns the global logits.  The stem conv, the SE MLP and the head
+stay PyTorch calls, as the JAX package leaves them to XLA.  Like the JAX
+package, no network has batch norm.
 """
 
 from __future__ import annotations
@@ -39,9 +55,13 @@ from ..core.autotune import (
     BlockRow,
     FusedMBSchedule,
     MBConvSchedule,
+    NetworkPlan,
+    Schedule,
     get_fusedmb_schedule,
     get_mbconv_schedule,
+    get_network_plan,
 )
+from ..core.perfmodel import DEFAULT_LAYOUT, scatter_c_out, validate_layout
 from ..core.workloads import (
     EFFICIENTNET_V2_S_STAGES,
     MOBILENET_V3_LARGE,
@@ -53,10 +73,16 @@ from ..kernels.convdk_fusedmb import (
     convdk_fusedmb_staged,
 )
 from ..kernels.convdk_mbconv import convdk_mbconv_fused, convdk_mbconv_staged
+from ..kernels.convdk_sharded import (
+    can_shard_fused,
+    conv_mesh_shape,
+    convdk_fusedmb_fused_sharded,
+    convdk_mbconv_fused_sharded,
+    gather_global,
+    model_chunk,
+)
 from ..kernels.ref import pad_nhwc
 from .param import P, materialize
-
-Schedule = Union[MBConvSchedule, FusedMBSchedule]
 # the stems' and heads' activations
 _ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "silu": F.silu, "hard_swish": F.hardswish}
@@ -264,6 +290,26 @@ def _residual(out: torch.Tensor, x: torch.Tensor, stride: int
     return out
 
 
+def _mesh_route(mesh, x: torch.Tensor, c_grid: int, fused: bool,
+                in_layout: str) -> Tuple[int, int, bool, str, torch.Tensor]:
+    """(global batch, model factor, sharded?, effective in layout, x) of a
+    block on ``mesh``: it shards where the global batch and its channel
+    grid divide the factors, and an input arriving sharded to a block that
+    does not shard is all-gathered first."""
+    validate_layout(in_layout)
+    if mesh is None:
+        if in_layout != DEFAULT_LAYOUT:
+            raise ValueError("a model-sharded input needs its mesh")
+        return x.shape[0], 1, False, DEFAULT_LAYOUT, x
+    dp, mp = conv_mesh_shape(mesh)
+    b = x.shape[0] * dp
+    sharded = fused and can_shard_fused(mesh, b, c_grid)
+    if in_layout == "model_sharded" and not sharded:
+        x = mesh.all_gather(x, "model", dim=-1)
+        in_layout = DEFAULT_LAYOUT
+    return b, mp, sharded, in_layout, x
+
+
 def mbconv_block(
     x: torch.Tensor,
     params: dict,
@@ -276,27 +322,39 @@ def mbconv_block(
     se_act: Optional[str] = "silu",
     gate_act: Optional[str] = "sigmoid",
     fused: bool = True,
-) -> torch.Tensor:
+    mesh=None,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> Tuple[torch.Tensor, str]:
     """Apply one MBConv block (SAME padding) through the two-pass fused
     kernels, or with ``fused=False`` through the staged baseline (its
-    depthwise kernel at the schedule's tile_h).
+    depthwise kernel at the schedule's tile_h); returns ``(y,
+    out_layout)``.
 
-    The (tile_h, tile_w, mode) schedule comes from ``schedule`` when the
-    caller solved it already, else from ``get_mbconv_schedule`` for this
-    shape (``mode`` pins the pass-2 variant, the JAX package's
-    ``mbconv_mode`` pin).  Params without ``exp`` are an identity expand
-    with no expand activation; params without ``se_w1`` a block with no
-    SE.  x: (B, H, W, C_in) NHWC.
+    The (tile_h, tile_w, mode, collective) schedule comes from ``schedule``
+    (a plan's element, or solved by the caller), else from
+    ``get_mbconv_schedule`` for this shape and partitioning (``mode`` pins
+    the pass-2 variant, the JAX package's ``mbconv_mode`` pin).  Params
+    without ``exp`` are an identity expand with no expand activation;
+    params without ``se_w1`` a block with no SE.  With a ``mesh``, ``x`` is
+    this rank's batch slice, all of its channels or (``in_layout=
+    "model_sharded"``) the rank's slice of them; see the module doc.
+    x: (B, H, W, C_in) NHWC.
     """
-    b, h, w, c_in = x.shape
     c_mid = params["dw"].shape[-1]
     c_out = params["proj"].shape[-1]
+    b, mp, sharded, in_layout, x = _mesh_route(mesh, x, c_mid, fused,
+                                               in_layout)
+    _, h, w, c_in = x.shape
+    if in_layout == "model_sharded":
+        c_in *= mp
     has_se = "se_w1" in params
     if schedule is None:
         se_ratio = params["se_w1"].shape[1] / max(1, c_in) if has_se else 0.0
         schedule = get_mbconv_schedule(
             b, h, w, c_in, c_mid, c_out, params["dw"].shape[0], stride,
-            se_ratio=se_ratio, dtype_bytes=x.element_size(), mode=mode)
+            se_ratio=se_ratio, dtype_bytes=x.element_size(), mode=mode,
+            mesh_shape=conv_mesh_shape(mesh) if sharded else (1, 1),
+            in_layout=in_layout)
     if "exp" in params:
         w_exp = params["exp"]
     else:
@@ -309,14 +367,31 @@ def mbconv_block(
             params["proj"])
     acts = dict(exp_act=exp_act, dw_act=dw_act, se_act=se_act,
                 gate_act=gate_act)
-    if fused:
-        out = convdk_mbconv_fused(
-            *args, stride=stride, tile_h=schedule.tile_h,
-            tile_w=schedule.tile_w, mode=schedule.mode, **acts)
-    else:
-        out = convdk_mbconv_staged(*args, stride=stride,
-                                   tile_h=schedule.tile_h, **acts)
-    return _residual(out, x, stride)
+    if not sharded:
+        if fused:
+            out = convdk_mbconv_fused(
+                *args, stride=stride, tile_h=schedule.tile_h,
+                tile_w=schedule.tile_w, mode=schedule.mode, **acts)
+        else:
+            out = convdk_mbconv_staged(*args, stride=stride,
+                                       tile_h=schedule.tile_h, **acts)
+        return _residual(out, x, stride), DEFAULT_LAYOUT
+    residual = stride == 1 and c_in == c_out
+    scatter = schedule.collective == "psum_scatter" and mp > 1
+    # a sharded input leaving replicated: reduce-scatter, add, all-gather
+    split_ring = residual and in_layout == "model_sharded" and not scatter
+    out = convdk_mbconv_fused_sharded(
+        *args, mesh=mesh, stride=stride, tile_h=schedule.tile_h,
+        tile_w=schedule.tile_w, mode=schedule.mode,
+        collective="psum_scatter" if split_ring else schedule.collective,
+        in_layout=in_layout, **acts)
+    if split_ring:
+        return mesh.all_gather(out + x, "model", dim=-1), DEFAULT_LAYOUT
+    if residual:
+        if scatter and in_layout == DEFAULT_LAYOUT:
+            x = model_chunk(x, mesh, scatter_c_out(c_out, mp))
+        out = out + x
+    return out, "model_sharded" if scatter else DEFAULT_LAYOUT
 
 
 def fusedmb_block(
@@ -327,41 +402,67 @@ def fusedmb_block(
     act: Optional[str] = "silu",
     schedule: Optional[FusedMBSchedule] = None,
     fused: bool = True,
-) -> torch.Tensor:
+    mesh=None,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> Tuple[torch.Tensor, str]:
     """Apply one Fused-MBConv block (SAME padding) through the single-pass
-    kernel, with the (tile_h, tile_w) schedule from ``schedule`` or from
-    ``get_fusedmb_schedule``; with ``fused=False`` through the staged
-    baseline.  x: (B, H, W, C_in) NHWC."""
-    b, h, w, c_in = x.shape
+    kernel, with the (tile_h, tile_w, collective) schedule from
+    ``schedule`` or from ``get_fusedmb_schedule``; with ``fused=False``
+    through the staged baseline; returns ``(y, out_layout)``.  Its input
+    is replicated (a dense conv reads every channel): a model-sharded
+    ``in_layout`` raises, as in the JAX package.  x: (B, H, W, C_in)
+    NHWC."""
+    if validate_layout(in_layout) != DEFAULT_LAYOUT:
+        raise ValueError(f"fusedmb consumes replicated arrivals only, got "
+                         f"{in_layout!r}")
     k, _, _, c_mid = params["conv"].shape
     c_out = params["proj"].shape[-1]
+    b, mp, sharded, _, x = _mesh_route(mesh, x, c_mid, fused, in_layout)
+    _, h, w, c_in = x.shape
     if schedule is None:
-        schedule = get_fusedmb_schedule(b, h, w, c_in, c_mid, c_out, k,
-                                        stride, dtype_bytes=x.element_size())
-    if fused:
-        out = convdk_fusedmb_fused(
-            x, params["conv"], params["proj"], stride=stride,
-            tile_h=schedule.tile_h, tile_w=schedule.tile_w, act=act)
-    else:
-        out = convdk_fusedmb_staged(x, params["conv"], params["proj"],
-                                    stride=stride, act=act)
-    return _residual(out, x, stride)
+        schedule = get_fusedmb_schedule(
+            b, h, w, c_in, c_mid, c_out, k, stride,
+            dtype_bytes=x.element_size(),
+            mesh_shape=conv_mesh_shape(mesh) if sharded else (1, 1))
+    if not sharded:
+        if fused:
+            out = convdk_fusedmb_fused(
+                x, params["conv"], params["proj"], stride=stride,
+                tile_h=schedule.tile_h, tile_w=schedule.tile_w, act=act)
+        else:
+            out = convdk_fusedmb_staged(x, params["conv"], params["proj"],
+                                        stride=stride, act=act)
+        return _residual(out, x, stride), DEFAULT_LAYOUT
+    scatter = schedule.collective == "psum_scatter" and mp > 1
+    out = convdk_fusedmb_fused_sharded(
+        x, params["conv"], params["proj"], mesh=mesh, stride=stride,
+        tile_h=schedule.tile_h, tile_w=schedule.tile_w, act=act,
+        collective=schedule.collective)
+    if stride == 1 and c_in == c_out:
+        out = out + (model_chunk(x, mesh, scatter_c_out(c_out, mp))
+                     if scatter else x)
+    return out, "model_sharded" if scatter else DEFAULT_LAYOUT
 
 
 def apply_block(x: torch.Tensor, sp: MBConvSpec, params: dict, *,
                 mode: Optional[str] = None,
                 schedule: Optional[Schedule] = None,
-                fused: bool = True) -> torch.Tensor:
-    """One spec'd block by family: ``fusedmb_block`` with the spec's act,
-    or ``mbconv_block`` with the spec's act and SE activations and the
-    ``mode`` pin; ``schedule`` when the caller solved it; ``fused=False``
-    for the staged baselines."""
+                fused: bool = True, mesh=None,
+                in_layout: str = DEFAULT_LAYOUT
+                ) -> Tuple[torch.Tensor, str]:
+    """One spec'd block by family, returning ``(y, out_layout)``:
+    ``fusedmb_block`` with the spec's act, or ``mbconv_block`` with the
+    spec's act and SE activations and the ``mode`` pin; ``schedule`` when
+    the caller solved it; ``fused=False`` for the staged baselines;
+    ``mesh`` and ``in_layout`` as the blocks take them."""
     if sp.family == "fusedmb":
         return fusedmb_block(x, params, stride=sp.s, act=sp.act,
-                             schedule=schedule, fused=fused)
+                             schedule=schedule, fused=fused, mesh=mesh,
+                             in_layout=in_layout)
     return mbconv_block(x, params, stride=sp.s, mode=mode, schedule=schedule,
                         exp_act=sp.act, dw_act=sp.act, se_act=sp.se_act,
-                        gate_act=sp.gate_act, fused=fused)
+                        gate_act=sp.gate_act, fused=fused, mesh=mesh,
+                        in_layout=in_layout)
 
 
 # ---------------------------------------------------------------------------
@@ -379,21 +480,58 @@ def stem_conv(images: torch.Tensor, w_stem: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _chain(params: dict, images: torch.Tensor, specs: List[MBConvSpec],
-           stem_act: str, mode: Optional[str] = None,
-           schedules: Optional[Sequence[Schedule]] = None,
-           fused: bool = True) -> torch.Tensor:
-    """Stem conv + act, then the blocks in chain order (``fused=False``:
-    each through its staged baseline)."""
-    if schedules is not None and len(schedules) != len(specs):
-        raise ValueError(f"{len(schedules)} schedules for {len(specs)} "
-                         "blocks")
+def network_plan(specs: Sequence[MBConvSpec], batch: int, h: int, w: int,
+                 mesh_shape: Tuple[int, int] = (1, 1)) -> NetworkPlan:
+    """The cached network plan of one chain at (batch, image size) on a
+    mesh of ``mesh_shape`` (``core.autotune.get_network_plan`` over the
+    chain rows at the stem-output dims)."""
+    stem_h, stem_w = -(-h // STEM_STRIDE), -(-w // STEM_STRIDE)
+    return get_network_plan(block_chain_rows(specs, stem_h, stem_w), batch,
+                            tuple(mesh_shape))
+
+
+def _forward(params: dict, images: torch.Tensor, specs: List[MBConvSpec],
+             stem_act: str, head_act: str, *, mode: Optional[str] = None,
+             fused: bool = True, mesh=None,
+             plan: Optional[NetworkPlan] = None) -> torch.Tensor:
+    """Stem conv + act, the block chain lowered through its graph
+    (``fused=False``: each block through its staged baseline), the head;
+    on a mesh or with a plan as the module doc says."""
+    from .blockgraph import block_graph
+
+    if mesh is None and plan is None:
+        x = _ACTS[stem_act](stem_conv(images.float(), params["stem"]))
+        graph = block_graph(specs, mode=mode, fused=fused)
+        return _classify(params, graph.lower(x, params), head_act)
+    if mode is not None:
+        raise ValueError("a network plan fixes the schedules: pass no mode "
+                         "with a mesh or a plan")
+    if mesh is not None and not fused:
+        raise ValueError("the staged baselines run on one device")
+    mesh_shape = conv_mesh_shape(mesh) if mesh is not None else (1, 1)
+    batch = images.shape[0]
+    if batch % mesh_shape[0]:
+        raise ValueError(f"batch {batch} not divisible by the data factor "
+                         f"{mesh_shape[0]}")
+    if plan is None:
+        plan = network_plan(specs, batch, images.shape[1], images.shape[2],
+                            mesh_shape)
+    if (tuple(plan.mesh_shape) != mesh_shape
+            or plan.blocks[0].shape.b != batch):
+        raise ValueError(f"the plan is for batch {plan.blocks[0].shape.b} "
+                         f"on mesh {plan.mesh_shape}, not batch {batch} on "
+                         f"{mesh_shape}")
+    if mesh is not None:
+        images = mesh.chunk(images, "data", dim=0)
     x = _ACTS[stem_act](stem_conv(images.float(), params["stem"]))
-    for i, sp in enumerate(specs):
-        x = apply_block(x, sp, params[f"block{i}"], mode=mode,
-                        schedule=None if schedules is None else schedules[i],
-                        fused=fused)
-    return x
+    if plan.stem_layout == "model_sharded":
+        x = model_chunk(x, mesh)
+    x = block_graph(specs, plan=plan, fused=fused).lower(x, params, mesh)
+    if plan.blocks[-1].out_layout == "model_sharded":
+        x = gather_global(x, mesh, "model_sharded", specs[-1].c_out,
+                          batch=False)
+    logits = _classify(params, x, head_act)
+    return logits if mesh is None else gather_global(logits, mesh)
 
 
 def _classify(params: dict, x: torch.Tensor, head_act: str) -> torch.Tensor:
@@ -435,18 +573,20 @@ def efficientnet_b0_def(cfg: EffNetConfig = EffNetConfig()) -> dict:
 def efficientnet_b0_apply(params: dict, images: torch.Tensor,
                           cfg: EffNetConfig = EffNetConfig(), *,
                           mode: Optional[str] = None,
-                          schedules: Optional[Sequence[MBConvSchedule]] = None,
-                          fused: bool = True) -> torch.Tensor:
+                          fused: bool = True, mesh=None,
+                          plan: Optional[NetworkPlan] = None
+                          ) -> torch.Tensor:
     """(B, H, W, 3) NHWC images -> (B, num_classes) logits, on the device
     the params and images lie on.
 
-    ``schedules`` passes the per-block schedules solved once by the caller
-    (the serving engine does, per resolution bucket); otherwise each block
-    looks its own up, with ``mode`` pinning the pass-2 variant.
-    ``fused=False`` runs every block through the staged baseline."""
-    x = _chain(params, images, effnet_block_specs(cfg), "silu", mode,
-               schedules, fused)
-    return _classify(params, x, "silu")
+    Each block looks its schedule up, with ``mode`` pinning the pass-2
+    variant; ``plan`` passes a network plan instead, its schedules solved
+    once (the serving engine solves one per resolution bucket); ``mesh``
+    runs this rank's share of the global batch on the mesh (see the
+    module doc).  ``fused=False`` runs every block through the staged
+    baseline."""
+    return _forward(params, images, effnet_block_specs(cfg), "silu", "silu",
+                    mode=mode, fused=fused, mesh=mesh, plan=plan)
 
 
 # ----------------------------- EfficientNet-V2-S -----------------------------
@@ -506,15 +646,17 @@ def efficientnet_v2_s_def(cfg: EffNetV2Config = EffNetV2Config()) -> dict:
 
 def efficientnet_v2_s_apply(params: dict, images: torch.Tensor,
                             cfg: EffNetV2Config = EffNetV2Config(), *,
-                            fused: bool = True) -> torch.Tensor:
+                            fused: bool = True, mesh=None,
+                            plan: Optional[NetworkPlan] = None
+                            ) -> torch.Tensor:
     """(B, H, W, 3) NHWC images -> (B, num_classes) logits: stem 3x3/2 +
     silu, the Fused-MBConv blocks through the single-pass kernel and the
     MBConv tail through the two-pass kernels (one mixed-family graph;
     ``fused=False``: both through their staged baselines), head 1x1 +
-    silu, mean pool, classifier."""
-    x = _chain(params, images, effnet_v2_block_specs(cfg), "silu",
-               fused=fused)
-    return _classify(params, x, "silu")
+    silu, mean pool, classifier; ``mesh`` and ``plan`` as
+    ``efficientnet_b0_apply`` takes them."""
+    return _forward(params, images, effnet_v2_block_specs(cfg), "silu",
+                    "silu", fused=fused, mesh=mesh, plan=plan)
 
 
 # ---------------------------- MobileNet-V3-Large ----------------------------
@@ -574,14 +716,15 @@ def mobilenet_v3_def(cfg: MobileNetV3Config = MobileNetV3Config()) -> dict:
 
 def mobilenet_v3_apply(params: dict, images: torch.Tensor,
                        cfg: MobileNetV3Config = MobileNetV3Config(), *,
-                       fused: bool = True) -> torch.Tensor:
+                       fused: bool = True, mesh=None,
+                       plan: Optional[NetworkPlan] = None) -> torch.Tensor:
     """(B, H, W, 3) NHWC images -> (B, num_classes) logits: stem 3x3/2 +
     hard_swish, the blocks with their own act and SE (``fused=False``:
     through the staged baseline), head 1x1 + hard_swish, mean pool, fc +
-    hard_swish, classifier."""
-    x = _chain(params, images, mobilenet_v3_specs(cfg), "hard_swish",
-               fused=fused)
-    return _classify(params, x, "hard_swish")
+    hard_swish, classifier; ``mesh`` and ``plan`` as
+    ``efficientnet_b0_apply`` takes them."""
+    return _forward(params, images, mobilenet_v3_specs(cfg), "hard_swish",
+                    "hard_swish", fused=fused, mesh=mesh, plan=plan)
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,19 @@
 Counterpart of ``repro.serve.vision``.  Requests are admitted into square
 resolution buckets (the smallest bucket the longest side fits, zero-padded
 up) and launched as fixed-shape ``batch_size`` packs through
-``efficientnet_b0_apply``, with each bucket's per-block schedules solved
-ONCE and passed into every launch.
+``efficientnet_b0_apply``, with each bucket's network plan
+(``core.autotune.get_network_plan``: the stem's layout and every block's
+schedule, layouts and collective) solved ONCE and passed into every
+launch, on the engine's mesh (``launch.mesh``; one card is mesh (1, 1),
+where every schedule is the single-card one).
 
 * **Admission + load shedding**: a bounded two-level FIFO (a priority
   lane drained ahead of the normal lane; the bound covers both), and
   counted rejections for a full queue or an image above the largest
   bucket.
-* **Traffic telemetry**: each launch charges per-(bucket x block)
-  counters with the modeled bytes of the schedules it runs.
+* **Traffic telemetry**: each launch charges per-(bucket x layer)
+  counters with the plan's modeled bytes: the stem output, each block's
+  schedule and the boundary all-gathers, with their collective bytes.
 * **Latency**: per-request latency and queue wait, timed on the host
   clock after ``torch.cuda.synchronize()``.
 
@@ -20,9 +24,12 @@ Counters:
     serve.admitted / serve.admitted.priority
     serve.shed.queue_full / serve.shed.oversize
     serve.batches.r<res> / serve.requests.r<res> / serve.pad_slots.r<res>
-    serve.bytes.r<res>.block<NN>   modeled bytes of block NN's schedule
-    serve.build.r<res>             ticks when a bucket's schedules are
-                                   solved: stays 1 per bucket
+    serve.bytes.r<res>.<layer>     modeled bytes of one layer (stem,
+                                   block<NN>, boundaries) per launch
+    serve.collective.r<res>.<layer>  its collective bytes
+    serve.build.r<res>             ticks when a bucket's plan is solved:
+                                   stays 1 per bucket
+    serve.pipelined_boundaries.r<res>  boundaries the plan pipelines
 
 Series: ``serve.queue_depth``, ``serve.queue_wait_s``, ``serve.latency_s``.
 """
@@ -38,13 +45,15 @@ import numpy as np
 import torch
 
 from ..core import telemetry
-from ..core.autotune import MBConvSchedule
+from ..core.autotune import MBConvSchedule, NetworkPlan
 from ..kernels.common import resolve_device
+from ..kernels.convdk_sharded import conv_mesh_shape
 from ..models.mbconv import (
     STEM_STRIDE,
     EffNetConfig,
+    effnet_block_specs,
     efficientnet_b0_apply,
-    effnet_schedules,
+    network_plan,
 )
 
 __all__ = [
@@ -52,7 +61,14 @@ __all__ = [
     "VisionRequest",
     "VisionResult",
     "VisionServeConfig",
+    "layer_names",
 ]
+
+
+def layer_names(n_blocks: int) -> Tuple[str, ...]:
+    """The per-launch traffic-counter layers, in chain order."""
+    return (("stem",) + tuple(f"block{i:02d}" for i in range(n_blocks))
+            + ("boundaries",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,20 +123,25 @@ class VisionEngine:
     batch — the oldest priority waiter's bucket (else the oldest normal
     waiter's), filled FIFO from the priority lane and back-filled from the
     normal lane; ``drain()`` steps until both lanes are empty.  ``params``
-    lie on ``device`` (default CUDA; raises when it is absent).
+    lie on ``device`` (default CUDA; raises when it is absent).  With a
+    ``mesh`` every rank runs one engine on the same requests: each launch
+    runs the rank's share of the pack and returns every request's logits.
     """
 
     def __init__(self, params: dict, cfg: EffNetConfig = EffNetConfig(),
                  serve_cfg: Optional[VisionServeConfig] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.scfg = serve_cfg or VisionServeConfig()
+        self.mesh = mesh
+        self.specs = effnet_block_specs(cfg)
         self._queue: Deque[VisionRequest] = deque()
         self._pqueue: Deque[VisionRequest] = deque()
         self._next_rid = 0
-        self._schedules: Dict[int, Tuple[MBConvSchedule, ...]] = {}
+        self._plans: Dict[int, NetworkPlan] = {}
 
     # -- admission -----------------------------------------------------------
 
@@ -168,22 +189,41 @@ class VisionEngine:
         return int(t.get("serve.shed.queue_full")
                    + t.get("serve.shed.oversize"))
 
-    # -- per-bucket schedules ------------------------------------------------
+    # -- per-bucket plans ----------------------------------------------------
+
+    def mesh_shape(self) -> Tuple[int, int]:
+        return (1, 1) if self.mesh is None else conv_mesh_shape(self.mesh)
+
+    def plan_for(self, res: int) -> NetworkPlan:
+        """The bucket's network plan: solved once per resolution, passed
+        into every launch of that bucket, so the bytes its counters charge
+        are those of the schedules that run."""
+        if res not in self._plans:
+            plan = network_plan(self.specs, self.scfg.batch_size, res, res,
+                                self.mesh_shape())
+            self._plans[res] = plan
+            telemetry.counter(f"serve.build.r{res}")
+            telemetry.counter(f"serve.pipelined_boundaries.r{res}",
+                              len(plan.pipelined_boundaries))
+        return self._plans[res]
 
     def schedules_for(self, res: int) -> Tuple[MBConvSchedule, ...]:
-        """The bucket's per-block schedules: solved once per resolution,
-        passed into every launch of that bucket."""
-        if res not in self._schedules:
-            self._schedules[res] = effnet_schedules(
-                self.cfg, self.scfg.batch_size, res, res)
-            telemetry.counter(f"serve.build.r{res}")
-        return self._schedules[res]
+        """The bucket's per-block schedules, the plan's."""
+        return tuple(bp.schedule for bp in self.plan_for(res).blocks)
 
-    def modeled_block_bytes(self, res: int) -> Dict[str, int]:
-        """Per-launch modeled bytes of one bucket, by block label — the
-        increments each launched batch adds to its counters."""
-        return {f"block{i:02d}": sch.total_bytes
-                for i, sch in enumerate(self.schedules_for(res))}
+    def modeled_layer_bytes(self, res: int) -> Dict[str, Tuple[int, int]]:
+        """Per-launch modeled traffic of one bucket, by layer: (bytes,
+        collective bytes) of the stem output, each block's schedule and the
+        boundary all-gathers (collective bytes all).  The bytes rows sum to
+        the plan's total."""
+        plan = self.plan_for(res)
+        out: Dict[str, Tuple[int, int]] = {"stem": (plan.stem_bytes, 0)}
+        for i, bp in enumerate(plan.blocks):
+            out[f"block{i:02d}"] = (bp.schedule.total_bytes,
+                                    bp.schedule.collective_bytes)
+        out["boundaries"] = (plan.boundary_words * plan.dtype_bytes,
+                             plan.boundary_words * plan.dtype_bytes)
+        return out
 
     # -- serving -------------------------------------------------------------
 
@@ -214,7 +254,7 @@ class VisionEngine:
 
     def _launch(self, res: int, reqs: List[VisionRequest]
                 ) -> List[VisionResult]:
-        schedules = self.schedules_for(res)
+        plan = self.plan_for(res)
         batch = np.zeros((self.scfg.batch_size, res, res, 3), np.float32)
         for row, rq in enumerate(reqs):
             h, w = rq.image.shape[:2]
@@ -223,7 +263,7 @@ class VisionEngine:
         with telemetry.span(f"serve.batch.r{res}"), torch.inference_mode():
             logits = efficientnet_b0_apply(
                 self.params, torch.from_numpy(batch).to(self.device),
-                self.cfg, schedules=schedules)
+                self.cfg, mesh=self.mesh, plan=plan)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         t_done = time.perf_counter()
@@ -232,8 +272,9 @@ class VisionEngine:
         telemetry.counter(f"serve.requests.r{res}", len(reqs))
         telemetry.counter(f"serve.pad_slots.r{res}",
                           self.scfg.batch_size - len(reqs))
-        for layer, total in self.modeled_block_bytes(res).items():
+        for layer, (total, coll) in self.modeled_layer_bytes(res).items():
             telemetry.counter(f"serve.bytes.r{res}.{layer}", total)
+            telemetry.counter(f"serve.collective.r{res}.{layer}", coll)
 
         arr = logits.cpu().numpy()
         results = []

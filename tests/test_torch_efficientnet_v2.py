@@ -138,12 +138,12 @@ def test_fusedmb_nodes_are_one_pass_and_validate(v2s):
     """Mirror of the JAX graph contract: fusedmb nodes carry an empty
     pass 2 and validate; the mixed V2-S chain validates; an ill-formed
     chain is refused."""
-    _, tparams, tcfg = v2s
+    _, _, tcfg = v2s
     p1, p2 = fusedmb_stage_io(3)
     assert "act3" in p1.reads and "act4" in p1.writes
     assert not p2.reads and not p2.writes
 
-    graph = build_block_graph(tm.effnet_v2_block_specs(tcfg), tparams)
+    graph = build_block_graph(tm.effnet_v2_block_specs(tcfg))
     graph.validate()
     assert [n.one_pass for n in graph.nodes] == [True, True, True, False,
                                                  False]
@@ -159,7 +159,7 @@ def test_fusedmb_nodes_are_one_pass_and_validate(v2s):
         BlockGraph(nodes=(BlockNode(1, "m", p1b, p2b),)).validate()
     with pytest.raises(GraphValidationError, match="apply"):
         BlockGraph(nodes=(BlockNode(0, "f", *fusedmb_stage_io(0)),)) \
-            .lower(torch.zeros(1))
+            .lower(torch.zeros(1), {"block0": {}})
 
 
 @pytest.mark.parametrize("mode", [None, "recompute"])
@@ -175,10 +175,12 @@ def test_b0_unchanged_on_the_block_graph(mode):
     specs = tm.effnet_block_specs(cfg)
     x = stem
     for i, sp in enumerate(specs):
-        x = tm.mbconv_block(x, params[f"block{i}"], stride=sp.s, mode=mode)
-    graph = build_block_graph(specs, params, mode=mode)
+        x, layout = tm.mbconv_block(x, params[f"block{i}"], stride=sp.s,
+                                    mode=mode)
+        assert layout == "replicated"
+    graph = build_block_graph(specs, mode=mode)
     graph.validate()
-    x_graph = graph.lower(stem)
+    x_graph = graph.lower(stem, params)
 
     def head(x):
         x = torch.nn.functional.silu(x @ params["head"]).mean(dim=(1, 2))
@@ -187,3 +189,33 @@ def test_b0_unchanged_on_the_block_graph(mode):
     logits = tm.efficientnet_b0_apply(params, images, cfg, mode=mode)
     assert torch.equal(logits, head(x))
     assert torch.equal(logits, head(x_graph))
+
+
+def test_forward_builds_its_graph_once():
+    """A forward builds and validates its chain's graph once per (chain,
+    mode pin, plan, mesh, fused) and every later forward reuses it; a new
+    pin or a new plan builds a graph of its own."""
+    from repro_torch.core import telemetry
+    from repro_torch.models import blockgraph
+
+    cfg = tm.EffNetConfig(width_mult=0.125, num_classes=4)
+    params = materialize(tm.efficientnet_b0_def(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    images = torch.rand(2, 16, 16, 3,
+                        generator=torch.Generator().manual_seed(1))
+    blockgraph._GRAPHS.clear()
+    telemetry.reset()
+    first = tm.efficientnet_b0_apply(params, images, cfg)
+    again = tm.efficientnet_b0_apply(params, images, cfg)
+    t = telemetry.get_telemetry()
+    assert torch.equal(first, again)
+    assert t.get("blockgraph.build") == 1
+    assert t.get("blockgraph.lower") == 2
+    tm.efficientnet_b0_apply(params, images, cfg, mode="recompute")
+    plan = tm.network_plan(tm.effnet_block_specs(cfg), 2, 16, 16)
+    for _ in range(2):
+        assert torch.equal(
+            tm.efficientnet_b0_apply(params, images, cfg, plan=plan), first)
+    t = telemetry.get_telemetry()
+    assert t.get("blockgraph.build") == 3
+    assert t.get("blockgraph.lower") == 5

@@ -51,6 +51,7 @@ from repro_torch.models.mbconv import (
     efficientnet_b0_def,
 )
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import model as lm
 from repro_torch.models.common import separable_block
 from repro_torch.models.param import from_numpy, materialize
@@ -107,7 +108,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.core.telemetry",
             "repro_torch.benchmarks.roofline_bench",
             "repro_torch.benchmarks.serve_report",
-            "repro_torch.benchmarks.run"} <= set(mods)
+            "repro_torch.benchmarks.run",
+            "repro_torch.launch.mesh",
+            "repro_torch.kernels.convdk_sharded"} <= set(mods)
     smoke = sorted(_smoke_imports())
     assert {"repro_torch.models.mbconv", "repro_torch.core.convdk",
             "repro_torch.benchmarks.cim_tables",
@@ -178,6 +181,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         init_ssd_state(2, smoke.ssd_cfg())
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "mamba2-2.7b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 1), init_method="tcp://localhost:1", rank=0,
+                  world_size=1)
     # no fallback: a tensor on neither the CPU nor a CUDA card raises
     meta = lambda *sh: torch.empty(*sh, device="meta")  # noqa: E731
     with pytest.raises(ValueError, match="unsupported device"):

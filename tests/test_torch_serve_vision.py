@@ -190,3 +190,79 @@ def test_serve_report_gate_on_cpu(capsys, monkeypatch):
                                         device="cpu", requests=6, log=print)
     assert not drifted["ok"]
     assert "GATE FAIL: r28.block00 counter" in capsys.readouterr().out
+
+
+def test_plan_rows_and_counters_reconcile(engine_parts):
+    """Each bucket's network plan gives the stem, block and boundary rows:
+    their bytes sum to the plan's total, every launch adds them (and their
+    collective bytes) to the counters, the pipelined boundaries are counted
+    once per bucket, and on one card the plan's schedules are the
+    single-card ones, with no collective and no boundary gather."""
+    from repro_torch.serve.vision import layer_names
+
+    telemetry.reset()
+    eng = _engine(engine_parts)
+    rng = np.random.default_rng(5)
+    for side in (16, 12, 24, 32, 30):          # 2x r16, 1x r24, 2x r32
+        eng.submit(_img(rng, side))
+    eng.drain()
+    t = telemetry.get_telemetry()
+    for res, n_batch in ((16, 1), (24, 1), (32, 1)):
+        plan = eng.plan_for(res)
+        rows = eng.modeled_layer_bytes(res)
+        assert tuple(rows) == layer_names(16)
+        assert sum(b for b, _ in rows.values()) == plan.total_bytes
+        assert rows["stem"] == (plan.stem_bytes, 0)
+        assert rows["boundaries"] == (0, 0)
+        assert all(c == 0 for _, c in rows.values())
+        for layer, (total, coll) in rows.items():
+            assert t.get(f"serve.bytes.r{res}.{layer}") == n_batch * total
+            assert t.get(f"serve.collective.r{res}.{layer}") == \
+                n_batch * coll
+        assert t.get(f"serve.pipelined_boundaries.r{res}") == \
+            len(plan.pipelined_boundaries) > 0
+        assert eng.schedules_for(res) == effnet_schedules(eng.cfg, 2, res,
+                                                          res)
+        assert eng.plan_for(res) is plan
+        assert t.get(f"serve.build.r{res}") == 1
+
+
+def test_engine_on_a_one_rank_mesh_is_bit_exact(engine_parts):
+    """The engine on a one-rank CPU mesh (gloo, mesh (1, 1)) runs every
+    block through the sharded wrappers and answers with the logits of the
+    engine without a mesh, bit for bit."""
+    import socket
+
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cfg, params = engine_parts
+    rng = np.random.default_rng(6)
+    imgs = [_img(rng, side) for side in (16, 20, 24)]
+    want = _engine(engine_parts)
+    for img in imgs:
+        want.submit(img)
+    want = {r.rid: r.logits for r in want.drain()}
+    mesh = make_mesh((1, 1), device="cpu",
+                     init_method=f"tcp://localhost:{port}", rank=0,
+                     world_size=1)
+    telemetry.reset()
+    try:
+        eng = VisionEngine(params, cfg, VisionServeConfig(
+            resolutions=RES, batch_size=2, max_queue=8), device="cpu",
+            mesh=mesh)
+        for img in imgs:
+            eng.submit(img)
+        got = {r.rid: r.logits for r in eng.drain()}
+        assert eng.mesh_shape() == (1, 1)
+        assert mesh.counts == {}
+        # 2 batches (r16, r24) x 16 blocks, all through the wrappers
+        assert telemetry.get_telemetry().get(
+            "sharded.dispatch.mbconv") == 32
+    finally:
+        mesh.close()
+    assert set(got) == set(want)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
