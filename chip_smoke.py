@@ -8,10 +8,10 @@ Phases, each of which must pass (exit 1 otherwise):
 1. build    prints the card (name, power limit), torch / CUDA / nvcc versions,
             turns TF32 off for the plain versions (cuDNN's convolutions
             default to it) and builds the CUDA kernels from the sources, one
-            nvcc per source, all started together, beside one more build of
-            each of mbconv.cu, fusedmb.cu and separable.cu with -Xptxas -v
-            whose registers, shared memory and spills per kernel are
-            printed.
+            nvcc per library, all started together (mbconv.cu and fusedmb.cu
+            twice: fp32 and bf16 storage), each with -Xptxas -v, whose
+            registers, shared memory and spills per kernel are printed for
+            the MBConv, Fused-MBConv and separable libraries.
 2. kernels  full-width EfficientNet-B0, batch 8, at every serve bucket
             (224, 384, 512): on every block, with the tiles and modes the
             engine solves for that bucket, each MBConv kernel (pass 1 with
@@ -28,7 +28,18 @@ Phases, each of which must pass (exit 1 otherwise):
             one), and the kernel's host-inclusive time of 20 eager calls,
             both on CUDA events; then per block the two pass-2 routes side
             by side (pass 1 + recompute against pass 1 with the DW write +
-            retain, its split-K reduce included).
+            retain, its split-K reduce included).  At 224 the bf16 builds
+            too (rows <kernel>_bf16), at the bf16 forward's tiles, on the
+            same inputs rounded to bf16 (the gate fp32): pass 1's retained
+            DW, each pass 2's output and the split-K reduce's within 1 bf16
+            ulp of the plain version's fp32 result on the same bf16 values
+            (elements near 0 of long sums, where two fp32 summation orders
+            alone differ by more than that ulp, within the fp32 bar
+            instead; their count printed), pass 1's fp32 pool partials at
+            the fp32 bar and its pool exactly their tile-order sum, timed
+            as the fp32 rows, bound_ms with 2 bytes a stored element and
+            the GEMM-shaped products (expand, projection) at the bf16
+            tensor-core rate, the depthwise and elementwise work at fp32's.
 3. model    full-width B0 (1000 classes) at 224, batch 8, from a seeded
             torch.Generator: the logits on the card against the same model on
             the CPU through the plain versions, within 1e-3 relative; then the
@@ -47,7 +58,9 @@ Phases, each of which must pass (exit 1 otherwise):
             on each of the 10 fused blocks (and bit for bit on a second
             call), and every MBConv kernel on each of the 30 MBConv blocks,
             at the same bar.  The kernels each block runs are timed as in
-            phase 2.
+            phase 2.  The Fused-MBConv kernel's bf16 build on each fused
+            block too, at the bf16 forward's tiles, at phase 2's bf16 bar,
+            bit for bit on a second call, timed.
 7. v2s-model    the V2-S main path: full-width V2-S at 384, batch 8, on the
             card, launch counts zeroed just before and read just after
             (exactly 10 Fused-MBConv launches, one per fused block); the
@@ -64,7 +77,17 @@ Phases, each of which must pass (exit 1 otherwise):
             just after (one pass 1 on each SE or retain block), against the
             CPU plain run within 1e-3 relative; the forward timed on CUDA
             events and traced.
-10. paper       the paper's dataflow: (a) the executable ConvDK twin
+10. bf16-model  B0 224, MobileNet-V3-Large 224 and V2-S 384 at batch 8 with
+            their configs' dtype "bfloat16", the fp32 phases' seeded
+            weights and images: launch counts zeroed just before and read
+            just after (the bf16 main paths: no fp32 MBConv or Fused-MBConv
+            launch, exactly 10 bf16 Fused-MBConv launches in V2-S); B0's
+            and V3's first 2 images' bf16 logits within 2e-2 x max|ref| of
+            the CPU plain bf16 forward; V2-S block by block (each block on
+            the card's bf16 activation against kernels.ref's oracle on the
+            same bf16 values, within 2e-2 x max|ref|); each forward timed
+            on CUDA events and traced, printed beside its fp32 forward.
+11. paper       the paper's dataflow: (a) the executable ConvDK twin
             (repro_torch.core.convdk) at full width on the card against its
             grouped-conv oracle (MobileNet-V2's two depthwise layers of
             largest map, a k=5 s=2 layer of B0), within the phase-2 bar;
@@ -84,7 +107,7 @@ Phases, each of which must pass (exit 1 otherwise):
             on CUDA events and traced; (d) the CIM model's Figs. 7-8
             (host arithmetic) beside the paper's bands, the WS
             buffer-traffic reduction inside its band.  Speed never fails it.
-11. bench       the port's measurement record: the per-block sweep
+12. bench       the port's measurement record: the per-block sweep
             (kernel_bench.measure_sweep: every block of B0 224, V3 224 and
             V2-S 384 at batch 8, each schedule point of the sweep checked
             against the oracle within 1e-4 x max|oracle|, then timed from
@@ -103,7 +126,7 @@ Phases, each of which must pass (exit 1 otherwise):
             batch time, latency from arrival), its gate passing, with the
             MBConv kernels' launches counted (zeroed just before, read just
             after).
-12. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
+13. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
             batch 8, and the trainer's 3 blocks at its batch 32, with the
             solved tiles and C_in splits: the fused separable kernel (with
             its split reduce where the block splits; dw_act relu, act relu
@@ -119,7 +142,7 @@ Phases, each of which must pass (exit 1 otherwise):
             the split reduce), counts zeroed just before and read just
             after: exactly 17 fused separable launches and one reduce per
             split block.
-13. grad        on the card, each op's input and weight gradients (fused
+14. grad        on the card, each op's input and weight gradients (fused
             separable and depthwise at a MobileNet-V2 block, MBConv retain
             and recompute with SE at a B0 block, MBConv without SE at a V3
             block, Fused-MBConv at a V2-S block) against autograd through
@@ -129,7 +152,7 @@ Phases, each of which must pass (exit 1 otherwise):
             weights and labels) against the CPU plain run, within 1e-3 *
             max|cpu grad| per leaf; then B0 forward + backward at batch 8
             timed on CUDA events and traced.
-14. train       the separable training path, under deterministic
+15. train       the separable training path, under deterministic
             algorithms (cuDNN deterministic, no cuDNN benchmark,
             torch.use_deterministic_algorithms, CUBLAS_WORKSPACE_CONFIG set
             before torch is imported; the first two restored after the
@@ -145,12 +168,12 @@ Phases, each of which must pass (exit 1 otherwise):
             of each other.  The fused run's DESCENDED/check verdict and
             step-60 ratio are printed: a single step of the chaotic lr 0.5
             trajectory is not a check of the code.
-15. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
+16. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
             layer (D 5120, 128, 128; k 4; SiLU; bias) at batch 1 x 32768
             tokens, in bf16 (within 1 bf16 ulp of the plain version's
             fp32 sum rounded once) and in fp32 (the phase-2 bar), timed as
             in phase 2 beside grouped F.conv1d + F.silu.
-16. lm-model    full-width Mamba-2 2.7B (64 layers, seeded fp32 weights,
+17. lm-model    full-width Mamba-2 2.7B (64 layers, seeded fp32 weights,
             materialized once and timed): the prefill forward with the
             kernel (exactly 192 conv1d launches, 3 per layer) and without it
             (none), counts zeroed just before and read just after; in fp32
@@ -159,7 +182,7 @@ Phases, each of which must pass (exit 1 otherwise):
             against the CPU plain run within 1e-3 relative; then the bf16
             prefill step at 1 x 32768 (the main path of the conv1d kernel)
             timed on CUDA events and traced.
-17. lm-serve    the LM engine at full width in bf16: generate_many on 8
+18. lm-serve    the LM engine at full width in bf16: generate_many on 8
             mixed requests (prompts of 12, 20, 28, 30, 40, 60, 300 and 300
             tokens, 16 new tokens each, LITTLE below 256), every one
             answered, with prefill tokens/s and decode ms per token; then
@@ -167,7 +190,7 @@ Phases, each of which must pass (exit 1 otherwise):
             tokens against the kernel path's forward (last row) within
             1e-3 relative.
 
-18. mesh        the sharded wrappers and the network plan over
+19. mesh        the sharded wrappers and the network plan over
             torch.distributed, parity runs (one H100 has no model axis):
             first a one-rank NCCL mesh (1, 1) runs full-width B0 at 224,
             batch 8, through the sharded path of every block, its logits
@@ -195,7 +218,8 @@ Phases, each of which must pass (exit 1 otherwise):
             or through the host), and tears torch.distributed down.
 
 The line before the last is {"kernels": [...]} (the SE pool reduce listed
-as folded into pass 1: no launches, no time of its own); the last line is
+as folded into pass 1: no launches, no time of its own; the bf16 builds of
+B1-B3' and B5 as entries <kernel>_bf16 of their own); the last line is
 {"ok": true, "device": {...}}.  Per-block kernel numbers are also written to
 build/chip_smoke/kernels.json.
 """
@@ -217,8 +241,11 @@ os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, HBM3
+# NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, bf16
+# tensor-core products (exact in fp32 and summed there, as the bf16 builds
+# compute them), HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_MMA_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5      # x max|plain|, absolute
 MODEL_RTOL = 1e-3                          # x max|cpu logits|
@@ -239,6 +266,8 @@ LM_REQUESTS = (12, 20, 28, 30, 40, 60, 300, 300)   # lm-serve prompt lengths
 LM_NEW_TOKENS = 16
 MESH_SHAPES = ((1, 2), (2, 1))             # the mesh phase's two-rank meshes
 MESH_RTOL = 1e-4                           # x max|single-device result|
+BF16_RTOL = 2e-2                           # x max|ref|: the JAX bf16 bar
+BF16_CPU_IMAGES = 2                        # bf16 logits held to the CPU
 DEVICE = "cuda"
 REPLACES = {
     "mbconv_pass1": "src/repro/kernels/convdk_mbconv.py:118",
@@ -252,16 +281,25 @@ REPLACES = {
     "dw2d": "src/repro/kernels/convdk_dw.py:32",
     "conv1d": "src/repro/kernels/convdk_conv1d.py:27",
 }
+# the bf16 builds of the MBConv and Fused-MBConv kernels, entries of their
+# own in the kernels line
+BF16_KERNELS = ("mbconv_pass1", "mbconv_pass2_recompute",
+                "mbconv_pass2_retain", "mbconv_splitk_reduce", "fusedmb")
+REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
 CSRC = "src/repro_torch/kernels/csrc"
-SOURCES = {k: f"{CSRC}/{k if k == 'fusedmb' else 'mbconv'}.cu"
+SOURCES = {k: f"{CSRC}/{'fusedmb' if k.startswith('fusedmb') else 'mbconv'}.cu"
            for k in REPLACES}
 SOURCES.update(fused_separable=f"{CSRC}/separable.cu",
                fused_separable_reduce=f"{CSRC}/separable.cu",
                dw2d=f"{CSRC}/separable.cu", conv1d=f"{CSRC}/conv1d.cu")
 
 
-def _bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
+def _bound(nbytes: float, flops: float, mma_flops: float = 0):
+    """(bound, bytes term, operations term) in ms: ``flops`` at the fp32
+    rate, ``mma_flops`` (bf16 products) at the tensor cores', the two
+    pipes side by side, so the operations term is the larger of the two."""
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = max(flops / PEAK_FP32_FLOPS, mma_flops / PEAK_BF16_MMA_FLOPS)
     return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
 
 
@@ -274,16 +312,18 @@ class KernelStats:
         self.rows = []
 
     def add(self, kernel, net, res, block, on_path, err, tol, times=None,
-            nbytes=0, flops=0, good=None, **shape):
+            nbytes=0, flops=0, good=None, mma_flops=0, **shape):
         """``good`` overrides the verdict ``err <= tol`` where the bar is
-        not one absolute tolerance (bf16: 1 ulp per element)."""
+        not one absolute tolerance (bf16: 1 ulp per element);
+        ``mma_flops`` are bf16 products, priced at the tensor cores' rate
+        (``_bound``)."""
         good = err <= tol if good is None else good
         row = dict(kernel=kernel, net=net, res=res, block=block,
                    on_path=on_path, max_abs_err=err, tol=tol, **shape)
         line = (f"  {net} r{res} block{block:02d} {kernel:24s} err "
                 f"{err:.3e} (tol {tol:.3e}) {'ok' if good else 'FAIL'}")
         if times is not None:
-            bound_ms, bytes_ms, ops_ms = _bound(nbytes, flops)
+            bound_ms, bytes_ms, ops_ms = _bound(nbytes, flops, mma_flops)
             row.update(times, bound_ms=bound_ms, bound_bytes_ms=bytes_ms,
                        bound_ops_ms=ops_ms)
             line += "  " + "  ".join(
@@ -351,8 +391,10 @@ class KernelStats:
         the MBConv kernels, the V2-S forward for Fused-MBConv, the trainer
         for the separable kernels, timed over the MobileNet-V2 blocks); the
         MBConv kernels also carry their launches, and their sums where the
-        path runs them, over the V2-S and the MobileNet-V3 forwards.
-        ``launches[net]`` are the counts of that network's main path."""
+        path runs them, over the V2-S and the MobileNet-V3 forwards; the
+        bf16 builds over the bf16 forwards of B0 (MBConv) and V2-S
+        (Fused-MBConv).  ``launches[net]`` are the counts of that network's
+        main path."""
         out = []
         for kernel in REPLACES:
             errs = [r["max_abs_err"] for r in self.rows
@@ -397,6 +439,22 @@ class KernelStats:
                 if kernel == "dw2d":
                     entry["paper_staged_launches"] = \
                         launches["paper_staged_dw2d"]
+            elif kernel.endswith("_bf16"):
+                net, res, title = (
+                    ("v2s", V2S_RES, "EfficientNet-V2-S")
+                    if kernel == "fusedmb_bf16" else
+                    ("b0", RES, "EfficientNet-B0"))
+                n, sums = self.sums(kernel, net, res)
+                entry.update(
+                    launches=launches[f"{net}_bf16"][kernel], **sums,
+                    dtype="bfloat16",
+                    shape=f"{title} {res}x{res} batch {BATCH} in bf16 (fp32 "
+                          f"sums), "
+                          f"{n} blocks of the bf16 forward's schedules; "
+                          f"launches of that forward; bound_ms at 2 bytes "
+                          f"a stored element, expand, conv and projection "
+                          f"products at the bf16 tensor-core rate, the "
+                          f"rest at fp32's")
             elif kernel == "fusedmb":
                 n, sums = self.sums(kernel, "v2s", V2S_RES)
                 entry.update(launches=launches["v2s"][kernel], **sums,
@@ -430,7 +488,10 @@ class KernelStats:
         return out
 
 
-PTXAS_SOURCES = ("mbconv", "fusedmb", "separable")
+LIBRARIES = ("mbconv", "mbconv_bf16", "fusedmb", "fusedmb_bf16", "separable",
+             "conv1d")
+PTXAS_SOURCES = ("mbconv", "mbconv_bf16", "fusedmb", "fusedmb_bf16",
+                 "separable")
 PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_recompute_kernel",
                  "mbconv_pass2_retain_kernel",
                  "mbconv_splitk_reduce_kernel", "fusedmb_kernel",
@@ -438,27 +499,15 @@ PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_recompute_kernel",
                  "dw2d_kernel")
 
 
-def start_ptxas_report(nvcc, out_dir):
-    """Starts one extra ``nvcc -Xptxas -v`` build of each of PTXAS_SOURCES
-    (beside the kernels' own builds), for the registers, shared memory and
-    spills of PTXAS_KERNELS."""
-    from repro_torch.kernels import _build
-    os.makedirs(out_dir, exist_ok=True)
-    return {name: subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         os.path.join(out_dir, f"{name}_ptxas.so"),
-         os.path.join(ROOT, CSRC, f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in PTXAS_SOURCES}
-
-
-def finish_ptxas_report(procs):
-    """Per instantiation of PTXAS_KERNELS: registers, static shared
-    memory, stack and spill bytes, as ptxas printed them."""
+def ptxas_report():
+    """Per instantiation of PTXAS_KERNELS in each library of PTXAS_SOURCES:
+    registers, static shared memory, stack and spill bytes, as ptxas
+    printed them in the library's build (``-Xptxas -v``)."""
     import re
+    from repro_torch.kernels import _build
     report = {}
-    for source, proc in procs.items():
-        out, _ = proc.communicate(timeout=600)
+    for source in PTXAS_SOURCES:
+        out = _build.build_log(source)
         names, rows, fn = {}, {}, None
         for line in out.splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties "
@@ -485,11 +534,11 @@ def finish_ptxas_report(procs):
         kernel = "|".join(PTXAS_KERNELS)
         short = lambda n: (re.search(rf"(?:{kernel})<[^>]*>", n)  # noqa: E731
                            or re.search(r".*", n)).group(0)
-        print(f"  nvcc -Xptxas -v {source}.cu (rc {proc.returncode}):")
+        print(f"  nvcc -Xptxas -v, library {source}:")
         for fn, row in sorted((short(names.get(f, f)), r)
                               for f, r in rows.items()):
             print(f"    {fn[:110]}: {row}")
-            report[fn] = row
+            report[f"{source}: {fn}"] = row
     return report
 
 
@@ -538,12 +587,14 @@ class _Harness:
                 else measure(kernel, iters=20).mean_ms}
 
 
-def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
+def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed,
+                   sch_bf16=None):
     """Every MBConv kernel variant a block of spec ``sp`` can run, on one
     block, against its plain version: the spec's activation, and with SE
     (pool partials, the folded pool, a gate of the spec's flavour) or
     without (no partials, no pool, ``gate=None``).  ``timed(on_path)``
-    says which are timed."""
+    says which are timed.  Given ``sch_bf16`` (the block's bf16 schedule),
+    the bf16 builds too, on the same inputs (``_mbconv_bf16_checks``)."""
     from repro_torch.core.autotune import get_mbconv_schedule, recompute_plan
 
     h, w, c_in, c_mid, c_out, k, s = row[:7]
@@ -640,8 +691,8 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
                splits=b2_splits))
 
     on_path = sch.mode == "retain"
-    got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
-    again = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
+    got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo, sch.retain_splits)
+    again = tk.mbconv_pass2_retain(dw, gate, w_proj, geo, sch.retain_splits)
     if not torch.equal(got, again):
         print(f"  {net} r{res} block{i:02d} retain does not repeat bit for "
               "bit: FAIL")
@@ -652,7 +703,8 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
     ok &= stats.add(
         "mbconv_pass2_retain", net, res, i, on_path, *hx.check(got, ref),
         hx.times(timed(on_path),
-                 lambda: tk.mbconv_pass2_retain(dw, gate, w_proj, geo),
+                 lambda: tk.mbconv_pass2_retain(dw, gate, w_proj, geo,
+                                                sch.retain_splits),
                  lambda: tk.mbconv_pass2_retain_plain(dw, gate, w_proj,
                                                       geo),
                  library),
@@ -660,7 +712,7 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
 
     # retain's split-K reduce, where the plan splits C_mid, on partials of
     # the shape the split launch writes; it must equal its plain version
-    splits = tk.retain_plan(b * oh * ow, c_mid, c_out)[2]
+    splits = tk.retain_plan(b * oh * ow, c_mid, c_out, sch.retain_splits)[2]
     if splits > 1:
         part = hx.rand(splits, b, oh, ow, c_out)
         red = tk.mbconv_splitk_reduce(part)
@@ -672,14 +724,176 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed):
                      lambda: part.sum(dim=0)),
             4 * (splits + 1) * b * oh * ow * c_out,
             (splits - 1) * b * oh * ow * c_out, splits=splits, **shape)
+    if sch_bf16 is not None:
+        ok &= _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp,
+                                  sch_bf16, (x, w_exp, w_dw, gate, w_proj),
+                                  timed)
     _sync(torch)
     return ok
 
 
-def _fusedmb_checks(torch, tf, stats, hx, net, res, i, row, sch):
+def _bf16_verdict(got, ref32):
+    """A bf16 output against the plain version's fp32 result on the same
+    bf16 inputs: (good, max|err|, the fp32 bar, worst bf16 ulps, elements
+    past 1 ulp).  Good: within 1 bf16 ulp of the fp32 sum everywhere,
+    except where the two fp32 summation orders alone differ by more than
+    that ulp (outputs near 0 of long sums), which are held to the fp32 bar
+    (KERNEL_RTOL x max|ref| + KERNEL_ATOL) instead."""
+    import torch
+    ulp = _bf16_ulp(ref32)
+    err = (got.float() - ref32).abs()
+    bar = KERNEL_RTOL * float(ref32.abs().max()) + KERNEL_ATOL
+    good = bool((err <= torch.clamp(ulp, min=bar)).all())
+    return (good and got.dtype == torch.bfloat16, float(err.max()), bar,
+            float((err / ulp).max()), int((err > ulp).sum()))
+
+
+def _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp, sch,
+                        ops, timed):
+    """The block's MBConv kernels in bf16 at its bf16 schedule ``sch``, on
+    the fp32 checks' inputs ``ops`` (x, w_exp, w_dw, gate, w_proj) rounded
+    to bf16, the gate kept fp32: pass 1's retained DW, recompute's and
+    retain's outputs and the split-K reduce's against their plain versions
+    on the same bf16 values (``_bf16_verdict``), pass 1's fp32 pool
+    partials at the fp32 bar and its pool exactly their tile-order sum.
+    Rows are named ``<kernel>_bf16``; bytes at 2 per stored element (4 for
+    the pool, its partials, the gate and split partials); the expand's and
+    the projection's products at the bf16 tensor-core rate, the depthwise,
+    gate and sums at fp32's."""
+    from repro_torch.core.autotune import get_mbconv_schedule, recompute_plan
+
+    h, w, c_in, c_mid, c_out, k, s = row[:7]
+    x, w_exp, w_dw, gate, w_proj = (None if t is None else
+                                    t if t is ops[3] else t.bfloat16()
+                                    for t in ops)
+    f32 = lambda t: None if t is None else t.float()  # noqa: E731
+    se, identity = sp.has_se, w_exp is None
+    geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", sch.tile_h, sch.tile_w)
+    oh, ow, b = geo.out_h, geo.out_w, BATCH
+    acts = dict(exp_act=None if identity else sp.act, dw_act=sp.act)
+    shape = dict(h=h, w=w, c_in=c_in, c_mid=c_mid, c_out=c_out, k=k, s=s,
+                 tile=f"{geo.tile_h}x{geo.tile_w}", mode=sch.mode,
+                 act=sp.act, se=se, dtype="bfloat16")
+    x_b, dw_b, out_b = (2 * b * h * w * c_in, 2 * b * oh * ow * c_mid,
+                        2 * b * oh * ow * c_out)
+    part_b = 4 * b * geo.n_tiles * c_mid if se else 0
+    w1_b = 2 * ((0 if identity else c_in * c_mid) + k * k * c_mid)
+    w2_b = (4 * b * c_mid if se else 0) + 2 * c_mid * c_out
+    # bf16 products (expand, projection) apart from the fp32 work
+    exp_f = 0 if identity else 2 * b * h * w * c_in * c_mid
+    dw_f = 2 * b * oh * ow * c_mid * k * k
+    gate_f = b * oh * ow * c_mid if se else 0
+    proj_f = 2 * b * oh * ow * c_mid * c_out
+
+    def add(kernel, on_path, verdict, times, nbytes, flops, mma_flops=0,
+            **extra):
+        good, err, bar, ulps, past = verdict
+        print(f"  {net} r{res} block{i:02d} {kernel} bf16: worst {ulps:.3f} "
+              f"bf16 ulp, {past} element(s) past 1 ulp within the fp32 bar "
+              f"{bar:.3e}")
+        return stats.add(f"{kernel}_bf16", net, res, i, on_path, err, bar,
+                         times, nbytes, flops, good=good, bf16_ulps=ulps,
+                         mma_flops=mma_flops,
+                         past_one_ulp=past, **extra, **shape)
+
+    ok = True
+    for retain in ((False, True) if se else (True,)):
+        on_path = retain == (sch.mode == "retain")
+        got = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se, retain=retain,
+                              **acts)
+        ref = tk.mbconv_pass1_plain(f32(x), f32(w_exp), f32(w_dw), geo,
+                                    se=se, retain=retain, **acts)
+        verdict = (_bf16_verdict(got[2], ref[2]) if retain
+                   else (True, 0.0, 0.0, 0.0, 0))
+        if se:
+            err, tol = _Harness.check(got[0], ref[0])
+            exact = torch.equal(got[1], tk.mbconv_pool_reduce_plain(got[0]))
+            print(f"  {net} r{res} block{i:02d} mbconv_pass1 bf16 pool "
+                  f"partials err {err:.3e} (tol {tol:.3e}), pool "
+                  f"{'exactly' if exact else 'NOT'} their tile-order sum")
+            verdict = (verdict[0] and err <= tol and exact,
+                       max(verdict[1], err), *verdict[2:])
+        if retain:
+            dw = got[2]
+        ok &= add("mbconv_pass1", on_path, verdict, hx.times(
+            timed(on_path),
+            lambda: tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                    retain=retain, **acts),
+            lambda: tk.mbconv_pass1_plain(x, w_exp, w_dw, geo, se=se,
+                                          retain=retain, **acts)),
+            x_b + w1_b + part_b + (dw_b if retain else 0),
+            dw_f + gate_f, exp_f, retain=retain)
+
+    on_path = sch.mode == "recompute"
+    pin = get_mbconv_schedule(b, h, w, c_in, c_mid, c_out, k, s,
+                              se_ratio=sp.se_ratio, dtype_bytes=2,
+                              mode="recompute")
+    g2 = geo if on_path else tk.MBConvGeometry.make(
+        h, w, k, s, "SAME", pin.tile_h, pin.tile_w)
+    co_tile, b2_splits = recompute_plan(b, oh, ow, c_mid, c_out, g2.tile_h,
+                                        g2.tile_w)
+    got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, g2, **acts)
+    ok &= torch.equal(got, tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate,
+                                                     w_proj, g2, **acts))
+    ok &= add("mbconv_pass2_recompute", on_path, _bf16_verdict(
+        got, tk.mbconv_pass2_recompute_plain(f32(x), f32(w_exp), f32(w_dw),
+                                             gate, f32(w_proj), g2, **acts)),
+        hx.times(timed(on_path),
+                 lambda: tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate,
+                                                   w_proj, g2, **acts),
+                 lambda: tk.mbconv_pass2_recompute_plain(
+                     x, w_exp, w_dw, gate, w_proj, g2, **acts)),
+        x_b + w1_b + w2_b + out_b, dw_f + gate_f, exp_f + proj_f,
+        co_tile=co_tile, splits=b2_splits)
+
+    on_path = sch.mode == "retain"
+    cap = sch.retain_splits
+    got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo, cap)
+    ok &= torch.equal(got, tk.mbconv_pass2_retain(dw, gate, w_proj, geo,
+                                                  cap))
+    gate_b = None if gate is None else gate.bfloat16()
+    library = ((lambda: torch.einsum("bhwc,bc,co->bhwo", dw, gate_b, w_proj))
+               if se else (lambda: dw @ w_proj))
+    ok &= add("mbconv_pass2_retain", on_path, _bf16_verdict(
+        got, tk.mbconv_pass2_retain_plain(dw.float(), gate, f32(w_proj),
+                                          geo)),
+        hx.times(timed(on_path),
+                 lambda: tk.mbconv_pass2_retain(dw, gate, w_proj, geo, cap),
+                 lambda: tk.mbconv_pass2_retain_plain(dw, gate, w_proj, geo),
+                 library),
+        dw_b + w2_b + out_b, gate_f, proj_f)
+
+    splits = tk.retain_plan(b * oh * ow, c_mid, c_out, cap)[2]
+    if splits > 1:
+        # from a generator of its own: the fp32 checks' inputs stay as they
+        # were without the bf16 checks
+        part = torch.randn(splits, b, oh, ow, c_out,
+                           generator=torch.Generator().manual_seed(i)
+                           ).to(hx.dev)
+        red = tk.mbconv_splitk_reduce(part, torch.bfloat16)
+        exact = torch.equal(red, tk.mbconv_splitk_reduce_plain(
+            part, torch.bfloat16))
+        verdict = _bf16_verdict(red, tk.mbconv_splitk_reduce_plain(part))
+        ok &= add("mbconv_splitk_reduce", on_path,
+                  (verdict[0] and exact, *verdict[1:]),
+                  hx.times(timed(on_path),
+                           lambda: tk.mbconv_splitk_reduce(part,
+                                                           torch.bfloat16),
+                           lambda: tk.mbconv_splitk_reduce_plain(
+                               part, torch.bfloat16)),
+                  (4 * splits + 2) * b * oh * ow * c_out,
+                  (splits - 1) * b * oh * ow * c_out, splits=splits)
+    return ok
+
+
+def _fusedmb_checks(torch, tf, stats, hx, net, res, i, row, sch,
+                    sch_bf16=None):
     """The Fused-MBConv kernel on one block against its plain version,
     timed.  No single PyTorch call computes conv + act + projection, so
-    there is no library time."""
+    there is no library time.  Given ``sch_bf16`` (the block's bf16
+    schedule), its bf16 build too, on the same inputs rounded to bf16,
+    against the plain version's fp32 result on those values
+    (``_bf16_verdict``), bit for bit on a second call, timed."""
     h, w, c_in, c_mid, c_out, k, s = row[:7]
     geo = tf.MBConvGeometry.make(h, w, k, s, "SAME", sch.tile_h, sch.tile_w)
     oh, ow, b = geo.out_h, geo.out_w, BATCH
@@ -706,29 +920,54 @@ def _fusedmb_checks(torch, tf, stats, hx, net, res, i, row, sch):
                  lambda: tf.fusedmb_plain(x, w_conv, w_proj, geo,
                                           act="silu")),
         nbytes, flops, **shape)
+    if sch_bf16 is not None:
+        xb, wcb, wpb = x.bfloat16(), w_conv.bfloat16(), w_proj.bfloat16()
+        gb = tf.MBConvGeometry.make(h, w, k, s, "SAME", sch_bf16.tile_h,
+                                    sch_bf16.tile_w)
+        got = tf.fusedmb(xb, wcb, wpb, gb, act="silu")
+        repeats &= torch.equal(got, tf.fusedmb(xb, wcb, wpb, gb, act="silu"))
+        good, err, bar, ulps, past = _bf16_verdict(got, tf.fusedmb_plain(
+            xb.float(), wcb.float(), wpb.float(), gb, act="silu"))
+        print(f"  {net} r{res} block{i:02d} fusedmb bf16: worst {ulps:.3f} "
+              f"bf16 ulp, {past} element(s) past 1 ulp within the fp32 bar "
+              f"{bar:.3e}")
+        ok &= stats.add(
+            "fusedmb_bf16", net, res, i, True, err, bar,
+            hx.times(True, lambda: tf.fusedmb(xb, wcb, wpb, gb, act="silu"),
+                     lambda: tf.fusedmb_plain(xb, wcb, wpb, gb, act="silu")),
+            nbytes // 2, 0, good=good, mma_flops=flops, bf16_ulps=ulps,
+            past_one_ulp=past,
+            **dict(shape, tile=f"{gb.tile_h}x{gb.tile_w}",
+                   chunk=sch_bf16.chunk, ci_chunk=sch_bf16.ci_chunk,
+                   dtype="bfloat16"))
     _sync(torch)
     return ok and repeats
 
 
 def chain_kernel_phase(torch, tk, tf, stats, net, specs, res, seed,
-                       timed) -> bool:
+                       timed, bf16=()) -> bool:
     """Every kernel of each block of a network's chain at ``res``, batch
     BATCH, against its plain version, with the tiles and modes the forward
-    solves for that size; ``timed(on_path)`` says which are timed."""
+    solves for that size; ``timed(on_path)`` says which are timed.  The
+    families named in ``bf16`` are also checked in bf16, at the bf16
+    forward's schedules, on the same inputs."""
     from repro_torch.models.mbconv import block_chain_rows, block_schedules
 
     half = -(-res // 2)
     rows = block_chain_rows(specs, half, half)
     schedules = block_schedules(specs, BATCH, res, res)
+    bf16_schedules = block_schedules(specs, BATCH, res, res, dtype_bytes=2)
     hx = _Harness(torch, seed)
     ok = True
-    for i, (row, sp, sch) in enumerate(zip(rows, specs, schedules)):
+    for i, (row, sp, sch, sb) in enumerate(zip(rows, specs, schedules,
+                                               bf16_schedules)):
+        sb = sb if sp.family in bf16 else None
         if sp.family == "fusedmb":
             ok &= _fusedmb_checks(torch, tf, stats, hx, net, res, i, row,
-                                  sch)
+                                  sch, sb)
         else:
             ok &= _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp,
-                                 sch, timed)
+                                 sch, timed, sb)
     return bool(ok)
 
 
@@ -742,7 +981,8 @@ def kernel_phase(torch, tk, tf, stats) -> bool:
     ok = True
     for res in SERVE_RES:
         ok &= chain_kernel_phase(torch, tk, tf, stats, "b0", specs, res, res,
-                                 lambda on_path, r=res: r == RES)
+                                 lambda on_path, r=res: r == RES,
+                                 ("mbconv",) if res == RES else ())
     return bool(ok)
 
 
@@ -835,7 +1075,8 @@ def trace_phase(torch, forward, fwd_ms, grad=False):
         return None
     groups = {}
     for name, ms in by_name.items():
-        group = next((k for k in REPLACES if f"{k}_kernel" in name),
+        group = next((k + ("_bf16" if "bfloat16" in name else "")
+                      for k in REPLACES if f"{k}_kernel" in name),
                      "other (cuDNN, cuBLAS, elementwise)")
         groups[group] = groups.get(group, 0.0) + ms
     device_ms = sum(by_name.values())
@@ -882,7 +1123,7 @@ def serve_phase(torch, tk, params, params_cpu):
               for r in results)
     for res in scfg.resolutions:
         ok &= t.get(f"serve.build.r{res}") == 1
-    ok &= all(n > 0 for n in launches.values())
+    ok &= all(launches[k] > 0 for k in tk.FP32_KERNELS)
 
     # requests of the 384 and 512 buckets (300 px and 480 px images, so
     # padded) against the plain versions on the CPU: a fault in the
@@ -992,6 +1233,123 @@ def v3_model_phase(torch):
     print(f"  forward (MobileNet-V3-Large {V3_RES}x{V3_RES}, batch {BATCH}): "
           f"{fwd.mean_ms:.3f} ms (CUDA events, mean of 10)")
     return bool(ok), counts, forward, fwd.mean_ms
+
+
+def _bf16_nets():
+    """(name, config class, def, apply, specs, side, stem act) of the
+    three networks the bf16 phase runs."""
+    from repro_torch.models import mbconv as tm
+    return (("b0", tm.EffNetConfig, tm.efficientnet_b0_def,
+             tm.efficientnet_b0_apply, tm.effnet_block_specs, RES, "silu"),
+            ("v3", tm.MobileNetV3Config, tm.mobilenet_v3_def,
+             tm.mobilenet_v3_apply, tm.mobilenet_v3_specs, V3_RES,
+             "hard_swish"),
+            ("v2s", tm.EffNetV2Config, tm.efficientnet_v2_s_def,
+             tm.efficientnet_v2_s_apply, tm.effnet_v2_block_specs, V2S_RES,
+             "silu"))
+
+
+def _bf16_block_parity(torch, specs, params, images, stem_act):
+    """Every block of a bf16 chain on the card, fed the card's bf16
+    activation of the block before (so no difference compounds), against
+    its plain oracle (``kernels.ref`` through ``kernel_bench._oracle``:
+    fp32 sums of the same bf16 values, rounded once; the residual added in
+    bf16): the worst max|err| over BF16_RTOL x max|ref| and its block."""
+    from repro_torch.benchmarks.kernel_bench import _oracle
+    from repro_torch.models.mbconv import apply_block, stem_conv
+    act = {"silu": torch.nn.functional.silu,
+           "hard_swish": torch.nn.functional.hardswish}[stem_act]
+    x = act(stem_conv(images.bfloat16(), params["stem"].bfloat16()))
+    worst = (0.0, -1)
+    for i, sp in enumerate(specs):
+        p = params[f"block{i}"]
+        y = apply_block(x, sp, p)[0]
+        pb = {k: v.bfloat16() if k in ("exp", "dw", "proj", "conv") else v
+              for k, v in p.items()}
+        ref = _oracle(x, sp, pb).float()
+        ratio = (float((y.float() - ref).abs().max())
+                 / (BF16_RTOL * float(ref.abs().max())))
+        worst = max(worst, (ratio, i))
+        x = y
+    return worst
+
+
+def bf16_model_phase(torch, fp32):
+    """Each network's bf16 forward (its config's ``dtype="bfloat16"``) at
+    full width, batch BATCH, the fp32 phases' seeded weights and images:
+    launch counts zeroed just before and read just after (the bf16 main
+    path: every MBConv / Fused-MBConv launch a bf16 build); B0's and V3's
+    first BF16_CPU_IMAGES images' logits within BF16_RTOL x max|ref| of
+    the CPU plain bf16 forward, V2-S block by block
+    (``_bf16_block_parity``); each forward timed on CUDA events (mean of
+    10) and traced, printed beside the fp32 forward's ``fp32[name]`` (ms,
+    trace)."""
+    from repro_torch.core.telemetry import measure
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.param import materialize
+
+    ok, out = True, {}
+    for name, cls, def_fn, apply, specs_fn, side, stem_act in _bf16_nets():
+        cfg = cls(dtype="bfloat16")
+        params = materialize(def_fn(cfg), torch.Generator().manual_seed(0),
+                             DEVICE)
+        images = torch.rand(BATCH, side, side, 3,
+                            generator=torch.Generator().manual_seed(1))
+        dev_images = images.to(DEVICE)
+        with torch.inference_mode():
+            reset_launches()                    # the main path starts here
+            logits = apply(params, dev_images, cfg)
+            _sync(torch)
+            counts = launches()                 # ... and ends here
+            fp32_launched = sum(n for k, n in counts.items()
+                                if k.startswith(("mbconv_", "fusedmb"))
+                                and not k.endswith("_bf16"))
+            good = (logits.dtype == torch.bfloat16
+                    and logits.shape == (BATCH, cfg.num_classes)
+                    and bool(torch.isfinite(logits).all())
+                    and fp32_launched == 0
+                    and counts["mbconv_pass2_retain_bf16"] > 0)
+            if name == "v2s":
+                ratio, block = _bf16_block_parity(
+                    torch, specs_fn(cfg), params, dev_images, stem_act)
+                good &= ratio <= 1.0 and counts["fusedmb_bf16"] == 10
+                check = (f"block by block: worst max|err| {ratio:.3f} x "
+                         f"{BF16_RTOL:g} x max|ref| (block {block})")
+            else:
+                ref = apply(_cpu_tree(torch, params),
+                            images[:BF16_CPU_IMAGES], cfg).float()
+                rel = (float((logits[:BF16_CPU_IMAGES].float().cpu()
+                              - ref).abs().max())
+                       / float(ref.abs().max()))
+                good &= rel <= BF16_RTOL
+                check = (f"first {BF16_CPU_IMAGES} vs the CPU plain bf16 "
+                         f"run: rel err {rel:.3e} (tol {BF16_RTOL:g})")
+        print(f"  {name} {side}x{side} batch {BATCH} bf16: logits "
+              f"{tuple(logits.shape)} {logits.dtype}, {check} "
+              f"{'ok' if good else 'FAIL'}; launches {counts}")
+        ok &= good
+
+        def forward():
+            return apply(params, dev_images, cfg)
+
+        with torch.inference_mode():
+            fwd = measure(forward, iters=10, warmup=2)
+        trace = trace_phase(torch, forward, fwd.mean_ms)
+        fp32_ms, fp32_trace = fp32[name]
+        def dev(t):
+            if t is None:
+                return "device time not measured"
+            ms = t["device_ms_per_forward"]
+            return f"{ms:.4f} ms device, busy {ms / t['forward_ms']:.1%}"
+
+        print(f"  {name} forward: fp32 {fp32_ms:.3f} ms ({dev(fp32_trace)}); "
+              f"bf16 {fwd.mean_ms:.3f} ms ({dev(trace)}) (CUDA events, mean "
+              f"of 10; device time from the profiler)")
+        out[name] = {"launches": counts, "forward_ms": fwd.mean_ms,
+                     "trace": trace, "fp32_forward_ms": fp32_ms,
+                     "fp32_trace": fp32_trace}
+        del params, logits
+    return bool(ok), out
 
 
 def _convdk_on_card(torch):
@@ -1717,15 +2075,19 @@ def _train_runs(torch):
          "fused_repeats": same}
 
 
-def _bf16_ulps(got, ref):
-    """Largest |got - ref| in units of one bf16 ulp of ``ref`` (the spacing
-    of bf16 numbers at ref's binade; 2^-133 at 0)."""
+def _bf16_ulp(ref32):
+    """One bf16 ulp of each element of ``ref32`` (the spacing of bf16
+    numbers at its binade; 2^-133 at 0)."""
     import torch
-    ref32 = ref.float()
     _, exp = torch.frexp(ref32)
-    ulp = torch.where(ref32 == 0, torch.full_like(ref32, 2.0 ** -133),
-                      torch.ldexp(torch.ones_like(ref32), exp - 8))
-    return float(((got.float() - ref32).abs() / ulp).max())
+    return torch.where(ref32 == 0, torch.full_like(ref32, 2.0 ** -133),
+                       torch.ldexp(torch.ones_like(ref32), exp - 8))
+
+
+def _bf16_ulps(got, ref):
+    """Largest |got - ref| in units of one bf16 ulp of ``ref``."""
+    ref32 = ref.float()
+    return float(((got.float() - ref32).abs() / _bf16_ulp(ref32)).max())
 
 
 def lm_kernel_phase(torch, tc, stats) -> bool:
@@ -2321,14 +2683,15 @@ def main() -> int:
     from repro_torch.kernels import ops
     tb = time.perf_counter()
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
-    ptxas = start_ptxas_report(_build.nvcc_path(), out_dir)
-    _build.build(["mbconv", "fusedmb", "separable", "conv1d"])
-    tk._lib()
-    tf._lib()
+    os.makedirs(out_dir, exist_ok=True)
+    _build.build(LIBRARIES)
+    for dtype in (torch.float32, torch.bfloat16):
+        tk._lib(dtype)
+        tf._lib(dtype)
     tfs._lib()
     tc._lib()
     print(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s")
-    ptxas = finish_ptxas_report(ptxas)
+    ptxas = ptxas_report()
 
     phases, marks = {}, [("build", t0)]
 
@@ -2356,7 +2719,7 @@ def main() -> int:
         mobilenet_v3_specs)
     phases["v2s-kernels"] = chain_kernel_phase(
         torch, tk, tf, stats, "v2s", effnet_v2_block_specs(EffNetV2Config()),
-        V2S_RES, 1000 + V2S_RES, lambda on_path: on_path)
+        V2S_RES, 1000 + V2S_RES, lambda on_path: on_path, ("fusedmb",))
     phase("v2s-model", "v2s-model: V2-S on the card (its main path) vs the "
                        "CPU plain run")
     phases["v2s-model"], v2s_launches, forward, v2s_ms = \
@@ -2377,6 +2740,11 @@ def main() -> int:
     phase("v3-trace", "v3-trace: device time of the V3 forward by kernel")
     v3_trace = trace_phase(torch, forward, v3_ms)
     del forward
+    phase("bf16-model", "bf16-model: B0, V3 and V2-S forwards in bf16 "
+                        "beside fp32")
+    phases["bf16-model"], bf16 = bf16_model_phase(torch, {
+        "b0": (fwd_ms, trace), "v3": (v3_ms, v3_trace),
+        "v2s": (v2s_ms, v2s_trace)})
     phase("paper", "paper: ConvDK on the card; every B0, V3 and V2-S block "
                    "fused and staged; the forwards both ways; the CIM model")
     phases["paper"], paper, paper_dw = paper_phase(torch, stats)
@@ -2426,6 +2794,7 @@ def main() -> int:
                    "mnv2_launches": mnv2_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "both_modes": both_modes,
+                   "bf16": bf16,
                    "paper": paper, "bench": bench, "mesh": mesh,
                    "rows": stats.rows}, f,
                   indent=1)
@@ -2436,7 +2805,9 @@ def main() -> int:
     print(json.dumps({"kernels": stats.summary(
         {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches,
          "train": train_launches, "mnv2": mnv2_launches,
-         "lm": lm_launches, "paper_staged_dw2d": paper_dw}),
+         "lm": lm_launches, "paper_staged_dw2d": paper_dw,
+         "b0_bf16": bf16["b0"]["launches"],
+         "v2s_bf16": bf16["v2s"]["launches"]}),
         "lm_launches_per_prefill_forward": lm_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@ on the card, as device time; and the measured per-block sweep that writes
 the ``BENCH_<host>.json`` trajectory.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --fused \\
-        [--family b0,v3l,v2s] [--measure] [--mesh DxM [--collective MODE]]
+        [--family b0,v3l,v2s] [--batch N] [--res SIDE] [--dtype fp32|bf16]
+        [--measure [--block I]] [--mesh DxM [--collective MODE]]
         [--network]
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --measure \\
         [--family b0,v3l,v2s] [--bench-out DIR]
@@ -12,15 +13,20 @@ Counterpart of the ``--fused`` / ``--family`` / ``--measure`` parts of the
 JAX package's ``benchmarks/kernel_bench.py``.  ``--fused`` prints, for
 every MobileNet-V2 separable block (and the k=7 EfficientNet-V2 stem rows)
 and every block of each ``--family`` chain (EfficientNet-B0 at 224,
-MobileNet-V3-Large at 224, EfficientNet-V2-S at its published 384, all at
-batch 8), the Hopper schedule, the fused route's device-memory bytes
-(``core.hopper_traffic``: the kernels at their own tiles) against the
-staged model's bytes, and beside them the fused route's global-load bytes
-and the copied TPU model's fused bytes (``core.perfmodel``, what the solver
-ranks by), and for the families the bytes the staged route writes and
-reads back (its working set, beside the card's 50 MB L2).  It exits 1 when
-the fused route's device-memory bytes are not strictly below the staged
-bytes at some block: the JAX package's gate, read at the Hopper level.
+MobileNet-V3-Large at 224, EfficientNet-V2-S at its published 384, or
+every family at ``--res``; at ``--batch``, 8 by default, and the storage
+dtype ``--dtype``, fp32 by default), the Hopper schedule, the fused
+route's device-memory bytes (``core.hopper_traffic``: the kernels at their
+own tiles) against the staged route's bytes (``hopper_traffic.
+mbconv_staged_bytes``: the copied model's staged traffic, its
+intermediates at fp32), and beside them the fused route's global-load
+bytes and the copied TPU model's fused bytes (``core.perfmodel``, what the
+solver ranks by), and for the families the bytes the staged route writes
+and reads back (its working set, beside the card's 50 MB L2).  It exits 1
+when the fused route's device-memory bytes are not strictly below the
+staged bytes at some block: the JAX package's gate, read at the Hopper
+level.  The separable rows are fp32 at every ``--dtype`` (B4 takes
+fp32).
 
 ``--fused --mesh DxM`` prices the same blocks SHARDED over a (data, model)
 mesh of that shape, at batch 8 (host arithmetic: one card has no model
@@ -40,6 +46,13 @@ greedy per-layer plan: the solved total must be at or below greedy's, and
 on a model-sharded mesh strictly below with at least one boundary kept
 sharded where the chain has an identity-expand block, or else every
 Fused-MBConv entry replicated.
+
+``--fused --measure --block I`` times block I of each family on the card
+at ``--batch`` and ``--res`` (fp32; a retain block): the whole fused block
+at the solver's pass-1 tile and at the tile of fewest device-memory bytes,
+each at every K split count of the retain GEMM from ``retain_plan``'s own
+down to 1, beside the staged route, with each point's modeled bytes and
+whether it keeps the gate's bar.
 
 ``--fused --measure`` runs each family block on the card, fused
 (``models.mbconv.apply_block``) and staged (``fused=False``) on the same
@@ -76,6 +89,8 @@ import torch
 from ..core.autotune import (
     C_BLOCK,
     L2_BYTES,
+    P1_MAX_TILE_PIXELS,
+    SMEM_BYTES,
     BlockRow,
     SWEEP_CHECK_RTOL,
     MBConvSchedule,
@@ -86,12 +101,16 @@ from ..core.autotune import (
     get_mbconv_schedule,
     greedy_network_schedule,
     mbconv_sweep_candidates,
+    pass1_smem_bytes,
+    retain_plan,
     solve_network_schedule,
 )
 from ..core.hopper_traffic import (
     HopperTraffic,
     fusedmb_hopper_traffic,
+    fusedmb_staged_bytes,
     mbconv_hopper_traffic,
+    mbconv_staged_bytes,
     separable_hopper_traffic,
 )
 from ..core.perfmodel import (
@@ -119,6 +138,7 @@ from ..core.telemetry import measure
 from ..core.trajectory import write_bench
 from ..kernels.common import resolve_device
 from ..kernels.convdk_fusedmb import convdk_fusedmb_fused
+from ..kernels.convdk_mbconv import convdk_mbconv_fused, convdk_mbconv_staged
 from ..kernels.ref import fusedmb_ref, mbconv_ref
 from ..models.mbconv import (
     EffNetConfig,
@@ -140,6 +160,7 @@ FAMILY_CHOICES = ("b0", "v3l", "v2s")
 # each family's published input side
 FAMILY_RES = {"b0": 224, "v3l": 224, "v2s": 384}
 BATCH = 8
+DTYPE_BYTES = {"fp32": 4, "bf16": 2}       # --dtype: the storage type
 FLUSH_BYTES = 128 * 2 ** 20        # the cold-L2 scratch write
 CHECK_RTOL = SWEEP_CHECK_RTOL      # x max|oracle|
 WARM_ITERS, COLD_ITERS = 20, 5
@@ -159,28 +180,31 @@ def family_specs(family: str) -> List[MBConvSpec]:
                      f"got {family!r}")
 
 
-def family_chain(family: str, batch: int, res: int
+def family_chain(family: str, batch: int, res: int, dtype_bytes: int = 4
                  ) -> Tuple[List[MBConvSpec], Tuple[BlockRow, ...],
                             Tuple[Schedule, ...]]:
     """Specs, chain rows at the stem-output side and the schedules the
-    forward solves, for one family at ``batch`` x ``res`` x ``res``."""
+    forward solves, for one family at ``batch`` x ``res`` x ``res`` and
+    ``dtype_bytes``-byte storage."""
     specs = family_specs(family)
     half = -(-res // 2)
     return (specs, block_chain_rows(specs, half, half),
-            block_schedules(specs, batch, res, res))
+            block_schedules(specs, batch, res, res, dtype_bytes=dtype_bytes))
 
 
-def _shape(r: BlockRow, batch: int) -> MBConvShape:
+def _shape(r: BlockRow, batch: int, dtype_bytes: int = 4) -> MBConvShape:
     return MBConvShape(b=batch, h=r.h, w=r.w, c_in=r.c_in, c_mid=r.c_mid,
                        c_out=r.c_out, k=r.k, s=r.s,
-                       se_ratio=0.0 if r.family == "fusedmb" else r.se_ratio)
+                       se_ratio=0.0 if r.family == "fusedmb" else r.se_ratio,
+                       dtype_bytes=dtype_bytes)
 
 
-def block_traffic(r: BlockRow, sch: Schedule, batch: int
-                  ) -> Tuple[HBMTraffic, HBMTraffic]:
+def block_traffic(r: BlockRow, sch: Schedule, batch: int,
+                  dtype_bytes: int = 4) -> Tuple[HBMTraffic, HBMTraffic]:
     """(fused, staged) modeled traffic of one block at its schedule's
-    tile_h: the copied TPU model at its channel block (``C_BLOCK``)."""
-    shape = _shape(r, batch)
+    tile_h: the copied TPU model at its channel block (``C_BLOCK``), every
+    word at ``dtype_bytes``."""
+    shape = _shape(r, batch, dtype_bytes)
     if r.family == "fusedmb":
         return (fusedmb_fused_traffic(shape, sch.tile_h, C_BLOCK),
                 fusedmb_staged_traffic(shape, sch.tile_h, C_BLOCK))
@@ -188,13 +212,24 @@ def block_traffic(r: BlockRow, sch: Schedule, batch: int
             mbconv_staged_traffic(shape, sch.tile_h, C_BLOCK))
 
 
-def hopper_traffic(r: BlockRow, sch: Schedule, batch: int
-                   ) -> HopperTraffic:
+def hopper_traffic(r: BlockRow, sch: Schedule, batch: int,
+                   dtype_bytes: int = 4) -> HopperTraffic:
     """The fused route's traffic at the Hopper kernels' own tiles."""
-    shape = _shape(r, batch)
+    shape = _shape(r, batch, dtype_bytes)
     if r.family == "fusedmb":
         return fusedmb_hopper_traffic(shape, sch)
     return mbconv_hopper_traffic(shape, sch)
+
+
+def staged_bytes(r: BlockRow, sch: Schedule, batch: int,
+                 dtype_bytes: int = 4) -> int:
+    """The staged route's device-memory bytes at the schedule's tile_h,
+    the gate's bar: its intermediates at fp32 (at 4-byte storage, the
+    copied model's staged total exactly)."""
+    shape = _shape(r, batch, dtype_bytes)
+    if r.family == "fusedmb":
+        return fusedmb_staged_bytes(shape, sch.tile_h)
+    return mbconv_staged_bytes(shape, sch.tile_h)
 
 
 def staged_working_set(r: BlockRow, staged: HBMTraffic, batch: int) -> int:
@@ -241,30 +276,36 @@ def separable_report(batch: int, mesh_shape=(1, 1)) -> bool:
     return ok
 
 
-def traffic_report(family: str, batch: int, res: int) -> bool:
-    """Per block of one family: the Hopper schedule, the fused route's
-    device-memory bytes against the staged model's, the fused route's
-    global-load bytes and the copied model's fused bytes beside them, and
-    the staged working set.  True iff the fused device-memory bytes are
+def traffic_report(family: str, batch: int, res: int,
+                   dtype: str = "fp32") -> bool:
+    """Per block of one family at ``batch``, ``res`` and the storage
+    ``dtype``: the Hopper schedule, the fused route's device-memory bytes
+    against the staged route's, the fused route's global-load bytes and
+    the copied model's fused bytes beside them, and the staged working set
+    (fp32 intermediates).  True iff the fused device-memory bytes are
     strictly below the staged bytes on every block."""
-    specs, rows, schedules = family_chain(family, batch, res)
-    print(f"# family={family} {res}x{res} batch {batch}")
+    eb = DTYPE_BYTES[dtype]
+    specs, rows, schedules = family_chain(family, batch, res, eb)
+    print(f"# family={family} {res}x{res} batch {batch} dtype {dtype}")
     print("block,family,c_in,c_mid,c_out,hw,k,s,act,se,tile_h,tile_w,mode,"
           "hopper_dram_bytes,staged_bytes,saving_pct,hopper_global_bytes,"
-          "copied_model_fused_bytes,staged_working_set_mb")
+          "copied_model_fused_bytes,staged_working_set_mb,retain_splits,"
+          "batch,dtype")
     ok = True
     for i, (sp, r, sch) in enumerate(zip(specs, rows, schedules)):
-        copied, staged = block_traffic(r, sch, batch)
-        hop = hopper_traffic(r, sch, batch)
-        f, st = hop.dram_bytes, staged.total_bytes
-        ws = staged_working_set(r, staged, batch)
+        copied, staged = block_traffic(r, sch, batch, eb)
+        hop = hopper_traffic(r, sch, batch, eb)
+        f, st = hop.dram_bytes, staged_bytes(r, sch, batch, eb)
+        ws = staged_working_set(r, block_traffic(r, sch, batch)[1], batch)
         ok &= f < st
         mode = getattr(sch, "mode", "-")
+        cap = getattr(sch, "retain_splits", None)
         print(f"{family}_{r.family}{i},{r.family},{r.c_in},{r.c_mid},"
               f"{r.c_out},{r.h},{r.k},{r.s},{sp.act},"
               f"{'on' if sp.has_se else 'off'},{sch.tile_h},{sch.tile_w},"
               f"{mode},{f},{st},{100 * (1 - f / st):.1f},{hop.global_bytes},"
-              f"{copied.total_bytes},{ws / 2**20:.1f}")
+              f"{copied.total_bytes},{ws / 2**20:.1f},"
+              f"{'-' if cap is None else cap},{batch},{dtype}")
     print(f"# fused strictly below staged on every block [family={family}]: "
           f"{ok}")
     return ok
@@ -591,6 +632,119 @@ def measure_family(family: str, batch: int, res: int, device: torch.device,
     return ok, out
 
 
+def retain_split_counts(m: int, k: int, n: int) -> List[int]:
+    """``retain_plan``'s own K split count for the retain GEMM (M x K x N)
+    and every smaller count it takes under a cap, largest first."""
+    counts, cap = [], None
+    while True:
+        counts.append(retain_plan(m, k, n, cap)[2])
+        if counts[-1] == 1:
+            return counts
+        cap = counts[-1] - 1
+
+
+def fewest_bytes_tile(shape: MBConvShape, sch: MBConvSchedule
+                      ) -> Tuple[int, int]:
+    """The pass-1 tile (within the kernel's pixel cap and the CTA's shared
+    memory) of fewest device-memory bytes for a retain block at
+    ``sch``'s splits (ties to the solver's tile, then the larger)."""
+    cands = []
+    for th in range(1, min(shape.out_h, P1_MAX_TILE_PIXELS) + 1):
+        for tw in range(1, min(shape.out_w, P1_MAX_TILE_PIXELS // th) + 1):
+            if pass1_smem_bytes(shape.k, shape.s, th, tw, shape.c_in,
+                                shape.c_mid, shape.dtype_bytes) > SMEM_BYTES:
+                continue
+            t = mbconv_hopper_traffic(shape, MBConvSchedule(
+                th, tw, "retain", 0, retain_splits=sch.retain_splits))
+            cands.append((t.dram_bytes, (th, tw) != (sch.tile_h, sch.tile_w),
+                          -th * tw, th, tw))
+    return min(cands)[3:]
+
+
+def measure_variants(family: str, batch: int, res: int, block: int,
+                     device: torch.device, seed: int = 0,
+                     log=print) -> Tuple[bool, List[Dict]]:
+    """One retain MBConv block of a family on the card (fp32): the whole
+    fused block (pass 1, SE, retain and its split-K reduce) at the solver's
+    pass-1 tile and at ``fewest_bytes_tile``, each at every K split count
+    (``retain_split_counts``), and the staged route, on one set of seeded
+    inputs; each point checked against the oracle within CHECK_RTOL x
+    max|oracle| and timed warm (WARM_ITERS graph replays) and cold (a
+    FLUSH_BYTES scratch write before each of COLD_ITERS replays), beside its
+    Hopper-model bytes against the staged route's and whether it keeps the
+    gate's bar.  Returns (every point within its bar, rows)."""
+    specs, rows, schedules = family_chain(family, batch, res)
+    sp, r, sch = specs[block], rows[block], schedules[block]
+    if r.family != "mbconv" or sch.mode != "retain":
+        raise ValueError(f"{family} block {block} is not a retain MBConv "
+                         f"block at batch {batch}, {res}: {sch}")
+    shape = _shape(r, batch)
+    staged = staged_bytes(r, sch, batch)
+    gen = torch.Generator().manual_seed(seed)
+    params = materialize(block_def(sp), gen, device)
+    x = torch.randn(batch, r.h, r.w, r.c_in, generator=gen).to(device)
+    weights = (x, params.get("exp"), params["dw"], params.get("se_w1"),
+               params.get("se_b1"), params.get("se_w2"), params.get("se_b2"),
+               params["proj"])
+    acts = dict(exp_act=sp.act, dw_act=sp.act, se_act=sp.se_act,
+                gate_act=sp.gate_act)
+    flush = torch.empty(FLUSH_BYTES // 4, device=device)
+    m = batch * shape.out_h * shape.out_w
+    default_splits = retain_plan(m, r.c_mid, r.c_out)[2]
+    tiles = [(sch.tile_h, sch.tile_w), fewest_bytes_tile(shape, sch)]
+    log(f"# {family} r{res} block{block:02d} batch {batch}: "
+        f"{r.h}x{r.w}x{r.c_in}->{r.c_mid}->{r.c_out} k{r.k} s{r.s}; solver "
+        f"{sch.tile_h}x{sch.tile_w} splits "
+        f"{retain_plan(m, r.c_mid, r.c_out, sch.retain_splits)[2]} "
+        f"(retain_plan's own {default_splits}); fewest-bytes tile "
+        f"{tiles[1][0]}x{tiles[1][1]}; staged {staged} bytes; on "
+        f"{torch.cuda.get_device_name(0)}")
+    ok, out = True, []
+    with torch.inference_mode():
+        ref = mbconv_ref(*weights, sp.s, "SAME", **acts)
+        tol = CHECK_RTOL * float(ref.abs().max())
+        points = [(th, tw, n) for th, tw in dict.fromkeys(tiles)
+                  for n in retain_split_counts(m, r.c_mid, r.c_out)]
+        for th, tw, n in points:
+            def fn(th=th, tw=tw, n=n):
+                return convdk_mbconv_fused(*weights, stride=sp.s, tile_h=th,
+                                           tile_w=tw, mode="retain",
+                                           retain_splits=n, **acts)
+
+            err = float((fn() - ref).abs().max())
+            hop = mbconv_hopper_traffic(shape, MBConvSchedule(
+                th, tw, "retain", 0, retain_splits=n)).dram_bytes
+            row = dict(route="fused", tile_h=th, tile_w=tw, splits=n,
+                       hopper_dram_bytes=hop, staged_bytes=staged,
+                       below_staged=hop < staged, err=err, tol=tol,
+                       warm_ms=measure(fn, iters=WARM_ITERS,
+                                       graph=True).mean_ms,
+                       cold_ms=_cold_ms(fn, flush))
+            ok &= err <= tol
+            out.append(row)
+            log(f"  fused {th}x{tw} splits {n:2d}: warm {row['warm_ms']:.4f} "
+                f"ms cold {row['cold_ms']:.4f} ms; {hop} bytes "
+                f"({'below' if hop < staged else 'NOT below'} staged); err "
+                f"{err:.2e} (tol {tol:.2e})")
+
+        def st_fn():
+            return convdk_mbconv_staged(*weights, stride=sp.s,
+                                        tile_h=sch.tile_h, **acts)
+
+        err = float((st_fn() - ref).abs().max())
+        ok &= err <= tol
+        row = dict(route="staged", tile_h=sch.tile_h, staged_bytes=staged,
+                   err=err, tol=tol,
+                   warm_ms=measure(st_fn, iters=WARM_ITERS,
+                                   graph=True).mean_ms,
+                   cold_ms=_cold_ms(st_fn, flush))
+        out.append(row)
+        log(f"  staged: warm {row['warm_ms']:.4f} ms cold "
+            f"{row['cold_ms']:.4f} ms; {staged} bytes; err {err:.2e}")
+    del flush
+    return ok, out
+
+
 def _axes(r: BlockRow, sch) -> Dict:
     """A schedule point's axes: tile and mode, or tile and B5's chunk."""
     if r.family == "fusedmb":
@@ -738,6 +892,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--family", default="b0", metavar="FAM[,FAM...]",
                     help="b0 (EfficientNet-B0), v3l (MobileNet-V3-Large), "
                          "v2s (EfficientNet-V2-S), or a comma list")
+    ap.add_argument("--batch", type=int, default=BATCH, metavar="N",
+                    help=f"with --fused: the batch (default {BATCH})")
+    ap.add_argument("--res", type=int, default=None, metavar="SIDE",
+                    help="with --fused: the input side of every family "
+                         "(default: each family's published side)")
+    ap.add_argument("--dtype", default="fp32", choices=tuple(DTYPE_BYTES),
+                    help="with --fused: the storage dtype the report "
+                         "prices (default fp32)")
+    ap.add_argument("--block", type=int, default=None, metavar="I",
+                    help="with --fused --measure: time block I's pass-1 "
+                         "tiles and retain K splits (fp32)")
     ap.add_argument("--measure", action="store_true",
                     help="with --fused: time fused and staged per block on "
                          "the card; alone: the measured per-block sweep")
@@ -762,7 +927,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--bench-out goes with --measure alone")
     if (args.mesh or args.network) and not args.fused:
         ap.error("--mesh and --network go with --fused")
+    if not args.fused and (args.batch != BATCH or args.res is not None
+                           or args.dtype != "fp32"):
+        ap.error("--batch, --res and --dtype go with --fused")
+    if args.batch < 1:
+        ap.error(f"--batch must be >= 1, got {args.batch}")
+    if args.block is not None and not (args.fused and args.measure):
+        ap.error("--block goes with --fused --measure")
+    if args.measure and args.dtype != "fp32":
+        ap.error("--measure times fp32 (chip_smoke.py times bf16)")
+
     mesh_shape = _parse_mesh(args.mesh) if args.mesh else (1, 1)
+    if args.dtype != "fp32" and mesh_shape != (1, 1):
+        ap.error("the mesh runs fp32 only (ROADMAP queue A item 14)")
     if mesh_shape != (1, 1) and args.measure:
         ap.error("--mesh prices the blocks on the host; it does not "
                  "measure")
@@ -786,26 +963,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"# BENCH artifact: "
                   f"{write_bench(args.bench_out, records, config=BENCH_CONFIG)}")
         return 0
+    batch = args.batch
+    if args.block is not None:
+        ok = all([measure_variants(fam, batch, args.res or FAMILY_RES[fam],
+                                   args.block, device)[0]
+                  for fam in families])
+        return 0 if ok else 1
     ok = True
     if "b0" in families:
-        ok &= separable_report(BATCH, mesh_shape)
+        ok &= separable_report(batch, mesh_shape)
         print()
     for fam in families:
-        res = FAMILY_RES[fam]
+        res = args.res or FAMILY_RES[fam]
         if mesh_shape == (1, 1):
-            ok &= traffic_report(fam, BATCH, res)
+            ok &= traffic_report(fam, batch, res, args.dtype)
         elif collective is None and mesh_shape[1] > 1:
-            ok &= collective_sweep(fam, BATCH, res, mesh_shape)
+            ok &= collective_sweep(fam, batch, res, mesh_shape)
         else:
-            ok &= mesh_traffic_report(fam, BATCH, res, mesh_shape,
+            ok &= mesh_traffic_report(fam, batch, res, mesh_shape,
                                       collective)[0]
         if device is not None:
             print(f"# measured on {torch.cuda.get_device_name(0)}")
-            ok &= measure_family(fam, BATCH, res, device)[0]
+            ok &= measure_family(fam, batch, res, device)[0]
         print()
     if args.network:
         for fam in families:
-            ok &= network_report(fam, BATCH, FAMILY_RES[fam], mesh_shape)
+            ok &= network_report(fam, batch, args.res or FAMILY_RES[fam],
+                                 mesh_shape)
             print()
     return 0 if ok else 1
 

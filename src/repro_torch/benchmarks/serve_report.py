@@ -15,7 +15,9 @@ Counterpart of the JAX package's ``benchmarks/serve_report.py``.  Output:
   all-gathers of the bucket's network plan), with the collective bytes
   beside them, sorted descending;
 * **per-bucket summary**: batches, requests, pad slots and plan builds
-  per bucket (warm-up batches included), with the shed counts;
+  per bucket (warm-up batches included), with the shed counts, and each
+  bucket's schedules (every block's pass-1 tile, mode and any cap on the
+  retain GEMM's K splits);
 * **latency**: after WARMUP_ROUNDS full batches per bucket (the first
   calls' library loads and schedule solves, left out of the timing),
   ``requests`` requests arrive open loop on a seeded Poisson schedule at
@@ -172,6 +174,13 @@ def serve_report(resolutions: Sequence[int] = FULL_RES, smoke: bool = False,
             f"{int(t.get(f'serve.build.r{res}'))},{warm_s[res] * 1e3:.3f}")
     log(f"shed_queue_full={int(t.get('serve.shed.queue_full'))} "
         f"shed_oversize={int(t.get('serve.shed.oversize'))}")
+    log("")
+    for res in resolutions:
+        log(f"r{res} schedules (block: pass-1 tile, mode[, retain K splits "
+            f"cap]): " + "; ".join(
+                f"{i}: {s.tile_h}x{s.tile_w} {s.mode}"
+                + (f" splits {s.retain_splits}" if s.retain_splits else "")
+                for i, s in enumerate(eng.schedules_for(res))))
 
     lat = telemetry.percentiles([r.latency_s + late[r.rid] for r in results])
     wait = telemetry.percentiles([r.queue_wait_s + late[r.rid]

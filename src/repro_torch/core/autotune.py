@@ -21,7 +21,10 @@ full-width window does not fit a CTA's shared memory.  The solvers pick:
 
 An MBConv block solved to retain runs its pass 2 as a GEMM with no tile,
 so its tile is pass 1's alone (``pass1_tile``: occupancy and halo, not
-bytes); the retain GEMM's tile and K splits come from ``retain_plan``.
+bytes); the retain GEMM's tile and K splits come from ``retain_plan``,
+its splits capped where the byte gate's bar needs it
+(``retain_split_cap``).  Shared-memory budgets count the staged rings at
+the storage type's bytes (``dtype_bytes``: fp32 or bf16).
 
 The separable and Fused-MBConv blocks have no mode axis (one pass).  On a
 ("data", "model") mesh (``mesh_shape``) the solvers price every candidate
@@ -209,12 +212,15 @@ class FusedMBSchedule(_MeshTerms):
 
 @dataclass(frozen=True)
 class MBConvSchedule(_MeshTerms):
-    """One block's schedule: output tile, pass-2 mode, modeled bytes."""
+    """One block's schedule: output tile, pass-2 mode, modeled bytes, and
+    a cap on the retain GEMM's K splits (``retain_plan``'s ``max_splits``;
+    None: its own count)."""
 
     tile_h: int
     tile_w: int
     mode: str
     total_bytes: int
+    retain_splits: Optional[int] = None
 
 
 Schedule = Union[MBConvSchedule, FusedMBSchedule]
@@ -246,7 +252,8 @@ def smem_bytes(shape: MBConvShape, tile_h: int, tile_w: int) -> int:
     """Dynamic shared memory of the recompute kernel (B2), whose tile
     pass 1 shares on recompute blocks."""
     return recompute_smem_bytes(shape.k, shape.s, tile_h, tile_w,
-                                shape.c_in, shape.c_mid, shape.c_out)
+                                shape.c_in, shape.c_mid, shape.c_out,
+                                shape.dtype_bytes)
 
 
 def fusedmb_chunk(c_in: int, c_mid: int, c_out: int, k: int) -> int:
@@ -279,19 +286,21 @@ def fusedmb_threads(nc: int, pixels: int) -> int:
 
 
 def fusedmb_window_smem_bytes(in_rows: int, in_cols: int, ci_chunk: int,
-                              nc: int) -> int:
+                              nc: int, eb: int = 4) -> int:
     """Dynamic shared memory of one Fused-MBConv launch (fusedmb.cu's
     ``fusedmb_smem_bytes``, which the wrapper checks against this): the
     ``in_rows x in_cols`` window of ``ci_chunk`` channels (rounded up to 4
-    and padded to an odd number of float4s) and FMB_SLOTS weight slots of
-    max(c_in rows, NC) x NC."""
+    and padded to an odd number of 4-channel groups) and FMB_SLOTS weight
+    slots of max(c_in rows, NC) x NC, all in the storage type (``eb``
+    bytes an element: the cp.async copies move bytes unconverted)."""
     c4 = -(-ci_chunk // 4) * 4
     stride = c4 + (8 if (c4 // 4) % 2 else 4)
-    return 4 * (in_rows * in_cols * stride + FMB_SLOTS * max(c4, nc) * nc)
+    return eb * (in_rows * in_cols * stride + FMB_SLOTS * max(c4, nc) * nc)
 
 
 def fusedmb_launch_plan(c_in: int, c_mid: int, c_out: int, k: int, s: int,
-                        tile_h: int, tile_w: int) -> Tuple[int, int]:
+                        tile_h: int, tile_w: int,
+                        eb: int = 4) -> Tuple[int, int]:
     """(NC, ci_chunk) of one Fused-MBConv launch at a tile: the window
     takes all of C_in where it fits the CTA's budget, else the widest
     multiple of 8 channels that does (the chunked fallback, which restages
@@ -299,7 +308,7 @@ def fusedmb_launch_plan(c_in: int, c_mid: int, c_out: int, k: int, s: int,
     nc = fusedmb_chunk(c_in, c_mid, c_out, k)
     rows, cols = window_extent(tile_h, k, s), window_extent(tile_w, k, s)
     for ci in [c_in] + list(range(8 * ((c_in - 1) // 8), 0, -8)):
-        if fusedmb_window_smem_bytes(rows, cols, ci, nc) <= SMEM_BYTES:
+        if fusedmb_window_smem_bytes(rows, cols, ci, nc, eb) <= SMEM_BYTES:
             return nc, ci
     raise ValueError(f"no Fused-MBConv window fits the CTA budget: tile "
                      f"{tile_h}x{tile_w}, k {k}, s {s}, c_in {c_in}")
@@ -307,11 +316,12 @@ def fusedmb_launch_plan(c_in: int, c_mid: int, c_out: int, k: int, s: int,
 
 def fusedmb_smem_bytes(shape: MBConvShape, tile_h: int, tile_w: int) -> int:
     """Dynamic shared memory of the Fused-MBConv kernel at one tile."""
+    eb = shape.dtype_bytes
     nc, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
-                                 shape.k, shape.s, tile_h, tile_w)
+                                 shape.k, shape.s, tile_h, tile_w, eb)
     return fusedmb_window_smem_bytes(
         window_extent(tile_h, shape.k, shape.s),
-        window_extent(tile_w, shape.k, shape.s), ci, nc)
+        window_extent(tile_w, shape.k, shape.s), ci, nc, eb)
 
 
 def fusedmb_executed_fmas(shape: MBConvShape, tile_h: int,
@@ -346,7 +356,8 @@ def fusedmb_cost(shape: MBConvShape, tile_h: int,
     fewer) runs proportionally slower, its latencies not hidden."""
     try:
         nc, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
-                                     shape.k, shape.s, tile_h, tile_w)
+                                     shape.k, shape.s, tile_h, tile_w,
+                                     shape.dtype_bytes)
     except ValueError:
         return None
     threads = fusedmb_threads(nc, tile_h * tile_w)
@@ -472,10 +483,10 @@ def pass1_cm_tile(c_mid: int) -> int:
 
 def _expand_smem_floats(k: int, s: int, tile_h: int, tile_w: int,
                         c_in: int, c_mid: int) -> Tuple[int, int]:
-    """(expanded window, staging ring) floats of the expand that pass 1 and
-    B2 share: the window's pixels rounded up to P1_PIXEL_BLOCK and padded,
-    and P1_SLOTS ring slots (fewer where C_in has fewer chunks) of staged x
-    and w_exp chunks."""
+    """(expanded window floats, staging ring elements) of the expand that
+    pass 1 and B2 share: the fp32 window's pixels rounded up to
+    P1_PIXEL_BLOCK and padded, and P1_SLOTS ring slots (fewer where C_in
+    has fewer chunks) of staged x and w_exp chunks in the storage type."""
     cmt = pass1_cm_tile(c_mid)
     q4 = (-(-(window_extent(tile_h, k, s) * window_extent(tile_w, k, s))
             // P1_PIXEL_BLOCK) * P1_PIXEL_BLOCK)
@@ -485,15 +496,16 @@ def _expand_smem_floats(k: int, s: int, tile_h: int, tile_w: int,
 
 
 def pass1_smem_bytes(k: int, s: int, tile_h: int, tile_w: int, c_in: int,
-                     c_mid: int) -> int:
+                     c_mid: int, eb: int = 4) -> int:
     """Dynamic shared memory of one pass-1 CTA with an expand (mbconv.cu's
-    ``p1_smem_floats``; an identity expand takes no more): the expanded
-    window, then one region holding the staging ring during the expand and
-    the DW tile and pool rows after it."""
+    ``p1_smem_bytes``; an identity expand takes no more) at ``eb``-byte
+    storage: the fp32 expanded window, then one region holding the
+    staging ring during the expand and the fp32 DW tile and pool rows
+    after it."""
     cmt = pass1_cm_tile(c_mid)
     window, stage = _expand_smem_floats(k, s, tile_h, tile_w, c_in, c_mid)
     after = tile_h * tile_w * (cmt + P1_PAD) + P1_THREADS // (cmt // 4) * cmt
-    return (window + max(stage, after)) * 4
+    return window * 4 + max(stage * eb, after * 4)
 
 
 def recompute_co_tile(c_out: int) -> int:
@@ -504,22 +516,23 @@ def recompute_co_tile(c_out: int) -> int:
 
 
 def recompute_smem_bytes(k: int, s: int, tile_h: int, tile_w: int,
-                         c_in: int, c_mid: int, c_out: int) -> int:
+                         c_in: int, c_mid: int, c_out: int,
+                         eb: int = 4) -> int:
     """Dynamic shared memory of one B2 CTA with an expand (mbconv.cu's
-    ``r2_smem_floats``; an identity expand takes no more): pass 1's
-    expanded window, then one region holding the staging ring during the
-    expand and, after it, the gated DW tile and the w_proj ring (up to
-    P1_SLOTS slots of RECOMPUTE_K_CHUNK rows x the c_out tile), then the
-    projection sums kept between c_mid chunks (4 floats per thread and
-    pixel it owns)."""
+    ``r2_smem_bytes``; an identity expand takes no more) at ``eb``-byte
+    storage: pass 1's expanded window, then one region holding the
+    staging ring during the expand and, after it, the fp32 gated DW tile
+    and the w_proj ring (up to P1_SLOTS slots of RECOMPUTE_K_CHUNK rows x
+    the c_out tile, in the storage type), then the projection sums kept
+    between c_mid chunks (4 floats per thread and pixel it owns)."""
     cmt, co = pass1_cm_tile(c_mid), recompute_co_tile(c_out)
     window, stage = _expand_smem_floats(k, s, tile_h, tile_w, c_in, c_mid)
-    after = (tile_h * tile_w * (cmt + P1_PAD)
+    after = (tile_h * tile_w * (cmt + P1_PAD) * 4
              + min(P1_SLOTS, cmt // RECOMPUTE_K_CHUNK) * RECOMPUTE_K_CHUNK
-             * co)
+             * co * eb)
     lanes = P1_THREADS // (co // 4)
     sums = -(-tile_h * tile_w // lanes) * P1_THREADS * 4
-    return (window + max(stage, after) + sums) * 4
+    return window * 4 + max(stage * eb, after) + sums * 4
 
 
 def pass1_single_pass(k: int, s: int, tile_h: int, tile_w: int,
@@ -539,7 +552,7 @@ def pass1_ctas(b: int, out_h: int, out_w: int, c_mid: int, tile_h: int,
 
 
 def pass1_tile(b: int, out_h: int, out_w: int, c_in: int, c_mid: int,
-               k: int, s: int) -> Tuple[int, int]:
+               k: int, s: int, eb: int = 4) -> Tuple[int, int]:
     """The pass-1 tile of a retain block.  Among tiles of at most
     P1_MAX_TILE_PIXELS whose CTA fits P1_SMEM_TARGET (P1_CTAS_PER_SM CTAs
     resident on an SM, so one CTA's staging overlaps another's arithmetic),
@@ -551,7 +564,7 @@ def pass1_tile(b: int, out_h: int, out_w: int, c_in: int, c_mid: int,
     cands = []
     for th in range(1, min(out_h, P1_MAX_TILE_PIXELS) + 1):
         for tw in range(1, min(out_w, P1_MAX_TILE_PIXELS // th) + 1):
-            smem = pass1_smem_bytes(k, s, th, tw, c_in, c_mid)
+            smem = pass1_smem_bytes(k, s, th, tw, c_in, c_mid, eb)
             if smem > SMEM_BYTES:
                 continue
             n = -(-out_h // th) * -(-out_w // tw)
@@ -569,17 +582,19 @@ def pass1_tile(b: int, out_h: int, out_w: int, c_in: int, c_mid: int,
     return -best[4], best[5]
 
 
-def retain_smem_bytes(bm: int, bn: int) -> int:
+def retain_smem_bytes(bm: int, bn: int, eb: int = 4) -> int:
     """Dynamic shared memory of one retain GEMM CTA (mbconv.cu's retain
     traits): RETAIN_STAGES ring slots of the (BM, K chunk) A tile, padded,
-    and the (K chunk, BN) B tile, and two K-major copies of the A tile."""
+    and the (K chunk, BN) B tile, both in the storage type (``eb`` bytes),
+    and two fp32 K-major copies of the A tile."""
     k = RETAIN_K_CHUNK
-    return 4 * (RETAIN_STAGES * bm * (k + 4) + RETAIN_STAGES * k * bn
-                + 2 * k * bm)
+    return (eb * (RETAIN_STAGES * bm * (k + 4) + RETAIN_STAGES * k * bn)
+            + 4 * 2 * k * bm)
 
 
 @functools.lru_cache(maxsize=None)
-def retain_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
+def retain_plan(m: int, k: int, n: int,
+                max_splits: Optional[int] = None) -> Tuple[int, int, int]:
     """(BM, BN, splits) of the retain GEMM, M = B * out_h * out_w rows,
     K = C_mid, N = C_out.  BN 32 below C_out 64, else 64; BM 128 for the
     deep GEMMs (K >= 512, M >= 1024: V2-S's late stages), whose per-thread
@@ -594,8 +609,9 @@ def retain_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
     bm = 128 if k >= 512 and m >= 1024 else 64
     tiles = -(-m // bm) * -(-n // bn)
     chunks = -(-k // RETAIN_K_CHUNK)
+    top = max(1, chunks // RETAIN_MIN_SPLIT_CHUNKS)
     splits = 1
-    for cand in range(1, max(1, chunks // RETAIN_MIN_SPLIT_CHUNKS) + 1):
+    for cand in range(1, min(top, max_splits or top) + 1):
         if -(-chunks // -(-chunks // cand)) != cand:
             continue            # some split would be empty
         splits = cand
@@ -706,10 +722,36 @@ def select_mbconv_schedule(shape: MBConvShape, mode: Optional[str] = None,
         return best
     # retain's pass 2 is a GEMM with no tile: the tile is pass 1's alone
     th, tw = pass1_tile(kern.b, kern.out_h, kern.out_w, kern.c_in,
-                        kern.c_mid, kern.k, kern.s)
-    return MBConvSchedule(th, tw, "retain", **_mesh_terms(
-        sharded_mbconv_traffic(shape, th, "retain", eff, C_BLOCK,
-                               best.collective, in_layout)))
+                        kern.c_mid, kern.k, kern.s, kern.dtype_bytes)
+    return MBConvSchedule(
+        th, tw, "retain", retain_splits=retain_split_cap(kern, local, th, tw),
+        **_mesh_terms(sharded_mbconv_traffic(shape, th, "retain", eff,
+                                             C_BLOCK, best.collective,
+                                             in_layout)))
+
+
+def retain_split_cap(kern: MBConvShape, local: MBConvShape, tile_h: int,
+                     tile_w: int) -> Optional[int]:
+    """The byte gate's bar on the retain GEMM's K splits.  Each split
+    writes a partial of the whole output that the split-K reduce reads
+    back, so where the GEMM has few rows (small batches on the late 7x7
+    blocks) ``retain_plan``'s count lifts the fused route's device-memory
+    bytes (``core.hopper_traffic`` at the kernels' shape ``kern``) above
+    the staged route's (at the shard ``local``, as the gates price it).
+    None where its count keeps fused strictly below staged at this tile;
+    else the largest count that does (1 where none does)."""
+    from .hopper_traffic import mbconv_hopper_traffic, mbconv_staged_bytes
+
+    staged = mbconv_staged_bytes(local, tile_h)
+    m = kern.b * kern.out_h * kern.out_w
+    cap = None
+    while True:
+        splits = retain_plan(m, kern.c_mid, kern.c_out, cap)[2]
+        sch = MBConvSchedule(tile_h, tile_w, "retain", 0, retain_splits=cap)
+        if (splits == 1
+                or mbconv_hopper_traffic(kern, sch).dram_bytes < staged):
+            return cap if cap is None else splits
+        cap = splits - 1
 
 
 def select_fusedmb_schedule(shape: MBConvShape,
@@ -758,7 +800,7 @@ def select_fusedmb_schedule(shape: MBConvShape,
                   if c[0] == idle and c[1] <= least * (1 + FMB_COST_BAND)),
                  key=lambda c: c[2:5])[5:]
     _, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
-                                shape.k, shape.s, th, tw)
+                                shape.k, shape.s, th, tw, shape.dtype_bytes)
     st = min((sharded_fusedmb_traffic(full, th, eff, C_BLOCK, coll)
               for coll in _collective_set(full, eff, collective)),
              key=lambda t: (t.total_bytes, _COLLECTIVE_RANK[t.collective]))
@@ -809,7 +851,8 @@ def mbconv_tile_fits(shape: MBConvShape, tile_h: int, tile_w: int,
     recompute B2 within MAX_TILE_PIXELS and its own budget."""
     if (tile_h * tile_w > P1_MAX_TILE_PIXELS
             or pass1_smem_bytes(shape.k, shape.s, tile_h, tile_w, shape.c_in,
-                                shape.c_mid) > SMEM_BYTES):
+                                shape.c_mid, shape.dtype_bytes)
+            > SMEM_BYTES):
         return False
     return mode == "retain" or (tile_h * tile_w <= MAX_TILE_PIXELS and
                                 smem_bytes(shape, tile_h, tile_w)
@@ -1207,9 +1250,8 @@ def _pass2_smem_bytes(p: BlockPlan, mesh_shape: MeshShape) -> int:
     if sch.mode == "retain":
         bm, bn, _ = retain_plan(kern.b * kern.out_h * kern.out_w,
                                 kern.c_mid, kern.c_out)
-        return retain_smem_bytes(bm, bn)
-    return recompute_smem_bytes(kern.k, kern.s, sch.tile_h, sch.tile_w,
-                                kern.c_in, kern.c_mid, kern.c_out)
+        return retain_smem_bytes(bm, bn, kern.dtype_bytes)
+    return smem_bytes(kern, sch.tile_h, sch.tile_w)
 
 
 def _pass1_smem_bytes(p: BlockPlan, mesh_shape: MeshShape) -> int:
@@ -1222,7 +1264,7 @@ def _pass1_smem_bytes(p: BlockPlan, mesh_shape: MeshShape) -> int:
     local, _ = mbconv_shard(p.shape, mesh_shape, p.in_layout)
     kern = _kernel_shape(p.shape, local)
     return pass1_smem_bytes(kern.k, kern.s, sch.tile_h, sch.tile_w,
-                            kern.c_in, kern.c_mid)
+                            kern.c_in, kern.c_mid, kern.dtype_bytes)
 
 
 def _annotate_overlap(plan: NetworkPlan) -> NetworkPlan:

@@ -33,12 +33,21 @@ device memory.  The SE MLP between the passes (PyTorch calls on the
 (B, C_mid) pool) is priced as one step reading the pool and the SE weights
 and writing the gate; the residual add, which both routes run alike, is
 not priced (nor is it in the staged model).  The SE pool's arrival
-counters (one int per CTA) are not counted.  All tensors are fp32.
+counters (one int per CTA) are not counted.  The input, the weights,
+the retained DW tensor and the output are in the storage type
+(``shape.dtype_bytes``: fp32 or bf16); the SE pool, its partials, the
+gate and the split partials are fp32 at every storage type, as the
+kernels keep them.  The separable kernel (B4) is fp32.
+
+``mbconv_staged_bytes`` and ``fusedmb_staged_bytes`` are the gates' other
+side: the copied model's staged traffic with the intermediates at fp32,
+as the staged routes compute them, and the storage-type operands at the
+storage type (at fp32, the copied model's bytes exactly).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Tuple
 
 from .autotune import (
@@ -51,6 +60,7 @@ from .autotune import (
     RETAIN_K_CHUNK,
     SEP_CI_CHUNK,
     SM_COUNT,
+    C_BLOCK,
     fused_separable_launch_plan,
     fusedmb_launch_plan,
     pass1_cm_tile,
@@ -58,18 +68,25 @@ from .autotune import (
     retain_plan,
     window_extent,
 )
-from .perfmodel import MBConvShape, SeparableShape
+from .perfmodel import (
+    MBConvShape,
+    SeparableShape,
+    fusedmb_staged_traffic,
+    mbconv_staged_traffic,
+)
 
 __all__ = [
     "HopperTraffic",
     "LaunchTraffic",
     "fusedmb_hopper_traffic",
+    "fusedmb_staged_bytes",
     "mbconv_hopper_traffic",
+    "mbconv_staged_bytes",
     "separable_hopper_traffic",
     "window_pixels",
 ]
 
-F32 = 4
+F32 = 4                               # pool, partials, gate: fp32 always
 REDUCE_THREADS = 256                  # B3' / B4' CTA size (float4 items)
 REDUCE_MAX_CTAS = SM_COUNT * 16
 
@@ -165,12 +182,14 @@ def _p1_passes(k: int, s: int, tile_h: int, tile_w: int, c_mid: int) -> int:
     return -(-blocks // (nb * lanes))
 
 
-def _reduce(name: str, splits: int, count: int) -> LaunchTraffic:
-    """B3' / B4': ``splits`` partials of ``count`` floats summed into one."""
+def _reduce(name: str, splits: int, count: int, eb: int = F32
+            ) -> LaunchTraffic:
+    """B3' / B4': ``splits`` fp32 partials of ``count`` values summed into
+    one output of ``eb``-byte elements."""
     items = count // 4 if count % 4 == 0 else count
     return LaunchTraffic(
         name, 2, min(-(-items // REDUCE_THREADS), REDUCE_MAX_CTAS),
-        splits * count * F32, count * F32, splits * count * F32, 0, 0)
+        splits * count * F32, count * eb, splits * count * F32, 0, 0)
 
 
 def _tiles(shape, tile_h: int, tile_w: int) -> Tuple[int, int, int]:
@@ -183,14 +202,15 @@ def _expand_loads(shape: MBConvShape, th: int, tw: int, tiles: int,
     """(x, w_exp, w_dw) bytes that ``chunks`` c_mid-tile expands + depthwise
     load per (output tile, image), summed over one image's tiles, and the
     ring stages of one such expand; ``win`` is one image's window pixels."""
-    b_c = shape.c_in * F32
+    eb = shape.dtype_bytes
+    b_c = shape.c_in * eb
     if not shape.has_expand:
         # the identity expand stages its own c_mid tile of x once
-        return (win * b_c, 0, tiles * shape.k ** 2 * shape.c_mid * F32, 1)
+        return (win * b_c, 0, tiles * shape.k ** 2 * shape.c_mid * eb, 1)
     passes = _p1_passes(shape.k, shape.s, th, tw, shape.c_mid)
     return (chunks * passes * win * b_c,
-            tiles * passes * shape.c_in * shape.c_mid * F32,
-            tiles * shape.k ** 2 * shape.c_mid * F32,
+            tiles * passes * shape.c_in * shape.c_mid * eb,
+            tiles * shape.k ** 2 * shape.c_mid * eb,
             passes * -(-shape.c_in // P1_CI_CHUNK))
 
 
@@ -199,17 +219,17 @@ def mbconv_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
     and the split reduce B3' of one MBConv block at ``sch`` (``tile_h``,
     ``tile_w``, ``mode``).  A no-SE block under recompute skips pass 1,
     as the kernel does."""
-    b, hw_out = shape.b, shape.out_h * shape.out_w
+    b, hw_out, eb = shape.b, shape.out_h * shape.out_w, shape.dtype_bytes
     th, tw, tiles = _tiles(shape, sch.tile_h, sch.tile_w)
     win = window_pixels(shape.h, shape.w, shape.k, shape.s, th, tw)
     cmt = pass1_cm_tile(shape.c_mid)
     n_cm = -(-shape.c_mid // cmt)
-    x_bytes = b * shape.h * shape.w * shape.c_in * F32
-    w_exp = shape.c_in * shape.c_mid * F32 if shape.has_expand else 0
-    w_dw = shape.k ** 2 * shape.c_mid * F32
+    x_bytes = b * shape.h * shape.w * shape.c_in * eb
+    w_exp = shape.c_in * shape.c_mid * eb if shape.has_expand else 0
+    w_dw = shape.k ** 2 * shape.c_mid * eb
     pool = b * shape.c_mid * F32
-    dw = b * hw_out * shape.c_mid * F32
-    out = b * hw_out * shape.c_out * F32
+    dw = b * hw_out * shape.c_mid * eb
+    out_n = b * hw_out * shape.c_out
     retain = sch.mode == "retain"
     launches = []
     if shape.has_se or retain:
@@ -228,7 +248,7 @@ def mbconv_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
     gate = pool if shape.has_se else 0
     if retain:
         m, k, n = b * hw_out, shape.c_mid, shape.c_out
-        bm, bn, splits = retain_plan(m, k, n)
+        bm, bn, splits = retain_plan(m, k, n, sch.retain_splits)
         n_m, n_n = -(-m // bm), -(-n // bn)
         chunks = -(-k // RETAIN_K_CHUNK)
         imgs = sum((min(m, m0 + bm) - 1) // hw_out - m0 // hw_out + 1
@@ -237,26 +257,30 @@ def mbconv_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
         ctas = n_m * n_n * splits
         launches.append(LaunchTraffic(
             "retain", 2, ctas,
-            n_n * dw + n_m * k * n * F32 + gate_loads,
-            splits * out, dw + k * n * F32 + gate, (n_n - 1) * dw,
-            n_m * n_n * chunks))
+            n_n * dw + n_m * k * n * eb + gate_loads,
+            _pass2_out(splits, out_n, eb), dw + k * n * eb + gate,
+            (n_n - 1) * dw, n_m * n_n * chunks))
     else:
         co, splits = recompute_plan(b, shape.out_h, shape.out_w,
                                     shape.c_mid, shape.c_out, th, tw)
         n_co = -(-shape.c_out // co)
         xl, wl, tl, stages = _expand_loads(shape, th, tw, tiles, win, n_cm)
-        proj = shape.c_mid * shape.c_out * F32
+        proj = shape.c_mid * shape.c_out * eb
         ctas = tiles * n_co * b * splits
         launches.append(LaunchTraffic(
             "recompute", 2, ctas,
             b * n_co * (xl + wl + tl + tiles * gate // b) + b * tiles * proj,
-            splits * out, x_bytes + w_exp + w_dw + gate + proj,
-            b * n_co * xl - x_bytes,
+            _pass2_out(splits, out_n, eb),
+            x_bytes + w_exp + w_dw + gate + proj, b * n_co * xl - x_bytes,
             tiles * n_co * b * n_cm * (stages + cmt // RECOMPUTE_K_CHUNK)))
-    if launches[-1].global_write > out:
-        launches.append(_reduce("splitk_reduce", launches[-1].global_write
-                                // out, out // F32))
+    if splits > 1:
+        launches.append(_reduce("splitk_reduce", splits, out_n, eb))
     return HopperTraffic(tuple(launches))
+
+
+def _pass2_out(splits: int, count: int, eb: int) -> int:
+    """Pass 2's stores: the output itself, or one fp32 partial per split."""
+    return count * eb if splits == 1 else splits * count * F32
 
 
 def fusedmb_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
@@ -264,24 +288,24 @@ def fusedmb_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
     and C_in window chunk ``fusedmb_launch_plan`` gives it: the window once
     per CTA (per c_mid chunk where C_in is chunked), all of w_conv and the
     c_out tile's w_proj columns per CTA, the output once."""
-    b, hw_out = shape.b, shape.out_h * shape.out_w
+    b, hw_out, eb = shape.b, shape.out_h * shape.out_w, shape.dtype_bytes
     th, tw, tiles = _tiles(shape, sch.tile_h, sch.tile_w)
     nc, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
-                                 shape.k, shape.s, th, tw)
+                                 shape.k, shape.s, th, tw, eb)
     n_ci, n_cm = -(-shape.c_in // ci), -(-shape.c_mid // nc)
     n_co = -(-shape.c_out // nc)
     win = window_pixels(shape.h, shape.w, shape.k, shape.s, th, tw)
-    x_bytes = b * shape.h * shape.w * shape.c_in * F32
-    xl = b * n_co * (n_cm if n_ci > 1 else 1) * win * shape.c_in * F32
-    w_conv = shape.k ** 2 * shape.c_in * shape.c_mid * F32
-    w_proj = shape.c_mid * shape.c_out * F32
+    x_bytes = b * shape.h * shape.w * shape.c_in * eb
+    xl = b * n_co * (n_cm if n_ci > 1 else 1) * win * shape.c_in * eb
+    w_conv = shape.k ** 2 * shape.c_in * shape.c_mid * eb
+    w_proj = shape.c_mid * shape.c_out * eb
     ctas = tiles * n_co * b
     steps = n_cm * (n_ci * shape.k ** 2 + 1)
     restages = n_cm * n_ci - 1 if n_ci > 1 else 0
     return HopperTraffic((LaunchTraffic(
         "fusedmb", 1, ctas,
         xl + tiles * b * (n_co * w_conv + w_proj),
-        b * hw_out * shape.c_out * F32, x_bytes + w_conv + w_proj,
+        b * hw_out * shape.c_out * eb, x_bytes + w_conv + w_proj,
         xl - x_bytes, ctas * (steps + restages)),))
 
 
@@ -309,3 +333,40 @@ def separable_hopper_traffic(shape: SeparableShape, sch) -> HopperTraffic:
     if splits > 1:
         launches.append(_reduce("separable_reduce", splits, out // F32))
     return HopperTraffic(tuple(launches))
+
+
+def _mixed_staged_bytes(traffic, storage_words: int, eb: int) -> int:
+    """A staged route's bytes: every word of the copied model at fp32 but
+    the ``storage_words`` (input, weights, output) at ``eb`` bytes."""
+    return traffic.total_words * F32 - storage_words * (F32 - eb)
+
+
+def mbconv_staged_bytes(shape: MBConvShape, tile_h: int) -> int:
+    """The staged MBConv route's device-memory bytes at ``tile_h``
+    (``perfmodel.mbconv_staged_traffic`` at ``C_BLOCK``): the expanded and
+    DW maps, their strips, the pool and the gate at fp32, as
+    ``convdk_mbconv_staged`` computes them; x (where it expands), the
+    expand, depthwise and projection weights and the output at the
+    storage type.  The SE weights stay fp32 at every storage type."""
+    eb = shape.dtype_bytes
+    traffic = mbconv_staged_traffic(replace(shape, dtype_bytes=F32), tile_h,
+                                    C_BLOCK)
+    storage = ((shape.b * shape.h * shape.w * shape.c_in
+                + shape.c_in * shape.c_mid if shape.has_expand else 0)
+               + shape.k ** 2 * shape.c_mid + shape.c_mid * shape.c_out
+               + shape.b * shape.out_h * shape.out_w * shape.c_out)
+    return _mixed_staged_bytes(traffic, storage, eb)
+
+
+def fusedmb_staged_bytes(shape: MBConvShape, tile_h: int) -> int:
+    """The staged Fused-MBConv route's device-memory bytes
+    (``perfmodel.fusedmb_staged_traffic``): the expanded map at fp32, the
+    input, both weights and the output at the storage type."""
+    eb = shape.dtype_bytes
+    traffic = fusedmb_staged_traffic(replace(shape, dtype_bytes=F32), tile_h,
+                                     C_BLOCK)
+    storage = (shape.b * shape.h * shape.w * shape.c_in
+               + shape.k ** 2 * shape.c_in * shape.c_mid
+               + shape.c_mid * shape.c_out
+               + shape.b * shape.out_h * shape.out_w * shape.c_out)
+    return _mixed_staged_bytes(traffic, storage, eb)

@@ -62,8 +62,31 @@ def on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-# the dtypes of the MBConv, Fused-MBConv and separable kernels
+# fp32 operands: the separable kernel's, and the fp32 pool sums, gates and
+# split partials of the MBConv kernels
 FP32: Tuple[torch.dtype, ...] = (torch.float32,)
+# the storage types of the MBConv and Fused-MBConv kernels' activations
+# and weights (their sums are fp32 either way)
+STORAGE: Tuple[torch.dtype, ...] = (torch.float32, torch.bfloat16)
+
+
+def launch_name(kernel: str, dtype: torch.dtype) -> str:
+    """The name a launch counts under: the kernel's for fp32, with
+    ``_bf16`` appended for its bf16 build."""
+    return kernel if dtype == torch.float32 else f"{kernel}_bf16"
+
+
+def storage_dtype(*tensors: Optional[torch.Tensor]) -> torch.dtype:
+    """The one storage type of a kernel's activation and weight operands
+    (``None`` entries skipped): one of STORAGE, the same for all, else
+    ValueError."""
+    dtypes = {t.dtype for t in tensors if t is not None}
+    if len(dtypes) != 1 or not dtypes <= set(STORAGE):
+        raise ValueError(f"the kernel takes one storage type of "
+                         f"{', '.join(map(str, STORAGE))} for its "
+                         f"activations and weights, got "
+                         f"{', '.join(sorted(map(str, dtypes)))}")
+    return dtypes.pop()
 
 
 def check_cuda(*tensors: Optional[torch.Tensor],

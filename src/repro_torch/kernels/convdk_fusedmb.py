@@ -42,19 +42,22 @@ from ..core.autotune import (
 from . import _build
 from .common import (
     ACT_CODES,
-    FP32,
+    STORAGE,
     check_cuda,
+    launch_name,
     needs_grad,
     on_cpu,
     ptr,
     reduce_partial,
+    storage_dtype,
     vjp_through,
 )
 from .convdk_mbconv import MBConvGeometry
 from .ref import _act_ref, fusedmb_ref, pad_nhwc
 
-KERNELS: Tuple[str, ...] = ("fusedmb",)
-# kernel launches per wrapper (reset with ``reset_launches``)
+KERNELS: Tuple[str, ...] = ("fusedmb",
+                            launch_name("fusedmb", torch.bfloat16))
+# kernel launches per storage type (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -62,6 +65,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # check: whole and chunked windows, every chunk
 _SMEM_PROBES = ((10, 10, 24, 24), (17, 33, 24, 48), (10, 14, 48, 48),
                 (8, 10, 64, 64), (11, 19, 70, 32), (19, 19, 40, 64))
+# the library of each storage type (kernels/_build.py's VARIANTS)
+_LIBRARIES = {torch.float32: "fusedmb", torch.bfloat16: "fusedmb_bf16"}
 
 
 def reset_launches() -> None:
@@ -70,26 +75,28 @@ def reset_launches() -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fusedmb")
+def _lib(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The bound build of fusedmb.cu for the storage type ``dtype``, its
+    tiles and shared-memory formula held against core.autotune's."""
+    lib = _build.load(_LIBRARIES[dtype])
     lib.fusedmb.argtypes = [_P] * 4 + [_I] * 17 + [_P]
     lib.fusedmb.restype = ctypes.c_int
     lib.fusedmb_error_string.argtypes = [ctypes.c_int]
     lib.fusedmb_error_string.restype = ctypes.c_char_p
     lib.fusedmb_smem_bytes.argtypes = [_I] * 4
     lib.fusedmb_smem_bytes.restype = ctypes.c_size_t
-    built = (lib.fusedmb_max_tile_pixels(), lib.fusedmb_pixels_per_thread(),
-             lib.fusedmb_ring_slots(),
+    built = (lib.fusedmb_element_bytes(), lib.fusedmb_max_tile_pixels(),
+             lib.fusedmb_pixels_per_thread(), lib.fusedmb_ring_slots(),
              {nc: lib.fusedmb_chunk_lanes(nc) for nc in FMB_CHUNK_LANES})
-    want = (FMB_MAX_TILE_PIXELS, FMB_PIXELS_PER_THREAD, FMB_SLOTS,
-            FMB_CHUNK_LANES)
+    want = (dtype.itemsize, FMB_MAX_TILE_PIXELS, FMB_PIXELS_PER_THREAD,
+            FMB_SLOTS, FMB_CHUNK_LANES)
     if built != want:
         raise RuntimeError(f"fusedmb.cu tiles {built} disagree with "
                            f"core.autotune {want}")
     # the solver's shared-memory budget against the launcher's
     for args in _SMEM_PROBES:
         got = lib.fusedmb_smem_bytes(*args)
-        model = fusedmb_window_smem_bytes(*args)
+        model = fusedmb_window_smem_bytes(*args, eb=dtype.itemsize)
         if got != model:
             raise RuntimeError(f"fusedmb.cu asks for {got} B of shared "
                                f"memory at (rows, cols, ci_chunk, chunk) "
@@ -111,34 +118,40 @@ def _check_shapes(x, w_conv, w_proj, geo: MBConvGeometry) -> None:
 
 def fusedmb_plain(x, w_conv, w_proj, geo: MBConvGeometry, *,
                   act: Optional[str]) -> torch.Tensor:
-    """Plain version of ``fusedmb``: zero-pad, dense conv, act, project."""
-    xp = pad_nhwc(x, geo.pads).permute(0, 3, 1, 2)
-    e = F.conv2d(xp, w_conv.permute(3, 2, 0, 1), stride=geo.s)
-    return _act_ref(e.permute(0, 2, 3, 1), act) @ w_proj
+    """Plain version of ``fusedmb``: zero-pad, dense conv, act, project,
+    in fp32 from the storage-type operands, rounded once to x's dtype."""
+    xp = pad_nhwc(x.float(), geo.pads).permute(0, 3, 1, 2)
+    e = F.conv2d(xp, w_conv.float().permute(3, 2, 0, 1), stride=geo.s)
+    return (_act_ref(e.permute(0, 2, 3, 1), act)
+            @ w_proj.float()).to(x.dtype)
 
 
 def fusedmb(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
             geo: MBConvGeometry, *, act: Optional[str]) -> torch.Tensor:
-    """Dense conv -> act -> projection -> (B, out_h, out_w, C_out)."""
+    """Dense conv -> act -> projection -> (B, out_h, out_w, C_out), in x's
+    storage type (fp32 or bf16; fp32 sums, the output rounded once)."""
     _check_shapes(x, w_conv, w_proj, geo)
+    dtype = storage_dtype(x, w_conv, w_proj)
     if on_cpu(x):
         return fusedmb_plain(x, w_conv, w_proj, geo, act=act)
-    check_cuda(x, w_conv, w_proj, dtypes=FP32)
+    check_cuda(x, w_conv, w_proj, dtypes=STORAGE)
     b, h, w, c_in = x.shape
     c_mid, c_out = w_proj.shape
     nc, ci_chunk = fusedmb_launch_plan(c_in, c_mid, c_out, geo.k, geo.s,
-                                       geo.tile_h, geo.tile_w)
-    out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device)
-    lib = _lib()
+                                       geo.tile_h, geo.tile_w,
+                                       dtype.itemsize)
+    out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device,
+                      dtype=dtype)
+    lib = _lib(dtype)
     err = lib.fusedmb(ptr(x), ptr(w_conv), ptr(w_proj), ptr(out), b, h, w,
                       c_in, c_mid, c_out, geo.k, geo.s, geo.out_h, geo.out_w,
                       geo.pads[0][0], geo.pads[1][0], geo.tile_h, geo.tile_w,
                       nc, ci_chunk, ACT_CODES[act],
                       torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError("fusedmb did not launch: "
+        raise RuntimeError(f"fusedmb ({dtype}) did not launch: "
                            f"{lib.fusedmb_error_string(err).decode()}")
-    LAUNCHES["fusedmb"] += 1
+    LAUNCHES[launch_name("fusedmb", dtype)] += 1
     return out
 
 

@@ -21,6 +21,14 @@ Each pass wrapper launches its kernel (``kernels/csrc/mbconv.cu``) for
 CUDA tensors and runs its plain PyTorch version for CPU tensors; any
 other device raises.  ``LAUNCHES`` counts kernel launches per wrapper.
 
+The activations and weights take one storage type, fp32 or bf16
+(``common.STORAGE``; a CUDA tensor launches the build of its type, any
+other type raises); every sum is fp32, the SE pool, its partials, the gate
+and the split partials are fp32, and the retained DW tensor and each
+pass's output round once to the storage type, as the JAX kernels do.  The
+plain versions compute in fp32 from the storage-type operands and round
+at the same points (recompute never rounds its DW tile).
+
 Pass 1 and recompute tile the output in ``tile_h x tile_w`` pixels;
 recompute takes its c_out tile and split count from ``core.autotune.
 recompute_plan``, retain its GEMM tile and split count from
@@ -49,40 +57,52 @@ from ..core.autotune import (
     P1_MAX_TILE_PIXELS,
     RECOMPUTE_K_CHUNK,
     RETAIN_K_CHUNK,
+    RETAIN_TILES,
     pass1_cm_tile,
     pass1_smem_bytes,
     recompute_co_tile,
     recompute_plan,
     recompute_smem_bytes,
     retain_plan,
+    retain_smem_bytes,
 )
 from ..core.perfmodel import MBCONV_MODES
 from . import _build
 from .common import (
     ACT_CODES,
     FP32,
+    STORAGE,
     check_cuda,
+    launch_name,
     needs_grad,
     on_cpu,
     ptr,
     reduce_partial,
     spatial_pads,
+    storage_dtype,
     vjp_through,
 )
 from .ref import _act_ref, depthwise_valid, mbconv_ref, pad_nhwc
 
-KERNELS: Tuple[str, ...] = ("mbconv_pass1", "mbconv_pass2_recompute",
-                            "mbconv_pass2_retain", "mbconv_splitk_reduce")
-# kernel launches per wrapper (reset with ``reset_launches``)
+FP32_KERNELS: Tuple[str, ...] = (
+    "mbconv_pass1", "mbconv_pass2_recompute", "mbconv_pass2_retain",
+    "mbconv_splitk_reduce")
+# every kernel build: the fp32 kernels, then their bf16 builds
+KERNELS: Tuple[str, ...] = FP32_KERNELS + tuple(
+    launch_name(k, torch.bfloat16) for k in FP32_KERNELS)
+# kernel launches per wrapper and storage type (reset with
+# ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "mbconv_pass1": [_P] * 7 + [_I] * 16 + [_P],
-    "mbconv_pass2_recompute": [_P] * 6 + [_I] * 19 + [_P],
-    "mbconv_pass2_retain": [_P] * 4 + [_I] * 7 + [_P],
+    "mbconv_pass2_recompute": [_P] * 7 + [_I] * 19 + [_P],
+    "mbconv_pass2_retain": [_P] * 5 + [_I] * 7 + [_P],
     "mbconv_splitk_reduce": [_P, _P, _I, _L, _P],
 }
+# the library of each storage type (kernels/_build.py's VARIANTS)
+_LIBRARIES = {torch.float32: "mbconv", torch.bfloat16: "mbconv_bf16"}
 # (k, s, tile_h, tile_w, c_in, c_mid) at which _lib() holds the built
 # pass-1 shared-memory formula against core.autotune's, and with a c_out
 # (k, s, tile_h, tile_w, c_in, c_mid, c_out) the recompute one
@@ -104,8 +124,10 @@ def reset_launches() -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("mbconv")
+def _lib(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The bound build of mbconv.cu for the storage type ``dtype``, its
+    constants and shared-memory formulas held against core.autotune's."""
+    lib = _build.load(_LIBRARIES[dtype])
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -115,31 +137,36 @@ def _lib() -> ctypes.CDLL:
     lib.mbconv_pass1_smem_bytes.restype = ctypes.c_longlong
     lib.mbconv_recompute_smem_bytes.argtypes = [_I] * 8
     lib.mbconv_recompute_smem_bytes.restype = ctypes.c_longlong
-    built = (lib.mbconv_max_tile_pixels(), lib.mbconv_recompute_k_chunk(),
-             lib.mbconv_pass1_ci_chunk(), lib.mbconv_pass1_max_tile_pixels(),
-             lib.mbconv_retain_k_chunk(), lib.mbconv_pass1_cm_tile(40),
-             lib.mbconv_pass1_cm_tile(96),
+    lib.mbconv_retain_smem_bytes.argtypes = [_I] * 2
+    lib.mbconv_retain_smem_bytes.restype = ctypes.c_longlong
+    eb = dtype.itemsize
+    built = (lib.mbconv_element_bytes(), lib.mbconv_max_tile_pixels(),
+             lib.mbconv_recompute_k_chunk(), lib.mbconv_pass1_ci_chunk(),
+             lib.mbconv_pass1_max_tile_pixels(), lib.mbconv_retain_k_chunk(),
+             lib.mbconv_pass1_cm_tile(40), lib.mbconv_pass1_cm_tile(96),
              *(lib.mbconv_pass1_smem_bytes(*p, 0) for p in _SMEM_PROBES),
              *(lib.mbconv_recompute_smem_bytes(*p[:-1], recompute_co_tile(
-                 p[-1]), 0) for p in _R2_SMEM_PROBES))
-    want = (MAX_TILE_PIXELS, RECOMPUTE_K_CHUNK, P1_CI_CHUNK,
+                 p[-1]), 0) for p in _R2_SMEM_PROBES),
+             *(lib.mbconv_retain_smem_bytes(*t) for t in RETAIN_TILES))
+    want = (eb, MAX_TILE_PIXELS, RECOMPUTE_K_CHUNK, P1_CI_CHUNK,
             P1_MAX_TILE_PIXELS, RETAIN_K_CHUNK, pass1_cm_tile(40),
             pass1_cm_tile(96),
-            *(pass1_smem_bytes(*p) for p in _SMEM_PROBES),
-            *(recompute_smem_bytes(*p) for p in _R2_SMEM_PROBES))
+            *(pass1_smem_bytes(*p, eb=eb) for p in _SMEM_PROBES),
+            *(recompute_smem_bytes(*p, eb=eb) for p in _R2_SMEM_PROBES),
+            *(retain_smem_bytes(*t, eb=eb) for t in RETAIN_TILES))
     if built != want:
-        raise RuntimeError(f"mbconv.cu constants {built} disagree with "
-                           f"core.autotune {want}")
+        raise RuntimeError(f"mbconv.cu ({_LIBRARIES[dtype]}) constants "
+                           f"{built} disagree with core.autotune {want}")
     return lib
 
 
-def _launch(name: str, *args) -> None:
-    lib = _lib()
+def _launch(name: str, dtype: torch.dtype, *args) -> None:
+    lib = _lib(dtype)
     err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} did not launch: "
+        raise RuntimeError(f"{name} ({dtype}) did not launch: "
                            f"{lib.mbconv_error_string(err).decode()}")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_name(name, dtype)] += 1
 
 
 def _pool_counters(device: torch.device, needed: int) -> torch.Tensor:
@@ -218,10 +245,11 @@ def _check_shapes(x, w_exp, w_dw, geo: MBConvGeometry) -> None:
 # ---------------------------------------------------------------------------
 
 def _expand_dw_plain(x, w_exp, w_dw, geo: MBConvGeometry, exp_act, dw_act):
-    """Zero-pad x (as the JAX kernel does), expand, act, DW, act."""
-    xp = pad_nhwc(x, geo.pads)
-    e = _act_ref(xp if w_exp is None else xp @ w_exp, exp_act)
-    return _act_ref(depthwise_valid(e, w_dw, geo.s), dw_act)
+    """Zero-pad x (as the JAX kernel does), expand, act, DW, act: in fp32
+    from the storage-type operands."""
+    xp = pad_nhwc(x.float(), geo.pads)
+    e = _act_ref(xp if w_exp is None else xp @ w_exp.float(), exp_act)
+    return _act_ref(depthwise_valid(e, w_dw.float(), geo.s), dw_act)
 
 
 def _gated(d: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
@@ -230,7 +258,8 @@ def _gated(d: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
 
 def mbconv_pass1_plain(x, w_exp, w_dw, geo: MBConvGeometry, *, exp_act,
                        dw_act, se=True, retain=False):
-    """Plain version of ``mbconv_pass1``."""
+    """Plain version of ``mbconv_pass1``: fp32 pool sums of the fp32 DW
+    tile, the DW tensor rounded once to x's dtype."""
     d = _expand_dw_plain(x, w_exp, w_dw, geo, exp_act, dw_act)
     partial = pool = None
     if se:
@@ -242,7 +271,7 @@ def mbconv_pass1_plain(x, w_exp, w_dw, geo: MBConvGeometry, *, exp_act,
         partial = dp.reshape(b, geo.n_th, geo.tile_h, geo.n_tw, geo.tile_w,
                              c).sum(dim=(2, 4)).reshape(b, geo.n_tiles, c)
         pool = mbconv_pool_reduce_plain(partial)
-    return partial, pool, (d if retain else None)
+    return partial, pool, (d.to(x.dtype) if retain else None)
 
 
 def mbconv_pass1(x: torch.Tensor, w_exp: Optional[torch.Tensor],
@@ -258,10 +287,11 @@ def mbconv_pass1(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     if not (se or retain):
         raise ValueError("se=off + recompute has no pass 1")
     _check_shapes(x, w_exp, w_dw, geo)
+    dtype = storage_dtype(x, w_exp, w_dw)
     if on_cpu(x):
         return mbconv_pass1_plain(x, w_exp, w_dw, geo, exp_act=exp_act,
                                   dw_act=dw_act, se=se, retain=retain)
-    check_cuda(x, w_exp, w_dw, dtypes=FP32)
+    check_cuda(x, w_exp, w_dw, dtypes=STORAGE)
     b, h, w, c_in = x.shape
     c_mid = w_dw.shape[-1]
     partial = pool = counters = None
@@ -270,9 +300,9 @@ def mbconv_pass1(x: torch.Tensor, w_exp: Optional[torch.Tensor],
         pool = torch.empty((b, c_mid), device=x.device)
         counters = _pool_counters(x.device,
                                   b * -(-c_mid // pass1_cm_tile(c_mid)))
-    dw = (torch.empty((b, geo.out_h, geo.out_w, c_mid), device=x.device)
-          if retain else None)
-    _launch("mbconv_pass1", ptr(x), ptr(w_exp), ptr(w_dw), ptr(partial),
+    dw = (torch.empty((b, geo.out_h, geo.out_w, c_mid), device=x.device,
+                      dtype=dtype) if retain else None)
+    _launch("mbconv_pass1", dtype, ptr(x), ptr(w_exp), ptr(w_dw), ptr(partial),
             ptr(pool), ptr(counters), ptr(dw), b, h, w, c_in, c_mid, geo.k,
             geo.s, geo.out_h, geo.out_w, geo.pads[0][0], geo.pads[1][0],
             geo.tile_h, geo.tile_w, int(w_exp is None), ACT_CODES[exp_act],
@@ -291,18 +321,20 @@ def mbconv_pool_reduce_plain(partial: torch.Tensor) -> torch.Tensor:
 
 def mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
                                  geo: MBConvGeometry, *, exp_act, dw_act):
-    """Plain version of ``mbconv_pass2_recompute``."""
+    """Plain version of ``mbconv_pass2_recompute``: fp32 throughout (the
+    DW tile never rounded), the output rounded once to x's dtype."""
     d = _expand_dw_plain(x, w_exp, w_dw, geo, exp_act, dw_act)
-    return _gated(d, gate) @ w_proj
+    return (_gated(d, gate) @ w_proj.float()).to(x.dtype)
 
 
 def mbconv_pass2_recompute_partials_plain(x, w_exp, w_dw, gate, w_proj,
                                           geo: MBConvGeometry, splits: int,
                                           *, exp_act, dw_act):
     """Plain version of a split recompute launch's partials (splits, B,
-    out_h, out_w, C_out): split z projects pass 1's c_mid chunks
+    out_h, out_w, C_out), fp32: split z projects pass 1's c_mid chunks
     [z * per, (z + 1) * per), per = ceil(chunks / splits)."""
     d = _gated(_expand_dw_plain(x, w_exp, w_dw, geo, exp_act, dw_act), gate)
+    w_proj = w_proj.float()
     c_mid = w_proj.shape[0]
     cmt = pass1_cm_tile(c_mid)
     chunks = -(-c_mid // cmt)
@@ -322,11 +354,13 @@ def mbconv_pass2_recompute(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     splits come from ``recompute_plan``; a split launch ends in
     ``mbconv_splitk_reduce``."""
     _check_shapes(x, w_exp, w_dw, geo)
+    dtype = storage_dtype(x, w_exp, w_dw, w_proj)
     if on_cpu(x):
         return mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
                                             geo, exp_act=exp_act,
                                             dw_act=dw_act)
-    check_cuda(x, w_exp, w_dw, gate, w_proj, dtypes=FP32)
+    check_cuda(x, w_exp, w_dw, w_proj, dtypes=STORAGE)
+    check_cuda(gate, dtypes=FP32)
     if geo.tile_h * geo.tile_w > MAX_TILE_PIXELS:
         raise ValueError(f"the recompute kernel takes tiles of at most "
                          f"{MAX_TILE_PIXELS} pixels, got {geo}")
@@ -334,60 +368,82 @@ def mbconv_pass2_recompute(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     c_mid, c_out = w_proj.shape
     co_tile, splits = recompute_plan(b, geo.out_h, geo.out_w, c_mid, c_out,
                                      geo.tile_h, geo.tile_w)
-    out = torch.empty((splits, b, geo.out_h, geo.out_w, c_out),
-                      device=x.device)
-    _launch("mbconv_pass2_recompute", ptr(x), ptr(w_exp), ptr(w_dw),
-            ptr(gate), ptr(w_proj), ptr(out), b, h, w, c_in, c_mid, c_out,
-            geo.k, geo.s, geo.out_h, geo.out_w, geo.pads[0][0],
+    partial, out = _pass2_outputs(splits, (b, geo.out_h, geo.out_w, c_out),
+                                  dtype, x.device)
+    _launch("mbconv_pass2_recompute", dtype, ptr(x), ptr(w_exp), ptr(w_dw),
+            ptr(gate), ptr(w_proj), ptr(partial), ptr(out), b, h, w, c_in,
+            c_mid, c_out, geo.k, geo.s, geo.out_h, geo.out_w, geo.pads[0][0],
             geo.pads[1][0], geo.tile_h, geo.tile_w, int(w_exp is None),
             ACT_CODES[exp_act], ACT_CODES[dw_act], co_tile, splits)
-    return out[0] if splits == 1 else mbconv_splitk_reduce(out)
+    return out if splits == 1 else mbconv_splitk_reduce(partial, dtype)
+
+
+def _pass2_outputs(splits: int, shape, dtype: torch.dtype,
+                   device: torch.device):
+    """(fp32 split partials or None, the output or None) of a pass-2
+    launch: an unsplit launch writes the output in the storage type, a
+    split one its fp32 partials for ``mbconv_splitk_reduce``."""
+    if splits == 1:
+        return None, torch.empty(shape, device=device, dtype=dtype)
+    return torch.empty((splits, *shape), device=device), None
 
 
 def mbconv_pass2_retain_plain(dw, gate, w_proj, geo: MBConvGeometry):
-    """Plain version of ``mbconv_pass2_retain``."""
-    return _gated(dw, gate) @ w_proj
+    """Plain version of ``mbconv_pass2_retain``: fp32 from the
+    storage-type DW tensor and weights, rounded once to dw's dtype."""
+    return (_gated(dw.float(), gate) @ w_proj.float()).to(dw.dtype)
 
 
 def mbconv_pass2_retain(dw: torch.Tensor, gate: Optional[torch.Tensor],
-                        w_proj: torch.Tensor, geo: MBConvGeometry
-                        ) -> torch.Tensor:
+                        w_proj: torch.Tensor, geo: MBConvGeometry,
+                        max_splits: Optional[int] = None) -> torch.Tensor:
     """Pass 2, retain: the DW tensor x gate (``None`` = se off),
     projection -> (B, out_h, out_w, C_out).  ``geo`` is checked against
     ``dw``'s shape only: the GEMM's tile and K splits come from
-    ``retain_plan``, and a split launch ends in ``mbconv_splitk_reduce``."""
+    ``retain_plan`` (``max_splits`` caps the splits: the schedule's
+    ``retain_splits``), and a split launch ends in
+    ``mbconv_splitk_reduce``."""
     b, out_h, out_w, c_mid = dw.shape
     if (out_h, out_w) != (geo.out_h, geo.out_w):
         raise ValueError(f"dw {tuple(dw.shape)} does not match {geo}")
+    dtype = storage_dtype(dw, w_proj)
     if on_cpu(dw):
         return mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
-    check_cuda(dw, gate, w_proj, dtypes=FP32)
+    check_cuda(dw, w_proj, dtypes=STORAGE)
+    check_cuda(gate, dtypes=FP32)
     c_out = w_proj.shape[1]
     m = b * out_h * out_w
-    bm, bn, splits = retain_plan(m, c_mid, c_out)
-    out = torch.empty((splits, b, out_h, out_w, c_out), device=dw.device)
-    _launch("mbconv_pass2_retain", ptr(dw), ptr(gate), ptr(w_proj),
-            ptr(out), m, c_mid, c_out, out_h * out_w, bm, bn, splits)
-    return out[0] if splits == 1 else mbconv_splitk_reduce(out)
+    bm, bn, splits = retain_plan(m, c_mid, c_out, max_splits)
+    partial, out = _pass2_outputs(splits, (b, out_h, out_w, c_out), dtype,
+                                  dw.device)
+    _launch("mbconv_pass2_retain", dtype, ptr(dw), ptr(gate), ptr(w_proj),
+            ptr(partial), ptr(out), m, c_mid, c_out, out_h * out_w, bm, bn,
+            splits)
+    return out if splits == 1 else mbconv_splitk_reduce(partial, dtype)
 
 
-def mbconv_splitk_reduce_plain(partial: torch.Tensor) -> torch.Tensor:
+def mbconv_splitk_reduce_plain(partial: torch.Tensor,
+                               dtype: torch.dtype = torch.float32
+                               ) -> torch.Tensor:
     """Plain version of ``mbconv_splitk_reduce``, in the kernel's order."""
     acc = partial[0].clone()
     for z in range(1, partial.shape[0]):
         acc = acc + partial[z]
-    return acc
+    return acc.to(dtype)
 
 
-def mbconv_splitk_reduce(partial: torch.Tensor) -> torch.Tensor:
-    """(splits, ...) per-split partial products -> their sum, taken in
-    split order."""
+def mbconv_splitk_reduce(partial: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(splits, ...) fp32 per-split partial products -> their sum, taken in
+    split order and rounded once to ``dtype`` (a storage type)."""
+    if dtype not in STORAGE:
+        raise ValueError(f"the reduce writes one of {STORAGE}, got {dtype}")
     if on_cpu(partial):
-        return mbconv_splitk_reduce_plain(partial)
+        return mbconv_splitk_reduce_plain(partial, dtype)
     check_cuda(partial, dtypes=FP32)
-    out = torch.empty(partial.shape[1:], device=partial.device)
-    _launch("mbconv_splitk_reduce", ptr(partial), ptr(out), partial.shape[0],
-            out.numel())
+    out = torch.empty(partial.shape[1:], device=partial.device, dtype=dtype)
+    _launch("mbconv_splitk_reduce", dtype, ptr(partial), ptr(out),
+            partial.shape[0], out.numel())
     return out
 
 
@@ -397,7 +453,7 @@ def mbconv_splitk_reduce(partial: torch.Tensor) -> torch.Tensor:
 
 def _mbconv_impl(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj, *,
                  stride, padding, tile_h, tile_w, mode, exp_act, dw_act,
-                 se_act, gate_act, mesh=None,
+                 se_act, gate_act, retain_splits=None, mesh=None,
                  collective="ring_allreduce", scatter_width=0):
     """Two-pass fused MBConv on one device, or on one rank's slice of the
     c_mid grid when ``mesh`` is given (``kernels.convdk_sharded``).
@@ -428,14 +484,16 @@ def _mbconv_impl(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj, *,
     gate = None
     if se:
         # SE MLP on the pool (the mean divides by the true out_h * out_w)
+        # in fp32 at every storage type, as the JAX package's
         mean = pool / float(geo.out_h * geo.out_w)
-        squeeze = mean @ w_se1
+        squeeze = mean @ w_se1.float()
         if mesh is not None:
             squeeze = mesh.all_reduce(squeeze, "model")
-        s1 = _act_ref(squeeze + b_se1, se_act)
-        gate = _act_ref(s1 @ w_se2 + b_se2, gate_act).contiguous()
+        s1 = _act_ref(squeeze + b_se1.float(), se_act)
+        gate = _act_ref(s1 @ w_se2.float() + b_se2.float(),
+                        gate_act).contiguous()
     if mode == "retain":
-        out = mbconv_pass2_retain(dw, gate, w_proj, geo)
+        out = mbconv_pass2_retain(dw, gate, w_proj, geo, retain_splits)
     else:
         out = mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
                                      exp_act=exp_act, dw_act=dw_act)
@@ -489,6 +547,7 @@ def convdk_mbconv_fused(
     dw_act: Optional[str] = "silu",
     se_act: Optional[str] = "silu",
     gate_act: Optional[str] = "sigmoid",
+    retain_splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Two-pass fused MBConv block, no residual add (the model layer owns
     it).  Layouts as ``repro.kernels.convdk_mbconv_fused``:
@@ -501,12 +560,13 @@ def convdk_mbconv_fused(
     w_se1/b_se1, w_se2/b_se2 : SE FCs, all four ``None`` for a no-SE block
     w_proj : (C_mid, C_out)
     mode   : "retain" | "recompute" (``core.autotune`` picks per layer)
+    retain_splits : the cap on retain's K splits (the schedule's)
     Returns (B, H', W', C_out).
     """
     args = (x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj)
     conf = dict(stride=stride, padding=padding, tile_h=tile_h,
                 tile_w=tile_w, mode=mode, exp_act=exp_act, dw_act=dw_act,
-                se_act=se_act, gate_act=gate_act)
+                se_act=se_act, gate_act=gate_act, retain_splits=retain_splits)
     if needs_grad(*args):
         return _MBConvFn.apply(*args, conf)
     return _mbconv_impl(*args, **conf)

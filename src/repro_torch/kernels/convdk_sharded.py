@@ -106,6 +106,14 @@ def _no_grad(*tensors) -> None:
             "the sharded wrappers have no backward yet")
 
 
+def require_fp32(dtype: torch.dtype) -> None:
+    """The mesh runs fp32 only: a bf16 mesh is ROADMAP queue A item 14
+    (gloo's bf16 collectives of the sharded wrappers are unverified)."""
+    if dtype != torch.float32:
+        raise ValueError(f"the mesh runs fp32 only, got {dtype}: a bf16 "
+                         f"mesh is ROADMAP queue A item 14")
+
+
 def model_chunk(t: torch.Tensor, mesh, width: int = 0) -> torch.Tensor:
     """This rank's slice of ``t``'s channels (last dim), zero-padded first
     to ``width`` (the layout a padded scatter leaves)."""
@@ -171,6 +179,7 @@ def convdk_fused_separable_sharded(
     collective = validate_collective(collective or DEFAULT_COLLECTIVE)
     in_layout = validate_layout(in_layout or DEFAULT_LAYOUT)
     _no_grad(x, w_dw, w_pw)
+    require_fp32(x.dtype)
     dp, mp = conv_mesh_shape(mesh)
     c_out = w_pw.shape[1]
     geo = _geometry(x, w_dw.shape[0], stride, padding, tile_h, tile_w)
@@ -219,6 +228,7 @@ def convdk_mbconv_fused_sharded(
     gate_act: Optional[str] = "sigmoid",
     collective: Optional[str] = None,
     in_layout: Optional[str] = None,
+    retain_splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Mesh-sharded two-pass fused MBConv block: each rank runs both passes
     on its batch slice and its slice of c_mid (``tile_h`` x ``tile_w``
@@ -235,6 +245,7 @@ def convdk_mbconv_fused_sharded(
     collective = validate_collective(collective or DEFAULT_COLLECTIVE)
     in_layout = validate_layout(in_layout or DEFAULT_LAYOUT)
     _no_grad(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj)
+    require_fp32(x.dtype)
     dp, mp = conv_mesh_shape(mesh)
     c_mid, c_out = w_proj.shape
     _require_shardable(mesh, x.shape[0] * dp, c_mid, "c_mid")
@@ -263,8 +274,8 @@ def convdk_mbconv_fused_sharded(
         mesh.chunk(w_proj, MODEL_AXIS, dim=0),
         stride=stride, padding=padding, tile_h=tile_h, tile_w=tile_w,
         mode=mode, exp_act=exp_act, dw_act=dw_act, se_act=se_act,
-        gate_act=gate_act, mesh=mesh, collective=collective,
-        scatter_width=cw)
+        gate_act=gate_act, retain_splits=retain_splits, mesh=mesh,
+        collective=collective, scatter_width=cw)
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +299,7 @@ def convdk_fusedmb_fused_sharded(
         raise ValueError(
             f"fusedmb consumes replicated arrivals only, got {in_layout!r}")
     _no_grad(x, w_conv, w_proj)
+    require_fp32(x.dtype)
     dp, mp = conv_mesh_shape(mesh)
     c_mid, c_out = w_proj.shape
     _require_shardable(mesh, x.shape[0] * dp, c_mid, "c_mid")

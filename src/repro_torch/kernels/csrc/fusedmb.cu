@@ -6,8 +6,8 @@
 //   fusedmb_kernel  <- _fusedmb_kernel (:59), launched by fusedmb_pallas (:133)
 //
 // What it computes (NHWC activations, w_conv (k, k, C_in, C_mid) HWIO,
-// w_proj (C_mid, C_out), all fp32), EfficientNet-V2's fused stages without
-// the residual (the model layer adds it):
+// w_proj (C_mid, C_out), all in one storage type T), EfficientNet-V2's
+// fused stages without the residual (the model layer adds it):
 //
 //   dense k x k / s conv (reduce C_in) -> act -> projection 1x1 (reduce C_mid)
 //
@@ -49,9 +49,21 @@
 // Bound.  At V2-S widths the dense conv makes the kernel bound by
 // operations (k^2 C_in C_mid FMAs per output pixel).  fp32 FMA on CUDA
 // cores, no tensor cores and no TF32 (the JAX suite's 1e-4 fp32 bar).
+//
+// Storage type.  The kernel is a template over T, float or __nv_bfloat16
+// (the JAX kernel's x.dtype); each build of this file instantiates one for
+// the C interface (__nv_bfloat16 with -DBF16_STORAGE).  The window and the
+// weight ring hold T (cp.async moves bytes unconverted), each operand
+// converts to fp32 as it is read from shared memory, both products sum in
+// fp32, and the output rounds once to T (the Pallas kernel's o_ref cast).
+// In bf16 a window chunk's 4-channel copy is 8 bytes, and a ragged
+// channel edge takes plain loads (cp.async copies no fewer than 4 bytes).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -95,20 +107,6 @@ struct Geom {
   int ci_chunk;                         // c_in channels per staged window
 };
 
-// cp.async copies of 16 or 4 bytes; bytes past src_bytes are zero-filled
-// (src_bytes 0 reads nothing, so src need only be a valid address).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -119,18 +117,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 __host__ __device__ constexpr int ceil4(int n) { return (n + 3) / 4 * 4; }
 
-// floats per staged window pixel: the chunk rounded up to 4, padded so the
-// stride in float4s is odd and a warp's float4 loads of neighbouring pixels
-// fall in different banks
+// elements per staged window pixel: the chunk rounded up to 4, padded so
+// the stride in 4-channel groups is odd and a warp's loads of neighbouring
+// pixels fall in different banks
 __host__ __device__ constexpr int window_stride(int ci_chunk) {
   return ceil4(ci_chunk) + ((ceil4(ci_chunk) / 4) % 2 ? 8 : 4);
 }
 
 // shared memory: the window and SLOTS ring slots of max(c_in rows, NC
-// rows) x NC weights
-size_t smem_floats(int in_rows, int in_cols, int ci_chunk, int NC) {
+// rows) x NC weights, eb bytes an element
+size_t smem_bytes(int in_rows, int in_cols, int ci_chunk, int NC, int eb) {
   const int rows = ceil4(ci_chunk) > NC ? ceil4(ci_chunk) : NC;
-  return (size_t)in_rows * in_cols * window_stride(ci_chunk) + (size_t)SLOTS * rows * NC;
+  return ((size_t)in_rows * in_cols * window_stride(ci_chunk) + (size_t)SLOTS * rows * NC) *
+         eb;
 }
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
@@ -140,25 +139,23 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 // acc[j][c] += sum_k a[j][k] * b[k][c] over n4 * 4 rows k: a row j at
 // a_s + aoff[j] (k contiguous), b row k at b_s + k * NC, this thread's
 // channels 4 * lc + 4 * LC * u + (0..3)
-template <int NC, int TC = NC / chunk_lanes(NC)>
-__device__ __forceinline__ void gemm_step(float (&acc)[TP][TC],
-                                          const float* __restrict__ a_s,
+template <int NC, typename T, int TC = NC / chunk_lanes(NC)>
+__device__ __forceinline__ void gemm_step(float (&acc)[TP][TC], const T* __restrict__ a_s,
                                           const int (&aoff)[TP],
-                                          const float* __restrict__ b_s, int lc, int n4) {
+                                          const T* __restrict__ b_s, int lc, int n4) {
   constexpr int LC = chunk_lanes(NC);
-  const float* b0 = b_s + 4 * lc;
+  const T* b0 = b_s + 4 * lc;
 #pragma unroll 4
   for (int c4 = 0; c4 < n4; ++c4) {
     float4 a[TP];
 #pragma unroll
-    for (int j = 0; j < TP; ++j)
-      a[j] = *reinterpret_cast<const float4*>(a_s + aoff[j] + 4 * c4);
+    for (int j = 0; j < TP; ++j) a[j] = ld4(a_s + aoff[j] + 4 * c4);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float* brow = b0 + (4 * c4 + kk) * NC;
+      const T* brow = b0 + (4 * c4 + kk) * NC;
 #pragma unroll
       for (int u = 0; u < TC / 4; ++u) {
-        const float4 b = *reinterpret_cast<const float4*>(brow + 4 * LC * u);
+        const float4 b = ld4(brow + 4 * LC * u);
 #pragma unroll
         for (int j = 0; j < TP; ++j) {
           const float av = comp(a[j], kk);
@@ -175,11 +172,11 @@ __device__ __forceinline__ void gemm_step(float (&acc)[TP][TC],
 // acc[j][c] += sum_m e[j][m] * b[m][c] over the chunk's NC channels m,
 // where e[j][m] is held by lane (lp, (m / 4) % LC) of this warp as its
 // e[j][4 * (m / (4 * LC)) + m % 4]; b row m at b_s + m * NC
-template <int NC, int TC = NC / chunk_lanes(NC)>
+template <int NC, typename T, int TC = NC / chunk_lanes(NC)>
 __device__ __forceinline__ void project_step(float (&acc)[TP][TC], const float (&e)[TP][TC],
-                                             const float* __restrict__ b_s, int lp, int lc) {
+                                             const T* __restrict__ b_s, int lp, int lc) {
   constexpr int LC = chunk_lanes(NC);
-  const float* b0 = b_s + 4 * lc;
+  const T* b0 = b_s + 4 * lc;
 #pragma unroll
   for (int uo = 0; uo < TC / 4; ++uo) {
 #pragma unroll 1
@@ -190,10 +187,10 @@ __device__ __forceinline__ void project_step(float (&acc)[TP][TC], const float (
         float ev[TP];
 #pragma unroll
         for (int j = 0; j < TP; ++j) ev[j] = __shfl_sync(0xffffffffu, e[j][4 * uo + v], lp * LC + lo);
-        const float* brow = b0 + m * NC;
+        const T* brow = b0 + m * NC;
 #pragma unroll
         for (int u = 0; u < TC / 4; ++u) {
-          const float4 b = *reinterpret_cast<const float4*>(brow + 4 * LC * u);
+          const float4 b = ld4(brow + 4 * LC * u);
 #pragma unroll
           for (int j = 0; j < TP; ++j) {
             acc[j][4 * u] = fmaf(ev[j], b.x, acc[j][4 * u]);
@@ -209,11 +206,10 @@ __device__ __forceinline__ void project_step(float (&acc)[TP][TC], const float (
 
 // grid (n_tiles, ceil(C_out / NC), B); 32 * ceil(pixels / pixels_per_warp)
 // threads, each owning TP pixels x NC / LC channels of both products.
-template <int K, int S, int NC>
+template <int K, int S, int NC, typename T>
 __global__ void __launch_bounds__(max_threads(NC), min_ctas(NC))
-fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
-               const float* __restrict__ w_proj, float* __restrict__ out, Geom g,
-               int act) {
+fusedmb_kernel(const T* __restrict__ x, const T* __restrict__ w_conv,
+               const T* __restrict__ w_proj, T* __restrict__ out, Geom g, int act) {
   constexpr int LC = chunk_lanes(NC), TC = NC / LC, LP = 32 / LC;
   constexpr int PPW = TP * LP;
   constexpr int KK = K * K;
@@ -222,8 +218,8 @@ fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
   const int XS = window_stride(g.ci_chunk);
   const int rows = ceil4(g.ci_chunk) > NC ? ceil4(g.ci_chunk) : NC;
   extern __shared__ float4 smem4[];
-  float* x_s = reinterpret_cast<float*>(smem4);       // Q x XS
-  float* w_s = x_s + Q * XS;                          // SLOTS x rows x NC
+  T* x_s = reinterpret_cast<T*>(smem4);               // Q x XS
+  T* w_s = x_s + Q * XS;                              // SLOTS x rows x NC
 
   const int tile = blockIdx.x, co0 = blockIdx.y * NC, b = blockIdx.z;
   const int oh0 = (tile / g.n_tw) * g.tile_h, ow0 = (tile % g.n_tw) * g.tile_w;
@@ -259,42 +255,42 @@ fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
       const int r = q / g.in_cols, col = q % g.in_cols;
       const int ih = ih0 + r, iw = iw0 + col;
       const bool in = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
-      const float* src = x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci0 + c;
-      float* dst = x_s + (r * g.in_cols + wcol(col)) * XS + c;
+      const T* src = x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci0 + c;
+      T* dst = x_s + (r * g.in_cols + wcol(col)) * XS + c;
       if (vec_x) {
-        cp_async16(dst, in ? src : x, in ? 16 : 0);
+        cp4(dst, in ? src : x, in ? 4 : 0);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const bool ok = in && c + u < nci;
-          cp_async4(dst + u, ok ? src + u : x, ok ? 4 : 0);
+          cp1(dst + u, ok ? src + u : x, ok);
         }
       }
     }
   };
   // NC-wide rows [r0, r0 + n_rows) (r < r_end valid) of a row-major matrix
   // with ld columns, columns [col0, col0 + NC) (col < ld valid)
-  auto stage_rows = [&](float* dst, const float* m, int ld, int r0, int n_rows, int r_end,
-                        int col0, bool vec) {
+  auto stage_rows = [&](T* dst, const T* m, int ld, int r0, int n_rows, int r_end, int col0,
+                        bool vec) {
     for (int e = t; e < n_rows * (NC / 4); e += nt) {
       const int r = e / (NC / 4), c = 4 * (e % (NC / 4));
       const int row = r0 + r, col = col0 + c;
-      const float* src = m + (size_t)row * ld + col;
+      const T* src = m + (size_t)row * ld + col;
       if (vec) {
         const bool ok = row < r_end && col < ld;
-        cp_async16(dst + r * NC + c, ok ? src : m, ok ? 16 : 0);
+        cp4(dst + r * NC + c, ok ? src : m, ok ? 4 : 0);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const bool ok = row < r_end && col + u < ld;
-          cp_async4(dst + r * NC + c + u, ok ? src + u : m, ok ? 4 : 0);
+          cp1(dst + r * NC + c + u, ok ? src + u : m, ok);
         }
       }
     }
   };
   // ring step s: w_conv[tap, c_in chunk, c_mid chunk] or w_proj[c_mid chunk, c_out tile]
   auto stage_step = [&](int s) {
-    float* dst = w_s + (s % SLOTS) * rows * NC;
+    T* dst = w_s + (s % SLOTS) * rows * NC;
     const int c = s / per_chunk, r = s % per_chunk;
     if (r < n_ci * KK) {
       const int ci0 = (r / KK) * g.ci_chunk, tap = r % KK;
@@ -329,7 +325,7 @@ fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
     }
     if (s + 1 < n_steps) stage_step(s + 1);
     cp_async_commit();
-    const float* w_slot = w_s + (s % SLOTS) * rows * NC;
+    const T* w_slot = w_s + (s % SLOTS) * rows * NC;
     if (conv) {
       const int tap = r % KK, i = r / KK;
       if (r == 0) {
@@ -341,8 +337,8 @@ fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
       const int nci = min(g.ci_chunk, g.C_in - i * g.ci_chunk);
       // the tap's offset from a pixel's (0, 0) tap: wcol(S * pc + kw) is
       // wcol(S * pc) + wcol(kw) at both strides
-      gemm_step<NC>(acc, x_s + ((tap / K) * g.in_cols + wcol(tap % K)) * XS, xoff, w_slot,
-                    lc, (nci + 3) / 4);
+      gemm_step<NC, T>(acc, x_s + ((tap / K) * g.in_cols + wcol(tap % K)) * XS, xoff, w_slot,
+                       lc, (nci + 3) / 4);
       if (r == n_ci * KK - 1) {
         // act; channels past C_mid are 0 (act(0) need not be)
 #pragma unroll
@@ -353,7 +349,7 @@ fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
         }
       }
     } else {
-      project_step<NC>(oacc, acc, w_slot, lp, lc);
+      project_step<NC, T>(oacc, acc, w_slot, lp, lc);
     }
   }
 
@@ -363,48 +359,50 @@ fusedmb_kernel(const float* __restrict__ x, const float* __restrict__ w_conv,
     if (p >= P) continue;
     const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
     if (oh >= g.out_h || ow >= g.out_w) continue;
-    float* o = out + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out;
+    T* o = out + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out;
 #pragma unroll
     for (int u = 0; u < TC / 4; ++u) {
       const int co = co0 + 4 * lc + 4 * LC * u;
-      if (vec_o && co < g.C_out) {
-        *reinterpret_cast<float4*>(o + co) =
-            make_float4(oacc[j][4 * u], oacc[j][4 * u + 1], oacc[j][4 * u + 2],
-                        oacc[j][4 * u + 3]);
-      } else if (!vec_o) {
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          if (co + v < g.C_out) o[co + v] = oacc[j][4 * u + v];
-      }
+      if (co >= g.C_out) continue;
+      const float v[4] = {oacc[j][4 * u], oacc[j][4 * u + 1], oacc[j][4 * u + 2],
+                          oacc[j][4 * u + 3]};
+      store_row(o + co, v, vec_o, g.C_out - co);
     }
   }
 }
 
 constexpr size_t MAX_SMEM = 232448;     // 227 KB: the per-CTA opt-in maximum
 
+// The storage type of this build's C interface.
+#ifdef BF16_STORAGE
+using Elem = __nv_bfloat16;
+#else
+using Elem = float;
+#endif
+
 template <int K, int S, int NC>
-cudaError_t launch(const float* x, const float* w_conv, const float* w_proj,
-                   float* out, const Geom& g, int act, cudaStream_t stream) {
+cudaError_t launch(const Elem* x, const Elem* w_conv, const Elem* w_proj, Elem* out,
+                   const Geom& g, int act, cudaStream_t stream) {
   const int pixels = g.tile_h * g.tile_w;
-  const size_t smem = smem_floats(g.in_rows, g.in_cols, g.ci_chunk, NC) * sizeof(float);
+  const size_t smem = smem_bytes(g.in_rows, g.in_cols, g.ci_chunk, NC, sizeof(Elem));
   // once per instance (a function-local static), so no attribute call lands
   // inside a CUDA graph capture
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      fusedmb_kernel<K, S, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fusedmb_kernel<K, S, NC, Elem>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)MAX_SMEM);
   if (smem_set != cudaSuccess) return smem_set;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int n_tiles = ((g.out_h + g.tile_h - 1) / g.tile_h) * g.n_tw;
   const int threads = (pixels + pixels_per_warp(NC) - 1) / pixels_per_warp(NC) * 32;
   const dim3 grid(n_tiles, (g.C_out + NC - 1) / NC, g.B);
-  fusedmb_kernel<K, S, NC><<<grid, threads, smem, stream>>>(x, w_conv, w_proj, out, g,
-                                                             act);
+  fusedmb_kernel<K, S, NC, Elem><<<grid, threads, smem, stream>>>(x, w_conv, w_proj, out,
+                                                                   g, act);
   return cudaGetLastError();
 }
 
 template <int K, int S>
-cudaError_t launch_nc(const float* x, const float* w_conv, const float* w_proj,
-                      float* out, const Geom& g, int nc, int act, cudaStream_t stream) {
+cudaError_t launch_nc(const Elem* x, const Elem* w_conv, const Elem* w_proj, Elem* out,
+                      const Geom& g, int nc, int act, cudaStream_t stream) {
   switch (nc) {
     case 24: return launch<K, S, 24>(x, w_conv, w_proj, out, g, act, stream);
     case 32: return launch<K, S, 32>(x, w_conv, w_proj, out, g, act, stream);
@@ -424,25 +422,27 @@ int fusedmb_max_tile_pixels() { return MAXP; }
 int fusedmb_pixels_per_thread() { return TP; }
 int fusedmb_ring_slots() { return SLOTS; }
 int fusedmb_chunk_lanes(int nc) { return chunk_lanes(nc); }
-// the dynamic shared memory one launch asks for (the schedule solver's
-// budget check must agree with it)
+// bytes of this build's storage type, and the dynamic shared memory one
+// launch asks for (the schedule solver's budget check must agree with it)
+int fusedmb_element_bytes() { return (int)sizeof(Elem); }
 size_t fusedmb_smem_bytes(int in_rows, int in_cols, int ci_chunk, int nc) {
-  return smem_floats(in_rows, in_cols, ci_chunk, nc) * sizeof(float);
+  return smem_bytes(in_rows, in_cols, ci_chunk, nc, sizeof(Elem));
 }
 const char* fusedmb_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int fusedmb(const float* x, const float* w_conv, const float* w_proj, float* out,
-            int B, int H, int W, int C_in, int C_mid, int C_out, int K, int S,
-            int out_h, int out_w, int pad_top, int pad_left, int tile_h, int tile_w,
-            int nc, int ci_chunk, int act, void* stream) {
+// x, w_conv, w_proj and out in this build's storage type (Elem).
+int fusedmb(const Elem* x, const Elem* w_conv, const Elem* w_proj, Elem* out, int B,
+            int H, int W, int C_in, int C_mid, int C_out, int K, int S, int out_h,
+            int out_w, int pad_top, int pad_left, int tile_h, int tile_w, int nc,
+            int ci_chunk, int act, void* stream) {
   Geom g;
   g.B = B; g.H = H; g.W = W; g.C_in = C_in; g.C_mid = C_mid; g.C_out = C_out;
   g.out_h = out_h; g.out_w = out_w; g.pad_top = pad_top; g.pad_left = pad_left;
   g.tile_h = tile_h; g.tile_w = tile_w; g.ci_chunk = ci_chunk;
   // a chunk smaller than C_in is a multiple of 4, so every window chunk
-  // but the last is whole float4s
+  // but the last is whole 4-channel groups
   if (B <= 0 || B > 65535 || C_in <= 0 || C_mid <= 0 || C_out <= 0 || out_h <= 0 ||
       out_w <= 0 || tile_h <= 0 || tile_w <= 0 || tile_h * tile_w > MAXP ||
       ci_chunk <= 0 || (ci_chunk < C_in && ci_chunk % 4))

@@ -13,7 +13,7 @@
 //                                     (:245-251) and of the recompute one
 //
 // What they compute (NHWC activations, w_exp (C_in, C_mid), w_dw
-// (k, k, C_mid), w_proj (C_mid, C_out), all fp32):
+// (k, k, C_mid), w_proj (C_mid, C_out), all in one storage type T):
 //
 //   pass 1     expand 1x1 (reduce C_in) -> exp_act -> k x k / s depthwise
 //              -> dw_act; per-tile SE pool partial sums and their sum, the
@@ -103,11 +103,30 @@
 //
 // SiLU and sigmoid use __expf and __fdividef (a few ulp), in every kernel
 // of this file.
+//
+// Storage type.  Every kernel is a template over the storage type T of
+// the activations and the weights (float or __nv_bfloat16), the JAX
+// kernels' x.dtype; each build of this file instantiates one of them for
+// the C interface (float, or __nv_bfloat16 with -DBF16_STORAGE), so the two
+// build in parallel.  Whatever T, every product and sum is fp32, as the
+// Pallas kernels' preferred_element_type=float32: the cp.async rings hold
+// T (the copies move bytes unconverted) and each value converts to fp32 as
+// it is read from shared memory; the expanded window, the DW tile, the SE
+// pool partials and pool, the gate, the projection sums and the split
+// partials are fp32; the retained DW tensor and the block output round
+// once to T (the Pallas kernels' dwo_ref / o_ref casts).  A 16-byte fp32
+// copy of 4 channels is an 8-byte copy at bf16, so C_in % 4 == 0 aligns
+// both; ragged channels take the element path (a plain load at bf16, which
+// cp.async cannot copy in 2 bytes).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 #include <algorithm>
+#include <type_traits>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -156,20 +175,6 @@ struct Geom {
   int tile_h, tile_w, n_tw, in_rows, in_cols;
 };
 
-// cp.async copies of 16 or 4 bytes; bytes past src_bytes are zero-filled
-// (src_bytes 0 reads nothing, so src need only be a valid address).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -194,14 +199,6 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) 
   acc[1] = fmaf(a, b.y, acc[1]);
   acc[2] = fmaf(a, b.z, acc[2]);
   acc[3] = fmaf(a, b.w, acc[3]);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
 // ---------------------------------------------------------------------------
@@ -236,37 +233,42 @@ __host__ __device__ inline size_t p1_window_floats(int Q, int CMT) {
   return (size_t)((Q + P1_TP - 1) / P1_TP) * P1_TP * (CMT + P1_PAD);
 }
 
-__host__ __device__ inline size_t p1_stage_floats(int Q, int CMT, int C_in, int identity) {
+// Bytes of the staging ring, its elements of eb bytes each (x and w_exp
+// in the storage type).
+__host__ __device__ inline size_t p1_stage_bytes(int Q, int CMT, int C_in, int identity,
+                                                 int eb) {
   const size_t qp = (size_t)((Q + P1_TP - 1) / P1_TP) * P1_TP;
-  return identity ? 0 : p1_slots(C_in) * (qp * (P1_CI + P1_PAD) + (size_t)P1_CI * CMT);
+  return identity ? 0
+                  : p1_slots(C_in) * (qp * (P1_CI + P1_PAD) + (size_t)P1_CI * CMT) * eb;
 }
 
-// One pass-1 CTA: the window, then one region holding the staging ring
-// during the expand and the DW tile and pool rows after it.
+// One pass-1 CTA: the fp32 window, then one region holding the staging
+// ring during the expand and the fp32 DW tile and pool rows after it.
 // core.autotune.pass1_smem_bytes mirrors this.
-__host__ __device__ inline size_t p1_smem_floats(int Q, int P, int CMT, int C_in,
-                                                 int identity) {
-  const size_t stage = p1_stage_floats(Q, CMT, C_in, identity);
-  const size_t after = (size_t)P * (CMT + P1_PAD) + (size_t)(P1_NT / (CMT / 4)) * CMT;
-  return p1_window_floats(Q, CMT) + (stage > after ? stage : after);
+__host__ __device__ inline size_t p1_smem_bytes(int Q, int P, int CMT, int C_in,
+                                                int identity, int eb) {
+  const size_t stage = p1_stage_bytes(Q, CMT, C_in, identity, eb);
+  const size_t after =
+      ((size_t)P * (CMT + P1_PAD) + (size_t)(P1_NT / (CMT / 4)) * CMT) * sizeof(float);
+  return p1_window_floats(Q, CMT) * sizeof(float) + (stage > after ? stage : after);
 }
 
-template <int K>
-__device__ __forceinline__ void load_dw_taps(const float* __restrict__ w_dw,
+template <int K, typename T>
+__device__ __forceinline__ void load_dw_taps(const T* __restrict__ w_dw,
                                              float (&wd)[K * K], int C_mid,
                                              int cm) {
 #pragma unroll
   for (int t = 0; t < K * K; ++t)
-    wd[t] = cm < C_mid ? __ldg(w_dw + (size_t)t * C_mid + cm) : 0.f;
+    wd[t] = cm < C_mid ? ldg_f(w_dw + (size_t)t * C_mid + cm) : 0.f;
 }
 
 // Expand 1x1 + exp_act of the halo'd window at (ih0, iw0), c_mid channels
-// [cm0, cm0 + CMT), into e_s (QP x (CMT + P1_PAD)), staging through x_s and
-// w_s.  The caller's barrier publishes e_s.
-template <int CMT, int NB>
-__device__ __forceinline__ void p1_expand(const float* __restrict__ x,
-                                          const float* __restrict__ w_exp, float* e_s,
-                                          float* x_s, float* w_s, const Geom& g, int b,
+// [cm0, cm0 + CMT), into the fp32 e_s (QP x (CMT + P1_PAD)), staging through
+// x_s and w_s (in T).  The caller's barrier publishes e_s.
+template <int CMT, int NB, typename T>
+__device__ __forceinline__ void p1_expand(const T* __restrict__ x,
+                                          const T* __restrict__ w_exp, float* e_s,
+                                          T* x_s, T* w_s, const Geom& g, int b,
                                           int ih0, int iw0, int cm0, int identity,
                                           int exp_act) {
   constexpr int EP = CMT + P1_PAD;      // floats per expanded pixel
@@ -280,15 +282,20 @@ __device__ __forceinline__ void p1_expand(const float* __restrict__ x,
 
   if (identity) {
     // C_in == C_mid (a multiple of 4): the window's channel tile straight
-    // into e_s by 16-byte copies, then exp_act in place
+    // into e_s (16-byte copies in fp32; 8-byte loads converted in bf16),
+    // then exp_act in place
     for (int i = tid; i < Q * CG; i += P1_NT) {
       const int q = i / CG, j = i % CG;
       const int ih = ih0 + q / g.in_cols, iw = iw0 + q % g.in_cols;
       const int cm = cm0 + 4 * j;
       const bool ok = cm < g.C_mid && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
-      cp_async16(e_s + q * EP + 4 * j,
-                 ok ? x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + cm : x,
-                 ok ? 16 : 0);
+      const T* src = ok ? x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + cm : x;
+      if constexpr (std::is_same<T, float>::value) {
+        cp4(e_s + q * EP + 4 * j, src, ok ? 4 : 0);
+      } else {
+        const float4 v = ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+        st4(e_s + q * EP + 4 * j, v.x, v.y, v.z, v.w);
+      }
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -302,30 +309,29 @@ __device__ __forceinline__ void p1_expand(const float* __restrict__ x,
   }
   auto stage = [&](int chunk, int slot) {
     const int ci0 = chunk * P1_CI;
-    float* xb = x_s + (size_t)slot * QP * XP;
-    float* wb = w_s + slot * P1_CI * CMT;
+    T* xb = x_s + (size_t)slot * QP * XP;
+    T* wb = w_s + slot * P1_CI * CMT;
     for (int i = tid; i < Q * (P1_CI / 4); i += P1_NT) {
       const int q = i / (P1_CI / 4), j = i % (P1_CI / 4);
       const int ih = ih0 + q / g.in_cols, iw = iw0 + q % g.in_cols;
       const int ci = ci0 + 4 * j;
       const bool ok = ci < g.C_in && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
-      cp_async16(xb + q * XP + 4 * j,
-                 ok ? x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci : x,
-                 ok ? 16 : 0);
+      cp4(xb + q * XP + 4 * j,
+          ok ? x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci : x, ok ? 4 : 0);
     }
     for (int i = tid; i < P1_CI * CG; i += P1_NT) {
       const int r = i / CG, j = i % CG;
       const int ci = ci0 + r, cm = cm0 + 4 * j;
-      float* dst = wb + r * CMT + 4 * j;
-      const float* row = w_exp + (size_t)ci * g.C_mid;
+      T* dst = wb + r * CMT + 4 * j;
+      const T* row = w_exp + (size_t)ci * g.C_mid;
       if (vec_mid) {
         const int n = ci < g.C_in ? max(0, min(4, g.C_mid - cm)) : 0;
-        cp_async16(dst, n ? row + cm : w_exp, 4 * n);
+        cp4(dst, n ? row + cm : w_exp, n);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const bool ok = ci < g.C_in && cm + u < g.C_mid;
-          cp_async4(dst + u, ok ? row + cm + u : w_exp, ok ? 4 : 0);
+          cp1(dst + u, ok ? row + cm + u : w_exp, ok);
         }
       }
     }
@@ -358,8 +364,8 @@ __device__ __forceinline__ void p1_expand(const float* __restrict__ x,
       __syncthreads();
       if (c + P1_SLOTS - 1 < n_chunks) stage(c + P1_SLOTS - 1, (c + P1_SLOTS - 1) % slots);
       cp_async_commit();
-      const float* xb = x_s + (size_t)(c % slots) * QP * XP;
-      const float* wb = w_s + (c % slots) * P1_CI * CMT + tc * 4;
+      const T* xb = x_s + (size_t)(c % slots) * QP * XP;
+      const T* wb = w_s + (c % slots) * P1_CI * CMT + tc * 4;
       // chunk rows past C_in were zero-filled on both sides: they add 0
 #pragma unroll
       for (int kk = 0; kk < P1_CI; kk += 4) {
@@ -402,8 +408,8 @@ __device__ __forceinline__ void p1_expand(const float* __restrict__ x,
 // gate (the image's row) is not null, into d_s (tile pixels x
 // (CMT + P1_PAD); 0 at masked pixels and channels).  The caller's barrier
 // publishes d_s.
-template <int K, int S, int CMT>
-__device__ __forceinline__ void p1_depthwise(const float* e_s, const float* __restrict__ w_dw,
+template <int K, int S, int CMT, typename T>
+__device__ __forceinline__ void p1_depthwise(const float* e_s, const T* __restrict__ w_dw,
                                              const float* __restrict__ gate, float* d_s,
                                              const Geom& g, int cm0, int oh0, int ow0,
                                              int dw_act) {
@@ -452,15 +458,16 @@ __device__ __forceinline__ void p1_depthwise(const float* e_s, const float* __re
 // pool (B, C_mid) and counters (B x ceil(C_mid / CMT) ints, zero between
 // launches), or all null (se off); dw_out (B, out_h, out_w, C_mid) or null
 // (recompute).
-template <int K, int S, int CMT, int NB>
+// x, w_exp, w_dw and dw_out in T; the pool partials and the pool fp32.
+template <int K, int S, int CMT, int NB, typename T>
 __global__ void __launch_bounds__(P1_NT)
-mbconv_pass1_kernel(const float* __restrict__ x, const float* __restrict__ w_exp,
-                    const float* __restrict__ w_dw, float* __restrict__ pool_partial,
+mbconv_pass1_kernel(const T* __restrict__ x, const T* __restrict__ w_exp,
+                    const T* __restrict__ w_dw, float* __restrict__ pool_partial,
                     float* __restrict__ pool, int* __restrict__ counters,
-                    float* __restrict__ dw_out, Geom g, int identity, int exp_act,
+                    T* __restrict__ dw_out, Geom g, int identity, int exp_act,
                     int dw_act) {
   constexpr int EP = CMT + P1_PAD;      // floats per expanded / DW pixel
-  constexpr int XP = P1_CI + P1_PAD;    // floats per staged input pixel
+  constexpr int XP = P1_CI + P1_PAD;    // elements per staged input pixel
   constexpr int CG = CMT / 4;           // float4 channel groups
   constexpr int NG = P1_NT / CG;        // pixel lanes of the pool
 
@@ -468,11 +475,11 @@ mbconv_pass1_kernel(const float* __restrict__ x, const float* __restrict__ w_exp
   const int Q = g.in_rows * g.in_cols, QP = (Q + P1_TP - 1) / P1_TP * P1_TP;
   const int P = g.tile_h * g.tile_w;
   const int slots = p1_slots(g.C_in);
-  float* e_s = reinterpret_cast<float*>(smem4);    // QP x EP
-  float* x_s = e_s + (size_t)QP * EP;              // slots x QP x XP, then
-  float* w_s = x_s + (size_t)slots * QP * XP;      // slots x P1_CI x CMT
-  float* d_s = x_s;                                // P x EP after the expand
-  float* r_s = d_s + (size_t)P * EP;               // NG x CMT
+  float* e_s = reinterpret_cast<float*>(smem4);          // QP x EP
+  T* x_s = reinterpret_cast<T*>(e_s + (size_t)QP * EP);  // slots x QP x XP, then
+  T* w_s = x_s + (size_t)slots * QP * XP;                // slots x P1_CI x CMT
+  float* d_s = reinterpret_cast<float*>(x_s);            // P x EP after the expand
+  float* r_s = d_s + (size_t)P * EP;                     // NG x CMT
 
   const int tile = blockIdx.x, cm0 = blockIdx.y * CMT, b = blockIdx.z;
   const int oh0 = (tile / g.n_tw) * g.tile_h, ow0 = (tile % g.n_tw) * g.tile_w;
@@ -480,9 +487,9 @@ mbconv_pass1_kernel(const float* __restrict__ x, const float* __restrict__ w_exp
   const int tid = threadIdx.x;
   const bool vec_mid = (g.C_mid & 3) == 0;
 
-  p1_expand<CMT, NB>(x, w_exp, e_s, x_s, w_s, g, b, ih0, iw0, cm0, identity, exp_act);
+  p1_expand<CMT, NB, T>(x, w_exp, e_s, x_s, w_s, g, b, ih0, iw0, cm0, identity, exp_act);
   __syncthreads();
-  p1_depthwise<K, S, CMT>(e_s, w_dw, nullptr, d_s, g, cm0, oh0, ow0, dw_act);
+  p1_depthwise<K, S, CMT, T>(e_s, w_dw, nullptr, d_s, g, cm0, oh0, ow0, dw_act);
   __syncthreads();
 
   // ---- SE pool partial of this tile: column sums of d_s ----
@@ -518,20 +525,21 @@ mbconv_pass1_kernel(const float* __restrict__ x, const float* __restrict__ w_exp
     }
   }
 
-  // ---- the retained DW tile, float4 along C_mid ----
+  // ---- the retained DW tile, 4 channels a store along C_mid, rounded
+  // once to T ----
   if (dw_out) {
     for (int i = tid; i < P * CG; i += P1_NT) {
       const int p = i / CG, j = i % CG;
       const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
       const int cm = cm0 + 4 * j;
       if (oh >= g.out_h || ow >= g.out_w || cm >= g.C_mid) continue;
-      float* dst = dw_out + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_mid + cm;
+      T* dst = dw_out + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_mid + cm;
       const float4 d = ld4(d_s + p * EP + 4 * j);
       if (vec_mid) {
-        *reinterpret_cast<float4*>(dst) = d;
+        st4(dst, d.x, d.y, d.z, d.w);
       } else {
         const float v[4] = {d.x, d.y, d.z, d.w};
-        for (int u = 0; u < 4 && cm + u < g.C_mid; ++u) dst[u] = v[u];
+        for (int u = 0; u < 4 && cm + u < g.C_mid; ++u) dst[u] = from_f<T>(v[u]);
       }
     }
   }
@@ -587,35 +595,43 @@ __host__ __device__ inline int r2_pixels_per_thread(int P, int co_tile) {
   return (P + lanes - 1) / lanes;
 }
 
-// Shared-memory floats of one B2 CTA: the expanded window, then one region
-// holding the staging ring during the expand and the gated DW tile and the
-// w_proj ring after it, then the projection sums kept between c_mid chunks
-// (a float4 per thread and pixel).  core.autotune.recompute_smem_bytes
-// mirrors this.
-__host__ __device__ inline size_t r2_smem_floats(int Q, int P, int CMT, int C_in, int identity,
-                                                 int co_tile) {
-  const size_t stage = p1_stage_floats(Q, CMT, C_in, identity);
-  const size_t after =
-      (size_t)P * (CMT + P1_PAD) + (size_t)r2_slots(CMT) * R2_KC * co_tile;
-  return p1_window_floats(Q, CMT) + (stage > after ? stage : after) +
-         (size_t)r2_pixels_per_thread(P, co_tile) * P1_NT * 4;
+// Bytes of the region after the expand: the fp32 gated DW tile and the
+// w_proj ring (in the storage type, eb bytes an element).
+__host__ __device__ inline size_t r2_after_bytes(int P, int CMT, int co_tile, int eb) {
+  return (size_t)P * (CMT + P1_PAD) * sizeof(float) +
+         (size_t)r2_slots(CMT) * R2_KC * co_tile * eb;
+}
+
+// Shared-memory bytes of one B2 CTA: the fp32 expanded window, then one
+// region holding the staging ring during the expand and the gated DW tile
+// and the w_proj ring after it, then the fp32 projection sums kept between
+// c_mid chunks (a float4 per thread and pixel).
+// core.autotune.recompute_smem_bytes mirrors this.
+__host__ __device__ inline size_t r2_smem_bytes(int Q, int P, int CMT, int C_in, int identity,
+                                                int co_tile, int eb) {
+  const size_t stage = p1_stage_bytes(Q, CMT, C_in, identity, eb);
+  const size_t after = r2_after_bytes(P, CMT, co_tile, eb);
+  return p1_window_floats(Q, CMT) * sizeof(float) + (stage > after ? stage : after) +
+         (size_t)r2_pixels_per_thread(P, co_tile) * P1_NT * 4 * sizeof(float);
 }
 
 // grid (n_tiles, ceil(C_out / co_tile), splits * B), z = split * B + b;
-// co_tile one of 16, 32, 64, 128.  gate (B, C_mid) or null (se off).  Split
-// z sums c_mid chunks [z * chunks_per_split, (z + 1) * chunks_per_split)
-// into out + z * B * out_h * out_w * C_out.  The projection sums live in
+// co_tile one of 16, 32, 64, 128.  x, w_exp, w_dw, w_proj in T; gate (B,
+// C_mid) fp32 or null (se off).  Split z sums c_mid chunks
+// [z * chunks_per_split, (z + 1) * chunks_per_split) into the fp32
+// partial + z * B * out_h * out_w * C_out; an unsplit launch (partial
+// null) writes out, rounded once to T.  The projection sums live in
 // registers only while a chunk is projected and in shared memory between
 // chunks, so the expand runs with about pass 1's registers: three CTAs an
 // SM at NB = 1, two above.  TM: R2_TM_SMALL or R2_TM, at least the
 // projection pixels per thread.
-template <int K, int S, int CMT, int NB, int TM>
+template <int K, int S, int CMT, int NB, int TM, typename T>
 __global__ void __launch_bounds__(P1_NT, NB == 1 ? 3 : 2)
-mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restrict__ w_exp,
-                              const float* __restrict__ w_dw, const float* __restrict__ gate,
-                              const float* __restrict__ w_proj, float* __restrict__ out,
-                              Geom g, int identity, int exp_act, int dw_act, int co_tile,
-                              int chunks_per_split) {
+mbconv_pass2_recompute_kernel(const T* __restrict__ x, const T* __restrict__ w_exp,
+                              const T* __restrict__ w_dw, const float* __restrict__ gate,
+                              const T* __restrict__ w_proj, float* __restrict__ partial,
+                              T* __restrict__ out, Geom g, int identity, int exp_act,
+                              int dw_act, int co_tile, int chunks_per_split) {
   constexpr int EP = CMT + P1_PAD;
   constexpr int XP = P1_CI + P1_PAD;
   constexpr int STEPS = CMT / R2_KC;    // w_proj ring steps per chunk
@@ -625,13 +641,14 @@ mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restri
   const int Q = g.in_rows * g.in_cols, QP = (Q + P1_TP - 1) / P1_TP * P1_TP;
   const int P = g.tile_h * g.tile_w;
   float* e_s = reinterpret_cast<float*>(smem4);            // QP x EP
-  float* x_s = e_s + (size_t)QP * EP;                      // the expand's ring,
-  float* w_s = x_s + (size_t)p1_slots(g.C_in) * QP * XP;
-  float* d_s = x_s;                                        // then P x EP
-  float* p_s = d_s + (size_t)P * EP;                       // and WS x R2_KC x co_tile
-  const size_t stage = p1_stage_floats(Q, CMT, g.C_in, identity);
-  const size_t after = (size_t)P * EP + (size_t)WS * R2_KC * co_tile;
-  float4* acc_s = reinterpret_cast<float4*>(x_s + (stage > after ? stage : after));
+  char* region = reinterpret_cast<char*>(e_s + (size_t)QP * EP);
+  T* x_s = reinterpret_cast<T*>(region);                   // the expand's ring,
+  T* w_s = x_s + (size_t)p1_slots(g.C_in) * QP * XP;
+  float* d_s = reinterpret_cast<float*>(region);           // then P x EP
+  T* p_s = reinterpret_cast<T*>(d_s + (size_t)P * EP);     // and WS x R2_KC x co_tile
+  const size_t stage = p1_stage_bytes(Q, CMT, g.C_in, identity, sizeof(T));
+  const size_t after = r2_after_bytes(P, CMT, co_tile, sizeof(T));
+  float4* acc_s = reinterpret_cast<float4*>(region + (stage > after ? stage : after));
 
   const int tile = blockIdx.x, co0 = blockIdx.y * co_tile;
   const int b = blockIdx.z % g.B, split = blockIdx.z / g.B;
@@ -654,20 +671,20 @@ mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restri
   // w_proj rows [cm0 + step * R2_KC, + R2_KC) x the c_out tile into a slot,
   // zero past C_mid and C_out
   auto stage_w = [&](int cm0, int step, int slot) {
-    float* dst = p_s + (size_t)slot * R2_KC * co_tile;
+    T* dst = p_s + (size_t)slot * R2_KC * co_tile;
     for (int i = tid; i < R2_KC * G; i += P1_NT) {
       const int r = i / G, j = i % G;
       const int cm = cm0 + step * R2_KC + r, co = co0 + 4 * j;
-      float* d = dst + r * co_tile + 4 * j;
-      const float* row = w_proj + (size_t)cm * g.C_out;
+      T* d = dst + r * co_tile + 4 * j;
+      const T* row = w_proj + (size_t)cm * g.C_out;
       if (vec_out) {
         const int n = cm < g.C_mid ? max(0, min(4, g.C_out - co)) : 0;
-        cp_async16(d, n ? row + co : w_proj, 4 * n);
+        cp4(d, n ? row + co : w_proj, n);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const bool ok = cm < g.C_mid && co + u < g.C_out;
-          cp_async4(d + u, ok ? row + co + u : w_proj, ok ? 4 : 0);
+          cp1(d + u, ok ? row + co + u : w_proj, ok);
         }
       }
     }
@@ -676,7 +693,7 @@ mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restri
   for (int c = c0; c < c1; ++c) {
     const int cm0 = c * CMT;
     if (c > c0) __syncthreads();          // the last chunk is done with d_s and p_s
-    p1_expand<CMT, NB>(x, w_exp, e_s, x_s, w_s, g, b, ih0, iw0, cm0, identity, exp_act);
+    p1_expand<CMT, NB, T>(x, w_exp, e_s, x_s, w_s, g, b, ih0, iw0, cm0, identity, exp_act);
     __syncthreads();
     // the first w_proj rows load while the DW taps run
 #pragma unroll
@@ -684,7 +701,7 @@ mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restri
       if (t < STEPS) stage_w(cm0, t, t);
       cp_async_commit();
     }
-    p1_depthwise<K, S, CMT>(e_s, w_dw, gate_b, d_s, g, cm0, oh0, ow0, dw_act);
+    p1_depthwise<K, S, CMT, T>(e_s, w_dw, gate_b, d_s, g, cm0, oh0, ow0, dw_act);
     // (the first step's barrier publishes d_s)
     float acc[TM][4];
 #pragma unroll
@@ -698,7 +715,7 @@ mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restri
       __syncthreads();
       if (t + P1_SLOTS - 1 < STEPS) stage_w(cm0, t + P1_SLOTS - 1, (t + P1_SLOTS - 1) % WS);
       cp_async_commit();
-      const float* wb = p_s + (size_t)(t % WS) * R2_KC * co_tile + 4 * tx;
+      const T* wb = p_s + (size_t)(t % WS) * R2_KC * co_tile + 4 * tx;
       const float* db = d_s + t * R2_KC;
       // rows past C_mid and columns past C_out are 0 on both sides
 #pragma unroll
@@ -726,7 +743,6 @@ mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restri
           acc_s[i * P1_NT + tid] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       continue;
     }
-    float* o = out + (size_t)split * g.B * g.out_h * g.out_w * g.C_out;
     const int co = co0 + 4 * tx;
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -734,12 +750,12 @@ mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restri
       if (p >= P || co >= g.C_out) continue;
       const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
       if (oh >= g.out_h || ow >= g.out_w) continue;
-      float* dst = o + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out + co;
-      if (vec_out) {
-        st4(dst, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      } else {
-        for (int u = 0; u < 4 && co + u < g.C_out; ++u) dst[u] = acc[i][u];
-      }
+      const size_t at = ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out + co;
+      if (partial)
+        store_row(partial + (size_t)split * g.B * g.out_h * g.out_w * g.C_out + at, acc[i],
+                  vec_out, g.C_out - co);
+      else
+        store_row(out + at, acc[i], vec_out, g.C_out - co);
     }
   }
 }
@@ -748,31 +764,39 @@ mbconv_pass2_recompute_kernel(const float* __restrict__ x, const float* __restri
 // retain (B3): a split-K fp32 GEMM with the SE gate folded into A
 // ---------------------------------------------------------------------------
 
-// A BM x BN CTA tile, TM x 4 outputs per thread.
+// A BM x BN CTA tile, TM x 4 outputs per thread; the A and B rings in
+// the storage type (eb bytes an element), the K-major A copies fp32.
 template <int BM, int BN, int TM>
 struct RetainTile {
   static constexpr int NT = (BM / TM) * (BN / 4);    // threads per CTA
-  static constexpr int AP = R_BK + 4;                // floats per staged A row
-  static constexpr size_t SMEM =
-      (R_STAGES * (size_t)BM * AP + R_STAGES * (size_t)R_BK * BN + 2 * (size_t)R_BK * BM) *
-      sizeof(float);
+  static constexpr int AP = R_BK + 4;                // elements per staged A row
+  __host__ __device__ static constexpr size_t ring_bytes(int eb) {
+    return (R_STAGES * (size_t)BM * AP + R_STAGES * (size_t)R_BK * BN) * eb;
+  }
+  __host__ __device__ static constexpr size_t smem_bytes(int eb) {
+    return ring_bytes(eb) + 2 * (size_t)R_BK * BM * sizeof(float);
+  }
 };
 
-// grid (ceil(N / BN), ceil(M / BM), splits).  A = dw (M, K), gate (B, K) or
-// null (se off), W = w_proj (K, N); split z sums K chunks
-// [z * chunks_per_split, (z + 1) * chunks_per_split) into C + z * M * N.
-// VEC: K and N are multiples of 4 (16-byte copies and stores).
-template <int BM, int BN, int TM, bool VEC>
+// grid (ceil(N / BN), ceil(M / BM), splits).  A = dw (M, K) and W = w_proj
+// (K, N) in T, gate (B, K) fp32 or null (se off); split z sums K chunks
+// [z * chunks_per_split, (z + 1) * chunks_per_split) into the fp32 partial
+// + z * M * N; an unsplit launch (partial null) writes C, rounded once to T.
+// VEC: K and N are multiples of 4 (16-byte fp32 or 8-byte bf16 copies and
+// stores).
+template <int BM, int BN, int TM, bool VEC, typename T>
 __global__ void __launch_bounds__(RetainTile<BM, BN, TM>::NT)
-mbconv_pass2_retain_kernel(const float* __restrict__ A, const float* __restrict__ gate,
-                           const float* __restrict__ W, float* __restrict__ C, int M,
-                           int K, int N, int rows_per_img, int chunks_per_split) {
-  using T = RetainTile<BM, BN, TM>;
-  constexpr int NT = T::NT, AP = T::AP, ST = R_STAGES;
+mbconv_pass2_retain_kernel(const T* __restrict__ A, const float* __restrict__ gate,
+                           const T* __restrict__ W, float* __restrict__ partial,
+                           T* __restrict__ C, int M, int K, int N, int rows_per_img,
+                           int chunks_per_split) {
+  using Tile = RetainTile<BM, BN, TM>;
+  constexpr int NT = Tile::NT, AP = Tile::AP, ST = R_STAGES;
   extern __shared__ float4 smem4[];
-  float* a_raw = reinterpret_cast<float*>(smem4);      // ST x BM x AP
-  float* b_s = a_raw + ST * BM * AP;                   // ST x R_BK x BN
-  float* a_t = b_s + ST * R_BK * BN;                   // 2 x R_BK x BM (K-major)
+  T* a_raw = reinterpret_cast<T*>(smem4);              // ST x BM x AP
+  T* b_s = a_raw + ST * BM * AP;                       // ST x R_BK x BN
+  float* a_t = reinterpret_cast<float*>(               // 2 x R_BK x BM (K-major)
+      reinterpret_cast<char*>(smem4) + Tile::ring_bytes(sizeof(T)));
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
@@ -782,33 +806,33 @@ mbconv_pass2_retain_kernel(const float* __restrict__ A, const float* __restrict_
 
   auto stage = [&](int t, int slot) {
     const int k0 = (c0 + t) * R_BK;
-    float* ab = a_raw + slot * BM * AP;
-    float* bb = b_s + slot * R_BK * BN;
+    T* ab = a_raw + slot * BM * AP;
+    T* bb = b_s + slot * R_BK * BN;
     if (VEC) {
       for (int i = tid; i < BM * (R_BK / 4); i += NT) {
         const int m = i / (R_BK / 4), j = i % (R_BK / 4);
         const int gm = m0 + m, k = k0 + 4 * j;
         const bool ok = gm < M && k < K;
-        cp_async16(ab + m * AP + 4 * j, ok ? A + (size_t)gm * K + k : A, ok ? 16 : 0);
+        cp4(ab + m * AP + 4 * j, ok ? A + (size_t)gm * K + k : A, ok ? 4 : 0);
       }
       for (int i = tid; i < R_BK * (BN / 4); i += NT) {
         const int r = i / (BN / 4), j = i % (BN / 4);
         const int k = k0 + r, n = n0 + 4 * j;
         const bool ok = k < K && n < N;
-        cp_async16(bb + r * BN + 4 * j, ok ? W + (size_t)k * N + n : W, ok ? 16 : 0);
+        cp4(bb + r * BN + 4 * j, ok ? W + (size_t)k * N + n : W, ok ? 4 : 0);
       }
     } else {
       for (int i = tid; i < BM * R_BK; i += NT) {
         const int m = i / R_BK, kk = i % R_BK;
         const int gm = m0 + m, k = k0 + kk;
         const bool ok = gm < M && k < K;
-        cp_async4(ab + m * AP + kk, ok ? A + (size_t)gm * K + k : A, ok ? 4 : 0);
+        cp1(ab + m * AP + kk, ok ? A + (size_t)gm * K + k : A, ok);
       }
       for (int i = tid; i < R_BK * BN; i += NT) {
         const int r = i / BN, nn = i % BN;
         const int k = k0 + r, n = n0 + nn;
         const bool ok = k < K && n < N;
-        cp_async4(bb + r * BN + nn, ok ? W + (size_t)k * N + n : W, ok ? 4 : 0);
+        cp1(bb + r * BN + nn, ok ? W + (size_t)k * N + n : W, ok);
       }
     }
   };
@@ -835,7 +859,7 @@ mbconv_pass2_retain_kernel(const float* __restrict__ A, const float* __restrict_
   // A chunk t: x gate of the row's image (rounded before the product, as
   // the plain version's d * gate), transposed to K-major.
   auto transpose_gate = [&](int slot, float* at) {
-    const float* ab = a_raw + slot * BM * AP;
+    const T* ab = a_raw + slot * BM * AP;
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
       const int i = tid + it * NT, m = i % BM, j = i / BM;
@@ -870,7 +894,7 @@ mbconv_pass2_retain_kernel(const float* __restrict__ A, const float* __restrict_
     if (t + ST - 1 < n_loc) stage(t + ST - 1, (t + ST - 1) % ST);
     cp_async_commit();
     __syncthreads();
-    const float* bb = b_s + (t % ST) * R_BK * BN + tx * 4;
+    const T* bb = b_s + (t % ST) * R_BK * BN + tx * 4;
     const float* ar = at + ty * TM;
 #pragma unroll
     for (int kk = 0; kk < R_BK; ++kk) {
@@ -886,25 +910,23 @@ mbconv_pass2_retain_kernel(const float* __restrict__ A, const float* __restrict_
     }
   }
 
-  float* out = C + (size_t)blockIdx.z * M * N;
   const int n = n0 + tx * 4;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
     if (m >= M || n >= N) continue;
-    float* dst = out + (size_t)m * N + n;
-    if (VEC) {
-      st4(dst, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-      for (int u = 0; u < 4 && n + u < N; ++u) dst[u] = acc[i][u];
-    }
+    if (partial)
+      store_row(partial + (size_t)blockIdx.z * M * N + (size_t)m * N + n, acc[i], VEC, N - n);
+    else
+      store_row(C + (size_t)m * N + n, acc[i], VEC, N - n);
   }
 }
 
-// out[i] = ((p[0][i] + p[1][i]) + p[2][i]) + ...: the splits in order.
-template <bool VEC>
+// out[i] = ((p[0][i] + p[1][i]) + p[2][i]) + ...: the fp32 splits in
+// order, rounded once to T.
+template <bool VEC, typename T>
 __global__ void mbconv_splitk_reduce_kernel(const float* __restrict__ partial,
-                                            float* __restrict__ out, int splits,
+                                            T* __restrict__ out, int splits,
                                             long long count) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   if (VEC) {
@@ -916,13 +938,13 @@ __global__ void mbconv_splitk_reduce_kernel(const float* __restrict__ partial,
         const float4 v = p[(size_t)z * n4 + i];
         s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
       }
-      reinterpret_cast<float4*>(out)[i] = s;
+      st4(out + 4 * i, s.x, s.y, s.z, s.w);
     }
   } else {
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += stride) {
       float s = partial[i];
       for (int z = 1; z < splits; ++z) s += partial[(size_t)z * count + i];
-      out[i] = s;
+      out[i] = from_f<T>(s);
     }
   }
 }
@@ -959,57 +981,65 @@ cudaError_t set_max_smem(Kern kern) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
 }
 
+// The storage type of this build's C interface.
+#ifdef BF16_STORAGE
+using Elem = __nv_bfloat16;
+#else
+using Elem = float;
+#endif
+
 struct Pass1Args {
-  const float *x, *w_exp, *w_dw;
+  const Elem *x, *w_exp, *w_dw;
   float *pool_partial, *pool;
   int* counters;
-  float* dw_out;
+  Elem* dw_out;
   int identity, exp_act, dw_act;
 };
 
 struct RecomputeArgs {
-  const float *x, *w_exp, *w_dw, *gate, *w_proj;
-  float* out;
+  const Elem *x, *w_exp, *w_dw;
+  const float* gate;
+  const Elem* w_proj;
+  float* partial;
+  Elem* out;
   int identity, exp_act, dw_act, co_tile, splits, chunks_per_split;
 };
 
-template <int K, int S, int CMT, int NB>
+template <int K, int KS, int CMT, int NB>
 cudaError_t launch_pass1_nb(const Pass1Args& a, const Geom& g, cudaStream_t stream) {
-  const size_t smem = p1_smem_floats(g.in_rows * g.in_cols, g.tile_h * g.tile_w, CMT, g.C_in,
-                                     a.identity) *
-                      sizeof(float);
-  static const cudaError_t smem_set = set_max_smem(mbconv_pass1_kernel<K, S, CMT, NB>);
+  const size_t smem = p1_smem_bytes(g.in_rows * g.in_cols, g.tile_h * g.tile_w, CMT, g.C_in,
+                                    a.identity, sizeof(Elem));
+  static const cudaError_t smem_set = set_max_smem(mbconv_pass1_kernel<K, KS, CMT, NB, Elem>);
   if (smem_set != cudaSuccess) return smem_set;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const dim3 grid(n_tiles(g), (g.C_mid + CMT - 1) / CMT, g.B);
-  mbconv_pass1_kernel<K, S, CMT, NB><<<grid, P1_NT, smem, stream>>>(
+  mbconv_pass1_kernel<K, KS, CMT, NB, Elem><<<grid, P1_NT, smem, stream>>>(
       a.x, a.w_exp, a.w_dw, a.pool_partial, a.pool, a.counters, a.dw_out, g, a.identity,
       a.exp_act, a.dw_act);
   return cudaGetLastError();
 }
 
-template <int K, int S, int CMT, int NB, int TM>
+template <int K, int KS, int CMT, int NB, int TM>
 cudaError_t launch_recompute_tm(const RecomputeArgs& a, const Geom& g, cudaStream_t stream) {
-  const size_t smem = r2_smem_floats(g.in_rows * g.in_cols, g.tile_h * g.tile_w, CMT, g.C_in,
-                                     a.identity, a.co_tile) *
-                      sizeof(float);
+  const size_t smem = r2_smem_bytes(g.in_rows * g.in_cols, g.tile_h * g.tile_w, CMT, g.C_in,
+                                    a.identity, a.co_tile, sizeof(Elem));
   static const cudaError_t smem_set =
-      set_max_smem(mbconv_pass2_recompute_kernel<K, S, CMT, NB, TM>);
+      set_max_smem(mbconv_pass2_recompute_kernel<K, KS, CMT, NB, TM, Elem>);
   if (smem_set != cudaSuccess) return smem_set;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const dim3 grid(n_tiles(g), (g.C_out + a.co_tile - 1) / a.co_tile, g.B * a.splits);
-  mbconv_pass2_recompute_kernel<K, S, CMT, NB, TM><<<grid, P1_NT, smem, stream>>>(
-      a.x, a.w_exp, a.w_dw, a.gate, a.w_proj, a.out, g, a.identity, a.exp_act, a.dw_act,
-      a.co_tile, a.chunks_per_split);
+  mbconv_pass2_recompute_kernel<K, KS, CMT, NB, TM, Elem><<<grid, P1_NT, smem, stream>>>(
+      a.x, a.w_exp, a.w_dw, a.gate, a.w_proj, a.partial, a.out, g, a.identity, a.exp_act,
+      a.dw_act, a.co_tile, a.chunks_per_split);
   return cudaGetLastError();
 }
 
 // TM: R2_TM_SMALL where it covers the projection pixels per thread.
-template <int K, int S, int CMT, int NB>
+template <int K, int KS, int CMT, int NB>
 cudaError_t launch_recompute_nb(const RecomputeArgs& a, const Geom& g, cudaStream_t stream) {
   if (r2_pixels_per_thread(g.tile_h * g.tile_w, a.co_tile) <= R2_TM_SMALL)
-    return launch_recompute_tm<K, S, CMT, NB, R2_TM_SMALL>(a, g, stream);
-  return launch_recompute_tm<K, S, CMT, NB, R2_TM>(a, g, stream);
+    return launch_recompute_tm<K, KS, CMT, NB, R2_TM_SMALL>(a, g, stream);
+  return launch_recompute_tm<K, KS, CMT, NB, R2_TM>(a, g, stream);
 }
 
 // The c_mid tile (pass1_cm_tile), then NB, the pixel blocks an expanding
@@ -1020,22 +1050,22 @@ cudaError_t launch_recompute_nb(const RecomputeArgs& a, const Geom& g, cudaStrea
     const int q = (G).in_rows * (G).in_cols;                                           \
     if (p1_cm_tile((G).C_mid) == 64) {                                                 \
       const int nb = p1_blocks_per_thread(q, 64);                                      \
-      if (nb == 1) return LAUNCH<K, S, 64, 1>(ARGS, G, STREAM);                        \
-      if (nb == 2) return LAUNCH<K, S, 64, 2>(ARGS, G, STREAM);                        \
-      return LAUNCH<K, S, 64, P1_MAX_NB>(ARGS, G, STREAM);                             \
+      if (nb == 1) return LAUNCH<K, KS, 64, 1>(ARGS, G, STREAM);                       \
+      if (nb == 2) return LAUNCH<K, KS, 64, 2>(ARGS, G, STREAM);                       \
+      return LAUNCH<K, KS, 64, P1_MAX_NB>(ARGS, G, STREAM);                            \
     }                                                                                  \
     const int nb = p1_blocks_per_thread(q, 32);                                        \
-    if (nb == 1) return LAUNCH<K, S, 32, 1>(ARGS, G, STREAM);                          \
-    if (nb == 2) return LAUNCH<K, S, 32, 2>(ARGS, G, STREAM);                          \
-    return LAUNCH<K, S, 32, P1_MAX_NB>(ARGS, G, STREAM);                               \
+    if (nb == 1) return LAUNCH<K, KS, 32, 1>(ARGS, G, STREAM);                         \
+    if (nb == 2) return LAUNCH<K, KS, 32, 2>(ARGS, G, STREAM);                         \
+    return LAUNCH<K, KS, 32, P1_MAX_NB>(ARGS, G, STREAM);                              \
   }
 
-template <int K, int S>
+template <int K, int KS>
 cudaError_t launch_pass1(const Pass1Args& a, const Geom& g, cudaStream_t stream) {
   MBCONV_CM_NB_SWITCH(launch_pass1_nb, a, g, stream)
 }
 
-template <int K, int S>
+template <int K, int KS>
 cudaError_t launch_recompute(const RecomputeArgs& a, const Geom& g, cudaStream_t stream) {
   MBCONV_CM_NB_SWITCH(launch_recompute_nb, a, g, stream)
 }
@@ -1043,28 +1073,31 @@ cudaError_t launch_recompute(const RecomputeArgs& a, const Geom& g, cudaStream_t
 #undef MBCONV_CM_NB_SWITCH
 
 template <int BM, int BN, int TM, bool VEC>
-cudaError_t launch_retain_tile(const float* dw, const float* gate, const float* w_proj,
-                               float* out, int M, int K, int N, int rows_per_img,
-                               int splits, int chunks_per_split, cudaStream_t stream) {
-  using T = RetainTile<BM, BN, TM>;
+cudaError_t launch_retain_tile(const Elem* dw, const float* gate, const Elem* w_proj,
+                               float* partial, Elem* out, int M, int K, int N,
+                               int rows_per_img, int splits, int chunks_per_split,
+                               cudaStream_t stream) {
+  using Tile = RetainTile<BM, BN, TM>;
   static const cudaError_t smem_set =
-      set_max_smem(mbconv_pass2_retain_kernel<BM, BN, TM, VEC>);
+      set_max_smem(mbconv_pass2_retain_kernel<BM, BN, TM, VEC, Elem>);
   if (smem_set != cudaSuccess) return smem_set;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  mbconv_pass2_retain_kernel<BM, BN, TM, VEC><<<grid, T::NT, T::SMEM, stream>>>(
-      dw, gate, w_proj, out, M, K, N, rows_per_img, chunks_per_split);
+  mbconv_pass2_retain_kernel<BM, BN, TM, VEC, Elem>
+      <<<grid, Tile::NT, Tile::smem_bytes(sizeof(Elem)), stream>>>(
+          dw, gate, w_proj, partial, out, M, K, N, rows_per_img, chunks_per_split);
   return cudaGetLastError();
 }
 
 template <bool VEC>
-cudaError_t launch_retain(int bm, int bn, const float* dw, const float* gate,
-                          const float* w_proj, float* out, int M, int K, int N,
-                          int rows_per_img, int splits, int cps, cudaStream_t stream) {
+cudaError_t launch_retain(int bm, int bn, const Elem* dw, const float* gate, const Elem* w_proj,
+                          float* partial, Elem* out, int M, int K, int N, int rows_per_img,
+                          int splits, int cps, cudaStream_t stream) {
 #define RETAIN_TILE(BM_, BN_, TM_)                                                   \
   if (bm == BM_ && bn == BN_)                                                        \
-    return launch_retain_tile<BM_, BN_, TM_, VEC>(dw, gate, w_proj, out, M, K, N,     \
-                                                  rows_per_img, splits, cps, stream);
+    return launch_retain_tile<BM_, BN_, TM_, VEC>(dw, gate, w_proj, partial, out, M, \
+                                                  K, N, rows_per_img, splits, cps,   \
+                                                  stream);
   RETAIN_TILE(128, 64, 8)
   RETAIN_TILE(64, 64, 4)
   RETAIN_TILE(128, 32, 4)
@@ -1094,26 +1127,36 @@ int mbconv_recompute_k_chunk() { return R2_KC; }
 int mbconv_pass1_ci_chunk() { return P1_CI; }
 int mbconv_pass1_max_tile_pixels() { return P1_MAXP; }
 int mbconv_pass1_cm_tile(int C_mid) { return p1_cm_tile(C_mid); }
+// bytes of this build's storage type, and the shared memory its pass-1
+// and recompute launches ask for (the schedule solver's budget checks must
+// agree with them)
+int mbconv_element_bytes() { return (int)sizeof(Elem); }
 long long mbconv_pass1_smem_bytes(int K, int S, int tile_h, int tile_w, int C_in,
                                   int C_mid, int identity) {
   const int q = ((tile_h - 1) * S + K) * ((tile_w - 1) * S + K);
-  return (long long)(p1_smem_floats(q, tile_h * tile_w, p1_cm_tile(C_mid), C_in, identity) *
-                     sizeof(float));
+  return (long long)p1_smem_bytes(q, tile_h * tile_w, p1_cm_tile(C_mid), C_in, identity,
+                                  sizeof(Elem));
 }
 long long mbconv_recompute_smem_bytes(int K, int S, int tile_h, int tile_w, int C_in,
                                       int C_mid, int co_tile, int identity) {
   const int q = ((tile_h - 1) * S + K) * ((tile_w - 1) * S + K);
-  return (long long)(r2_smem_floats(q, tile_h * tile_w, p1_cm_tile(C_mid), C_in, identity,
-                                    co_tile) *
-                     sizeof(float));
+  return (long long)r2_smem_bytes(q, tile_h * tile_w, p1_cm_tile(C_mid), C_in, identity,
+                                  co_tile, sizeof(Elem));
+}
+long long mbconv_retain_smem_bytes(int bm, int bn) {
+  return (long long)(bm == 128 && bn == 64   ? RetainTile<128, 64, 8>::smem_bytes(sizeof(Elem))
+                     : bm == 128 && bn == 32 ? RetainTile<128, 32, 4>::smem_bytes(sizeof(Elem))
+                     : bn == 64              ? RetainTile<64, 64, 4>::smem_bytes(sizeof(Elem))
+                                             : RetainTile<64, 32, 4>::smem_bytes(sizeof(Elem)));
 }
 int mbconv_retain_k_chunk() { return R_BK; }
 const char* mbconv_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// pool_partial, pool and counters all set (se on) or all null; counters
-// holds B * ceil(C_mid / pass1_cm_tile) zeros and is left so.
-int mbconv_pass1(const float* x, const float* w_exp, const float* w_dw,
-                 float* pool_partial, float* pool, int* counters, float* dw_out, int B,
+// x, w_exp, w_dw and dw_out in this build's storage type (Elem).
+// pool_partial, pool (fp32) and counters all set (se on) or all null;
+// counters holds B * ceil(C_mid / pass1_cm_tile) zeros and is left so.
+int mbconv_pass1(const Elem* x, const Elem* w_exp, const Elem* w_dw,
+                 float* pool_partial, float* pool, int* counters, Elem* dw_out, int B,
                  int H, int W, int C_in, int C_mid, int K, int S, int out_h, int out_w,
                  int pad_top, int pad_left, int tile_h, int tile_w, int identity,
                  int exp_act, int dw_act, void* stream) {
@@ -1126,10 +1169,11 @@ int mbconv_pass1(const float* x, const float* w_exp, const float* w_dw,
   MBCONV_KS_SWITCH(K, S, launch_pass1<KK, SS>(a, g, (cudaStream_t)stream))
 }
 
-// out (splits, B, out_h, out_w, C_out): the output itself for splits == 1,
-// else the per-split partials.
-int mbconv_pass2_recompute(const float* x, const float* w_exp, const float* w_dw,
-                           const float* gate, const float* w_proj, float* out, int B,
+// partial (splits, B, out_h, out_w, C_out) fp32 for splits > 1, else null
+// and out (B, out_h, out_w, C_out) in Elem; gate fp32 or null.
+int mbconv_pass2_recompute(const Elem* x, const Elem* w_exp, const Elem* w_dw,
+                           const float* gate, const Elem* w_proj, float* partial,
+                           Elem* out, int B,
                            int H, int W, int C_in, int C_mid, int C_out, int K, int S,
                            int out_h, int out_w, int pad_top, int pad_left, int tile_h,
                            int tile_w, int identity, int exp_act, int dw_act, int co_tile,
@@ -1143,17 +1187,22 @@ int mbconv_pass2_recompute(const float* x, const float* w_exp, const float* w_dw
   if (splits <= 0 || (long long)B * splits > 65535) return (int)cudaErrorInvalidValue;
   const int cps = (n_chunks + splits - 1) / splits;
   if ((splits - 1) * cps >= n_chunks) return (int)cudaErrorInvalidValue;  // empty split
-  const RecomputeArgs a{x, w_exp, w_dw, gate, w_proj, out, identity, exp_act, dw_act,
-                        co_tile, splits, cps};
+  if ((splits > 1) != (partial != nullptr) || (splits > 1) == (out != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const RecomputeArgs a{x,       w_exp,    w_dw,    gate,   w_proj,  partial, out,
+                        identity, exp_act, dw_act, co_tile, splits, cps};
   MBCONV_KS_SWITCH(K, S, launch_recompute<KK, SS>(a, g, (cudaStream_t)stream))
 }
 
-// dw (M, K) rows of rows_per_img pixels per image; out (splits, M, N): the
-// output itself for splits == 1, else the per-split partials.
-int mbconv_pass2_retain(const float* dw, const float* gate, const float* w_proj,
-                        float* out, int M, int K, int N, int rows_per_img, int bm,
-                        int bn, int splits, void* stream) {
+// dw (M, K) rows of rows_per_img pixels per image and w_proj in Elem, gate
+// fp32 or null; partial (splits, M, N) fp32 for splits > 1, else null and
+// out (M, N) in Elem.
+int mbconv_pass2_retain(const Elem* dw, const float* gate, const Elem* w_proj,
+                        float* partial, Elem* out, int M, int K, int N, int rows_per_img,
+                        int bm, int bn, int splits, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || rows_per_img <= 0 || splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  if ((splits > 1) != (partial != nullptr) || (splits > 1) == (out != nullptr))
     return (int)cudaErrorInvalidValue;
   const int n_chunks = (K + R_BK - 1) / R_BK;
   const int cps = (n_chunks + splits - 1) / splits;
@@ -1161,15 +1210,16 @@ int mbconv_pass2_retain(const float* dw, const float* gate, const float* w_proj,
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       (K % 4 == 0 && N % 4 == 0)
-          ? launch_retain<true>(bm, bn, dw, gate, w_proj, out, M, K, N, rows_per_img,
-                                splits, cps, s)
-          : launch_retain<false>(bm, bn, dw, gate, w_proj, out, M, K, N, rows_per_img,
-                                 splits, cps, s);
+          ? launch_retain<true>(bm, bn, dw, gate, w_proj, partial, out, M, K, N,
+                                rows_per_img, splits, cps, s)
+          : launch_retain<false>(bm, bn, dw, gate, w_proj, partial, out, M, K, N,
+                                 rows_per_img, splits, cps, s);
   return (int)err;
 }
 
-// partial (splits, count) -> out (count), summed in split order.
-int mbconv_splitk_reduce(const float* partial, float* out, int splits, long long count,
+// partial (splits, count) fp32 -> out (count) in Elem, summed in split
+// order and rounded once.
+int mbconv_splitk_reduce(const float* partial, Elem* out, int splits, long long count,
                          void* stream) {
   if (splits <= 0 || count <= 0) return (int)cudaErrorInvalidValue;
   const int threads = 256;
@@ -1177,10 +1227,10 @@ int mbconv_splitk_reduce(const float* partial, float* out, int splits, long long
   const long long items = vec ? count / 4 : count;
   const int blocks = (int)std::min<long long>((items + threads - 1) / threads, 132 * 16);
   if (vec)
-    mbconv_splitk_reduce_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    mbconv_splitk_reduce_kernel<true, Elem><<<blocks, threads, 0, (cudaStream_t)stream>>>(
         partial, out, splits, count);
   else
-    mbconv_splitk_reduce_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    mbconv_splitk_reduce_kernel<false, Elem><<<blocks, threads, 0, (cudaStream_t)stream>>>(
         partial, out, splits, count);
   return (int)cudaGetLastError();
 }

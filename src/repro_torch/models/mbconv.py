@@ -80,12 +80,30 @@ from ..kernels.convdk_sharded import (
     convdk_mbconv_fused_sharded,
     gather_global,
     model_chunk,
+    require_fp32,
 )
 from ..kernels.ref import pad_nhwc
 from .param import P, materialize
 # the stems' and heads' activations
 _ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "silu": F.silu, "hard_swish": F.hardswish}
+# the configs' compute dtypes, by the JAX package's names
+COMPUTE_DTYPES: Dict[str, torch.dtype] = {"float32": torch.float32,
+                                          "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` name (float32 or bfloat16:
+    the storage types the kernels take)."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"dtype must be one of {tuple(COMPUTE_DTYPES)}, "
+                         f"got {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
+def dtype_bytes(name: str) -> int:
+    """Bytes per element of a config's compute dtype."""
+    return compute_dtype(name).itemsize
 
 # (expand_ratio, kernel, stride, c_out, repeats) — EfficientNet-B0 stages
 # 2-8 [arXiv:1905.11946, Table 1]; the first block of a stage carries the
@@ -105,7 +123,9 @@ STEM_STRIDE = 2      # every stem conv here halves the spatial dims
 @dataclasses.dataclass(frozen=True)
 class EffNetConfig:
     """EfficientNet-family hyperparameters (B0 defaults); ``width_mult``
-    scales every channel count through ``round_filters``."""
+    scales every channel count through ``round_filters``; ``dtype`` is the
+    compute dtype (``"float32"`` or ``"bfloat16"``): images, stem, blocks,
+    head and classifier run in it, the kernels' sums in fp32."""
 
     num_classes: int = 1000
     width_mult: float = 1.0
@@ -113,6 +133,7 @@ class EffNetConfig:
     stem_c: int = 32
     head_c: int = 1280
     stages: Tuple[Tuple[int, int, int, int, int], ...] = EFFNET_B0_STAGES
+    dtype: str = "float32"
 
 
 def round_filters(c: int, width_mult: float, divisor: int = 8) -> int:
@@ -215,28 +236,32 @@ def block_chain_rows(specs: Sequence[MBConvSpec], h: int, w: int
 
 
 def block_schedules(specs: Sequence[MBConvSpec], batch: int, h: int, w: int,
-                    mode: Optional[str] = None) -> Tuple[Schedule, ...]:
-    """Per-block schedules of one (batch, image size): the ones an apply
-    call runs, solved from the chain rows at the stem-output dims
-    (``mode`` pins the MBConv blocks' pass-2 variant)."""
+                    mode: Optional[str] = None, dtype_bytes: int = 4
+                    ) -> Tuple[Schedule, ...]:
+    """Per-block schedules of one (batch, image size, storage dtype's
+    bytes): the ones an apply call runs, solved from the chain rows at the
+    stem-output dims (``mode`` pins the MBConv blocks' pass-2 variant)."""
     stem_h, stem_w = -(-h // STEM_STRIDE), -(-w // STEM_STRIDE)
     out = []
     for r in block_chain_rows(specs, stem_h, stem_w):
         if r.family == "fusedmb":
             out.append(get_fusedmb_schedule(batch, r.h, r.w, r.c_in,
-                                            r.c_mid, r.c_out, r.k, r.s))
+                                            r.c_mid, r.c_out, r.k, r.s,
+                                            dtype_bytes=dtype_bytes))
         else:
             out.append(get_mbconv_schedule(
                 batch, r.h, r.w, r.c_in, r.c_mid, r.c_out, r.k, r.s,
-                se_ratio=r.se_ratio, mode=mode))
+                se_ratio=r.se_ratio, dtype_bytes=dtype_bytes, mode=mode))
     return tuple(out)
 
 
 def effnet_schedules(cfg: EffNetConfig, batch: int, h: int, w: int,
                      mode: Optional[str] = None
                      ) -> Tuple[MBConvSchedule, ...]:
-    """Per-block schedules of B0 at one (batch, image size)."""
-    return block_schedules(effnet_block_specs(cfg), batch, h, w, mode)
+    """Per-block schedules of B0 at one (batch, image size), at the
+    config's dtype."""
+    return block_schedules(effnet_block_specs(cfg), batch, h, w, mode,
+                           dtype_bytes(cfg.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +326,7 @@ def _mesh_route(mesh, x: torch.Tensor, c_grid: int, fused: bool,
         if in_layout != DEFAULT_LAYOUT:
             raise ValueError("a model-sharded input needs its mesh")
         return x.shape[0], 1, False, DEFAULT_LAYOUT, x
+    require_fp32(x.dtype)
     dp, mp = conv_mesh_shape(mesh)
     b = x.shape[0] * dp
     sharded = fused and can_shard_fused(mesh, b, c_grid)
@@ -355,23 +381,26 @@ def mbconv_block(
             se_ratio=se_ratio, dtype_bytes=x.element_size(), mode=mode,
             mesh_shape=conv_mesh_shape(mesh) if sharded else (1, 1),
             in_layout=in_layout)
+    # the convs' weights in the block's dtype, as in the JAX package; the SE
+    # FCs as they are (the SE MLP runs in fp32 on the fp32 pool)
     if "exp" in params:
-        w_exp = params["exp"]
+        w_exp = params["exp"].to(x.dtype)
     else:
         if c_mid != c_in:
             raise ValueError(f"identity expand with c_in {c_in} != "
                              f"c_mid {c_mid}")
         w_exp, exp_act = None, None
-    args = (x, w_exp, params["dw"], params.get("se_w1"),
+    args = (x, w_exp, params["dw"].to(x.dtype), params.get("se_w1"),
             params.get("se_b1"), params.get("se_w2"), params.get("se_b2"),
-            params["proj"])
+            params["proj"].to(x.dtype))
     acts = dict(exp_act=exp_act, dw_act=dw_act, se_act=se_act,
                 gate_act=gate_act)
     if not sharded:
         if fused:
             out = convdk_mbconv_fused(
                 *args, stride=stride, tile_h=schedule.tile_h,
-                tile_w=schedule.tile_w, mode=schedule.mode, **acts)
+                tile_w=schedule.tile_w, mode=schedule.mode,
+                retain_splits=schedule.retain_splits, **acts)
         else:
             out = convdk_mbconv_staged(*args, stride=stride,
                                        tile_h=schedule.tile_h, **acts)
@@ -384,7 +413,7 @@ def mbconv_block(
         *args, mesh=mesh, stride=stride, tile_h=schedule.tile_h,
         tile_w=schedule.tile_w, mode=schedule.mode,
         collective="psum_scatter" if split_ring else schedule.collective,
-        in_layout=in_layout, **acts)
+        in_layout=in_layout, retain_splits=schedule.retain_splits, **acts)
     if split_ring:
         return mesh.all_gather(out + x, "model", dim=-1), DEFAULT_LAYOUT
     if residual:
@@ -424,18 +453,19 @@ def fusedmb_block(
             b, h, w, c_in, c_mid, c_out, k, stride,
             dtype_bytes=x.element_size(),
             mesh_shape=conv_mesh_shape(mesh) if sharded else (1, 1))
+    w_conv, w_proj = params["conv"].to(x.dtype), params["proj"].to(x.dtype)
     if not sharded:
         if fused:
             out = convdk_fusedmb_fused(
-                x, params["conv"], params["proj"], stride=stride,
-                tile_h=schedule.tile_h, tile_w=schedule.tile_w, act=act)
+                x, w_conv, w_proj, stride=stride, tile_h=schedule.tile_h,
+                tile_w=schedule.tile_w, act=act)
         else:
-            out = convdk_fusedmb_staged(x, params["conv"], params["proj"],
-                                        stride=stride, act=act)
+            out = convdk_fusedmb_staged(x, w_conv, w_proj, stride=stride,
+                                        act=act)
         return _residual(out, x, stride), DEFAULT_LAYOUT
     scatter = schedule.collective == "psum_scatter" and mp > 1
     out = convdk_fusedmb_fused_sharded(
-        x, params["conv"], params["proj"], mesh=mesh, stride=stride,
+        x, w_conv, w_proj, mesh=mesh, stride=stride,
         tile_h=schedule.tile_h, tile_w=schedule.tile_w, act=act,
         collective=schedule.collective)
     if stride == 1 and c_in == c_out:
@@ -481,26 +511,38 @@ def stem_conv(images: torch.Tensor, w_stem: torch.Tensor) -> torch.Tensor:
 
 
 def network_plan(specs: Sequence[MBConvSpec], batch: int, h: int, w: int,
-                 mesh_shape: Tuple[int, int] = (1, 1)) -> NetworkPlan:
+                 mesh_shape: Tuple[int, int] = (1, 1),
+                 dtype_bytes: int = 4) -> NetworkPlan:
     """The cached network plan of one chain at (batch, image size) on a
-    mesh of ``mesh_shape`` (``core.autotune.get_network_plan`` over the
-    chain rows at the stem-output dims)."""
+    mesh of ``mesh_shape`` at the storage dtype's ``dtype_bytes``
+    (``core.autotune.get_network_plan`` over the chain rows at the
+    stem-output dims)."""
     stem_h, stem_w = -(-h // STEM_STRIDE), -(-w // STEM_STRIDE)
     return get_network_plan(block_chain_rows(specs, stem_h, stem_w), batch,
-                            tuple(mesh_shape))
+                            tuple(mesh_shape), dtype_bytes)
+
+
+def _stem(params: dict, images: torch.Tensor, stem_act: str,
+          dtype: torch.dtype) -> torch.Tensor:
+    """The stem conv and its act in the compute dtype: the images and the
+    stem weight cast to it, as the JAX package's applies do."""
+    return _ACTS[stem_act](stem_conv(images.to(dtype),
+                                     params["stem"].to(dtype)))
 
 
 def _forward(params: dict, images: torch.Tensor, specs: List[MBConvSpec],
-             stem_act: str, head_act: str, *, mode: Optional[str] = None,
-             fused: bool = True, mesh=None,
+             stem_act: str, head_act: str, dtype: str = "float32", *,
+             mode: Optional[str] = None, fused: bool = True, mesh=None,
              plan: Optional[NetworkPlan] = None) -> torch.Tensor:
     """Stem conv + act, the block chain lowered through its graph
-    (``fused=False``: each block through its staged baseline), the head;
-    on a mesh or with a plan as the module doc says."""
+    (``fused=False``: each block through its staged baseline), the head,
+    all in the compute dtype ``dtype``; on a mesh or with a plan as the
+    module doc says."""
     from .blockgraph import block_graph
 
+    dt = compute_dtype(dtype)
     if mesh is None and plan is None:
-        x = _ACTS[stem_act](stem_conv(images.float(), params["stem"]))
+        x = _stem(params, images, stem_act, dt)
         graph = block_graph(specs, mode=mode, fused=fused)
         return _classify(params, graph.lower(x, params), head_act)
     if mode is not None:
@@ -508,6 +550,8 @@ def _forward(params: dict, images: torch.Tensor, specs: List[MBConvSpec],
                          "with a mesh or a plan")
     if mesh is not None and not fused:
         raise ValueError("the staged baselines run on one device")
+    if mesh is not None:
+        require_fp32(dt)
     mesh_shape = conv_mesh_shape(mesh) if mesh is not None else (1, 1)
     batch = images.shape[0]
     if batch % mesh_shape[0]:
@@ -515,15 +559,17 @@ def _forward(params: dict, images: torch.Tensor, specs: List[MBConvSpec],
                          f"{mesh_shape[0]}")
     if plan is None:
         plan = network_plan(specs, batch, images.shape[1], images.shape[2],
-                            mesh_shape)
+                            mesh_shape, dt.itemsize)
     if (tuple(plan.mesh_shape) != mesh_shape
-            or plan.blocks[0].shape.b != batch):
+            or plan.blocks[0].shape.b != batch
+            or plan.dtype_bytes != dt.itemsize):
         raise ValueError(f"the plan is for batch {plan.blocks[0].shape.b} "
-                         f"on mesh {plan.mesh_shape}, not batch {batch} on "
-                         f"{mesh_shape}")
+                         f"at {plan.dtype_bytes}-byte words on mesh "
+                         f"{plan.mesh_shape}, not batch {batch} at "
+                         f"{dt.itemsize}-byte words on {mesh_shape}")
     if mesh is not None:
         images = mesh.chunk(images, "data", dim=0)
-    x = _ACTS[stem_act](stem_conv(images.float(), params["stem"]))
+    x = _stem(params, images, stem_act, dt)
     if plan.stem_layout == "model_sharded":
         x = model_chunk(x, mesh)
     x = block_graph(specs, plan=plan, fused=fused).lower(x, params, mesh)
@@ -535,11 +581,14 @@ def _forward(params: dict, images: torch.Tensor, specs: List[MBConvSpec],
 
 
 def _classify(params: dict, x: torch.Tensor, head_act: str) -> torch.Tensor:
+    """Head 1x1 + act, mean pool [, fc + act], classifier, in x's dtype
+    (the weights cast to it, as the JAX package's heads do)."""
     act = _ACTS[head_act]
-    x = act(x @ params["head"]).mean(dim=(1, 2))
+    dt = x.dtype
+    x = act(x @ params["head"].to(dt)).mean(dim=(1, 2))
     if "fc" in params:
-        x = act(x @ params["fc"])
-    return x @ params["cls_w"] + params["cls_b"]
+        x = act(x @ params["fc"].to(dt))
+    return x @ params["cls_w"].to(dt) + params["cls_b"].to(dt)
 
 
 def _network_def(specs: List[MBConvSpec], stem_c: int, head_c: int,
@@ -586,7 +635,7 @@ def efficientnet_b0_apply(params: dict, images: torch.Tensor,
     module doc).  ``fused=False`` runs every block through the staged
     baseline."""
     return _forward(params, images, effnet_block_specs(cfg), "silu", "silu",
-                    mode=mode, fused=fused, mesh=mesh, plan=plan)
+                    cfg.dtype, mode=mode, fused=fused, mesh=mesh, plan=plan)
 
 
 # ----------------------------- EfficientNet-V2-S -----------------------------
@@ -601,8 +650,8 @@ EFFNET_V2_S_STAGES: Tuple[Tuple[str, int, int, int, int, int], ...] = \
 
 @dataclasses.dataclass(frozen=True)
 class EffNetV2Config:
-    """EfficientNet-V2-S hyperparameters (the ``width_mult`` rule of
-    ``EffNetConfig``; shrink ``stages`` for test-sized chains)."""
+    """EfficientNet-V2-S hyperparameters (the ``width_mult`` and ``dtype``
+    rules of ``EffNetConfig``; shrink ``stages`` for test-sized chains)."""
 
     num_classes: int = 1000
     width_mult: float = 1.0
@@ -611,6 +660,7 @@ class EffNetV2Config:
     head_c: int = 1280
     stages: Tuple[Tuple[str, int, int, int, int, int], ...] = \
         EFFNET_V2_S_STAGES
+    dtype: str = "float32"
 
 
 def effnet_v2_block_specs(cfg: EffNetV2Config) -> List[MBConvSpec]:
@@ -656,7 +706,7 @@ def efficientnet_v2_s_apply(params: dict, images: torch.Tensor,
     silu, mean pool, classifier; ``mesh`` and ``plan`` as
     ``efficientnet_b0_apply`` takes them."""
     return _forward(params, images, effnet_v2_block_specs(cfg), "silu",
-                    "silu", fused=fused, mesh=mesh, plan=plan)
+                    "silu", cfg.dtype, fused=fused, mesh=mesh, plan=plan)
 
 
 # ---------------------------- MobileNet-V3-Large ----------------------------
@@ -676,7 +726,7 @@ MOBILENET_V3_LARGE_BLOCKS: Tuple[
 class MobileNetV3Config:
     """MobileNet-V3-Large hyperparameters; ``width_mult`` scales every
     channel count (the pinned expanded widths too) through
-    ``round_filters``."""
+    ``round_filters``; ``dtype`` as ``EffNetConfig``'s."""
 
     num_classes: int = 1000
     width_mult: float = 1.0
@@ -686,6 +736,7 @@ class MobileNetV3Config:
     cls_c: int = 1280
     blocks: Tuple[Tuple[int, int, int, int, bool, str], ...] = \
         MOBILENET_V3_LARGE_BLOCKS
+    dtype: str = "float32"
 
 
 def mobilenet_v3_specs(cfg: MobileNetV3Config) -> List[MBConvSpec]:
@@ -724,7 +775,8 @@ def mobilenet_v3_apply(params: dict, images: torch.Tensor,
     hard_swish, classifier; ``mesh`` and ``plan`` as
     ``efficientnet_b0_apply`` takes them."""
     return _forward(params, images, mobilenet_v3_specs(cfg), "hard_swish",
-                    "hard_swish", fused=fused, mesh=mesh, plan=plan)
+                    "hard_swish", cfg.dtype, fused=fused, mesh=mesh,
+                    plan=plan)
 
 
 # ---------------------------------------------------------------------------

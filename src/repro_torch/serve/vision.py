@@ -51,6 +51,7 @@ from ..kernels.convdk_sharded import conv_mesh_shape
 from ..models.mbconv import (
     STEM_STRIDE,
     EffNetConfig,
+    dtype_bytes,
     effnet_block_specs,
     efficientnet_b0_apply,
     network_plan,
@@ -197,10 +198,11 @@ class VisionEngine:
     def plan_for(self, res: int) -> NetworkPlan:
         """The bucket's network plan: solved once per resolution, passed
         into every launch of that bucket, so the bytes its counters charge
-        are those of the schedules that run."""
+        are those of the schedules that run; solved at the config's dtype,
+        so the counters count its words (2 bytes at bf16)."""
         if res not in self._plans:
             plan = network_plan(self.specs, self.scfg.batch_size, res, res,
-                                self.mesh_shape())
+                                self.mesh_shape(), dtype_bytes(self.cfg.dtype))
             self._plans[res] = plan
             telemetry.counter(f"serve.build.r{res}")
             telemetry.counter(f"serve.pipelined_boundaries.r{res}",
@@ -276,7 +278,7 @@ class VisionEngine:
             telemetry.counter(f"serve.bytes.r{res}.{layer}", total)
             telemetry.counter(f"serve.collective.r{res}.{layer}", coll)
 
-        arr = logits.cpu().numpy()
+        arr = logits.float().cpu().numpy()
         results = []
         for row, rq in enumerate(reqs):
             latency = t_done - rq.t_submit

@@ -236,8 +236,8 @@ def test_launch_counters_stay_zero_on_cpu():
     assert set(tk.LAUNCHES) == set(tk.KERNELS)
     assert "mbconv_pool_reduce" not in launches()   # folded into pass 1
     assert set(launches()) == set(tk.KERNELS) | {
-        "fusedmb", "fused_separable", "fused_separable_reduce", "dw2d",
-        "conv1d"}
+        "fusedmb", "fusedmb_bf16", "fused_separable",
+        "fused_separable_reduce", "dw2d", "conv1d"}
     assert all(n == 0 for n in launches().values())
 
 
@@ -543,12 +543,16 @@ def test_separable_guard_cases_split_c_in():
             assert 1 < splits and splits * c_out < c_in
 
 
+def _bf16_ulp(ref32):
+    """One bf16 ulp of each element of the fp32 ``ref32`` (2^-133 at 0)."""
+    exp = torch.frexp(ref32)[1]
+    return torch.where(ref32 == 0, torch.full_like(ref32, 2.0 ** -133),
+                       torch.ldexp(torch.ones_like(ref32), exp - 8))
+
+
 def _within_bf16_ulp(got, ref32):
     """|got - ref32| at most 1 bf16 ulp of the fp32 value, everywhere."""
-    exp = torch.frexp(ref32)[1]
-    ulp = torch.where(ref32 == 0, torch.full_like(ref32, 2.0 ** -133),
-                      torch.ldexp(torch.ones_like(ref32), exp - 8))
-    return bool(((got.float() - ref32).abs() <= ulp).all())
+    return bool(((got.float() - ref32).abs() <= _bf16_ulp(ref32)).all())
 
 
 @pytest.mark.cuda
@@ -580,6 +584,111 @@ def test_dw2d_bf16_matches_fp32_sum_on_card(k, s, h, w, c, monkeypatch):
     assert _within_bf16_ulp(out, depthwise2d_ref(x.float(), w_dw.float(), s))
     with pytest.raises(ValueError, match="one dtype"):
         td.dw2d(strips, w_dw.float(), **kw)
+    torch.cuda.synchronize()
+
+
+def _within_bf16_bar(got, ref32):
+    """Within 1 bf16 ulp of the fp32 sum everywhere, except where two fp32
+    summation orders alone differ by more than that ulp (outputs near 0 of
+    long sums: K = 1152 at B0's last blocks), which are held to the fp32
+    bar (1e-4 * max|ref| + 1e-5) instead."""
+    fp32_bar = 1e-4 * float(ref32.abs().max()) + 1e-5
+    err = (got.float() - ref32).abs()
+    return bool((err <= torch.clamp(_bf16_ulp(ref32), min=fp32_bar)).all())
+
+
+# bf16 MBConv cases (B, H, W, C_in, C_mid, C_out, k, s, tile_h, tile_w,
+# identity, se): ragged maps, tiles and channel tiles; an identity expand
+# without SE; C_mid and C_out not multiples of 4 (the element paths); B0's
+# block 15 at batch 1 (retain splits K, recompute splits C_mid)
+_BF16_CASES = [
+    (3, 13, 10, 40, 72, 36, 3, 1, 3, 4, False, True),
+    (3, 13, 10, 40, 40, 36, 5, 2, 3, 4, True, False),
+    (2, 15, 17, 16, 42, 30, 5, 1, 4, 16, False, True),
+    (1, 7, 7, 192, 1152, 320, 3, 1, 7, 7, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _BF16_CASES)
+def test_mbconv_kernels_bf16_match_fp32_sum_on_card(case, monkeypatch):
+    """B1, B2, B3 and B3' in bf16: activations and weights bf16, the gate
+    fp32; pass 1's retained DW tensor and each pass 2's output bf16 within
+    ``_within_bf16_bar`` of the plain version's fp32 result on the same
+    bf16 values, pass 1's fp32 pool partials at the fp32 bar and its pool
+    exactly their tile-order sum; each kernel bit for bit on a second
+    call; B3' rounds the split order's fp32 sum once, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    b, h, w, c_in, c_mid, c_out, k, s, tile_h, tile_w, identity, se = case
+    g = torch.Generator().manual_seed(sum(case[:8]) + 7)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x = r(b, h, w, c_in).bfloat16()
+    w_dw = (r(k, k, c_mid) * 0.3).bfloat16()
+    w_exp = None if identity else (r(c_in, c_mid) / c_in ** 0.5).bfloat16()
+    w_proj = (r(c_mid, c_out) / c_mid ** 0.5).bfloat16()
+    gate = torch.sigmoid(r(b, c_mid)) if se else None
+    f32 = lambda t: None if t is None else t.float()  # noqa: E731
+    geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+    acts = dict(exp_act=None if identity else "silu", dw_act="silu")
+    part, pool, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                     retain=True, **acts)
+    part_ref, _, dw_ref = tk.mbconv_pass1_plain(
+        x.float(), f32(w_exp), w_dw.float(), geo, se=se, retain=True, **acts)
+    assert dw.dtype == torch.bfloat16 and _within_bf16_bar(dw, dw_ref)
+    assert torch.equal(dw, tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                           retain=True, **acts)[2])
+    if se:
+        assert part.dtype == pool.dtype == torch.float32
+        _close_on_card(part, part_ref)
+        assert torch.equal(pool, tk.mbconv_pool_reduce_plain(part))
+    got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
+                                    **acts)
+    ref = tk.mbconv_pass2_recompute_plain(x.float(), f32(w_exp),
+                                          w_dw.float(), gate,
+                                          w_proj.float(), geo, **acts)
+    assert got.dtype == torch.bfloat16 and _within_bf16_bar(got, ref)
+    assert torch.equal(got, tk.mbconv_pass2_recompute(
+        x, w_exp, w_dw, gate, w_proj, geo, **acts))
+    got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
+    ref = tk.mbconv_pass2_retain_plain(dw.float(), gate, w_proj.float(), geo)
+    assert got.dtype == torch.bfloat16 and _within_bf16_bar(got, ref)
+    assert torch.equal(got, tk.mbconv_pass2_retain(dw, gate, w_proj, geo))
+    part = r(3, b, geo.out_h, geo.out_w, c_out)
+    red = tk.mbconv_splitk_reduce(part, torch.bfloat16)
+    assert torch.equal(red, tk.mbconv_splitk_reduce_plain(part,
+                                                          torch.bfloat16))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_mid,c_out", [
+    (24, 24, 24), (24, 96, 48), (70, 200, 130), (48, 192, 64)])
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2)])
+def test_fusedmb_kernel_bf16_matches_fp32_sum_on_card(k, s, c_in, c_mid,
+                                                      c_out, monkeypatch):
+    """B5 in bf16 at ragged 23x23 maps and tiles, every chunk, channel
+    counts that are not multiples of 4 and the chunked c_in window: within
+    ``_within_bf16_bar`` of the plain version's fp32 result on the same
+    bf16 values, bit for bit on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(200 * s + 10 * k + c_in)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x = r(3, 23, 23, c_in).bfloat16()
+    w_conv = (r(k, k, c_in, c_mid) / (k * k * c_in) ** 0.5).bfloat16()
+    w_proj = (r(c_mid, c_out) / c_mid ** 0.5).bfloat16()
+    for tile_h, tile_w in ((8, 8), (3, 5), (8, 16)):
+        geo = tk.MBConvGeometry.make(23, 23, k, s, "SAME", tile_h, tile_w)
+        got = tf.fusedmb(x, w_conv, w_proj, geo, act="silu")
+        ref = tf.fusedmb_plain(x.float(), w_conv.float(), w_proj.float(),
+                               geo, act="silu")
+        assert got.dtype == torch.bfloat16 and _within_bf16_bar(got, ref)
+        assert torch.equal(got, tf.fusedmb(x, w_conv, w_proj, geo,
+                                           act="silu"))
     torch.cuda.synchronize()
 
 

@@ -11,6 +11,7 @@ the model reads the schedules and changes none of them.
 from __future__ import annotations
 
 import itertools
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -26,7 +27,9 @@ from repro_torch.core.autotune import (
 from repro_torch.core.hopper_traffic import (
     LaunchTraffic,
     fusedmb_hopper_traffic,
+    fusedmb_staged_bytes,
     mbconv_hopper_traffic,
+    mbconv_staged_bytes,
     separable_hopper_traffic,
     window_pixels,
 )
@@ -64,6 +67,35 @@ def test_mbconv_retain_worked_by_hand():
         LaunchTraffic("retain", 2, 1, 672, 256, 672, 0, 1))
     assert (t.global_bytes, t.dram_bytes, t.issues) == (2372, 2340, 2)
     assert t.pass_bytes() == (1248 + 164, 928)
+
+
+def test_mbconv_retain_bf16_worked_by_hand():
+    """The block of ``test_mbconv_retain_worked_by_hand`` at bf16 storage:
+    x, the weights, the retained DW tensor and the output at 2 bytes; the
+    pool partial, the pool, the SE words and the gate stay 4.
+
+    pass 1 loads x 16 x 4 x 2 = 128, w_exp 4 x 8 x 2 = 64, the taps
+    9 x 8 x 2 = 144 and the fp32 partial 32: 368; stores the partial 32,
+    the pool 32 and the DW tensor 16 x 8 x 2 = 256: 320; inputs 336.
+    SE MLP as at fp32: 132 read, 32 written.  retain: A 256, w_proj
+    8 x 4 x 2 = 64, the fp32 gate row 32; out 16 x 4 x 2 = 128.
+
+    global = 368 + 320 + 132 + 32 + 352 + 128 = 1332; device memory drops
+    the partial's read-back: 1300.  The staged route (its intermediates
+    fp32) drops 2 bytes from each of its 264 storage words: x 64, w_exp
+    32, taps 72, w_proj 32, out 64."""
+    shape = MBConvShape(b=1, h=4, w=4, c_in=4, c_mid=8, c_out=4, k=3, s=1,
+                        dtype_bytes=2)
+    t = mbconv_hopper_traffic(shape, MBConvSchedule(4, 4, "retain", 0))
+    assert t.launches == (
+        LaunchTraffic("pass1", 1, 1, 368, 320, 336, 0, 1),
+        LaunchTraffic("se_mlp", 1, 0, 132, 32, 132, 0, 0),
+        LaunchTraffic("retain", 2, 1, 352, 128, 352, 0, 1))
+    assert (t.global_bytes, t.dram_bytes) == (1332, 1300)
+    assert t.pass_bytes() == (656 + 164, 480)
+    fp32 = replace(shape, dtype_bytes=4)
+    assert mbconv_staged_bytes(shape, 4) == \
+        mbconv_staged_bytes(fp32, 4) - 2 * 264
 
 
 def test_mbconv_recompute_without_se_skips_pass_1():
@@ -288,3 +320,25 @@ def test_solver_picks_are_pinned(family):
         got = [_fields(sch) for sch in kb.family_chain(
             family, 8, kb.FAMILY_RES[family])[2]]
     assert got == PINNED[family]
+
+
+def test_fp32_numbers_unchanged_at_four_bytes():
+    """At dtype_bytes=4 the storage-aware model is the fp32 one: every
+    family point's Hopper bytes, the staged bytes the gate reads (the
+    copied model's staged total exactly) and the 88 pinned picks (solved
+    with dtype_bytes=4 passed explicitly) are unchanged."""
+    for _, r, shape, points in _family_points():
+        assert shape.dtype_bytes == 4
+        for sch in points:
+            if r.family == "fusedmb":
+                staged = fusedmb_staged_bytes(shape, sch.tile_h)
+            else:
+                staged = mbconv_staged_bytes(shape, sch.tile_h)
+            assert staged == kb.block_traffic(r, sch, kb.BATCH)[1].total_bytes
+            assert kb.staged_bytes(r, sch, kb.BATCH, 4) == staged
+            assert (kb.hopper_traffic(r, sch, kb.BATCH, 4)
+                    == kb.hopper_traffic(r, sch, kb.BATCH))
+    for family in ("b0", "v3l", "v2s"):
+        got = [_fields(sch) for sch in kb.family_chain(
+            family, 8, kb.FAMILY_RES[family], dtype_bytes=4)[2]]
+        assert got == PINNED[family]

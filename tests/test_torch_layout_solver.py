@@ -228,21 +228,56 @@ def test_pipelined_boundaries_validate_and_move_no_bytes(family, mesh):
     assert all(r["overlap_us"] <= r["serialized_us"] for r in table)
 
 
-# ROADMAP C: on these meshes the shard's pass 1 of B0's block 15 (7x7,
-# c_mid 1152) takes a 7x4 tile (7x7 on one card), and the Hopper model at
-# the shard puts sharded fused above the identically partitioned staged
-SHARDED_GATE_FAILS = {(2, 1): ["b0_mbconv15"], (1, 2): ["b0_mbconv15"],
-                      (2, 2): ["b0_mbconv15"], (4, 1): ["b0_mbconv15"],
-                      (2, 4): [], (1, 4): []}
+# The meshes of the sharded byte gate (``kernel_bench --mesh``).  Before
+# the retain split cap (ROADMAP C, fixed), B0's block 15 (7x7, c_mid 1152)
+# failed on the four CAPPED_MESHES: at the shard's batch of 2 or 4 the
+# retain GEMM split K 18 ways, and the fp32 partials' round trip through
+# the split-K reduce put sharded fused above the identically partitioned
+# staged.  The cap keeps the bar at every block of every mesh.
+GATE_MESHES = ((2, 1), (1, 2), (2, 2), (4, 1), (2, 4), (1, 4))
+CAPPED_MESHES = ((2, 1), (1, 2), (2, 2), (4, 1))
 
 
-@pytest.mark.parametrize("mesh", sorted(SHARDED_GATE_FAILS))
-def test_sharded_gate_fails_exactly_at_the_recorded_blocks(mesh):
-    """The record of where ``kernel_bench --mesh`` finds sharded fused at
-    or above staged: B0's block 15 on the meshes it fails on, no block of
-    V3-Large or V2-S, and every row of the three chains gated."""
+@pytest.mark.parametrize("mesh", GATE_MESHES)
+def test_sharded_gate_holds_at_every_mesh(mesh):
+    """Sharded fused strictly below staged at every block of B0, V3-Large
+    and V2-S (every row of the three chains gated, none falling back), and
+    B0's block 15 takes the capped split count exactly on CAPPED_MESHES."""
     rows = [m for fam in FAMILIES
             for m in kb.mesh_block_rows(fam, 8, kb.FAMILY_RES[fam], mesh)]
     assert len(rows) == 71 and not any(m["fallback"] for m in rows)
-    assert [m["name"] for m in rows if m["fused"] >= m["staged"]] == \
-        SHARDED_GATE_FAILS[mesh]
+    assert [m["name"] for m in rows if m["fused"] >= m["staged"]] == []
+    capped = [m["name"] for m in rows
+              if getattr(m["schedule"], "retain_splits", None) is not None]
+    assert capped == (["b0_mbconv15"] if mesh in CAPPED_MESHES else [])
+
+
+# The single-card gate (``kernel_bench --fused --batch B [--res SIDE]
+# [--dtype D]``): (family, side, batch) at fp32 and bf16, each family at its
+# published side at batches 1, 2, 4 and 8, and B0 at the serve buckets 384
+# and 512 at batch 1; with the capped retain splits of B0's block 15
+# (12 of retain_plan's 18) where the uncapped count fails the bar.
+GATE_ROWS = ([(fam, kb.FAMILY_RES[fam], b) for fam in FAMILIES
+              for b in (1, 2, 4, 8)]
+             + [("b0", 384, 1), ("b0", 512, 1)])
+CAPPED_ROWS = {("b0", 224, 2), ("b0", 224, 4), ("b0", 384, 1),
+               ("b0", 512, 1)}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("family,side,batch", GATE_ROWS)
+def test_single_card_gate_holds_at_every_row(family, side, batch, dtype):
+    """Fused device-memory bytes (the Hopper model at the solver's
+    schedules) strictly below the staged route's at every block, the
+    gate's unchanged bar; the retain K splits capped exactly at B0's block
+    15 on the recorded rows, to the count the card timed fastest there
+    (PERF.md, the block-15 timings)."""
+    eb = kb.DTYPE_BYTES[dtype]
+    _, rows, schedules = kb.family_chain(family, batch, side, eb)
+    for r, sch in zip(rows, schedules):
+        assert (kb.hopper_traffic(r, sch, batch, eb).dram_bytes
+                < kb.staged_bytes(r, sch, batch, eb))
+    caps = {i: sch.retain_splits for i, sch in enumerate(schedules)
+            if getattr(sch, "retain_splits", None) is not None}
+    assert caps == ({15: 12} if (family, side, batch) in CAPPED_ROWS
+                    else {})

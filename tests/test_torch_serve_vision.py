@@ -266,3 +266,38 @@ def test_engine_on_a_one_rank_mesh_is_bit_exact(engine_parts):
     assert set(got) == set(want)
     for rid in want:
         np.testing.assert_array_equal(got[rid], want[rid])
+
+
+def test_bf16_engine_prices_two_byte_words(engine_parts):
+    """A bf16 config's buckets are solved at 2-byte words (the JAX engine's
+    ``dtype_bytes=itemsize``): the stem's words at 2 bytes each, the
+    schedules the bf16 forward solves, the counters charging them; its
+    results are the bf16 forward's logits, returned as fp32."""
+    import dataclasses
+
+    from repro_torch.models.mbconv import network_plan
+
+    telemetry.reset()
+    cfg32, params = engine_parts
+    cfg = dataclasses.replace(cfg32, dtype="bfloat16")
+    eng = VisionEngine(params, cfg, VisionServeConfig(
+        resolutions=(16,), batch_size=2, max_queue=4), device="cpu")
+    plan, plan32 = eng.plan_for(16), network_plan(eng.specs, 2, 16, 16)
+    assert (plan.dtype_bytes, plan32.dtype_bytes) == (2, 4)
+    assert plan.stem_bytes == plan.stem_words * 2 == plan32.stem_bytes // 2
+    assert eng.schedules_for(16) == effnet_schedules(cfg, 2, 16, 16)
+    assert all(bp.shape.dtype_bytes == 2 for bp in plan.blocks)
+    rng = np.random.default_rng(9)
+    images = np.stack([_img(rng, 16), _img(rng, 16)])
+    rids = [eng.submit(img) for img in images]
+    got = {r.rid: r.logits for r in eng.drain()}
+    t = telemetry.get_telemetry()
+    assert t.get("serve.bytes.r16.stem") == plan.stem_words * 2
+    for i, bp in enumerate(plan.blocks):
+        assert t.get(f"serve.bytes.r16.block{i:02d}") == \
+            bp.schedule.total_bytes
+    direct = efficientnet_b0_apply(params, torch.from_numpy(images),
+                                   cfg).float().numpy()
+    for row, rid in enumerate(rids):
+        assert got[rid].dtype == np.float32
+        np.testing.assert_array_equal(got[rid], direct[row])

@@ -296,3 +296,34 @@ def test_kernel_bench_reports_every_block_and_keeps_its_gate(capsys):
         kernel_bench.main([])
     with pytest.raises(SystemExit):
         kernel_bench.main(["--fused", "--family", "b1"])
+
+
+@pytest.mark.parametrize("args", [
+    ["--batch", "2"],
+    ["--batch", "2", "--dtype", "bf16"],
+    ["--batch", "1", "--res", "512"],
+])
+def test_kernel_bench_gate_at_small_batches(capsys, args):
+    """``kernel_bench --fused --batch N [--res SIDE] [--dtype D]`` prices B0
+    at that batch, side and storage type, prints them on every row, and
+    exits 0: fused strictly below staged at every block, B0's block 15
+    with its retain splits capped to 12 where 18 would fail the bar."""
+    rc = kernel_bench.main(["--fused", "--family", "b0", *args])
+    out = capsys.readouterr().out
+    batch = args[1]
+    dtype = args[args.index("--dtype") + 1] if "--dtype" in args else "fp32"
+    rows = [line.split(",") for line in out.splitlines()
+            if line.startswith("b0_")]
+    assert len(rows) == 16
+    assert all(row[-2:] == [batch, dtype] for row in rows)
+    assert rows[15][-3] == "12"
+    assert "fused strictly below staged on every block [family=b0]: True" \
+        in out
+    assert "fused strictly below staged on every separable block: True" \
+        in out
+    assert rc == 0
+    for bad in (["--measure", "--batch", "2"], ["--fused", "--batch", "0"],
+                ["--fused", "--block", "15"],
+                ["--fused", "--dtype", "bf16", "--mesh", "2x1"]):
+        with pytest.raises(SystemExit):
+            kernel_bench.main(bad)
