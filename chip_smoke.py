@@ -11,7 +11,10 @@ Phases, each of which must pass (exit 1 otherwise):
             nvcc per library, all started together (mbconv.cu and fusedmb.cu
             twice: fp32 and bf16 storage), each with -Xptxas -v, whose
             registers, shared memory and spills per kernel are printed for
-            the MBConv, Fused-MBConv and separable libraries.
+            the MBConv, Fused-MBConv and separable libraries; then the HMMA
+            (tensor-core product) instructions per MBConv kernel in both
+            mbconv builds' SASS (cuobjdump -sass): the bf16 build's pass 1,
+            recompute and retain must have them, the fp32 build none.
 2. kernels  full-width EfficientNet-B0, batch 8, at every serve bucket
             (224, 384, 512): on every block, with the tiles and modes the
             engine solves for that bucket, each MBConv kernel (pass 1 with
@@ -58,9 +61,12 @@ Phases, each of which must pass (exit 1 otherwise):
             on each of the 10 fused blocks (and bit for bit on a second
             call), and every MBConv kernel on each of the 30 MBConv blocks,
             at the same bar.  The kernels each block runs are timed as in
-            phase 2.  The Fused-MBConv kernel's bf16 build on each fused
-            block too, at the bf16 forward's tiles, at phase 2's bf16 bar,
-            bit for bit on a second call, timed.
+            phase 2.  The bf16 builds too, at the bf16 forward's tiles, at
+            phase 2's bf16 bar: the Fused-MBConv kernel on each fused block,
+            bit for bit on a second call, and every MBConv kernel on each
+            MBConv block (the deep tensor-core GEMMs), retain and recompute
+            bit for bit on a second call; the on-path ones timed, retain
+            beside its bf16 einsum.
 7. v2s-model    the V2-S main path: full-width V2-S at 384, batch 8, on the
             card, launch counts zeroed just before and read just after
             (exactly 10 Fused-MBConv launches, one per fused block); the
@@ -71,7 +77,9 @@ Phases, each of which must pass (exit 1 otherwise):
             the block's activation (relu or hard_swish) and, on the 8 SE
             blocks, a hard_sigmoid gate (the others run without partials,
             pool or gate), at the same bar, each timed as in phase 2 with
-            the two pass-2 routes side by side.
+            the two pass-2 routes side by side; and in bf16 at the bf16
+            forward's tiles as in phase 2 (ragged C_mid 72, 120, 184, 200
+            for the tensor cores' k16 steps), timed.
 9. v3-model     the V3 main path: full-width MobileNet-V3-Large at 224,
             batch 8, on the card, launch counts zeroed just before and read
             just after (one pass 1 on each SE or retain block), against the
@@ -448,6 +456,8 @@ class KernelStats:
                 entry.update(
                     launches=launches[f"{net}_bf16"][kernel], **sums,
                     dtype="bfloat16",
+                    past_one_ulp=sum(r["past_one_ulp"] for r in self.rows
+                                     if r["kernel"] == kernel),
                     shape=f"{title} {res}x{res} batch {BATCH} in bf16 (fp32 "
                           f"sums), "
                           f"{n} blocks of the bf16 forward's schedules; "
@@ -455,6 +465,24 @@ class KernelStats:
                           f"a stored element, expand, conv and projection "
                           f"products at the bf16 tensor-core rate, the "
                           f"rest at fp32's")
+                if kernel != "fusedmb_bf16":
+                    entry["shape"] += "; also over the V2-S and V3 blocks"
+                    for net, res in (("v2s", V2S_RES), ("v3", V3_RES)):
+                        n_net, net_sums = self.sums(kernel, net, res)
+                        entry[net] = dict(
+                            net_sums or {}, blocks=n_net,
+                            launches=launches[f"{net}_bf16"][kernel])
+                if kernel == "mbconv_pass2_retain_bf16":
+                    for net, res in (("b0", RES), ("v2s", V2S_RES),
+                                     ("v3", V3_RES)):
+                        se = [r for r in self.rows if r["kernel"] == kernel
+                              and r["net"] == net and r["res"] == res
+                              and r["on_path"] and "ms_without_gate" in r]
+                        entry.setdefault("se_blocks", {})[net] = {
+                            "blocks": len(se),
+                            "ms": sum(r["ms"] for r in se),
+                            "ms_without_gate": sum(r["ms_without_gate"]
+                                                   for r in se)}
             elif kernel == "fusedmb":
                 n, sums = self.sums(kernel, "v2s", V2S_RES)
                 entry.update(launches=launches["v2s"][kernel], **sums,
@@ -540,6 +568,39 @@ def ptxas_report():
             print(f"    {fn[:110]}: {row}")
             report[f"{source}: {fn}"] = row
     return report
+
+
+def sass_mma_counts():
+    """HMMA (tensor-core product) instructions per kernel of each MBConv
+    library, counted in its SASS (``cuobjdump -sass``): the bf16 build's
+    expand (pass 1, recompute) and retain GEMM run on tensor cores, the
+    fp32 build on none.  Returns (counts, ok)."""
+    import re
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    kernel = re.compile("|".join(PTXAS_KERNELS))
+    counts = {}
+    for name in ("mbconv", "mbconv_bf16"):
+        sass = subprocess.run([tool, "-sass", str(_build.build([name])[name])],
+                              capture_output=True, text=True,
+                              timeout=600).stdout
+        per, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                k = kernel.search(m.group(1))
+                fn = k.group(0) if k else "other"
+            elif "HMMA" in line and fn is not None:
+                per[fn] = per.get(fn, 0) + 1
+        counts[name] = per
+    total = {name: sum(per.values()) for name, per in counts.items()}
+    ok = (total["mbconv"] == 0 and all(
+        counts["mbconv_bf16"].get(k, 0) > 0
+        for k in PTXAS_KERNELS[:3]))
+    print(f"  HMMA instructions in the SASS, per kernel: {counts} "
+          f"({'ok' if ok else 'FAIL'}: the bf16 build's pass 1, recompute "
+          f"and retain on tensor cores, the fp32 build on none)")
+    return counts, ok
 
 
 def _sync(torch):
@@ -854,14 +915,22 @@ def _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp, sch,
     gate_b = None if gate is None else gate.bfloat16()
     library = ((lambda: torch.einsum("bhwc,bc,co->bhwo", dw, gate_b, w_proj))
                if se else (lambda: dw @ w_proj))
+    times = hx.times(timed(on_path),
+                     lambda: tk.mbconv_pass2_retain(dw, gate, w_proj, geo, cap),
+                     lambda: tk.mbconv_pass2_retain_plain(dw, gate, w_proj,
+                                                          geo),
+                     library)
+    if times is not None and se:
+        # the same GEMM without the gate: one product per tile in place of
+        # the three of the exact split, what the split costs
+        from repro_torch.core.telemetry import measure
+        times["ms_without_gate"] = measure(
+            lambda: tk.mbconv_pass2_retain(dw, None, w_proj, geo, cap),
+            iters=20, graph=True).mean_ms
     ok &= add("mbconv_pass2_retain", on_path, _bf16_verdict(
         got, tk.mbconv_pass2_retain_plain(dw.float(), gate, f32(w_proj),
                                           geo)),
-        hx.times(timed(on_path),
-                 lambda: tk.mbconv_pass2_retain(dw, gate, w_proj, geo, cap),
-                 lambda: tk.mbconv_pass2_retain_plain(dw, gate, w_proj, geo),
-                 library),
-        dw_b + w2_b + out_b, gate_f, proj_f)
+        times, dw_b + w2_b + out_b, gate_f, proj_f)
 
     splits = tk.retain_plan(b * oh * ow, c_mid, c_out, cap)[2]
     if splits > 1:
@@ -2692,8 +2761,9 @@ def main() -> int:
     tc._lib()
     print(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s")
     ptxas = ptxas_report()
+    hmma, sass_ok = sass_mma_counts()
 
-    phases, marks = {}, [("build", t0)]
+    phases, marks = {"build": sass_ok}, [("build", t0)]
 
     def phase(name, title):
         marks.append((name, _phase(title)))
@@ -2719,7 +2789,8 @@ def main() -> int:
         mobilenet_v3_specs)
     phases["v2s-kernels"] = chain_kernel_phase(
         torch, tk, tf, stats, "v2s", effnet_v2_block_specs(EffNetV2Config()),
-        V2S_RES, 1000 + V2S_RES, lambda on_path: on_path, ("fusedmb",))
+        V2S_RES, 1000 + V2S_RES, lambda on_path: on_path,
+        ("fusedmb", "mbconv"))
     phase("v2s-model", "v2s-model: V2-S on the card (its main path) vs the "
                        "CPU plain run")
     phases["v2s-model"], v2s_launches, forward, v2s_ms = \
@@ -2732,7 +2803,7 @@ def main() -> int:
                         f"{V3_RES}, every block")
     phases["v3-kernels"] = chain_kernel_phase(
         torch, tk, tf, stats, "v3", mobilenet_v3_specs(MobileNetV3Config()),
-        V3_RES, 2000 + V3_RES, lambda on_path: True)
+        V3_RES, 2000 + V3_RES, lambda on_path: True, ("mbconv",))
     both_modes["v3"] = stats.both_modes("v3", V3_RES)
     phase("v3-model", "v3-model: MobileNet-V3-Large on the card (its main "
                       "path) vs the CPU plain run")
@@ -2778,11 +2849,20 @@ def main() -> int:
                   f"and {MESH_SHAPES} gloo (parity runs)")
     phases["mesh"], mesh = mesh_phase(torch, tk)
     marks.append(("end", time.perf_counter()))
+    past = {}
+    for r in stats.rows:
+        if "past_one_ulp" in r:
+            key = f"{r['net']} {r['kernel']}"
+            past[key] = past.get(key, 0) + r["past_one_ulp"]
+    print(f"\nbf16 elements past 1 bf16 ulp of the plain fp32 sum (each "
+          f"within the fp32 bar): {sum(past.values())} over "
+          f"{sum('past_one_ulp' in r for r in stats.rows)} rows; {past}")
     print(f"\nphases {phases}; seconds " + " ".join(
         f"{a[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])))
 
     with open(os.path.join(out_dir, "kernels.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__, "ptxas": ptxas,
+                   "hmma": hmma,
                    "cuda": torch.version.cuda, "forward_ms": fwd_ms,
                    "trace": trace, "v2s_forward_ms": v2s_ms,
                    "v2s_trace": v2s_trace, "serve_latency_s": pct,
@@ -2794,7 +2874,7 @@ def main() -> int:
                    "mnv2_launches": mnv2_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "both_modes": both_modes,
-                   "bf16": bf16,
+                   "bf16": bf16, "bf16_past_one_ulp": past,
                    "paper": paper, "bench": bench, "mesh": mesh,
                    "rows": stats.rows}, f,
                   indent=1)
@@ -2807,7 +2887,8 @@ def main() -> int:
          "train": train_launches, "mnv2": mnv2_launches,
          "lm": lm_launches, "paper_staged_dw2d": paper_dw,
          "b0_bf16": bf16["b0"]["launches"],
-         "v2s_bf16": bf16["v2s"]["launches"]}),
+         "v2s_bf16": bf16["v2s"]["launches"],
+         "v3_bf16": bf16["v3"]["launches"]}),
         "lm_launches_per_prefill_forward": lm_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

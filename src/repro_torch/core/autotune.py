@@ -114,6 +114,10 @@ SMEM_PER_SM = 233472                # 228 KB, 1 KB of it reserved per CTA
 P1_SMEM_TARGET = SMEM_PER_SM // P1_CTAS_PER_SM - 1024
 RETAIN_K_CHUNK = 32                 # retain's K chunk (C_mid)
 RETAIN_STAGES = 3                   # retain's cp.async ring depth
+# The bf16 build's tensor-core expand and retain GEMM (mma.sync m16n8k16):
+# ring rows padded to odd multiples of 16 bytes for ldmatrix.
+MMA_M = 16                          # rows of one m16n8k16 product
+ROW_PAD_BF16 = 8                    # bf16 padding per w_exp / retain ring row
 RETAIN_TILES = ((128, 64), (64, 64), (128, 32), (64, 32))   # (BM, BN)
 RETAIN_MIN_CTAS = 2 * SM_COUNT      # split K below about two waves
 RETAIN_MIN_SPLIT_CHUNKS = 2         # K chunks each split sums at least
@@ -482,17 +486,27 @@ def pass1_cm_tile(c_mid: int) -> int:
 
 
 def _expand_smem_floats(k: int, s: int, tile_h: int, tile_w: int,
-                        c_in: int, c_mid: int) -> Tuple[int, int]:
+                        c_in: int, c_mid: int, eb: int = 4
+                        ) -> Tuple[int, int]:
     """(expanded window floats, staging ring elements) of the expand that
-    pass 1 and B2 share: the fp32 window's pixels rounded up to
-    P1_PIXEL_BLOCK and padded, and P1_SLOTS ring slots (fewer where C_in
-    has fewer chunks) of staged x and w_exp chunks in the storage type."""
+    pass 1 and B2 share at ``eb``-byte storage (mbconv.cu's
+    ``p1_window_floats`` and ``p1_stage_bytes``): the fp32 window's pixels
+    rounded up to P1_PIXEL_BLOCK and padded, and P1_SLOTS ring slots (fewer
+    where C_in has fewer chunks) of staged x and w_exp chunks in the
+    storage type.  fp32 stages each pixel at P1_CI_CHUNK + P1_PAD floats and
+    w_exp rows of the c_mid tile; the bf16 tensor-core expand stages the
+    window rounded up to whole MMA_M row groups at P1_CI_CHUNK elements a
+    pixel (swizzled, unpadded) and w_exp rows padded by ROW_PAD_BF16."""
     cmt = pass1_cm_tile(c_mid)
-    q4 = (-(-(window_extent(tile_h, k, s) * window_extent(tile_w, k, s))
-            // P1_PIXEL_BLOCK) * P1_PIXEL_BLOCK)
+    q = window_extent(tile_h, k, s) * window_extent(tile_w, k, s)
+    q4 = -(-q // P1_PIXEL_BLOCK) * P1_PIXEL_BLOCK
     slots = min(P1_SLOTS, -(-c_in // P1_CI_CHUNK))
-    return (q4 * (cmt + P1_PAD),
-            slots * (q4 * (P1_CI_CHUNK + P1_PAD) + P1_CI_CHUNK * cmt))
+    if eb == 2:
+        ring = (-(-q // MMA_M) * MMA_M * P1_CI_CHUNK
+                + P1_CI_CHUNK * (cmt + ROW_PAD_BF16))
+    else:
+        ring = q4 * (P1_CI_CHUNK + P1_PAD) + P1_CI_CHUNK * cmt
+    return q4 * (cmt + P1_PAD), slots * ring
 
 
 def pass1_smem_bytes(k: int, s: int, tile_h: int, tile_w: int, c_in: int,
@@ -503,7 +517,8 @@ def pass1_smem_bytes(k: int, s: int, tile_h: int, tile_w: int, c_in: int,
     staging ring during the expand and the fp32 DW tile and pool rows
     after it."""
     cmt = pass1_cm_tile(c_mid)
-    window, stage = _expand_smem_floats(k, s, tile_h, tile_w, c_in, c_mid)
+    window, stage = _expand_smem_floats(k, s, tile_h, tile_w, c_in, c_mid,
+                                        eb)
     after = tile_h * tile_w * (cmt + P1_PAD) + P1_THREADS // (cmt // 4) * cmt
     return window * 4 + max(stage * eb, after * 4)
 
@@ -526,7 +541,8 @@ def recompute_smem_bytes(k: int, s: int, tile_h: int, tile_w: int,
     the c_out tile, in the storage type), then the projection sums kept
     between c_mid chunks (4 floats per thread and pixel it owns)."""
     cmt, co = pass1_cm_tile(c_mid), recompute_co_tile(c_out)
-    window, stage = _expand_smem_floats(k, s, tile_h, tile_w, c_in, c_mid)
+    window, stage = _expand_smem_floats(k, s, tile_h, tile_w, c_in, c_mid,
+                                        eb)
     after = (tile_h * tile_w * (cmt + P1_PAD) * 4
              + min(P1_SLOTS, cmt // RECOMPUTE_K_CHUNK) * RECOMPUTE_K_CHUNK
              * co * eb)
@@ -538,7 +554,8 @@ def recompute_smem_bytes(k: int, s: int, tile_h: int, tile_w: int,
 def pass1_single_pass(k: int, s: int, tile_h: int, tile_w: int,
                       c_mid: int) -> bool:
     """True where pass 1 expands the tile's whole window in one pass, its
-    sums in registers (at most P1_MAX_BLOCKS pixel blocks per thread)."""
+    sums in registers (at most P1_MAX_BLOCKS pixel blocks per thread; the
+    bf16 tensor-core expand's m16 row groups cover the same pixels)."""
     lanes = P1_THREADS // (pass1_cm_tile(c_mid) // 4)
     window = window_extent(tile_h, k, s) * window_extent(tile_w, k, s)
     return window <= P1_MAX_BLOCKS * P1_PIXEL_BLOCK * lanes
@@ -583,11 +600,16 @@ def pass1_tile(b: int, out_h: int, out_w: int, c_in: int, c_mid: int,
 
 
 def retain_smem_bytes(bm: int, bn: int, eb: int = 4) -> int:
-    """Dynamic shared memory of one retain GEMM CTA (mbconv.cu's retain
-    traits): RETAIN_STAGES ring slots of the (BM, K chunk) A tile, padded,
-    and the (K chunk, BN) B tile, both in the storage type (``eb`` bytes),
-    and two fp32 K-major copies of the A tile."""
+    """Dynamic shared memory of one retain GEMM CTA (mbconv.cu's
+    ``RetainTile``): RETAIN_STAGES ring slots of the (BM, K chunk) A tile
+    and the (K chunk, BN) B tile in the storage type (``eb`` bytes).  fp32:
+    A rows padded by 4, and two fp32 K-major copies of the A tile; bf16
+    (tensor cores, fragments by ldmatrix): A and B rows padded by
+    ROW_PAD_BF16, no copies."""
     k = RETAIN_K_CHUNK
+    if eb == 2:
+        return eb * RETAIN_STAGES * (bm * (k + ROW_PAD_BF16)
+                                     + k * (bn + ROW_PAD_BF16))
     return (eb * (RETAIN_STAGES * bm * (k + 4) + RETAIN_STAGES * k * bn)
             + 4 * 2 * k * bm)
 

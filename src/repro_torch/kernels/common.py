@@ -76,6 +76,29 @@ def launch_name(kernel: str, dtype: torch.dtype) -> str:
     return kernel if dtype == torch.float32 else f"{kernel}_bf16"
 
 
+def _top16(a: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a`` with the low 16 bits of each word cleared: truncated to a
+    bf16 value, kept in fp32."""
+    return (a.view(torch.int32) & -0x10000).view(torch.float32)
+
+
+def bf16x3_split(a: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of ``mbconv.cu``'s ``bf16x3_split2``: fp32 ``a`` as three
+    bf16 tensors with hi + mid + lo == a exactly (8 significant bits each,
+    fp32's 24 together), for a == 0 and every finite |a| >= 2^-110.  hi
+    truncates a to its top 16 bits, so it keeps a's sign and exponent and
+    a - hi is exact in fp32; mid truncates that residual the same way, and
+    its own residual has at most 8 bits left, which lo holds.  The bf16
+    retain GEMM feeds the three to tensor cores in place of the gated fp32
+    operand d * gate, so each product with a bf16 weight is exact in fp32."""
+    hi = _top16(a)
+    r = a - hi
+    mid = _top16(r)
+    return (hi.to(torch.bfloat16), mid.to(torch.bfloat16),
+            (r - mid).to(torch.bfloat16))
+
+
 def storage_dtype(*tensors: Optional[torch.Tensor]) -> torch.dtype:
     """The one storage type of a kernel's activation and weight operands
     (``None`` entries skipped): one of STORAGE, the same for all, else

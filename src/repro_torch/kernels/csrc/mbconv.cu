@@ -1,4 +1,5 @@
-// Two-pass fused MBConv kernels for Hopper (sm_90a), fp32 on CUDA cores.
+// Two-pass fused MBConv kernels for Hopper (sm_90a): fp32 on CUDA cores, the
+// bf16 build's expand and retain GEMM on bf16 tensor cores.
 //
 // Replaces the three Pallas TPU kernels of the JAX package's MBConv path
 // (src/repro/kernels/convdk_mbconv.py):
@@ -33,8 +34,10 @@
 // pixel outside the image reads as 0, so its expanded value is exp_act(0),
 // exactly what the JAX kernel's zero-padded input gives.  Ragged pixels,
 // channels and rows are masked in the kernels; the wrappers pad nothing.
-// fp32 FMA on CUDA cores, no tensor cores: a 1xTF32 product misses the JAX
-// suite's 1e-4 fp32 bar.
+// The fp32 build runs fp32 FMAs on CUDA cores and no tensor cores: a
+// 1xTF32 product misses the JAX suite's 1e-4 fp32 bar.  The bf16 build's
+// expand (pass 1's and B2's) and retain GEMM run on tensor cores
+// ("Storage type" below).
 //
 // Pass 1 (bound by operations: the expand contraction over the halo'd
 // window; at B0's early blocks, with C_in 16-40, by per-pixel work and
@@ -47,7 +50,8 @@
 // the matching w_exp rows, by 16-byte cp.async copies into a P1_SLOTS ring
 // (one barrier per chunk); the pixel stride is padded against bank
 // conflicts.  The expand is a small GEMM (window pixels x C_in -> c_mid
-// tile): each thread keeps NB register blocks of 4 pixels x 4 channels of
+// tile; the bf16 build's runs on tensor cores, p1_expand_mma): in fp32
+// each thread keeps NB register blocks of 4 pixels x 4 channels of
 // independent sums across all of C_in (NB = 1, 2 or 4, whatever covers the
 // window in one pass; a larger window takes several passes), reading
 // float4s of both operands from shared memory, and writes the activated
@@ -91,7 +95,8 @@
 // sizes).  It has no halo, so (B, out_h, out_w) flattens into M and rows
 // of different images share a CTA.  Each CTA owns a BM x BN tile; K goes in
 // R_BK-deep chunks, staged by 16-byte cp.async copies into an R_STAGES ring.
-// As a chunk of A is consumed it is multiplied by the SE gate of its row's
+// In fp32 (the bf16 build's GEMM: retain_mma, on tensor cores), as a chunk
+// of A is consumed it is multiplied by the SE gate of its row's
 // image (m / (out_h * out_w)), loaded into registers a chunk ahead, which
 // rounds d * gate before the product as the plain version does, and stored
 // K-major, so the inner loop reads float4s of A and of B into a TM x 4
@@ -108,16 +113,44 @@
 // the activations and the weights (float or __nv_bfloat16), the JAX
 // kernels' x.dtype; each build of this file instantiates one of them for
 // the C interface (float, or __nv_bfloat16 with -DBF16_STORAGE), so the two
-// build in parallel.  Whatever T, every product and sum is fp32, as the
-// Pallas kernels' preferred_element_type=float32: the cp.async rings hold
-// T (the copies move bytes unconverted) and each value converts to fp32 as
-// it is read from shared memory; the expanded window, the DW tile, the SE
-// pool partials and pool, the gate, the projection sums and the split
-// partials are fp32; the retained DW tensor and the block output round
-// once to T (the Pallas kernels' dwo_ref / o_ref casts).  A 16-byte fp32
-// copy of 4 channels is an 8-byte copy at bf16, so C_in % 4 == 0 aligns
-// both; ragged channels take the element path (a plain load at bf16, which
-// cp.async cannot copy in 2 bytes).
+// build in parallel.  Whatever T, every product is exact or fp32 and every
+// sum fp32, as the Pallas kernels' preferred_element_type=float32: the
+// cp.async rings hold T (the copies move bytes unconverted); the expanded
+// window, the DW tile, the SE pool partials and pool, the gate, the
+// projection sums and the split partials are fp32; the retained DW tensor
+// and the block output round once to T (the Pallas kernels' dwo_ref /
+// o_ref casts).  A 16-byte fp32 copy of 4 channels is an 8-byte copy at
+// bf16, so C_in % 4 == 0 aligns both; ragged channels take the element
+// path (a plain load at bf16, which cp.async cannot copy in 2 bytes).
+// The fp32 kernels convert nothing; the bf16 depthwise and B2's
+// projection convert each value to fp32 as they read it.
+//
+// bf16 on tensor cores (mma.sync m16n8k16, fp32 accumulation, operands by
+// ldmatrix from rings whose rows are padded to odd multiples of 16 bytes):
+//
+//   expand     (pass 1 and B2, p1_expand_mma) x (bf16) times w_exp (bf16):
+//              a bf16 x bf16 product is exact in fp32, so one mma per k16
+//              step is the fp32 expand's function.  Each warp owns m16 row
+//              groups of the halo'd window across the c_mid tile.  Pass 1
+//              is then bound by the fp32 depthwise and its loads, not by
+//              the expand; B2's projection and every depthwise stay fp32
+//              FMAs.
+//   retain     (retain_mma) A = d x gate, rounded once in fp32 as the plain
+//              version rounds it, is not a bf16 value: one mma would round
+//              it again.  It is split exactly into three bf16 terms (8
+//              significant bits each, fp32's 24 together: bf16x3_split2,
+//              by truncation, with integer masks and byte permutes rather
+//              than the conversion pipe), once per CTA, and three mmas on
+//              the same B fragment add hi w + mid w + lo w, each product
+//              exact in fp32.  Without SE, A is the bf16 DW tensor itself:
+//              one mma.  Bound by its bytes at the bf16 rate; at B0's
+//              sizes, in practice, by latency and the split-K partials'
+//              round trip.
+//
+// No operand is rounded to a single bf16 and no product is TF32.  HMMA's
+// fp32 additions round in another order than FMAs, so the bf16 kernels are
+// held to 1 bf16 ulp of the plain fp32 sum (chip_smoke.py's
+// _bf16_verdict), not bit for bit to it; each still repeats bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -149,6 +182,10 @@ constexpr int R2_TM_SMALL = 2;          // ... at the c_out tiles that need at m
 // retain
 constexpr int R_BK = 32;                // K chunk
 constexpr int R_STAGES = 3;             // cp.async ring depth
+
+// the bf16 build's tensor-core products (pass 1's expand, B2's, retain)
+constexpr int ROW_PAD16 = 8;            // bf16 padding per staged w_exp / retain ring row
+constexpr int MMA_M = 16;               // rows of one m16n8k16 product
 
 enum Act {
   ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2, ACT_SILU = 3, ACT_SIGMOID = 4,
@@ -201,6 +238,74 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) 
   acc[3] = fmaf(a, b.w, acc[3]);
 }
 
+// ---- bf16 tensor-core products, the bf16 build's only -------------------
+// mma.sync m16n8k16 with fp32 accumulation, its operands loaded from
+// shared memory by ldmatrix: every row address 16-byte aligned, and row
+// strides an odd multiple of 16 bytes, so the 8 rows of each 8x8 matrix
+// fall in 8 different bank groups.  A fragment register holds two
+// neighbouring elements of one row, the lower column in the low half; for
+// lane l, register r of an A (16 x 16) fragment holds row l / 4 + 8 (r & 1)
+// at columns 2 (l % 4) + 8 (r >> 1) + {0, 1}, and an accumulator holds
+// rows l / 4 (c0, c1) and l / 4 + 8 (c2, c3) at columns 2 (l % 4) + {0, 1}.
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// four 8x8 b16 matrices; lanes 8 i .. 8 i + 7 address the rows of matrix i
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// ... transposed: from a K x N row-major tile, the col-major B fragments
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16 x 16, bf16) * b (16 x 8, bf16), fp32 sums.  Registers only, so
+// not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float2 unpack_bf16x2(unsigned r) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+}
+
+// a0 == hi + mid + lo exactly (and a1 likewise), three bf16 terms of 8
+// significant bits each, fp32's 24 together, packed in pairs as an mma
+// operand register (a0 in the low half), for a == 0 and every finite
+// |a| >= 2^-110.  Each term truncates: hi keeps a's top 16 bits (sign,
+// exponent, 7 stored significand bits: a bf16), so hi has a's sign and
+// exponent and r = a - hi is exact (Sterbenz), a multiple of a's fp32 ulp
+// below hi's last bit (at most 16 bits); mid keeps r's top 16 bits the same
+// way, and r - mid, exact again, has at most 8 bits left, which a bf16
+// holds: lo.  Masks, subtractions and byte permutes only, no conversion
+// instructions (a quarter of the FMA rate).  kernels/common.py's
+// bf16x3_split is its plain twin.  __fsub_rn is never contracted.
+__device__ __forceinline__ void bf16x3_split2(float a0, float a1, unsigned& hi, unsigned& mid,
+                                              unsigned& lo) {
+  constexpr unsigned TOP = 0xffff0000u;
+  const unsigned u0 = __float_as_uint(a0), u1 = __float_as_uint(a1);
+  const float r0 = __fsub_rn(a0, __uint_as_float(u0 & TOP));
+  const float r1 = __fsub_rn(a1, __uint_as_float(u1 & TOP));
+  const unsigned v0 = __float_as_uint(r0), v1 = __float_as_uint(r1);
+  const float l0 = __fsub_rn(r0, __uint_as_float(v0 & TOP));
+  const float l1 = __fsub_rn(r1, __uint_as_float(v1 & TOP));
+  hi = __byte_perm(u0, u1, 0x7632);     // the top halves of the two words
+  mid = __byte_perm(v0, v1, 0x7632);
+  lo = __byte_perm(__float_as_uint(l0), __float_as_uint(l1), 0x7632);
+}
+
 // ---------------------------------------------------------------------------
 // pass 1 (B1), whose expand and depthwise B2 shares
 // ---------------------------------------------------------------------------
@@ -234,12 +339,20 @@ __host__ __device__ inline size_t p1_window_floats(int Q, int CMT) {
 }
 
 // Bytes of the staging ring, its elements of eb bytes each (x and w_exp
-// in the storage type).
+// in the storage type).  fp32: the window's pixels rounded up to P1_TP, at
+// P1_CI + P1_PAD floats each, and P1_CI w_exp rows of CMT.  bf16 (the
+// tensor-core expand): the window rounded up to whole m16 row groups, at
+// P1_CI elements (32 bytes, swizzled: p1_xs16) each, and rows of CMT +
+// ROW_PAD16; ldmatrix reads both without bank conflicts.
 __host__ __device__ inline size_t p1_stage_bytes(int Q, int CMT, int C_in, int identity,
                                                  int eb) {
+  if (identity) return 0;
+  if (eb == 2)
+    return p1_slots(C_in) *
+           ((size_t)(Q + MMA_M - 1) / MMA_M * MMA_M * P1_CI + (size_t)P1_CI * (CMT + ROW_PAD16)) *
+           eb;
   const size_t qp = (size_t)((Q + P1_TP - 1) / P1_TP) * P1_TP;
-  return identity ? 0
-                  : p1_slots(C_in) * (qp * (P1_CI + P1_PAD) + (size_t)P1_CI * CMT) * eb;
+  return p1_slots(C_in) * (qp * (P1_CI + P1_PAD) + (size_t)P1_CI * CMT) * eb;
 }
 
 // One pass-1 CTA: the fp32 window, then one region holding the staging
@@ -262,13 +375,150 @@ __device__ __forceinline__ void load_dw_taps(const T* __restrict__ w_dw,
     wd[t] = cm < C_mid ? ldg_f(w_dw + (size_t)t * C_mid + cm) : 0.f;
 }
 
+// Element offset of channel c (0..15) of staged pixel q in a bf16 x ring
+// slot: 16 elements a pixel, the two 16-byte halves swapped on every other
+// run of 4 pixels, so the 8 rows an ldmatrix phase reads (8 pixels, one
+// half each) fall in 8 different bank groups with no padding.
+__host__ __device__ constexpr int p1_xs16(int q, int c) {
+  return q * P1_CI + (((c / 8) ^ ((q / 4) & 1)) * 8) + c % 8;
+}
+
+// The bf16 build's expand: pass 1's window GEMM (window pixels x C_in ->
+// the c_mid tile) on tensor cores.  Each ring slot stages P1_CI = 16 input
+// channels, one k16 step: the window's pixels at P1_CI bf16 each (p1_xs16;
+// 16-byte copies where C_in % 8 == 0, else 8-byte ones) and the chunk's
+// w_exp rows at CMT + ROW_PAD16.  Warp w owns the m16 row groups w, w + 8, ... of the
+// window across the whole c_mid tile (CMT / 8 n8 tiles): MB of them per
+// pass, as many fp32 sums per thread as the fp32 expand's NB register
+// blocks (MB = NB * 32 / CMT m16 groups, at least 1, cover at least the
+// pixels NB blocks do, so both take the same passes).  Per chunk a warp
+// loads the B fragments of the whole tile once (ldmatrix.trans) and one A
+// fragment per row group (ldmatrix); a bf16 x bf16 product is exact in
+// fp32 and the mma sums in fp32, the fp32 expand's function.  Ring rows
+// past the window hold whatever was there (A rows are independent, and
+// their sums are never stored); out-of-image pixels and channels past C_in
+// are zero-filled, so padding expands to exp_act(0).  The epilogue applies
+// exp_act and writes the fp32 window e_s.
+template <int CMT, int NB>
+__device__ __forceinline__ void p1_expand_mma(const __nv_bfloat16* __restrict__ x,
+                                              const __nv_bfloat16* __restrict__ w_exp,
+                                              float* e_s, __nv_bfloat16* ring, const Geom& g,
+                                              int b, int ih0, int iw0, int cm0, int exp_act) {
+  using T = __nv_bfloat16;
+  constexpr int EP = CMT + P1_PAD;      // floats per expanded pixel
+  constexpr int XP = P1_CI;             // elements per staged input pixel
+  constexpr int WP = CMT + ROW_PAD16;   // elements per staged w_exp row
+  constexpr int NJ = CMT / 8;           // n8 tiles of the c_mid tile
+  constexpr int WARPS = P1_NT / 32;
+  constexpr int MB = NB * 32 / CMT > 0 ? NB * 32 / CMT : 1;
+  const int Q = g.in_rows * g.in_cols, Q16 = (Q + MMA_M - 1) / MMA_M * MMA_M;
+  const int groups = Q16 / MMA_M;
+  const int slots = p1_slots(g.C_in);
+  T* x_s = ring;                                   // slots x Q16 x XP, then
+  T* w_s = ring + (size_t)slots * Q16 * XP;        // slots x P1_CI x WP
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const bool vec_mid = (g.C_mid & 3) == 0, vec8 = (g.C_in & 7) == 0;
+
+  auto stage = [&](int chunk, int slot) {
+    const int ci0 = chunk * P1_CI;
+    T* xb = x_s + (size_t)slot * Q16 * XP;
+    T* wb = w_s + slot * P1_CI * WP;
+    const int per = vec8 ? P1_CI / 8 : P1_CI / 4;  // copies per pixel
+    for (int i = tid; i < Q * per; i += P1_NT) {
+      const int q = i / per, j = i % per;
+      const int ih = ih0 + q / g.in_cols, iw = iw0 + q % g.in_cols;
+      const int ci = ci0 + (vec8 ? 8 : 4) * j;
+      const bool ok = ci < g.C_in && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
+      const T* src = ok ? x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci : x;
+      if (vec8)
+        cp_async<16>(xb + p1_xs16(q, 8 * j), src, ok ? 16 : 0);
+      else
+        cp4(xb + p1_xs16(q, 4 * j), src, ok ? 4 : 0);
+    }
+    for (int i = tid; i < P1_CI * (CMT / 4); i += P1_NT) {
+      const int r = i / (CMT / 4), j = i % (CMT / 4);
+      const int ci = ci0 + r, cm = cm0 + 4 * j;
+      T* dst = wb + r * WP + 4 * j;
+      const T* row = w_exp + (size_t)ci * g.C_mid;
+      if (vec_mid) {
+        const int n = ci < g.C_in ? max(0, min(4, g.C_mid - cm)) : 0;
+        cp4(dst, n ? row + cm : w_exp, n);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = ci < g.C_in && cm + u < g.C_mid;
+          cp1(dst + u, ok ? row + cm + u : w_exp, ok);
+        }
+      }
+    }
+  };
+
+  // Ring of P1_SLOTS as the fp32 expand's: chunk c + 2 is staged into the
+  // slot chunk c - 1 used, once the barrier shows every warp done with it.
+  const int n_chunks = (g.C_in + P1_CI - 1) / P1_CI;
+  const int fr = lane / 4, fc = 2 * (lane % 4);   // this lane's fragment row, column
+  for (int pass0 = 0; pass0 < groups; pass0 += MB * WARPS) {
+    float acc[MB][NJ][4];
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+        acc[mb][nj][0] = acc[mb][nj][1] = acc[mb][nj][2] = acc[mb][nj][3] = 0.f;
+    if (pass0 > 0) __syncthreads();       // the last pass is done with the ring
+#pragma unroll
+    for (int c = 0; c < P1_SLOTS - 1; ++c) {
+      if (c < n_chunks) stage(c, c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      cp_async_wait<P1_SLOTS - 2>();
+      __syncthreads();
+      if (c + P1_SLOTS - 1 < n_chunks) stage(c + P1_SLOTS - 1, (c + P1_SLOTS - 1) % slots);
+      cp_async_commit();
+      const T* xb = x_s + (size_t)(c % slots) * Q16 * XP;
+      const T* wb = w_s + (c % slots) * P1_CI * WP;
+      // B fragments of the whole c_mid tile, two n8 tiles per ldmatrix
+      unsigned bf[NJ / 2][4];
+#pragma unroll
+      for (int j = 0; j < NJ / 2; ++j)
+        ldsm_x4_trans(bf[j], wb + (lane % 16) * WP + 16 * j + 8 * (lane / 16));
+      // chunk rows past C_in were zero-filled on both sides: they add 0
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        const int gi = pass0 + warp + mb * WARPS;
+        if (gi >= groups) continue;       // uniform across the warp
+        unsigned af[4];
+        ldsm_x4(af, xb + p1_xs16(gi * MMA_M + lane % 16, 8 * (lane / 16)));
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+          mma_bf16(acc[mb][nj], af, bf[nj / 2][2 * (nj % 2)], bf[nj / 2][2 * (nj % 2) + 1]);
+      }
+    }
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      const int gi = pass0 + warp + mb * WARPS;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = gi * MMA_M + fr + 8 * h;
+        if (gi >= groups || q >= Q) continue;
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+          *reinterpret_cast<float2*>(e_s + q * EP + 8 * nj + fc) =
+              make_float2(act_apply(acc[mb][nj][2 * h], exp_act),
+                          act_apply(acc[mb][nj][2 * h + 1], exp_act));
+      }
+    }
+  }
+}
+
 // Expand 1x1 + exp_act of the halo'd window at (ih0, iw0), c_mid channels
 // [cm0, cm0 + CMT), into the fp32 e_s (QP x (CMT + P1_PAD)), staging through
-// x_s and w_s (in T).  The caller's barrier publishes e_s.
+// the ring (in T, p1_stage_bytes): fp32 FMAs on CUDA cores, or at bf16 the
+// tensor-core expand above.  The caller's barrier publishes e_s.
 template <int CMT, int NB, typename T>
 __device__ __forceinline__ void p1_expand(const T* __restrict__ x,
                                           const T* __restrict__ w_exp, float* e_s,
-                                          T* x_s, T* w_s, const Geom& g, int b,
+                                          T* ring, const Geom& g, int b,
                                           int ih0, int iw0, int cm0, int identity,
                                           int exp_act) {
   constexpr int EP = CMT + P1_PAD;      // floats per expanded pixel
@@ -279,6 +529,8 @@ __device__ __forceinline__ void p1_expand(const T* __restrict__ x,
   const int slots = p1_slots(g.C_in);
   const int tid = threadIdx.x;
   const bool vec_mid = (g.C_mid & 3) == 0;
+  T* x_s = ring;                                   // slots x QP x XP, then
+  T* w_s = ring + (size_t)slots * QP * XP;         // slots x P1_CI x CMT
 
   if (identity) {
     // C_in == C_mid (a multiple of 4): the window's channel tile straight
@@ -305,6 +557,10 @@ __device__ __forceinline__ void p1_expand(const T* __restrict__ x,
         float* e = e_s + (i / CMT) * EP + i % CMT;
         *e = act_apply(*e, exp_act);
       }
+    return;
+  }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    p1_expand_mma<CMT, NB>(x, w_exp, e_s, ring, g, b, ih0, iw0, cm0, exp_act);
     return;
   }
   auto stage = [&](int chunk, int slot) {
@@ -467,18 +723,15 @@ mbconv_pass1_kernel(const T* __restrict__ x, const T* __restrict__ w_exp,
                     T* __restrict__ dw_out, Geom g, int identity, int exp_act,
                     int dw_act) {
   constexpr int EP = CMT + P1_PAD;      // floats per expanded / DW pixel
-  constexpr int XP = P1_CI + P1_PAD;    // elements per staged input pixel
   constexpr int CG = CMT / 4;           // float4 channel groups
   constexpr int NG = P1_NT / CG;        // pixel lanes of the pool
 
   extern __shared__ float4 smem4[];
   const int Q = g.in_rows * g.in_cols, QP = (Q + P1_TP - 1) / P1_TP * P1_TP;
   const int P = g.tile_h * g.tile_w;
-  const int slots = p1_slots(g.C_in);
   float* e_s = reinterpret_cast<float*>(smem4);          // QP x EP
-  T* x_s = reinterpret_cast<T*>(e_s + (size_t)QP * EP);  // slots x QP x XP, then
-  T* w_s = x_s + (size_t)slots * QP * XP;                // slots x P1_CI x CMT
-  float* d_s = reinterpret_cast<float*>(x_s);            // P x EP after the expand
+  T* ring = reinterpret_cast<T*>(e_s + (size_t)QP * EP); // the expand's ring
+  float* d_s = reinterpret_cast<float*>(ring);           // P x EP after the expand
   float* r_s = d_s + (size_t)P * EP;                     // NG x CMT
 
   const int tile = blockIdx.x, cm0 = blockIdx.y * CMT, b = blockIdx.z;
@@ -487,7 +740,7 @@ mbconv_pass1_kernel(const T* __restrict__ x, const T* __restrict__ w_exp,
   const int tid = threadIdx.x;
   const bool vec_mid = (g.C_mid & 3) == 0;
 
-  p1_expand<CMT, NB, T>(x, w_exp, e_s, x_s, w_s, g, b, ih0, iw0, cm0, identity, exp_act);
+  p1_expand<CMT, NB, T>(x, w_exp, e_s, ring, g, b, ih0, iw0, cm0, identity, exp_act);
   __syncthreads();
   p1_depthwise<K, S, CMT, T>(e_s, w_dw, nullptr, d_s, g, cm0, oh0, ow0, dw_act);
   __syncthreads();
@@ -633,7 +886,6 @@ mbconv_pass2_recompute_kernel(const T* __restrict__ x, const T* __restrict__ w_e
                               T* __restrict__ out, Geom g, int identity, int exp_act,
                               int dw_act, int co_tile, int chunks_per_split) {
   constexpr int EP = CMT + P1_PAD;
-  constexpr int XP = P1_CI + P1_PAD;
   constexpr int STEPS = CMT / R2_KC;    // w_proj ring steps per chunk
   constexpr int WS = r2_slots(CMT);
 
@@ -642,8 +894,7 @@ mbconv_pass2_recompute_kernel(const T* __restrict__ x, const T* __restrict__ w_e
   const int P = g.tile_h * g.tile_w;
   float* e_s = reinterpret_cast<float*>(smem4);            // QP x EP
   char* region = reinterpret_cast<char*>(e_s + (size_t)QP * EP);
-  T* x_s = reinterpret_cast<T*>(region);                   // the expand's ring,
-  T* w_s = x_s + (size_t)p1_slots(g.C_in) * QP * XP;
+  T* ring = reinterpret_cast<T*>(region);                  // the expand's ring,
   float* d_s = reinterpret_cast<float*>(region);           // then P x EP
   T* p_s = reinterpret_cast<T*>(d_s + (size_t)P * EP);     // and WS x R2_KC x co_tile
   const size_t stage = p1_stage_bytes(Q, CMT, g.C_in, identity, sizeof(T));
@@ -693,7 +944,7 @@ mbconv_pass2_recompute_kernel(const T* __restrict__ x, const T* __restrict__ w_e
   for (int c = c0; c < c1; ++c) {
     const int cm0 = c * CMT;
     if (c > c0) __syncthreads();          // the last chunk is done with d_s and p_s
-    p1_expand<CMT, NB, T>(x, w_exp, e_s, x_s, w_s, g, b, ih0, iw0, cm0, identity, exp_act);
+    p1_expand<CMT, NB, T>(x, w_exp, e_s, ring, g, b, ih0, iw0, cm0, identity, exp_act);
     __syncthreads();
     // the first w_proj rows load while the DW taps run
 #pragma unroll
@@ -761,22 +1012,215 @@ mbconv_pass2_recompute_kernel(const T* __restrict__ x, const T* __restrict__ w_e
 }
 
 // ---------------------------------------------------------------------------
-// retain (B3): a split-K fp32 GEMM with the SE gate folded into A
+// retain (B3): a split-K GEMM with the SE gate folded into A
 // ---------------------------------------------------------------------------
 
-// A BM x BN CTA tile, TM x 4 outputs per thread; the A and B rings in
-// the storage type (eb bytes an element), the K-major A copies fp32.
+// A BM x BN CTA tile.  fp32: NT threads, TM x 4 outputs each, the A and B
+// rings (eb bytes an element) and two fp32 K-major A copies.  bf16: NT16
+// threads, one warp per m16 row group across all BN columns, and the rings
+// alone, A rows at AP16 and B rows at BP16 elements (an odd multiple of 16
+// bytes: ldmatrix reads them without bank conflicts).
 template <int BM, int BN, int TM>
 struct RetainTile {
   static constexpr int NT = (BM / TM) * (BN / 4);    // threads per CTA
+  static constexpr int NT16 = BM / MMA_M * 32;       // ... at bf16
   static constexpr int AP = R_BK + 4;                // elements per staged A row
+  static constexpr int AP16 = R_BK + ROW_PAD16;      // ... at bf16 (80 bytes)
+  static constexpr int BP16 = BN + ROW_PAD16;        // bf16 elements per staged B row
+  __host__ __device__ static constexpr int threads(int eb) { return eb == 2 ? NT16 : NT; }
   __host__ __device__ static constexpr size_t ring_bytes(int eb) {
-    return (R_STAGES * (size_t)BM * AP + R_STAGES * (size_t)R_BK * BN) * eb;
+    return eb == 2 ? (R_STAGES * (size_t)BM * AP16 + R_STAGES * (size_t)R_BK * BP16) * eb
+                   : (R_STAGES * (size_t)BM * AP + R_STAGES * (size_t)R_BK * BN) * eb;
   }
   __host__ __device__ static constexpr size_t smem_bytes(int eb) {
-    return ring_bytes(eb) + 2 * (size_t)R_BK * BM * sizeof(float);
+    return ring_bytes(eb) + (eb == 2 ? 0 : 2 * (size_t)R_BK * BM * sizeof(float));
   }
 };
+
+// The bf16 build's retain GEMM on tensor cores.  Warp w owns rows
+// [16 w, 16 w + 16) of the CTA tile across all BN columns (BN / 8 n8
+// tiles), its fp32 sums in registers, so each A element is read, gated and
+// split once per CTA.  Per R_BK chunk, two k16 steps: the B fragments by
+// ldmatrix.trans from the (K x N) W ring, the A fragment by ldmatrix from
+// the (M x K) ring of DW rows.  Without SE the A fragment is the bf16 DW
+// values: one mma per n8 tile, exact products summed in fp32.  With SE each
+// element is multiplied by the gate of its row's image (fp32 pairs, loaded
+// into registers a chunk ahead), which rounds d * gate once in fp32, as the
+// plain version does; that fp32 value is not a bf16 one, so it is split
+// exactly into three bf16 terms (bf16x3_split2) and three mmas on the same
+// B fragment add hi * w + mid * w + lo * w: each product exact in fp32,
+// together exactly (d * gate) * w.  No operand is ever rounded to one bf16.
+// Ragged K is zero-filled in the chunk tail (the gate too); ragged M and N
+// are masked at the stores.
+template <int BM, int BN, int TM, bool VEC>
+__device__ __forceinline__ void retain_mma(const __nv_bfloat16* __restrict__ A,
+                                           const float* __restrict__ gate,
+                                           const __nv_bfloat16* __restrict__ W,
+                                           float* __restrict__ partial,
+                                           __nv_bfloat16* __restrict__ C, int M, int K, int N,
+                                           int rows_per_img, int chunks_per_split) {
+  using T = __nv_bfloat16;
+  using Tile = RetainTile<BM, BN, TM>;
+  constexpr int NT = Tile::NT16, AP = Tile::AP16, BP = Tile::BP16, ST = R_STAGES;
+  constexpr int NJ = BN / 8;            // n8 tiles per warp
+  extern __shared__ float4 smem4[];
+  T* a_s = reinterpret_cast<T*>(smem4);                // ST x BM x AP
+  T* b_s = a_s + ST * BM * AP;                         // ST x R_BK x BP
+
+  const int tid = threadIdx.x, lane = tid % 32, wm0 = tid / 32 * MMA_M;
+  const int fr = lane / 4, fc = 2 * (lane % 4);        // fragment row, column
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n_chunks = (K + R_BK - 1) / R_BK;
+  const int c0 = blockIdx.z * chunks_per_split;
+  const int n_loc = max(0, min(n_chunks, c0 + chunks_per_split) - c0);
+
+  auto stage = [&](int t, int slot) {
+    const int k0 = (c0 + t) * R_BK;
+    T* ab = a_s + slot * BM * AP;
+    T* bb = b_s + slot * R_BK * BP;
+    if (VEC) {
+      for (int i = tid; i < BM * (R_BK / 4); i += NT) {
+        const int m = i / (R_BK / 4), j = i % (R_BK / 4);
+        const int gm = m0 + m, k = k0 + 4 * j;
+        const bool ok = gm < M && k < K;
+        cp4(ab + m * AP + 4 * j, ok ? A + (size_t)gm * K + k : A, ok ? 4 : 0);
+      }
+      for (int i = tid; i < R_BK * (BN / 4); i += NT) {
+        const int r = i / (BN / 4), j = i % (BN / 4);
+        const int k = k0 + r, n = n0 + 4 * j;
+        const bool ok = k < K && n < N;
+        cp4(bb + r * BP + 4 * j, ok ? W + (size_t)k * N + n : W, ok ? 4 : 0);
+      }
+    } else {
+      for (int i = tid; i < BM * R_BK; i += NT) {
+        const int m = i / R_BK, kk = i % R_BK;
+        const int gm = m0 + m, k = k0 + kk;
+        const bool ok = gm < M && k < K;
+        cp1(ab + m * AP + kk, ok ? A + (size_t)gm * K + k : A, ok);
+      }
+      for (int i = tid; i < R_BK * BN; i += NT) {
+        const int r = i / BN, nn = i % BN;
+        const int k = k0 + r, n = n0 + nn;
+        const bool ok = k < K && n < N;
+        cp1(bb + r * BP + nn, ok ? W + (size_t)k * N + n : W, ok);
+      }
+    }
+  };
+
+  // The gate row of the two fragment rows this lane holds (null past M or
+  // without SE), and its values at the lane's fragment columns of a chunk,
+  // as pairs: [h][k16 step][half], row fr + 8 h, columns fc + 8 half + {0, 1}
+  // (8-byte loads where K is even, so the pair is aligned).
+  const float* g_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gm = m0 + wm0 + fr + 8 * h;
+    g_row[h] = gate && gm < M ? gate + (size_t)(gm / rows_per_img) * K : nullptr;
+  }
+  const bool even_k = (K & 1) == 0;
+  float2 g_next[2][2][2];
+  auto load_gate = [&](int t) {
+    const int k0 = (c0 + t) * R_BK;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const int k = k0 + 16 * s + 8 * f + fc;
+          const float* p = g_row[h] + k;
+          g_next[h][s][f] =
+              !g_row[h] || k >= K ? make_float2(0.f, 0.f)
+              : even_k            ? __ldg(reinterpret_cast<const float2*>(p))
+                                  : make_float2(__ldg(p), k + 1 < K ? __ldg(p + 1) : 0.f);
+        }
+  };
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < n_loc) stage(s, s);
+    cp_async_commit();
+  }
+  if (gate && n_loc > 0) load_gate(0);
+  for (int t = 0; t < n_loc; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();                      // chunk t landed; slot (t - 1) % ST is free
+    if (t + ST - 1 < n_loc) stage(t + ST - 1, (t + ST - 1) % ST);
+    cp_async_commit();
+    float2 g_cur[2][2][2];
+    if (gate) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) g_cur[h][s][f] = g_next[h][s][f];
+      if (t + 1 < n_loc) load_gate(t + 1);
+    }
+    const T* ab = a_s + (t % ST) * BM * AP;
+    const T* bb = b_s + (t % ST) * R_BK * BP;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      unsigned af[4], bf[NJ / 2][4];      // bf[j]: n8 tiles 2 j and 2 j + 1
+      ldsm_x4(af, ab + (wm0 + lane % 16) * AP + 16 * s + 8 * (lane / 16));
+#pragma unroll
+      for (int j = 0; j < NJ / 2; ++j)
+        ldsm_x4_trans(bf[j], bb + (16 * s + lane % 16) * BP + 16 * j + 8 * (lane / 16));
+      if (!gate) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          mma_bf16(acc[j], af, bf[j / 2][2 * (j % 2)], bf[j / 2][2 * (j % 2) + 1]);
+        continue;
+      }
+      // register r: row fr + 8 (r & 1), columns fc + 8 (r >> 1) + {0, 1}
+      unsigned terms[3][4];               // hi, mid, lo
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 d = unpack_bf16x2(af[r]), g = g_cur[r & 1][s][r >> 1];
+        bf16x3_split2(__fmul_rn(d.x, g.x), __fmul_rn(d.y, g.y), terms[0][r], terms[1][r],
+                      terms[2][r]);
+      }
+      // one term over every n8 tile, then the next: the products into one
+      // accumulator stand NJ apart, not back to back
+#pragma unroll
+      for (int e = 0; e < 3; ++e)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          mma_bf16(acc[j], terms[e], bf[j / 2][2 * (j % 2)], bf[j / 2][2 * (j % 2) + 1]);
+    }
+  }
+
+  // rows fr and fr + 8 of the warp's m16 group, two neighbouring columns
+  // each: fp32 partials, or C rounded once to bf16
+  const bool pair = (N & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm0 + fr + 8 * h, n = n0 + 8 * j + fc;
+      if (m >= M || n >= N) continue;
+      const float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
+      const size_t at = (size_t)m * N + n;
+      if (partial) {
+        float* p = partial + (size_t)blockIdx.z * M * N + at;
+        if (pair) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          p[0] = v0;
+          if (n + 1 < N) p[1] = v1;
+        }
+      } else if (pair) {
+        *reinterpret_cast<__nv_bfloat162*>(C + at) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        C[at] = __float2bfloat16_rn(v0);
+        if (n + 1 < N) C[at + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+}
 
 // grid (ceil(N / BN), ceil(M / BM), splits).  A = dw (M, K) and W = w_proj
 // (K, N) in T, gate (B, K) fp32 or null (se off); split z sums K chunks
@@ -785,11 +1229,16 @@ struct RetainTile {
 // VEC: K and N are multiples of 4 (16-byte fp32 or 8-byte bf16 copies and
 // stores).
 template <int BM, int BN, int TM, bool VEC, typename T>
-__global__ void __launch_bounds__(RetainTile<BM, BN, TM>::NT)
+__global__ void __launch_bounds__(RetainTile<BM, BN, TM>::threads(sizeof(T)))
 mbconv_pass2_retain_kernel(const T* __restrict__ A, const float* __restrict__ gate,
                            const T* __restrict__ W, float* __restrict__ partial,
                            T* __restrict__ C, int M, int K, int N, int rows_per_img,
                            int chunks_per_split) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    retain_mma<BM, BN, TM, VEC>(A, gate, W, partial, C, M, K, N, rows_per_img,
+                                chunks_per_split);
+    return;
+  }
   using Tile = RetainTile<BM, BN, TM>;
   constexpr int NT = Tile::NT, AP = Tile::AP, ST = R_STAGES;
   extern __shared__ float4 smem4[];
@@ -1084,7 +1533,7 @@ cudaError_t launch_retain_tile(const Elem* dw, const float* gate, const Elem* w_
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   mbconv_pass2_retain_kernel<BM, BN, TM, VEC, Elem>
-      <<<grid, Tile::NT, Tile::smem_bytes(sizeof(Elem)), stream>>>(
+      <<<grid, Tile::threads(sizeof(Elem)), Tile::smem_bytes(sizeof(Elem)), stream>>>(
           dw, gate, w_proj, partial, out, M, K, N, rows_per_img, chunks_per_split);
   return cudaGetLastError();
 }

@@ -15,14 +15,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import convdk_fusedmb_fused as jax_fusedmb
 from repro.kernels import convdk_mbconv_fused as jax_mbconv
 from repro.models import mbconv as jm
 from repro.models.param import materialize as jax_materialize
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
+from repro_torch.core import autotune as at
 from repro_torch.kernels import convdk_fusedmb as tf
 from repro_torch.kernels import convdk_mbconv as tk
+from repro_torch.kernels.common import bf16x3_split
 from repro_torch.kernels.convdk_sharded import convdk_mbconv_fused_sharded
 from repro_torch.models import mbconv as tm
 from repro_torch.models.param import from_numpy
@@ -240,3 +244,103 @@ def test_other_types_raise():
     with pytest.raises(ValueError, match="ROADMAP queue A item 14"):
         tm.efficientnet_b0_apply({}, torch.zeros(2, 16, 16, 3), cfg,
                                  mesh=object())
+
+
+# The three-term split the bf16 retain GEMM feeds to tensor cores in place
+# of its gated fp32 operand d * gate (mbconv.cu's bf16x3_split2): exact for
+# 0 and every finite |a| >= 2^-110 (below it the last term falls under
+# bf16's subnormal step, 2^-133).
+FP32_MAX = float(torch.finfo(torch.float32).max)
+_SPLIT_MAGNITUDES = st.floats(min_value=2 ** -110, max_value=FP32_MAX,
+                              width=32)
+_SPLIT_VALUES = st.one_of(st.just(0.0), _SPLIT_MAGNITUDES,
+                          _SPLIT_MAGNITUDES.map(lambda v: -v))
+# products away from fp32's overflow and subnormal range, where a product
+# of two bf16 values is exact in fp32
+_PRODUCT_MAGNITUDES = st.floats(min_value=2 ** -60, max_value=2 ** 100,
+                                width=32)
+_PRODUCT_VALUES = st.one_of(st.just(0.0), _PRODUCT_MAGNITUDES,
+                            _PRODUCT_MAGNITUDES.map(lambda v: -v))
+_BF16_WEIGHTS = st.one_of(st.just(0.0), st.floats(
+    min_value=-2.0 ** 20, max_value=2.0 ** 20, width=32).filter(
+        lambda v: v == 0 or abs(v) >= 2 ** -20))
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(_SPLIT_VALUES, min_size=1, max_size=64))
+def test_bf16x3_split_reconstructs_fp32_exactly(values):
+    """hi + mid + lo, three bf16 values, is the fp32 value exactly (summed
+    in fp64, where the sum is exact)."""
+    a = torch.tensor(values, dtype=torch.float32)
+    hi, mid, lo = bf16x3_split(a)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi.double() + mid.double() + lo.double(), a.double())
+    # each term is a truncation: no wider than its residual, of its sign
+    assert bool((hi.double().abs() <= a.double().abs()).all())
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.tuples(_PRODUCT_VALUES, _BF16_WEIGHTS), min_size=1,
+                max_size=64))
+def test_bf16x3_split_products_sum_to_the_product(pairs):
+    """For a bf16 weight w, hi w + mid w + lo w (each product of two bf16
+    values, exact in fp32 away from its overflow and subnormal range)
+    summed in fp64 is a w exactly: three tensor-core products compute the
+    gated operand's product with no rounding of the operand."""
+    a = torch.tensor([p[0] for p in pairs], dtype=torch.float32)
+    w = torch.tensor([p[1] for p in pairs]).bfloat16()
+    hi, mid, lo = bf16x3_split(a)
+    for part in (hi, mid, lo):          # each product exact in fp32
+        assert torch.equal((part.float() * w.float()).double(),
+                           part.double() * w.double())
+    wd = w.double()
+    assert torch.equal(hi.double() * wd + mid.double() * wd
+                       + lo.double() * wd, a.double() * wd)
+
+
+def test_bf16_smem_mirrors_follow_the_tensor_core_layout():
+    """core.autotune's shared-memory mirrors at bf16 storage, worked by
+    hand from mbconv.cu's tensor-core layout: retain's rings with A rows of
+    32 + 8 and B rows of BN + 8 bf16 and no fp32 K-major copies; pass 1's
+    and B2's x ring at 16 bf16 a pixel over whole m16 row groups and w_exp
+    rows of the c_mid tile + 8; the fp32 formulas unchanged.  The wrapper
+    holds the built library's formulas against the same mirrors on the
+    card."""
+    assert at.retain_smem_bytes(128, 64, 2) == 2 * 3 * (128 * 40 + 32 * 72)
+    assert at.retain_smem_bytes(64, 32, 2) == 2 * 3 * (64 * 40 + 32 * 40)
+    assert at.retain_smem_bytes(128, 64) == (4 * 3 * (128 * 36 + 32 * 64)
+                                             + 4 * 2 * 32 * 128)
+    # pass 1, k3 s2, 4 x 5 tile: a 9 x 11 window (99 pixels, 100 rounded to
+    # 4 for the fp32 window, 112 to whole m16 groups for the bf16 ring),
+    # C_in 40 (3 ring slots), C_mid 72 (32-wide c_mid tile)
+    window = 100 * (32 + 4) * 4
+    after = (20 * (32 + 4) + 256 // 8 * 32) * 4
+    assert at.pass1_smem_bytes(3, 2, 4, 5, 40, 72, eb=2) == window + max(
+        3 * (112 * 16 + 16 * (32 + 8)) * 2, after)
+    assert at.pass1_smem_bytes(3, 2, 4, 5, 40, 72) == window + max(
+        3 * (100 * 20 + 16 * 32) * 4, after)
+    # B2, k5 s1, 4 x 4 tile: an 8 x 8 window, C_in 112, C_mid 672 (64-wide
+    # tile), C_out 40 (the 64-wide c_out tile): ring against the gated DW
+    # tile and the w_proj ring, then the projection sums
+    ring = 3 * (64 * 16 + 16 * (64 + 8)) * 2
+    after = 16 * 68 * 4 + 3 * 16 * 64 * 2
+    assert at.recompute_smem_bytes(5, 1, 4, 4, 112, 672, 40, eb=2) == (
+        64 * 68 * 4 + max(ring, after) + 1 * 256 * 4 * 4)
+
+
+@pytest.mark.parametrize("c_mid", [72, 200, 240, 1152])
+def test_bf16_expand_takes_the_fp32_passes(c_mid):
+    """mbconv.cu's bf16 expand gives each warp MB = NB * 32 / c_mid tile m16
+    row groups per pass (at least 1): as many fp32 sums per thread as the
+    fp32 expand's NB blocks of 4 pixels x 4 channels, covering as many
+    window pixels per pass (256 at the 64-wide c_mid tile, 512 at the
+    32-wide one), so the solver's single-pass rule and the byte model's
+    passes hold at either dtype."""
+    cmt = at.pass1_cm_tile(c_mid)
+    for nb in (1, 2, at.P1_MAX_BLOCKS):
+        mb = max(1, nb * 32 // cmt)
+        assert mb * (cmt // 8) * 4 == max(nb * 16, cmt // 2)   # sums/thread
+        fp32_px = nb * at.P1_PIXEL_BLOCK * (at.P1_THREADS // (cmt // 4))
+        bf16_px = mb * at.MMA_M * (at.P1_THREADS // 32)
+        assert bf16_px >= fp32_px
+    assert bf16_px == fp32_px == (256 if cmt == 64 else 512)

@@ -662,6 +662,96 @@ def test_mbconv_kernels_bf16_match_fp32_sum_on_card(case, monkeypatch):
     torch.cuda.synchronize()
 
 
+# The bf16 tensor-core expand (pass 1's, and B2's, which shares it): (C_in,
+# C_mid) with a ragged last k16 step (C_in 24, 40) and C_mid 72 / 200
+# (32-wide c_mid tiles, not multiples of 16) or 240 (64-wide); geometries
+# (H, W, k, s, tile_h, tile_w): 7 x 9 outputs at batch 2 (126 output rows,
+# windows of 9 x 11 = 99 pixels, neither whole m16 groups) and a 19 x 19
+# window (361 pixels: two passes at the 64-wide tile)
+_MMA_EXPANDS = [(24, 72), (40, 200), (40, 240)]
+_MMA_GEOMS = [(13, 17, 3, 2, 4, 5), (31, 33, 5, 2, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", _MMA_GEOMS, ids=["k3s2", "k5s2-two-passes"])
+@pytest.mark.parametrize("se", [True, False], ids=["se", "nose"])
+@pytest.mark.parametrize("c_in,c_mid", _MMA_EXPANDS)
+def test_bf16_expand_on_tensor_cores_on_card(c_in, c_mid, se, geom):
+    """B1 and B2 in bf16 (the expand on tensor cores): pass 1's retained DW
+    tensor and B2's output within ``_within_bf16_bar`` of the plain
+    versions' fp32 results on the same bf16 values, with SE (pool partials
+    at the fp32 bar, the pool exactly their tile-order sum) and without;
+    each bit for bit on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    h, w, k, s, tile_h, tile_w = geom
+    g = torch.Generator().manual_seed(c_in + c_mid + 10 * k + se)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x = r(2, h, w, c_in).bfloat16()
+    w_exp = (r(c_in, c_mid) / c_in ** 0.5).bfloat16()
+    w_dw = (r(k, k, c_mid) * 0.3).bfloat16()
+    w_proj = (r(c_mid, 40) / c_mid ** 0.5).bfloat16()
+    gate = torch.sigmoid(r(2, c_mid)) if se else None
+    geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+    acts = dict(exp_act="silu", dw_act="silu")
+    part, pool, dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                     retain=True, **acts)
+    part_ref, _, dw_ref = tk.mbconv_pass1_plain(
+        x.float(), w_exp.float(), w_dw.float(), geo, se=se, retain=True,
+        **acts)
+    assert dw.dtype == torch.bfloat16 and _within_bf16_bar(dw, dw_ref)
+    assert torch.equal(dw, tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se,
+                                           retain=True, **acts)[2])
+    if se:
+        _close_on_card(part, part_ref)
+        assert torch.equal(pool, tk.mbconv_pool_reduce_plain(part))
+    got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, geo,
+                                    **acts)
+    ref = tk.mbconv_pass2_recompute_plain(x.float(), w_exp.float(),
+                                          w_dw.float(), gate,
+                                          w_proj.float(), geo, **acts)
+    assert got.dtype == torch.bfloat16 and _within_bf16_bar(got, ref)
+    assert torch.equal(got, tk.mbconv_pass2_recompute(
+        x, w_exp, w_dw, gate, w_proj, geo, **acts))
+    torch.cuda.synchronize()
+
+
+# The bf16 tensor-core retain GEMM: (B, out_h, out_w, C_mid, C_out), M
+# never a multiple of 16 (126, 1150 rows), K ragged in its last chunk (72,
+# 200, 520); the four CTA tiles (64 x 32 and 64 x 64 below K 512, 128 x 64
+# and 128 x 32 above it); K 200 and 520 split unless capped at 1
+_MMA_RETAINS = [(2, 7, 9, 72, 40), (2, 7, 9, 200, 40), (2, 7, 9, 200, 72),
+                (2, 23, 25, 520, 72), (2, 23, 25, 520, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 1], ids=["planned-splits", "unsplit"])
+@pytest.mark.parametrize("se", [True, False], ids=["se", "nose"])
+@pytest.mark.parametrize("shape", _MMA_RETAINS)
+def test_bf16_retain_on_tensor_cores_on_card(shape, se, cap):
+    """B3 in bf16 (the GEMM on tensor cores; with SE, d x gate split into
+    three bf16 terms): within ``_within_bf16_bar`` of the plain version's
+    fp32 result on the same bf16 DW tensor and weights and the fp32 gate,
+    split and unsplit, bit for bit on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    b, oh, ow, c_mid, c_out = shape
+    g = torch.Generator().manual_seed(sum(shape) + se)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    dw = r(b, oh, ow, c_mid).bfloat16()
+    w_proj = (r(c_mid, c_out) / c_mid ** 0.5).bfloat16()
+    gate = torch.sigmoid(r(b, c_mid)) if se else None
+    geo = tk.MBConvGeometry.make(oh, ow, 1, 1, "SAME", oh, ow)
+    splits = retain_plan(b * oh * ow, c_mid, c_out, cap)[2]
+    assert (splits > 1) == (cap is None and c_mid > 72)
+    got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo, cap)
+    ref = tk.mbconv_pass2_retain_plain(dw.float(), gate, w_proj.float(), geo)
+    assert got.dtype == torch.bfloat16 and _within_bf16_bar(got, ref)
+    assert torch.equal(got, tk.mbconv_pass2_retain(dw, gate, w_proj, geo,
+                                                   cap))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_in,c_mid,c_out", [
     (24, 24, 24), (24, 96, 48), (70, 200, 130), (48, 192, 64)])
