@@ -12,9 +12,10 @@ Phases, each of which must pass (exit 1 otherwise):
             twice: fp32 and bf16 storage), each with -Xptxas -v, whose
             registers, shared memory and spills per kernel are printed for
             the MBConv, Fused-MBConv and separable libraries; then the HMMA
-            (tensor-core product) instructions per MBConv kernel in both
-            mbconv builds' SASS (cuobjdump -sass): the bf16 build's pass 1,
-            recompute and retain must have them, the fp32 build none.
+            (tensor-core product) instructions per kernel in both mbconv
+            and both fusedmb builds' SASS (cuobjdump -sass): the bf16
+            builds' pass 1, recompute, retain and Fused-MBConv kernel must
+            have them, the fp32 builds none.
 2. kernels  full-width EfficientNet-B0, batch 8, at every serve bucket
             (224, 384, 512): on every block, with the tiles and modes the
             engine solves for that bucket, each MBConv kernel (pass 1 with
@@ -62,11 +63,14 @@ Phases, each of which must pass (exit 1 otherwise):
             call), and every MBConv kernel on each of the 30 MBConv blocks,
             at the same bar.  The kernels each block runs are timed as in
             phase 2.  The bf16 builds too, at the bf16 forward's tiles, at
-            phase 2's bf16 bar: the Fused-MBConv kernel on each fused block,
-            bit for bit on a second call, and every MBConv kernel on each
-            MBConv block (the deep tensor-core GEMMs), retain and recompute
-            bit for bit on a second call; the on-path ones timed, retain
-            beside its bf16 einsum.
+            phase 2's bf16 bar: the Fused-MBConv kernel (conv and
+            projection on bf16 tensor cores) on each fused block, bit for
+            bit on a second call, timed beside the fp32 build (both in the
+            kernels line's fusedmb_bf16 entry, with the bound counting the
+            exact split's three projection products), and every MBConv
+            kernel on each MBConv block (the deep tensor-core GEMMs),
+            retain and recompute bit for bit on a second call; the on-path
+            ones timed, retain beside its bf16 einsum.
 7. v2s-model    the V2-S main path: full-width V2-S at 384, batch 8, on the
             card, launch counts zeroed just before and read just after
             (exactly 10 Fused-MBConv launches, one per fused block); the
@@ -465,7 +469,10 @@ class KernelStats:
                           f"a stored element, expand, conv and projection "
                           f"products at the bf16 tensor-core rate, the "
                           f"rest at fp32's")
-                if kernel != "fusedmb_bf16":
+                if kernel == "fusedmb_bf16":
+                    # the fp32 build on the same blocks in this run
+                    entry["fp32_ms"] = self.sums("fusedmb", net, res)[1]["ms"]
+                else:
                     entry["shape"] += "; also over the V2-S and V3 blocks"
                     for net, res in (("v2s", V2S_RES), ("v3", V3_RES)):
                         n_net, net_sums = self.sums(kernel, net, res)
@@ -572,15 +579,16 @@ def ptxas_report():
 
 def sass_mma_counts():
     """HMMA (tensor-core product) instructions per kernel of each MBConv
-    library, counted in its SASS (``cuobjdump -sass``): the bf16 build's
-    expand (pass 1, recompute) and retain GEMM run on tensor cores, the
-    fp32 build on none.  Returns (counts, ok)."""
+    and Fused-MBConv library, counted in its SASS (``cuobjdump -sass``):
+    the bf16 builds' expand (pass 1, recompute), retain GEMM and
+    Fused-MBConv kernel run on tensor cores, the fp32 builds on none.
+    Returns (counts, ok)."""
     import re
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     kernel = re.compile("|".join(PTXAS_KERNELS))
     counts = {}
-    for name in ("mbconv", "mbconv_bf16"):
+    for name in ("mbconv", "mbconv_bf16", "fusedmb", "fusedmb_bf16"):
         sass = subprocess.run([tool, "-sass", str(_build.build([name])[name])],
                               capture_output=True, text=True,
                               timeout=600).stdout
@@ -594,12 +602,14 @@ def sass_mma_counts():
                 per[fn] = per.get(fn, 0) + 1
         counts[name] = per
     total = {name: sum(per.values()) for name, per in counts.items()}
-    ok = (total["mbconv"] == 0 and all(
-        counts["mbconv_bf16"].get(k, 0) > 0
-        for k in PTXAS_KERNELS[:3]))
+    ok = (total["mbconv"] == 0 and total["fusedmb"] == 0
+          and all(counts["mbconv_bf16"].get(k, 0) > 0
+                  for k in PTXAS_KERNELS[:3])
+          and counts["fusedmb_bf16"].get("fusedmb_kernel", 0) > 0)
     print(f"  HMMA instructions in the SASS, per kernel: {counts} "
-          f"({'ok' if ok else 'FAIL'}: the bf16 build's pass 1, recompute "
-          f"and retain on tensor cores, the fp32 build on none)")
+          f"({'ok' if ok else 'FAIL'}: the bf16 builds' pass 1, recompute, "
+          f"retain and Fused-MBConv kernel on tensor cores, the fp32 builds "
+          f"on none)")
     return counts, ok
 
 
@@ -963,6 +973,7 @@ def _fusedmb_checks(torch, tf, stats, hx, net, res, i, row, sch,
     schedule), its bf16 build too, on the same inputs rounded to bf16,
     against the plain version's fp32 result on those values
     (``_bf16_verdict``), bit for bit on a second call, timed."""
+    from repro_torch.core.autotune import fusedmb_mid_chunk
     h, w, c_in, c_mid, c_out, k, s = row[:7]
     geo = tf.MBConvGeometry.make(h, w, k, s, "SAME", sch.tile_h, sch.tile_w)
     oh, ow, b = geo.out_h, geo.out_w, BATCH
@@ -1000,15 +1011,18 @@ def _fusedmb_checks(torch, tf, stats, hx, net, res, i, row, sch,
         print(f"  {net} r{res} block{i:02d} fusedmb bf16: worst {ulps:.3f} "
               f"bf16 ulp, {past} element(s) past 1 ulp within the fp32 bar "
               f"{bar:.3e}")
+        # the exact split issues three products per projection term
+        split = flops + 4 * b * oh * ow * c_mid * c_out
         ok &= stats.add(
             "fusedmb_bf16", net, res, i, True, err, bar,
             hx.times(True, lambda: tf.fusedmb(xb, wcb, wpb, gb, act="silu"),
                      lambda: tf.fusedmb_plain(xb, wcb, wpb, gb, act="silu")),
             nbytes // 2, 0, good=good, mma_flops=flops, bf16_ulps=ulps,
-            past_one_ulp=past,
+            past_one_ulp=past, bound_split_ms=_bound(nbytes // 2, 0,
+                                                     split)[0],
             **dict(shape, tile=f"{gb.tile_h}x{gb.tile_w}",
                    chunk=sch_bf16.chunk, ci_chunk=sch_bf16.ci_chunk,
-                   dtype="bfloat16"))
+                   mid_chunk=fusedmb_mid_chunk(c_mid), dtype="bfloat16"))
     _sync(torch)
     return ok and repeats
 

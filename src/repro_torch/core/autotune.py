@@ -16,8 +16,10 @@ full-width window does not fit a CTA's shared memory.  The solvers pick:
 * for Fused-MBConv and the separable block, the tile (and for the
   separable block its C_in splits) of least modeled SM clocks
   (``fusedmb_cost``, ``fused_separable_cost``): CTAs per SM, occupancy
-  from shared memory and registers, executed FMAs and, for the latency-
-  bound separable blocks, per-chunk costs fitted on the card.
+  from shared memory and registers, executed FMAs (the bf16 Fused-MBConv
+  build: tensor-core products and their shared-memory fragment reads)
+  and, for the latency-bound separable blocks, per-chunk costs fitted on
+  the card.
 
 An MBConv block solved to retain runs its pass 2 as a GEMM with no tile,
 so its tile is pass 1's alone (``pass1_tile``: occupancy and halo, not
@@ -147,6 +149,21 @@ FMB_L2_FLOATS_PER_CLK = 6           # weight floats an SM streams per clock
 FMB_CTA_CLOCKS = 2000               # a CTA's start: its window's load
 FMB_COST_BAND = 0.15                # costs the model cannot tell apart
 FMA_PER_CLK = 128                   # fp32 FMAs an SM issues per clock
+# The bf16 build of fusedmb.cu runs both products on bf16 tensor cores
+# (mma.sync m16n8k16; the wrapper checks these against the bf16 library):
+# the conv walks C_mid in chunks of CM, one of FMB_BF16_MID_CHUNKS
+# (``fusedmb_mid_chunk``); at CM each warp owns FMB_BF16_GROUPS[CM] m16
+# row groups of the tile's pixels; a ring slot holds FMB_BF16_K16_PER_SLOT
+# k16 steps of the conv's K (tap, 8-channel group); a CTA owns a c_out
+# tile of one of FMB_BF16_OUT_TILES channels (NC at bf16).
+FMB_BF16_MID_CHUNKS = (32, 64)
+FMB_BF16_GROUPS = {32: 2, 64: 1}    # m16 row groups per warp
+FMB_BF16_K16_PER_SLOT = 16          # k16 steps of w_conv per ring slot
+FMB_BF16_MIN_CTAS = {32: 3, 64: 2}  # __launch_bounds__ minimum
+FMB_BF16_SLOTS = 2                  # cp.async ring slots over the weights
+FMB_BF16_OUT_TILES = (24, 32, 48, 64)
+MMA_FMAS_PER_CLK = 1024             # bf16 products an SM's mma.sync issues per clock
+SMEM_BYTES_PER_CLK = 128            # shared-memory bytes an SM reads per clock
 
 # The redesigned fused-separable kernel and its split reduce
 # (kernels/csrc/separable.cu; the wrapper checks these against the built
@@ -283,36 +300,97 @@ def fusedmb_fmas_per_pixel(c_in: int, c_mid: int, c_out: int,
                          fusedmb_chunk(c_in, c_mid, c_out, k))
 
 
-def fusedmb_threads(nc: int, pixels: int) -> int:
-    """Threads of one Fused-MBConv CTA: whole warps covering the tile."""
-    ppw = FMB_PIXELS_PER_THREAD * 32 // FMB_CHUNK_LANES[nc]
-    return -(-pixels // ppw) * 32
+def fusedmb_out_tile(c_out: int) -> int:
+    """The bf16 build's c_out tile (NC there; its c_mid chunk is
+    ``fusedmb_mid_chunk``'s): of FMB_BF16_OUT_TILES, the one covering C_out
+    in the fewest tiles, then with the fewest padded channels.  At
+    EfficientNet-V2-S's widths it equals C_out, so the conv runs once per
+    pixel."""
+    return min(FMB_BF16_OUT_TILES,
+               key=lambda t: (-(-c_out // t), -(-c_out // t) * t))
+
+
+def fusedmb_mid_chunk(c_mid: int) -> int:
+    """The bf16 build's c_mid chunk CM: of FMB_BF16_MID_CHUNKS, the one
+    padding C_mid with the fewest channels, ties to the wider (24 and 96:
+    32; 192 and 256: 64)."""
+    return min(FMB_BF16_MID_CHUNKS,
+               key=lambda cm: (-(-c_mid // cm) * cm, -cm))
+
+
+def fusedmb_build_tiles(eb: int) -> Tuple[int, ...]:
+    """The tiles fusedmb.cu's build for ``eb``-byte storage exports, in the
+    order the wrapper reads them: (element bytes, tile pixel cap, ring
+    slots, fp32 pixels per thread, fp32 channel lanes per chunk, bf16 m16
+    groups per warp per c_mid chunk, bf16 k16 steps per ring slot); a
+    design's fields are 0 in the other build."""
+    if eb == 2:
+        return (2, FMB_MAX_TILE_PIXELS, FMB_BF16_SLOTS, 0,
+                dict.fromkeys(FMB_CHUNK_LANES, 0), FMB_BF16_GROUPS,
+                FMB_BF16_K16_PER_SLOT)
+    return (4, FMB_MAX_TILE_PIXELS, FMB_SLOTS, FMB_PIXELS_PER_THREAD,
+            FMB_CHUNK_LANES, dict.fromkeys(FMB_BF16_MID_CHUNKS, 0), 0)
+
+
+def _pixels_per_warp(nc: int, eb: int, cm: int) -> int:
+    return (FMB_BF16_GROUPS[cm] * MMA_M if eb == 2
+            else FMB_PIXELS_PER_THREAD * 32 // FMB_CHUNK_LANES[nc])
+
+
+def fusedmb_threads(nc: int, pixels: int, eb: int = 4, cm: int = 0) -> int:
+    """Threads of one Fused-MBConv CTA: whole warps covering the tile, at 4
+    pixels per thread across the chunk's pixel lanes (fp32), or
+    FMB_BF16_GROUPS[cm] m16 row groups a warp at c_mid chunk ``cm``
+    (bf16)."""
+    return -(-pixels // _pixels_per_warp(nc, eb, cm)) * 32
+
+
+def _window_stride(ci_chunk: int, eb: int) -> int:
+    """Elements per staged window pixel: fp32, the chunk rounded up to 4 and
+    padded to an odd number of 4-channel groups; bf16, rounded up to 8 and
+    padded to an odd multiple of 16 bytes (ldmatrix rows)."""
+    if eb == 2:
+        c8 = -(-ci_chunk // 8) * 8
+        return c8 + (0 if (c8 // 8) % 2 else 8)
+    c4 = -(-ci_chunk // 4) * 4
+    return c4 + (8 if (c4 // 4) % 2 else 4)
 
 
 def fusedmb_window_smem_bytes(in_rows: int, in_cols: int, ci_chunk: int,
-                              nc: int, eb: int = 4) -> int:
+                              nc: int, eb: int = 4, cm: int = 0) -> int:
     """Dynamic shared memory of one Fused-MBConv launch (fusedmb.cu's
-    ``fusedmb_smem_bytes``, which the wrapper checks against this): the
-    ``in_rows x in_cols`` window of ``ci_chunk`` channels (rounded up to 4
-    and padded to an odd number of 4-channel groups) and FMB_SLOTS weight
-    slots of max(c_in rows, NC) x NC, all in the storage type (``eb``
-    bytes an element: the cp.async copies move bytes unconverted)."""
+    ``fusedmb_smem_bytes``, which the wrapper checks against this), all in
+    the storage type (``eb`` bytes an element: the cp.async copies move
+    bytes unconverted).  fp32: the ``in_rows x in_cols`` window of
+    ``ci_chunk`` channels (``_window_stride``) and FMB_SLOTS weight slots of
+    max(c_in rows, NC) x NC.  bf16, at c_mid chunk ``cm``: FMB_BF16_SLOTS
+    ring slots of the larger of FMB_BF16_K16_PER_SLOT k16 steps of w_conv
+    rows (cm + 8) and cm w_proj rows (NC rounded up to 16, + 8), the
+    window, and one zero row of 8 channels."""
+    window = in_rows * in_cols * _window_stride(ci_chunk, eb)
+    if eb == 2:
+        slot = max(FMB_BF16_K16_PER_SLOT * 16 * (cm + 8),
+                   cm * (-(-nc // 16) * 16 + 8))
+        return eb * (FMB_BF16_SLOTS * slot + window + 8)
     c4 = -(-ci_chunk // 4) * 4
-    stride = c4 + (8 if (c4 // 4) % 2 else 4)
-    return eb * (in_rows * in_cols * stride + FMB_SLOTS * max(c4, nc) * nc)
+    return eb * (window + FMB_SLOTS * max(c4, nc) * nc)
 
 
 def fusedmb_launch_plan(c_in: int, c_mid: int, c_out: int, k: int, s: int,
                         tile_h: int, tile_w: int,
                         eb: int = 4) -> Tuple[int, int]:
-    """(NC, ci_chunk) of one Fused-MBConv launch at a tile: the window
-    takes all of C_in where it fits the CTA's budget, else the widest
-    multiple of 8 channels that does (the chunked fallback, which restages
-    the window per chunk).  Raises where not even 8 channels fit."""
-    nc = fusedmb_chunk(c_in, c_mid, c_out, k)
+    """(NC, ci_chunk) of one Fused-MBConv launch at a tile: NC is
+    ``fusedmb_chunk`` (fp32) or ``fusedmb_out_tile`` (bf16, at c_mid chunk
+    ``fusedmb_mid_chunk``); the window takes all of C_in where it fits the
+    CTA's budget, else the widest multiple of 8 channels that does (the
+    chunked fallback, which restages the window per chunk).  Raises where
+    not even 8 channels fit."""
+    nc = (fusedmb_out_tile(c_out) if eb == 2
+          else fusedmb_chunk(c_in, c_mid, c_out, k))
+    cm = fusedmb_mid_chunk(c_mid) if eb == 2 else 0
     rows, cols = window_extent(tile_h, k, s), window_extent(tile_w, k, s)
     for ci in [c_in] + list(range(8 * ((c_in - 1) // 8), 0, -8)):
-        if fusedmb_window_smem_bytes(rows, cols, ci, nc, eb) <= SMEM_BYTES:
+        if fusedmb_window_smem_bytes(rows, cols, ci, nc, eb, cm) <= SMEM_BYTES:
             return nc, ci
     raise ValueError(f"no Fused-MBConv window fits the CTA budget: tile "
                      f"{tile_h}x{tile_w}, k {k}, s {s}, c_in {c_in}")
@@ -325,28 +403,80 @@ def fusedmb_smem_bytes(shape: MBConvShape, tile_h: int, tile_w: int) -> int:
                                  shape.k, shape.s, tile_h, tile_w, eb)
     return fusedmb_window_smem_bytes(
         window_extent(tile_h, shape.k, shape.s),
-        window_extent(tile_w, shape.k, shape.s), ci, nc, eb)
+        window_extent(tile_w, shape.k, shape.s), ci, nc, eb,
+        fusedmb_mid_chunk(shape.c_mid) if eb == 2 else 0)
+
+
+def fusedmb_k16_steps(c_in: int, k: int, ci: int) -> Tuple[int, ...]:
+    """The bf16 conv's k16 steps per c_in chunk of ``ci`` channels: the
+    chunk's (tap, 8-channel group) pairs, two a step, the tail padded."""
+    return tuple(-(-k * k * -(-min(ci, c_in - c0) // 8) // 2)
+                 for c0 in range(0, c_in, ci))
+
+
+def fusedmb_products_per_pixel(shape: MBConvShape, ci: int) -> int:
+    """bf16: tensor-core products (FMAs) the kernel executes per output
+    pixel row at C_in window chunk ``ci``: each c_out tile runs the conv
+    over C_mid rounded up to the c_mid chunk and its k16 steps of 16, and
+    the projection at three products (the exact split) per c_mid channel
+    and c_out tile channel."""
+    nc = fusedmb_out_tile(shape.c_out)
+    chunk = fusedmb_mid_chunk(shape.c_mid)
+    cm = -(-shape.c_mid // chunk) * chunk
+    k16 = sum(fusedmb_k16_steps(shape.c_in, shape.k, ci))
+    return -(-shape.c_out // nc) * cm * (16 * k16 + 3 * nc)
+
+
+def fusedmb_executed_pixels(shape: MBConvShape, tile_h: int,
+                            tile_w: int) -> int:
+    """Pixel rows one Fused-MBConv launch computes: every CTA's pixel lanes
+    (fp32) or m16 rows (bf16), whole warps, ragged tiles included."""
+    eb = shape.dtype_bytes
+    nc = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out, shape.k,
+                             shape.s, tile_h, tile_w, eb)[0]
+    cm = fusedmb_mid_chunk(shape.c_mid) if eb == 2 else 0
+    threads = fusedmb_threads(nc, tile_h * tile_w, eb, cm)
+    tiles = -(-shape.out_h // tile_h) * -(-shape.out_w // tile_w)
+    return (shape.b * tiles * threads // 32
+            * _pixels_per_warp(nc, eb, cm))
 
 
 def fusedmb_executed_fmas(shape: MBConvShape, tile_h: int,
                           tile_w: int) -> int:
     """FMAs one Fused-MBConv launch executes: every CTA's pixel lanes
-    (whole warps, ragged tiles included) times the per-pixel FMAs."""
-    nc = fusedmb_chunk(shape.c_in, shape.c_mid, shape.c_out, shape.k)
-    lanes = (fusedmb_threads(nc, tile_h * tile_w) // 32
-             * FMB_PIXELS_PER_THREAD * 32 // FMB_CHUNK_LANES[nc])
-    tiles = -(-shape.out_h // tile_h) * -(-shape.out_w // tile_w)
-    return shape.b * tiles * lanes * fusedmb_fmas_per_pixel(
-        shape.c_in, shape.c_mid, shape.c_out, shape.k)
+    (whole warps, ragged tiles included) times the per-pixel FMAs (fp32),
+    or its m16 rows times ``fusedmb_products_per_pixel`` (bf16)."""
+    rows = fusedmb_executed_pixels(shape, tile_h, tile_w)
+    if shape.dtype_bytes == 2:
+        ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
+                                 shape.k, shape.s, tile_h, tile_w, 2)[1]
+        return rows * fusedmb_products_per_pixel(shape, ci)
+    return rows * fusedmb_fmas_per_pixel(shape.c_in, shape.c_mid,
+                                         shape.c_out, shape.k)
 
 
-def fusedmb_ctas_per_sm(nc: int, threads: int, smem: int) -> int:
+def fusedmb_ctas_per_sm(nc: int, threads: int, smem: int,
+                        eb: int = 4, cm: int = 0) -> int:
     """Resident Fused-MBConv CTAs per SM: shared memory (1 KB reserved per
     CTA), threads, and the registers the launch bounds budget (at most
-    65536 / (FMB_MIN_CTAS x the chunk's largest CTA) per thread)."""
-    max_threads = fusedmb_threads(nc, FMB_MAX_TILE_PIXELS)
+    65536 / (the minimum CTAs x the largest CTA) per thread)."""
+    max_threads = fusedmb_threads(nc, FMB_MAX_TILE_PIXELS, eb, cm)
+    min_ctas = FMB_BF16_MIN_CTAS[cm] if eb == 2 else FMB_MIN_CTAS[nc]
     return min(SMEM_PER_SM // (smem + 1024), 2048 // threads, 32,
-               FMB_MIN_CTAS[nc] * max_threads // threads)
+               min_ctas * max_threads // threads)
+
+
+def _fusedmb_smem_reads(shape: MBConvShape, nc: int, ci: int,
+                        warps: int) -> int:
+    """bf16: shared-memory bytes one CTA's warps read as fragments (512 a
+    ldmatrix.x4): per k16 step of each c_mid chunk an A fragment per m16
+    group and the chunk's B fragments, then the projection's B fragments."""
+    cm = fusedmb_mid_chunk(shape.c_mid)
+    n_cm = -(-shape.c_mid // cm)
+    k16 = sum(fusedmb_k16_steps(shape.c_in, shape.k, ci))
+    loads = n_cm * (k16 * (FMB_BF16_GROUPS[cm] + cm // 16)
+                    + cm // 16 * -(-nc // 16))
+    return warps * loads * 512
 
 
 def fusedmb_cost(shape: MBConvShape, tile_h: int,
@@ -354,28 +484,40 @@ def fusedmb_cost(shape: MBConvShape, tile_h: int,
     """Modeled SM clocks of one Fused-MBConv launch at a tile, None where
     it does not fit.  The busiest SM runs ceil(CTAs / SM_COUNT) CTAs; a CTA
     takes FMB_CTA_CLOCKS to start (its window's load) and the larger of its
-    executed FMAs at FMA_PER_CLK and its streamed weights at
-    FMB_L2_FLOATS_PER_CLK; an SM holding fewer than FMB_WARPS_PER_SM warps
-    at once (``fusedmb_ctas_per_sm`` CTAs, or fewer where the grid gives it
-    fewer) runs proportionally slower, its latencies not hidden."""
+    executed products (fp32: FMAs at FMA_PER_CLK; bf16: tensor-core
+    products at MMA_FMAS_PER_CLK, or their fragments' shared-memory reads
+    at SMEM_BYTES_PER_CLK, whichever is slower) and its streamed weights
+    at FMB_L2_FLOATS_PER_CLK x 4 bytes; an SM holding fewer than
+    FMB_WARPS_PER_SM warps at once (``fusedmb_ctas_per_sm`` CTAs, or fewer
+    where the grid gives it fewer) runs proportionally slower, its
+    latencies not hidden."""
+    eb = shape.dtype_bytes
     try:
         nc, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
-                                     shape.k, shape.s, tile_h, tile_w,
-                                     shape.dtype_bytes)
+                                     shape.k, shape.s, tile_h, tile_w, eb)
     except ValueError:
         return None
-    threads = fusedmb_threads(nc, tile_h * tile_w)
+    cm = fusedmb_mid_chunk(shape.c_mid) if eb == 2 else 0
+    threads = fusedmb_threads(nc, tile_h * tile_w, eb, cm)
     occ = fusedmb_ctas_per_sm(nc, threads,
-                              fusedmb_smem_bytes(shape, tile_h, tile_w))
+                              fusedmb_smem_bytes(shape, tile_h, tile_w), eb,
+                              cm)
     if occ < 1:
         return None
     ctas = (-(-shape.out_h // tile_h) * -(-shape.out_w // tile_w)
             * -(-shape.c_out // nc) * shape.b)
     fmas = fusedmb_executed_fmas(shape, tile_h, tile_w) / ctas
-    weights = -(-shape.c_mid // nc) * nc * (
-        shape.k * shape.k * -(-ci // 4) * 4 * -(-shape.c_in // ci) + nc)
-    per_cta = FMB_CTA_CLOCKS + max(fmas / FMA_PER_CLK,
-                                   weights / FMB_L2_FLOATS_PER_CLK)
+    if eb == 2:
+        weights = (shape.k ** 2 * shape.c_in * shape.c_mid
+                   + shape.c_mid * nc) * eb / 4
+        ops = max(fmas / MMA_FMAS_PER_CLK,
+                  _fusedmb_smem_reads(shape, nc, ci, threads // 32)
+                  / SMEM_BYTES_PER_CLK)
+    else:
+        weights = -(-shape.c_mid // nc) * nc * (
+            shape.k * shape.k * -(-ci // 4) * 4 * -(-shape.c_in // ci) + nc)
+        ops = fmas / FMA_PER_CLK
+    per_cta = FMB_CTA_CLOCKS + max(ops, weights / FMB_L2_FLOATS_PER_CLK)
     per_sm = -(-ctas // SM_COUNT)
     hide = min(1.0, min(occ, per_sm) * threads / 32 / FMB_WARPS_PER_SM)
     return per_sm * per_cta / hide
@@ -790,30 +932,33 @@ def select_fusedmb_schedule(shape: MBConvShape,
     over the map.  The band holds the tiles the model cannot tell apart;
     among them the card ran the better-occupied and then the larger tiles
     faster (fewer CTA starts and weight streams per pixel), a sweep over
-    V2-S's fused blocks at 384 batch 8 shows.  The collective (a ``pin``,
+    V2-S's fused blocks at 384 batch 8 shows (at bf16 an idle row is an
+    m16 row past the map).  The collective (a ``pin``,
     else the one of least mesh-wide bytes, ties to the ring) does not move
     the tile: both run the same kernel."""
     full = shape
     shape, eff = fusedmb_shard(full, mesh_shape)
-    nc = fusedmb_chunk(shape.c_in, shape.c_mid, shape.c_out, shape.k)
-    exact = shape.b * shape.out_h * shape.out_w * fusedmb_fmas_per_pixel(
-        shape.c_in, shape.c_mid, shape.c_out, shape.k)
+    eb = shape.dtype_bytes
+    cm = fusedmb_mid_chunk(shape.c_mid) if eb == 2 else 0
+    pixels = shape.b * shape.out_h * shape.out_w
     cands = []
     for th in range(1, min(shape.out_h, FMB_MAX_TILE_PIXELS) + 1):
         for tw in range(1, min(shape.out_w, FMB_MAX_TILE_PIXELS // th) + 1):
             cost = fusedmb_cost(shape, th, tw)
             if cost is None:
                 continue
-            threads = fusedmb_threads(nc, th * tw)
+            nc = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
+                                     shape.k, shape.s, th, tw, eb)[0]
+            threads = fusedmb_threads(nc, th * tw, eb, cm)
             ctas = (-(-shape.out_h // th) * -(-shape.out_w // tw)
                     * -(-shape.c_out // nc) * shape.b)
             warps = min(fusedmb_ctas_per_sm(
-                nc, threads, fusedmb_smem_bytes(shape, th, tw)),
+                nc, threads, fusedmb_smem_bytes(shape, th, tw), eb, cm),
                 -(-ctas // SM_COUNT)) * threads // 32
             staged = (-(-shape.out_h // th) * -(-shape.out_w // tw)
                       * window_extent(th, shape.k, shape.s)
                       * window_extent(tw, shape.k, shape.s))
-            idle = fusedmb_executed_fmas(shape, th, tw) > exact
+            idle = fusedmb_executed_pixels(shape, th, tw) > pixels
             cands.append((idle, cost, -warps, -th * tw, staged, th, tw))
     if not cands:
         raise ValueError(f"no Fused-MBConv tile fits the CTA budget: {shape}")
@@ -821,8 +966,8 @@ def select_fusedmb_schedule(shape: MBConvShape,
     th, tw = min((c for c in cands
                   if c[0] == idle and c[1] <= least * (1 + FMB_COST_BAND)),
                  key=lambda c: c[2:5])[5:]
-    _, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
-                                shape.k, shape.s, th, tw, shape.dtype_bytes)
+    nc, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
+                                 shape.k, shape.s, th, tw, eb)
     st = min((sharded_fusedmb_traffic(full, th, eff, C_BLOCK, coll)
               for coll in _collective_set(full, eff, collective)),
              key=lambda t: (t.total_bytes, _COLLECTIVE_RANK[t.collective]))

@@ -8,8 +8,8 @@ module prices the schedule the solver picked as the kernels of
 ``kernels/csrc/{mbconv,fusedmb,separable}.cu`` run it: pass 1's
 ``tile_h x tile_w`` window with its halo in both dimensions per c_mid tile
 (``pass1_cm_tile``), the retain GEMM at ``retain_plan``'s (BM, BN,
-splits), B2 at ``recompute_plan``'s (c_out tile, splits), B5 at its chunk
-and C_in window chunk (``fusedmb_launch_plan``), B4 at SEP_CI_CHUNK and
+splits), B2 at ``recompute_plan``'s (c_out tile, splits), B5 at its c_out
+tile and C_in window chunk (``fusedmb_launch_plan``), B4 at SEP_CI_CHUNK and
 its splits, and the split reduces B3' and B4'.
 
 Two levels, per launch (``LaunchTraffic``):
@@ -51,6 +51,7 @@ from dataclasses import dataclass, replace
 from typing import Tuple
 
 from .autotune import (
+    FMB_BF16_K16_PER_SLOT,
     L2_BYTES,
     P1_CI_CHUNK,
     P1_MAX_BLOCKS,
@@ -62,7 +63,9 @@ from .autotune import (
     SM_COUNT,
     C_BLOCK,
     fused_separable_launch_plan,
+    fusedmb_k16_steps,
     fusedmb_launch_plan,
+    fusedmb_mid_chunk,
     pass1_cm_tile,
     recompute_plan,
     retain_plan,
@@ -284,15 +287,18 @@ def _pass2_out(splits: int, count: int, eb: int) -> int:
 
 
 def fusedmb_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
-    """B5, the single Fused-MBConv launch, at ``sch``'s tile and the chunk
-    and C_in window chunk ``fusedmb_launch_plan`` gives it: the window once
-    per CTA (per c_mid chunk where C_in is chunked), all of w_conv and the
-    c_out tile's w_proj columns per CTA, the output once."""
+    """B5, the single Fused-MBConv launch, at ``sch``'s tile and the c_out
+    tile and C_in window chunk ``fusedmb_launch_plan`` gives it: the window
+    once per CTA (per c_mid chunk where C_in is chunked), all of w_conv and
+    the c_out tile's w_proj columns per CTA, the output once.  The c_mid
+    chunk is the c_out tile in fp32 and ``fusedmb_mid_chunk`` in bf16, whose
+    ring stages FMB_BF16_K16_PER_SLOT k16 steps of w_conv a slot."""
     b, hw_out, eb = shape.b, shape.out_h * shape.out_w, shape.dtype_bytes
     th, tw, tiles = _tiles(shape, sch.tile_h, sch.tile_w)
     nc, ci = fusedmb_launch_plan(shape.c_in, shape.c_mid, shape.c_out,
                                  shape.k, shape.s, th, tw, eb)
-    n_ci, n_cm = -(-shape.c_in // ci), -(-shape.c_mid // nc)
+    cm = fusedmb_mid_chunk(shape.c_mid) if eb == 2 else nc
+    n_ci, n_cm = -(-shape.c_in // ci), -(-shape.c_mid // cm)
     n_co = -(-shape.c_out // nc)
     win = window_pixels(shape.h, shape.w, shape.k, shape.s, th, tw)
     x_bytes = b * shape.h * shape.w * shape.c_in * eb
@@ -300,7 +306,10 @@ def fusedmb_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
     w_conv = shape.k ** 2 * shape.c_in * shape.c_mid * eb
     w_proj = shape.c_mid * shape.c_out * eb
     ctas = tiles * n_co * b
-    steps = n_cm * (n_ci * shape.k ** 2 + 1)
+    conv_steps = (sum(-(-k16 // FMB_BF16_K16_PER_SLOT) for k16 in
+                      fusedmb_k16_steps(shape.c_in, shape.k, ci))
+                  if eb == 2 else n_ci * shape.k ** 2)
+    steps = n_cm * (conv_steps + 1)
     restages = n_cm * n_ci - 1 if n_ci > 1 else 0
     return HopperTraffic((LaunchTraffic(
         "fusedmb", 1, ctas,

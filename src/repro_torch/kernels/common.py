@@ -84,14 +84,16 @@ def _top16(a: torch.Tensor) -> torch.Tensor:
 
 def bf16x3_split(a: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain twin of ``mbconv.cu``'s ``bf16x3_split2``: fp32 ``a`` as three
+    """Plain twin of ``mma.cuh``'s ``bf16x3_split2``: fp32 ``a`` as three
     bf16 tensors with hi + mid + lo == a exactly (8 significant bits each,
     fp32's 24 together), for a == 0 and every finite |a| >= 2^-110.  hi
     truncates a to its top 16 bits, so it keeps a's sign and exponent and
     a - hi is exact in fp32; mid truncates that residual the same way, and
     its own residual has at most 8 bits left, which lo holds.  The bf16
     retain GEMM feeds the three to tensor cores in place of the gated fp32
-    operand d * gate, so each product with a bf16 weight is exact in fp32."""
+    operand d * gate, and the bf16 Fused-MBConv kernel in place of the
+    activated fp32 conv sums it projects, so each product with a bf16
+    weight is exact in fp32."""
     hi = _top16(a)
     r = a - hi
     mid = _top16(r)

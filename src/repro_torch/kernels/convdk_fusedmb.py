@@ -11,9 +11,12 @@ never reaches device memory, there is no SE stage and no second pass.
 ``fusedmb`` launches the kernel for CUDA tensors and runs
 ``fusedmb_plain`` for CPU tensors; any other device raises.  ``LAUNCHES``
 counts kernel launches.  The kernel tiles the output in ``tile_h x
-tile_w`` pixels (see ``core.autotune.get_fusedmb_schedule``), walks C_mid
-in chunks of ``core.autotune.fusedmb_chunk`` channels (also its c_out
-tile) and masks SAME padding and every ragged edge itself, so the wrapper
+tile_w`` pixels (see ``core.autotune.get_fusedmb_schedule``); its fp32
+build walks C_mid in chunks of ``core.autotune.fusedmb_chunk`` channels
+(also its c_out tile), its bf16 build (bf16 tensor cores) in chunks of
+``core.autotune.fusedmb_mid_chunk`` (32 or 64) with a c_out tile of
+``core.autotune.fusedmb_out_tile`` channels.
+Both mask SAME padding and every ragged edge themselves, so the wrapper
 pads nothing.
 
 ``convdk_fusedmb_fused`` is differentiable: when an operand requires grad
@@ -32,11 +35,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.autotune import (
+    FMB_BF16_MID_CHUNKS,
     FMB_CHUNK_LANES,
-    FMB_MAX_TILE_PIXELS,
-    FMB_PIXELS_PER_THREAD,
-    FMB_SLOTS,
+    fusedmb_build_tiles,
     fusedmb_launch_plan,
+    fusedmb_mid_chunk,
     fusedmb_window_smem_bytes,
 )
 from . import _build
@@ -76,32 +79,38 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
-    """The bound build of fusedmb.cu for the storage type ``dtype``, its
-    tiles and shared-memory formula held against core.autotune's."""
+    """The bound build of fusedmb.cu for the storage type ``dtype`` (fp32
+    FMAs, or bf16 tensor cores), its tiles and shared-memory formula held
+    against core.autotune's."""
     lib = _build.load(_LIBRARIES[dtype])
-    lib.fusedmb.argtypes = [_P] * 4 + [_I] * 17 + [_P]
+    lib.fusedmb.argtypes = [_P] * 4 + [_I] * 18 + [_P]
     lib.fusedmb.restype = ctypes.c_int
     lib.fusedmb_error_string.argtypes = [ctypes.c_int]
     lib.fusedmb_error_string.restype = ctypes.c_char_p
-    lib.fusedmb_smem_bytes.argtypes = [_I] * 4
+    lib.fusedmb_smem_bytes.argtypes = [_I] * 5
     lib.fusedmb_smem_bytes.restype = ctypes.c_size_t
     built = (lib.fusedmb_element_bytes(), lib.fusedmb_max_tile_pixels(),
-             lib.fusedmb_pixels_per_thread(), lib.fusedmb_ring_slots(),
-             {nc: lib.fusedmb_chunk_lanes(nc) for nc in FMB_CHUNK_LANES})
-    want = (dtype.itemsize, FMB_MAX_TILE_PIXELS, FMB_PIXELS_PER_THREAD,
-            FMB_SLOTS, FMB_CHUNK_LANES)
+             lib.fusedmb_ring_slots(), lib.fusedmb_pixels_per_thread(),
+             {nc: lib.fusedmb_chunk_lanes(nc) for nc in FMB_CHUNK_LANES},
+             {cm: lib.fusedmb_groups_per_warp(cm)
+              for cm in FMB_BF16_MID_CHUNKS},
+             lib.fusedmb_k16_per_slot())
+    want = fusedmb_build_tiles(dtype.itemsize)
     if built != want:
         raise RuntimeError(f"fusedmb.cu tiles {built} disagree with "
                            f"core.autotune {want}")
-    # the solver's shared-memory budget against the launcher's
+    # the solver's shared-memory budget against the launcher's, at each
+    # c_mid chunk of the bf16 build
     for args in _SMEM_PROBES:
-        got = lib.fusedmb_smem_bytes(*args)
-        model = fusedmb_window_smem_bytes(*args, eb=dtype.itemsize)
-        if got != model:
-            raise RuntimeError(f"fusedmb.cu asks for {got} B of shared "
-                               f"memory at (rows, cols, ci_chunk, chunk) "
-                               f"{args}; core.autotune budgets "
-                               f"{model} B")
+        for cm in (FMB_BF16_MID_CHUNKS if dtype.itemsize == 2 else (0,)):
+            got = lib.fusedmb_smem_bytes(*args, cm)
+            model = fusedmb_window_smem_bytes(*args, eb=dtype.itemsize,
+                                              cm=cm)
+            if got != model:
+                raise RuntimeError(
+                    f"fusedmb.cu asks for {got} B of shared memory at "
+                    f"(rows, cols, ci_chunk, chunk, c_mid chunk) "
+                    f"{(*args, cm)}; core.autotune budgets {model} B")
     return lib
 
 
@@ -140,13 +149,14 @@ def fusedmb(x: torch.Tensor, w_conv: torch.Tensor, w_proj: torch.Tensor,
     nc, ci_chunk = fusedmb_launch_plan(c_in, c_mid, c_out, geo.k, geo.s,
                                        geo.tile_h, geo.tile_w,
                                        dtype.itemsize)
+    cm = fusedmb_mid_chunk(c_mid) if dtype.itemsize == 2 else 0
     out = torch.empty((b, geo.out_h, geo.out_w, c_out), device=x.device,
                       dtype=dtype)
     lib = _lib(dtype)
     err = lib.fusedmb(ptr(x), ptr(w_conv), ptr(w_proj), ptr(out), b, h, w,
                       c_in, c_mid, c_out, geo.k, geo.s, geo.out_h, geo.out_w,
                       geo.pads[0][0], geo.pads[1][0], geo.tile_h, geo.tile_w,
-                      nc, ci_chunk, ACT_CODES[act],
+                      nc, cm, ci_chunk, ACT_CODES[act],
                       torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fusedmb ({dtype}) did not launch: "

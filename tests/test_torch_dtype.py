@@ -328,6 +328,42 @@ def test_bf16_smem_mirrors_follow_the_tensor_core_layout():
         64 * 68 * 4 + max(ring, after) + 1 * 256 * 4 * 4)
 
 
+def test_fusedmb_bf16_smem_mirrors_follow_the_tensor_core_layout():
+    """core.autotune's Fused-MBConv mirrors at bf16 storage, worked by hand
+    from fusedmb.cu's tensor-core layout: 2 ring slots of 16 k16 steps of
+    w_conv rows, at c_mid chunk 32 of 32 + 8 bf16 (16 x 16 x 40 = 10240),
+    at chunk 64 of 64 + 8 (18432; more than the chunk's w_proj rows of the
+    c_out tile rounded up to 16, + 8); the window at C_in rounded
+    up to 8 and padded to an odd multiple of 16 bytes (24 -> 24, 48 -> 56,
+    64 -> 72, 70 -> 72); one zero row of 8; the build's tile constants; the
+    fp32 formula unchanged.  The wrapper holds the built library's against
+    the same mirrors on the card."""
+    ring32, ring64 = 2 * 16 * 16 * 40, 2 * 16 * 16 * 72
+    assert at.fusedmb_window_smem_bytes(10, 18, 24, 24, eb=2, cm=32) == \
+        2 * (ring32 + 180 * 24 + 8) == 49616
+    assert at.fusedmb_window_smem_bytes(10, 18, 48, 48, eb=2, cm=32) == \
+        2 * (ring32 + 180 * 56 + 8) == 61136
+    assert at.fusedmb_window_smem_bytes(17, 33, 24, 48, eb=2, cm=32) == \
+        2 * (ring32 + 561 * 24 + 8) == 67904
+    assert at.fusedmb_window_smem_bytes(10, 18, 64, 64, eb=2, cm=64) == \
+        2 * (ring64 + 180 * 72 + 8) == 99664
+    assert at.fusedmb_window_smem_bytes(17, 33, 48, 64, eb=2, cm=64) == \
+        2 * (ring64 + 561 * 56 + 8) == 136576
+    assert at.fusedmb_window_smem_bytes(19, 35, 70, 48, eb=2, cm=32) == \
+        2 * (ring32 + 665 * 72 + 8) == 136736
+    # fp32: the window at 24 + 4 floats a pixel, two 24 x 24 weight slots
+    assert at.fusedmb_window_smem_bytes(10, 18, 24, 24) == \
+        4 * (180 * 28 + 2 * 24 * 24) == 24768
+    assert at.fusedmb_build_tiles(2) == (
+        2, 128, 2, 0, {24: 0, 32: 0, 48: 0, 64: 0}, {32: 2, 64: 1}, 16)
+    assert at.fusedmb_build_tiles(4) == (
+        4, 128, 2, 4, {24: 2, 32: 4, 48: 4, 64: 8}, {32: 0, 64: 0}, 0)
+    # the C_in 70 window takes all of C_in at bf16 (136736 B) and at fp32
+    assert at.fusedmb_launch_plan(70, 200, 130, 5, 2, 8, 16, eb=2) == \
+        (48, 70)
+    assert at.fusedmb_launch_plan(70, 200, 130, 5, 2, 8, 16)[1] == 70
+
+
 @pytest.mark.parametrize("c_mid", [72, 200, 240, 1152])
 def test_bf16_expand_takes_the_fp32_passes(c_mid):
     """mbconv.cu's bf16 expand gives each warp MB = NB * 32 / c_mid tile m16

@@ -15,13 +15,18 @@ from repro.models.mbconv import EffNetV2Config, effnet_v2_block_specs
 from repro_torch.core import perfmodel as tperf
 from repro_torch.core.autotune import (
     C_BLOCK,
+    FMB_BF16_GROUPS,
     FMB_CHUNK_LANES,
     FMB_MAX_TILE_PIXELS,
+    MMA_M,
     SMEM_BYTES,
     fusedmb_chunk,
     fusedmb_executed_fmas,
+    fusedmb_executed_pixels,
     fusedmb_fmas_per_pixel,
     fusedmb_launch_plan,
+    fusedmb_mid_chunk,
+    fusedmb_out_tile,
     fusedmb_smem_bytes,
     fusedmb_threads,
     fusedmb_window_smem_bytes,
@@ -29,6 +34,8 @@ from repro_torch.core.autotune import (
     window_extent,
 )
 from repro_torch.kernels import convdk_fusedmb as tf
+from repro_torch.kernels.common import bf16x3_split
+from repro_torch.kernels.ref import _act_ref, pad_nhwc
 from repro_torch.kernels.ref import fusedmb_ref as torch_fusedmb_ref
 
 TOL = 1e-4   # the JAX suite's fp32 kernel-vs-ref bar (max abs error)
@@ -187,3 +194,141 @@ def test_fusedmb_threads_cover_the_tile():
     assert [fusedmb_threads(nc, 128) for nc in (64, 48, 32, 24)] == \
         [256, 128, 128, 64]
     assert fusedmb_threads(48, 33) == 64 and fusedmb_threads(24, 1) == 32
+
+
+# The fp32 solver's V2-S picks at 384, (tile_h, tile_w) per fused block at
+# batches 1, 2, 4 and 8: the bf16 tensor-core design moves none of them.
+FP32_PICKS = {
+    1: [(8, 16)] * 10,
+    2: [(8, 16)] * 10,
+    4: [(8, 16), (8, 16), (8, 12), (8, 8), (8, 8), (8, 8), (8, 16), (8, 16),
+        (8, 16), (8, 16)],
+    8: [(8, 16), (8, 16), (8, 12), (8, 16), (8, 16), (8, 16), (8, 8), (6, 8),
+        (6, 8), (6, 8)],
+}
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4, 8])
+def test_bf16_schedules_fit_and_cover_the_tile_in_m16_groups(batch):
+    """At every V2-S fused row at 384: the bf16 schedule's tile fits the
+    CTA (pixels, the launcher's shared memory with all of C_in in the
+    window), its c_out tile is C_out, and its warps' m16 row groups cover
+    the tile with no idle row and the map with no ragged tile, so the
+    tensor cores compute exactly the map's pixels; the fp32 picks are the
+    pinned ones, chunks and bytes unchanged."""
+    for sh, fp32_tile in zip(_v2s_fused_shapes(384, batch),
+                             FP32_PICKS[batch]):
+        sch = get_fusedmb_schedule(**sh, dtype_bytes=2)
+        shape = tperf.MBConvShape(**sh, se_ratio=0.0, dtype_bytes=2)
+        th, tw = sch.tile_h, sch.tile_w
+        assert th * tw <= FMB_MAX_TILE_PIXELS
+        nc, ci = fusedmb_launch_plan(sh["c_in"], sh["c_mid"], sh["c_out"],
+                                     sh["k"], sh["s"], th, tw, 2)
+        assert (sch.chunk, sch.ci_chunk) == (nc, ci) == (sh["c_out"],
+                                                         sh["c_in"])
+        assert fusedmb_smem_bytes(shape, th, tw) <= SMEM_BYTES
+        cm = fusedmb_mid_chunk(sh["c_mid"])
+        rows = (fusedmb_threads(nc, th * tw, 2, cm) // 32
+                * FMB_BF16_GROUPS[cm] * MMA_M)
+        assert rows == th * tw and th * tw % MMA_M == 0
+        assert fusedmb_executed_pixels(shape, th, tw) == (
+            batch * shape.out_h * shape.out_w)
+        f32 = get_fusedmb_schedule(**sh)
+        assert (f32.tile_h, f32.tile_w) == fp32_tile
+        assert f32.chunk == fusedmb_chunk(sh["c_in"], sh["c_mid"],
+                                          sh["c_out"], sh["k"])
+
+
+def test_bf16_chunks_and_threads():
+    """The bf16 build's c_out tile covers C_out in the fewest tiles, then
+    with the least padding (130: three of 48); its c_mid chunk pads C_mid
+    least, ties to 64 (V2-S: 24 and 96 take 32, 192 and 256 take 64); its
+    CTAs are whole warps of two m16 groups at chunk 32 (32 pixels a warp)
+    or one at chunk 64 (16 pixels a warp), 128 pixels at most."""
+    assert [fusedmb_out_tile(c) for c in (4, 24, 32, 40, 48, 64, 130)] == \
+        [24, 24, 32, 48, 48, 64, 48]
+    assert [fusedmb_mid_chunk(c) for c in (8, 24, 40, 96, 192, 200, 256,
+                                           1152)] == \
+        [32, 32, 64, 32, 64, 32, 64, 64]
+    pixels = (1, 15, 32, 33, 96, 128)
+    assert [fusedmb_threads(64, p, 2, 32) for p in pixels] == \
+        [32, 32, 32, 64, 96, 128]
+    assert [fusedmb_threads(64, p, 2, 64) for p in pixels] == \
+        [32, 32, 64, 96, 192, 256]
+
+
+def _flat_k_rows(c_in, k):
+    """fusedmb.cu's bf16 conv K, row by row: (tap, channel) of w_conv's
+    (k*k*C_in, C_mid) view for flattened row kr = 8 * group + kr % 8, the
+    8-channel groups of all taps in order, or None for a zero row (past
+    C_in in a tap's last group, or in the k16 tail past the last tap)."""
+    ng = -(-c_in // 8)
+    n_rows = -(-k * k * ng // 2) * 16
+    out = []
+    for kr in range(n_rows):
+        gi = kr // 8
+        tap, ch = gi // ng, (gi % ng) * 8 + kr % 8
+        out.append((tap, ch) if tap < k * k and ch < c_in else None)
+    return out
+
+
+def _tensor_core_emulation(x, w_conv, w_proj, geo, act):
+    """Plain emulation of the bf16 build's arithmetic (fusedmb.cu,
+    fusedmb_mma), fp32 out: the conv as an implicit GEMM over the
+    flattened (tap, 8-channel group) K in k16 steps, each step's bf16 x
+    bf16 products (exact in fp32) summed in fp32 into the running sums,
+    zero rows where ``_flat_k_rows`` says; the activation; C_mid padded to
+    the c_mid chunk (32 or 64) with zero channels; the projection as the sum of the
+    three exact split terms' products, step by step and term by term."""
+    k = w_conv.shape[0]
+    c_in, (c_mid, c_out) = x.shape[3], w_proj.shape
+    oh, ow, s = geo.out_h, geo.out_w, geo.s
+    xp = pad_nhwc(x.float(), geo.pads)
+    taps = [xp[:, kh:kh + s * (oh - 1) + 1:s, kw:kw + s * (ow - 1) + 1:s]
+            for kh in range(k) for kw in range(k)]
+    rows = _flat_k_rows(c_in, k)
+    zero = torch.zeros(x.shape[0], oh, ow)
+    a = torch.stack([zero if r is None else taps[r[0]][..., r[1]]
+                     for r in rows], -1).reshape(-1, len(rows))
+    wc = w_conv.float().reshape(k * k * c_in, c_mid)
+    chunk = fusedmb_mid_chunk(c_mid)
+    cm = -(-c_mid // chunk) * chunk
+    b = torch.zeros(len(rows), cm)
+    for kr, r in enumerate(rows):
+        if r is not None:
+            b[kr, :c_mid] = wc[r[0] * c_in + r[1]]
+    e = torch.zeros(a.shape[0], cm)
+    for k0 in range(0, len(rows), 16):
+        e = e + a[:, k0:k0 + 16] @ b[k0:k0 + 16]
+    e = _act_ref(e, act)
+    e[:, c_mid:] = 0.0
+    wp = torch.zeros(cm, c_out)
+    wp[:c_mid] = w_proj.float()
+    out = torch.zeros(a.shape[0], c_out)
+    terms = bf16x3_split(e)
+    for k0 in range(0, cm, 16):
+        for term in terms:
+            out = out + term[:, k0:k0 + 16].float() @ wp[k0:k0 + 16]
+    return out.reshape(x.shape[0], oh, ow, c_out)
+
+
+@pytest.mark.parametrize("block", range(10))
+def test_tensor_core_arithmetic_matches_plain_at_v2s_widths(block):
+    """The bf16 build's arithmetic, emulated in plain PyTorch, against
+    ``fusedmb_plain``'s fp32 result on the same bf16 inputs, at the V2-S
+    fused block's widths and stride on a small ragged map, within the
+    fp32 bar (1e-4 x max|plain| + 1e-5): the flattened K, its zero rows
+    and tail, the padded c_mid chunk and the three-term projection
+    compute the plain version's function."""
+    sh = _v2s_fused_shapes(384)[block]
+    rng = np.random.default_rng(block)
+    x, w_conv, w_proj = (torch.from_numpy(a).bfloat16() for a in _inputs(
+        rng, h=9, w=11, c_in=sh["c_in"], c_mid=sh["c_mid"],
+        c_out=sh["c_out"], k=sh["k"]))
+    geo = tf.MBConvGeometry.make(9, 11, sh["k"], sh["s"], "SAME", 4, 8)
+    ref = tf.fusedmb_plain(x.float(), w_conv.float(), w_proj.float(), geo,
+                           act="silu")
+    got = _tensor_core_emulation(x, w_conv, w_proj, geo, "silu")
+    assert got.shape == ref.shape
+    tol = 1e-4 * float(ref.abs().max()) + 1e-5
+    assert float((got - ref).abs().max()) <= tol

@@ -24,7 +24,12 @@ from repro_torch.configs import mamba2_2p7b
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
 from repro_torch.core.autotune import fused_separable_launch_plan as launch_plan
-from repro_torch.core.autotune import recompute_plan, retain_plan
+from repro_torch.core.autotune import (
+    fusedmb_launch_plan,
+    get_fusedmb_schedule,
+    recompute_plan,
+    retain_plan,
+)
 from repro_torch.benchmarks import kernel_bench, serve_report
 from repro_torch.core.autotune import benchmark_mbconv_sweep
 from repro_torch.examples import (
@@ -46,8 +51,10 @@ from repro_torch.kernels.ref import (
 )
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.mbconv import (
+    EffNetV2Config,
     EfficientNetB0,
     EfficientNetV2S,
+    effnet_v2_block_specs,
     efficientnet_b0_def,
 )
 from repro_torch.launch import serve as launch_serve
@@ -455,14 +462,15 @@ def test_pass1_pool_fold_exact_on_card(b, h, w, c_in, c_mid, k, s, tile_h,
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_in,c_mid,c_out", [
     (3, 24, 24), (24, 24, 24), (24, 96, 48), (40, 72, 40), (48, 96, 48),
-    (16, 32, 32), (24, 128, 64), (70, 200, 130)])
+    (16, 32, 32), (24, 128, 64), (70, 200, 130), (130, 72, 40)])
 @pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 2)])
 def test_fusedmb_kernel_matches_plain_on_card(k, s, c_in, c_mid, c_out,
                                              monkeypatch):
     """B5 at odd shapes: ragged 23x23 maps and tiles (3x5, 8x8, 8x16),
     every chunk (24, 32, 48, 64), C_in / C_mid / C_out that are not
     multiples of 4 or of the chunk, several c_out tiles (130), and the
-    chunked c_in window (C_in 70, 5x5, stride 2 at 8x16)."""
+    chunked c_in window (C_in 130 at stride 2: 8x16 at k 3 and 5, 8x8 at
+    k 5)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     # the plain side's conv and matmul in full fp32, for this test only
@@ -755,13 +763,16 @@ def test_bf16_retain_on_tensor_cores_on_card(shape, se, cap):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_in,c_mid,c_out", [
     (24, 24, 24), (24, 96, 48), (70, 200, 130), (48, 192, 64)])
-@pytest.mark.parametrize("k,s", [(3, 1), (3, 2)])
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 1), (5, 2)])
 def test_fusedmb_kernel_bf16_matches_fp32_sum_on_card(k, s, c_in, c_mid,
                                                       c_out, monkeypatch):
-    """B5 in bf16 at ragged 23x23 maps and tiles, every chunk, channel
-    counts that are not multiples of 4 and the chunked c_in window: within
-    ``_within_bf16_bar`` of the plain version's fp32 result on the same
-    bf16 values, bit for bit on a second call."""
+    """B5 in bf16 (both products on tensor cores) at ragged 23x23 maps and
+    tiles, k 3 and 5 at both strides, every c_out tile, a C_mid not a
+    multiple of the 32-channel chunk, channel counts that are not
+    multiples of 4 (C_in 70: 8-channel K groups with a zero-filled tail)
+    and several c_out tiles (130): within ``_within_bf16_bar`` of the plain
+    version's fp32 result on the same bf16 values, bit for bit on a second
+    call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -773,6 +784,70 @@ def test_fusedmb_kernel_bf16_matches_fp32_sum_on_card(k, s, c_in, c_mid,
     w_proj = (r(c_mid, c_out) / c_mid ** 0.5).bfloat16()
     for tile_h, tile_w in ((8, 8), (3, 5), (8, 16)):
         geo = tk.MBConvGeometry.make(23, 23, k, s, "SAME", tile_h, tile_w)
+        got = tf.fusedmb(x, w_conv, w_proj, geo, act="silu")
+        ref = tf.fusedmb_plain(x.float(), w_conv.float(), w_proj.float(),
+                               geo, act="silu")
+        assert got.dtype == torch.bfloat16 and _within_bf16_bar(got, ref)
+        assert torch.equal(got, tf.fusedmb(x, w_conv, w_proj, geo,
+                                           act="silu"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_mid,c_out,k,s", [
+    (250, 200, 130, 5, 2), (200, 96, 48, 3, 2), (160, 64, 64, 5, 2)])
+def test_fusedmb_kernel_bf16_chunked_window_on_card(c_in, c_mid, c_out, k, s,
+                                                    monkeypatch):
+    """B5 in bf16 where the window does not hold all of C_in at 8x16 and the
+    kernel restages it per c_in chunk (136 + 114 channels, the second
+    chunk's k16 tail zero-filled; 168 + 32; 104 + 56), on a ragged 23x23
+    map, with a ragged C_mid and several c_out tiles: within
+    ``_within_bf16_bar`` of the plain version's fp32 result on the same
+    bf16 values, bit for bit on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    assert fusedmb_launch_plan(c_in, c_mid, c_out, k, s, 8, 16, 2)[1] < c_in
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(400 + 10 * k + c_in)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x = r(2, 23, 23, c_in).bfloat16()
+    w_conv = (r(k, k, c_in, c_mid) / (k * k * c_in) ** 0.5).bfloat16()
+    w_proj = (r(c_mid, c_out) / c_mid ** 0.5).bfloat16()
+    geo = tk.MBConvGeometry.make(23, 23, k, s, "SAME", 8, 16)
+    got = tf.fusedmb(x, w_conv, w_proj, geo, act="silu")
+    ref = tf.fusedmb_plain(x.float(), w_conv.float(), w_proj.float(), geo,
+                           act="silu")
+    assert got.dtype == torch.bfloat16 and _within_bf16_bar(got, ref)
+    assert torch.equal(got, tf.fusedmb(x, w_conv, w_proj, geo, act="silu"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", range(10))
+def test_fusedmb_kernel_bf16_at_v2s_widths_on_card(block, monkeypatch):
+    """B5 in bf16 at each of EfficientNet-V2-S's 10 Fused-MBConv blocks'
+    widths, kernel and stride on a small 20x20 map, batch 2, at the bf16
+    schedule's tile for that map and at 3x5: within ``_within_bf16_bar``
+    of the plain version's fp32 result on the same bf16 values, bit for
+    bit on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    sp = [sp for sp in effnet_v2_block_specs(EffNetV2Config())
+          if sp.family == "fusedmb"][block]
+    sch = get_fusedmb_schedule(2, 20, 20, sp.c_in, sp.c_mid, sp.c_out, sp.k,
+                               sp.s, dtype_bytes=2)
+    g = torch.Generator().manual_seed(300 + block)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x = r(2, 20, 20, sp.c_in).bfloat16()
+    w_conv = (r(sp.k, sp.k, sp.c_in, sp.c_mid)
+              / (sp.k * sp.k * sp.c_in) ** 0.5).bfloat16()
+    w_proj = (r(sp.c_mid, sp.c_out) / sp.c_mid ** 0.5).bfloat16()
+    for tile_h, tile_w in ((sch.tile_h, sch.tile_w), (3, 5)):
+        geo = tk.MBConvGeometry.make(20, 20, sp.k, sp.s, "SAME", tile_h,
+                                     tile_w)
         got = tf.fusedmb(x, w_conv, w_proj, geo, act="silu")
         ref = tf.fusedmb_plain(x.float(), w_conv.float(), w_proj.float(),
                                geo, act="silu")

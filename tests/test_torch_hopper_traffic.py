@@ -123,6 +123,18 @@ def test_fusedmb_worked_by_hand():
         LaunchTraffic("fusedmb", 1, 1, 1536, 256, 1536, 0, 10),)
 
 
+def test_fusedmb_bf16_worked_by_hand():
+    """The same block at bf16 storage: the tensor-core build's c_out tile
+    24 (the one covering C_out 4), C_mid 8 in one 32-channel chunk.  x 128,
+    w_conv 9 x 4 x 8 x 2 = 576, w_proj 64; out 128; 9 taps of one
+    8-channel group are 5 k16 steps, one ring step, then the projection."""
+    shape = MBConvShape(b=1, h=4, w=4, c_in=4, c_mid=8, c_out=4, k=3, s=1,
+                        se_ratio=0.0, dtype_bytes=2)
+    t = fusedmb_hopper_traffic(shape, FusedMBSchedule(4, 4, 0, 0, 0))
+    assert t.launches == (
+        LaunchTraffic("fusedmb", 1, 1, 768, 128, 768, 0, 2),)
+
+
 def test_separable_worked_by_hand():
     """1 x 8x8x8 -> 4, k3 s1, tile 4x4: four tiles, each window 5 x 5 in
     the image (100 pixels for 64 distinct), c_out tile 16, no split.
