@@ -22,8 +22,10 @@ Phases, each of which must pass (exit 1 otherwise):
             and without the DW write, its folded SE pool exactly the
             tile-order sum of its partials, pass 2 recompute at the tile a
             recompute pin solves with its c_out tiles and C_mid splits, and
-            retain, both of which must repeat bit for bit, and retain's
-            split-K reduce where the block's plan splits C_mid, exactly),
+            retain, both of which must repeat bit for bit, and, where
+            either launch splits C_mid, its folded split-K sum (B3')
+            exactly the split-order sum of the partials the same launch
+            wrote),
             with the block's activation and SE, against its plain
             PyTorch version on the same inputs on the card, within
             1e-4 * max|plain| + 1e-5.  At 224 each is also timed: device
@@ -32,14 +34,20 @@ Phases, each of which must pass (exit 1 otherwise):
             one), and the kernel's host-inclusive time of 20 eager calls,
             both on CUDA events; then per block the two pass-2 routes side
             by side (pass 1 + recompute against pass 1 with the DW write +
-            retain, its split-K reduce included).  At 224 the bf16 builds
+            retain, each with its folded split sum).  B2's and B3's
+            bound_ms count the function's own bytes and operations; a
+            split launch's row also carries bound_split_ms, with its
+            partials written and read back and its adds (per-block rows
+            only, not the kernels line).  At 224 the bf16 builds
             too (rows <kernel>_bf16), at the bf16 forward's tiles, on the
             same inputs rounded to bf16 (the gate fp32): pass 1's retained
-            DW, each pass 2's output and the split-K reduce's within 1 bf16
+            DW and each pass 2's output within 1 bf16
             ulp of the plain version's fp32 result on the same bf16 values
             (elements near 0 of long sums, where two fp32 summation orders
             alone differ by more than that ulp, within the fp32 bar
-            instead; their count printed), pass 1's fp32 pool partials at
+            instead; their count printed), a split pass 2's output
+            exactly its fp32 partials' split-order sum rounded once, pass
+            1's fp32 pool partials at
             the fp32 bar and its pool exactly their tile-order sum, timed
             as the fp32 rows, bound_ms with 2 bytes a stored element and
             the GEMM-shaped products (expand, projection) at the bf16
@@ -140,20 +148,21 @@ Phases, each of which must pass (exit 1 otherwise):
             after).
 13. sep-kernels the 17 full-width MobileNet-V2 separable blocks at 224,
             batch 8, and the trainer's 3 blocks at its batch 32, with the
-            solved tiles and C_in splits: the fused separable kernel (with
-            its split reduce where the block splits; dw_act relu, act relu
-            and None, relu6 on one block; bit for bit on a second call), the
-            split reduce alone on partials of the block's shape (exactly
-            its plain version) and the depthwise kernel over the staged
+            solved tiles and C_in splits: the fused separable kernel (one
+            launch, its split sum B4' folded in where the block splits,
+            that output exactly act of the split-order sum of the
+            partials the same launch wrote; dw_act relu, act relu and
+            None, relu6 on one block; bit for bit on a second call) and
+            the depthwise kernel over the staged
             strips of the padded input, each against its plain version at
-            the phase-2 bar, timed as in phase 2 (the fused rows include
-            the reduce; the depthwise kernel also beside F.conv2d(groups=C)
+            the phase-2 bar, timed as in phase 2 (a split fused row also
+            carries bound_split_ms, as in phase 2; the depthwise
+            kernel also beside F.conv2d(groups=C)
             on the unstaged input); the depthwise kernel in bf16 on the
             trainer's blocks within 1 bf16 ulp of the fp32 sum rounded once,
-            timed; then the 17 blocks through separable_block (the path of
-            the split reduce), counts zeroed just before and read just
-            after: exactly 17 fused separable launches and one reduce per
-            split block.
+            timed; then the 17 blocks through separable_block, counts
+            zeroed just before and read just after: exactly 17 fused
+            separable launches and no reduce launch.
 14. grad        on the card, each op's input and weight gradients (fused
             separable and depthwise at a MobileNet-V2 block, MBConv retain
             and recompute with SE at a B0 block, MBConv without SE at a V3
@@ -170,8 +179,8 @@ Phases, each of which must pass (exit 1 otherwise):
             before torch is imported; the first two restored after the
             phase): the trainer (repro_torch.examples.train_mobilenet_cim)
             on the card for 60 fused steps twice, with exactly 3 fused
-            separable launches, no split reduce (its blocks never split)
-            and no depthwise launch per step, the two runs' losses bit for
+            separable launches (its blocks never split C_in) and no
+            depthwise launch per step, the two runs' losses bit for
             bit equal; then 30 --staged steps with exactly 3 depthwise
             launches and no fused one per step (counts zeroed just before
             each run, read just after); every loss of steps 1-30 of the
@@ -230,8 +239,10 @@ Phases, each of which must pass (exit 1 otherwise):
             or through the host), and tears torch.distributed down.
 
 The line before the last is {"kernels": [...]} (the SE pool reduce listed
-as folded into pass 1: no launches, no time of its own; the bf16 builds of
-B1-B3' and B5 as entries <kernel>_bf16 of their own); the last line is
+as folded into pass 1, the split-K sums B3' and B4' as folded into retain
+and recompute and into the fused separable kernel: no launches, no time of
+their own; the bf16 builds of B1-B3' and B5 as entries <kernel>_bf16 of
+their own); no forward launches a folded sum.  The last line is
 {"ok": true, "device": {...}}.  Per-block kernel numbers are also written to
 build/chip_smoke/kernels.json.
 """
@@ -298,6 +309,10 @@ REPLACES = {
 BF16_KERNELS = ("mbconv_pass1", "mbconv_pass2_recompute",
                 "mbconv_pass2_retain", "mbconv_splitk_reduce", "fusedmb")
 REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
+# cross-CTA sums folded into their kernels' epilogues: kernels of the
+# kernels line, never launched on their own
+FOLDED = ("mbconv_pool_reduce", "mbconv_splitk_reduce",
+          "mbconv_splitk_reduce_bf16", "fused_separable_reduce")
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCES = {k: f"{CSRC}/{'fusedmb' if k.startswith('fusedmb') else 'mbconv'}.cu"
            for k in REPLACES}
@@ -370,8 +385,8 @@ class KernelStats:
     def both_modes(self, net, res):
         """Per block of ``net`` at ``res``, the device ms of its two pass-2
         routes from the timed rows: pass 1 (where SE needs it) + recompute,
-        against pass 1 with the DW write + retain (its split-K reduce
-        included), and the solver's mode; printed and returned."""
+        against pass 1 with the DW write + retain (each with its folded
+        split-K sum), and the solver's mode; printed and returned."""
         def ms(kernel, block, **match):
             rows = [r for r in self.rows if r["kernel"] == kernel
                     and r["net"] == net and r["res"] == res
@@ -429,16 +444,40 @@ class KernelStats:
                           f"F.conv1d + F.silu")
             elif kernel == "fused_separable_reduce":
                 n, sums = self.sums(kernel, "mnv2", MNV2_RES)
-                entry.update(launches=launches["mnv2"][kernel], **sums,
+                entry.update(launches=0, folded_into="fused_separable",
+                             **sums,
                              shape=f"MobileNet-V2 {MNV2_RES}x{MNV2_RES} "
                                    f"batch {BATCH}: the {n} blocks whose "
-                                   f"C_in is split; launches of the 17 "
-                                   f"blocks through separable_block (the "
-                                   f"trainer's blocks never split)")
+                                   f"C_in is split; folded into the split "
+                                   f"launch of fused_separable (its time "
+                                   f"is in that kernel's ms), checked "
+                                   f"exact against the plain split-order "
+                                   f"sum of the launch's own partials on "
+                                   f"every split block; plain time on "
+                                   f"those partials")
+            elif kernel.startswith("mbconv_splitk_reduce"):
+                n, sums = self.sums(kernel, "b0", RES)
+                entry.update(
+                    launches=0,
+                    folded_into="mbconv_pass2_retain, mbconv_pass2_recompute",
+                    **sums,
+                    shape=f"EfficientNet-B0 {RES}x{RES} batch {BATCH}"
+                          f"{' in bf16' if kernel.endswith('_bf16') else ''}"
+                          f", {n} split blocks of the main path: folded "
+                          f"into the split launches of retain and "
+                          f"recompute (its time is in theirs), checked "
+                          f"exact against the plain split-order sum of "
+                          f"the launch's own partials on every split "
+                          f"block of B0, V2-S and V3; plain and library "
+                          f"times on those partials")
+                for net, res in (("v2s", V2S_RES), ("v3", V3_RES)):
+                    n_net, net_sums = self.sums(kernel, net, res)
+                    entry[net] = dict(net_sums or {}, launches=0,
+                                      blocks=n_net)
             elif kernel in ("fused_separable", "dw2d"):
                 n, sums = self.sums(kernel, "mnv2", MNV2_RES)
                 n_tr, tr_sums = self.sums(kernel, "trainer", 32)
-                note = (" (times with the split reduce)"
+                note = (" (times with the folded split sum)"
                         if kernel == "fused_separable" else "")
                 entry.update(launches=launches["train"][kernel], **sums,
                              shape=f"MobileNet-V2 {MNV2_RES}x{MNV2_RES} "
@@ -528,10 +567,8 @@ LIBRARIES = ("mbconv", "mbconv_bf16", "fusedmb", "fusedmb_bf16", "separable",
 PTXAS_SOURCES = ("mbconv", "mbconv_bf16", "fusedmb", "fusedmb_bf16",
                  "separable")
 PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_recompute_kernel",
-                 "mbconv_pass2_retain_kernel",
-                 "mbconv_splitk_reduce_kernel", "fusedmb_kernel",
-                 "fused_separable_kernel", "fused_separable_reduce_kernel",
-                 "dw2d_kernel")
+                 "mbconv_pass2_retain_kernel", "fusedmb_kernel",
+                 "fused_separable_kernel", "dw2d_kernel")
 
 
 def ptxas_report():
@@ -740,8 +777,8 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed,
         h, w, k, s, "SAME", pin.tile_h, pin.tile_w)
     co_tile, b2_splits = recompute_plan(b, oh, ow, c_mid, c_out, g2.tile_h,
                                         g2.tile_w)
-    got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, g2,
-                                    **acts)
+    got, part = tk.mbconv_pass2_recompute_with_partials(
+        x, w_exp, w_dw, gate, w_proj, g2, **acts)
     if not torch.equal(got, tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate,
                                                       w_proj, g2, **acts)):
         print(f"  {net} r{res} block{i:02d} recompute does not repeat bit "
@@ -749,6 +786,7 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed,
         ok = False
     ref = tk.mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
                                           g2, **acts)
+    nbytes, flops = x_b + w1_b + w2_b + out_b, exp_f + dw_f + proj_f
     ok &= stats.add(
         "mbconv_pass2_recompute", net, res, i, on_path, *hx.check(got, ref),
         hx.times(timed(on_path),
@@ -756,13 +794,19 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed,
                                                    w_proj, g2, **acts),
                  lambda: tk.mbconv_pass2_recompute_plain(
                      x, w_exp, w_dw, gate, w_proj, g2, **acts)),
-        x_b + w1_b + w2_b + out_b, exp_f + dw_f + proj_f,
+        nbytes, flops,
         **dict(shape, tile=f"{g2.tile_h}x{g2.tile_w}",
                co_tiles=-(-c_out // co_tile), co_tile=co_tile,
-               splits=b2_splits))
+               splits=b2_splits),
+        **_split_bound(b2_splits, b * oh * ow * c_out, nbytes, flops))
+    if part is not None:
+        ok &= _fold_check(torch, tk, stats, hx, net, res, i, on_path, timed,
+                          got, part, torch.float32, "mbconv_pass2_recompute",
+                          **dict(shape, tile=f"{g2.tile_h}x{g2.tile_w}"))
 
     on_path = sch.mode == "retain"
-    got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo, sch.retain_splits)
+    got, part = tk.mbconv_pass2_retain_with_partials(dw, gate, w_proj, geo,
+                                                     sch.retain_splits)
     again = tk.mbconv_pass2_retain(dw, gate, w_proj, geo, sch.retain_splits)
     if not torch.equal(got, again):
         print(f"  {net} r{res} block{i:02d} retain does not repeat bit for "
@@ -771,6 +815,7 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed,
     ref = tk.mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
     library = ((lambda: torch.einsum("bhwc,bc,co->bhwo", dw, gate, w_proj))
                if se else (lambda: dw @ w_proj))
+    splits = tk.retain_plan(b * oh * ow, c_mid, c_out, sch.retain_splits)[2]
     ok &= stats.add(
         "mbconv_pass2_retain", net, res, i, on_path, *hx.check(got, ref),
         hx.times(timed(on_path),
@@ -779,28 +824,59 @@ def _mbconv_checks(torch, tk, stats, hx, net, res, i, row, sp, sch, timed,
                  lambda: tk.mbconv_pass2_retain_plain(dw, gate, w_proj,
                                                       geo),
                  library),
-        dw_b + w2_b + out_b, proj_f, **shape)
-
-    # retain's split-K reduce, where the plan splits C_mid, on partials of
-    # the shape the split launch writes; it must equal its plain version
-    splits = tk.retain_plan(b * oh * ow, c_mid, c_out, sch.retain_splits)[2]
-    if splits > 1:
-        part = hx.rand(splits, b, oh, ow, c_out)
-        red = tk.mbconv_splitk_reduce(part)
-        err = float((red - tk.mbconv_splitk_reduce_plain(part)).abs().max())
-        ok &= stats.add(
-            "mbconv_splitk_reduce", net, res, i, on_path, err, 0.0,
-            hx.times(timed(on_path), lambda: tk.mbconv_splitk_reduce(part),
-                     lambda: tk.mbconv_splitk_reduce_plain(part),
-                     lambda: part.sum(dim=0)),
-            4 * (splits + 1) * b * oh * ow * c_out,
-            (splits - 1) * b * oh * ow * c_out, splits=splits, **shape)
+        dw_b + w2_b + out_b, proj_f, splits=splits,
+        **_split_bound(splits, b * oh * ow * c_out, dw_b + w2_b + out_b,
+                       proj_f), **shape)
+    if part is not None:
+        ok &= _fold_check(torch, tk, stats, hx, net, res, i, on_path, timed,
+                          got, part, torch.float32, "mbconv_pass2_retain",
+                          **shape)
     if sch_bf16 is not None:
         ok &= _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp,
                                   sch_bf16, (x, w_exp, w_dw, gate, w_proj),
                                   timed)
     _sync(torch)
     return ok
+
+
+def _split_bound(splits, count, nbytes, flops, mma_flops=0):
+    """``bound_split_ms`` of a split launch's per-block row: its bound with
+    the scratch of its own split decomposition added (the fp32 partials of
+    ``count`` outputs written and read back once, (splits - 1) adds an
+    output).  The function needs none of it, so it stays out of
+    ``bound_ms`` and out of the kernels line; {} unsplit."""
+    if splits == 1:
+        return {}
+    return dict(bound_split_ms=_bound(nbytes + 8 * splits * count,
+                                      flops + (splits - 1) * count,
+                                      mma_flops)[0])
+
+
+def _fold_check(torch, tk, stats, hx, net, res, i, on_path, timed, got,
+                part, out_dtype, into, **shape):
+    """B3' (``mbconv_splitk_reduce``, folded into ``into``): the split
+    launch's output ``got`` exactly the plain split-order sum of the
+    partials ``part`` the same launch left behind, rounded once to
+    ``out_dtype``.  No launch and no time of its own; its plain version (and
+    in fp32 its library call, ``part.sum(dim=0)``) timed on those
+    partials, its bound their read and the output's write."""
+    fp32 = out_dtype == torch.float32
+    name = "mbconv_splitk_reduce" + ("" if fp32 else "_bf16")
+    want = tk.mbconv_splitk_reduce_plain(part, out_dtype)
+    exact = torch.equal(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    splits, count = part.shape[0], got.numel()
+    print(f"  {net} r{res} block{i:02d} {name} folded into {into}: "
+          f"{splits} splits, output {'exactly' if exact else 'NOT'} the "
+          f"split-order sum of its partials")
+    return stats.add(
+        name, net, res, i, on_path, err, 0.0,
+        hx.times(timed(on_path), None,
+                 lambda: tk.mbconv_splitk_reduce_plain(part, out_dtype),
+                 (lambda: part.sum(dim=0)) if fp32 else None),
+        4 * splits * count + out_dtype.itemsize * count, (splits - 1) * count,
+        good=exact, folded_into=into, splits=splits,
+        **dict(shape, dtype=str(out_dtype).split(".")[-1]))
 
 
 def _bf16_verdict(got, ref32):
@@ -824,9 +900,10 @@ def _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp, sch,
     """The block's MBConv kernels in bf16 at its bf16 schedule ``sch``, on
     the fp32 checks' inputs ``ops`` (x, w_exp, w_dw, gate, w_proj) rounded
     to bf16, the gate kept fp32: pass 1's retained DW, recompute's and
-    retain's outputs and the split-K reduce's against their plain versions
-    on the same bf16 values (``_bf16_verdict``), pass 1's fp32 pool
-    partials at the fp32 bar and its pool exactly their tile-order sum.
+    retain's outputs against their plain versions on the same bf16 values
+    (``_bf16_verdict``), a split launch's output exactly its partials'
+    split-order sum (``_fold_check``), pass 1's fp32 pool partials at the
+    fp32 bar and its pool exactly their tile-order sum.
     Rows are named ``<kernel>_bf16``; bytes at 2 per stored element (4 for
     the pool, its partials, the gate and split partials); the expand's and
     the projection's products at the bf16 tensor-core rate, the depthwise,
@@ -903,7 +980,8 @@ def _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp, sch,
         h, w, k, s, "SAME", pin.tile_h, pin.tile_w)
     co_tile, b2_splits = recompute_plan(b, oh, ow, c_mid, c_out, g2.tile_h,
                                         g2.tile_w)
-    got = tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate, w_proj, g2, **acts)
+    got, part = tk.mbconv_pass2_recompute_with_partials(
+        x, w_exp, w_dw, gate, w_proj, g2, **acts)
     ok &= torch.equal(got, tk.mbconv_pass2_recompute(x, w_exp, w_dw, gate,
                                                      w_proj, g2, **acts))
     ok &= add("mbconv_pass2_recompute", on_path, _bf16_verdict(
@@ -915,11 +993,19 @@ def _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp, sch,
                  lambda: tk.mbconv_pass2_recompute_plain(
                      x, w_exp, w_dw, gate, w_proj, g2, **acts)),
         x_b + w1_b + w2_b + out_b, dw_f + gate_f, exp_f + proj_f,
-        co_tile=co_tile, splits=b2_splits)
+        co_tile=co_tile, splits=b2_splits,
+        **_split_bound(b2_splits, b * oh * ow * c_out,
+                       x_b + w1_b + w2_b + out_b, dw_f + gate_f,
+                       exp_f + proj_f))
+    if part is not None:
+        ok &= _fold_check(torch, tk, stats, hx, net, res, i, on_path, timed,
+                          got, part, torch.bfloat16, "mbconv_pass2_recompute",
+                          **dict(shape, tile=f"{g2.tile_h}x{g2.tile_w}"))
 
     on_path = sch.mode == "retain"
     cap = sch.retain_splits
-    got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo, cap)
+    got, part = tk.mbconv_pass2_retain_with_partials(dw, gate, w_proj, geo,
+                                                     cap)
     ok &= torch.equal(got, tk.mbconv_pass2_retain(dw, gate, w_proj, geo,
                                                   cap))
     gate_b = None if gate is None else gate.bfloat16()
@@ -937,31 +1023,17 @@ def _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp, sch,
         times["ms_without_gate"] = measure(
             lambda: tk.mbconv_pass2_retain(dw, None, w_proj, geo, cap),
             iters=20, graph=True).mean_ms
+    splits = tk.retain_plan(b * oh * ow, c_mid, c_out, cap)[2]
     ok &= add("mbconv_pass2_retain", on_path, _bf16_verdict(
         got, tk.mbconv_pass2_retain_plain(dw.float(), gate, f32(w_proj),
                                           geo)),
-        times, dw_b + w2_b + out_b, gate_f, proj_f)
-
-    splits = tk.retain_plan(b * oh * ow, c_mid, c_out, cap)[2]
-    if splits > 1:
-        # from a generator of its own: the fp32 checks' inputs stay as they
-        # were without the bf16 checks
-        part = torch.randn(splits, b, oh, ow, c_out,
-                           generator=torch.Generator().manual_seed(i)
-                           ).to(hx.dev)
-        red = tk.mbconv_splitk_reduce(part, torch.bfloat16)
-        exact = torch.equal(red, tk.mbconv_splitk_reduce_plain(
-            part, torch.bfloat16))
-        verdict = _bf16_verdict(red, tk.mbconv_splitk_reduce_plain(part))
-        ok &= add("mbconv_splitk_reduce", on_path,
-                  (verdict[0] and exact, *verdict[1:]),
-                  hx.times(timed(on_path),
-                           lambda: tk.mbconv_splitk_reduce(part,
-                                                           torch.bfloat16),
-                           lambda: tk.mbconv_splitk_reduce_plain(
-                               part, torch.bfloat16)),
-                  (4 * splits + 2) * b * oh * ow * c_out,
-                  (splits - 1) * b * oh * ow * c_out, splits=splits)
+        times, dw_b + w2_b + out_b, gate_f, proj_f, splits=splits,
+        **_split_bound(splits, b * oh * ow * c_out, dw_b + w2_b + out_b,
+                       gate_f, proj_f))
+    if part is not None:
+        ok &= _fold_check(torch, tk, stats, hx, net, res, i, on_path, timed,
+                          got, part, torch.bfloat16, "mbconv_pass2_retain",
+                          **shape)
     return ok
 
 
@@ -1113,9 +1185,10 @@ def model_phase(torch, tk):
                                   ("mbconv_pass2_retain", "retain")):
                     if launches[kern] == 0:
                         modes.append(pin)
-            # every B0 block has SE: one pass 1 (with its folded pool) each
+            # every B0 block has SE: one pass 1 (with its folded pool) each;
+            # no folded sum launches on its own
             if (launches["mbconv_pass1"] != len(effnet_block_specs(cfg))
-                    or "mbconv_pool_reduce" in launches):
+                    or any(k in launches for k in FOLDED)):
                 ok = False
     images = images.to(DEVICE)
 
@@ -1207,6 +1280,7 @@ def serve_phase(torch, tk, params, params_cpu):
     for res in scfg.resolutions:
         ok &= t.get(f"serve.build.r{res}") == 1
     ok &= all(launches[k] > 0 for k in tk.FP32_KERNELS)
+    ok &= not any(k in launches for k in FOLDED)
 
     # requests of the 384 and 512 buckets (300 px and 480 px images, so
     # padded) against the plain versions on the CPU: a fault in the
@@ -1268,7 +1342,7 @@ def v2s_model_phase(torch):
     n_mb = 30
     ok &= counts["fusedmb"] == 10
     ok &= counts["mbconv_pass1"] == n_mb         # each with SE: its pool
-    ok &= "mbconv_pool_reduce" not in counts
+    ok &= not any(k in counts for k in FOLDED)
     ok &= (counts["mbconv_pass2_recompute"]
            + counts["mbconv_pass2_retain"]) == n_mb
     images = images.to(DEVICE)
@@ -1305,7 +1379,7 @@ def v3_model_phase(torch):
     ok &= counts["mbconv_pass1"] == sum(
         sp.has_se or sch.mode == "retain" for sp, sch in zip(
             specs, block_schedules(specs, BATCH, V3_RES, V3_RES)))
-    ok &= "mbconv_pool_reduce" not in counts
+    ok &= not any(k in counts for k in FOLDED)
     images = images.to(DEVICE)
 
     def forward():
@@ -1391,7 +1465,8 @@ def bf16_model_phase(torch, fp32):
                     and logits.shape == (BATCH, cfg.num_classes)
                     and bool(torch.isfinite(logits).all())
                     and fp32_launched == 0
-                    and counts["mbconv_pass2_retain_bf16"] > 0)
+                    and counts["mbconv_pass2_retain_bf16"] > 0
+                    and not any(k in counts for k in FOLDED))
             if name == "v2s":
                 ratio, block = _bf16_block_parity(
                     torch, specs_fn(cfg), params, dev_images, stem_act)
@@ -1699,10 +1774,11 @@ def bench_phase(torch, tk, paper):
 
 def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
                       c, c_out, k, s, acts):
-    """The fused separable kernel (with its split reduce where the block
-    splits C_in) at each (dw_act, act) of ``acts`` (the first timed: the
-    trainer's), the split reduce alone, and the depthwise kernel over the
-    staged strips of the padded input, on one block, against their plain
+    """The fused separable kernel (its split sum B4' folded in where the
+    block splits C_in: the output exactly act of the split-order sum of
+    the partials the launch wrote) at each (dw_act, act) of ``acts`` (the
+    first timed: the trainer's), and the depthwise kernel over the staged
+    strips of the padded input, on one block, against their plain
     versions.  No PyTorch call computes the whole separable block, nor a
     sum of partials with an activation; one grouped F.conv2d on the
     unstaged input computes the depthwise one."""
@@ -1716,8 +1792,9 @@ def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
     x = hx.rand(b, h, w, c)
     w_dw = hx.rand(k, k, c, scale=1.0 / k)
     w_pw = hx.rand(c, c_out, scale=c ** -0.5)
-    # the split route's partials (written once, read once by the reduce)
-    # against the depthwise tensor the staged route writes
+    # the split route's partials (written once, read back once by the
+    # launch's last CTAs) against the depthwise tensor the staged route
+    # writes
     shape = dict(h=h, w=w, c_in=c, c_out=c_out, k=k, s=s, batch=b,
                  tile=f"{geo.tile_h}x{geo.tile_w}", co_tile=sch.co_tile,
                  splits=sch.splits,
@@ -1728,13 +1805,33 @@ def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
     out_b = 4 * b * oh * ow * c_out
     nbytes = 4 * (b * h * w * c + k * k * c + c * c_out) + out_b
     flops = 2 * b * oh * ow * (k * k * c + c * c_out)
+    split = _split_bound(sch.splits, b * oh * ow * c_out, nbytes, flops)
     for n, (dw_act, act) in enumerate(acts):
-        got = tfs.fused_separable(x, w_dw, w_pw, geo, dw_act=dw_act, act=act)
+        got, part = tfs.fused_separable_with_partials(
+            x, w_dw, w_pw, geo, dw_act=dw_act, act=act)
         if not torch.equal(got, tfs.fused_separable(x, w_dw, w_pw, geo,
                                                     dw_act=dw_act, act=act)):
             print(f"  {net} r{res} block{i:02d} fused_separable does not "
                   "repeat bit for bit: FAIL")
             ok = False
+        if part is not None:
+            # B4', folded in: exactly act of the split-order sum of the
+            # partials this launch wrote; its plain version timed on them
+            want = tfs.fused_separable_reduce_plain(part, act=act)
+            exact = torch.equal(got, want)
+            print(f"  {net} r{res} block{i:02d} fused_separable_reduce "
+                  f"folded into fused_separable (act {act}): {sch.splits} "
+                  f"splits, output {'exactly' if exact else 'NOT'} act of "
+                  f"the split-order sum of its partials")
+            ok &= stats.add(
+                "fused_separable_reduce", net, res, i, n == 0,
+                float((got - want).abs().max()), 0.0,
+                hx.times(n == 0, None,
+                         lambda p=part, z=act:
+                         tfs.fused_separable_reduce_plain(p, act=z)),
+                (sch.splits + 1) * out_b, (sch.splits - 1) * out_b // 4,
+                good=exact, folded_into="fused_separable", act=act,
+                **shape)
         ref = tfs.fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
                                         act=act)
         ok &= stats.add(
@@ -1744,22 +1841,7 @@ def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
                          x, w_dw, w_pw, geo, dw_act=a, act=z),
                      lambda a=dw_act, z=act: tfs.fused_separable_plain(
                          x, w_dw, w_pw, geo, dw_act=a, act=z)),
-            nbytes, flops, dw_act=dw_act, act=act, **shape)
-    if sch.splits > 1:
-        # the reduce on the plain partials of this block: exactly its plain
-        # version; its bytes are the partials read and the output written
-        part = tfs.fused_separable_partials_plain(
-            x, w_dw, w_pw, geo, splits=sch.splits, dw_act=acts[0][0])
-        act = acts[0][1]
-        red = tfs.fused_separable_reduce(part, act=act)
-        err = float((red - tfs.fused_separable_reduce_plain(
-            part, act=act)).abs().max())
-        ok &= stats.add(
-            "fused_separable_reduce", net, res, i, True, err, 0.0,
-            hx.times(True, lambda: tfs.fused_separable_reduce(part, act=act),
-                     lambda: tfs.fused_separable_reduce_plain(part, act=act)),
-            (sch.splits + 1) * out_b, (sch.splits - 1) * out_b // 4,
-            act=act, **shape)
+            nbytes, flops, dw_act=dw_act, act=act, **split, **shape)
     xp = pad_nhwc(x, geo.pads)
     strips = ops.stage_row_strips(xp, k, s, geo.tile_h)
     kw = dict(stride=s, out_w=ow, tile_h=geo.tile_h)
@@ -1817,11 +1899,11 @@ def _dw2d_bf16_check(torch, td, ops, stats, hx, res, i, b, h, w, c, k, s):
 
 
 def sep_kernel_phase(torch, tfs, td, ops, stats):
-    """Both separable kernels (and the split reduce) on the 17 MobileNet-V2
-    blocks at MNV2_RES, batch BATCH, and on the trainer's 3 blocks at its
-    batch, the depthwise kernel also in bf16 on the trainer's blocks; then
-    the 17 blocks through ``separable_block``, the split reduce's path,
-    with the launch counts zeroed just before and read just after."""
+    """Both separable kernels (B4 with its folded split sum) on the 17
+    MobileNet-V2 blocks at MNV2_RES, batch BATCH, and on the trainer's 3
+    blocks at its batch, the depthwise kernel also in bf16 on the
+    trainer's blocks; then the 17 blocks through ``separable_block``, with
+    the launch counts zeroed just before and read just after."""
     from repro_torch.core.autotune import get_fused_schedule
     from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
     from repro_torch.examples import train_mobilenet_cim as tr
@@ -1854,13 +1936,16 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
     n_split = sum(get_fused_schedule(BATCH, layer.h, layer.w, layer.c, c_out,
                                      layer.k, layer.s).splits > 1
                   for layer, c_out in MOBILENET_V2_SEPARABLE)
+    print(f"  {n_split} of the {len(inputs)} blocks split C_in, each in one "
+          f"launch (B4' folded in)")
     with torch.inference_mode():
         reset_launches()                        # the path starts here
         outs = [separable_block(x, p, stride=st) for x, p, st in inputs]
         _sync(torch)
         counts = launches()                     # ... and ends here
-    want = {"fused_separable": len(inputs), "fused_separable_reduce": n_split}
+    want = {"fused_separable": len(inputs)}
     good = (all(counts[k] == want.get(k, 0) for k in counts)
+            and not any(k in counts for k in FOLDED)
             and all(bool(torch.isfinite(o).all()) for o in outs))
     print(f"  the {len(inputs)} MobileNet-V2 blocks through separable_block: "
           f"launches {counts} (want {want}) {'ok' if good else 'FAIL'}")
@@ -2088,11 +2173,11 @@ def _train_runs(torch):
     from repro_torch.examples import train_mobilenet_cim as tr
     from repro_torch.kernels import launches, reset_launches
 
-    # the trainer's blocks' split reduces per step (C_out = 2 C_in: none)
+    # the trainer's blocks never split C_in (C_out = 2 C_in)
     side, c = tr.SIDE // 2, tr.model_def()["stem"].shape[-1]
-    reduces = sum(get_fused_schedule(tr.BATCH, side >> i, side >> i, c << i,
-                                     2 * c << i, 3, 2).splits > 1
-                  for i in range(3))
+    splits = sum(get_fused_schedule(tr.BATCH, side >> i, side >> i, c << i,
+                                    2 * c << i, 3, 2).splits > 1
+                 for i in range(3))
     runs = []
     for staged, steps in ((False, TRAIN_STEPS), (False, TRAIN_STEPS),
                           (True, STAGED_STEPS)):
@@ -2109,13 +2194,13 @@ def _train_runs(torch):
         runs.append((losses, counts, buf.getvalue()))
     (fused, f_counts, f_out), (again, a_counts, _) = runs[0], runs[1]
     staged, s_counts, _ = runs[2]
-    want_f = {"fused_separable": 3 * TRAIN_STEPS,
-              "fused_separable_reduce": reduces * TRAIN_STEPS}
+    want_f = {"fused_separable": 3 * TRAIN_STEPS}
     want_s = {"dw2d": 3 * STAGED_STEPS}
-    ok = all(f_counts[k] == a_counts[k] == want_f.get(k, 0) for k in f_counts)
+    ok = splits == 0 and not any(k in f_counts for k in FOLDED)
+    ok &= all(f_counts[k] == a_counts[k] == want_f.get(k, 0) for k in f_counts)
     ok &= all(s_counts[k] == want_s.get(k, 0) for k in s_counts)
-    print(f"  launches per step: fused {3} fused separable, {reduces} split "
-          f"reduce; staged 3 depthwise: {'ok' if ok else 'FAIL'}")
+    print(f"  launches per step: fused {3} fused separable ({splits} split "
+          f"blocks); staged 3 depthwise: {'ok' if ok else 'FAIL'}")
     same = fused == again
     ok &= same
     print(f"  two fused {TRAIN_STEPS}-step runs: losses bit for bit equal "
@@ -2151,9 +2236,8 @@ def _train_runs(torch):
           f"host included): fused {step_ms['fused']:.3f} ms, staged "
           f"{step_ms['staged']:.3f} ms")
     print(f"  train phase {'ok' if ok else 'FAIL'}")
-    return bool(ok), {k: f_counts[k] for k in ("fused_separable",
-                                               "fused_separable_reduce")} | {
-        "dw2d": s_counts["dw2d"]}, \
+    return bool(ok), {"fused_separable": f_counts["fused_separable"],
+                      "dw2d": s_counts["dw2d"]}, \
         {"fused": fused, "staged": staged, "cpu": cpu, "step_ms": step_ms,
          "fused_repeats": same}
 

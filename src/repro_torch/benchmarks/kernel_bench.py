@@ -665,8 +665,9 @@ def measure_variants(family: str, batch: int, res: int, block: int,
                      device: torch.device, seed: int = 0,
                      log=print) -> Tuple[bool, List[Dict]]:
     """One retain MBConv block of a family on the card (fp32): the whole
-    fused block (pass 1, SE, retain and its split-K reduce) at the solver's
-    pass-1 tile and at ``fewest_bytes_tile``, each at every K split count
+    fused block (pass 1, SE, retain with its folded split-K sum) at the
+    solver's pass-1 tile and at ``fewest_bytes_tile``, each at every K
+    split count
     (``retain_split_counts``), and the staged route, on one set of seeded
     inputs; each point checked against the oracle within CHECK_RTOL x
     max|oracle| and timed warm (WARM_ITERS graph replays) and cold (a

@@ -165,7 +165,7 @@ FMB_BF16_OUT_TILES = (24, 32, 48, 64)
 MMA_FMAS_PER_CLK = 1024             # bf16 products an SM's mma.sync issues per clock
 SMEM_BYTES_PER_CLK = 128            # shared-memory bytes an SM reads per clock
 
-# The redesigned fused-separable kernel and its split reduce
+# The redesigned fused-separable kernel, its split sum folded in
 # (kernels/csrc/separable.cu; the wrapper checks these against the built
 # library).  The pointwise product is the Fused-MBConv kernel's GEMM step,
 # NC (one of SEP_CHUNK_LANES) its c_out tile.
@@ -209,7 +209,7 @@ def _mesh_terms(st: ShardedTraffic) -> dict:
 @dataclass(frozen=True)
 class FusedSchedule(_MeshTerms):
     """One separable block's schedule: output tile, the c_out tile of one
-    CTA, the C_in splits (partials summed by the reduce where above 1),
+    CTA, the C_in splits (partials summed in split order where above 1),
     modeled bytes."""
 
     tile_h: int
@@ -556,7 +556,7 @@ def fused_separable_smem_bytes(shape: SeparableShape, tile_h: int,
 def fused_separable_split_counts(c_in: int, c_out: int) -> Tuple[int, ...]:
     """The C_in splits a fused-separable launch may take: 1, and every
     count whose splits each sum whole SEP_CI_CHUNK chunks, none empty, with
-    splits * C_out < C_in, so the fp32 partials the reduce (B4') reads
+    splits * C_out < C_in, so the fp32 partials the split sum (B4') reads
     back move fewer bytes than the depthwise tensor the staged route
     writes."""
     chunks = -(-c_in // SEP_CI_CHUNK)
@@ -567,16 +567,16 @@ def fused_separable_split_counts(c_in: int, c_out: int) -> Tuple[int, ...]:
 
 def fused_separable_cost(shape: SeparableShape, tile_h: int, tile_w: int,
                          splits: int) -> Optional[float]:
-    """Modeled SM clocks of one fused-separable launch (and its reduce) at
+    """Modeled SM clocks of one fused-separable launch (its split sum in) at
     a tile and C_in split count, None where it does not fit.  At
     MobileNet-V2's widths a CTA is bound by latency: it pays SEP_CTA_CLOCKS
     to start and, per chunk it sums, SEP_CHUNK_CLOCKS of barriers and
     loads, SEP_DW_ITEM_CLOCKS per depthwise item (one pixel x 4 channels)
     each thread computes, and one clock per FMA instruction of a pointwise
     warp; the busiest SM runs ceil(CTAs / SM_COUNT) CTAs, ``occ`` of them at
-    once, and never faster than its FMAs at FMA_PER_CLK.  A split adds the
-    reduce: the partials read and the output written at the card's byte
-    rate.  The constants are fitted to a sweep of tiles and splits over
+    once, and never faster than its FMAs at FMA_PER_CLK.  A split adds its
+    split sum (B4'): the partials read and the output written at the
+    card's byte rate.  The constants are fitted to a sweep of tiles and splits over
     MobileNet-V2's 17 blocks at 224 batch 8 on the card."""
     smem = fused_separable_smem_bytes(shape, tile_h, tile_w)
     if smem > SMEM_BYTES:
@@ -792,7 +792,7 @@ def recompute_plan(b: int, out_h: int, out_w: int, c_mid: int, c_out: int,
     ``splits = ceil(chunks / ceil(chunks / splits))``) that give SM_COUNT
     CTAs (pixel tiles x c_out tiles x batch x splits), the most such
     splits where none does.  A split launch writes per-split partial
-    projections that ``mbconv_splitk_reduce`` sums in split order."""
+    projections that its last CTA per output tile sums in split order."""
     co = recompute_co_tile(c_out)
     ctas = -(-out_h // tile_h) * -(-out_w // tile_w) * -(-c_out // co) * b
     chunks = -(-c_mid // pass1_cm_tile(c_mid))
@@ -897,7 +897,7 @@ def select_mbconv_schedule(shape: MBConvShape, mode: Optional[str] = None,
 def retain_split_cap(kern: MBConvShape, local: MBConvShape, tile_h: int,
                      tile_w: int) -> Optional[int]:
     """The byte gate's bar on the retain GEMM's K splits.  Each split
-    writes a partial of the whole output that the split-K reduce reads
+    writes a partial of the whole output that the split-K sum reads
     back, so where the GEMM has few rows (small batches on the late 7x7
     blocks) ``retain_plan``'s count lifts the fused route's device-memory
     bytes (``core.hopper_traffic`` at the kernels' shape ``kern``) above
@@ -980,7 +980,7 @@ def select_fused_schedule(shape: SeparableShape,
                           collective: str = DEFAULT_COLLECTIVE
                           ) -> FusedSchedule:
     """The tile of least ``fused_separable_cost`` (SM clocks of the busiest
-    SM, the reduce included) at its launch plan's splits, among tiles of at
+    SM, the split sum included) at its launch plan's splits, among tiles of at
     most SEP_MAX_TILE_PIXELS whose height keeps the copied traffic model's
     fused bytes below its staged bytes (the paper's per-layer claim; every
     height where none does); ties to the larger tile, then to the taller

@@ -10,7 +10,7 @@ module prices the schedule the solver picked as the kernels of
 (``pass1_cm_tile``), the retain GEMM at ``retain_plan``'s (BM, BN,
 splits), B2 at ``recompute_plan``'s (c_out tile, splits), B5 at its c_out
 tile and C_in window chunk (``fusedmb_launch_plan``), B4 at SEP_CI_CHUNK and
-its splits, and the split reduces B3' and B4'.
+its splits, each split launch with its split sum (B3', B4') folded in.
 
 Two levels, per launch (``LaunchTraffic``):
 
@@ -26,14 +26,17 @@ Two levels, per launch (``LaunchTraffic``):
   taps and gates are read by every CTA of a wave at once and stay
   resident.  A tensor that one launch writes and the next reads counts
   once for the write and once for the read: the staged model's rule, op
-  by op.
+  by op.  A split launch's fp32 partials, which its last CTA per output
+  tile reads back (``readback``), count the same way: once written and
+  once read, as when a second launch summed them, so folding the sum into
+  the launch moved no modeled byte.
 
 The paper's claim is the second level: the expanded tensor never reaches
 device memory.  The SE MLP between the passes (PyTorch calls on the
 (B, C_mid) pool) is priced as one step reading the pool and the SE weights
 and writing the gate; the residual add, which both routes run alike, is
-not priced (nor is it in the staged model).  The SE pool's arrival
-counters (one int per CTA) are not counted.  The input, the weights,
+not priced (nor is it in the staged model).  The arrival counters of the
+SE pool and of the split sums (one int per output tile) are not counted.  The input, the weights,
 the retained DW tensor and the output are in the storage type
 (``shape.dtype_bytes``: fp32 or bf16); the SE pool, its partials, the
 gate and the split partials are fp32 at every storage type, as the
@@ -60,7 +63,6 @@ from .autotune import (
     RECOMPUTE_K_CHUNK,
     RETAIN_K_CHUNK,
     SEP_CI_CHUNK,
-    SM_COUNT,
     C_BLOCK,
     fused_separable_launch_plan,
     fusedmb_k16_steps,
@@ -90,28 +92,32 @@ __all__ = [
 ]
 
 F32 = 4                               # pool, partials, gate: fp32 always
-REDUCE_THREADS = 256                  # B3' / B4' CTA size (float4 items)
-REDUCE_MAX_CTAS = SM_COUNT * 16
 
 
 @dataclass(frozen=True)
 class LaunchTraffic:
     """One launch (or, for ``se_mlp``, one host step): CTAs, bytes loaded
     and stored by its CTAs, the distinct input bytes, the part of the
-    loads that re-reads activations, and its cp.async ring stages."""
+    loads that re-reads activations, its cp.async ring stages, and the
+    split partials its last CTAs read back (part of ``global_read``)."""
 
     name: str
-    pass_: int                  # 1: pass 1 and the SE MLP; 2: the rest
+    pass_: int                  # 1: pass 1, the SE MLP and B4; 2: the rest
     ctas: int
     global_read: int
     global_write: int
     input_bytes: int            # each distinct input byte once
     act_reread: int             # loads re-reading activation bytes
     issues: int                 # CTAs x cp.async ring stages
+    readback: int = 0           # split partials written, then read once
 
     @property
     def footprint(self) -> int:
-        return self.input_bytes + self.global_write
+        """Distinct bytes live while the launch re-reads activations: its
+        inputs and its stores, which for a split launch are its partials
+        (a tile's output is stored by its last CTA, after the tile's
+        reads)."""
+        return self.input_bytes + (self.readback or self.global_write)
 
     @property
     def global_bytes(self) -> int:
@@ -120,7 +126,7 @@ class LaunchTraffic:
     @property
     def dram_bytes(self) -> int:
         spill = self.act_reread if self.footprint > L2_BYTES else 0
-        return self.input_bytes + spill + self.global_write
+        return self.input_bytes + spill + self.global_write + self.readback
 
 
 @dataclass(frozen=True)
@@ -185,16 +191,6 @@ def _p1_passes(k: int, s: int, tile_h: int, tile_w: int, c_mid: int) -> int:
     return -(-blocks // (nb * lanes))
 
 
-def _reduce(name: str, splits: int, count: int, eb: int = F32
-            ) -> LaunchTraffic:
-    """B3' / B4': ``splits`` fp32 partials of ``count`` values summed into
-    one output of ``eb``-byte elements."""
-    items = count // 4 if count % 4 == 0 else count
-    return LaunchTraffic(
-        name, 2, min(-(-items // REDUCE_THREADS), REDUCE_MAX_CTAS),
-        splits * count * F32, count * eb, splits * count * F32, 0, 0)
-
-
 def _tiles(shape, tile_h: int, tile_w: int) -> Tuple[int, int, int]:
     th, tw = min(tile_h, shape.out_h), min(tile_w, shape.out_w)
     return th, tw, -(-shape.out_h // th) * -(-shape.out_w // tw)
@@ -218,10 +214,10 @@ def _expand_loads(shape: MBConvShape, th: int, tw: int, tiles: int,
 
 
 def mbconv_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
-    """Pass 1 (where it runs), the SE MLP, pass 2 (retain or recompute)
-    and the split reduce B3' of one MBConv block at ``sch`` (``tile_h``,
-    ``tile_w``, ``mode``).  A no-SE block under recompute skips pass 1,
-    as the kernel does."""
+    """Pass 1 (where it runs), the SE MLP and pass 2 (retain or recompute,
+    its split sum B3' folded in) of one MBConv block at ``sch``
+    (``tile_h``, ``tile_w``, ``mode``).  A no-SE block under recompute
+    skips pass 1, as the kernel does."""
     b, hw_out, eb = shape.b, shape.out_h * shape.out_w, shape.dtype_bytes
     th, tw, tiles = _tiles(shape, sch.tile_h, sch.tile_w)
     win = window_pixels(shape.h, shape.w, shape.k, shape.s, th, tw)
@@ -258,11 +254,11 @@ def mbconv_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
                    for m0 in range(0, m, bm))
         gate_loads = n_n * imgs * k * F32 if shape.has_se else 0
         ctas = n_m * n_n * splits
-        launches.append(LaunchTraffic(
+        launches.append(_split_sum(LaunchTraffic(
             "retain", 2, ctas,
-            n_n * dw + n_m * k * n * eb + gate_loads,
-            _pass2_out(splits, out_n, eb), dw + k * n * eb + gate,
-            (n_n - 1) * dw, n_m * n_n * chunks))
+            n_n * dw + n_m * k * n * eb + gate_loads, out_n * eb,
+            dw + k * n * eb + gate, (n_n - 1) * dw, n_m * n_n * chunks),
+            splits, out_n))
     else:
         co, splits = recompute_plan(b, shape.out_h, shape.out_w,
                                     shape.c_mid, shape.c_out, th, tw)
@@ -270,20 +266,25 @@ def mbconv_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
         xl, wl, tl, stages = _expand_loads(shape, th, tw, tiles, win, n_cm)
         proj = shape.c_mid * shape.c_out * eb
         ctas = tiles * n_co * b * splits
-        launches.append(LaunchTraffic(
+        launches.append(_split_sum(LaunchTraffic(
             "recompute", 2, ctas,
             b * n_co * (xl + wl + tl + tiles * gate // b) + b * tiles * proj,
-            _pass2_out(splits, out_n, eb),
-            x_bytes + w_exp + w_dw + gate + proj, b * n_co * xl - x_bytes,
-            tiles * n_co * b * n_cm * (stages + cmt // RECOMPUTE_K_CHUNK)))
-    if splits > 1:
-        launches.append(_reduce("splitk_reduce", splits, out_n, eb))
+            out_n * eb, x_bytes + w_exp + w_dw + gate + proj,
+            b * n_co * xl - x_bytes,
+            tiles * n_co * b * n_cm * (stages + cmt // RECOMPUTE_K_CHUNK)),
+            splits, out_n))
     return HopperTraffic(tuple(launches))
 
 
-def _pass2_out(splits: int, count: int, eb: int) -> int:
-    """Pass 2's stores: the output itself, or one fp32 partial per split."""
-    return count * eb if splits == 1 else splits * count * F32
+def _split_sum(t: LaunchTraffic, splits: int, count: int) -> LaunchTraffic:
+    """A launch that writes ``count`` output values, with its split sum
+    where it splits: the splits' fp32 partials stored, then read back once
+    by the last CTA of each output tile (B3', B4' folded in)."""
+    if splits == 1:
+        return t
+    part = splits * count * F32
+    return replace(t, global_read=t.global_read + part,
+                   global_write=t.global_write + part, readback=part)
 
 
 def fusedmb_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
@@ -319,8 +320,8 @@ def fusedmb_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
 
 
 def separable_hopper_traffic(shape: SeparableShape, sch) -> HopperTraffic:
-    """B4 at ``sch``'s tile, c_out tile and C_in splits, then B4' where it
-    splits: each CTA stages its split's SEP_CI_CHUNK-channel chunks (the
+    """B4 at ``sch``'s tile, c_out tile and C_in splits, its split sum B4'
+    folded in: each CTA stages its split's SEP_CI_CHUNK-channel chunks (the
     halo'd window, the taps and the pointwise rows of its c_out tile)."""
     b, hw_out = shape.b, shape.out_h * shape.out_w
     th, tw, tiles = _tiles(shape, sch.tile_h, sch.tile_w)
@@ -335,13 +336,10 @@ def separable_hopper_traffic(shape: SeparableShape, sch) -> HopperTraffic:
     w_pw = shape.c_in * shape.c_out * F32
     out = b * hw_out * shape.c_out * F32
     chunks = -(-shape.c_in // SEP_CI_CHUNK)
-    launches = [LaunchTraffic(
+    return HopperTraffic((_split_sum(LaunchTraffic(
         "separable", 1, tiles * n_co * splits * b,
-        xl + tiles * b * (n_co * taps + w_pw), splits * out,
-        x_bytes + taps + w_pw, xl - x_bytes, tiles * n_co * b * chunks)]
-    if splits > 1:
-        launches.append(_reduce("separable_reduce", splits, out // F32))
-    return HopperTraffic(tuple(launches))
+        xl + tiles * b * (n_co * taps + w_pw), out, x_bytes + taps + w_pw,
+        xl - x_bytes, tiles * n_co * b * chunks), splits, out // F32),))
 
 
 def _mixed_staged_bytes(traffic, storage_words: int, eb: int) -> int:

@@ -1,11 +1,12 @@
 """Shared helpers for the kernel wrappers: padding arithmetic, device
 resolution, the activation codes the CUDA kernels take, the checks a
-wrapper makes before it launches a kernel, and the backward the ops'
-autograd Functions share."""
+wrapper makes before it launches a kernel, the arrival counters of the
+kernels that fold a cross-CTA sum, and the backward the ops' autograd
+Functions share."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -130,6 +131,37 @@ def check_cuda(*tensors: Optional[torch.Tensor],
                              f"got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernels take contiguous 16-byte-aligned tensors")
+
+
+# Arrival counters of the kernels whose last CTA folds a sum across CTAs
+# (pass 1's SE pool; the split launches of retain, recompute and the fused
+# separable kernel, kernels/csrc/splitk.cuh): one int per output tile of a
+# launch, in one zeroed buffer per device that every launch leaves zeroed,
+# so the kernels share it as long as one stream at a time runs them.
+ARRIVAL_COUNTERS = 1 << 16
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, needed: int,
+                     kernel: str) -> torch.Tensor:
+    """The device's zeroed arrival counters for a launch of ``kernel`` that
+    counts ``needed`` tiles, allocated (outside any CUDA graph capture) at
+    the first such launch on the device; ValueError when ``needed`` passes
+    the buffer."""
+    if needed > ARRIVAL_COUNTERS:
+        raise ValueError(f"{kernel} needs {needed} arrival counters, more "
+                         f"than the {ARRIVAL_COUNTERS} allocated")
+    buf = _COUNTERS.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the arrival counters are allocated at the "
+                               "first eager launch that folds a sum on a "
+                               "device: run one before capturing a CUDA "
+                               "graph")
+        buf = torch.zeros(ARRIVAL_COUNTERS, dtype=torch.int32, device=device)
+        torch.cuda.current_stream(device).synchronize()
+        _COUNTERS[device] = buf
+    return buf
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -5,21 +5,25 @@ Counterpart of ``repro.kernels.convdk_fused``:
 
     depthwise k x k / s -> dw_act -> pointwise 1x1 (C_in -> C_out) -> act
 
-in ONE launch (``kernels/csrc/separable.cu`` ``fused_separable_kernel``)
-where C_in is not split: the depthwise output never reaches device memory,
-the input is read from its unstaged layout, and the block output is
-written once.  Where the schedule splits C_in across CTAs (the late
-MobileNet-V2 blocks, too small to fill the card otherwise), each split
-writes an fp32 partial product and ``fused_separable_reduce_kernel`` (B4')
-sums the partials in split order and applies ``act``; the splits keep
+in ONE launch (``kernels/csrc/separable.cu`` ``fused_separable_kernel``):
+the depthwise output never reaches device memory, the input is read from
+its unstaged layout, and the block output is written once.  Where the
+schedule splits C_in across CTAs (the late MobileNet-V2 blocks, too small
+to fill the card otherwise), each split writes an fp32 partial product
+and the last CTA of each output tile sums the partials in split order and
+applies ``act`` (B4', folded into the launch); the splits keep
 ``splits * C_out < C_in``, so the partials are smaller than the depthwise
 tensor.
 
-``fused_separable`` launches the kernel (and the reduce) for CUDA tensors
-and runs ``fused_separable_plain`` for CPU tensors; any other device
-raises.  ``fused_separable_partials_plain`` and
+``fused_separable`` launches the kernel for CUDA tensors and runs its
+plain version for CPU tensors (``fused_separable_plain``, or for a split
+launch the plain partials summed in the kernel's order); any other device
+raises.
+``fused_separable_with_partials`` also returns the split launch's
+partials.  ``fused_separable_partials_plain`` and
 ``fused_separable_reduce_plain`` are the plain versions of the split
-route, summing in the kernels' order.  ``LAUNCHES`` counts kernel launches.
+route, summing in the kernel's order.  ``LAUNCHES`` counts kernel
+launches.
 The kernel tiles the output in ``tile_h x tile_w`` pixels, its c_out tile
 and splits come from ``core.autotune.fused_separable_launch_plan`` (see
 ``core.autotune.get_fused_schedule``), and it masks SAME padding and every
@@ -54,6 +58,7 @@ from . import _build
 from .common import (
     ACT_CODES,
     FP32,
+    arrival_counters,
     check_cuda,
     needs_grad,
     on_cpu,
@@ -64,7 +69,7 @@ from .common import (
 from .convdk_mbconv import MBConvGeometry
 from .ref import _act_ref, depthwise_valid, pad_nhwc, separable_ref
 
-KERNELS: Tuple[str, ...] = ("fused_separable", "fused_separable_reduce")
+KERNELS: Tuple[str, ...] = ("fused_separable",)
 # kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -82,15 +87,13 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """``csrc/separable.cu`` built and bound (B4 and B4' here, B6 for
+    """``csrc/separable.cu`` built and bound (B4 here, B6 for
     ``kernels.convdk_dw``), its tiles and shared-memory budget checked
     against ``core.autotune``."""
     lib = _build.load("separable")
-    lib.fused_separable.argtypes = [_P] * 4 + [_I] * 17 + [_P]
-    lib.fused_separable_reduce.argtypes = [_P, _P, ctypes.c_longlong, _I, _I,
-                                           _P]
+    lib.fused_separable.argtypes = [_P] * 6 + [_I] * 17 + [_P]
     lib.dw2d.argtypes = [_P] * 3 + [_I] * 10 + [_P]
-    for fn in (lib.fused_separable, lib.fused_separable_reduce, lib.dw2d):
+    for fn in (lib.fused_separable, lib.dw2d):
         fn.restype = ctypes.c_int
     lib.separable_error_string.argtypes = [ctypes.c_int]
     lib.separable_error_string.restype = ctypes.c_char_p
@@ -166,54 +169,63 @@ def fused_separable_partials_plain(x, w_dw, w_pw, geo: MBConvGeometry, *,
 
 def fused_separable_reduce_plain(partial: torch.Tensor, *,
                                  act: Optional[str]) -> torch.Tensor:
-    """Plain version of ``fused_separable_reduce``: the partials summed in
-    split order (the kernel's order, so the two agree bit for bit), then
-    act."""
+    """Plain version of the split launch's sum (B4'): the partials summed
+    in split order (the kernel's order, so the two agree bit for bit),
+    then act."""
     out = partial[0].clone()
     for s in range(1, partial.shape[0]):
         out += partial[s]
     return _act_ref(out, act)
 
 
-def fused_separable_reduce(partial: torch.Tensor, *,
-                           act: Optional[str]) -> torch.Tensor:
-    """B4': (splits, ...) fp32 partials -> act(their sum in split order)."""
-    if on_cpu(partial):
-        return fused_separable_reduce_plain(partial, act=act)
-    check_cuda(partial, dtypes=FP32)
-    out = torch.empty(partial.shape[1:], device=partial.device)
+def fused_separable_with_partials(
+        x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
+        geo: MBConvGeometry, *, dw_act: Optional[str], act: Optional[str]
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``fused_separable`` with its launch's fp32 split partials: (the
+    output, the partials (splits, B, out_h, out_w, C_out), or None where
+    the launch plan does not split C_in).  On the card one launch writes
+    both, its last CTA per output tile summing the partials in split order
+    and applying act; on the CPU the plain partials and their sum."""
+    _check_shapes(x, w_dw, w_pw, geo)
+    b, h, w, c_in = x.shape
+    c_out = w_pw.shape[1]
+    nc, splits = fused_separable_launch_plan(b, h, w, c_in, c_out, geo.k,
+                                             geo.s, geo.tile_h, geo.tile_w)
+    if on_cpu(x):
+        if splits == 1:
+            return fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
+                                         act=act), None
+        part = fused_separable_partials_plain(x, w_dw, w_pw, geo,
+                                              splits=splits, dw_act=dw_act)
+        return fused_separable_reduce_plain(part, act=act), part
+    check_cuda(x, w_dw, w_pw, dtypes=FP32)
+    shape = (b, geo.out_h, geo.out_w, c_out)
+    out = torch.empty(shape, device=x.device)
+    part = counters = None
+    if splits > 1:
+        part = torch.empty((splits, *shape), device=x.device)
+        counters = arrival_counters(x.device,
+                                    geo.n_tiles * -(-c_out // nc) * b,
+                                    "fused_separable")
     lib = _lib()
-    launch_error(lib, "fused_separable_reduce", lib.fused_separable_reduce(
-        ptr(partial), ptr(out), out.numel(), partial.shape[0],
-        ACT_CODES[act], torch.cuda.current_stream().cuda_stream))
-    LAUNCHES["fused_separable_reduce"] += 1
-    return out
+    launch_error(lib, "fused_separable", lib.fused_separable(
+        ptr(x), ptr(w_dw), ptr(w_pw), ptr(part), ptr(counters), ptr(out), b,
+        h, w, c_in, c_out, geo.k, geo.s, geo.out_h, geo.out_w,
+        geo.pads[0][0], geo.pads[1][0], geo.tile_h, geo.tile_w, nc, splits,
+        ACT_CODES[dw_act], ACT_CODES[act],
+        torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["fused_separable"] += 1
+    return out, part
 
 
 def fused_separable(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
                     geo: MBConvGeometry, *, dw_act: Optional[str],
                     act: Optional[str]) -> torch.Tensor:
     """Depthwise -> dw_act -> pointwise -> act -> (B, out_h, out_w, C_out);
-    on the card one launch, or the split launch and the reduce (B4')."""
-    _check_shapes(x, w_dw, w_pw, geo)
-    if on_cpu(x):
-        return fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
-                                     act=act)
-    check_cuda(x, w_dw, w_pw, dtypes=FP32)
-    b, h, w, c_in = x.shape
-    c_out = w_pw.shape[1]
-    nc, splits = fused_separable_launch_plan(b, h, w, c_in, c_out, geo.k,
-                                             geo.s, geo.tile_h, geo.tile_w)
-    out = torch.empty((splits, b, geo.out_h, geo.out_w, c_out),
-                      device=x.device)
-    lib = _lib()
-    launch_error(lib, "fused_separable", lib.fused_separable(
-        ptr(x), ptr(w_dw), ptr(w_pw), ptr(out), b, h, w, c_in, c_out, geo.k,
-        geo.s, geo.out_h, geo.out_w, geo.pads[0][0], geo.pads[1][0],
-        geo.tile_h, geo.tile_w, nc, splits, ACT_CODES[dw_act],
-        ACT_CODES[act], torch.cuda.current_stream().cuda_stream))
-    LAUNCHES["fused_separable"] += 1
-    return out[0] if splits == 1 else fused_separable_reduce(out, act=act)
+    on the card one launch, split over C_in or not."""
+    return fused_separable_with_partials(x, w_dw, w_pw, geo, dw_act=dw_act,
+                                         act=act)[0]
 
 
 def _fused_impl(x, w_dw, w_pw, geo: MBConvGeometry, *,

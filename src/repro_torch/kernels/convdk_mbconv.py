@@ -14,12 +14,16 @@ Counterpart of ``repro.kernels.convdk_mbconv``:
   back (``mbconv_pass2_retain``, a GEMM over the flattened pixels) or
   recomputing expand + DW from the input (``mbconv_pass2_recompute``);
   each splits C_mid over the grid where the card would be short of CTAs.
-* **Split-K reduce** (``mbconv_splitk_reduce``): sums either pass 2's
-  per-split partials in split order, so pass 2 repeats bit for bit.
+  A split launch writes fp32 per-split partials, and the last CTA of each
+  output tile sums them in split order (the split-K sum, folded into the
+  kernel), so pass 2 repeats bit for bit in one launch.
+  ``mbconv_pass2_retain_with_partials`` and
+  ``mbconv_pass2_recompute_with_partials`` also return those partials.
 
 Each pass wrapper launches its kernel (``kernels/csrc/mbconv.cu``) for
-CUDA tensors and runs its plain PyTorch version for CPU tensors; any
-other device raises.  ``LAUNCHES`` counts kernel launches per wrapper.
+CUDA tensors and runs its plain PyTorch version for CPU tensors (for a
+split pass 2, the plain partials summed in the kernel's order, so the
+two agree bit for bit); any other device raises.  ``LAUNCHES`` counts kernel launches per wrapper.
 
 The activations and weights take one storage type, fp32 or bf16
 (``common.STORAGE``; a CUDA tensor launches the build of its type, any
@@ -72,6 +76,7 @@ from .common import (
     ACT_CODES,
     FP32,
     STORAGE,
+    arrival_counters,
     check_cuda,
     launch_name,
     needs_grad,
@@ -85,8 +90,7 @@ from .common import (
 from .ref import _act_ref, depthwise_valid, mbconv_ref, pad_nhwc
 
 FP32_KERNELS: Tuple[str, ...] = (
-    "mbconv_pass1", "mbconv_pass2_recompute", "mbconv_pass2_retain",
-    "mbconv_splitk_reduce")
+    "mbconv_pass1", "mbconv_pass2_recompute", "mbconv_pass2_retain")
 # every kernel build: the fp32 kernels, then their bf16 builds
 KERNELS: Tuple[str, ...] = FP32_KERNELS + tuple(
     launch_name(k, torch.bfloat16) for k in FP32_KERNELS)
@@ -94,12 +98,11 @@ KERNELS: Tuple[str, ...] = FP32_KERNELS + tuple(
 # ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "mbconv_pass1": [_P] * 7 + [_I] * 16 + [_P],
-    "mbconv_pass2_recompute": [_P] * 7 + [_I] * 19 + [_P],
-    "mbconv_pass2_retain": [_P] * 5 + [_I] * 7 + [_P],
-    "mbconv_splitk_reduce": [_P, _P, _I, _L, _P],
+    "mbconv_pass2_recompute": [_P] * 8 + [_I] * 19 + [_P],
+    "mbconv_pass2_retain": [_P] * 6 + [_I] * 7 + [_P],
 }
 # the library of each storage type (kernels/_build.py's VARIANTS)
 _LIBRARIES = {torch.float32: "mbconv", torch.bfloat16: "mbconv_bf16"}
@@ -112,11 +115,6 @@ _SMEM_PROBES = ((3, 1, 8, 8, 16, 32), (5, 2, 7, 4, 112, 672),
 _R2_SMEM_PROBES = ((3, 1, 8, 8, 32, 32, 16), (3, 1, 8, 8, 24, 144, 24),
                    (5, 2, 8, 7, 24, 144, 40), (5, 1, 7, 7, 192, 1152, 320),
                    (3, 2, 8, 8, 16, 64, 24), (3, 2, 4, 16, 40, 240, 80))
-# SE pool arrival counters: one int per (image, pass-1 c_mid tile) of a
-# launch, in one zeroed buffer per device that every launch leaves zeroed
-POOL_COUNTERS = 1 << 16
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
-
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -167,25 +165,6 @@ def _launch(name: str, dtype: torch.dtype, *args) -> None:
         raise RuntimeError(f"{name} ({dtype}) did not launch: "
                            f"{lib.mbconv_error_string(err).decode()}")
     LAUNCHES[launch_name(name, dtype)] += 1
-
-
-def _pool_counters(device: torch.device, needed: int) -> torch.Tensor:
-    """The device's zeroed SE pool counters, allocated (outside any CUDA
-    graph capture) at its first pass-1 launch with SE."""
-    if needed > POOL_COUNTERS:
-        raise ValueError(f"pass 1 needs {needed} pool counters (batch x "
-                         f"c_mid tiles), more than the {POOL_COUNTERS} "
-                         f"allocated")
-    buf = _COUNTERS.get(device)
-    if buf is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the SE pool counters are allocated at the "
-                               "first eager pass-1 launch on a device: run "
-                               "one before capturing a CUDA graph")
-        buf = torch.zeros(POOL_COUNTERS, dtype=torch.int32, device=device)
-        torch.cuda.current_stream(device).synchronize()
-        _COUNTERS[device] = buf
-    return buf
 
 
 @dataclass(frozen=True)
@@ -298,8 +277,8 @@ def mbconv_pass1(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     if se:
         partial = torch.empty((b, geo.n_tiles, c_mid), device=x.device)
         pool = torch.empty((b, c_mid), device=x.device)
-        counters = _pool_counters(x.device,
-                                  b * -(-c_mid // pass1_cm_tile(c_mid)))
+        counters = arrival_counters(
+            x.device, b * -(-c_mid // pass1_cm_tile(c_mid)), "mbconv_pass1")
     dw = (torch.empty((b, geo.out_h, geo.out_w, c_mid), device=x.device,
                       dtype=dtype) if retain else None)
     _launch("mbconv_pass1", dtype, ptr(x), ptr(w_exp), ptr(w_dw), ptr(partial),
@@ -344,48 +323,74 @@ def mbconv_pass2_recompute_partials_plain(x, w_exp, w_dw, gate, w_proj,
                         for z in range(splits)])
 
 
+def mbconv_pass2_recompute_with_partials(
+        x: torch.Tensor, w_exp: Optional[torch.Tensor], w_dw: torch.Tensor,
+        gate: Optional[torch.Tensor], w_proj: torch.Tensor,
+        geo: MBConvGeometry, *, exp_act: Optional[str],
+        dw_act: Optional[str]
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``mbconv_pass2_recompute`` with its launch's fp32 split partials:
+    (the output, the partials (splits, B, out_h, out_w, C_out), or None
+    where ``recompute_plan`` does not split C_mid).  On the card one
+    launch writes both, its last CTA per output tile summing the partials
+    in split order; on the CPU the plain partials and their split-order
+    sum (``mbconv_splitk_reduce_plain``)."""
+    _check_shapes(x, w_exp, w_dw, geo)
+    dtype = storage_dtype(x, w_exp, w_dw, w_proj)
+    b, h, w, c_in = x.shape
+    c_mid, c_out = w_proj.shape
+    co_tile, splits = recompute_plan(b, geo.out_h, geo.out_w, c_mid, c_out,
+                                     geo.tile_h, geo.tile_w)
+    acts = dict(exp_act=exp_act, dw_act=dw_act)
+    if on_cpu(x):
+        if splits == 1:
+            return mbconv_pass2_recompute_plain(
+                x, w_exp, w_dw, gate, w_proj, geo, **acts), None
+        part = mbconv_pass2_recompute_partials_plain(
+            x, w_exp, w_dw, gate, w_proj, geo, splits, **acts)
+        return mbconv_splitk_reduce_plain(part, dtype), part
+    check_cuda(x, w_exp, w_dw, w_proj, dtypes=STORAGE)
+    check_cuda(gate, dtypes=FP32)
+    if geo.tile_h * geo.tile_w > MAX_TILE_PIXELS:
+        raise ValueError(f"the recompute kernel takes tiles of at most "
+                         f"{MAX_TILE_PIXELS} pixels, got {geo}")
+    out, part, counters = _pass2_outputs(
+        splits, (b, geo.out_h, geo.out_w, c_out), dtype, x.device,
+        geo.n_tiles * -(-c_out // co_tile) * b, "mbconv_pass2_recompute")
+    _launch("mbconv_pass2_recompute", dtype, ptr(x), ptr(w_exp), ptr(w_dw),
+            ptr(gate), ptr(w_proj), ptr(part), ptr(counters), ptr(out), b, h,
+            w, c_in, c_mid, c_out, geo.k, geo.s, geo.out_h, geo.out_w,
+            geo.pads[0][0], geo.pads[1][0], geo.tile_h, geo.tile_w,
+            int(w_exp is None), ACT_CODES[exp_act], ACT_CODES[dw_act],
+            co_tile, splits)
+    return out, part
+
+
 def mbconv_pass2_recompute(x: torch.Tensor, w_exp: Optional[torch.Tensor],
                            w_dw: torch.Tensor, gate: Optional[torch.Tensor],
                            w_proj: torch.Tensor, geo: MBConvGeometry, *,
                            exp_act: Optional[str], dw_act: Optional[str]
                            ) -> torch.Tensor:
     """Pass 2, recompute: expand + DW again, x gate (``None`` = se off),
-    projection -> (B, out_h, out_w, C_out).  The c_out tile and C_mid
-    splits come from ``recompute_plan``; a split launch ends in
-    ``mbconv_splitk_reduce``."""
-    _check_shapes(x, w_exp, w_dw, geo)
-    dtype = storage_dtype(x, w_exp, w_dw, w_proj)
-    if on_cpu(x):
-        return mbconv_pass2_recompute_plain(x, w_exp, w_dw, gate, w_proj,
-                                            geo, exp_act=exp_act,
-                                            dw_act=dw_act)
-    check_cuda(x, w_exp, w_dw, w_proj, dtypes=STORAGE)
-    check_cuda(gate, dtypes=FP32)
-    if geo.tile_h * geo.tile_w > MAX_TILE_PIXELS:
-        raise ValueError(f"the recompute kernel takes tiles of at most "
-                         f"{MAX_TILE_PIXELS} pixels, got {geo}")
-    b, h, w, c_in = x.shape
-    c_mid, c_out = w_proj.shape
-    co_tile, splits = recompute_plan(b, geo.out_h, geo.out_w, c_mid, c_out,
-                                     geo.tile_h, geo.tile_w)
-    partial, out = _pass2_outputs(splits, (b, geo.out_h, geo.out_w, c_out),
-                                  dtype, x.device)
-    _launch("mbconv_pass2_recompute", dtype, ptr(x), ptr(w_exp), ptr(w_dw),
-            ptr(gate), ptr(w_proj), ptr(partial), ptr(out), b, h, w, c_in,
-            c_mid, c_out, geo.k, geo.s, geo.out_h, geo.out_w, geo.pads[0][0],
-            geo.pads[1][0], geo.tile_h, geo.tile_w, int(w_exp is None),
-            ACT_CODES[exp_act], ACT_CODES[dw_act], co_tile, splits)
-    return out if splits == 1 else mbconv_splitk_reduce(partial, dtype)
+    projection -> (B, out_h, out_w, C_out), in one launch.  The c_out tile
+    and C_mid splits come from ``recompute_plan``; a split launch sums its
+    partials in its last CTAs."""
+    return mbconv_pass2_recompute_with_partials(
+        x, w_exp, w_dw, gate, w_proj, geo, exp_act=exp_act,
+        dw_act=dw_act)[0]
 
 
 def _pass2_outputs(splits: int, shape, dtype: torch.dtype,
-                   device: torch.device):
-    """(fp32 split partials or None, the output or None) of a pass-2
-    launch: an unsplit launch writes the output in the storage type, a
-    split one its fp32 partials for ``mbconv_splitk_reduce``."""
+                   device: torch.device, tiles: int, kernel: str):
+    """(the output in the storage type, fp32 split partials or None, the
+    arrival counters or None) of a pass-2 launch of ``tiles`` output
+    tiles: a split launch also writes its partials, summed by its last
+    CTA per tile."""
+    out = torch.empty(shape, device=device, dtype=dtype)
     if splits == 1:
-        return None, torch.empty(shape, device=device, dtype=dtype)
-    return torch.empty((splits, *shape), device=device), None
+        return out, None, None
+    return (out, torch.empty((splits, *shape), device=device),
+            arrival_counters(device, tiles, kernel))
 
 
 def mbconv_pass2_retain_plain(dw, gate, w_proj, geo: MBConvGeometry):
@@ -394,57 +399,85 @@ def mbconv_pass2_retain_plain(dw, gate, w_proj, geo: MBConvGeometry):
     return (_gated(dw.float(), gate) @ w_proj.float()).to(dw.dtype)
 
 
-def mbconv_pass2_retain(dw: torch.Tensor, gate: Optional[torch.Tensor],
-                        w_proj: torch.Tensor, geo: MBConvGeometry,
-                        max_splits: Optional[int] = None) -> torch.Tensor:
-    """Pass 2, retain: the DW tensor x gate (``None`` = se off),
-    projection -> (B, out_h, out_w, C_out).  ``geo`` is checked against
-    ``dw``'s shape only: the GEMM's tile and K splits come from
-    ``retain_plan`` (``max_splits`` caps the splits: the schedule's
-    ``retain_splits``), and a split launch ends in
-    ``mbconv_splitk_reduce``."""
-    b, out_h, out_w, c_mid = dw.shape
-    if (out_h, out_w) != (geo.out_h, geo.out_w):
-        raise ValueError(f"dw {tuple(dw.shape)} does not match {geo}")
-    dtype = storage_dtype(dw, w_proj)
-    if on_cpu(dw):
-        return mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
-    check_cuda(dw, w_proj, dtypes=STORAGE)
-    check_cuda(gate, dtypes=FP32)
-    c_out = w_proj.shape[1]
-    m = b * out_h * out_w
-    bm, bn, splits = retain_plan(m, c_mid, c_out, max_splits)
-    partial, out = _pass2_outputs(splits, (b, out_h, out_w, c_out), dtype,
-                                  dw.device)
-    _launch("mbconv_pass2_retain", dtype, ptr(dw), ptr(gate), ptr(w_proj),
-            ptr(partial), ptr(out), m, c_mid, c_out, out_h * out_w, bm, bn,
-            splits)
-    return out if splits == 1 else mbconv_splitk_reduce(partial, dtype)
+def mbconv_pass2_retain_partials_plain(dw, gate, w_proj,
+                                       splits: int) -> torch.Tensor:
+    """Plain version of a split retain launch's partials (splits, B,
+    out_h, out_w, C_out), fp32: split z projects the C_mid rows of the
+    GEMM's K chunks [z * per, (z + 1) * per), per = ceil(chunks /
+    splits)."""
+    d = _gated(dw.float(), gate)
+    w_proj = w_proj.float()
+    chunks = -(-w_proj.shape[0] // RETAIN_K_CHUNK)
+    per = -(-chunks // splits) * RETAIN_K_CHUNK
+    return torch.stack([d[..., z * per:(z + 1) * per]
+                        @ w_proj[z * per:(z + 1) * per]
+                        for z in range(splits)])
 
 
 def mbconv_splitk_reduce_plain(partial: torch.Tensor,
                                dtype: torch.dtype = torch.float32
                                ) -> torch.Tensor:
-    """Plain version of ``mbconv_splitk_reduce``, in the kernel's order."""
+    """(splits, ...) fp32 per-split partial products -> their sum in split
+    order, rounded once to ``dtype``: the plain version of the split-K sum
+    that a split pass-2 launch's last CTAs take, in the kernels' order."""
+    if dtype not in STORAGE:
+        raise ValueError(f"the split-K sum writes one of {STORAGE}, got "
+                         f"{dtype}")
     acc = partial[0].clone()
     for z in range(1, partial.shape[0]):
         acc = acc + partial[z]
     return acc.to(dtype)
 
 
-def mbconv_splitk_reduce(partial: torch.Tensor,
-                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(splits, ...) fp32 per-split partial products -> their sum, taken in
-    split order and rounded once to ``dtype`` (a storage type)."""
-    if dtype not in STORAGE:
-        raise ValueError(f"the reduce writes one of {STORAGE}, got {dtype}")
-    if on_cpu(partial):
-        return mbconv_splitk_reduce_plain(partial, dtype)
-    check_cuda(partial, dtypes=FP32)
-    out = torch.empty(partial.shape[1:], device=partial.device, dtype=dtype)
-    _launch("mbconv_splitk_reduce", dtype, ptr(partial), ptr(out),
-            partial.shape[0], out.numel())
-    return out
+def _check_dw(dw, w_proj, geo: MBConvGeometry) -> torch.dtype:
+    """The storage type of a retain launch; raises where the DW tensor's
+    map is not ``geo``'s output."""
+    if tuple(dw.shape[1:3]) != (geo.out_h, geo.out_w):
+        raise ValueError(f"dw {tuple(dw.shape)} does not match {geo}")
+    return storage_dtype(dw, w_proj)
+
+
+def mbconv_pass2_retain_with_partials(
+        dw: torch.Tensor, gate: Optional[torch.Tensor], w_proj: torch.Tensor,
+        geo: MBConvGeometry, max_splits: Optional[int] = None
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``mbconv_pass2_retain`` with its launch's fp32 split partials: (the
+    output, the partials (splits, B, out_h, out_w, C_out), or None where
+    ``retain_plan`` does not split K).  On the card one launch writes
+    both, its last CTA per output tile summing the partials in split
+    order; on the CPU the plain partials and their split-order sum."""
+    dtype = _check_dw(dw, w_proj, geo)
+    b, out_h, out_w, c_mid = dw.shape
+    c_out = w_proj.shape[1]
+    m = b * out_h * out_w
+    bm, bn, splits = retain_plan(m, c_mid, c_out, max_splits)
+    if on_cpu(dw):
+        if splits == 1:
+            return mbconv_pass2_retain_plain(dw, gate, w_proj, geo), None
+        part = mbconv_pass2_retain_partials_plain(dw, gate, w_proj, splits)
+        return mbconv_splitk_reduce_plain(part, dtype), part
+    check_cuda(dw, w_proj, dtypes=STORAGE)
+    check_cuda(gate, dtypes=FP32)
+    out, part, counters = _pass2_outputs(
+        splits, (b, out_h, out_w, c_out), dtype, dw.device,
+        -(-m // bm) * -(-c_out // bn), "mbconv_pass2_retain")
+    _launch("mbconv_pass2_retain", dtype, ptr(dw), ptr(gate), ptr(w_proj),
+            ptr(part), ptr(counters), ptr(out), m, c_mid, c_out,
+            out_h * out_w, bm, bn, splits)
+    return out, part
+
+
+def mbconv_pass2_retain(dw: torch.Tensor, gate: Optional[torch.Tensor],
+                        w_proj: torch.Tensor, geo: MBConvGeometry,
+                        max_splits: Optional[int] = None) -> torch.Tensor:
+    """Pass 2, retain: the DW tensor x gate (``None`` = se off),
+    projection -> (B, out_h, out_w, C_out), in one launch.  ``geo`` is
+    checked against ``dw``'s shape only: the GEMM's tile and K splits come
+    from ``retain_plan`` (``max_splits`` caps the splits: the schedule's
+    ``retain_splits``), and a split launch sums its partials in its last
+    CTAs."""
+    return mbconv_pass2_retain_with_partials(dw, gate, w_proj, geo,
+                                             max_splits)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,11 @@
 //                                     its cross-strip SE pool sum
 //                                     (:151-163) folded into the epilogue
 //   mbconv_pass2_recompute_kernel  <- _mbconv_pass2_recompute_kernel  (:169)
-//   mbconv_pass2_retain_kernel     <- _mbconv_pass2_retain_kernel     (:220)
-//   mbconv_splitk_reduce_kernel    <- the c_mid accumulation across grid
-//                                     steps of _mbconv_pass2_retain_kernel
-//                                     (:245-251) and of the recompute one
+//   mbconv_pass2_retain_kernel     <- _mbconv_pass2_retain_kernel     (:220),
+//                                     its c_mid accumulation across grid
+//                                     steps (:245-251), and the recompute
+//                                     one's, folded into each kernel's
+//                                     split launch (splitk.cuh)
 //
 // What they compute (NHWC activations, w_exp (C_in, C_mid), w_dw
 // (k, k, C_mid), w_proj (C_mid, C_out), all in one storage type T):
@@ -22,15 +23,15 @@
 //              (B, out_h, out_w, C_mid).
 //   recompute  expand + DW again, x SE gate, projection 1x1 (reduce C_mid).
 //   retain     re-read the DW tensor, x SE gate, projection 1x1.
-//   split-K    sums retain's or recompute's per-split partial products in
-//              split order.
+//   split-K    where retain or recompute splits C_mid over the grid, the
+//              split launch's last CTA per output tile sums the splits'
+//              partial products in split order (B3', folded in).
 //
 // The Pallas grids reduce over *sequential* grid steps (c_in innermost,
 // c_mid for the projection, strips for the pool); CTAs have no order, so a
 // reduction either loops inside one CTA, or goes through partials summed in
-// a fixed order by a second kernel or by the CTA that finishes last (an
-// arrival counter elects it; no value is ever added atomically), so results
-// repeat bit for bit.  SAME padding is a bounds mask everywhere: an input
+// a fixed order by the CTA that finishes last (an arrival counter elects
+// it; no value is ever added atomically), so results repeat bit for bit.  SAME padding is a bounds mask everywhere: an input
 // pixel outside the image reads as 0, so its expanded value is exp_act(0),
 // exactly what the JAX kernel's zero-padded input gives.  Ragged pixels,
 // channels and rows are masked in the kernels; the wrappers pad nothing.
@@ -69,8 +70,9 @@
 // tile order, writes the pool and resets the counter to 0, so the buffer is
 // ready for the next launch and for CUDA graph replays.  The counter only
 // elects the summing CTA; the order of the sum is fixed.  The counters are
-// one persistent zeroed buffer per device, which assumes one stream at a
-// time runs pass 1 on it, as the port does.
+// one persistent zeroed buffer per device, shared with pass 2's and the
+// separable kernel's split folds, which assumes one stream at a time runs
+// them, as the port does.
 //
 // Recompute (B2; bound by operations: the expand over the halo'd window,
 // as pass 1, then the projection).  One CTA owns a tile_h x tile_w output
@@ -88,7 +90,8 @@
 // load while the DW taps run.  Where the
 // pixel tiles leave the card short of CTAs, C_mid is split over the grid
 // (core.autotune.recompute_plan); the splits' partials go to a scratch
-// tensor and the split-K kernel sums them in split order.
+// tensor and the last CTA of each (pixel tile, c_out tile, image) sums
+// them in split order (splitk.cuh).
 //
 // Retain (the projection is a GEMM: M = B * out_h * out_w rows, K = C_mid,
 // N = C_out; bound by operations, and in practice by latency at B0's
@@ -102,9 +105,19 @@
 // K-major, so the inner loop reads float4s of A and of B into a TM x 4
 // register tile.  Where the M x N tiles leave the card short of CTAs (most
 // blocks below 28x28), K is split over the grid's z; the splits' partials
-// go to a scratch tensor and the split-K kernel sums them in split order,
-// with no atomics, so results repeat bit for bit.  Tile and split count
-// come from core.autotune.retain_plan.
+// go to a scratch tensor and the last CTA of each output tile sums them in
+// split order (splitk.cuh), with no atomics on values, so results repeat
+// bit for bit.  Tile and split count come from core.autotune.retain_plan.
+//
+// The split fold (B3', in retain and recompute).  A separate reduce kernel
+// spread the partials' read over all SMs but cost a launch per split
+// block; in the fold the last CTA of a tile reads splits x tile fp32
+// values through one SM, so its sum keeps several items' loads of several
+// splits in flight per thread.  That tail is bound by the read's latency
+// where the splits are deep (B0 224 b8's blocks 12-14: 18 splits of a
+// 64 x 64 tile, 288 KB; V2-S 384 b8's 12x12 blocks: 8 of a 128 x 64
+// tile, 256 KB), where the fold is slower than the separate reduce was
+// (PERF.md).
 //
 // SiLU and sigmoid use __expf and __fdividef (a few ulp), in every kernel
 // of this file.
@@ -156,10 +169,10 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include <algorithm>
 #include <type_traits>
 
 #include "mma.cuh"
+#include "splitk.cuh"
 #include "storage.cuh"
 
 namespace {
@@ -219,16 +232,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// atomicAdd with acquire-release semantics at device scope.
-__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
-  int old;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
-               : "=r"(old)
-               : "l"(p), "r"(v)
-               : "memory");
-  return old;
 }
 
 __device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) {
@@ -694,20 +697,11 @@ mbconv_pass1_kernel(const T* __restrict__ x, const T* __restrict__ w_exp,
       for (int l = 0; l < NG; ++l) t += r_s[l * CMT + tid];
       pool_partial[((size_t)b * gridDim.x + tile) * g.C_mid + cm0 + tid] = t;
     }
-    // Threadfence reduction, as a grid barrier's arrival: after the CTA's
-    // barrier one thread counts the CTA in with an acquire-release atomic
-    // (its release publishes the CTA's partial, its acquire makes the
-    // partials counted before it visible to the CTA that arrives last),
-    // and the last resets the counter.  The other threads write the DW
-    // tile meanwhile.  (A __threadfence() before a relaxed atomic, the
-    // textbook form, was slower on the card: PERF.md.)
+    // Threadfence reduction, as a grid barrier's arrival (splitk.cuh
+    // count_in): after the CTA's barrier one thread counts the CTA in; the
+    // other threads write the DW tile meanwhile.
     __syncthreads();
-    if (tid == 0) {
-      int* ctr = counters + (size_t)b * gridDim.y + blockIdx.y;
-      const bool done = atomic_add_acq_rel(ctr, 1) == (int)gridDim.x - 1;
-      if (done) *ctr = 0;
-      *last = done;
-    }
+    if (tid == 0) *last = count_in(counters + (size_t)b * gridDim.y + blockIdx.y, gridDim.x);
   }
 
   // ---- the retained DW tile, 4 channels a store along C_mid, rounded
@@ -804,8 +798,11 @@ __host__ __device__ inline size_t r2_smem_bytes(int Q, int P, int CMT, int C_in,
 // co_tile one of 16, 32, 64, 128.  x, w_exp, w_dw, w_proj in T; gate (B,
 // C_mid) fp32 or null (se off).  Split z sums c_mid chunks
 // [z * chunks_per_split, (z + 1) * chunks_per_split) into the fp32
-// partial + z * B * out_h * out_w * C_out; an unsplit launch (partial
-// null) writes out, rounded once to T.  The projection sums live in
+// partial + z * B * out_h * out_w * C_out, and the last split CTA of each
+// (pixel tile, c_out tile, image) to arrive at its counter sums the
+// splits' partials in split order into out (recompute_fold); an unsplit
+// launch (partial and counters null) writes out itself.  out rounds once
+// to T.  The projection sums live in
 // registers only while a chunk is projected and in shared memory between
 // chunks, so the expand runs with about pass 1's registers: three CTAs an
 // SM at NB = 1, two above.  TM: R2_TM_SMALL or R2_TM, at least the
@@ -815,8 +812,9 @@ __global__ void __launch_bounds__(P1_NT, NB == 1 ? 3 : 2)
 mbconv_pass2_recompute_kernel(const T* __restrict__ x, const T* __restrict__ w_exp,
                               const T* __restrict__ w_dw, const float* __restrict__ gate,
                               const T* __restrict__ w_proj, float* __restrict__ partial,
-                              T* __restrict__ out, Geom g, int identity, int exp_act,
-                              int dw_act, int co_tile, int chunks_per_split) {
+                              int* __restrict__ counters, T* __restrict__ out, Geom g,
+                              int identity, int exp_act, int dw_act, int co_tile,
+                              int chunks_per_split) {
   constexpr int EP = CMT + P1_PAD;
   constexpr int STEPS = CMT / R2_KC;    // w_proj ring steps per chunk
   constexpr int WS = r2_slots(CMT);
@@ -941,6 +939,29 @@ mbconv_pass2_recompute_kernel(const T* __restrict__ x, const T* __restrict__ w_e
         store_row(out + at, acc[i], vec_out, g.C_out - co);
     }
   }
+  if (!partial) return;
+
+  // ---- the split fold (B3'): the last of the splits' CTAs of this
+  // (pixel tile, c_out tile, image) sums their partials in split order ----
+  cp_async_wait<0>();
+  __syncthreads();                      // every partial of this CTA stored; smem free
+  int* last = reinterpret_cast<int*>(smem4);
+  if (tid == 0)
+    *last = count_in(counters + ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + tile,
+                     gridDim.z / g.B);
+  __syncthreads();
+  if (!*last) return;
+  // one item in flight a thread: the expand runs at a register cap
+  fold_tile<1, 4>(
+      partial, out, (size_t)g.B * g.out_h * g.out_w * g.C_out, gridDim.z / g.B, P, co_tile,
+      g.C_out - co0, vec_out, tid, P1_NT,
+      [&](int p) -> long long {
+        const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
+        return oh < g.out_h && ow < g.out_w
+                   ? ((long long)(b * g.out_h + oh) * g.out_w + ow) * g.C_out + co0
+                   : -1;
+      },
+      [](float v) { return v; });
 }
 
 // ---------------------------------------------------------------------------
@@ -969,6 +990,30 @@ struct RetainTile {
   }
 };
 
+// The split fold of a retain launch (B3'): after every thread of the CTA
+// stored its fp32 partial of the BM x BN tile, the last of the tile's
+// gridDim.z split CTAs to arrive at the tile's counter sums their partials
+// in split order into C, rounded once to T (splitk.cuh).
+template <int BM, int BN, int NT, typename T>
+__device__ __forceinline__ void retain_fold(const float* __restrict__ partial,
+                                            int* __restrict__ counters, T* __restrict__ C,
+                                            int M, int N, int m0, int n0) {
+  extern __shared__ float4 smem4[];
+  cp_async_wait<0>();
+  __syncthreads();                      // every partial of this CTA stored; smem free
+  int* last = reinterpret_cast<int*>(smem4);
+  if (threadIdx.x == 0)
+    *last = count_in(counters + (size_t)blockIdx.y * gridDim.x + blockIdx.x, gridDim.z);
+  __syncthreads();
+  if (!*last) return;
+  // 4 items x 4 splits in flight a thread (2 x 4 and 1 x 8 ran slower on
+  // the card)
+  fold_tile<4, 4>(partial, C, (size_t)M * N, gridDim.z, min(BM, M - m0), BN, N - n0,
+                  (N & 3) == 0, threadIdx.x, NT,
+                  [&](int r) -> long long { return (long long)(m0 + r) * N + n0; },
+                  [](float v) { return v; });
+}
+
 // The bf16 build's retain GEMM on tensor cores.  Warp w owns rows
 // [16 w, 16 w + 16) of the CTA tile across all BN columns (BN / 8 n8
 // tiles), its fp32 sums in registers, so each A element is read, gated and
@@ -989,6 +1034,7 @@ __device__ __forceinline__ void retain_mma(const __nv_bfloat16* __restrict__ A,
                                            const float* __restrict__ gate,
                                            const __nv_bfloat16* __restrict__ W,
                                            float* __restrict__ partial,
+                                           int* __restrict__ counters,
                                            __nv_bfloat16* __restrict__ C, int M, int K, int N,
                                            int rows_per_img, int chunks_per_split) {
   using T = __nv_bfloat16;
@@ -1152,22 +1198,25 @@ __device__ __forceinline__ void retain_mma(const __nv_bfloat16* __restrict__ A,
         if (n + 1 < N) C[at + 1] = __float2bfloat16_rn(v1);
       }
     }
+  if (partial) retain_fold<BM, BN, NT>(partial, counters, C, M, N, m0, n0);
 }
 
 // grid (ceil(N / BN), ceil(M / BM), splits).  A = dw (M, K) and W = w_proj
 // (K, N) in T, gate (B, K) fp32 or null (se off); split z sums K chunks
 // [z * chunks_per_split, (z + 1) * chunks_per_split) into the fp32 partial
-// + z * M * N; an unsplit launch (partial null) writes C, rounded once to T.
+// + z * M * N, and the last of a tile's split CTAs sums them into C
+// (retain_fold); an unsplit launch (partial and counters null) writes C
+// itself.  C rounds once to T.
 // VEC: K and N are multiples of 4 (16-byte fp32 or 8-byte bf16 copies and
 // stores).
 template <int BM, int BN, int TM, bool VEC, typename T>
 __global__ void __launch_bounds__(RetainTile<BM, BN, TM>::threads(sizeof(T)))
 mbconv_pass2_retain_kernel(const T* __restrict__ A, const float* __restrict__ gate,
                            const T* __restrict__ W, float* __restrict__ partial,
-                           T* __restrict__ C, int M, int K, int N, int rows_per_img,
-                           int chunks_per_split) {
+                           int* __restrict__ counters, T* __restrict__ C, int M, int K,
+                           int N, int rows_per_img, int chunks_per_split) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    retain_mma<BM, BN, TM, VEC>(A, gate, W, partial, C, M, K, N, rows_per_img,
+    retain_mma<BM, BN, TM, VEC>(A, gate, W, partial, counters, C, M, K, N, rows_per_img,
                                 chunks_per_split);
     return;
   }
@@ -1301,33 +1350,7 @@ mbconv_pass2_retain_kernel(const T* __restrict__ A, const float* __restrict__ ga
     else
       store_row(C + (size_t)m * N + n, acc[i], VEC, N - n);
   }
-}
-
-// out[i] = ((p[0][i] + p[1][i]) + p[2][i]) + ...: the fp32 splits in
-// order, rounded once to T.
-template <bool VEC, typename T>
-__global__ void mbconv_splitk_reduce_kernel(const float* __restrict__ partial,
-                                            T* __restrict__ out, int splits,
-                                            long long count) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  if (VEC) {
-    const long long n4 = count / 4;
-    const float4* p = reinterpret_cast<const float4*>(partial);
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
-      float4 s = p[i];
-      for (int z = 1; z < splits; ++z) {
-        const float4 v = p[(size_t)z * n4 + i];
-        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-      }
-      st4(out + 4 * i, s.x, s.y, s.z, s.w);
-    }
-  } else {
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += stride) {
-      float s = partial[i];
-      for (int z = 1; z < splits; ++z) s += partial[(size_t)z * count + i];
-      out[i] = from_f<T>(s);
-    }
-  }
+  if (partial) retain_fold<BM, BN, NT>(partial, counters, C, M, N, m0, n0);
 }
 
 Geom make_geom(int B, int H, int W, int C_in, int C_mid, int C_out, int K, int S,
@@ -1382,6 +1405,7 @@ struct RecomputeArgs {
   const float* gate;
   const Elem* w_proj;
   float* partial;
+  int* counters;
   Elem* out;
   int identity, exp_act, dw_act, co_tile, splits, chunks_per_split;
 };
@@ -1410,8 +1434,8 @@ cudaError_t launch_recompute_tm(const RecomputeArgs& a, const Geom& g, cudaStrea
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const dim3 grid(n_tiles(g), (g.C_out + a.co_tile - 1) / a.co_tile, g.B * a.splits);
   mbconv_pass2_recompute_kernel<K, KS, CMT, NB, TM, Elem><<<grid, P1_NT, smem, stream>>>(
-      a.x, a.w_exp, a.w_dw, a.gate, a.w_proj, a.partial, a.out, g, a.identity, a.exp_act,
-      a.dw_act, a.co_tile, a.chunks_per_split);
+      a.x, a.w_exp, a.w_dw, a.gate, a.w_proj, a.partial, a.counters, a.out, g, a.identity,
+      a.exp_act, a.dw_act, a.co_tile, a.chunks_per_split);
   return cudaGetLastError();
 }
 
@@ -1455,7 +1479,7 @@ cudaError_t launch_recompute(const RecomputeArgs& a, const Geom& g, cudaStream_t
 
 template <int BM, int BN, int TM, bool VEC>
 cudaError_t launch_retain_tile(const Elem* dw, const float* gate, const Elem* w_proj,
-                               float* partial, Elem* out, int M, int K, int N,
+                               float* partial, int* counters, Elem* out, int M, int K, int N,
                                int rows_per_img, int splits, int chunks_per_split,
                                cudaStream_t stream) {
   using Tile = RetainTile<BM, BN, TM>;
@@ -1466,19 +1490,19 @@ cudaError_t launch_retain_tile(const Elem* dw, const float* gate, const Elem* w_
   if (grid.y > 65535) return cudaErrorInvalidValue;
   mbconv_pass2_retain_kernel<BM, BN, TM, VEC, Elem>
       <<<grid, Tile::threads(sizeof(Elem)), Tile::smem_bytes(sizeof(Elem)), stream>>>(
-          dw, gate, w_proj, partial, out, M, K, N, rows_per_img, chunks_per_split);
+          dw, gate, w_proj, partial, counters, out, M, K, N, rows_per_img, chunks_per_split);
   return cudaGetLastError();
 }
 
 template <bool VEC>
 cudaError_t launch_retain(int bm, int bn, const Elem* dw, const float* gate, const Elem* w_proj,
-                          float* partial, Elem* out, int M, int K, int N, int rows_per_img,
-                          int splits, int cps, cudaStream_t stream) {
-#define RETAIN_TILE(BM_, BN_, TM_)                                                   \
-  if (bm == BM_ && bn == BN_)                                                        \
-    return launch_retain_tile<BM_, BN_, TM_, VEC>(dw, gate, w_proj, partial, out, M, \
-                                                  K, N, rows_per_img, splits, cps,   \
-                                                  stream);
+                          float* partial, int* counters, Elem* out, int M, int K, int N,
+                          int rows_per_img, int splits, int cps, cudaStream_t stream) {
+#define RETAIN_TILE(BM_, BN_, TM_)                                                    \
+  if (bm == BM_ && bn == BN_)                                                         \
+    return launch_retain_tile<BM_, BN_, TM_, VEC>(dw, gate, w_proj, partial, counters, \
+                                                  out, M, K, N, rows_per_img, splits, \
+                                                  cps, stream);
   RETAIN_TILE(128, 64, 8)
   RETAIN_TILE(64, 64, 4)
   RETAIN_TILE(128, 32, 4)
@@ -1550,11 +1574,12 @@ int mbconv_pass1(const Elem* x, const Elem* w_exp, const Elem* w_dw,
   MBCONV_KS_SWITCH(K, S, launch_pass1<KK, SS>(a, g, (cudaStream_t)stream))
 }
 
-// partial (splits, B, out_h, out_w, C_out) fp32 for splits > 1, else null
-// and out (B, out_h, out_w, C_out) in Elem; gate fp32 or null.
+// out (B, out_h, out_w, C_out) in Elem; gate fp32 or null; for splits > 1
+// the fp32 partial (splits, B, out_h, out_w, C_out) and counters holding
+// n_tiles * ceil(C_out / co_tile) * B zeros (left so), else both null.
 int mbconv_pass2_recompute(const Elem* x, const Elem* w_exp, const Elem* w_dw,
                            const float* gate, const Elem* w_proj, float* partial,
-                           Elem* out, int B,
+                           int* counters, Elem* out, int B,
                            int H, int W, int C_in, int C_mid, int C_out, int K, int S,
                            int out_h, int out_w, int pad_top, int pad_left, int tile_h,
                            int tile_w, int identity, int exp_act, int dw_act, int co_tile,
@@ -1568,22 +1593,23 @@ int mbconv_pass2_recompute(const Elem* x, const Elem* w_exp, const Elem* w_dw,
   if (splits <= 0 || (long long)B * splits > 65535) return (int)cudaErrorInvalidValue;
   const int cps = (n_chunks + splits - 1) / splits;
   if ((splits - 1) * cps >= n_chunks) return (int)cudaErrorInvalidValue;  // empty split
-  if ((splits > 1) != (partial != nullptr) || (splits > 1) == (out != nullptr))
+  if ((splits > 1) != (partial != nullptr) || (splits > 1) != (counters != nullptr) || !out)
     return (int)cudaErrorInvalidValue;
-  const RecomputeArgs a{x,       w_exp,    w_dw,    gate,   w_proj,  partial, out,
-                        identity, exp_act, dw_act, co_tile, splits, cps};
+  const RecomputeArgs a{x,       w_exp,   w_dw,   gate,    w_proj, partial, counters,
+                        out,     identity, exp_act, dw_act, co_tile, splits, cps};
   MBCONV_KS_SWITCH(K, S, launch_recompute<KK, SS>(a, g, (cudaStream_t)stream))
 }
 
 // dw (M, K) rows of rows_per_img pixels per image and w_proj in Elem, gate
-// fp32 or null; partial (splits, M, N) fp32 for splits > 1, else null and
-// out (M, N) in Elem.
+// fp32 or null, out (M, N) in Elem; for splits > 1 the fp32 partial
+// (splits, M, N) and counters holding ceil(M / bm) * ceil(N / bn) zeros
+// (left so), else both null.
 int mbconv_pass2_retain(const Elem* dw, const float* gate, const Elem* w_proj,
-                        float* partial, Elem* out, int M, int K, int N, int rows_per_img,
-                        int bm, int bn, int splits, void* stream) {
+                        float* partial, int* counters, Elem* out, int M, int K, int N,
+                        int rows_per_img, int bm, int bn, int splits, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || rows_per_img <= 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
-  if ((splits > 1) != (partial != nullptr) || (splits > 1) == (out != nullptr))
+  if ((splits > 1) != (partial != nullptr) || (splits > 1) != (counters != nullptr) || !out)
     return (int)cudaErrorInvalidValue;
   const int n_chunks = (K + R_BK - 1) / R_BK;
   const int cps = (n_chunks + splits - 1) / splits;
@@ -1591,29 +1617,11 @@ int mbconv_pass2_retain(const Elem* dw, const float* gate, const Elem* w_proj,
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       (K % 4 == 0 && N % 4 == 0)
-          ? launch_retain<true>(bm, bn, dw, gate, w_proj, partial, out, M, K, N,
+          ? launch_retain<true>(bm, bn, dw, gate, w_proj, partial, counters, out, M, K, N,
                                 rows_per_img, splits, cps, s)
-          : launch_retain<false>(bm, bn, dw, gate, w_proj, partial, out, M, K, N,
+          : launch_retain<false>(bm, bn, dw, gate, w_proj, partial, counters, out, M, K, N,
                                  rows_per_img, splits, cps, s);
   return (int)err;
-}
-
-// partial (splits, count) fp32 -> out (count) in Elem, summed in split
-// order and rounded once.
-int mbconv_splitk_reduce(const float* partial, Elem* out, int splits, long long count,
-                         void* stream) {
-  if (splits <= 0 || count <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const bool vec = count % 4 == 0;
-  const long long items = vec ? count / 4 : count;
-  const int blocks = (int)std::min<long long>((items + threads - 1) / threads, 132 * 16);
-  if (vec)
-    mbconv_splitk_reduce_kernel<true, Elem><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        partial, out, splits, count);
-  else
-    mbconv_splitk_reduce_kernel<false, Elem><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        partial, out, splits, count);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

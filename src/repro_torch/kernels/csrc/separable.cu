@@ -3,17 +3,17 @@
 // Replaces the two Pallas TPU kernels of the JAX package's separable path:
 //
 //   fused_separable_kernel <- _fused_kernel (src/repro/kernels/convdk_fused.py:59),
-//                             launched by fused_separable_pallas (:120)
-//   fused_separable_reduce_kernel <- the c_in accumulation across grid steps
-//                             inside _fused_kernel (:59)
+//                             launched by fused_separable_pallas (:120), with
+//                             its c_in accumulation across grid steps
+//                             (:107-117) folded into the split launch
 //   dw2d_kernel            <- _dw2d_kernel (src/repro/kernels/convdk_dw.py:32),
 //                             launched by dw2d_pallas (:57)
 //
 // What they compute (NHWC activations, w_dw (k, k, C) taps, w_pw (C_in, C_out)):
 //
 //   fused_separable  depthwise k x k / s -> dw_act -> pointwise 1x1 (reduce
-//                    C_in) -> act, fp32, in one launch (two where C_in is
-//                    split): the DW output never reaches device memory.
+//                    C_in) -> act, fp32, in one launch (where C_in is split
+//                    too): the DW output never reaches device memory.
 //   dw2d             depthwise k x k / s over pre-staged overlapping row strips
 //                    (B, n_th, in_rows, W_pad, C) -> (B, n_th, tile_h, out_w, C),
 //                    fp32 or bf16 in and out with fp32 sums, the staged
@@ -37,12 +37,16 @@
 // FMAs.  The late MobileNet-V2
 // blocks (28x28 / s2 to 7x7) have too few pixels to fill 132 SMs, so the
 // solver (core.autotune.select_fused_schedule) picks small tiles and splits
-// C_in across CTAs: each split writes its fp32 partial product and
-// fused_separable_reduce_kernel (B4') sums the partials in split order,
-// applies act and writes the output (no atomics: results repeat bit for
-// bit).  The splits are bounded by splits * C_out < C_in, so the partials
-// move fewer bytes than the depthwise tensor the staged route writes.  Where
-// C_in is not split the CTA applies act and writes the output itself.  The
+// C_in across CTAs: each split writes its fp32 partial product, and the
+// last of the splits' CTAs of each (pixel tile, c_out tile, image) to
+// arrive at its counter (B4', folded in: splitk.cuh) sums the partials in
+// split order, applies act and writes the output (no atomics on values:
+// results repeat bit for bit), with all of its threads, though only the
+// pointwise warps hold products.  The splits are bounded by
+// splits * C_out < C_in, so the
+// partials move fewer bytes than the depthwise tensor the staged route
+// writes.  Where C_in is not split the CTA applies act and writes the
+// output itself.  The
 // depthwise is recomputed per c_out tile, as the Pallas grid does (c_out-blk
 // outside c_in-blk): k*k FMAs per channel, against NC for the pointwise.
 //
@@ -70,6 +74,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "splitk.cuh"
 
 namespace {
 
@@ -187,13 +193,18 @@ size_t smem_floats(int K, int in_rows, int in_cols, int pixels, int NC) {
   return SLOTS * slot_floats(K, in_rows, in_cols, NC) + 2 * (size_t)pixels * XS;
 }
 
-// grid (n_tiles, n_co * splits, B), FS_THREADS threads.  With splits > 1
-// out is the (splits, B, out_h, out_w, C_out) partial buffer and act is
-// ACT_NONE (the reduce applies it).
+// grid (n_tiles, n_co * splits, B), FS_THREADS threads.  out is the block
+// output (B, out_h, out_w, C_out).  With splits > 1 each split CTA writes
+// its fp32 product to partial (splits, B, out_h, out_w, C_out) and the
+// last of a (tile, c_out tile, image)'s split CTAs to arrive at its
+// counter (counters + (b * n_co + c_out tile) * n_tiles + tile) writes
+// act(the split-order sum) to out; partial and counters are null where
+// splits == 1.
 template <int K, int S, int NC>
 __global__ void __launch_bounds__(FS_THREADS, 4)
 fused_separable_kernel(const float* __restrict__ x, const float* __restrict__ w_dw,
-                       const float* __restrict__ w_pw, float* __restrict__ out, Geom g,
+                       const float* __restrict__ w_pw, float* __restrict__ partial,
+                       int* __restrict__ counters, float* __restrict__ out, Geom g,
                        int dw_act, int act) {
   constexpr int LC = chunk_lanes(NC), TC = NC / LC, LP = 32 / LC;
   constexpr int PPW = pixels_per_warp(NC);
@@ -206,7 +217,7 @@ fused_separable_kernel(const float* __restrict__ x, const float* __restrict__ w_
   float* e_s = ring + SLOTS * slot;                   // 2 x P x XS
 
   const int tile = blockIdx.x, b = blockIdx.z;
-  const int co0 = (blockIdx.y % g.n_co) * NC, split = blockIdx.y / g.n_co;
+  const int co_t = blockIdx.y % g.n_co, co0 = co_t * NC, split = blockIdx.y / g.n_co;
   const int oh0 = (tile / g.n_tw) * g.tile_h, ow0 = (tile % g.n_tw) * g.tile_w;
   const int ih0 = oh0 * S - g.pad_top, iw0 = ow0 * S - g.pad_left;
   const int t = threadIdx.x, warp = t / 32;
@@ -335,69 +346,60 @@ fused_separable_kernel(const float* __restrict__ x, const float* __restrict__ w_
     }
   }
 
-  if (warp >= pw_warps) return;
-  float* o_base = out + (size_t)split * g.B * g.out_h * g.out_w * g.C_out;
+  const size_t count = (size_t)g.B * g.out_h * g.out_w * g.C_out;
+  if (warp < pw_warps) {
+    float* o_base = g.splits > 1 ? partial + split * count : out;
+    const int a = g.splits > 1 ? (int)ACT_NONE : act;
 #pragma unroll
-  for (int j = 0; j < TP; ++j) {
-    const int p = warp * PPW + lp + LP * j;
-    if (p >= P) continue;
-    const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
-    if (oh >= g.out_h || ow >= g.out_w) continue;
-    float* o = o_base + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out;
+    for (int j = 0; j < TP; ++j) {
+      const int p = warp * PPW + lp + LP * j;
+      if (p >= P) continue;
+      const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
+      if (oh >= g.out_h || ow >= g.out_w) continue;
+      float* o = o_base + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out;
 #pragma unroll
-    for (int u = 0; u < TC / 4; ++u) {
-      const int co = co0 + 4 * lc + 4 * LC * u;
-      if (vec_o && co < g.C_out) {
-        *reinterpret_cast<float4*>(o + co) =
-            make_float4(act_apply(acc[j][4 * u], act), act_apply(acc[j][4 * u + 1], act),
-                        act_apply(acc[j][4 * u + 2], act), act_apply(acc[j][4 * u + 3], act));
-      } else if (!vec_o) {
+      for (int u = 0; u < TC / 4; ++u) {
+        const int co = co0 + 4 * lc + 4 * LC * u;
+        if (vec_o && co < g.C_out) {
+          *reinterpret_cast<float4*>(o + co) =
+              make_float4(act_apply(acc[j][4 * u], a), act_apply(acc[j][4 * u + 1], a),
+                          act_apply(acc[j][4 * u + 2], a), act_apply(acc[j][4 * u + 3], a));
+        } else if (!vec_o) {
 #pragma unroll
-        for (int v = 0; v < 4; ++v)
-          if (co + v < g.C_out) o[co + v] = act_apply(acc[j][4 * u + v], act);
+          for (int v = 0; v < 4; ++v)
+            if (co + v < g.C_out) o[co + v] = act_apply(acc[j][4 * u + v], a);
+        }
       }
     }
   }
-}
+  if (g.splits == 1) return;
 
-// B4': out[i] = act(sum over s of part[s][i]), s in order; float4 when n %
-// 4 == 0.  Grid-stride over n elements (n4 float4s).
-template <bool VEC>
-__global__ void __launch_bounds__(256)
-fused_separable_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                              long long n, int splits, int act) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  if constexpr (VEC) {
-    const float4* p4 = reinterpret_cast<const float4*>(part);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    const long long n4 = n / 4;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
-      float4 a = __ldg(p4 + i);
-      for (int s = 1; s < splits; ++s) {
-        const float4 v = __ldg(p4 + (long long)s * n4 + i);
-        a.x += v.x;
-        a.y += v.y;
-        a.z += v.z;
-        a.w += v.w;
-      }
-      o4[i] = make_float4(act_apply(a.x, act), act_apply(a.y, act), act_apply(a.z, act),
-                          act_apply(a.w, act));
-    }
-  } else {
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-      float a = __ldg(part + i);
-      for (int s = 1; s < splits; ++s) a += __ldg(part + (long long)s * n + i);
-      out[i] = act_apply(a, act);
-    }
-  }
+  // ---- the split fold (B4'): the last of the splits' CTAs of this (tile,
+  // c_out tile, image) sums their partials in split order, then act ----
+  __syncthreads();                      // this CTA's partials stored; the ring read
+  int* last = reinterpret_cast<int*>(smem4);
+  if (t == 0)
+    *last = count_in(counters + ((size_t)b * g.n_co + co_t) * gridDim.x + tile, g.splits);
+  __syncthreads();
+  if (!*last) return;
+  // 2 items x 4 splits in flight a thread, under the 128-register cap
+  fold_tile<2, 4>(
+      partial, out, count, g.splits, P, NC, g.C_out - co0, vec_o, t, FS_THREADS,
+      [&](int p) -> long long {
+        const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
+        return oh < g.out_h && ow < g.out_w
+                   ? ((long long)(b * g.out_h + oh) * g.out_w + ow) * g.C_out + co0
+                   : -1;
+      },
+      [&](float v) { return act_apply(v, act); });
 }
 
 constexpr size_t MAX_SMEM = 232448;     // 227 KB: the per-CTA opt-in maximum
 
 template <int K, int S, int NC>
 cudaError_t launch_fused(const float* x, const float* w_dw, const float* w_pw,
-                         float* out, const Geom& g, int dw_act, int act,
-                         cudaStream_t stream) {
+                         float* partial, int* counters, float* out, const Geom& g,
+                         int dw_act, int act, cudaStream_t stream) {
   const size_t smem =
       smem_floats(K, g.in_rows, g.in_cols, g.tile_h * g.tile_w, NC) * sizeof(float);
   // once per instance (a function-local static), so no attribute call lands
@@ -410,22 +412,27 @@ cudaError_t launch_fused(const float* x, const float* w_dw, const float* w_pw,
   const int n_tiles = ((g.out_h + g.tile_h - 1) / g.tile_h) * g.n_tw;
   const dim3 grid(n_tiles, g.n_co * g.splits, g.B);
   fused_separable_kernel<K, S, NC><<<grid, FS_THREADS, smem, stream>>>(
-      x, w_dw, w_pw, out, g, dw_act, act);
+      x, w_dw, w_pw, partial, counters, out, g, dw_act, act);
   return cudaGetLastError();
 }
 
 template <int K, int S>
 cudaError_t launch_fused_nc(const float* x, const float* w_dw, const float* w_pw,
-                            float* out, const Geom& g, int nc, int dw_act, int act,
-                            cudaStream_t stream) {
+                            float* partial, int* counters, float* out, const Geom& g,
+                            int nc, int dw_act, int act, cudaStream_t stream) {
+#define FUSED_NC(NC_)                                                                \
+  case NC_:                                                                          \
+    return launch_fused<K, S, NC_>(x, w_dw, w_pw, partial, counters, out, g, dw_act, \
+                                   act, stream);
   switch (nc) {
-    case 16: return launch_fused<K, S, 16>(x, w_dw, w_pw, out, g, dw_act, act, stream);
-    case 24: return launch_fused<K, S, 24>(x, w_dw, w_pw, out, g, dw_act, act, stream);
-    case 32: return launch_fused<K, S, 32>(x, w_dw, w_pw, out, g, dw_act, act, stream);
-    case 48: return launch_fused<K, S, 48>(x, w_dw, w_pw, out, g, dw_act, act, stream);
-    case 64: return launch_fused<K, S, 64>(x, w_dw, w_pw, out, g, dw_act, act, stream);
+    FUSED_NC(16)
+    FUSED_NC(24)
+    FUSED_NC(32)
+    FUSED_NC(48)
+    FUSED_NC(64)
     default: return cudaErrorInvalidValue;
   }
+#undef FUSED_NC
 }
 
 // ------------------------------------ dw2d ------------------------------------
@@ -583,12 +590,14 @@ const char* separable_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// out is the block output (splits 1) or the (splits, B, out_h, out_w,
-// C_out) fp32 partials the reduce sums (splits > 1, act ignored)
-int fused_separable(const float* x, const float* w_dw, const float* w_pw, float* out,
-                    int B, int H, int W, int C_in, int C_out, int K, int S, int out_h,
-                    int out_w, int pad_top, int pad_left, int tile_h, int tile_w, int nc,
-                    int splits, int dw_act, int act, void* stream) {
+// out is the block output; for splits > 1 partial is the (splits, B, out_h,
+// out_w, C_out) fp32 scratch of the split products and counters holds
+// n_tiles * ceil(C_out / nc) * B zeros (left so), else both are null
+int fused_separable(const float* x, const float* w_dw, const float* w_pw, float* partial,
+                    int* counters, float* out, int B, int H, int W, int C_in, int C_out,
+                    int K, int S, int out_h, int out_w, int pad_top, int pad_left,
+                    int tile_h, int tile_w, int nc, int splits, int dw_act, int act,
+                    void* stream) {
   Geom g;
   g.B = B; g.H = H; g.W = W; g.C_in = C_in; g.C_out = C_out;
   g.out_h = out_h; g.out_w = out_w; g.pad_top = pad_top; g.pad_left = pad_left;
@@ -596,7 +605,8 @@ int fused_separable(const float* x, const float* w_dw, const float* w_pw, float*
   const int n_chunks = (C_in + CI - 1) / CI;
   if (B <= 0 || B > 65535 || C_in <= 0 || C_out <= 0 || out_h <= 0 || out_w <= 0 ||
       tile_h <= 0 || tile_w <= 0 || tile_h * tile_w > MAXP || chunk_lanes(nc) == 0 ||
-      splits <= 0 || splits > n_chunks)
+      splits <= 0 || splits > n_chunks || !out || (splits > 1) != (partial != nullptr) ||
+      (splits > 1) != (counters != nullptr))
     return (int)cudaErrorInvalidValue;
   g.n_co = (C_out + nc - 1) / nc;
   g.split_chunks = (n_chunks + splits - 1) / splits;
@@ -607,29 +617,19 @@ int fused_separable(const float* x, const float* w_dw, const float* w_pw, float*
   g.n_tw = (out_w + tile_w - 1) / tile_w;
   g.in_rows = (tile_h - 1) * S + K;
   g.in_cols = (tile_w - 1) * S + K;
-  const int a = splits > 1 ? (int)ACT_NONE : act;
   const cudaStream_t st = (cudaStream_t)stream;
+#define FUSED_KS(K_, S_)                                                                \
+  case K_ * 10 + S_:                                                                    \
+    return (int)launch_fused_nc<K_, S_>(x, w_dw, w_pw, partial, counters, out, g, nc,  \
+                                        dw_act, act, st);
   switch (K * 10 + S) {
-    case 31: return (int)launch_fused_nc<3, 1>(x, w_dw, w_pw, out, g, nc, dw_act, a, st);
-    case 32: return (int)launch_fused_nc<3, 2>(x, w_dw, w_pw, out, g, nc, dw_act, a, st);
-    case 51: return (int)launch_fused_nc<5, 1>(x, w_dw, w_pw, out, g, nc, dw_act, a, st);
-    case 52: return (int)launch_fused_nc<5, 2>(x, w_dw, w_pw, out, g, nc, dw_act, a, st);
+    FUSED_KS(3, 1)
+    FUSED_KS(3, 2)
+    FUSED_KS(5, 1)
+    FUSED_KS(5, 2)
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// B4': out (n floats) = act(sum of the splits x n partials, in split order)
-int fused_separable_reduce(const float* part, float* out, long long n, int splits, int act,
-                           void* stream) {
-  if (n <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const long long work = n % 4 == 0 ? n / 4 : n;
-  const int grid = (int)((work + 255) / 256 < 132 * 16 ? (work + 255) / 256 : 132 * 16);
-  if (n % 4 == 0)
-    fused_separable_reduce_kernel<true><<<grid, 256, 0, st>>>(part, out, n, splits, act);
-  else
-    fused_separable_reduce_kernel<false><<<grid, 256, 0, st>>>(part, out, n, splits, act);
-  return (int)cudaGetLastError();
+#undef FUSED_KS
 }
 
 // x_strips, w and out all fp32 (bf16 = 0) or all bf16 (bf16 = 1)

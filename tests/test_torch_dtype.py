@@ -213,8 +213,16 @@ def test_plain_versions_round_where_jax_rounds():
     # the retained DW is rounded, so retain and recompute differ in bf16
     assert not torch.equal(ret32, rec32)
     parts = torch.from_numpy(_rand(rng, (3, 2, 4, 5, 12)))
-    red = tk.mbconv_splitk_reduce(parts, torch.bfloat16)
-    assert torch.equal(red, tk.mbconv_splitk_reduce(parts).bfloat16())
+    red = tk.mbconv_splitk_reduce_plain(parts, torch.bfloat16)
+    assert torch.equal(red, tk.mbconv_splitk_reduce_plain(parts).bfloat16())
+    # a bf16 split retain launch's CPU twin: fp32 partials, bf16 sum
+    got, part = tk.mbconv_pass2_retain_with_partials(
+        torch.cat([dw] * 4, dim=-1), torch.cat([gate] * 4, dim=-1),
+        torch.cat([w_proj] * 4), geo)
+    assert part.dtype == torch.float32 and part.shape[0] == 2
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, tk.mbconv_splitk_reduce_plain(part,
+                                                          torch.bfloat16))
 
 
 def test_other_types_raise():

@@ -3,9 +3,10 @@ imports, pulls in JAX or the JAX package; its entry points raise rather
 than fall back to the CPU; its kernel counters stay at 0 on the CPU;
 ``chip_smoke.py`` fails without a card; and (on a card only) each kernel
 agrees with its plain version (B7 in fp32 and bf16), pass 1's folded SE
-pool is its partials' tile-order sum eagerly and under CUDA graph replay,
-and each op's gradient on the card matches autograd through its plain
-version."""
+pool is its partials' tile-order sum and a split launch's folded split-K
+sum (retain, recompute, the fused separable kernel) the split-order sum
+of its own partials, eagerly and under CUDA graph replay, and each op's
+gradient on the card matches autograd through its plain version."""
 
 import ast
 import os
@@ -49,6 +50,7 @@ from repro_torch.kernels.ref import (
     mbconv_ref,
     pad_nhwc,
 )
+from repro_torch.kernels import common
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.mbconv import (
     EffNetV2Config,
@@ -243,9 +245,35 @@ def test_launch_counters_stay_zero_on_cpu():
     assert set(tk.LAUNCHES) == set(tk.KERNELS)
     assert "mbconv_pool_reduce" not in launches()   # folded into pass 1
     assert set(launches()) == set(tk.KERNELS) | {
-        "fusedmb", "fusedmb_bf16", "fused_separable",
-        "fused_separable_reduce", "dw2d", "conv1d"}
+        "fusedmb", "fusedmb_bf16", "fused_separable", "dw2d", "conv1d"}
     assert all(n == 0 for n in launches().values())
+
+
+def test_split_sums_have_no_launch_of_their_own():
+    """B3' and B4' are folded into their kernels: no wrapper, launch
+    counter or kernel list names them, and the CUDA sources hold no reduce
+    kernel or C entry for them."""
+    names = ("mbconv_splitk_reduce", "fused_separable_reduce")
+    counted = set(launches()) | set(tk.KERNELS) | set(tfs.KERNELS)
+    for name in names:
+        assert not any(k.startswith(name) for k in counted)
+    for name in names:
+        assert not hasattr(tk, name) and not hasattr(tfs, name)
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    for src in ("mbconv.cu", "separable.cu"):
+        text = (csrc / src).read_text()
+        assert not any(n in text for n in names), src
+
+
+def test_arrival_counter_buffer_bounds_each_launch():
+    """A launch that counts more tiles than the shared arrival-counter
+    buffer holds raises ValueError naming its kernel (before anything is
+    allocated); the buffer holds one int per tile, 2^16 of them."""
+    assert common.ARRIVAL_COUNTERS == 1 << 16
+    with pytest.raises(ValueError, match="mbconv_pass2_retain"):
+        common.arrival_counters(torch.device("cpu"),
+                                common.ARRIVAL_COUNTERS + 1,
+                                "mbconv_pass2_retain")
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -329,11 +357,11 @@ def test_kernels_match_plain_on_card(k, s, identity, act, gate_act, se):
     ("pass1", (23, 25, 72, 72, 3, 1, 11, 11, True)),
 ])
 def test_redesigned_kernels_match_plain_on_card(kind, shape):
-    """The redesigned retain GEMM (B3, with its split-K reduce) and pass 1
-    (B1) at ragged shapes, with and without the SE gate: within
-    1e-4 * max|plain| + 1e-5 of their plain versions; retain and the
-    split-K reduce repeat bit for bit on a second call, and the reduce
-    equals its plain version exactly."""
+    """The redesigned retain GEMM (B3, its split-K sum folded in) and pass
+    1 (B1) at ragged shapes, with and without the SE gate: within
+    1e-4 * max|plain| + 1e-5 of their plain versions; retain repeats bit
+    for bit on a second call, and a split launch's output is exactly the
+    split-order sum of the partials it wrote."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     g = torch.Generator().manual_seed(sum(shape) + len(kind))
@@ -342,18 +370,17 @@ def test_redesigned_kernels_match_plain_on_card(kind, shape):
         b, oh, ow, c_mid, c_out = shape
         dw, w_proj = r(b, oh, ow, c_mid), r(c_mid, c_out) / c_mid ** 0.5
         geo = tk.MBConvGeometry.make(oh, ow, 1, 1, "SAME", 8, 8)
+        splits = retain_plan(b * oh * ow, c_mid, c_out)[2]
         for gate in (torch.sigmoid(r(b, c_mid)), None):
             got = tk.mbconv_pass2_retain(dw, gate, w_proj, geo)
             _close_on_card(got, tk.mbconv_pass2_retain_plain(dw, gate,
                                                              w_proj, geo))
-            assert torch.equal(got, tk.mbconv_pass2_retain(dw, gate, w_proj,
-                                                           geo))
-        splits = retain_plan(b * oh * ow, c_mid, c_out)[2]
-        part = r(splits, b, oh, ow, c_out)
-        red = tk.mbconv_splitk_reduce(part)
-        torch.testing.assert_close(red, tk.mbconv_splitk_reduce_plain(part),
-                                   rtol=0, atol=0)
-        assert torch.equal(red, tk.mbconv_splitk_reduce(part))
+            again, part = tk.mbconv_pass2_retain_with_partials(
+                dw, gate, w_proj, geo)
+            assert torch.equal(got, again)
+            assert (part is None) == (splits == 1)
+            if part is not None:
+                assert torch.equal(got, tk.mbconv_splitk_reduce_plain(part))
     else:
         h, w, c_in, c_mid, k, s, tile_h, tile_w, identity = shape
         x, w_dw = r(2, h, w, c_in), r(k, k, c_mid) * 0.3
@@ -507,8 +534,9 @@ def test_separable_kernels_match_plain_on_card(k, s, h, w, c_in, c_out,
     """B4 and B6 at odd shapes: ragged maps and tiles (8x8, 3x5), a
     width-1 map, channel counts that are not multiples of 4 or of the
     32-wide chunks, several c_out tiles, and C_in split across CTAs (200
-    and 384 channels into 24 and 40) with the reduce (B4'); B4 repeats bit
-    for bit, and the reduce equals its plain version exactly."""
+    and 384 channels into 24 and 40) with the split sum folded in (B4');
+    B4 repeats bit for bit, and a split launch's output is exactly act of
+    the split-order sum of the partials it wrote."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -524,19 +552,17 @@ def test_separable_kernels_match_plain_on_card(k, s, h, w, c_in, c_out,
                                       act=act)
             _close_on_card(got, tfs.fused_separable_plain(
                 x, w_dw, w_pw, geo, dw_act=dw_act, act=act))
-            assert torch.equal(got, tfs.fused_separable(
-                x, w_dw, w_pw, geo, dw_act=dw_act, act=act))
+            again, part = tfs.fused_separable_with_partials(
+                x, w_dw, w_pw, geo, dw_act=dw_act, act=act)
+            assert torch.equal(got, again)
+            if part is not None:
+                assert torch.equal(got, tfs.fused_separable_reduce_plain(
+                    part, act=act))
         strips = ops.stage_row_strips(pad_nhwc(x, geo.pads), k, s,
                                       geo.tile_h)
         kw = dict(stride=s, out_w=geo.out_w, tile_h=geo.tile_h)
         _close_on_card(td.dw2d(strips, w_dw, **kw),
                        td.dw2d_plain(strips, w_dw, **kw))
-    for splits in (2, 5):
-        part = r(splits, 3, h, w, c_out)
-        for act in (None, "relu6"):
-            assert torch.equal(tfs.fused_separable_reduce(part, act=act),
-                               tfs.fused_separable_reduce_plain(part,
-                                                                act=act))
     torch.cuda.synchronize()
 
 
@@ -549,6 +575,140 @@ def test_separable_guard_cases_split_c_in():
             _, splits = launch_plan(3, h, w, c_in, c_out, 3, 1, geo.tile_h,
                                     geo.tile_w)
             assert 1 < splits and splits * c_out < c_in
+
+
+def _counters_zero():
+    return all(int(buf.count_nonzero()) == 0
+               for buf in common._COUNTERS.values())
+
+
+def _fold_exact(launch, plain_sum):
+    """A split launch (``launch()`` -> (output, its partials)): the output
+    exactly ``plain_sum`` of the partials it wrote, bit for bit on a second
+    launch and on 3 replays of one captured CUDA graph, and the arrival
+    counters all 0 after every launch."""
+    out, part = launch()
+    torch.cuda.synchronize()
+    assert part is not None and torch.equal(out, plain_sum(part))
+    assert _counters_zero()
+    again, part2 = launch()
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(part, part2)
+    assert _counters_zero()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        g_out, g_part = launch()
+    for _ in range(3):
+        g_out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_out, out) and torch.equal(g_part, part)
+        assert _counters_zero()
+
+
+# split launches for the fold: retain (B, out_h, out_w, C_mid, C_out) at
+# ragged M (70 rows) with N 130 (not a multiple of 4) and 36, capped at 2
+# and 3 K splits and uncapped (18); recompute (B, H, W, C_in, C_mid, C_out,
+# k, s, tile_h, tile_w) at 7 C_mid splits with C_out 30, and B0's block
+# 15 shape at batch 1 (18 splits); separable (H, W, C_in, C_out) at 7
+# splits with C_out 18 and 6 splits of 384 channels
+_FOLD_RETAINS = [((2, 5, 7, 1152, n), cap) for n in (130, 36)
+                 for cap in (2, 3, None)]
+_FOLD_RECOMPUTES = [(2, 5, 6, 40, 200, 30, 3, 1, 4, 4),
+                    (1, 7, 7, 192, 1152, 320, 3, 1, 7, 7)]
+_FOLD_SEPARABLES = [(9, 7, 200, 18), (7, 7, 384, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,cap", _FOLD_RETAINS)
+def test_retain_split_fold_exact_on_card(shape, cap, dtype):
+    """B3' folded into the retain GEMM, with and without the SE gate: the
+    split launch's output is the split-order sum of its own partials,
+    rounded once (``_fold_exact``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    b, oh, ow, c_mid, c_out = shape
+    g = torch.Generator().manual_seed(c_out + (cap or 0))
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    dw, w_proj = r(b, oh, ow, c_mid).to(dtype), \
+        (r(c_mid, c_out) / c_mid ** 0.5).to(dtype)
+    geo = tk.MBConvGeometry.make(oh, ow, 1, 1, "SAME", 8, 8)
+    splits = retain_plan(b * oh * ow, c_mid, c_out, cap)[2]
+    assert splits == (cap or 18)
+    for gate in (torch.sigmoid(r(b, c_mid)), None):
+        _fold_exact(
+            lambda: tk.mbconv_pass2_retain_with_partials(dw, gate, w_proj,
+                                                         geo, cap),
+            lambda p: tk.mbconv_splitk_reduce_plain(p, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", _FOLD_RECOMPUTES)
+def test_recompute_split_fold_exact_on_card(case, dtype):
+    """B3' folded into the recompute kernel (B2's sum over its C_mid
+    splits), with the SE gate: ``_fold_exact``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    b, h, w, c_in, c_mid, c_out, k, s, tile_h, tile_w = case
+    g = torch.Generator().manual_seed(sum(case))
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x, w_dw = r(b, h, w, c_in).to(dtype), (r(k, k, c_mid) * 0.3).to(dtype)
+    w_exp = (r(c_in, c_mid) / c_in ** 0.5).to(dtype)
+    w_proj = (r(c_mid, c_out) / c_mid ** 0.5).to(dtype)
+    gate = torch.sigmoid(r(b, c_mid))
+    geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+    assert recompute_plan(b, geo.out_h, geo.out_w, c_mid, c_out, tile_h,
+                          tile_w)[1] > 1
+    _fold_exact(
+        lambda: tk.mbconv_pass2_recompute_with_partials(
+            x, w_exp, w_dw, gate, w_proj, geo, exp_act="silu",
+            dw_act="silu"),
+        lambda p: tk.mbconv_splitk_reduce_plain(p, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+@pytest.mark.parametrize("shape", _FOLD_SEPARABLES)
+def test_separable_split_fold_exact_on_card(shape, act):
+    """B4' folded into the fused separable kernel (every warp reaches the
+    CTA barrier, and the last CTA sums and applies act with all of its
+    threads): ``_fold_exact``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    h, w, c_in, c_out = shape
+    g = torch.Generator().manual_seed(c_in + c_out)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x, w_dw = r(3, h, w, c_in), r(3, 3, c_in) / 3
+    w_pw = r(c_in, c_out) / c_in ** 0.5
+    for tile_h, tile_w in ((8, 8), (3, 5)):
+        geo = tk.MBConvGeometry.make(h, w, 3, 1, "SAME", tile_h, tile_w)
+        _fold_exact(
+            lambda: tfs.fused_separable_with_partials(
+                x, w_dw, w_pw, geo, dw_act="relu", act=act),
+            lambda p: tfs.fused_separable_reduce_plain(p, act=act))
+
+
+def test_fold_guard_cases_split():
+    """The fold cases above split as their docstrings say."""
+    for (b, oh, ow, c_mid, c_out), cap in _FOLD_RETAINS:
+        assert retain_plan(b * oh * ow, c_mid, c_out, cap)[2] == (cap or 18)
+    assert [recompute_plan(b, -(-h // s), -(-w // s), cm, co, th, tw)[1]
+            for b, h, w, _, cm, co, _, s, th, tw in _FOLD_RECOMPUTES] == [
+                7, 18]
+    for h, w, c_in, c_out in _FOLD_SEPARABLES:
+        for tile_h, tile_w in ((8, 8), (3, 5)):
+            geo = tk.MBConvGeometry.make(h, w, 3, 1, "SAME", tile_h, tile_w)
+            assert launch_plan(3, h, w, c_in, c_out, 3, 1, geo.tile_h,
+                               geo.tile_w)[1] == (7 if c_in == 200 else 6)
 
 
 def _bf16_ulp(ref32):
@@ -625,7 +785,8 @@ def test_mbconv_kernels_bf16_match_fp32_sum_on_card(case, monkeypatch):
     ``_within_bf16_bar`` of the plain version's fp32 result on the same
     bf16 values, pass 1's fp32 pool partials at the fp32 bar and its pool
     exactly their tile-order sum; each kernel bit for bit on a second
-    call; B3' rounds the split order's fp32 sum once, exactly."""
+    call; a split pass 2 (B3' folded in) rounds the split order's fp32 sum
+    of its own partials once, exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -663,10 +824,14 @@ def test_mbconv_kernels_bf16_match_fp32_sum_on_card(case, monkeypatch):
     ref = tk.mbconv_pass2_retain_plain(dw.float(), gate, w_proj.float(), geo)
     assert got.dtype == torch.bfloat16 and _within_bf16_bar(got, ref)
     assert torch.equal(got, tk.mbconv_pass2_retain(dw, gate, w_proj, geo))
-    part = r(3, b, geo.out_h, geo.out_w, c_out)
-    red = tk.mbconv_splitk_reduce(part, torch.bfloat16)
-    assert torch.equal(red, tk.mbconv_splitk_reduce_plain(part,
-                                                          torch.bfloat16))
+    for out, part in (
+            tk.mbconv_pass2_retain_with_partials(dw, gate, w_proj, geo),
+            tk.mbconv_pass2_recompute_with_partials(x, w_exp, w_dw, gate,
+                                                    w_proj, geo, **acts)):
+        if part is not None:
+            assert part.dtype == torch.float32
+            assert torch.equal(out, tk.mbconv_splitk_reduce_plain(
+                part, torch.bfloat16))
     torch.cuda.synchronize()
 
 

@@ -18,11 +18,15 @@ import pytest
 
 from repro_torch.benchmarks import kernel_bench as kb
 from repro_torch.core.autotune import (
+    L2_BYTES,
     FusedMBSchedule,
     FusedSchedule,
     MBConvSchedule,
     get_fused_schedule,
+    get_mbconv_schedule,
     mbconv_sweep_candidates,
+    recompute_plan,
+    retain_plan,
 )
 from repro_torch.core.hopper_traffic import (
     LaunchTraffic,
@@ -354,3 +358,97 @@ def test_fp32_numbers_unchanged_at_four_bytes():
         got = [_fields(sch) for sch in kb.family_chain(
             family, 8, kb.FAMILY_RES[family], dtype_bytes=4)[2]]
         assert got == PINNED[family]
+
+
+# Per-block device-memory and global bytes of split blocks, as the model
+# priced them while the split sums B3' and B4' were launches of their own
+# ((family, block, storage bytes) at batch 8 and the family's side; the
+# separable rows at MobileNet-V2's 224, batch 8): folding the sums into
+# their launches moved no modeled byte.
+_SPLIT_BLOCK_BYTES = {
+    ("b0", 5, 4): (8781480, 19724520), ("b0", 5, 2): (6430920, 11035880),
+    ("b0", 12, 4): (17568960, 38801088), ("b0", 12, 2): (14519232, 25232064),
+    ("b0", 15, 4): (15475904, 43472576), ("b0", 15, 2): (12067776, 26227392),
+    ("v2s", 12, 4): (43339904, 103106688),
+    ("v2s", 12, 2): (31239296, 58132608),
+    ("v2s", 30, 4): (39678208, 130210048),
+    ("v2s", 30, 2): (29820160, 75307264),
+    ("v3l", 13, 4): (12859040, 36066720), ("v3l", 13, 2): (10440480, 22140320),
+}
+_SPLIT_SEPARABLE_BYTES = {4: (3, 10468096, 16752640),
+                          6: (2, 6880000, 14344192),
+                          13: (3, 5758208, 37606400),
+                          16: (2, 5277440, 59801600)}
+
+
+@pytest.mark.parametrize("key", sorted(_SPLIT_BLOCK_BYTES))
+def test_split_retain_blocks_keep_their_bytes(key):
+    """A split retain block prices its split sum inside the retain launch
+    (no launch of its own): the partials written and read back once, the
+    output written once, and the block's device-memory and global bytes
+    as pinned."""
+    fam, i, eb = key
+    _, rows, schedules = kb.family_chain(fam, 8, kb.FAMILY_RES[fam], eb)
+    shape = kb._shape(rows[i], 8, eb)
+    t = mbconv_hopper_traffic(shape, schedules[i])
+    assert [launch.name for launch in t.launches] == [
+        "pass1", "se_mlp", "retain"]
+    retain = t.launches[-1]
+    m = 8 * shape.out_h * shape.out_w
+    splits = retain_plan(m, shape.c_mid, shape.c_out,
+                         schedules[i].retain_splits)[2]
+    assert splits > 1
+    out = m * shape.c_out
+    assert retain.readback == splits * out * 4
+    assert retain.global_write == retain.readback + out * eb
+    assert (t.dram_bytes, t.global_bytes) == _SPLIT_BLOCK_BYTES[key]
+
+
+@pytest.mark.parametrize("block,splits,dram,glob", [
+    (12, 9, 9838272, 53758656), (15, 6, 11083456, 70376128)])
+def test_split_recompute_blocks_keep_their_bytes(block, splits, dram, glob):
+    """B0 224 b8's blocks 12 and 15 pinned to recompute split C_mid 9 and 6
+    ways (7x7 tiles); the split sum is priced inside the recompute
+    launch, the block's bytes as pinned."""
+    _, rows, _ = kb.family_chain("b0", 8, 224)
+    r = rows[block]
+    shape = kb._shape(r, 8)
+    pin = get_mbconv_schedule(8, r.h, r.w, r.c_in, r.c_mid, r.c_out, r.k,
+                              r.s, se_ratio=r.se_ratio, mode="recompute")
+    assert recompute_plan(8, shape.out_h, shape.out_w, r.c_mid, r.c_out,
+                          pin.tile_h, pin.tile_w)[1] == splits
+    t = mbconv_hopper_traffic(shape, pin)
+    assert [launch.name for launch in t.launches] == [
+        "pass1", "se_mlp", "recompute"]
+    out = 8 * shape.out_h * shape.out_w * r.c_out
+    assert t.launches[-1].readback == splits * out * 4
+    assert (t.dram_bytes, t.global_bytes) == (dram, glob)
+
+
+@pytest.mark.parametrize("block", sorted(_SPLIT_SEPARABLE_BYTES))
+def test_split_separable_blocks_keep_their_bytes(block):
+    """MobileNet-V2's split blocks at 224 b8: one separable launch, its
+    partials read back once, the bytes as pinned."""
+    layer, c_out = MOBILENET_V2_SEPARABLE[block]
+    splits, dram, glob = _SPLIT_SEPARABLE_BYTES[block]
+    sch = get_fused_schedule(8, layer.h, layer.w, layer.c, c_out, layer.k,
+                             layer.s)
+    assert sch.splits == splits
+    shape = SeparableShape(b=8, h=layer.h, w=layer.w, c_in=layer.c,
+                           c_out=c_out, k=layer.k, s=layer.s)
+    t = separable_hopper_traffic(shape, sch)
+    (launch,) = t.launches
+    out = 8 * shape.out_h * shape.out_w * c_out * 4
+    assert launch.name == "separable" and launch.readback == splits * out
+    assert (t.dram_bytes, t.global_bytes) == (dram, glob)
+
+
+def test_split_launch_footprint_is_its_inputs_and_partials():
+    """The spill rule weighs a split launch's inputs and partials, not its
+    output (stored by each tile's last CTA after the tile's reads); the
+    read-back partials count at device memory once."""
+    t = LaunchTraffic("x", 2, 1, 70 * 2 ** 20, 40 * 2 ** 20 + 5,
+                      20 * 2 ** 20, 10, 0, readback=30 * 2 ** 20)
+    assert t.footprint == 50 * 2 ** 20 <= L2_BYTES
+    assert t.dram_bytes == 20 * 2 ** 20 + 40 * 2 ** 20 + 5 + 30 * 2 ** 20
+    assert t.dram_bytes <= t.global_bytes

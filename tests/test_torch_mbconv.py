@@ -384,8 +384,9 @@ def test_pass1_pool_is_the_tile_order_sum_on_cpu(tile_h, tile_w):
 
 @pytest.mark.parametrize("splits", [1, 2, 7])
 def test_splitk_reduce_plain_sums_in_split_order(splits):
-    """The split-K reduce's plain version (and so the CPU wrapper) is the
-    plain sum of the splits in split order, bit for bit."""
+    """The split-K sum's plain version (what a split pass-2 launch's last
+    CTAs compute) is the plain sum of the splits in split order, bit for
+    bit, rounded once to the storage type; it takes no other type."""
     rng = np.random.default_rng(splits)
     p = (rng.normal(size=(splits, 3, 5, 7, 9))
          * 10.0 ** rng.integers(-3, 4, size=(splits, 1, 1, 1, 1))
@@ -393,11 +394,79 @@ def test_splitk_reduce_plain_sums_in_split_order(splits):
     want = p[0].copy()
     for z in range(1, splits):
         want = want + p[z]
-    got = tk.mbconv_splitk_reduce(torch.from_numpy(p))
-    assert got.shape == (3, 5, 7, 9)
+    got = tk.mbconv_splitk_reduce_plain(torch.from_numpy(p))
+    assert got.shape == (3, 5, 7, 9) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(
-        tk.mbconv_splitk_reduce_plain(torch.from_numpy(p)).numpy(), want)
+    got = tk.mbconv_splitk_reduce_plain(torch.from_numpy(p), torch.bfloat16)
+    assert torch.equal(got, torch.from_numpy(want).bfloat16())
+    with pytest.raises(ValueError):
+        tk.mbconv_splitk_reduce_plain(torch.from_numpy(p), torch.float16)
+
+
+def _se_gate(x, w_exp, w_dw, w1, b1, w2, b2, geo, acts):
+    """The SE gate as the port's host glue computes it from pass 1."""
+    _, pool, _ = tk.mbconv_pass1(x, w_exp, w_dw, geo, **acts)
+    mean = pool / float(geo.out_h * geo.out_w)
+    return torch_act(torch_act(mean @ w1 + b1, "silu") @ w2 + b2, "sigmoid")
+
+
+@pytest.mark.parametrize("c_out", [12, 13])
+@pytest.mark.parametrize("se", [True, False])
+def test_retain_split_route_matches_plain_and_jax(se, c_out):
+    """The CPU twin of a split retain launch: ``retain_plan`` splits C_mid
+    200 over 60 GEMM rows (3 splits of 7 K chunks; 2 at C_out 13 over C_mid
+    100), the plain per-split partial projections and their split-order
+    sum (``mbconv_pass2_retain_with_partials``): the output is exactly the
+    sum of the partials it returns, within 1e-5 relative of the unsplit
+    plain version, and within the 1e-4 bar of the JAX retain op
+    (interpret mode); the public wrapper takes the same split route."""
+    c_mid = 200 if c_out == 12 else 100
+    rng = np.random.default_rng(50 + c_out + se)
+    args = _mbconv_inputs(rng, h=9, w=11, c_in=c_mid // 4, expand=4,
+                          c_out=c_out, k=3, se=se)
+    x, w_exp, w_dw, w1, b1, w2, b2, w_proj = _torch(args)
+    geo = tk.MBConvGeometry.make(9, 11, 3, 2, "SAME", 2, 4)
+    acts = dict(exp_act="silu", dw_act="silu")
+    gate = _se_gate(x, w_exp, w_dw, w1, b1, w2, b2, geo, acts) if se else None
+    dw = tk.mbconv_pass1(x, w_exp, w_dw, geo, se=se, retain=True, **acts)[2]
+    splits = retain_plan(2 * geo.out_h * geo.out_w, c_mid, c_out)[2]
+    assert splits == (3 if c_out == 12 else 2)
+    got, part = tk.mbconv_pass2_retain_with_partials(dw, gate, w_proj, geo)
+    assert part.shape == (splits, 2, geo.out_h, geo.out_w, c_out)
+    assert torch.equal(got, tk.mbconv_splitk_reduce_plain(part))
+    assert torch.equal(tk.mbconv_pass2_retain(dw, gate, w_proj, geo), got)
+    want = tk.mbconv_pass2_retain_plain(dw, gate, w_proj, geo)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    ref = jax_fused(*_jnp(args), stride=2, tile_h=2, mode="retain")
+    assert _max_err(got, ref) <= TOL
+    one, none = tk.mbconv_pass2_retain_with_partials(dw, gate, w_proj, geo,
+                                                     max_splits=1)
+    assert none is None and torch.equal(one, want)
+
+
+def test_recompute_with_partials_is_the_split_route_on_cpu():
+    """``mbconv_pass2_recompute_with_partials`` on the CPU: at the plan's
+    C_mid splits (3 chunks of 32 over 12 CTAs) the plain partials and
+    exactly their split-order sum; unsplit (49 tiles of a 28x28 map at
+    batch 8 fill the card), the plain version and no partials."""
+    rng = np.random.default_rng(47)
+    x, w_exp, w_dw, *_, w_proj = _torch(_mbconv_inputs(
+        rng, h=9, w=11, c_in=8, expand=12, c_out=12, k=3, se=False))
+    geo = tk.MBConvGeometry.make(9, 11, 3, 2, "SAME", 2, 4)
+    acts = dict(exp_act="silu", dw_act="silu")
+    assert recompute_plan(2, geo.out_h, geo.out_w, 96, 12, 2, 4) == (16, 3)
+    got, part = tk.mbconv_pass2_recompute_with_partials(
+        x, w_exp, w_dw, None, w_proj, geo, **acts)
+    assert torch.equal(part, tk.mbconv_pass2_recompute_partials_plain(
+        x, w_exp, w_dw, None, w_proj, geo, 3, **acts))
+    assert torch.equal(got, tk.mbconv_splitk_reduce_plain(part))
+    x8 = torch.from_numpy(rng.normal(size=(8, 28, 28, 8)).astype(np.float32))
+    geo28 = tk.MBConvGeometry.make(28, 28, 3, 1, "SAME", 4, 4)
+    assert recompute_plan(8, 28, 28, 96, 12, 4, 4)[1] == 1
+    got, part = tk.mbconv_pass2_recompute_with_partials(
+        x8, w_exp, w_dw, None, w_proj, geo28, **acts)
+    assert part is None and torch.equal(got, tk.mbconv_pass2_recompute_plain(
+        x8, w_exp, w_dw, None, w_proj, geo28, **acts))
 
 
 def test_retain_checks_geometry_against_dw():

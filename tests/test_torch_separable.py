@@ -229,17 +229,54 @@ def test_separable_splits_and_grids_at_224_batch_8():
 
 
 def test_split_reduce_plain_sums_in_split_order():
-    """B4's plain reduce is the direct sum of the partials in split order,
-    bit for bit (a sequential fp32 sum), then act."""
+    """The plain version of B4's split sum (what the split launch's last
+    CTAs compute) is the direct sum of the partials in split order, bit
+    for bit (a sequential fp32 sum), then act."""
     part = np.random.default_rng(9).normal(size=(5, 2, 3, 4, 7)) \
         .astype(np.float32)
     want = part[0].copy()
     for s in range(1, 5):
         want += part[s]
-    got = tf.fused_separable_reduce(torch.from_numpy(part), act=None)
+    got = tf.fused_separable_reduce_plain(torch.from_numpy(part), act=None)
     np.testing.assert_array_equal(got.numpy(), want)
-    got = tf.fused_separable_reduce(torch.from_numpy(part), act="relu6")
+    got = tf.fused_separable_reduce_plain(torch.from_numpy(part),
+                                          act="relu6")
     np.testing.assert_array_equal(got.numpy(), np.clip(want, 0, 6))
+
+
+@pytest.mark.parametrize("dw_act,act", [("relu", "relu6"), (None, None)])
+def test_with_partials_is_the_split_route_on_cpu(dw_act, act):
+    """``fused_separable_with_partials`` on the CPU: at the launch plan's
+    C_in splits (70 channels in 3 splits at 2x4 tiles on a 9x11 map) the
+    plain partials and exactly their split-order sum with act, within the
+    1e-4 bar of the JAX op (interpret mode); unsplit (C_out 96 above
+    C_in 70), the plain version and no partials.  The public wrapper takes
+    the same route, and the split sum is within 1e-5 relative of the
+    unsplit plain version."""
+    rng = np.random.default_rng(31)
+    x, w_dw, w_pw = _inputs(rng, h=9, w=11, c_in=70, c_out=12, k=3)
+    geo = MBConvGeometry.make(9, 11, 3, 2, "SAME", 2, 4)
+    assert fused_separable_launch_plan(2, 9, 11, 70, 12, 3, 2, 2, 4) == \
+        (16, 3)
+    got, part = tf.fused_separable_with_partials(*_t(x, w_dw, w_pw), geo,
+                                                 dw_act=dw_act, act=act)
+    assert torch.equal(part, tf.fused_separable_partials_plain(
+        *_t(x, w_dw, w_pw), geo, splits=3, dw_act=dw_act))
+    assert torch.equal(got, tf.fused_separable_reduce_plain(part, act=act))
+    assert torch.equal(tf.fused_separable(*_t(x, w_dw, w_pw), geo,
+                                          dw_act=dw_act, act=act), got)
+    want = tf.fused_separable_plain(*_t(x, w_dw, w_pw), geo, dw_act=dw_act,
+                                    act=act)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    ref = jax_fused(jnp.asarray(x), jnp.asarray(w_dw), jnp.asarray(w_pw),
+                    stride=2, tile_h=2, dw_act=dw_act, act=act,
+                    interpret=True)
+    assert _max_err(got, ref) <= TOL
+    x, w_dw, w_pw = _inputs(rng, h=9, w=11, c_in=70, c_out=96, k=3)
+    got, part = tf.fused_separable_with_partials(*_t(x, w_dw, w_pw), geo,
+                                                 dw_act=dw_act, act=act)
+    assert part is None and torch.equal(got, tf.fused_separable_plain(
+        *_t(x, w_dw, w_pw), geo, dw_act=dw_act, act=act))
 
 
 @pytest.mark.parametrize("splits", [2, 3])
