@@ -160,9 +160,17 @@ Phases, each of which must pass (exit 1 otherwise):
             kernel also beside F.conv2d(groups=C)
             on the unstaged input); the depthwise kernel in bf16 on the
             trainer's blocks within 1 bf16 ulp of the fp32 sum rounded once,
-            timed; then the 17 blocks through separable_block, counts
-            zeroed just before and read just after: exactly 17 fused
-            separable launches and no reduce launch.
+            timed; the fused separable kernel in bf16 (fp32 sums) on the 17
+            blocks at their bf16 schedules, within 1 bf16 ulp of the plain
+            version's fp32 result on the same bf16 values (near 0 the fp32
+            bar), bit for bit on a second call, a split block's output
+            exactly act of the split-order sum of its own fp32 partials
+            rounded once, timed (entry fused_separable_bf16, bound at 2
+            bytes a stored element); then the 17 blocks through
+            separable_block, counts zeroed just before and read just
+            after: exactly 17 fused separable launches and no reduce
+            launch; and again in bf16: exactly 17 fused_separable_bf16
+            launches.
 14. grad        on the card, each op's input and weight gradients (fused
             separable and depthwise at a MobileNet-V2 block, MBConv retain
             and recompute with SE at a B0 block, MBConv without SE at a V3
@@ -235,14 +243,20 @@ Phases, each of which must pass (exit 1 otherwise):
             model-axis collectives per forward equal the words the network
             plan prices (none for the separable blocks).  It prints each
             rank's forward ms (a parity run's time, not a speed) and the
-            transport gloo used for each collective of CUDA tensors (native
-            or through the host), and tears torch.distributed down.
+            transport gloo used for each collective of CUDA tensors and
+            dtype (native or through the host, the host calls counted).
+            Then, on the same two ranks, in bf16: B0 with dtype bfloat16
+            block by block on its plan at 2-byte words and its logits, and
+            the 17 separable blocks in bf16, each held to the single card's
+            bf16 result within 2e-2 x max|ref|, the counted model-axis
+            words equal to the plan's (the bf16 cases' seconds printed);
+            and tears torch.distributed down.
 
 The line before the last is {"kernels": [...]} (the SE pool reduce listed
 as folded into pass 1, the split-K sums B3' and B4' as folded into retain
 and recompute and into the fused separable kernel: no launches, no time of
-their own; the bf16 builds of B1-B3' and B5 as entries <kernel>_bf16 of
-their own); no forward launches a folded sum.  The last line is
+their own; the bf16 builds of B1-B3' and B5 and B4's bf16 instantiation
+as entries <kernel>_bf16 of their own); no forward launches a folded sum.  The last line is
 {"ok": true, "device": {...}}.  Per-block kernel numbers are also written to
 build/chip_smoke/kernels.json.
 """
@@ -292,6 +306,55 @@ MESH_RTOL = 1e-4                           # x max|single-device result|
 BF16_RTOL = 2e-2                           # x max|ref|: the JAX bf16 bar
 BF16_CPU_IMAGES = 2                        # bf16 logits held to the CPU
 DEVICE = "cuda"
+def _separable_bf16_check(torch, tfs, stats, hx, res, i, b, h, w, c, c_out,
+                          k, s):
+    """The fused separable kernel in bf16 (x, taps, w_pw and output; fp32
+    sums) on one block at its bf16 schedule: within 1 bf16 ulp of the
+    plain version's fp32 result on the same bf16 values
+    (``_bf16_verdict``), bit for bit on a second launch, and where the
+    launch splits C_in its output exactly act of the split-order sum of
+    the fp32 partials it wrote, rounded once; timed beside the plain
+    version (no PyTorch call computes the block)."""
+    from repro_torch.core.autotune import get_fused_schedule
+    from repro_torch.kernels.convdk_mbconv import MBConvGeometry
+
+    sch = get_fused_schedule(b, h, w, c, c_out, k, s, dtype_bytes=2)
+    geo = MBConvGeometry.make(h, w, k, s, "SAME", sch.tile_h, sch.tile_w)
+    oh, ow = geo.out_h, geo.out_w
+    x = hx.rand(b, h, w, c).bfloat16()
+    w_dw = hx.rand(k, k, c, scale=1.0 / k).bfloat16()
+    w_pw = hx.rand(c, c_out, scale=c ** -0.5).bfloat16()
+    kw = dict(dw_act="relu", act="relu")
+    got, part = tfs.fused_separable_with_partials(x, w_dw, w_pw, geo, **kw)
+    good, err, bar, ulps, past = _bf16_verdict(
+        got, tfs.fused_separable_plain(x.float(), w_dw.float(), w_pw.float(),
+                                       geo, **kw))
+    again = torch.equal(got, tfs.fused_separable(x, w_dw, w_pw, geo, **kw))
+    exact = part is None or torch.equal(got, tfs.fused_separable_reduce_plain(
+        part, act="relu", dtype=torch.bfloat16))
+    out_b = 2 * b * oh * ow * c_out
+    nbytes = 2 * (b * h * w * c + k * k * c + c * c_out) + out_b
+    flops = 2 * b * oh * ow * (k * k * c + c * c_out)
+    ok = stats.add(
+        "fused_separable_bf16", "mnv2_bf16", res, i, True, err, bar,
+        hx.times(True, lambda: tfs.fused_separable(x, w_dw, w_pw, geo, **kw),
+                 lambda: tfs.fused_separable_plain(x, w_dw, w_pw, geo,
+                                                   **kw)),
+        nbytes, flops, good=good and again and exact, bf16_ulps=ulps,
+        past_one_ulp=past, dtype="bfloat16", h=h, w=w, c_in=c,
+        c_out=c_out, k=k, s=s, batch=b,
+        tile=f"{geo.tile_h}x{geo.tile_w}", splits=sch.splits,
+        **_split_bound(sch.splits, b * oh * ow * c_out, nbytes, flops))
+    print(f"  mnv2 bf16 block{i:02d} fused_separable_bf16: worst {ulps:.3f} "
+          f"bf16 ulp, {past} past 1 ulp; {sch.splits} C_in splits"
+          f"{', output exactly act of the split-order sum of its partials' if part is not None and exact else ''}"
+          f"{', NOT the sum of its partials' if not exact else ''}; "
+          f"{'repeats' if again else 'does NOT repeat'} bit for bit "
+          f"{'ok' if good and again and exact else 'FAIL'}")
+    _sync(torch)
+    return ok
+
+
 REPLACES = {
     "mbconv_pass1": "src/repro/kernels/convdk_mbconv.py:118",
     "mbconv_pool_reduce": "src/repro/kernels/convdk_mbconv.py:151",
@@ -300,6 +363,7 @@ REPLACES = {
     "mbconv_splitk_reduce": "src/repro/kernels/convdk_mbconv.py:245",
     "fusedmb": "src/repro/kernels/convdk_fusedmb.py:59",
     "fused_separable": "src/repro/kernels/convdk_fused.py:59",
+    "fused_separable_bf16": "src/repro/kernels/convdk_fused.py:59",
     "fused_separable_reduce": "src/repro/kernels/convdk_fused.py:107",
     "dw2d": "src/repro/kernels/convdk_dw.py:32",
     "conv1d": "src/repro/kernels/convdk_conv1d.py:27",
@@ -317,6 +381,7 @@ CSRC = "src/repro_torch/kernels/csrc"
 SOURCES = {k: f"{CSRC}/{'fusedmb' if k.startswith('fusedmb') else 'mbconv'}.cu"
            for k in REPLACES}
 SOURCES.update(fused_separable=f"{CSRC}/separable.cu",
+               fused_separable_bf16=f"{CSRC}/separable.cu",
                fused_separable_reduce=f"{CSRC}/separable.cu",
                dw2d=f"{CSRC}/separable.cu", conv1d=f"{CSRC}/conv1d.cu")
 
@@ -490,6 +555,22 @@ class KernelStats:
                 if kernel == "dw2d":
                     entry["paper_staged_launches"] = \
                         launches["paper_staged_dw2d"]
+            elif kernel == "fused_separable_bf16":
+                n, sums = self.sums(kernel, "mnv2_bf16", MNV2_RES)
+                entry.update(
+                    launches=launches["mnv2_bf16"][kernel], **sums,
+                    dtype="bfloat16",
+                    past_one_ulp=sum(r["past_one_ulp"] for r in self.rows
+                                     if r["kernel"] == kernel),
+                    fp32_ms=self.sums("fused_separable", "mnv2",
+                                      MNV2_RES)[1]["ms"],
+                    shape=f"MobileNet-V2 {MNV2_RES}x{MNV2_RES} batch "
+                          f"{BATCH} in bf16 (fp32 sums, CUDA cores), {n} "
+                          f"separable blocks at the bf16 schedules (times "
+                          f"with the folded split sum); launches of those "
+                          f"blocks through separable_block in bf16; "
+                          f"bound_ms at 2 bytes a stored element, every "
+                          f"operation at the fp32 rate")
             elif kernel.endswith("_bf16"):
                 net, res, title = (
                     ("v2s", V2S_RES, "EfficientNet-V2-S")
@@ -1023,7 +1104,7 @@ def _mbconv_bf16_checks(torch, tk, stats, hx, net, res, i, row, sp, sch,
         times["ms_without_gate"] = measure(
             lambda: tk.mbconv_pass2_retain(dw, None, w_proj, geo, cap),
             iters=20, graph=True).mean_ms
-    splits = tk.retain_plan(b * oh * ow, c_mid, c_out, cap)[2]
+    splits = tk.retain_plan(b * oh * ow, c_mid, c_out, cap, 2)[2]
     ok &= add("mbconv_pass2_retain", on_path, _bf16_verdict(
         got, tk.mbconv_pass2_retain_plain(dw.float(), gate, f32(w_proj),
                                           geo)),
@@ -1902,8 +1983,10 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
     """Both separable kernels (B4 with its folded split sum) on the 17
     MobileNet-V2 blocks at MNV2_RES, batch BATCH, and on the trainer's 3
     blocks at its batch, the depthwise kernel also in bf16 on the
-    trainer's blocks; then the 17 blocks through ``separable_block``, with
-    the launch counts zeroed just before and read just after."""
+    trainer's blocks and B4 in bf16 on the 17 blocks; then the 17 blocks
+    through ``separable_block``, in fp32 and again in bf16, with the
+    launch counts zeroed just before and read just after each.  Returns
+    (ok, (fp32 counts, bf16 counts))."""
     from repro_torch.core.autotune import get_fused_schedule
     from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
     from repro_torch.examples import train_mobilenet_cim as tr
@@ -1928,6 +2011,10 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
     for i in range(3):
         ok &= _dw2d_bf16_check(torch, td, ops, stats, hx, tr.SIDE, i,
                                tr.BATCH, side >> i, side >> i, c << i, 3, 2)
+    for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE):
+        ok &= _separable_bf16_check(torch, tfs, stats, hx, MNV2_RES, i,
+                                    BATCH, layer.h, layer.w, layer.c, c_out,
+                                    layer.k, layer.s)
 
     inputs = [(hx.rand(BATCH, layer.h, layer.w, layer.c),
                {"dw": hx.rand(layer.k, layer.k, layer.c, scale=1 / layer.k),
@@ -1949,7 +2036,21 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
             and all(bool(torch.isfinite(o).all()) for o in outs))
     print(f"  the {len(inputs)} MobileNet-V2 blocks through separable_block: "
           f"launches {counts} (want {want}) {'ok' if good else 'FAIL'}")
-    return bool(ok and good), counts
+    # the same blocks in bf16: the bf16 kernel's main path
+    inputs16 = [(x.bfloat16(), {k: v.bfloat16() for k, v in p.items()}, st)
+                for x, p, st in inputs]
+    with torch.inference_mode():
+        reset_launches()                        # the bf16 path starts here
+        outs16 = [separable_block(x, p, stride=st) for x, p, st in inputs16]
+        _sync(torch)
+        counts16 = launches()                   # ... and ends here
+    want16 = {"fused_separable_bf16": len(inputs)}
+    good16 = (all(counts16[k] == want16.get(k, 0) for k in counts16)
+              and all(o.dtype == torch.bfloat16
+                      and bool(torch.isfinite(o).all()) for o in outs16))
+    print(f"  the same blocks in bf16 through separable_block: launches "
+          f"{counts16} (want {want16}) {'ok' if good16 else 'FAIL'}")
+    return bool(ok and good and good16), (counts, counts16)
 
 
 def _grad_case(torch, name, fn_name, op, plain, args):
@@ -2536,17 +2637,21 @@ def _mnv2_blocks(torch):
             for layer, c_out in MOBILENET_V2_SEPARABLE]
 
 
-def _block_parity(torch, S, mesh, specs, params, images, plan, stem_act):
+def _block_parity(torch, S, mesh, specs, params, images, plan, stem_act,
+                  rtol=MESH_RTOL):
     """Every block of the chain on the mesh at the plan's schedule and
-    layouts, fed the single-device activation its single-device twin
-    takes, so no difference compounds through the chain: (worst max|err|
-    over 1e-4 x max|ref| and its block, every block's counted model-axis
-    words and out layout as the plan prices them)."""
+    layouts (and its storage type: the plan's bytes), fed the
+    single-device activation its single-device twin takes, so no
+    difference compounds through the chain: (worst max|err| over rtol x
+    max|ref| and its block, every block's counted model-axis words and out
+    layout as the plan prices them)."""
     from repro_torch.models.mbconv import apply_block, stem_conv
     act = {"silu": torch.nn.functional.silu,
            "hard_swish": torch.nn.functional.hardswish}[stem_act]
     dp = S.conv_mesh_shape(mesh)[0]
-    x = act(stem_conv(images, params["stem"]))
+    eb = plan.dtype_bytes
+    dt = torch.float32 if eb == 4 else torch.bfloat16
+    x = act(stem_conv(images.to(dt), params["stem"].to(dt)))
     worst, words_ok = (0.0, -1), True
     for i, (sp, bp) in enumerate(zip(specs, plan.blocks)):
         p = params[f"block{i}"]
@@ -2557,11 +2662,11 @@ def _block_parity(torch, S, mesh, specs, params, images, plan, stem_act):
                                 in_layout=bp.in_layout)
         sch = bp.schedule
         words_ok &= (dp * mesh.model_wire_words()
-                     == (sch.collective_bytes + sch.transition_bytes) // 4
-                     and layout == bp.out_layout)
+                     == (sch.collective_bytes + sch.transition_bytes) // eb
+                     and layout == bp.out_layout and y.dtype == dt)
         got = S.gather_global(y, mesh, layout, sp.c_out)
-        ratio = (float((got - want).abs().max())
-                 / (MESH_RTOL * float(want.abs().max())))
+        ratio = (float((got.float() - want.float()).abs().max())
+                 / (rtol * float(want.float().abs().max())))
         worst = max(worst, (ratio, i))
         x = want
     return worst, words_ok
@@ -2625,7 +2730,11 @@ def _mesh_rank(rank, shape, port, out_dir):
                 res["sep"].append(dict(out=S.gather_global(
                     out, mesh, "model_sharded", c_out).cpu(),
                     wire_words=words))
+            t0 = time.perf_counter()
+            res["bf16"] = _mesh_rank_bf16(torch, S, mesh)
+            res["bf16_s"] = time.perf_counter() - t0
         res["transports"] = dict(mesh.transports)
+        res["host_calls"] = dict(mesh.host_calls)
         res["rank_ms"] = {n: r["ms"] for n, r in res["nets"].items()}
         tag = "x".join(map(str, shape))
         torch.save(res["rank_ms"], os.path.join(out_dir,
@@ -2634,6 +2743,49 @@ def _mesh_rank(rank, shape, port, out_dir):
             torch.save(res, os.path.join(out_dir, f"mesh_{tag}.pt"))
     finally:
         mesh.close()
+
+
+def _mesh_rank_bf16(torch, S, mesh):
+    """One rank's bf16 work at the mesh phase: B0 with ``dtype="bfloat16"``
+    block by block on the plan at 2-byte words and its whole forward, and
+    the 17 MobileNet-V2 separable blocks in bf16, each gathered."""
+    import dataclasses
+    from repro_torch.core.autotune import get_fused_schedule
+    from repro_torch.models.mbconv import network_plan
+
+    dp = S.conv_mesh_shape(mesh)[0]
+    name, cfg, def_fn, apply, side, stem_act = _mesh_nets()[0]
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    params, images = _mesh_inputs(torch, def_fn, cfg, side, 10)
+    specs = _net_specs(name, cfg)
+    plan = network_plan(specs, BATCH, side, side, S.conv_mesh_shape(mesh), 2)
+    worst, words_ok = _block_parity(torch, S, mesh, specs, params, images,
+                                    plan, stem_act, BF16_RTOL)
+    mesh.reset_counts()
+    logits = apply(params, images, cfg, mesh=mesh)
+    _sync(torch)
+    out = dict(logits=logits.cpu(), worst_block=worst,
+               block_words_ok=words_ok,
+               wire_words=dp * mesh.model_wire_words(),
+               plan_words=plan.interconnect_words,
+               counts={k: (c.calls, c.elements)
+                       for k, c in mesh.counts.items()}, sep=[])
+    del params, images
+    for x, w_dw, w_pw, layer, c_out in _mnv2_blocks(torch):
+        x, w_dw, w_pw = x.bfloat16(), w_dw.bfloat16(), w_pw.bfloat16()
+        sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c, c_out,
+                                 layer.k, layer.s, dtype_bytes=2,
+                                 mesh_shape=S.conv_mesh_shape(mesh))
+        mesh.reset_counts()
+        y = S.convdk_fused_separable_sharded(
+            S.shard_to_layout(x, mesh), w_dw, w_pw, mesh=mesh,
+            stride=layer.s, tile_h=sch.tile_h, tile_w=sch.tile_w,
+            dw_act="relu6", act=None)
+        words = dp * mesh.model_wire_words()
+        out["sep"].append(dict(
+            out=S.gather_global(y, mesh, "model_sharded", c_out).cpu(),
+            wire_words=words))
+    return out
 
 
 def _net_specs(name, cfg):
@@ -2702,9 +2854,45 @@ def _v2s_witness(torch, apply, params, images, cfg, fused, halves):
     return good
 
 
+def _mesh_bf16_verdict(torch, r, ref16, sep_refs16):
+    """The bf16 cases of one mesh shape against the single card's bf16
+    results at the bf16 bar: B0 block by block and its logits, its counted
+    model-axis words against the plan's at 2-byte words, and the 17
+    separable blocks (no model-axis words)."""
+    ratio, block = r["worst_block"]
+    scale = float(ref16.float().abs().max())
+    err = float((r["logits"].float() - ref16.float()).abs().max())
+    good = (r["logits"].dtype == torch.bfloat16
+            and r["logits"].shape == ref16.shape
+            and bool(torch.isfinite(r["logits"]).all())
+            and ratio <= 1.0 and r["block_words_ok"]
+            and err <= BF16_RTOL * scale
+            and r["wire_words"] == r["plan_words"])
+    print(f"    b0 bf16: every block on the single card's bf16 input: worst "
+          f"max|err| {ratio:.3f} x its tol ({BF16_RTOL:g} x max|ref|, block "
+          f"{block}), words and layouts "
+          f"{'as planned' if r['block_words_ok'] else 'NOT planned'}; "
+          f"logits vs the single card's bf16 max|err| {err:.3e} (tol "
+          f"{BF16_RTOL * scale:.3e}); model-axis words {r['wire_words']} "
+          f"(plan at 2-byte words {r['plan_words']}); collectives "
+          f"{r['counts']} {'ok' if good else 'FAIL'}")
+    errs, sep_ok = [], True
+    for s, ref in zip(r["sep"], sep_refs16):
+        err = float((s["out"].float() - ref.float()).abs().max())
+        errs.append(err / (BF16_RTOL * float(ref.float().abs().max())))
+        sep_ok &= (s["out"].dtype == torch.bfloat16
+                   and s["out"].shape == ref.shape and errs[-1] <= 1.0
+                   and s["wire_words"] == 0)
+    print(f"    MobileNet-V2's {len(sep_refs16)} separable blocks in bf16: "
+          f"worst max|err| {max(errs):.3f} x its tol, no model-axis words "
+          f"{'ok' if sep_ok else 'FAIL'}")
+    return good and sep_ok
+
+
 def mesh_phase(torch, tk):
     """The one-rank NCCL mesh, then two gloo ranks on the card at each of
     MESH_SHAPES against the single-device fused results (parity runs)."""
+    import dataclasses
     import torch.multiprocessing as mp
     from repro_torch.kernels.convdk_fused import convdk_fused_separable
     from repro_torch.core.autotune import get_fused_schedule
@@ -2727,13 +2915,23 @@ def mesh_phase(torch, tk):
                 ok &= _v2s_witness(torch, apply, params, images, cfg,
                                    refs[name], halves[name])
             del params, images
-        sep_refs = []
+        sep_refs, sep_refs16 = [], []
         for x, w_dw, w_pw, layer, c_out in _mnv2_blocks(torch):
-            sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c,
-                                     c_out, layer.k, layer.s)
-            sep_refs.append(convdk_fused_separable(
-                x, w_dw, w_pw, stride=layer.s, tile_h=sch.tile_h,
-                tile_w=sch.tile_w, dw_act="relu6", act=None).cpu())
+            for eb, refs_at in ((4, sep_refs), (2, sep_refs16)):
+                sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c,
+                                         c_out, layer.k, layer.s,
+                                         dtype_bytes=eb)
+                dt = torch.float32 if eb == 4 else torch.bfloat16
+                refs_at.append(convdk_fused_separable(
+                    x.to(dt), w_dw.to(dt), w_pw.to(dt), stride=layer.s,
+                    tile_h=sch.tile_h, tile_w=sch.tile_w, dw_act="relu6",
+                    act=None).cpu())
+        # B0 in bf16 on the single card: the mesh's bf16 reference
+        name, cfg, def_fn, apply, side, _ = _mesh_nets()[0]
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        params, images = _mesh_inputs(torch, def_fn, cfg16, side, 10)
+        ref16 = apply(params, images, cfg16).cpu()
+        del params, images
         _sync(torch)
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     summary = {}
@@ -2747,8 +2945,10 @@ def mesh_phase(torch, tk):
         rank_ms = [torch.load(os.path.join(out_dir, f"mesh_{tag}_{r}_ms.pt"))
                    for r in range(2)]
         print(f"  mesh {tag}, 2 ranks on the one card over gloo "
-              f"({time.perf_counter() - t0:.1f} s with the spawn); "
-              f"transports {res['transports']}")
+              f"({time.perf_counter() - t0:.1f} s with the spawn, "
+              f"{res['bf16_s']:.1f} s of it the bf16 cases on rank 0); "
+              f"transports {res['transports']}, calls through the host "
+              f"{res['host_calls']}")
         for name, r in res["nets"].items():
             ref = refs[name]
             scale = float(ref.abs().max())
@@ -2802,7 +3002,11 @@ def mesh_phase(torch, tk):
         print(f"    MobileNet-V2's {len(sep_refs)} separable blocks: max|err| "
               f"{max(errs):.3e}, no model-axis words "
               f"{'ok' if good else 'FAIL'}")
+        ok &= _mesh_bf16_verdict(torch, res["bf16"], ref16, sep_refs16)
         summary[tag] = {"transports": res["transports"],
+                        "host_calls": res["host_calls"],
+                        "bf16_s": res["bf16_s"],
+                        "bf16_worst_block": res["bf16"]["worst_block"],
                         "rank_ms": rank_ms, "single_card_spread": spread,
                         "vs_halves": {n: float((r["logits"] - halves[n])
                                                .abs().max())
@@ -2921,10 +3125,10 @@ def main() -> int:
                    "against the baseline, the calibration, serve_report")
     phases["bench"], bench = bench_phase(torch, tk, paper)
     phase("sep-kernels", f"sep-kernels: MobileNet-V2 batch {BATCH} at "
-                         f"{MNV2_RES}, every separable block; the trainer's "
-                         "blocks")
-    phases["sep-kernels"], mnv2_launches = sep_kernel_phase(torch, tfs, td,
-                                                            ops, stats)
+                         f"{MNV2_RES}, every separable block, fp32 and "
+                         "bf16; the trainer's blocks")
+    phases["sep-kernels"], (mnv2_launches, mnv2_bf16_launches) = \
+        sep_kernel_phase(torch, tfs, td, ops, stats)
     phase("grad", "grad: each op's gradients on the card vs its plain "
                   "version; B0's vs the CPU")
     phases["grad"], b0_train = grad_phase(torch)
@@ -2970,6 +3174,7 @@ def main() -> int:
                    "b0_forward_backward": b0_train,
                    "train": train, "train_launches": train_launches,
                    "mnv2_launches": mnv2_launches,
+                   "mnv2_bf16_launches": mnv2_bf16_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "both_modes": both_modes,
                    "bf16": bf16, "bf16_past_one_ulp": past,
@@ -2983,6 +3188,7 @@ def main() -> int:
     print(json.dumps({"kernels": stats.summary(
         {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches,
          "train": train_launches, "mnv2": mnv2_launches,
+         "mnv2_bf16": mnv2_bf16_launches,
          "lm": lm_launches, "paper_staged_dw2d": paper_dw,
          "b0_bf16": bf16["b0"]["launches"],
          "v2s_bf16": bf16["v2s"]["launches"],

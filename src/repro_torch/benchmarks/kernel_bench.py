@@ -4,8 +4,8 @@ the ``BENCH_<host>.json`` trajectory.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --fused \\
         [--family b0,v3l,v2s] [--batch N] [--res SIDE] [--dtype fp32|bf16]
-        [--measure [--block I]] [--mesh DxM [--collective MODE]]
-        [--network]
+        [--measure [--block I[-J][,...] | --separable-splits]]
+        [--mesh DxM [--collective MODE]] [--network]
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --measure \\
         [--family b0,v3l,v2s] [--bench-out DIR]
 
@@ -25,8 +25,7 @@ solver ranks by), and for the families the bytes the staged route writes
 and reads back (its working set, beside the card's 50 MB L2).  It exits 1
 when the fused route's device-memory bytes are not strictly below the
 staged bytes at some block: the JAX package's gate, read at the Hopper
-level.  The separable rows are fp32 at every ``--dtype`` (B4 takes
-fp32).
+level.  The separable rows are priced at ``--dtype`` too.
 
 ``--fused --mesh DxM`` prices the same blocks SHARDED over a (data, model)
 mesh of that shape, at batch 8 (host arithmetic: one card has no model
@@ -47,12 +46,17 @@ on a model-sharded mesh strictly below with at least one boundary kept
 sharded where the chain has an identity-expand block, or else every
 Fused-MBConv entry replicated.
 
-``--fused --measure --block I`` times block I of each family on the card
-at ``--batch`` and ``--res`` (fp32; a retain block): the whole fused block
-at the solver's pass-1 tile and at the tile of fewest device-memory bytes,
-each at every K split count of the retain GEMM from ``retain_plan``'s own
-down to 1, beside the staged route, with each point's modeled bytes and
-whether it keeps the gate's bar.
+``--fused --measure --block I`` times block I (or each of a list, ``3-15``
+or ``10,11,16``) of each family on the card at ``--batch``, ``--res`` and
+``--dtype`` (a retain block): the whole fused block at the solver's
+pass-1 tile and at the tile of fewest device-memory bytes, each at every
+K split count the retain GEMM may take (``retain_split_choices``), beside
+the staged route, with each point's modeled bytes, whether it keeps the
+gate's bar and which count ``retain_plan`` picks.
+``--fused --measure --separable-splits`` times B4 at every C_in split
+count it may take on each MobileNet-V2 block that may split (224,
+``--batch``, ``--dtype``), beside the launch plan's pick.  Both sweeps
+time each point as the median of SWEEP_REPS interleaved rounds.
 
 ``--fused --measure`` runs each family block on the card, fused
 (``models.mbconv.apply_block``) and staged (``fused=False``) on the same
@@ -101,8 +105,10 @@ from ..core.autotune import (
     get_mbconv_schedule,
     greedy_network_schedule,
     mbconv_sweep_candidates,
+    fused_separable_split_counts,
     pass1_smem_bytes,
     retain_plan,
+    retain_split_choices,
     solve_network_schedule,
 )
 from ..core.hopper_traffic import (
@@ -137,8 +143,16 @@ from ..core.workloads import (
 from ..core.telemetry import measure
 from ..core.trajectory import write_bench
 from ..kernels.common import resolve_device
+from ..kernels.convdk_fused import (
+    fused_separable_plain,
+    fused_separable_with_partials,
+)
 from ..kernels.convdk_fusedmb import convdk_fusedmb_fused
-from ..kernels.convdk_mbconv import convdk_mbconv_fused, convdk_mbconv_staged
+from ..kernels.convdk_mbconv import (
+    MBConvGeometry,
+    convdk_mbconv_fused,
+    convdk_mbconv_staged,
+)
 from ..kernels.ref import fusedmb_ref, mbconv_ref
 from ..models.mbconv import (
     EffNetConfig,
@@ -163,7 +177,10 @@ BATCH = 8
 DTYPE_BYTES = {"fp32": 4, "bf16": 2}       # --dtype: the storage type
 FLUSH_BYTES = 128 * 2 ** 20        # the cold-L2 scratch write
 CHECK_RTOL = SWEEP_CHECK_RTOL      # x max|oracle|
+SWEEP_RTOL_BF16 = 2.0 ** -7        # one bf16 ulp at max|oracle|
+BF16_STAGED_RTOL = 2e-2            # the bf16 bar of the JAX kernel tests
 WARM_ITERS, COLD_ITERS = 20, 5
+SWEEP_REPS = 3                     # interleaved warm rounds of a split sweep
 # the bench config: what the artifact's deterministic fields mean
 BENCH_CONFIG = {"scale": 1, "mesh": "1x1", "batch": BATCH, "dtype_bytes": 4}
 
@@ -240,30 +257,40 @@ def staged_working_set(r: BlockRow, staged: HBMTraffic, batch: int) -> int:
     return (staged.write_words - out) * staged.dtype_bytes
 
 
-def separable_report(batch: int, mesh_shape=(1, 1)) -> bool:
+def _separable_table() -> List[Tuple[str, object, int]]:
+    """(name, layer, c_out) of every MobileNet-V2 separable block and the
+    k=7 EfficientNet-V2 stem rows."""
+    return ([(f"mbv2_dw{i}", layer, c_out)
+             for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE)]
+            + [(f"effv2_k7_dw{i}", layer, c_out)
+               for i, (layer, c_out) in enumerate(
+                   EFFICIENTNET_V2_K7_SEPARABLE)])
+
+
+def separable_report(batch: int, mesh_shape=(1, 1),
+                     dtype: str = "fp32") -> bool:
     """Fused against staged bytes of every MobileNet-V2 separable block and
-    the k=7 stem rows at the fused separable kernel's schedule; True iff
-    the fused route's device-memory bytes (Hopper model) are strictly below
+    the k=7 stem rows at the fused separable kernel's schedule, at the
+    storage ``dtype`` (the staged route's strips and depthwise tensor at
+    it too: its depthwise kernel writes the storage type); True iff the
+    fused route's device-memory bytes (Hopper model) are strictly below
     the staged model's on every row.  On a mesh: each device's shard
     (c_out over "model", collective-free) times the devices, against the
     staged model partitioned identically."""
+    eb = DTYPE_BYTES[dtype]
     if tuple(mesh_shape) != (1, 1):
-        return _separable_mesh_report(batch, tuple(mesh_shape))
-    print(f"# separable blocks, batch {batch}")
+        return _separable_mesh_report(batch, tuple(mesh_shape), eb)
+    print(f"# separable blocks, batch {batch}, dtype {dtype}")
     print("layer,c_in,hw,k,s,c_out,tile_h,tile_w,splits,hopper_dram_bytes,"
           "staged_bytes,saving_pct,hopper_global_bytes,"
           "copied_model_fused_bytes")
-    table = ([(f"mbv2_dw{i}", layer, c_out)
-              for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE)]
-             + [(f"effv2_k7_dw{i}", layer, c_out)
-                for i, (layer, c_out) in enumerate(
-                    EFFICIENTNET_V2_K7_SEPARABLE)])
     ok = True
-    for name, layer, c_out in table:
+    for name, layer, c_out in _separable_table():
         sch = get_fused_schedule(batch, layer.h, layer.w, layer.c, c_out,
-                                 layer.k, layer.s)
+                                 layer.k, layer.s, dtype_bytes=eb)
         shape = SeparableShape(b=batch, h=layer.h, w=layer.w, c_in=layer.c,
-                               c_out=c_out, k=layer.k, s=layer.s)
+                               c_out=c_out, k=layer.k, s=layer.s,
+                               dtype_bytes=eb)
         hop = separable_hopper_traffic(shape, sch)
         f = hop.dram_bytes
         st = staged_separable_traffic(shape, sch.tile_h).total_bytes
@@ -326,23 +353,21 @@ def _mesh_gate(ok: bool, fallbacks: int, rows: int) -> bool:
     return ok
 
 
-def _separable_mesh_report(batch: int, mesh_shape) -> bool:
+def _separable_mesh_report(batch: int, mesh_shape, eb: int = 4) -> bool:
     print(f"# separable blocks, batch {batch}, mesh "
-          f"{mesh_shape[0]}x{mesh_shape[1]}")
+          f"{mesh_shape[0]}x{mesh_shape[1]}, {eb}-byte storage")
     print("layer,c_in,hw,k,s,c_out,tile_h,tile_w,splits,mesh,"
           "hopper_dram_bytes_per_device,fused_bytes,staged_bytes,"
           "saving_pct")
-    table = ([(f"mbv2_dw{i}", layer, c_out)
-              for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE)]
-             + [(f"effv2_k7_dw{i}", layer, c_out)
-                for i, (layer, c_out) in enumerate(
-                    EFFICIENTNET_V2_K7_SEPARABLE)])
+    table = _separable_table()
     ok, fallbacks = True, 0
     for name, layer, c_out in table:
         shape = SeparableShape(b=batch, h=layer.h, w=layer.w, c_in=layer.c,
-                               c_out=c_out, k=layer.k, s=layer.s)
+                               c_out=c_out, k=layer.k, s=layer.s,
+                               dtype_bytes=eb)
         sch = get_fused_schedule(batch, layer.h, layer.w, layer.c, c_out,
-                                 layer.k, layer.s, mesh_shape=mesh_shape)
+                                 layer.k, layer.s, dtype_bytes=eb,
+                                 mesh_shape=mesh_shape)
         local, eff = separable_shard(shape, mesh_shape)
         dev = separable_hopper_traffic(local, sch).dram_bytes
         f = dev * eff[0] * eff[1]
@@ -362,56 +387,68 @@ def _separable_mesh_report(batch: int, mesh_shape) -> bool:
 
 
 def mesh_block_rows(family: str, batch: int, res: int, mesh_shape,
-                    collective: Optional[str] = None) -> List[Dict]:
-    """Per block of one family on a (data, model) mesh: the schedule the
-    solver picks there (``collective`` pins its reduction), the fused
-    route's bytes (the Hopper model at the kernels' shard, times the
-    devices, plus the collective and entry-gather bytes) against the
-    staged model partitioned identically, which pays the same
-    collectives, and whether the mesh fell back to one device."""
-    _, rows, _ = family_chain(family, batch, res)
+                    collective: Optional[str] = None,
+                    dtype_bytes: int = 4) -> List[Dict]:
+    """Per block of one family on a (data, model) mesh at
+    ``dtype_bytes``-byte storage: the schedule the solver picks there
+    (``collective`` pins its reduction), the fused route's bytes (the
+    Hopper model at the kernels' shard, times the devices, plus the
+    collective and entry-gather bytes) against the staged route
+    partitioned identically (each device's shard as the single-card gate
+    prices it, intermediates at fp32), which pays the same collectives,
+    and whether the mesh fell back to one device."""
+    eb = dtype_bytes
+    _, rows, _ = family_chain(family, batch, res, eb)
     out = []
     for i, r in enumerate(rows):
-        shape = _shape(r, batch)
+        shape = _shape(r, batch, eb)
         args = (batch, r.h, r.w, r.c_in, r.c_mid, r.c_out, r.k, r.s)
         if r.family == "fusedmb":
-            sch = get_fusedmb_schedule(*args, mesh_shape=mesh_shape,
+            sch = get_fusedmb_schedule(*args, dtype_bytes=eb,
+                                       mesh_shape=mesh_shape,
                                        collective=collective)
             local, eff = fusedmb_shard(shape, mesh_shape)
             dev = fusedmb_hopper_traffic(local, sch).dram_bytes
             staged = sharded_fusedmb_staged_traffic(
                 shape, sch.tile_h, mesh_shape, C_BLOCK, sch.collective)
+            device_staged = fusedmb_staged_bytes(local, sch.tile_h)
         else:
             sch = get_mbconv_schedule(*args, se_ratio=r.se_ratio,
-                                      mesh_shape=mesh_shape,
+                                      dtype_bytes=eb, mesh_shape=mesh_shape,
                                       collective=collective)
             local, eff = mbconv_shard(shape, mesh_shape)
             dev = mbconv_hopper_traffic(_kernel_shape(shape, local),
                                         sch).dram_bytes
             staged = sharded_mbconv_staged_traffic(
                 shape, sch.tile_h, mesh_shape, C_BLOCK, sch.collective)
+            device_staged = mbconv_staged_bytes(local, sch.tile_h)
+        n_dev = eff[0] * eff[1]
         out.append(dict(
             name=f"{family}_{r.family}{i}", row=r, schedule=sch, eff=eff,
             fallback=eff != tuple(mesh_shape), device_bytes=dev,
-            fused=(dev * eff[0] * eff[1] + sch.collective_bytes
+            fused=(dev * n_dev + sch.collective_bytes
                    + sch.transition_bytes),
-            staged=staged.total_bytes))
+            staged=(staged.total_bytes
+                    - staged.device.total_bytes * staged.n_devices
+                    + device_staged * n_dev)))
     return out
 
 
 def mesh_traffic_report(family: str, batch: int, res: int, mesh_shape,
-                        collective: Optional[str] = None
+                        collective: Optional[str] = None,
+                        dtype_bytes: int = 4
                         ) -> Tuple[bool, Dict[str, Optional[int]]]:
     """``mesh_block_rows`` printed as CSV.  Returns (fused strictly below
     staged on every block the mesh divides, block -> fused bytes, None for
     a fallback row)."""
     print(f"# family={family} {res}x{res} batch {batch} mesh "
           f"{mesh_shape[0]}x{mesh_shape[1]} collective="
-          f"{collective or 'auto'}")
+          f"{collective or 'auto'}, {dtype_bytes}-byte storage")
     print("block,family,c_in,c_mid,c_out,hw,k,s,tile_h,tile_w,mode,"
           "collective,mesh,hopper_dram_bytes_per_device,collective_bytes,"
           "fused_bytes,staged_bytes,saving_pct,copied_model_fused_bytes")
-    rows = mesh_block_rows(family, batch, res, mesh_shape, collective)
+    rows = mesh_block_rows(family, batch, res, mesh_shape, collective,
+                           dtype_bytes)
     ok, fallbacks, totals = True, 0, {}
     for m in rows:
         r, sch, f, st = m["row"], m["schedule"], m["fused"], m["staged"]
@@ -430,14 +467,16 @@ def mesh_traffic_report(family: str, batch: int, res: int, mesh_shape,
     return ok, totals
 
 
-def collective_sweep(family: str, batch: int, res: int, mesh_shape) -> bool:
+def collective_sweep(family: str, batch: int, res: int, mesh_shape,
+                     dtype_bytes: int = 4) -> bool:
     """``mesh_traffic_report`` with the solver's collective and again
     ring-pinned: both gates, and the picked total at or below the ring
     total on every sharded block."""
-    auto_ok, auto = mesh_traffic_report(family, batch, res, mesh_shape)
+    auto_ok, auto = mesh_traffic_report(family, batch, res, mesh_shape,
+                                        dtype_bytes=dtype_bytes)
     print()
     ring_ok, ring = mesh_traffic_report(family, batch, res, mesh_shape,
-                                        "ring_allreduce")
+                                        "ring_allreduce", dtype_bytes)
     worse = [n for n, t in auto.items()
              if t is not None and ring.get(n) is not None and t > ring[n]]
     print(f"# autotuned collective <= ring-pinned on every sharded block "
@@ -446,16 +485,17 @@ def collective_sweep(family: str, batch: int, res: int, mesh_shape) -> bool:
     return auto_ok and ring_ok and not worse
 
 
-def network_report(family: str, batch: int, res: int, mesh_shape) -> bool:
+def network_report(family: str, batch: int, res: int, mesh_shape,
+                   dtype_bytes: int = 4) -> bool:
     """The layout DP over one family's chain against the greedy per-layer
     plan (every block alone, each sharded exit repaid at the next entry),
     element by element, with the totals.  Gate: solved at or below greedy;
     on a model-sharded mesh, strictly below with at least one boundary
     kept sharded where the chain has an identity-expand MBConv block, else
     every Fused-MBConv entry replicated."""
-    _, rows, _ = family_chain(family, batch, res)
-    solved = solve_network_schedule(rows, batch, mesh_shape)
-    greedy = greedy_network_schedule(rows, batch, mesh_shape)
+    _, rows, _ = family_chain(family, batch, res, dtype_bytes)
+    solved = solve_network_schedule(rows, batch, mesh_shape, dtype_bytes)
+    greedy = greedy_network_schedule(rows, batch, mesh_shape, dtype_bytes)
     mb = 1e6
     print(f"# network layout plan [{family}]: {res}x{res} batch {batch} "
           f"mesh {mesh_shape[0]}x{mesh_shape[1]}, stem + {len(rows)} "
@@ -632,17 +672,6 @@ def measure_family(family: str, batch: int, res: int, device: torch.device,
     return ok, out
 
 
-def retain_split_counts(m: int, k: int, n: int) -> List[int]:
-    """``retain_plan``'s own K split count for the retain GEMM (M x K x N)
-    and every smaller count it takes under a cap, largest first."""
-    counts, cap = [], None
-    while True:
-        counts.append(retain_plan(m, k, n, cap)[2])
-        if counts[-1] == 1:
-            return counts
-        cap = counts[-1] - 1
-
-
 def fewest_bytes_tile(shape: MBConvShape, sch: MBConvSchedule
                       ) -> Tuple[int, int]:
     """The pass-1 tile (within the kernel's pixel cap and the CTA's shared
@@ -661,70 +690,103 @@ def fewest_bytes_tile(shape: MBConvShape, sch: MBConvSchedule
     return min(cands)[3:]
 
 
+def _bar(ref: torch.Tensor) -> float:
+    """A sweep point's bar against its plain reference: CHECK_RTOL x
+    max|ref| in fp32, one bf16 ulp at max|ref| (SWEEP_RTOL_BF16) in bf16,
+    where only the order of fp32 sums differs between split counts."""
+    rtol = CHECK_RTOL if ref.dtype == torch.float32 else SWEEP_RTOL_BF16
+    return rtol * float(ref.float().abs().max())
+
+
+def _timed_points(fns: Sequence, log=None) -> List[List[float]]:
+    """Warm device ms of each callable, SWEEP_REPS times, the points
+    interleaved within each round (WARM_ITERS graph replays a timing)."""
+    times: List[List[float]] = [[] for _ in fns]
+    for _ in range(SWEEP_REPS):
+        for t, fn in zip(times, fns):
+            t.append(measure(fn, iters=WARM_ITERS, graph=True).mean_ms)
+    return times
+
+
+def _median(v: Sequence[float]) -> float:
+    return sorted(v)[len(v) // 2]
+
+
 def measure_variants(family: str, batch: int, res: int, block: int,
-                     device: torch.device, seed: int = 0,
-                     log=print) -> Tuple[bool, List[Dict]]:
-    """One retain MBConv block of a family on the card (fp32): the whole
-    fused block (pass 1, SE, retain with its folded split-K sum) at the
-    solver's pass-1 tile and at ``fewest_bytes_tile``, each at every K
-    split count
-    (``retain_split_counts``), and the staged route, on one set of seeded
-    inputs; each point checked against the oracle within CHECK_RTOL x
-    max|oracle| and timed warm (WARM_ITERS graph replays) and cold (a
-    FLUSH_BYTES scratch write before each of COLD_ITERS replays), beside its
-    Hopper-model bytes against the staged route's and whether it keeps the
-    gate's bar.  Returns (every point within its bar, rows)."""
-    specs, rows, schedules = family_chain(family, batch, res)
+                     device: torch.device, dtype: str = "fp32",
+                     seed: int = 0, log=print) -> Tuple[bool, List[Dict]]:
+    """One retain MBConv block of a family on the card at the storage
+    ``dtype``: the whole fused block (pass 1, SE, retain with its folded
+    split-K sum) at the solver's pass-1 tile and at ``fewest_bytes_tile``,
+    each at every K split count the GEMM may take
+    (``retain_split_choices``), and the staged route, on one set of
+    seeded inputs; each point checked against the oracle (``_bar``) and
+    timed warm (the median of SWEEP_REPS interleaved rounds of WARM_ITERS
+    graph replays, with their spread) and cold (a FLUSH_BYTES scratch
+    write before each of COLD_ITERS replays), beside its Hopper-model bytes
+    against the staged route's, whether it keeps the gate's bar, and
+    ``retain_plan``'s pick.  Returns (every point within its bar, rows)."""
+    eb = DTYPE_BYTES[dtype]
+    dt = torch.float32 if eb == 4 else torch.bfloat16
+    specs, rows, schedules = family_chain(family, batch, res, eb)
     sp, r, sch = specs[block], rows[block], schedules[block]
     if r.family != "mbconv" or sch.mode != "retain":
         raise ValueError(f"{family} block {block} is not a retain MBConv "
                          f"block at batch {batch}, {res}: {sch}")
-    shape = _shape(r, batch)
-    staged = staged_bytes(r, sch, batch)
+    shape = _shape(r, batch, eb)
+    staged = staged_bytes(r, sch, batch, eb)
     gen = torch.Generator().manual_seed(seed)
     params = materialize(block_def(sp), gen, device)
-    x = torch.randn(batch, r.h, r.w, r.c_in, generator=gen).to(device)
-    weights = (x, params.get("exp"), params["dw"], params.get("se_w1"),
+    x = torch.randn(batch, r.h, r.w, r.c_in, generator=gen).to(device, dt)
+
+    def conv(key):       # the convs' weights at the storage type, SE fp32
+        w = params.get(key)
+        return None if w is None else w.to(dt)
+
+    identity = "exp" not in params
+    weights = (x, conv("exp"), conv("dw"), params.get("se_w1"),
                params.get("se_b1"), params.get("se_w2"), params.get("se_b2"),
-               params["proj"])
-    acts = dict(exp_act=sp.act, dw_act=sp.act, se_act=sp.se_act,
-                gate_act=sp.gate_act)
+               conv("proj"))
+    acts = dict(exp_act=None if identity else sp.act, dw_act=sp.act,
+                se_act=sp.se_act, gate_act=sp.gate_act)
     flush = torch.empty(FLUSH_BYTES // 4, device=device)
     m = batch * shape.out_h * shape.out_w
-    default_splits = retain_plan(m, r.c_mid, r.c_out)[2]
+    pick = retain_plan(m, r.c_mid, r.c_out, sch.retain_splits, eb)[2]
+    counts = sorted(retain_split_choices(r.c_mid), reverse=True)
     tiles = [(sch.tile_h, sch.tile_w), fewest_bytes_tile(shape, sch)]
-    log(f"# {family} r{res} block{block:02d} batch {batch}: "
+    log(f"# {family} r{res} block{block:02d} batch {batch} {dtype}: "
         f"{r.h}x{r.w}x{r.c_in}->{r.c_mid}->{r.c_out} k{r.k} s{r.s}; solver "
-        f"{sch.tile_h}x{sch.tile_w} splits "
-        f"{retain_plan(m, r.c_mid, r.c_out, sch.retain_splits)[2]} "
-        f"(retain_plan's own {default_splits}); fewest-bytes tile "
-        f"{tiles[1][0]}x{tiles[1][1]}; staged {staged} bytes; on "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{sch.tile_h}x{sch.tile_w} splits {pick} (retain_plan's pick); "
+        f"fewest-bytes tile {tiles[1][0]}x{tiles[1][1]}; staged {staged} "
+        f"bytes; on {torch.cuda.get_device_name(0)}")
     ok, out = True, []
     with torch.inference_mode():
         ref = mbconv_ref(*weights, sp.s, "SAME", **acts)
-        tol = CHECK_RTOL * float(ref.abs().max())
+        tol = _bar(ref)
         points = [(th, tw, n) for th, tw in dict.fromkeys(tiles)
-                  for n in retain_split_counts(m, r.c_mid, r.c_out)]
-        for th, tw, n in points:
-            def fn(th=th, tw=tw, n=n):
-                return convdk_mbconv_fused(*weights, stride=sp.s, tile_h=th,
-                                           tile_w=tw, mode="retain",
-                                           retain_splits=n, **acts)
-
-            err = float((fn() - ref).abs().max())
+                  for n in counts]
+        fns = [lambda th=th, tw=tw, n=n: convdk_mbconv_fused(
+            *weights, stride=sp.s, tile_h=th, tile_w=tw, mode="retain",
+            retain_splits=n, **acts) for th, tw, n in points]
+        errs = [float((fn().float() - ref.float()).abs().max()) for fn in fns]
+        warm = _timed_points(fns)
+        for (th, tw, n), fn, err, times in zip(points, fns, errs, warm):
             hop = mbconv_hopper_traffic(shape, MBConvSchedule(
                 th, tw, "retain", 0, retain_splits=n)).dram_bytes
             row = dict(route="fused", tile_h=th, tile_w=tw, splits=n,
+                       picked=(th, tw, n) == (sch.tile_h, sch.tile_w, pick),
                        hopper_dram_bytes=hop, staged_bytes=staged,
                        below_staged=hop < staged, err=err, tol=tol,
-                       warm_ms=measure(fn, iters=WARM_ITERS,
-                                       graph=True).mean_ms,
+                       warm_ms=_median(times), warm_spread_ms=(
+                           max(times) - min(times)),
                        cold_ms=_cold_ms(fn, flush))
             ok &= err <= tol
             out.append(row)
-            log(f"  fused {th}x{tw} splits {n:2d}: warm {row['warm_ms']:.4f} "
-                f"ms cold {row['cold_ms']:.4f} ms; {hop} bytes "
+            log(f"  fused {th}x{tw} splits {n:2d}"
+                f"{' (pick)' if row['picked'] else ''}: warm "
+                f"{row['warm_ms']:.4f} ms (spread "
+                f"{row['warm_spread_ms']:.4f} over {SWEEP_REPS}) cold "
+                f"{row['cold_ms']:.4f} ms; {hop} bytes "
                 f"({'below' if hop < staged else 'NOT below'} staged); err "
                 f"{err:.2e} (tol {tol:.2e})")
 
@@ -732,10 +794,12 @@ def measure_variants(family: str, batch: int, res: int, block: int,
             return convdk_mbconv_staged(*weights, stride=sp.s,
                                         tile_h=sch.tile_h, **acts)
 
-        err = float((st_fn() - ref).abs().max())
-        ok &= err <= tol
+        err = float((st_fn().float() - ref.float()).abs().max())
+        st_tol = tol if eb == 4 else BF16_STAGED_RTOL * float(
+            ref.float().abs().max())
+        ok &= err <= st_tol
         row = dict(route="staged", tile_h=sch.tile_h, staged_bytes=staged,
-                   err=err, tol=tol,
+                   err=err, tol=st_tol,
                    warm_ms=measure(st_fn, iters=WARM_ITERS,
                                    graph=True).mean_ms,
                    cold_ms=_cold_ms(st_fn, flush))
@@ -744,6 +808,79 @@ def measure_variants(family: str, batch: int, res: int, block: int,
             f"{row['cold_ms']:.4f} ms; {staged} bytes; err {err:.2e}")
     del flush
     return ok, out
+
+
+def measure_separable_splits(batch: int, device: torch.device,
+                             dtype: str = "fp32", seed: int = 0,
+                             log=print) -> Tuple[bool, List[Dict]]:
+    """B4 at every C_in split count it may take
+    (``fused_separable_split_counts``) on each MobileNet-V2 separable
+    block (224, ``batch``, storage ``dtype``) that may split, at the
+    solver's tile: each count checked against the plain version
+    (``_bar``) and timed warm (the median of SWEEP_REPS interleaved rounds
+    of WARM_ITERS graph replays, with their spread), beside the launch
+    plan's pick.  Returns (every point within its bar, rows)."""
+    eb = DTYPE_BYTES[dtype]
+    dt = torch.float32 if eb == 4 else torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    log(f"# B4 C_in split sweep, MobileNet-V2 at batch {batch}, {dtype}, "
+        f"on {torch.cuda.get_device_name(0)}")
+    ok, out = True, []
+    with torch.inference_mode():
+        for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE):
+            counts = fused_separable_split_counts(layer.c, c_out, eb)
+            if len(counts) == 1:
+                continue
+            sch = get_fused_schedule(batch, layer.h, layer.w, layer.c, c_out,
+                                     layer.k, layer.s, dtype_bytes=eb)
+            geo = MBConvGeometry.make(layer.h, layer.w, layer.k, layer.s,
+                                      "SAME", sch.tile_h, sch.tile_w)
+
+            def rand(*shape, scale=1.0):
+                return (torch.randn(*shape, generator=gen) * scale).to(
+                    device, dt)
+
+            x = rand(batch, layer.h, layer.w, layer.c)
+            w_dw = rand(layer.k, layer.k, layer.c, scale=1 / layer.k)
+            w_pw = rand(layer.c, c_out, scale=layer.c ** -0.5)
+            kw = dict(dw_act="relu6", act="relu6")
+            ref = fused_separable_plain(x, w_dw, w_pw, geo, **kw)
+            tol = _bar(ref)
+            fns = [lambda n=n: fused_separable_with_partials(
+                x, w_dw, w_pw, geo, splits=n, **kw)[0] for n in counts]
+            errs = [float((fn().float() - ref.float()).abs().max())
+                    for fn in fns]
+            warm = _timed_points(fns)
+            line = []
+            for n, err, times in zip(counts, errs, warm):
+                row = dict(block=i, c_in=layer.c, c_out=c_out, hw=layer.h,
+                           s=layer.s, tile_h=sch.tile_h, tile_w=sch.tile_w,
+                           splits=n, picked=n == sch.splits, err=err,
+                           tol=tol, warm_ms=_median(times),
+                           warm_spread_ms=max(times) - min(times))
+                ok &= err <= tol
+                out.append(row)
+                line.append(f"{n}{'*' if row['picked'] else ''} "
+                            f"{row['warm_ms']:.4f} "
+                            f"(+-{row['warm_spread_ms'] / 2:.4f})")
+            log(f"  block{i:02d} {layer.h}x{layer.w}x{layer.c}->{c_out} "
+                f"s{layer.s} {sch.tile_h}x{sch.tile_w}: "
+                + "; ".join(line) + f" ms (* the launch plan's pick); max "
+                f"err {max(errs):.2e} (tol {tol:.2e})")
+    return ok, out
+
+
+def _parse_blocks(text: str) -> List[int]:
+    """``--block``: block indices as a comma list of I or I-J ranges."""
+    blocks = []
+    try:
+        for part in text.split(","):
+            lo, _, hi = part.partition("-")
+            blocks.extend(range(int(lo), int(hi or lo) + 1))
+    except ValueError:
+        raise SystemExit(f"--block wants I, I-J or a comma list of them, "
+                         f"got {text!r}")
+    return blocks
 
 
 def _axes(r: BlockRow, sch) -> Dict:
@@ -901,9 +1038,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--dtype", default="fp32", choices=tuple(DTYPE_BYTES),
                     help="with --fused: the storage dtype the report "
                          "prices (default fp32)")
-    ap.add_argument("--block", type=int, default=None, metavar="I",
-                    help="with --fused --measure: time block I's pass-1 "
-                         "tiles and retain K splits (fp32)")
+    ap.add_argument("--block", default=None, metavar="I[-J][,...]",
+                    help="with --fused --measure: time each listed block's "
+                         "pass-1 tiles and retain K splits at --dtype")
+    ap.add_argument("--separable-splits", action="store_true",
+                    help="with --fused --measure: time B4 at every C_in "
+                         "split count on MobileNet-V2 at --dtype")
     ap.add_argument("--measure", action="store_true",
                     help="with --fused: time fused and staged per block on "
                          "the card; alone: the measured per-block sweep")
@@ -933,14 +1073,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--batch, --res and --dtype go with --fused")
     if args.batch < 1:
         ap.error(f"--batch must be >= 1, got {args.batch}")
-    if args.block is not None and not (args.fused and args.measure):
-        ap.error("--block goes with --fused --measure")
-    if args.measure and args.dtype != "fp32":
-        ap.error("--measure times fp32 (chip_smoke.py times bf16)")
+    sweep = args.block is not None or args.separable_splits
+    if sweep and not (args.fused and args.measure):
+        ap.error("--block and --separable-splits go with --fused --measure")
+    if args.block is not None and args.separable_splits:
+        ap.error("--block and --separable-splits are two sweeps: pass one")
+    if args.measure and args.dtype != "fp32" and not sweep:
+        ap.error("--measure times fp32 but for the split sweeps "
+                 "(chip_smoke.py times bf16)")
 
+    blocks = None if args.block is None else _parse_blocks(args.block)
     mesh_shape = _parse_mesh(args.mesh) if args.mesh else (1, 1)
-    if args.dtype != "fp32" and mesh_shape != (1, 1):
-        ap.error("the mesh runs fp32 only (ROADMAP queue A item 14)")
     if mesh_shape != (1, 1) and args.measure:
         ap.error("--mesh prices the blocks on the host; it does not "
                  "measure")
@@ -965,24 +1108,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   f"{write_bench(args.bench_out, records, config=BENCH_CONFIG)}")
         return 0
     batch = args.batch
-    if args.block is not None:
+    eb = DTYPE_BYTES[args.dtype]
+    if args.separable_splits:
+        ok = measure_separable_splits(batch, device, args.dtype)[0]
+        return 0 if ok else 1
+    if blocks is not None:
         ok = all([measure_variants(fam, batch, args.res or FAMILY_RES[fam],
-                                   args.block, device)[0]
-                  for fam in families])
+                                   i, device, args.dtype)[0]
+                  for fam in families for i in blocks])
         return 0 if ok else 1
     ok = True
     if "b0" in families:
-        ok &= separable_report(batch, mesh_shape)
+        ok &= separable_report(batch, mesh_shape, args.dtype)
         print()
     for fam in families:
         res = args.res or FAMILY_RES[fam]
         if mesh_shape == (1, 1):
             ok &= traffic_report(fam, batch, res, args.dtype)
         elif collective is None and mesh_shape[1] > 1:
-            ok &= collective_sweep(fam, batch, res, mesh_shape)
+            ok &= collective_sweep(fam, batch, res, mesh_shape, eb)
         else:
             ok &= mesh_traffic_report(fam, batch, res, mesh_shape,
-                                      collective)[0]
+                                      collective, eb)[0]
         if device is not None:
             print(f"# measured on {torch.cuda.get_device_name(0)}")
             ok &= measure_family(fam, batch, res, device)[0]
@@ -990,7 +1137,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.network:
         for fam in families:
             ok &= network_report(fam, batch, args.res or FAMILY_RES[fam],
-                                 mesh_shape)
+                                 mesh_shape, eb)
             print()
     return 0 if ok else 1
 

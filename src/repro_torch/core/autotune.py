@@ -121,7 +121,10 @@ RETAIN_STAGES = 3                   # retain's cp.async ring depth
 MMA_M = 16                          # rows of one m16n8k16 product
 ROW_PAD_BF16 = 8                    # bf16 padding per w_exp / retain ring row
 RETAIN_TILES = ((128, 64), (64, 64), (128, 32), (64, 32))   # (BM, BN)
-RETAIN_MIN_CTAS = 2 * SM_COUNT      # split K below about two waves
+RETAIN_MAX_CTAS = 2 * SM_COUNT      # a split launch's CTAs, at most
+# CTAs a split retain launch runs as one wave, by storage bytes: fitted to
+# the card's K split sweep of every split block of B0, V3 and V2-S
+RETAIN_WAVE_CTAS = {4: SM_COUNT, 2: 2 * SM_COUNT}
 RETAIN_MIN_SPLIT_CHUNKS = 2         # K chunks each split sums at least
 
 # The redesigned recompute kernel (B2; kernels/csrc/mbconv.cu, R2_* there,
@@ -172,6 +175,7 @@ SMEM_BYTES_PER_CLK = 128            # shared-memory bytes an SM reads per clock
 SEP_MAX_TILE_PIXELS = 64            # tile_h * tile_w cap
 SEP_CI_CHUNK = 32                   # C_in channels per cp.async ring slot
 SEP_PIXEL_STRIDE = SEP_CI_CHUNK + 4  # padded floats per staged pixel
+SEP_PIXEL_STRIDE_BF16 = SEP_CI_CHUNK + 8    # padded bf16 per staged pixel
 SEP_SLOTS = 3                       # cp.async ring slots
 SEP_THREADS = 128
 SEP_CHUNK_LANES = {16: 4, 24: 2, 32: 4, 48: 4, 64: 8}
@@ -532,16 +536,26 @@ def fused_separable_chunk(c_out: int, k: int) -> int:
         -(-c_out // nc) * (k * k + nc), -nc))
 
 
+def fused_separable_pixel_stride(eb: int = 4) -> int:
+    """Elements of the storage type per staged window pixel (separable.cu's
+    ``x_stride``): fp32 SEP_PIXEL_STRIDE floats, bf16 SEP_PIXEL_STRIDE_BF16
+    (80 bytes, an odd number of 16-byte units)."""
+    return SEP_PIXEL_STRIDE if eb == 4 else SEP_PIXEL_STRIDE_BF16
+
+
 def fused_separable_window_smem_bytes(k: int, in_rows: int, in_cols: int,
-                                     pixels: int, nc: int) -> int:
-    """Dynamic shared memory of one fused-separable launch (separable.cu's
-    ``fused_separable_smem_bytes``, which the wrapper checks against this):
-    SEP_SLOTS ring slots, each the padded ``in_rows x in_cols`` window of
-    one SEP_CI_CHUNK-channel chunk, its (k, k) taps and its (chunk, NC)
-    pointwise rows, and two padded (pixels, chunk) depthwise tiles."""
-    slot = (in_rows * in_cols * SEP_PIXEL_STRIDE + k * k * SEP_CI_CHUNK
-            + SEP_CI_CHUNK * nc)
-    return 4 * (SEP_SLOTS * slot + 2 * pixels * SEP_PIXEL_STRIDE)
+                                     pixels: int, nc: int,
+                                     eb: int = 4) -> int:
+    """Dynamic shared memory of one fused-separable launch at ``eb``-byte
+    storage (separable.cu's ``fused_separable_smem_bytes``, which the
+    wrapper checks against this): SEP_SLOTS ring slots in the storage
+    type, each the padded ``in_rows x in_cols`` window of one
+    SEP_CI_CHUNK-channel chunk, its (k, k) taps and its (chunk, NC)
+    pointwise rows, and two padded fp32 (pixels, chunk) depthwise
+    tiles."""
+    slot = (in_rows * in_cols * fused_separable_pixel_stride(eb)
+            + k * k * SEP_CI_CHUNK + SEP_CI_CHUNK * nc)
+    return eb * SEP_SLOTS * slot + 4 * 2 * pixels * SEP_PIXEL_STRIDE
 
 
 def fused_separable_smem_bytes(shape: SeparableShape, tile_h: int,
@@ -550,18 +564,19 @@ def fused_separable_smem_bytes(shape: SeparableShape, tile_h: int,
     return fused_separable_window_smem_bytes(
         shape.k, window_extent(tile_h, shape.k, shape.s),
         window_extent(tile_w, shape.k, shape.s), tile_h * tile_w,
-        fused_separable_chunk(shape.c_out, shape.k))
+        fused_separable_chunk(shape.c_out, shape.k), shape.dtype_bytes)
 
 
-def fused_separable_split_counts(c_in: int, c_out: int) -> Tuple[int, ...]:
-    """The C_in splits a fused-separable launch may take: 1, and every
-    count whose splits each sum whole SEP_CI_CHUNK chunks, none empty, with
-    splits * C_out < C_in, so the fp32 partials the split sum (B4') reads
-    back move fewer bytes than the depthwise tensor the staged route
-    writes."""
+def fused_separable_split_counts(c_in: int, c_out: int,
+                                 eb: int = 4) -> Tuple[int, ...]:
+    """The C_in splits a fused-separable launch may take at ``eb``-byte
+    storage: 1, and every count whose splits each sum whole SEP_CI_CHUNK
+    chunks, none empty, with 4 * splits * C_out < eb * C_in, so the fp32
+    partials the split sum (B4') reads back move fewer bytes than the
+    depthwise tensor the staged route writes at the storage type."""
     chunks = -(-c_in // SEP_CI_CHUNK)
     return (1,) + tuple(n for n in range(2, chunks + 1)
-                        if n * c_out < c_in
+                        if 4 * n * c_out < eb * c_in
                         and -(-chunks // -(-chunks // n)) == n)
 
 
@@ -575,9 +590,13 @@ def fused_separable_cost(shape: SeparableShape, tile_h: int, tile_w: int,
     each thread computes, and one clock per FMA instruction of a pointwise
     warp; the busiest SM runs ceil(CTAs / SM_COUNT) CTAs, ``occ`` of them at
     once, and never faster than its FMAs at FMA_PER_CLK.  A split adds its
-    split sum (B4'): the partials read and the output written at the
-    card's byte rate.  The constants are fitted to a sweep of tiles and splits over
-    MobileNet-V2's 17 blocks at 224 batch 8 on the card."""
+    split sum (B4', folded into the launch's last CTAs): the partials read
+    back and the output written at the card's byte rate.  The constants
+    are fitted to a sweep of tiles and splits over MobileNet-V2's 17
+    blocks at 224 batch 8 on the card; with the sum folded in, the card's
+    sweep of every split count (``kernel_bench --fused --measure
+    --separable-splits``, fp32 and bf16) times the launch plan's pick
+    fastest on every block that may split, so the term stands."""
     smem = fused_separable_smem_bytes(shape, tile_h, tile_w)
     if smem > SMEM_BYTES:
         return None
@@ -608,13 +627,14 @@ def fused_separable_cost(shape: SeparableShape, tile_h: int, tile_w: int,
 
 def fused_separable_launch_plan(b: int, h: int, w: int, c_in: int,
                                 c_out: int, k: int, s: int, tile_h: int,
-                                tile_w: int) -> Tuple[int, int]:
-    """(NC, splits) of one fused-separable launch at a tile: the c_out
-    tile, and the allowed split count of least ``fused_separable_cost``
-    (ties to fewer splits)."""
-    shape = SeparableShape(b=b, h=h, w=w, c_in=c_in, c_out=c_out, k=k, s=s)
+                                tile_w: int, eb: int = 4) -> Tuple[int, int]:
+    """(NC, splits) of one fused-separable launch at a tile and
+    ``eb``-byte storage: the c_out tile, and the allowed split count of
+    least ``fused_separable_cost`` (ties to fewer splits)."""
+    shape = SeparableShape(b=b, h=h, w=w, c_in=c_in, c_out=c_out, k=k, s=s,
+                           dtype_bytes=eb)
     costs = [(fused_separable_cost(shape, tile_h, tile_w, n), n)
-             for n in fused_separable_split_counts(c_in, c_out)]
+             for n in fused_separable_split_counts(c_in, c_out, eb)]
     costs = [c for c in costs if c[0] is not None]
     return (fused_separable_chunk(c_out, k),
             min(costs)[1] if costs else 1)
@@ -756,31 +776,44 @@ def retain_smem_bytes(bm: int, bn: int, eb: int = 4) -> int:
             + 4 * 2 * k * bm)
 
 
+def retain_split_choices(k: int) -> Tuple[int, ...]:
+    """The K split counts the retain GEMM may take at K = ``k``: 1, and
+    every count that leaves no split empty (``splits = ceil(chunks /
+    ceil(chunks / splits))``) with each split summing at least
+    RETAIN_MIN_SPLIT_CHUNKS K chunks."""
+    chunks = -(-k // RETAIN_K_CHUNK)
+    top = max(1, chunks // RETAIN_MIN_SPLIT_CHUNKS)
+    return tuple(n for n in range(1, top + 1)
+                 if -(-chunks // -(-chunks // n)) == n)
+
+
 @functools.lru_cache(maxsize=None)
-def retain_plan(m: int, k: int, n: int,
-                max_splits: Optional[int] = None) -> Tuple[int, int, int]:
-    """(BM, BN, splits) of the retain GEMM, M = B * out_h * out_w rows,
-    K = C_mid, N = C_out.  BN 32 below C_out 64, else 64; BM 128 for the
-    deep GEMMs (K >= 512, M >= 1024: V2-S's late stages), whose per-thread
-    8 x 4 tile reads shared memory least per product, else 64; then the
-    fewest K splits that reach RETAIN_MIN_CTAS CTAs, each split summing at
-    least RETAIN_MIN_SPLIT_CHUNKS K chunks (the most such splits where none
-    reaches it).  Only split counts that leave no split empty are taken:
-    ``splits = ceil(chunks / ceil(chunks / splits))``.  Chosen from a
-    sweep of every tile and split count on the card over the B0 and V2-S
-    blocks."""
+def retain_plan(m: int, k: int, n: int, max_splits: Optional[int] = None,
+                eb: int = 4) -> Tuple[int, int, int]:
+    """(BM, BN, splits) of the retain GEMM at ``eb``-byte storage, M = B *
+    out_h * out_w rows, K = C_mid, N = C_out.  BN 32 below C_out 64, else
+    64; BM 128 for the deep GEMMs (K >= 512, M >= 1024: V2-S's late
+    stages), whose per-thread 8 x 4 tile reads shared memory least per
+    product, else 64.  Then, of the K split counts the GEMM may take
+    (``retain_split_choices``, at most ``max_splits``) whose CTAs (tiles x
+    splits) stay within RETAIN_MAX_CTAS (up to two splits always may), the
+    one whose busiest SM sums the fewest K chunks: ceil(CTAs /
+    RETAIN_WAVE_CTAS[eb]) waves x ceil(chunks / splits) chunks a CTA; ties
+    to more splits.  Each split launch's last CTA per output tile reads
+    every split's partial (the fold's tail), which the cap bounds.  Fitted
+    to the card's sweep of every split count on every split block of B0,
+    V3 and V2-S in fp32 and bf16 (``kernel_bench --fused --measure
+    --block``)."""
     bn = 32 if n < 64 else 64
     bm = 128 if k >= 512 and m >= 1024 else 64
     tiles = -(-m // bm) * -(-n // bn)
     chunks = -(-k // RETAIN_K_CHUNK)
-    top = max(1, chunks // RETAIN_MIN_SPLIT_CHUNKS)
-    splits = 1
-    for cand in range(1, min(top, max_splits or top) + 1):
-        if -(-chunks // -(-chunks // cand)) != cand:
-            continue            # some split would be empty
-        splits = cand
-        if tiles * cand >= RETAIN_MIN_CTAS:
-            break
+    wave = RETAIN_WAVE_CTAS[eb]
+    cands = [s for s in retain_split_choices(k)
+             if s <= (max_splits or s)
+             and (s <= 2 or tiles * s <= RETAIN_MAX_CTAS)]
+    splits = min(cands, key=lambda s: (
+        -(-tiles * s // wave) * -(-chunks // s), -s))
     return bm, bn, splits
 
 
@@ -910,7 +943,8 @@ def retain_split_cap(kern: MBConvShape, local: MBConvShape, tile_h: int,
     m = kern.b * kern.out_h * kern.out_w
     cap = None
     while True:
-        splits = retain_plan(m, kern.c_mid, kern.c_out, cap)[2]
+        splits = retain_plan(m, kern.c_mid, kern.c_out, cap,
+                             kern.dtype_bytes)[2]
         sch = MBConvSchedule(tile_h, tile_w, "retain", 0, retain_splits=cap)
         if (splits == 1
                 or mbconv_hopper_traffic(kern, sch).dram_bytes < staged):
@@ -998,7 +1032,7 @@ def select_fused_schedule(shape: SeparableShape,
         for tw in range(1, min(out_w, SEP_MAX_TILE_PIXELS // th) + 1):
             nc, splits = fused_separable_launch_plan(
                 shape.b, shape.h, shape.w, shape.c_in, shape.c_out, shape.k,
-                shape.s, th, tw)
+                shape.s, th, tw, shape.dtype_bytes)
             cost = fused_separable_cost(shape, th, tw, splits)
             if cost is not None:
                 cands.append((above, cost, -th * tw, -th, th, tw, nc, splits))

@@ -247,7 +247,8 @@ def mbconv_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
     gate = pool if shape.has_se else 0
     if retain:
         m, k, n = b * hw_out, shape.c_mid, shape.c_out
-        bm, bn, splits = retain_plan(m, k, n, sch.retain_splits)
+        bm, bn, splits = retain_plan(m, k, n, sch.retain_splits,
+                                     shape.dtype_bytes)
         n_m, n_n = -(-m // bm), -(-n // bn)
         chunks = -(-k // RETAIN_K_CHUNK)
         imgs = sum((min(m, m0 + bm) - 1) // hw_out - m0 // hw_out + 1
@@ -322,24 +323,27 @@ def fusedmb_hopper_traffic(shape: MBConvShape, sch) -> HopperTraffic:
 def separable_hopper_traffic(shape: SeparableShape, sch) -> HopperTraffic:
     """B4 at ``sch``'s tile, c_out tile and C_in splits, its split sum B4'
     folded in: each CTA stages its split's SEP_CI_CHUNK-channel chunks (the
-    halo'd window, the taps and the pointwise rows of its c_out tile)."""
-    b, hw_out = shape.b, shape.out_h * shape.out_w
+    halo'd window, the taps and the pointwise rows of its c_out tile).  x,
+    the taps, w_pw and the output at the storage type, the split partials
+    at fp32."""
+    b, hw_out, eb = shape.b, shape.out_h * shape.out_w, shape.dtype_bytes
     th, tw, tiles = _tiles(shape, sch.tile_h, sch.tile_w)
     nc, splits = fused_separable_launch_plan(
         b, shape.h, shape.w, shape.c_in, shape.c_out, shape.k, shape.s,
-        th, tw)
+        th, tw, eb)
     n_co = -(-shape.c_out // nc)
     win = window_pixels(shape.h, shape.w, shape.k, shape.s, th, tw)
-    x_bytes = b * shape.h * shape.w * shape.c_in * F32
-    xl = b * n_co * win * shape.c_in * F32
-    taps = shape.k ** 2 * shape.c_in * F32
-    w_pw = shape.c_in * shape.c_out * F32
-    out = b * hw_out * shape.c_out * F32
+    x_bytes = b * shape.h * shape.w * shape.c_in * eb
+    xl = b * n_co * win * shape.c_in * eb
+    taps = shape.k ** 2 * shape.c_in * eb
+    w_pw = shape.c_in * shape.c_out * eb
+    count = b * hw_out * shape.c_out
     chunks = -(-shape.c_in // SEP_CI_CHUNK)
     return HopperTraffic((_split_sum(LaunchTraffic(
         "separable", 1, tiles * n_co * splits * b,
-        xl + tiles * b * (n_co * taps + w_pw), out, x_bytes + taps + w_pw,
-        xl - x_bytes, tiles * n_co * b * chunks), splits, out // F32),))
+        xl + tiles * b * (n_co * taps + w_pw), count * eb,
+        x_bytes + taps + w_pw, xl - x_bytes, tiles * n_co * b * chunks),
+        splits, count),))
 
 
 def _mixed_staged_bytes(traffic, storage_words: int, eb: int) -> int:

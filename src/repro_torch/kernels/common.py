@@ -63,11 +63,11 @@ def on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-# fp32 operands: the separable kernel's, and the fp32 pool sums, gates and
-# split partials of the MBConv kernels
+# fp32 operands: the MBConv kernels' pool sums, gates and split partials,
+# and the causal conv1d kernel's taps and bias
 FP32: Tuple[torch.dtype, ...] = (torch.float32,)
-# the storage types of the MBConv and Fused-MBConv kernels' activations
-# and weights (their sums are fp32 either way)
+# the storage types of the MBConv, Fused-MBConv and fused separable
+# kernels' activations and weights (their sums are fp32 either way)
 STORAGE: Tuple[torch.dtype, ...] = (torch.float32, torch.bfloat16)
 
 

@@ -7,23 +7,28 @@ Counterpart of ``repro.kernels.convdk_fused``:
 
 in ONE launch (``kernels/csrc/separable.cu`` ``fused_separable_kernel``):
 the depthwise output never reaches device memory, the input is read from
-its unstaged layout, and the block output is written once.  Where the
+its unstaged layout, and the block output is written once.  x, the taps,
+w_pw and the output are fp32 or bf16 (one storage type, the launch's),
+every sum is fp32 and the output is rounded once, as the JAX kernel
+widens its operands to fp32 and casts once to the output's dtype.  Where the
 schedule splits C_in across CTAs (the late MobileNet-V2 blocks, too small
 to fill the card otherwise), each split writes an fp32 partial product
 and the last CTA of each output tile sums the partials in split order and
 applies ``act`` (B4', folded into the launch); the splits keep
-``splits * C_out < C_in``, so the partials are smaller than the depthwise
-tensor.
+``4 * splits * C_out < eb * C_in`` (``eb`` the storage type's bytes), so
+the fp32 partials are smaller than the depthwise tensor at the storage
+type.
 
 ``fused_separable`` launches the kernel for CUDA tensors and runs its
 plain version for CPU tensors (``fused_separable_plain``, or for a split
-launch the plain partials summed in the kernel's order); any other device
-raises.
+launch the plain partials summed in the kernel's order: fp32 on the
+widened inputs, rounded once); any other device raises, as do fp16 and
+mixed storage types.
 ``fused_separable_with_partials`` also returns the split launch's
 partials.  ``fused_separable_partials_plain`` and
 ``fused_separable_reduce_plain`` are the plain versions of the split
 route, summing in the kernel's order.  ``LAUNCHES`` counts kernel
-launches.
+launches, the bf16 ones as ``fused_separable_bf16``.
 The kernel tiles the output in ``tile_h x tile_w`` pixels, its c_out tile
 and splits come from ``core.autotune.fused_separable_launch_plan`` (see
 ``core.autotune.get_fused_schedule``), and it masks SAME padding and every
@@ -34,7 +39,8 @@ slices nothing back.
 grad it goes through an autograd Function whose backward is autograd
 through ``separable_ref``, as the JAX package's ``custom_vjp`` backward is
 ``jax.vjp`` of its oracle (the kernel has no backward of its own, nor had
-the Pallas one).
+the Pallas one); at bf16 that oracle rounds its depthwise to bf16, as the
+JAX one does.
 """
 
 from __future__ import annotations
@@ -49,27 +55,30 @@ from ..core.autotune import (
     SEP_CHUNK_LANES,
     SEP_CI_CHUNK,
     SEP_MAX_TILE_PIXELS,
-    SEP_PIXEL_STRIDE,
     SEP_THREADS,
     fused_separable_launch_plan,
+    fused_separable_pixel_stride,
+    fused_separable_split_counts,
     fused_separable_window_smem_bytes,
 )
 from . import _build
 from .common import (
     ACT_CODES,
-    FP32,
+    STORAGE,
     arrival_counters,
     check_cuda,
+    launch_name,
     needs_grad,
     on_cpu,
     ptr,
     reduce_partial,
+    storage_dtype,
     vjp_through,
 )
 from .convdk_mbconv import MBConvGeometry
 from .ref import _act_ref, depthwise_valid, pad_nhwc, separable_ref
 
-KERNELS: Tuple[str, ...] = ("fused_separable",)
+KERNELS: Tuple[str, ...] = ("fused_separable", "fused_separable_bf16")
 # kernel launches per wrapper (reset with ``reset_launches``)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -91,32 +100,34 @@ def _lib() -> ctypes.CDLL:
     ``kernels.convdk_dw``), its tiles and shared-memory budget checked
     against ``core.autotune``."""
     lib = _build.load("separable")
-    lib.fused_separable.argtypes = [_P] * 6 + [_I] * 17 + [_P]
+    lib.fused_separable.argtypes = [_P] * 6 + [_I] * 18 + [_P]
     lib.dw2d.argtypes = [_P] * 3 + [_I] * 10 + [_P]
     for fn in (lib.fused_separable, lib.dw2d):
         fn.restype = ctypes.c_int
     lib.separable_error_string.argtypes = [ctypes.c_int]
     lib.separable_error_string.restype = ctypes.c_char_p
-    lib.fused_separable_smem_bytes.argtypes = [_I] * 5
+    lib.fused_separable_smem_bytes.argtypes = [_I] * 6
     lib.fused_separable_smem_bytes.restype = ctypes.c_size_t
     built = (lib.fused_separable_max_tile_pixels(),
              lib.fused_separable_ci_chunk(),
-             lib.fused_separable_pixel_stride(),
+             [lib.fused_separable_pixel_stride(b) for b in (0, 1)],
              lib.fused_separable_threads(),
              {nc: lib.fused_separable_chunk_lanes(nc) for nc in SEP_CHUNK_LANES})
-    want = (SEP_MAX_TILE_PIXELS, SEP_CI_CHUNK, SEP_PIXEL_STRIDE, SEP_THREADS,
+    want = (SEP_MAX_TILE_PIXELS, SEP_CI_CHUNK,
+            [fused_separable_pixel_stride(eb) for eb in (4, 2)], SEP_THREADS,
             SEP_CHUNK_LANES)
     if built != want:
         raise RuntimeError(f"separable.cu tiles {built} disagree with "
                            f"core.autotune {want}")
     for args in _SMEM_PROBES:
-        got = lib.fused_separable_smem_bytes(*args)
-        model = fused_separable_window_smem_bytes(*args)
-        if got != model:
-            raise RuntimeError(f"separable.cu asks for {got} B of shared "
-                               f"memory at (k, rows, cols, pixels, c_out "
-                               f"tile) {args}; core.autotune budgets "
-                               f"{model} B")
+        for bf16, eb in ((0, 4), (1, 2)):
+            got = lib.fused_separable_smem_bytes(*args, bf16)
+            model = fused_separable_window_smem_bytes(*args, eb)
+            if got != model:
+                raise RuntimeError(
+                    f"separable.cu asks for {got} B of shared memory at (k, "
+                    f"rows, cols, pixels, c_out tile) {args}, {eb}-byte "
+                    f"storage; core.autotune budgets {model} B")
     return lib
 
 
@@ -138,13 +149,22 @@ def _check_shapes(x, w_dw, w_pw, geo: MBConvGeometry) -> None:
                          f"w_pw {tuple(w_pw.shape)} do not chain")
 
 
+def _depthwise_f32(x, w_dw, geo: MBConvGeometry,
+                   dw_act: Optional[str]) -> torch.Tensor:
+    """dw_act of the zero-padded depthwise, in fp32 on the widened inputs
+    (the kernel's depthwise tile)."""
+    d = depthwise_valid(pad_nhwc(x.float(), geo.pads), w_dw.float(), geo.s)
+    return _act_ref(d, dw_act)
+
+
 def fused_separable_plain(x, w_dw, w_pw, geo: MBConvGeometry, *,
                           dw_act: Optional[str],
                           act: Optional[str]) -> torch.Tensor:
     """Plain version of ``fused_separable``: zero-pad, depthwise, dw_act,
-    pointwise, act."""
-    d = depthwise_valid(pad_nhwc(x, geo.pads), w_dw, geo.s)
-    return _act_ref(_act_ref(d, dw_act) @ w_pw, act)
+    pointwise, act, in fp32 on the widened inputs, rounded once to x's
+    type."""
+    d = _depthwise_f32(x, w_dw, geo, dw_act)
+    return _act_ref(d @ w_pw.float(), act).to(x.dtype)
 
 
 def split_channels(c_in: int, splits: int) -> List[Tuple[int, int]]:
@@ -161,47 +181,63 @@ def fused_separable_partials_plain(x, w_dw, w_pw, geo: MBConvGeometry, *,
                                    dw_act: Optional[str]) -> torch.Tensor:
     """Plain version of the split kernel: for each split of C_in, the
     depthwise of its channels, dw_act, and their pointwise product ->
-    (splits, B, out_h, out_w, C_out) fp32 partials (no act)."""
-    d = _act_ref(depthwise_valid(pad_nhwc(x, geo.pads), w_dw, geo.s), dw_act)
-    return torch.stack([d[..., lo:hi] @ w_pw[lo:hi]
+    (splits, B, out_h, out_w, C_out) fp32 partials (no act), in fp32 on
+    the widened inputs."""
+    d = _depthwise_f32(x, w_dw, geo, dw_act)
+    w = w_pw.float()
+    return torch.stack([d[..., lo:hi] @ w[lo:hi]
                         for lo, hi in split_channels(x.shape[-1], splits)])
 
 
 def fused_separable_reduce_plain(partial: torch.Tensor, *,
-                                 act: Optional[str]) -> torch.Tensor:
-    """Plain version of the split launch's sum (B4'): the partials summed
-    in split order (the kernel's order, so the two agree bit for bit),
-    then act."""
+                                 act: Optional[str],
+                                 dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
+    """Plain version of the split launch's sum (B4'): the fp32 partials
+    summed in split order (the kernel's order, so the two agree bit for
+    bit), then act, rounded once to ``dtype``."""
     out = partial[0].clone()
     for s in range(1, partial.shape[0]):
         out += partial[s]
-    return _act_ref(out, act)
+    return _act_ref(out, act).to(dtype)
 
 
 def fused_separable_with_partials(
         x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
-        geo: MBConvGeometry, *, dw_act: Optional[str], act: Optional[str]
+        geo: MBConvGeometry, *, dw_act: Optional[str], act: Optional[str],
+        splits: Optional[int] = None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``fused_separable`` with its launch's fp32 split partials: (the
     output, the partials (splits, B, out_h, out_w, C_out), or None where
-    the launch plan does not split C_in).  On the card one launch writes
-    both, its last CTA per output tile summing the partials in split order
-    and applying act; on the CPU the plain partials and their sum."""
+    the launch does not split C_in).  On the card one launch writes both,
+    its last CTA per output tile summing the partials in split order and
+    applying act; on the CPU the plain partials and their sum.  ``splits``
+    pins the C_in split count (one of ``fused_separable_split_counts``;
+    the launch plan's by default)."""
     _check_shapes(x, w_dw, w_pw, geo)
+    dtype = storage_dtype(x, w_dw, w_pw)
     b, h, w, c_in = x.shape
     c_out = w_pw.shape[1]
-    nc, splits = fused_separable_launch_plan(b, h, w, c_in, c_out, geo.k,
-                                             geo.s, geo.tile_h, geo.tile_w)
+    eb = dtype.itemsize
+    nc, plan = fused_separable_launch_plan(b, h, w, c_in, c_out, geo.k,
+                                           geo.s, geo.tile_h, geo.tile_w, eb)
+    allowed = fused_separable_split_counts(c_in, c_out, eb)
+    if splits is None:
+        splits = plan
+    elif splits not in allowed:
+        raise ValueError(f"{splits} C_in splits: the launch takes one of "
+                         f"{allowed} at C_in {c_in}, C_out {c_out}, "
+                         f"{eb}-byte storage")
     if on_cpu(x):
         if splits == 1:
             return fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
                                          act=act), None
         part = fused_separable_partials_plain(x, w_dw, w_pw, geo,
                                               splits=splits, dw_act=dw_act)
-        return fused_separable_reduce_plain(part, act=act), part
-    check_cuda(x, w_dw, w_pw, dtypes=FP32)
+        return fused_separable_reduce_plain(part, act=act, dtype=dtype), part
+    check_cuda(x, w_dw, w_pw, dtypes=STORAGE)
     shape = (b, geo.out_h, geo.out_w, c_out)
-    out = torch.empty(shape, device=x.device)
+    out = torch.empty(shape, device=x.device, dtype=dtype)
     part = counters = None
     if splits > 1:
         part = torch.empty((splits, *shape), device=x.device)
@@ -213,17 +249,18 @@ def fused_separable_with_partials(
         ptr(x), ptr(w_dw), ptr(w_pw), ptr(part), ptr(counters), ptr(out), b,
         h, w, c_in, c_out, geo.k, geo.s, geo.out_h, geo.out_w,
         geo.pads[0][0], geo.pads[1][0], geo.tile_h, geo.tile_w, nc, splits,
-        ACT_CODES[dw_act], ACT_CODES[act],
+        ACT_CODES[dw_act], ACT_CODES[act], int(dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream))
-    LAUNCHES["fused_separable"] += 1
+    LAUNCHES[launch_name("fused_separable", dtype)] += 1
     return out, part
 
 
 def fused_separable(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
                     geo: MBConvGeometry, *, dw_act: Optional[str],
                     act: Optional[str]) -> torch.Tensor:
-    """Depthwise -> dw_act -> pointwise -> act -> (B, out_h, out_w, C_out);
-    on the card one launch, split over C_in or not."""
+    """Depthwise -> dw_act -> pointwise -> act -> (B, out_h, out_w, C_out)
+    at x's storage type (fp32 or bf16, the weights' too); on the card one
+    launch, split over C_in or not."""
     return fused_separable_with_partials(x, w_dw, w_pw, geo, dw_act=dw_act,
                                          act=act)[0]
 
@@ -286,7 +323,8 @@ def convdk_fused_separable(
     w_dw : (k, k, C_in) depthwise taps
     w_pw : (C_in, C_out) pointwise projection
     dw_act / act : None | "relu" | "relu6"
-    Returns (B, H', W', C_out).
+    All three fp32 or all bf16 (fp32 sums, the output rounded once).
+    Returns (B, H', W', C_out) at that type.
     """
     k_h, k_w = w_dw.shape[:2]
     if k_h != k_w:

@@ -450,7 +450,8 @@ def mbconv_pass2_retain_with_partials(
     b, out_h, out_w, c_mid = dw.shape
     c_out = w_proj.shape[1]
     m = b * out_h * out_w
-    bm, bn, splits = retain_plan(m, c_mid, c_out, max_splits)
+    bm, bn, splits = retain_plan(m, c_mid, c_out, max_splits,
+                                 dtype.itemsize)
     if on_cpu(dw):
         if splits == 1:
             return mbconv_pass2_retain_plain(dw, gate, w_proj, geo), None

@@ -34,6 +34,11 @@ input at the entry; Fused-MBConv takes replicated inputs only.
 
 ``shard_to_layout`` and ``gather_global`` move a tensor between its global
 form and a rank's, for the forwards' entry and exit and for the tests.
+Each wrapper runs at its operands' storage type, fp32 or bf16, as the
+single-card kernels do, and reduces as the JAX wrappers reduce: the SE
+squeeze partial in fp32, the projection and pointwise partials at the
+storage type after the kernel's one rounding, so the wire carries the
+plan's words at the storage type's bytes.
 The wrappers have no backward yet (the JAX package's ``custom_vjp``
 through its oracles): with an operand that requires grad they raise.
 The bytes and collective words are priced by ``core.perfmodel``'s
@@ -106,14 +111,6 @@ def _no_grad(*tensors) -> None:
             "the sharded wrappers have no backward yet")
 
 
-def require_fp32(dtype: torch.dtype) -> None:
-    """The mesh runs fp32 only: a bf16 mesh is ROADMAP queue A item 14
-    (gloo's bf16 collectives of the sharded wrappers are unverified)."""
-    if dtype != torch.float32:
-        raise ValueError(f"the mesh runs fp32 only, got {dtype}: a bf16 "
-                         f"mesh is ROADMAP queue A item 14")
-
-
 def model_chunk(t: torch.Tensor, mesh, width: int = 0) -> torch.Tensor:
     """This rank's slice of ``t``'s channels (last dim), zero-padded first
     to ``width`` (the layout a padded scatter leaves)."""
@@ -179,7 +176,6 @@ def convdk_fused_separable_sharded(
     collective = validate_collective(collective or DEFAULT_COLLECTIVE)
     in_layout = validate_layout(in_layout or DEFAULT_LAYOUT)
     _no_grad(x, w_dw, w_pw)
-    require_fp32(x.dtype)
     dp, mp = conv_mesh_shape(mesh)
     c_out = w_pw.shape[1]
     geo = _geometry(x, w_dw.shape[0], stride, padding, tile_h, tile_w)
@@ -245,7 +241,6 @@ def convdk_mbconv_fused_sharded(
     collective = validate_collective(collective or DEFAULT_COLLECTIVE)
     in_layout = validate_layout(in_layout or DEFAULT_LAYOUT)
     _no_grad(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj)
-    require_fp32(x.dtype)
     dp, mp = conv_mesh_shape(mesh)
     c_mid, c_out = w_proj.shape
     _require_shardable(mesh, x.shape[0] * dp, c_mid, "c_mid")
@@ -299,7 +294,6 @@ def convdk_fusedmb_fused_sharded(
         raise ValueError(
             f"fusedmb consumes replicated arrivals only, got {in_layout!r}")
     _no_grad(x, w_conv, w_proj)
-    require_fp32(x.dtype)
     dp, mp = conv_mesh_shape(mesh)
     c_mid, c_out = w_proj.shape
     _require_shardable(mesh, x.shape[0] * dp, c_mid, "c_mid")

@@ -1,4 +1,5 @@
-// Depthwise-separable kernels for Hopper (sm_90a), fp32 on CUDA cores.
+// Depthwise-separable kernels for Hopper (sm_90a), fp32 sums on CUDA cores,
+// fp32 or bf16 storage.
 //
 // Replaces the two Pallas TPU kernels of the JAX package's separable path:
 //
@@ -12,8 +13,12 @@
 // What they compute (NHWC activations, w_dw (k, k, C) taps, w_pw (C_in, C_out)):
 //
 //   fused_separable  depthwise k x k / s -> dw_act -> pointwise 1x1 (reduce
-//                    C_in) -> act, fp32, in one launch (where C_in is split
-//                    too): the DW output never reaches device memory.
+//                    C_in) -> act, in one launch (where C_in is split too):
+//                    the DW output never reaches device memory.  x, taps,
+//                    w_pw and the output are fp32 or bf16 (T, one type per
+//                    launch); every sum is fp32 and the output is rounded
+//                    once, as the Pallas kernel widens its operands to fp32
+//                    and casts once to o_ref.dtype.
 //   dw2d             depthwise k x k / s over pre-staged overlapping row strips
 //                    (B, n_th, in_rows, W_pad, C) -> (B, n_th, tile_h, out_w, C),
 //                    fp32 or bf16 in and out with fp32 sums, the staged
@@ -34,7 +39,11 @@
 // with fusedmb.cu's GEMM step (4 pixels x NC / LC channels per thread):
 // one barrier per chunk, since at MobileNet-V2's widths a chunk is a few
 // microseconds of work and its barriers and latencies weigh as much as its
-// FMAs.  The late MobileNet-V2
+// FMAs.  In bf16 the ring stages the window, taps and pointwise rows as
+// bf16 (8 channels a 16-byte copy; a pixel padded to 40 elements, an odd
+// number of 16-byte units), and the depthwise and GEMM loads widen 4
+// channels at a time to fp32: the depthwise tile stays fp32, so every
+// product and sum is the fp32 kernel's.  The late MobileNet-V2
 // blocks (28x28 / s2 to 7x7) have too few pixels to fill 132 SMs, so the
 // solver (core.autotune.select_fused_schedule) picks small tiles and splits
 // C_in across CTAs: each split writes its fp32 partial product, and the
@@ -67,9 +76,10 @@
 // 112x112 to 28x28 blocks and by operations (C_in C_out FMAs per output
 // pixel) on the 14x14 and 7x7 ones; at batch 8 every block is a few
 // microseconds of work, so CTA start-up and per-chunk latency weigh as
-// much as either.  dw2d does k*k FMAs per 8 (fp32) or 4 (bf16) bytes moved
-// and is bound by bytes.  fp32 FMA on CUDA cores, no tensor cores and no
-// TF32 (the JAX suite's 1e-4 fp32 bar).
+// much as either; bf16 storage halves the bytes, not the latency.  dw2d
+// does k*k FMAs per 8 (fp32) or 4 (bf16) bytes moved and is bound by
+// bytes.  fp32 FMA on CUDA cores, no tensor cores and no TF32 (the JAX
+// suite's 1e-4 fp32 bar).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,10 +114,18 @@ __device__ __forceinline__ float act_apply(float v, int act) {
 
 constexpr int MAXP = 64;                // output pixels per CTA tile
 constexpr int CI = 32;                  // c_in chunk per ring slot
-constexpr int XS = CI + 4;              // floats per staged pixel (float4 stride odd)
+constexpr int XS = CI + 4;              // floats per depthwise-tile pixel (float4 stride odd)
 constexpr int TP = 4;                   // pointwise pixels per thread
 constexpr int SLOTS = 3;                // cp.async ring: two chunks in flight
 constexpr int FS_THREADS = 128;
+
+// elements of T per staged window pixel: fp32 XS; bf16 CI + 8 (80 bytes,
+// an odd number of 16-byte units)
+template <typename T>
+__host__ __device__ constexpr int x_stride() { return sizeof(T) == 4 ? XS : CI + 8; }
+// elements of T one vector cp.async moves (16 bytes)
+template <typename T>
+__host__ __device__ constexpr int vec_elems() { return 16 / (int)sizeof(T); }
 
 // channel lanes of a warp at c_out tile NC (fusedmb.cu's layout)
 __host__ __device__ constexpr int chunk_lanes(int NC) {
@@ -122,20 +140,6 @@ struct Geom {
   int n_co, splits, split_chunks;       // c_out tiles, C_in splits, chunks per split
 };
 
-// cp.async copies of 16 or 4 bytes; bytes past src_bytes are zero-filled
-// (src_bytes 0 reads nothing, so src need only be a valid address).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -149,15 +153,30 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// VE elements of T from src to dst where ok (one 16-byte cp.async), else
+// zeros; or, where !vec, each of them alone, element u valid below n
+template <typename T>
+__device__ __forceinline__ void stage_elems(T* dst, const T* src, const T* base, bool vec,
+                                            bool ok, int n) {
+  constexpr int VE = vec_elems<T>();
+  if (vec) {
+    cp_async<16>(dst, ok ? src : base, ok ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int u = 0; u < VE; ++u) cp1(dst + u, ok && u < n ? src + u : base, ok && u < n);
+  }
+}
+
 // acc[j][c] += sum_k a[j][k] * b[k][c] over n4 * 4 rows k (fusedmb.cu's
-// GEMM step): a row j at a_s + aoff[j], b row k at b_s + k * NC
-template <int NC>
+// GEMM step): a row j at a_s + aoff[j], b row k at b_s + k * NC, its 4
+// columns a lane reads widened to fp32 (ld4)
+template <int NC, typename T>
 __device__ __forceinline__ void gemm_step(float (&acc)[TP][NC / chunk_lanes(NC)],
                                           const float* __restrict__ a_s,
                                           const int (&aoff)[TP],
-                                          const float* __restrict__ b_s, int lc, int n4) {
+                                          const T* __restrict__ b_s, int lc, int n4) {
   constexpr int LC = chunk_lanes(NC), TC = NC / LC;
-  const float* b0 = b_s + 4 * lc;
+  const T* b0 = b_s + 4 * lc;
 #pragma unroll 2
   for (int c4 = 0; c4 < n4; ++c4) {
     float4 a[TP];
@@ -166,10 +185,10 @@ __device__ __forceinline__ void gemm_step(float (&acc)[TP][NC / chunk_lanes(NC)]
       a[j] = *reinterpret_cast<const float4*>(a_s + aoff[j] + 4 * c4);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float* brow = b0 + (4 * c4 + kk) * NC;
+      const T* brow = b0 + (4 * c4 + kk) * NC;
 #pragma unroll
       for (int u = 0; u < TC / 4; ++u) {
-        const float4 b = *reinterpret_cast<const float4*>(brow + 4 * LC * u);
+        const float4 b = ld4(brow + 4 * LC * u);
 #pragma unroll
         for (int j = 0; j < TP; ++j) {
           const float av = comp(a[j], kk);
@@ -183,38 +202,44 @@ __device__ __forceinline__ void gemm_step(float (&acc)[TP][NC / chunk_lanes(NC)]
   }
 }
 
-// one ring slot: the window (Q x XS), the taps (K*K x CI), the pointwise
-// rows (CI x NC); then two (pixels, CI) depthwise tiles
-__host__ __device__ size_t slot_floats(int K, int in_rows, int in_cols, int NC) {
-  return (size_t)in_rows * in_cols * XS + (size_t)K * K * CI + (size_t)CI * NC;
+// one ring slot, in elements of T: the window (Q x x_stride), the taps
+// (K*K x CI), the pointwise rows (CI x NC); then two fp32 (pixels, XS)
+// depthwise tiles
+template <typename T>
+__host__ __device__ size_t slot_elems(int K, int in_rows, int in_cols, int NC) {
+  return (size_t)in_rows * in_cols * x_stride<T>() + (size_t)K * K * CI + (size_t)CI * NC;
 }
 
-size_t smem_floats(int K, int in_rows, int in_cols, int pixels, int NC) {
-  return SLOTS * slot_floats(K, in_rows, in_cols, NC) + 2 * (size_t)pixels * XS;
+template <typename T>
+size_t smem_bytes(int K, int in_rows, int in_cols, int pixels, int NC) {
+  return SLOTS * slot_elems<T>(K, in_rows, in_cols, NC) * sizeof(T) +
+         2 * (size_t)pixels * XS * sizeof(float);
 }
 
-// grid (n_tiles, n_co * splits, B), FS_THREADS threads.  out is the block
-// output (B, out_h, out_w, C_out).  With splits > 1 each split CTA writes
-// its fp32 product to partial (splits, B, out_h, out_w, C_out) and the
-// last of a (tile, c_out tile, image)'s split CTAs to arrive at its
+// grid (n_tiles, n_co * splits, B), FS_THREADS threads.  x, w_dw, w_pw
+// and out are of the storage type T (float or __nv_bfloat16); out is the
+// block output (B, out_h, out_w, C_out).  With splits > 1 each split CTA
+// writes its fp32 product to partial (splits, B, out_h, out_w, C_out) and
+// the last of a (tile, c_out tile, image)'s split CTAs to arrive at its
 // counter (counters + (b * n_co + c_out tile) * n_tiles + tile) writes
-// act(the split-order sum) to out; partial and counters are null where
-// splits == 1.
-template <int K, int S, int NC>
+// act(the split-order sum), rounded once to T, to out; partial and
+// counters are null where splits == 1.
+template <int K, int S, int NC, typename T>
 __global__ void __launch_bounds__(FS_THREADS, 4)
-fused_separable_kernel(const float* __restrict__ x, const float* __restrict__ w_dw,
-                       const float* __restrict__ w_pw, float* __restrict__ partial,
-                       int* __restrict__ counters, float* __restrict__ out, Geom g,
+fused_separable_kernel(const T* __restrict__ x, const T* __restrict__ w_dw,
+                       const T* __restrict__ w_pw, float* __restrict__ partial,
+                       int* __restrict__ counters, T* __restrict__ out, Geom g,
                        int dw_act, int act) {
   constexpr int LC = chunk_lanes(NC), TC = NC / LC, LP = 32 / LC;
   constexpr int PPW = pixels_per_warp(NC);
   constexpr int KK = K * K;
+  constexpr int XT = x_stride<T>(), VE = vec_elems<T>();
 
   const int P = g.tile_h * g.tile_w, Q = g.in_rows * g.in_cols;
-  const int slot = (int)slot_floats(K, g.in_rows, g.in_cols, NC);
+  const int slot = (int)slot_elems<T>(K, g.in_rows, g.in_cols, NC);
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);      // SLOTS x slot
-  float* e_s = ring + SLOTS * slot;                   // 2 x P x XS
+  T* ring = reinterpret_cast<T*>(smem4);              // SLOTS x slot
+  float* e_s = reinterpret_cast<float*>(ring + SLOTS * slot);   // 2 x P x XS
 
   const int tile = blockIdx.x, b = blockIdx.z;
   const int co_t = blockIdx.y % g.n_co, co0 = co_t * NC, split = blockIdx.y / g.n_co;
@@ -226,58 +251,34 @@ fused_separable_kernel(const float* __restrict__ x, const float* __restrict__ w_
   const int n_chunks = (g.C_in + CI - 1) / CI;
   const int c_lo = split * g.split_chunks;
   const int c_hi = min(n_chunks, c_lo + g.split_chunks);
-  const bool vec_i = g.C_in % 4 == 0, vec_o = g.C_out % 4 == 0;
+  // 16-byte staging copies where the rows come in whole ones; 4-wide
+  // output stores and fold where C_out comes in fours
+  const bool vec_i = g.C_in % VE == 0, vec_pw = g.C_out % VE == 0;
+  const bool vec_o = g.C_out % 4 == 0;
 
   // chunk c (channels [CI * c, + CI), 0 past C_in) into ring slot s
   auto stage = [&](int c, int s) {
-    float* xw = ring + s * slot;
-    float* taps = xw + Q * XS;
-    float* pw = taps + KK * CI;
+    T* xw = ring + s * slot;
+    T* taps = xw + Q * XT;
+    T* pw = taps + KK * CI;
     const int ci0 = c * CI;
-    for (int e = t; e < Q * (CI / 4); e += FS_THREADS) {
-      const int q = e / (CI / 4), ch = 4 * (e % (CI / 4));
+    for (int e = t; e < Q * (CI / VE); e += FS_THREADS) {
+      const int q = e / (CI / VE), ch = VE * (e % (CI / VE));
       const int ih = ih0 + q / g.in_cols, iw = iw0 + q % g.in_cols;
       const bool in = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
-      const float* src = x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci0 + ch;
-      float* dst = xw + q * XS + ch;
-      if (vec_i) {
-        const bool ok = in && ci0 + ch < g.C_in;
-        cp_async16(dst, ok ? src : x, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const bool ok = in && ci0 + ch + u < g.C_in;
-          cp_async4(dst + u, ok ? src + u : x, ok ? 4 : 0);
-        }
-      }
+      const T* src = x + ((size_t)(b * g.H + ih) * g.W + iw) * g.C_in + ci0 + ch;
+      stage_elems(xw + q * XT + ch, src, x, vec_i, in && ci0 + ch < g.C_in,
+                  g.C_in - ci0 - ch);
     }
-    for (int e = t; e < KK * (CI / 4); e += FS_THREADS) {
-      const int tap = e / (CI / 4), ch = 4 * (e % (CI / 4));
-      const float* src = w_dw + (size_t)tap * g.C_in + ci0 + ch;
-      if (vec_i) {
-        const bool ok = ci0 + ch < g.C_in;
-        cp_async16(taps + tap * CI + ch, ok ? src : w_dw, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const bool ok = ci0 + ch + u < g.C_in;
-          cp_async4(taps + tap * CI + ch + u, ok ? src + u : w_dw, ok ? 4 : 0);
-        }
-      }
+    for (int e = t; e < KK * (CI / VE); e += FS_THREADS) {
+      const int tap = e / (CI / VE), ch = VE * (e % (CI / VE));
+      stage_elems(taps + tap * CI + ch, w_dw + (size_t)tap * g.C_in + ci0 + ch, w_dw, vec_i,
+                  ci0 + ch < g.C_in, g.C_in - ci0 - ch);
     }
-    for (int e = t; e < CI * (NC / 4); e += FS_THREADS) {
-      const int r = e / (NC / 4), col = 4 * (e % (NC / 4));
-      const float* src = w_pw + (size_t)(ci0 + r) * g.C_out + co0 + col;
-      if (vec_o) {
-        const bool ok = ci0 + r < g.C_in && co0 + col < g.C_out;
-        cp_async16(pw + r * NC + col, ok ? src : w_pw, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const bool ok = ci0 + r < g.C_in && co0 + col + u < g.C_out;
-          cp_async4(pw + r * NC + col + u, ok ? src + u : w_pw, ok ? 4 : 0);
-        }
-      }
+    for (int e = t; e < CI * (NC / VE); e += FS_THREADS) {
+      const int r = e / (NC / VE), col = VE * (e % (NC / VE));
+      stage_elems(pw + r * NC + col, w_pw + (size_t)(ci0 + r) * g.C_out + co0 + col, w_pw,
+                  vec_pw, ci0 + r < g.C_in && co0 + col < g.C_out, g.C_out - co0 - col);
     }
   };
 
@@ -292,24 +293,24 @@ fused_separable_kernel(const float* __restrict__ x, const float* __restrict__ w_
 #pragma unroll
     for (int u = 0; u < TC; ++u) acc[j][u] = 0.f;
 
-  // chunk c's depthwise + dw_act into its half of the depthwise tile, one
-  // pixel x 4 channels per item; channels past C_in are 0 (dw_act(0) need
-  // not be)
+  // chunk c's depthwise + dw_act into its half of the fp32 depthwise tile,
+  // one pixel x 4 channels per item (window and taps widened from T);
+  // channels past C_in are 0 (dw_act(0) need not be)
   auto depthwise = [&](int c) {
-    const float* xw = ring + ((c - c_lo) % SLOTS) * slot;
-    const float* taps = xw + Q * XS;
+    const T* xw = ring + ((c - c_lo) % SLOTS) * slot;
+    const T* taps = xw + Q * XT;
     float* e = e_s + ((c - c_lo) % 2) * P * XS;
     const int nci = min(CI, g.C_in - c * CI);
     for (int i = t; i < P * (CI / 4); i += FS_THREADS) {
       const int p = i / (CI / 4), ch = 4 * (i % (CI / 4));
-      const float* xp = xw + ((p / g.tile_w) * S * g.in_cols + (p % g.tile_w) * S) * XS + ch;
+      const T* xp = xw + ((p / g.tile_w) * S * g.in_cols + (p % g.tile_w) * S) * XT + ch;
       float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int kh = 0; kh < K; ++kh) {
 #pragma unroll
         for (int kw = 0; kw < K; ++kw) {
-          const float4 v = *reinterpret_cast<const float4*>(xp + (kh * g.in_cols + kw) * XS);
-          const float4 w = *reinterpret_cast<const float4*>(taps + (kh * K + kw) * CI + ch);
+          const float4 v = ld4(xp + (kh * g.in_cols + kw) * XT);
+          const float4 w = ld4(taps + (kh * K + kw) * CI + ch);
           d.x = fmaf(v.x, w.x, d.x);
           d.y = fmaf(v.y, w.y, d.y);
           d.z = fmaf(v.z, w.z, d.z);
@@ -341,33 +342,39 @@ fused_separable_kernel(const float* __restrict__ x, const float* __restrict__ w_
     cp_async_commit();
     if (c + 1 < c_hi) depthwise(c + 1);
     if (warp < pw_warps) {
-      const float* pw = ring + ((c - c_lo) % SLOTS) * slot + Q * XS + KK * CI;
+      const T* pw = ring + ((c - c_lo) % SLOTS) * slot + Q * XT + KK * CI;
       gemm_step<NC>(acc, e_s + ((c - c_lo) % 2) * P * XS, eoff, pw, lc, CI / 4);
     }
   }
 
   const size_t count = (size_t)g.B * g.out_h * g.out_w * g.C_out;
   if (warp < pw_warps) {
-    float* o_base = g.splits > 1 ? partial + split * count : out;
-    const int a = g.splits > 1 ? (int)ACT_NONE : act;
 #pragma unroll
     for (int j = 0; j < TP; ++j) {
       const int p = warp * PPW + lp + LP * j;
       if (p >= P) continue;
       const int oh = oh0 + p / g.tile_w, ow = ow0 + p % g.tile_w;
       if (oh >= g.out_h || ow >= g.out_w) continue;
-      float* o = o_base + ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out;
+      const size_t at = ((size_t)(b * g.out_h + oh) * g.out_w + ow) * g.C_out;
 #pragma unroll
       for (int u = 0; u < TC / 4; ++u) {
         const int co = co0 + 4 * lc + 4 * LC * u;
-        if (vec_o && co < g.C_out) {
-          *reinterpret_cast<float4*>(o + co) =
-              make_float4(act_apply(acc[j][4 * u], a), act_apply(acc[j][4 * u + 1], a),
-                          act_apply(acc[j][4 * u + 2], a), act_apply(acc[j][4 * u + 3], a));
-        } else if (!vec_o) {
+        if (g.splits > 1) {             // the fp32 partial, no act
+          float* o = partial + split * count + at;
+          if (vec_o && co < g.C_out) {
+            *reinterpret_cast<float4*>(o + co) =
+                make_float4(acc[j][4 * u], acc[j][4 * u + 1], acc[j][4 * u + 2],
+                            acc[j][4 * u + 3]);
+          } else if (!vec_o) {
 #pragma unroll
-          for (int v = 0; v < 4; ++v)
-            if (co + v < g.C_out) o[co + v] = act_apply(acc[j][4 * u + v], a);
+            for (int v = 0; v < 4; ++v)
+              if (co + v < g.C_out) o[co + v] = acc[j][4 * u + v];
+          }
+        } else if (co < g.C_out) {      // act, rounded once to T
+          const float v[4] = {act_apply(acc[j][4 * u], act), act_apply(acc[j][4 * u + 1], act),
+                              act_apply(acc[j][4 * u + 2], act),
+                              act_apply(acc[j][4 * u + 3], act)};
+          store_row(out + at + co, v, vec_o, g.C_out - co);
         }
       }
     }
@@ -396,34 +403,37 @@ fused_separable_kernel(const float* __restrict__ x, const float* __restrict__ w_
 
 constexpr size_t MAX_SMEM = 232448;     // 227 KB: the per-CTA opt-in maximum
 
-template <int K, int S, int NC>
-cudaError_t launch_fused(const float* x, const float* w_dw, const float* w_pw,
-                         float* partial, int* counters, float* out, const Geom& g,
-                         int dw_act, int act, cudaStream_t stream) {
-  const size_t smem =
-      smem_floats(K, g.in_rows, g.in_cols, g.tile_h * g.tile_w, NC) * sizeof(float);
+template <int K, int S, int NC, typename T>
+cudaError_t launch_fused(const T* x, const T* w_dw, const T* w_pw, float* partial,
+                         int* counters, T* out, const Geom& g, int dw_act, int act,
+                         cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(K, g.in_rows, g.in_cols, g.tile_h * g.tile_w, NC);
   // once per instance (a function-local static), so no attribute call lands
   // inside a CUDA graph capture
   static const cudaError_t smem_set = cudaFuncSetAttribute(
-      fused_separable_kernel<K, S, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_separable_kernel<K, S, NC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)MAX_SMEM);
   if (smem_set != cudaSuccess) return smem_set;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int n_tiles = ((g.out_h + g.tile_h - 1) / g.tile_h) * g.n_tw;
   const dim3 grid(n_tiles, g.n_co * g.splits, g.B);
-  fused_separable_kernel<K, S, NC><<<grid, FS_THREADS, smem, stream>>>(
+  fused_separable_kernel<K, S, NC, T><<<grid, FS_THREADS, smem, stream>>>(
       x, w_dw, w_pw, partial, counters, out, g, dw_act, act);
   return cudaGetLastError();
 }
 
-template <int K, int S>
-cudaError_t launch_fused_nc(const float* x, const float* w_dw, const float* w_pw,
-                            float* partial, int* counters, float* out, const Geom& g,
+template <int K, int S, typename T>
+cudaError_t launch_fused_nc(const void* x, const void* w_dw, const void* w_pw,
+                            float* partial, int* counters, void* out, const Geom& g,
                             int nc, int dw_act, int act, cudaStream_t stream) {
-#define FUSED_NC(NC_)                                                                \
-  case NC_:                                                                          \
-    return launch_fused<K, S, NC_>(x, w_dw, w_pw, partial, counters, out, g, dw_act, \
-                                   act, stream);
+  const T* xt = static_cast<const T*>(x);
+  const T* dt = static_cast<const T*>(w_dw);
+  const T* pt = static_cast<const T*>(w_pw);
+  T* ot = static_cast<T*>(out);
+#define FUSED_NC(NC_)                                                                   \
+  case NC_:                                                                             \
+    return launch_fused<K, S, NC_, T>(xt, dt, pt, partial, counters, ot, g, dw_act, act, \
+                                      stream);
   switch (nc) {
     FUSED_NC(16)
     FUSED_NC(24)
@@ -433,6 +443,24 @@ cudaError_t launch_fused_nc(const float* x, const float* w_dw, const float* w_pw
     default: return cudaErrorInvalidValue;
   }
 #undef FUSED_NC
+}
+
+template <typename T>
+cudaError_t launch_fused_ks(const void* x, const void* w_dw, const void* w_pw,
+                            float* partial, int* counters, void* out, const Geom& g,
+                            int K, int S, int nc, int dw_act, int act, cudaStream_t st) {
+#define FUSED_KS(K_, S_)                                                                \
+  case K_ * 10 + S_:                                                                    \
+    return launch_fused_nc<K_, S_, T>(x, w_dw, w_pw, partial, counters, out, g, nc,    \
+                                      dw_act, act, st);
+  switch (K * 10 + S) {
+    FUSED_KS(3, 1)
+    FUSED_KS(3, 2)
+    FUSED_KS(5, 1)
+    FUSED_KS(5, 2)
+    default: return cudaErrorInvalidValue;
+  }
+#undef FUSED_KS
 }
 
 // ------------------------------------ dw2d ------------------------------------
@@ -578,26 +606,32 @@ extern "C" {
 
 int fused_separable_max_tile_pixels() { return MAXP; }
 int fused_separable_ci_chunk() { return CI; }
-int fused_separable_pixel_stride() { return XS; }
+// elements of the storage type per staged window pixel (bf16 = 0: fp32)
+int fused_separable_pixel_stride(int bf16) {
+  return bf16 ? x_stride<__nv_bfloat16>() : x_stride<float>();
+}
 int fused_separable_threads() { return FS_THREADS; }
 int fused_separable_chunk_lanes(int nc) { return chunk_lanes(nc); }
 // the dynamic shared memory one fused_separable launch asks for (the
 // schedule solver's budget check must agree with it)
-size_t fused_separable_smem_bytes(int K, int in_rows, int in_cols, int pixels, int nc) {
-  return smem_floats(K, in_rows, in_cols, pixels, nc) * sizeof(float);
+size_t fused_separable_smem_bytes(int K, int in_rows, int in_cols, int pixels, int nc,
+                                  int bf16) {
+  return bf16 ? smem_bytes<__nv_bfloat16>(K, in_rows, in_cols, pixels, nc)
+              : smem_bytes<float>(K, in_rows, in_cols, pixels, nc);
 }
 const char* separable_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// out is the block output; for splits > 1 partial is the (splits, B, out_h,
+// x, w_dw, w_pw and out all fp32 (bf16 = 0) or all bf16 (bf16 = 1); out
+// is the block output; for splits > 1 partial is the (splits, B, out_h,
 // out_w, C_out) fp32 scratch of the split products and counters holds
 // n_tiles * ceil(C_out / nc) * B zeros (left so), else both are null
-int fused_separable(const float* x, const float* w_dw, const float* w_pw, float* partial,
-                    int* counters, float* out, int B, int H, int W, int C_in, int C_out,
+int fused_separable(const void* x, const void* w_dw, const void* w_pw, float* partial,
+                    int* counters, void* out, int B, int H, int W, int C_in, int C_out,
                     int K, int S, int out_h, int out_w, int pad_top, int pad_left,
                     int tile_h, int tile_w, int nc, int splits, int dw_act, int act,
-                    void* stream) {
+                    int bf16, void* stream) {
   Geom g;
   g.B = B; g.H = H; g.W = W; g.C_in = C_in; g.C_out = C_out;
   g.out_h = out_h; g.out_w = out_w; g.pad_top = pad_top; g.pad_left = pad_left;
@@ -618,18 +652,10 @@ int fused_separable(const float* x, const float* w_dw, const float* w_pw, float*
   g.in_rows = (tile_h - 1) * S + K;
   g.in_cols = (tile_w - 1) * S + K;
   const cudaStream_t st = (cudaStream_t)stream;
-#define FUSED_KS(K_, S_)                                                                \
-  case K_ * 10 + S_:                                                                    \
-    return (int)launch_fused_nc<K_, S_>(x, w_dw, w_pw, partial, counters, out, g, nc,  \
-                                        dw_act, act, st);
-  switch (K * 10 + S) {
-    FUSED_KS(3, 1)
-    FUSED_KS(3, 2)
-    FUSED_KS(5, 1)
-    FUSED_KS(5, 2)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef FUSED_KS
+  return (int)(bf16 ? launch_fused_ks<__nv_bfloat16>(x, w_dw, w_pw, partial, counters, out,
+                                                      g, K, S, nc, dw_act, act, st)
+                    : launch_fused_ks<float>(x, w_dw, w_pw, partial, counters, out, g, K,
+                                             S, nc, dw_act, act, st));
 }
 
 // x_strips, w and out all fp32 (bf16 = 0) or all bf16 (bf16 = 1)

@@ -23,7 +23,9 @@ NCCL does not admit two ranks on one device, so ranks sharing a card need
 CUDA tensors by itself.  gloo carries some collectives of CUDA tensors
 natively; where one is missing the mesh copies the tensor to the host, runs
 the collective there and copies it back (``transports`` records which, per
-kind).  That path is for parity runs only.
+kind and dtype, and ``host_calls`` counts the calls that went through the
+host).  That path is for parity runs only.  The collectives run at the
+tensor's dtype, fp32 or bf16: a bf16 tensor is never widened for them.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class Mesh:
         self.data_index, self.model_index = divmod(rank, self.mp)
         self.counts: Dict[str, CollectiveCount] = {}
         self.transports: Dict[str, str] = {}
+        self.host_calls: Dict[str, int] = {}
         # every rank creates every subgroup, in one order
         self._groups = {MODEL_AXIS: None, DATA_AXIS: None}
         for d in range(self.dp):
@@ -132,20 +135,23 @@ class Mesh:
 
     def _run(self, kind: str, t: torch.Tensor, fn):
         """``fn(t)`` natively, or through the host where gloo lacks the
-        CUDA form of ``kind`` (tried on first use, then fixed; recorded in
-        ``transports``)."""
+        CUDA form of ``kind`` at ``t``'s dtype (tried on first use, then
+        fixed; recorded in ``transports`` and each host call counted in
+        ``host_calls``, under "kind.dtype")."""
         if t.device.type != "cuda" or self.backend != "gloo":
             return fn(t)
-        if kind not in self.transports:
+        key = f"{kind}.{str(t.dtype).removeprefix('torch.')}"
+        if key not in self.transports:
             try:
                 out = fn(t)
             except (RuntimeError, NotImplementedError):
-                self.transports[kind] = "host"
+                self.transports[key] = "host"
             else:
-                self.transports[kind] = "native"
+                self.transports[key] = "native"
                 return out
-        if self.transports[kind] == "native":
+        if self.transports[key] == "native":
             return fn(t)
+        self.host_calls[key] = self.host_calls.get(key, 0) + 1
         return fn(t.cpu()).to(t.device)
 
     def all_reduce(self, t: torch.Tensor, axis: str = MODEL_AXIS

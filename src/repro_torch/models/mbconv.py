@@ -36,7 +36,9 @@ by ``get_network_plan`` where a mesh comes without one) the forward takes
 global images, runs this rank's batch slice, keeps the stem output's
 channel slice where the plan shards it, threads the plan's layouts through
 the chain, gathers before the head where the last block leaves sharded,
-and returns the global logits.  The stem conv, the SE MLP and the head
+and returns the global logits, at the config's compute dtype (the plan
+priced at its bytes, as the JAX engine prices its mesh plan at
+``cfg.dtype``).  The stem conv, the SE MLP and the head
 stay PyTorch calls, as the JAX package leaves them to XLA.  Like the JAX
 package, no network has batch norm.
 """
@@ -80,7 +82,6 @@ from ..kernels.convdk_sharded import (
     convdk_mbconv_fused_sharded,
     gather_global,
     model_chunk,
-    require_fp32,
 )
 from ..kernels.ref import pad_nhwc
 from .param import P, materialize
@@ -326,7 +327,6 @@ def _mesh_route(mesh, x: torch.Tensor, c_grid: int, fused: bool,
         if in_layout != DEFAULT_LAYOUT:
             raise ValueError("a model-sharded input needs its mesh")
         return x.shape[0], 1, False, DEFAULT_LAYOUT, x
-    require_fp32(x.dtype)
     dp, mp = conv_mesh_shape(mesh)
     b = x.shape[0] * dp
     sharded = fused and can_shard_fused(mesh, b, c_grid)
@@ -550,8 +550,6 @@ def _forward(params: dict, images: torch.Tensor, specs: List[MBConvSpec],
                          "with a mesh or a plan")
     if mesh is not None and not fused:
         raise ValueError("the staged baselines run on one device")
-    if mesh is not None:
-        require_fp32(dt)
     mesh_shape = conv_mesh_shape(mesh) if mesh is not None else (1, 1)
     batch = images.shape[0]
     if batch % mesh_shape[0]:

@@ -7,13 +7,17 @@ Every case of one mesh shape runs in one spawn of ranks
 (``_rank_cases``, which imports no JAX): the three wrappers with ring and
 scatter exits, the sharded-in entries, a scatter that pads an indivisible
 c_out, two chained blocks whose layouts match, and a small B0, V3 and V2-S
-forward, each with the collectives it counted.  Rank 0 saves the global
-outputs; the tests compare them here within the JAX suite's sharded bar
-(rtol 1e-4, atol 1e-4), and the counted collectives with the model's.
+forward, each with the collectives it counted; then the bf16 cases: the
+wrappers' ring and scatter exits and sharded-in entries on bf16 operands
+and B0 with ``dtype="bfloat16"``.  Rank 0 saves the global outputs; the
+tests compare them here within the JAX suite's sharded bar (rtol 1e-4,
+atol 1e-4; bf16: its bf16 bar, 2e-2, the absolute part at the output's
+scale), and the counted collectives with the model's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import socket
@@ -41,6 +45,27 @@ from repro_torch.models.param import materialize
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_RTOL = 2e-2                          # tests/test_kernels.py's bf16 bar
+
+
+def _close_bf16(got, ref, err_msg=""):
+    """Within the bf16 bar: rtol 2e-2, and atol 2e-2 x max|ref|.  A mesh
+    sums its ranks' bf16-rounded partials (as the JAX package's psum
+    does), whose rounding scales with the partials, not with each output
+    element, so the absolute part is taken at the output's scale."""
+    np.testing.assert_allclose(
+        got, ref, rtol=BF16_RTOL,
+        atol=BF16_RTOL * float(np.abs(ref).max()), err_msg=err_msg)
+
+
+# the wrapper cases run again on bf16 operands (the SE FCs stay fp32)
+BF16_CASES = ("mbconv_retain_ring_allreduce", "mbconv_retain_psum_scatter",
+              "mbconv_recompute_ring_allreduce",
+              "mbconv_identity_in_psum_scatter", "fusedmb_ring_allreduce",
+              "fusedmb_psum_scatter", "separable_in_ring_allreduce",
+              "separable_in_psum_scatter", "separable_replicated")
+BF16_WEIGHTS = ("x", "xm", "w_exp", "w_dw", "w_proj", "w_projm", "w_conv",
+                "w_sdw", "w_pw")
 MESHES = {"2x1": ((2, 1), ("data", "model")),
           "1x2": ((1, 2), ("data", "model")),
           "2x2": ((2, 2), ("data", "model")),
@@ -75,11 +100,21 @@ def _inputs() -> dict:
     }
 
 
+def _bf16_inputs(w: dict) -> dict:
+    """The inputs as torch tensors, the activations and conv weights cast
+    to bf16 (the blocks' storage type), the SE FCs fp32."""
+    return {k: torch.from_numpy(v).to(torch.bfloat16 if k in BF16_WEIGHTS
+                                      else torch.float32)
+            for k, v in w.items()}
+
+
 def _wrapper_cases(mesh, w):
     """name -> (run on this rank, the layout its output leaves in, global
-    c_out, the model's mesh-wide collective words)."""
+    c_out, the model's mesh-wide collective words).  ``w`` holds numpy
+    arrays or torch tensors (the bf16 cases)."""
     dp, mp = S.conv_mesh_shape(mesh)
-    t = {k: torch.from_numpy(v) for k, v in w.items()}
+    t = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(v)
+         for k, v in w.items()}
     se = (t["w_se1"], t["b_se1"], t["w_se2"], t["b_se2"])
     x_rep = S.shard_to_layout(t["x"], mesh)
     xm_rep = S.shard_to_layout(t["xm"], mesh)
@@ -197,19 +232,34 @@ def _rank_cases(rank, shape, axes, port, out_path):
             res["wrappers"][name] = dict(
                 out=S.gather_global(out, mesh, layout, c_out).numpy(),
                 counts=counted, wire_words=wire, model_words=words)
-        for name, (cfg, def_fn, apply) in NETS.items():
+        cases = _wrapper_cases(mesh, _bf16_inputs(_inputs()))
+        res["bf16_wrappers"] = {}
+        for name in BF16_CASES:
+            run, layout, c_out, words = cases[name]
+            mesh.reset_counts()
+            out = run()
+            counted = _counts(mesh)
+            wire = dp * mesh.model_wire_words()
+            res["bf16_wrappers"][name] = dict(
+                out=S.gather_global(out, mesh, layout, c_out).float().numpy(),
+                dtype=str(out.dtype), counts=counted, wire_words=wire,
+                model_words=words)
+        for name, (cfg, def_fn, apply) in _net_runs():
             params = materialize(def_fn(cfg), torch.Generator().manual_seed(3),
                                  device="cpu")
             images = torch.from_numpy(np.random.default_rng(5).random(
                 (NET_BATCH, NET_SIDE, NET_SIDE, 3), np.float32))
-            plan = tm.network_plan(tm_specs(name, cfg), NET_BATCH, NET_SIDE,
-                                   NET_SIDE, S.conv_mesh_shape(mesh))
+            plan = tm.network_plan(tm_specs(name.split("_")[0], cfg),
+                                   NET_BATCH, NET_SIDE, NET_SIDE,
+                                   S.conv_mesh_shape(mesh),
+                                   tm.dtype_bytes(cfg.dtype))
             mesh.reset_counts()
             logits = apply(params, images, cfg, mesh=mesh)
             model_counts = {k: v for k, v in _counts(mesh).items()
                             if k.endswith(".model")}
             res["networks"][name] = dict(
-                logits=logits.numpy(), counts=model_counts,
+                logits=logits.float().numpy(), dtype=str(logits.dtype),
+                counts=model_counts,
                 wire_words=dp * mesh.model_wire_words(),
                 model_words=plan.interconnect_words,
                 gathering_boundaries=sum(
@@ -225,6 +275,15 @@ def _rank_cases(rank, shape, axes, port, out_path):
             torch.save(res, out_path)
     finally:
         mesh.close()
+
+
+def _net_runs():
+    """(name, (config, def, apply)) of the mesh forwards: the three smoke
+    networks in fp32 and B0 again in bf16 ("b0_bf16")."""
+    cfg, def_fn, apply = NETS["b0"]
+    return list(NETS.items()) + [
+        ("b0_bf16", (dataclasses.replace(cfg, dtype="bfloat16"), def_fn,
+                     apply))]
 
 
 def tm_specs(name, cfg):
@@ -290,13 +349,42 @@ def port_refs():
         mb(w["x"], w["w_exp"], w["w_projm"]), None, w["w_projm"],
         exp_act=None)
     nets = {}
-    for name, (cfg, def_fn, apply) in NETS.items():
+    for name, (cfg, def_fn, apply) in _net_runs():
         params = materialize(def_fn(cfg), torch.Generator().manual_seed(3),
                              device="cpu")
         images = torch.from_numpy(np.random.default_rng(5).random(
             (NET_BATCH, NET_SIDE, NET_SIDE, 3), np.float32))
         nets[name] = (params, images, apply(params, images, cfg))
     return {k: v.numpy() for k, v in ref.items()}, nets
+
+
+@pytest.fixture(scope="module")
+def port_refs_bf16():
+    """The single-device results of the bf16 wrapper cases, on the same
+    bf16 operands (fp32 arrays of the bf16 outputs)."""
+    w = _bf16_inputs(_inputs())
+    se = (w["w_se1"], w["b_se1"], w["w_se2"], w["b_se2"])
+
+    def mb(x, w_exp, w_proj, mode="retain", **acts):
+        return convdk_mbconv_fused(x, w_exp, w["w_dw"], *se, w_proj,
+                                   tile_h=3, tile_w=4, mode=mode, **acts)
+
+    sep = convdk_fused_separable(w["xm"], w["w_sdw"], w["w_pw"], tile_h=3,
+                                 tile_w=4, dw_act="relu", act="relu6")
+    ref = {"mbconv_retain_ring_allreduce": mb(w["x"], w["w_exp"],
+                                              w["w_proj"]),
+           "mbconv_recompute_ring_allreduce": mb(w["x"], w["w_exp"],
+                                                 w["w_proj"], "recompute"),
+           "mbconv_identity_in_psum_scatter": mb(w["xm"], None,
+                                                 w["w_projm"], exp_act=None),
+           "fusedmb_ring_allreduce": convdk_fusedmb_fused(
+               w["x"], w["w_conv"], w["w_proj"], tile_h=3, tile_w=4),
+           "separable_in_ring_allreduce": sep, "separable_replicated": sep}
+    ref["mbconv_retain_psum_scatter"] = ref["mbconv_retain_ring_allreduce"]
+    ref["fusedmb_psum_scatter"] = ref["fusedmb_ring_allreduce"]
+    ref["separable_in_psum_scatter"] = sep
+    assert all(v.dtype == torch.bfloat16 for v in ref.values())
+    return {k: v.float().numpy() for k, v in ref.items()}
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -343,23 +431,47 @@ def test_counted_collectives_equal_the_model(mesh_runs, mesh):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("net", list(NETS))
+@pytest.mark.parametrize("net", list(NETS) + ["b0_bf16"])
 def test_network_forwards_on_the_mesh(mesh_runs, port_refs, mesh, net):
     """B0, MobileNet-V3 and V2-S on the mesh give the single-device
-    logits; their counted collectives are the plan's words, all-gathering
-    only where a sharded boundary meets a replicated entry."""
+    logits (B0 in bf16 too, at the bf16 bar, its logits bf16); their
+    counted collectives are the plan's words (at the config's dtype),
+    all-gathering only where a sharded boundary meets a replicated
+    entry."""
     _, nets = port_refs
     r = mesh_runs[mesh]["networks"][net]
-    np.testing.assert_allclose(r["logits"], nets[net][2].numpy(), **TOL)
+    ref = nets[net][2]
+    assert r["dtype"] == str(ref.dtype)
+    if net in NETS:
+        np.testing.assert_allclose(r["logits"], ref.numpy(), **TOL)
+    else:
+        _close_bf16(r["logits"], ref.float().numpy())
     assert r["wire_words"] == r["model_words"]
     gathers = r["counts"].get("all_gather.model", (0, 0))[0]
     # the split ring of an identity block with a sharded input and a
     # residual gathers inside the block: one more all-gather each
+    cfg = dict(_net_runs())[net][0]
     split = sum(1 for (i, o), sp in zip(r["layouts"],
-                                        tm_specs(net, NETS[net][0]))
+                                        tm_specs(net.split("_")[0], cfg))
                 if i == "model_sharded" and o == "replicated"
                 and sp.has_residual)
     assert gathers == r["gathering_boundaries"] + split
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_bf16_wrappers_match_single_device(mesh_runs, port_refs_bf16,
+                                           mesh):
+    """The wrappers on bf16 operands: bf16 out, each gathered result within
+    the bf16 bar of the single-device op on the same operands, and the
+    counted model-axis collectives the words the model prices (the SE
+    squeeze all-reduced in fp32, the projection and pointwise partials at
+    bf16)."""
+    got = mesh_runs[mesh]["bf16_wrappers"]
+    assert set(got) == set(BF16_CASES)
+    for name, r in got.items():
+        assert r["dtype"] == "torch.bfloat16", name
+        _close_bf16(r["out"], port_refs_bf16[name], name)
+        assert r["wire_words"] == r["model_words"], name
 
 
 def test_plans_shard_the_identity_entries(mesh_runs):
@@ -514,48 +626,75 @@ _JAX_SHARDED = textwrap.dedent("""
     out["separable_replicated"] = convdk_fused_separable_sharded(
         w["xm"], w["w_sdw"], w["w_pw"], mesh=mesh, tile_h=3, dw_act="relu",
         act="relu6")
+    b = {k: (v.astype(jnp.bfloat16) if k in sys.argv[3].split(",") else v)
+         for k, v in w.items()}
+    se16 = (b["w_se1"], b["b_se1"], b["w_se2"], b["b_se2"])
+    bf16 = {
+        "mbconv_retain_psum_scatter": convdk_mbconv_fused_sharded(
+            b["x"], b["w_exp"], b["w_dw"], *se16, b["w_proj"], mesh=mesh,
+            tile_h=3, collective="psum_scatter"),
+        "fusedmb_ring_allreduce": convdk_fusedmb_fused_sharded(
+            b["x"], b["w_conv"], b["w_proj"], mesh=mesh, tile_h=3),
+        "separable_in_ring_allreduce": convdk_fused_separable_sharded(
+            b["xm"], b["w_sdw"], b["w_pw"], mesh=mesh, tile_h=3,
+            dw_act="relu", act="relu6", in_layout="model_sharded"),
+    }
+    out.update({"bf16_" + k: np.asarray(v.astype(jnp.float32))
+                for k, v in bf16.items()})
     np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
 """)
 
 
 def test_wrappers_match_the_jax_sharded_wrappers(mesh_runs, tmp_path):
     """The JAX package's own sharded wrappers at mesh (2, 2) (4 virtual
-    host devices, one subprocess) on the same inputs."""
+    host devices, one subprocess) on the same inputs; three of them on the
+    bf16 operands too, at the bf16 bar."""
     np.savez(tmp_path / "in.npz", **_inputs())
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     res = subprocess.run(
         [sys.executable, "-c", _JAX_SHARDED, str(tmp_path / "in.npz"),
-         str(tmp_path / "out.npz")], env=env, capture_output=True,
-        text=True, timeout=600)
+         str(tmp_path / "out.npz"), ",".join(BF16_WEIGHTS)], env=env,
+        capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
     ref = np.load(tmp_path / "out.npz")
     got = mesh_runs["2x2"]["wrappers"]
-    assert len(ref.files) == 8
+    got16 = mesh_runs["2x2"]["bf16_wrappers"]
+    assert len(ref.files) == 11
     for name in ref.files:
-        np.testing.assert_allclose(got[name]["out"], ref[name],
-                                   err_msg=name, **TOL)
+        if name.startswith("bf16_"):
+            _close_bf16(got16[name[5:]]["out"], ref[name], name)
+        else:
+            np.testing.assert_allclose(got[name]["out"], ref[name],
+                                       err_msg=name, **TOL)
 
 
 def test_network_forwards_match_jax(mesh_runs, port_refs):
     """The mesh forwards against the JAX package's unsharded networks at the
-    same weights (the port's seeded tree carried into JAX)."""
+    same weights (the port's seeded tree carried into JAX); B0 in bf16 at
+    the bf16 bar."""
     import jax
     import jax.numpy as jnp
     from repro.models import mbconv as jm
 
     _, nets = port_refs
     jcfgs = {"b0": jm.EffNetConfig(width_mult=0.125, num_classes=4),
+             "b0_bf16": jm.EffNetConfig(width_mult=0.125, num_classes=4,
+                                        dtype="bfloat16"),
              "v3": jm.MobileNetV3Config(num_classes=4, width_mult=0.125),
              "v2s": jm.EffNetV2Config(
                  num_classes=4, width_mult=0.25, head_c=128,
                  stages=NETS["v2s"][0].stages)}
     japply = {"b0": jm.efficientnet_b0_apply, "v3": jm.mobilenet_v3_apply,
-              "v2s": jm.efficientnet_v2_s_apply}
+              "v2s": jm.efficientnet_v2_s_apply,
+              "b0_bf16": jm.efficientnet_b0_apply}
     for net, (params, images, _) in nets.items():
         jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
         ref = np.asarray(japply[net](jparams, jnp.asarray(images.numpy()),
-                                     jcfgs[net]))
+                                     jcfgs[net]).astype(jnp.float32))
         for mesh in MESHES:
             got = mesh_runs[mesh]["networks"][net]["logits"]
-            np.testing.assert_allclose(got, ref, err_msg=f"{mesh} {net}",
-                                       **TOL)
+            if net in NETS:
+                np.testing.assert_allclose(got, ref, err_msg=f"{mesh} {net}",
+                                           **TOL)
+            else:
+                _close_bf16(got, ref, f"{mesh} {net}")

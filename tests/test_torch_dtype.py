@@ -24,6 +24,7 @@ from repro.models import mbconv as jm
 from repro.models.param import materialize as jax_materialize
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
 from repro_torch.core import autotune as at
+from repro_torch.kernels import convdk_fused as tfs
 from repro_torch.kernels import convdk_fusedmb as tf
 from repro_torch.kernels import convdk_mbconv as tk
 from repro_torch.kernels.common import bf16x3_split
@@ -227,8 +228,7 @@ def test_plain_versions_round_where_jax_rounds():
 
 def test_other_types_raise():
     """fp16 (and fp64) operands, mixed storage types and unknown config
-    dtypes raise; a bf16 forward on a mesh raises naming the ROADMAP
-    item."""
+    dtypes raise, in the MBConv, Fused-MBConv and fused separable ops."""
     rng = np.random.default_rng(71)
     arrays = _mbconv_arrays(rng, c_in=8, expand=4, c_out=12, k=3, se=True)
     for dtype in (torch.float16, torch.float64):
@@ -240,18 +240,60 @@ def test_other_types_raise():
             tf.convdk_fusedmb_fused(torch.zeros(1, 4, 4, 8, dtype=dtype),
                                     torch.zeros(3, 3, 8, 8, dtype=dtype),
                                     torch.zeros(8, 4, dtype=dtype))
+        with pytest.raises(ValueError, match="storage type"):
+            tfs.convdk_fused_separable(torch.zeros(1, 4, 4, 8, dtype=dtype),
+                                       torch.zeros(3, 3, 8, dtype=dtype),
+                                       torch.zeros(8, 4, dtype=dtype))
     mixed = _torch_bf16(arrays)
     mixed[7] = mixed[7].float()
     with pytest.raises(ValueError, match="storage type"):
         tk.convdk_mbconv_fused(*mixed)
+    with pytest.raises(ValueError, match="storage type"):
+        tfs.convdk_fused_separable(
+            torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16),
+            torch.zeros(3, 3, 8), torch.zeros(8, 4, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="dtype must be one of"):
         tm.compute_dtype("float16")
-    with pytest.raises(ValueError, match="ROADMAP queue A item 14"):
-        convdk_mbconv_fused_sharded(*_torch_bf16(arrays), mesh=object())
+
+
+def test_bf16_runs_on_a_mesh():
+    """The mesh takes bf16 (where it raised while it ran fp32 only): on a
+    one-rank gloo mesh in this process the sharded MBConv wrapper gives
+    the single-device bf16 op bit for bit, and B0 with
+    ``dtype="bfloat16"`` runs its plan at 2-byte words and returns bf16
+    logits within the bf16 bar of the single-device forward.  The
+    two-rank meshes in bf16 are in ``tests/test_torch_distributed.py``."""
+    import socket
+
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    rng = np.random.default_rng(72)
+    args = _torch_bf16(_mbconv_arrays(rng, c_in=8, expand=4, c_out=12, k=3,
+                                      se=True))
     cfg = tm.EffNetConfig(width_mult=0.125, num_classes=4, dtype="bfloat16")
-    with pytest.raises(ValueError, match="ROADMAP queue A item 14"):
-        tm.efficientnet_b0_apply({}, torch.zeros(2, 16, 16, 3), cfg,
-                                 mesh=object())
+    params = tm.efficientnet_b0_def(cfg)
+    from repro_torch.models.param import materialize
+    params = materialize(params, torch.Generator().manual_seed(4),
+                         device="cpu")
+    images = torch.from_numpy(rng.random((2, 16, 16, 3), np.float32))
+    mesh = make_mesh((1, 1), device="cpu",
+                     init_method=f"tcp://localhost:{port}", rank=0,
+                     world_size=1)
+    try:
+        got = convdk_mbconv_fused_sharded(*args, mesh=mesh, tile_h=3,
+                                          tile_w=4)
+        logits = tm.efficientnet_b0_apply(params, images, cfg, mesh=mesh)
+    finally:
+        mesh.close()
+    want = tk.convdk_mbconv_fused(*args, tile_h=3, tile_w=4)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    ref = tm.efficientnet_b0_apply(params, images, cfg)
+    assert logits.dtype == torch.bfloat16 and logits.shape == ref.shape
+    scale = float(ref.float().abs().max())
+    assert float((logits.float() - ref.float()).abs().max()) <= 2e-2 * scale
 
 
 # The three-term split the bf16 retain GEMM feeds to tensor cores in place

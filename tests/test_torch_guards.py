@@ -25,6 +25,7 @@ from repro_torch.configs import mamba2_2p7b
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
 from repro_torch.core.autotune import fused_separable_launch_plan as launch_plan
+from repro_torch.core.autotune import fused_separable_split_counts
 from repro_torch.core.autotune import (
     fusedmb_launch_plan,
     get_fusedmb_schedule,
@@ -245,7 +246,8 @@ def test_launch_counters_stay_zero_on_cpu():
     assert set(tk.LAUNCHES) == set(tk.KERNELS)
     assert "mbconv_pool_reduce" not in launches()   # folded into pass 1
     assert set(launches()) == set(tk.KERNELS) | {
-        "fusedmb", "fusedmb_bf16", "fused_separable", "dw2d", "conv1d"}
+        "fusedmb", "fusedmb_bf16", "fused_separable", "fused_separable_bf16",
+        "dw2d", "conv1d"}
     assert all(n == 0 for n in launches().values())
 
 
@@ -640,7 +642,7 @@ def test_retain_split_fold_exact_on_card(shape, cap, dtype):
     dw, w_proj = r(b, oh, ow, c_mid).to(dtype), \
         (r(c_mid, c_out) / c_mid ** 0.5).to(dtype)
     geo = tk.MBConvGeometry.make(oh, ow, 1, 1, "SAME", 8, 8)
-    splits = retain_plan(b * oh * ow, c_mid, c_out, cap)[2]
+    splits = retain_plan(b * oh * ow, c_mid, c_out, cap, dtype.itemsize)[2]
     assert splits == (cap or 18)
     for gate in (torch.sigmoid(r(b, c_mid)), None):
         _fold_exact(
@@ -697,10 +699,81 @@ def test_separable_split_fold_exact_on_card(shape, act):
             lambda p: tfs.fused_separable_reduce_plain(p, act=act))
 
 
+# B4 in bf16 (H, W, C_in, C_out, k, s, C_in splits): one split at odd
+# widths (C_in 27, C_out 13: the element copies and stores) and at C_in
+# 40; two splits at C_in 200 (not a multiple of 8: element copies) and at
+# 256 -> 24 (16-byte copies, k5 s2); five at C_in 300 -> 28 (C_out not a
+# multiple of 8, a multiple of 4)
+_SEP_BF16 = [(9, 7, 27, 13, 3, 1, 1), (13, 10, 40, 20, 3, 2, 1),
+             (9, 7, 200, 18, 3, 1, 2), (11, 13, 256, 24, 5, 2, 2),
+             (7, 7, 300, 28, 3, 1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+@pytest.mark.parametrize("case", _SEP_BF16)
+def test_separable_bf16_matches_plain_on_card(case, act):
+    """B4 in bf16: x, taps and w_pw bf16, the output bf16 within
+    ``_within_bf16_bar`` of the plain version's fp32 result on the same
+    bf16 values, at two tiles and the pinned C_in splits; a split launch's
+    output exactly its own fp32 partials summed in split order, act
+    applied, rounded once (``_fold_exact``: two launches and three CUDA
+    graph replays, the counters all 0 after each); an unsplit one bit for
+    bit on a second launch and on three graph replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    h, w, c_in, c_out, k, s, splits = case
+    g = torch.Generator().manual_seed(c_in + c_out + k)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
+    x = r(2, h, w, c_in).bfloat16()
+    w_dw, w_pw = (r(k, k, c_in) / k).bfloat16(), \
+        (r(c_in, c_out) / c_in ** 0.5).bfloat16()
+    for tile_h, tile_w in ((8, 8), (3, 5)):
+        geo = tk.MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+        reset_launches()
+
+        def launch():
+            return tfs.fused_separable_with_partials(
+                x, w_dw, w_pw, geo, dw_act="relu", act=act, splits=splits)
+
+        out, part = launch()
+        torch.cuda.synchronize()
+        assert launches()["fused_separable_bf16"] == 1
+        assert launches()["fused_separable"] == 0
+        assert out.dtype == torch.bfloat16
+        assert _within_bf16_bar(out, tfs.fused_separable_plain(
+            x.float(), w_dw.float(), w_pw.float(), geo, dw_act="relu",
+            act=act))
+        if splits > 1:
+            assert part.shape[0] == splits and part.dtype == torch.float32
+            _fold_exact(launch, lambda p: tfs.fused_separable_reduce_plain(
+                p, act=act, dtype=torch.bfloat16))
+            continue
+        assert part is None and torch.equal(launch()[0], out)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_out = launch()[0]
+        for _ in range(3):
+            g_out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(g_out, out)
+
+
+def test_separable_bf16_cases_split_as_pinned():
+    """Each pinned count of the bf16 cases above is one the launch takes at
+    2-byte storage."""
+    for h, w, c_in, c_out, k, s, splits in _SEP_BF16:
+        assert splits in fused_separable_split_counts(c_in, c_out, 2)
+
+
 def test_fold_guard_cases_split():
-    """The fold cases above split as their docstrings say."""
+    """The fold cases above split as their docstrings say (the retain
+    cases at fp32 and bf16 storage alike)."""
     for (b, oh, ow, c_mid, c_out), cap in _FOLD_RETAINS:
-        assert retain_plan(b * oh * ow, c_mid, c_out, cap)[2] == (cap or 18)
+        for eb in (4, 2):
+            assert retain_plan(b * oh * ow, c_mid, c_out, cap,
+                               eb)[2] == (cap or 18)
     assert [recompute_plan(b, -(-h // s), -(-w // s), cm, co, th, tw)[1]
             for b, h, w, _, cm, co, _, s, th, tw in _FOLD_RECOMPUTES] == [
                 7, 18]

@@ -364,16 +364,35 @@ def test_fp32_numbers_unchanged_at_four_bytes():
 # priced them while the split sums B3' and B4' were launches of their own
 # ((family, block, storage bytes) at batch 8 and the family's side; the
 # separable rows at MobileNet-V2's 224, batch 8): folding the sums into
-# their launches moved no modeled byte.
+# their launches moved no modeled byte.  (K splits, device-memory bytes,
+# global bytes) at the split counts of that fold ...
+_FOLD_SPLIT_BYTES = {
+    ("b0", 5, 4): (4, 8781480, 19724520), ("b0", 5, 2): (4, 6430920, 11035880),
+    ("b0", 12, 4): (18, 17568960, 38801088),
+    ("b0", 12, 2): (18, 14519232, 25232064),
+    ("b0", 15, 4): (8, 15475904, 43472576),
+    ("b0", 15, 2): (8, 12067776, 26227392),
+    ("v2s", 12, 4): (4, 43339904, 103106688),
+    ("v2s", 12, 2): (4, 31239296, 58132608),
+    ("v2s", 30, 4): (8, 39678208, 130210048),
+    ("v2s", 30, 2): (8, 29820160, 75307264),
+    ("v3l", 13, 4): (15, 12859040, 36066720),
+    ("v3l", 13, 2): (15, 10440480, 22140320),
+}
+# ... and at the counts re-tuned for the fold (``retain_plan``), which only
+# ever fall: each split fewer drops one fp32 partial written and read back
 _SPLIT_BLOCK_BYTES = {
-    ("b0", 5, 4): (8781480, 19724520), ("b0", 5, 2): (6430920, 11035880),
-    ("b0", 12, 4): (17568960, 38801088), ("b0", 12, 2): (14519232, 25232064),
-    ("b0", 15, 4): (15475904, 43472576), ("b0", 15, 2): (12067776, 26227392),
-    ("v2s", 12, 4): (43339904, 103106688),
-    ("v2s", 12, 2): (31239296, 58132608),
-    ("v2s", 30, 4): (39678208, 130210048),
-    ("v2s", 30, 2): (29820160, 75307264),
-    ("v3l", 13, 4): (12859040, 36066720), ("v3l", 13, 2): (10440480, 22140320),
+    ("b0", 5, 4): (4, 8781480, 19724520), ("b0", 5, 2): (4, 6430920, 11035880),
+    ("b0", 12, 4): (12, 13956288, 35188416),
+    ("b0", 12, 2): (12, 10906560, 21619392),
+    ("b0", 15, 4): (6, 13468864, 41465536),
+    ("b0", 15, 2): (6, 10060736, 24220352),
+    ("v2s", 12, 4): (3, 38621312, 98388096),
+    ("v2s", 12, 2): (3, 26520704, 53414016),
+    ("v2s", 30, 4): (7, 37318912, 127850752),
+    ("v2s", 30, 2): (7, 27460864, 72947968),
+    ("v3l", 13, 4): (6, 8343200, 31550880),
+    ("v3l", 13, 2): (10, 7931680, 19631520),
 }
 _SPLIT_SEPARABLE_BYTES = {4: (3, 10468096, 16752640),
                           6: (2, 6880000, 14344192),
@@ -385,8 +404,9 @@ _SPLIT_SEPARABLE_BYTES = {4: (3, 10468096, 16752640),
 def test_split_retain_blocks_keep_their_bytes(key):
     """A split retain block prices its split sum inside the retain launch
     (no launch of its own): the partials written and read back once, the
-    output written once, and the block's device-memory and global bytes
-    as pinned."""
+    output written once, and the block's split count and device-memory
+    and global bytes as pinned: below the fold's own pins by exactly the
+    partials of the splits the re-tuned rule no longer takes."""
     fam, i, eb = key
     _, rows, schedules = kb.family_chain(fam, 8, kb.FAMILY_RES[fam], eb)
     shape = kb._shape(rows[i], 8, eb)
@@ -396,12 +416,15 @@ def test_split_retain_blocks_keep_their_bytes(key):
     retain = t.launches[-1]
     m = 8 * shape.out_h * shape.out_w
     splits = retain_plan(m, shape.c_mid, shape.c_out,
-                         schedules[i].retain_splits)[2]
+                         schedules[i].retain_splits, eb)[2]
     assert splits > 1
     out = m * shape.c_out
     assert retain.readback == splits * out * 4
     assert retain.global_write == retain.readback + out * eb
-    assert (t.dram_bytes, t.global_bytes) == _SPLIT_BLOCK_BYTES[key]
+    assert (splits, t.dram_bytes, t.global_bytes) == _SPLIT_BLOCK_BYTES[key]
+    was, dram, glob = _FOLD_SPLIT_BYTES[key]
+    fewer = 2 * 4 * out * (was - splits)
+    assert (t.dram_bytes, t.global_bytes) == (dram - fewer, glob - fewer)
 
 
 @pytest.mark.parametrize("block,splits,dram,glob", [

@@ -30,9 +30,10 @@ from repro_torch.core.autotune import (
     P1_SMEM_TARGET,
     RECOMPUTE_CO_TILES,
     RETAIN_K_CHUNK,
-    RETAIN_MIN_CTAS,
+    RETAIN_MAX_CTAS,
     RETAIN_MIN_SPLIT_CHUNKS,
     RETAIN_TILES,
+    RETAIN_WAVE_CTAS,
     SM_COUNT,
     SMEM_BYTES,
     get_mbconv_schedule,
@@ -236,22 +237,76 @@ def _achievable_splits(k):
             if -(-chunks // -(-chunks // s)) == s]
 
 
+@pytest.mark.parametrize("eb", [4, 2])
 @pytest.mark.parametrize("net,res", _NETS)
-def test_retain_plan_fills_a_wave_with_fewest_splits(net, res):
-    """Each block's retain GEMM plan takes a tile the kernel has, leaves no
-    split empty, gives at least one wave of CTAs on the card (or splits as
-    far as allowed), and takes no more splits than needed to reach
-    RETAIN_MIN_CTAS."""
+def test_retain_plan_fills_a_wave_with_fewest_splits(net, res, eb):
+    """Each block's retain GEMM plan, at fp32 and bf16 storage, takes a
+    tile the kernel has, leaves no split empty, keeps a split launch within
+    RETAIN_MAX_CTAS CTAs (or takes at most two splits), and of the counts
+    that do takes the one whose
+    busiest SM sums the fewest K chunks (waves of RETAIN_WAVE_CTAS[eb]
+    CTAs times chunks a split), ties to more splits."""
     for r, _ in _port_blocks(net, res):
         out_h, out_w = -(-r.h // r.s), -(-r.w // r.s)
         m, k, n = 8 * out_h * out_w, r.c_mid, r.c_out
-        bm, bn, splits = retain_plan(m, k, n)
+        bm, bn, splits = retain_plan(m, k, n, None, eb)
         assert (bm, bn) in RETAIN_TILES
         tiles = -(-m // bm) * -(-n // bn)
         ok = _achievable_splits(k)
         assert splits in ok
-        assert tiles * splits >= SM_COUNT or splits == max(ok), (r, splits)
-        assert all(tiles * s < RETAIN_MIN_CTAS for s in ok if s < splits)
+        assert splits <= 2 or tiles * splits <= RETAIN_MAX_CTAS, (r, splits)
+        chunks = -(-k // RETAIN_K_CHUNK)
+
+        def load(s):
+            return (-(-tiles * s // RETAIN_WAVE_CTAS[eb]) * -(-chunks // s))
+
+        fits = [s for s in ok if s <= 2 or tiles * s <= RETAIN_MAX_CTAS]
+        assert load(splits) == min(map(load, fits))
+        assert all(load(s) > load(splits) for s in fits if s > splits)
+
+
+# The K split count of every retain block that splits at batch 8 and its
+# family's side (block: splits), fp32 and bf16 storage: the counts the
+# card's sweep of every count on every split block timed fastest, or
+# within its noise (PERF.md, the split sweep).
+_RETAIN_SPLITS = {
+    ("b0", 4): {3: 2, 4: 2, 5: 4, 6: 5, 7: 5, 8: 5, 9: 5, 10: 5, 11: 6,
+                12: 12, 13: 12, 14: 12, 15: 6},
+    ("b0", 2): {4: 2, 5: 4, 6: 5, 7: 5, 8: 5, 9: 7, 10: 7, 11: 7, 12: 12,
+                13: 12, 14: 12, 15: 6},
+    ("v3l", 4): {4: 2, 5: 2, 6: 4, 7: 2, 8: 2, 9: 2, 10: 5, 11: 5, 12: 6,
+                 13: 6, 14: 6},
+    ("v3l", 2): {4: 2, 5: 2, 6: 4, 7: 3, 8: 3, 9: 3, 10: 5, 11: 7, 12: 7,
+                 13: 10, 14: 10},
+    ("v2s", 4): {10: 2, **{i: 3 for i in range(11, 16)},
+                 **{i: 2 for i in range(16, 25)}, 25: 6,
+                 **{i: 7 for i in range(26, 40)}},
+    ("v2s", 2): {10: 2, **{i: 3 for i in range(11, 16)},
+                 **{i: 2 for i in range(16, 25)}, 25: 6,
+                 **{i: 7 for i in range(26, 40)}},
+}
+
+
+@pytest.mark.parametrize("family,eb", sorted(_RETAIN_SPLITS))
+def test_retain_split_counts_pinned(family, eb):
+    """The retain blocks' K split counts at batch 8, as the schedules take
+    them (no cap binds there), pinned; each at or below RETAIN_MAX_CTAS
+    CTAs but where it takes two splits."""
+    from repro_torch.benchmarks import kernel_bench as kb
+    _, rows, schedules = kb.family_chain(family, 8, kb.FAMILY_RES[family],
+                                         eb)
+    got = {}
+    for i, (r, sch) in enumerate(zip(rows, schedules)):
+        if getattr(sch, "mode", None) != "retain":
+            continue
+        assert sch.retain_splits is None
+        m = 8 * -(-r.h // r.s) * -(-r.w // r.s)
+        bm, bn, splits = retain_plan(m, r.c_mid, r.c_out, None, eb)
+        assert splits <= 2 or (-(-m // bm) * -(-r.c_out // bn) * splits
+                               <= RETAIN_MAX_CTAS)
+        if splits > 1:
+            got[i] = splits
+    assert got == _RETAIN_SPLITS[(family, eb)]
 
 
 @pytest.mark.parametrize("net,res", _NETS)

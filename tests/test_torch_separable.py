@@ -17,6 +17,7 @@ from repro.kernels import convdk_separable_staged as jax_staged
 from repro.kernels.ops import stage_row_strips as jax_stage_row_strips
 from repro.kernels.ref import separable_ref as jax_separable_ref
 from repro_torch.core import perfmodel as tperf
+from repro_torch.core.hopper_traffic import separable_hopper_traffic
 from repro_torch.core.autotune import (
     SEP_CHUNK_LANES,
     SEP_MAX_TILE_PIXELS,
@@ -25,6 +26,7 @@ from repro_torch.core.autotune import (
     fused_separable_chunk,
     fused_separable_launch_plan,
     fused_separable_smem_bytes,
+    fused_separable_split_counts,
     fused_separable_window_smem_bytes,
     get_fused_schedule,
     window_extent,
@@ -320,3 +322,138 @@ def test_depthwise2d_dtypes_match_jax_interpret(dtype):
     np.testing.assert_allclose(port.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)),
                                rtol=tol, atol=tol)
+
+
+def _bf16_pair(*arrays):
+    """The same bf16-rounded values for JAX and the port (jnp, torch)."""
+    jx = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+    return jx, [torch.from_numpy(np.asarray(a.astype(jnp.float32)))
+                .to(torch.bfloat16) for a in jx]
+
+
+# B4 in bf16 (h, w, C_in, C_out, k, s, tile_h, tile_w, C_in splits): ragged
+# C_in and C_out at both strides, unsplit and split
+_BF16_FUSED = [(9, 11, 20, 13, 3, 1, 3, 5, 1), (9, 11, 70, 13, 5, 2, 2, 4, 1),
+               (9, 11, 70, 12, 3, 2, 2, 4, 2), (10, 7, 130, 18, 3, 1, 4, 4, 3)]
+
+
+@pytest.mark.parametrize("case", _BF16_FUSED)
+def test_fused_op_bf16_matches_jax_interpret(case):
+    """B4 at bf16 storage on the CPU (its plain version, or at a pinned
+    C_in split count the plain partials summed in split order: fp32 on
+    the widened bf16 inputs, rounded once) against the JAX fused op in
+    interpret mode on the same bf16 values, within the bf16 bar of
+    ``tests/test_kernels.py`` (2e-2); the output is bf16, the partials
+    fp32."""
+    h, w, c_in, c_out, k, s, tile_h, tile_w, splits = case
+    rng = np.random.default_rng(c_in + c_out + k)
+    jx, tx = _bf16_pair(*_inputs(rng, h=h, w=w, c_in=c_in, c_out=c_out,
+                                 k=k))
+    ref = jax_fused(*jx, stride=s, tile_h=tile_h, dw_act="relu",
+                    act="relu6", interpret=True)
+    assert ref.dtype == jnp.bfloat16
+    geo = MBConvGeometry.make(h, w, k, s, "SAME", tile_h, tile_w)
+    got, part = tf.fused_separable_with_partials(
+        *tx, geo, dw_act="relu", act="relu6", splits=splits)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    if splits > 1:
+        assert part.dtype == torch.float32 and part.shape[0] == splits
+        assert torch.equal(got, tf.fused_separable_reduce_plain(
+            part, act="relu6", dtype=torch.bfloat16))
+    else:
+        assert part is None
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    op = tf.convdk_fused_separable(*tx, stride=s, tile_h=tile_h,
+                                   tile_w=tile_w, dw_act="relu", act="relu6")
+    assert op.dtype == torch.bfloat16
+    np.testing.assert_allclose(op.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_bf16_plain_rounds_once():
+    """The bf16 plain version is the fp32 plain version on the widened bf16
+    inputs, rounded once to bf16 (no intermediate rounding), unsplit and
+    split alike; a split count the launch does not take raises."""
+    rng = np.random.default_rng(3)
+    _, tx = _bf16_pair(*_inputs(rng, h=9, w=11, c_in=70, c_out=12, k=3))
+    geo = MBConvGeometry.make(9, 11, 3, 2, "SAME", 2, 4)
+    f32 = [t.float() for t in tx]
+    want = tf.fused_separable_plain(*f32, geo, dw_act="relu", act=None)
+    assert torch.equal(tf.fused_separable_plain(*tx, geo, dw_act="relu",
+                                                act=None),
+                       want.to(torch.bfloat16))
+    part = tf.fused_separable_partials_plain(*tx, geo, splits=2,
+                                             dw_act="relu")
+    assert torch.equal(part, tf.fused_separable_partials_plain(
+        *f32, geo, splits=2, dw_act="relu"))
+    with pytest.raises(ValueError, match="C_in splits"):
+        tf.fused_separable_with_partials(*tx, geo, dw_act="relu", act=None,
+                                         splits=3)
+
+
+@pytest.mark.parametrize("dw_act,act", [("relu", "relu6"), (None, None)])
+def test_separable_ref_bf16_matches_jax(dw_act, act):
+    """The separable oracle at bf16, the backward of the fused op as in the
+    JAX package's ``custom_vjp``: its depthwise rounded to bf16 as JAX's
+    oracle rounds it, the pointwise in fp32, the output bf16, within the
+    bf16 bar."""
+    rng = np.random.default_rng(11)
+    jx, tx = _bf16_pair(*_inputs(rng, h=9, w=11, c_in=6, c_out=10, k=3))
+    ref = jax_separable_ref(*jx, stride=2, dw_act=dw_act, act=act)
+    port = separable_ref(*tx, stride=2, dw_act=dw_act, act=act)
+    assert port.dtype == torch.bfloat16 and port.shape == ref.shape
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_bf16_split_counts_and_traffic_pinned():
+    """At 2-byte storage the split bar is 4 * splits * C_out < 2 * C_in
+    (fp32 partials against the staged depthwise tensor at bf16), and the
+    Hopper model prices x, the taps, w_pw and the output at 2 bytes and
+    the partials at 4: pinned on MobileNet-V2's blocks 4, 11 and 14 at
+    224 batch 8 (fp32 beside them)."""
+    assert fused_separable_split_counts(192, 32, 4) == (1, 2, 3)
+    assert fused_separable_split_counts(192, 32, 2) == (1, 2)
+    assert fused_separable_split_counts(576, 96, 2) == (1, 2)
+    assert fused_separable_split_counts(960, 160, 4) == (1, 2, 3, 4, 5)
+    assert fused_separable_split_counts(960, 160, 2) == (1, 2)
+    assert fused_separable_split_counts(384, 96, 2) == (1,)
+    want = {4: (2, (16, 2), 6036864, 12115968),
+            11: (2, (8, 2), 4636800, 25085952),
+            14: (2, (4, 4), 2206080, 19944960)}
+    for i, (splits, tile, dram, glob) in want.items():
+        layer, c_out = MOBILENET_V2_SEPARABLE[i]
+        sch = get_fused_schedule(8, layer.h, layer.w, layer.c, c_out,
+                                 layer.k, layer.s, dtype_bytes=2)
+        shape = tperf.SeparableShape(8, layer.h, layer.w, layer.c, c_out,
+                                     layer.k, layer.s, dtype_bytes=2)
+        t = separable_hopper_traffic(shape, sch)
+        assert (sch.splits, (sch.tile_h, sch.tile_w)) == (splits, tile)
+        assert (t.dram_bytes, t.global_bytes) == (dram, glob)
+        launch = t.launches[0]
+        out = 8 * shape.out_h * shape.out_w * c_out
+        assert launch.readback == splits * out * 4
+        assert launch.global_write == launch.readback + out * 2
+        # the same launch at fp32 storage moves more bytes
+        f32 = tperf.SeparableShape(8, layer.h, layer.w, layer.c, c_out,
+                                   layer.k, layer.s)
+        assert t.dram_bytes < separable_hopper_traffic(
+            f32, get_fused_schedule(8, layer.h, layer.w, layer.c, c_out,
+                                    layer.k, layer.s)).dram_bytes
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_separable_gate_holds_at_both_storage_types(dtype, capsys):
+    """``kernel_bench --fused``'s separable rows (MobileNet-V2's 17 blocks
+    and the k=7 rows) keep fused strictly below staged at fp32 and bf16,
+    each row priced at the storage type."""
+    from repro_torch.benchmarks import kernel_bench as kb
+    assert kb.separable_report(8, dtype=dtype)
+    out = capsys.readouterr().out
+    assert f"dtype {dtype}" in out
+    assert sum(line.startswith(("mbv2_dw", "effv2_k7_dw"))
+               for line in out.splitlines()) == 19

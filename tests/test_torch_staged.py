@@ -307,7 +307,9 @@ def test_kernel_bench_gate_at_small_batches(capsys, args):
     """``kernel_bench --fused --batch N [--res SIDE] [--dtype D]`` prices B0
     at that batch, side and storage type, prints them on every row, and
     exits 0: fused strictly below staged at every block, B0's block 15
-    with its retain splits capped to 12 where 18 would fail the bar."""
+    with its retain splits capped to 12 where 18 would fail the bar (in
+    bf16 at batch 2; elsewhere ``retain_plan`` takes 12 or fewer itself).
+    A bf16 mesh is priced too; the split sweeps need --measure."""
     rc = kernel_bench.main(["--fused", "--family", "b0", *args])
     out = capsys.readouterr().out
     batch = args[1]
@@ -316,7 +318,8 @@ def test_kernel_bench_gate_at_small_batches(capsys, args):
             if line.startswith("b0_")]
     assert len(rows) == 16
     assert all(row[-2:] == [batch, dtype] for row in rows)
-    assert rows[15][-3] == "12"
+    assert rows[15][-3] == ("12" if args[:2] == ["--batch", "2"]
+                            and dtype == "bf16" else "-")
     assert "fused strictly below staged on every block [family=b0]: True" \
         in out
     assert "fused strictly below staged on every separable block: True" \
@@ -324,6 +327,12 @@ def test_kernel_bench_gate_at_small_batches(capsys, args):
     assert rc == 0
     for bad in (["--measure", "--batch", "2"], ["--fused", "--batch", "0"],
                 ["--fused", "--block", "15"],
-                ["--fused", "--dtype", "bf16", "--mesh", "2x1"]):
+                ["--fused", "--separable-splits"],
+                ["--fused", "--measure", "--block", "x"]):
         with pytest.raises(SystemExit):
             kernel_bench.main(bad)
+    if dtype == "bf16":
+        capsys.readouterr()
+        assert kernel_bench.main(["--fused", "--family", "b0", "--dtype",
+                                  "bf16", "--mesh", "2x1"]) == 0
+        assert "2-byte storage" in capsys.readouterr().out
