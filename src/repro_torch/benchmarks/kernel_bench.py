@@ -4,7 +4,7 @@ the ``BENCH_<host>.json`` trajectory.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --fused \\
         [--family b0,v3l,v2s] [--batch N] [--res SIDE] [--dtype fp32|bf16]
-        [--measure [--block I[-J][,...] | --separable-splits]]
+        [--measure [--block I[-J][,...] | --separable-splits [--sweep-out FILE]]]
         [--mesh DxM [--collective MODE]] [--network]
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --measure \\
         [--family b0,v3l,v2s] [--bench-out DIR]
@@ -55,8 +55,11 @@ the staged route, with each point's modeled bytes, whether it keeps the
 gate's bar and which count ``retain_plan`` picks.
 ``--fused --measure --separable-splits`` times B4 at every C_in split
 count it may take on each MobileNet-V2 block that may split (224,
-``--batch``, ``--dtype``), beside the launch plan's pick.  Both sweeps
-time each point as the median of SWEEP_REPS interleaved rounds.
+``--batch``, ``--dtype``), beside the launch plan's pick; in bf16 on every
+block, also at every c_out tile and at a few tiles besides the solver's,
+each point beside its modeled clocks (``--sweep-out FILE`` writes the rows
+as JSON).  Both sweeps time each point as the median of SWEEP_REPS
+interleaved rounds.
 
 ``--fused --measure`` runs each family block on the card, fused
 (``models.mbconv.apply_block``) and staged (``fused=False``) on the same
@@ -85,6 +88,7 @@ measurements run on the card and raise without CUDA.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -105,6 +109,9 @@ from ..core.autotune import (
     get_mbconv_schedule,
     greedy_network_schedule,
     mbconv_sweep_candidates,
+    fused_separable_cost,
+    fused_separable_launch_plan,
+    fused_separable_out_tiles,
     fused_separable_split_counts,
     pass1_smem_bytes,
     retain_plan,
@@ -810,16 +817,25 @@ def measure_variants(family: str, batch: int, res: int, block: int,
     return ok, out
 
 
+# tiles a bf16 split sweep times besides the solver's (those that fit the
+# block's output)
+SWEEP_TILES_BF16 = ((8, 8), (7, 7), (4, 8), (8, 4), (4, 4), (2, 8))
+
+
 def measure_separable_splits(batch: int, device: torch.device,
                              dtype: str = "fp32", seed: int = 0,
                              log=print) -> Tuple[bool, List[Dict]]:
     """B4 at every C_in split count it may take
-    (``fused_separable_split_counts``) on each MobileNet-V2 separable
-    block (224, ``batch``, storage ``dtype``) that may split, at the
-    solver's tile: each count checked against the plain version
-    (``_bar``) and timed warm (the median of SWEEP_REPS interleaved rounds
-    of WARM_ITERS graph replays, with their spread), beside the launch
-    plan's pick.  Returns (every point within its bar, rows)."""
+    (``fused_separable_split_counts``), at the solver's tile: in fp32 on
+    each MobileNet-V2 separable block (224, ``batch``) that may split; in
+    bf16 (the cluster launch) on every block, at every c_out tile
+    (``fused_separable_out_tiles``) too, and also at each of
+    SWEEP_TILES_BF16 that fits the block.  Each point checked against the
+    plain version (``_bar``) and timed warm (the median of SWEEP_REPS
+    interleaved rounds of WARM_ITERS graph replays, with their spread),
+    beside the launch plan's pick and the modeled clocks
+    (``fused_separable_cost``).  Returns (every point within its bar,
+    rows)."""
     eb = DTYPE_BYTES[dtype]
     dt = torch.float32 if eb == 4 else torch.bfloat16
     gen = torch.Generator().manual_seed(seed)
@@ -829,12 +845,17 @@ def measure_separable_splits(batch: int, device: torch.device,
     with torch.inference_mode():
         for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE):
             counts = fused_separable_split_counts(layer.c, c_out, eb)
-            if len(counts) == 1:
+            if len(counts) == 1 and eb == 4:
                 continue
             sch = get_fused_schedule(batch, layer.h, layer.w, layer.c, c_out,
                                      layer.k, layer.s, dtype_bytes=eb)
-            geo = MBConvGeometry.make(layer.h, layer.w, layer.k, layer.s,
-                                      "SAME", sch.tile_h, sch.tile_w)
+            shape = SeparableShape(b=batch, h=layer.h, w=layer.w, c_in=layer.c,
+                                   c_out=c_out, k=layer.k, s=layer.s,
+                                   dtype_bytes=eb)
+            tiles = [(sch.tile_h, sch.tile_w)]
+            if eb == 2:
+                tiles += [t for t in SWEEP_TILES_BF16 if t not in tiles
+                          and t[0] <= shape.out_h and t[1] <= shape.out_w]
 
             def rand(*shape, scale=1.0):
                 return (torch.randn(*shape, generator=gen) * scale).to(
@@ -844,29 +865,44 @@ def measure_separable_splits(batch: int, device: torch.device,
             w_dw = rand(layer.k, layer.k, layer.c, scale=1 / layer.k)
             w_pw = rand(layer.c, c_out, scale=layer.c ** -0.5)
             kw = dict(dw_act="relu6", act="relu6")
-            ref = fused_separable_plain(x, w_dw, w_pw, geo, **kw)
-            tol = _bar(ref)
-            fns = [lambda n=n: fused_separable_with_partials(
-                x, w_dw, w_pw, geo, splits=n, **kw)[0] for n in counts]
-            errs = [float((fn().float() - ref.float()).abs().max())
-                    for fn in fns]
-            warm = _timed_points(fns)
-            line = []
-            for n, err, times in zip(counts, errs, warm):
-                row = dict(block=i, c_in=layer.c, c_out=c_out, hw=layer.h,
-                           s=layer.s, tile_h=sch.tile_h, tile_w=sch.tile_w,
-                           splits=n, picked=n == sch.splits, err=err,
-                           tol=tol, warm_ms=_median(times),
-                           warm_spread_ms=max(times) - min(times))
-                ok &= err <= tol
-                out.append(row)
-                line.append(f"{n}{'*' if row['picked'] else ''} "
-                            f"{row['warm_ms']:.4f} "
-                            f"(+-{row['warm_spread_ms'] / 2:.4f})")
-            log(f"  block{i:02d} {layer.h}x{layer.w}x{layer.c}->{c_out} "
-                f"s{layer.s} {sch.tile_h}x{sch.tile_w}: "
-                + "; ".join(line) + f" ms (* the launch plan's pick); max "
-                f"err {max(errs):.2e} (tol {tol:.2e})")
+            for th, tw in tiles:
+                geo = MBConvGeometry.make(layer.h, layer.w, layer.k, layer.s,
+                                          "SAME", th, tw)
+                ref = fused_separable_plain(x, w_dw, w_pw, geo, **kw)
+                tol = _bar(ref)
+                points = [(nc, n) for nc in fused_separable_out_tiles(
+                    c_out, layer.k, eb) for n in counts
+                    if fused_separable_cost(shape, th, tw, n, nc) is not None]
+                plan = fused_separable_launch_plan(
+                    batch, layer.h, layer.w, layer.c, c_out, layer.k, layer.s,
+                    th, tw, eb)
+                fns = [lambda nc=nc, n=n: fused_separable_with_partials(
+                    x, w_dw, w_pw, geo, splits=n, nc=nc, partials=False,
+                    **kw)[0] for nc, n in points]
+                errs = [float((fn().float() - ref.float()).abs().max())
+                        for fn in fns]
+                warm = _timed_points(fns)
+                line = []
+                for (nc, n), err, times in zip(points, errs, warm):
+                    row = dict(block=i, c_in=layer.c, c_out=c_out, hw=layer.h,
+                               s=layer.s, tile_h=th, tile_w=tw, nc=nc,
+                               splits=n, picked=(nc, n) == plan,
+                               solver_tile=(th, tw) == tiles[0], err=err,
+                               tol=tol, warm_ms=_median(times),
+                               warm_spread_ms=max(times) - min(times),
+                               model_clocks=fused_separable_cost(
+                                   shape, th, tw, n, nc))
+                    ok &= err <= tol
+                    out.append(row)
+                    line.append(f"{nc}/{n}{'*' if row['picked'] else ''} "
+                                f"{row['warm_ms']:.4f} "
+                                f"(+-{row['warm_spread_ms'] / 2:.4f})")
+                log(f"  block{i:02d} {layer.h}x{layer.w}x{layer.c}->{c_out} "
+                    f"s{layer.s} {th}x{tw}"
+                    f"{' (solver)' if (th, tw) == tiles[0] else ''}: "
+                    + "; ".join(line) + f" ms (c_out tile / splits, * the "
+                    f"launch plan's pick); max err {max(errs):.2e} (tol "
+                    f"{tol:.2e})")
     return ok, out
 
 
@@ -1044,6 +1080,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--separable-splits", action="store_true",
                     help="with --fused --measure: time B4 at every C_in "
                          "split count on MobileNet-V2 at --dtype")
+    ap.add_argument("--sweep-out", default=None, metavar="FILE",
+                    help="with --separable-splits: also write the sweep's "
+                         "rows to FILE as JSON")
     ap.add_argument("--measure", action="store_true",
                     help="with --fused: time fused and staged per block on "
                          "the card; alone: the measured per-block sweep")
@@ -1110,7 +1149,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     batch = args.batch
     eb = DTYPE_BYTES[args.dtype]
     if args.separable_splits:
-        ok = measure_separable_splits(batch, device, args.dtype)[0]
+        ok, rows = measure_separable_splits(batch, device, args.dtype)
+        if args.sweep_out:
+            with open(args.sweep_out, "w") as f:
+                json.dump(rows, f, indent=1)
         return 0 if ok else 1
     if blocks is not None:
         ok = all([measure_variants(fam, batch, args.res or FAMILY_RES[fam],

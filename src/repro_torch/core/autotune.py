@@ -184,6 +184,28 @@ SEP_CTA_CLOCKS = 250                # a CTA's start
 SEP_CHUNK_CLOCKS = 300              # a chunk's barriers and loads
 SEP_DW_ITEM_CLOCKS = 400            # a thread's depthwise item (9 taps)
 SEP_BYTES_PER_CLK = 1900            # the card's device-memory bytes per clock
+# Its bf16 build (separable.cu's fused_separable_mma; the wrapper checks
+# these against the built library): the pointwise on bf16 tensor cores
+# (the depthwise split exactly into three bf16 terms, three mmas a B
+# fragment), the depthwise in 8-channel items, and the C_in splits the CTAs
+# of one thread-block cluster that sum their products in distributed
+# shared memory, so no partial reaches device memory.  Four warps each own
+# one m16 row group and a run of n8 tiles of the c_out tile, which is any
+# multiple of 8 up to SEP_BF16_MAX_OUT_TILE (``fused_separable_out_tiles``).
+SEP_BF16_MAX_OUT_TILE = 160         # widest c_out tile
+SEP_BF16_OUT_TILE_COUNTS = (1, 2, 3, 4)     # c_out tiles a plan may take
+SEP_BF16_MAX_SPLITS = 8             # C_in splits: the portable cluster size
+SEP_BF16_TERM_STRIDE = SEP_CI_CHUNK + 8     # bf16 per depthwise-term row
+SEP_BF16_MAX_CTAS_PER_SM = 3        # __launch_bounds__ minimum
+SEP_BF16_GPCS = 8                   # clusters are placed within one of them
+# fitted to the card's sweep (``kernel_bench --fused --measure
+# --separable-splits --dtype bf16``, PERF.md section 6, PR 26)
+SEP_BF16_ROUND_CLOCKS = 4400        # a round of resident clusters: start, prologue
+SEP_BF16_DW_ITEM_CLOCKS = 1600      # a chunk's latency per depthwise item a thread computes
+SEP_BF16_FOLD_CLOCKS = 230          # the cluster's two barriers
+SEP_BF16_FOLD_ITEM_CLOCKS = 42      # a thread's fold item per rank read
+SEP_BF16_DW_ISSUE_CLOCKS = 78       # an SM's issue per depthwise item of a resident CTA
+SEP_BF16_MMA_ISSUE_CLOCKS = 42      # an SM's issue per mma of a resident CTA's busiest warp
 
 
 @dataclass(frozen=True, kw_only=True)
@@ -528,7 +550,7 @@ def fusedmb_cost(shape: MBConvShape, tile_h: int,
 
 
 def fused_separable_chunk(c_out: int, k: int) -> int:
-    """The fused-separable kernel's c_out tile (separable.cu's NC): of
+    """The fp32 fused-separable kernel's c_out tile (separable.cu's NC): of
     SEP_CHUNK_LANES, the one doing the fewest FMAs per output pixel and
     input channel, the depthwise recomputed once per c_out tile plus the
     tile-wide pointwise (n_tiles * (k^2 + NC)); ties to the wider tile."""
@@ -536,11 +558,36 @@ def fused_separable_chunk(c_out: int, k: int) -> int:
         -(-c_out // nc) * (k * k + nc), -nc))
 
 
+def fused_separable_out_tiles(c_out: int, k: int, eb: int = 4
+                              ) -> Tuple[int, ...]:
+    """The c_out tiles a fused-separable launch may take at ``eb``-byte
+    storage: fp32 ``fused_separable_chunk``'s one; bf16, for each count of
+    SEP_BF16_OUT_TILE_COUNTS, the narrowest multiple of 8 (at least 16)
+    that covers C_out in that many tiles, where at most
+    SEP_BF16_MAX_OUT_TILE (the whole C_out up to 160, then 2, 3 or 4 tiles:
+    the depthwise is recomputed once per tile), widest first."""
+    if eb == 4:
+        return (fused_separable_chunk(c_out, k),)
+    tiles = {max(16, 8 * -(-c_out // (8 * n)))
+             for n in SEP_BF16_OUT_TILE_COUNTS}
+    return tuple(sorted((nc for nc in tiles
+                         if nc <= SEP_BF16_MAX_OUT_TILE
+                         and -(-c_out // nc) in SEP_BF16_OUT_TILE_COUNTS),
+                        reverse=True))
+
+
 def fused_separable_pixel_stride(eb: int = 4) -> int:
     """Elements of the storage type per staged window pixel (separable.cu's
     ``x_stride``): fp32 SEP_PIXEL_STRIDE floats, bf16 SEP_PIXEL_STRIDE_BF16
     (80 bytes, an odd number of 16-byte units)."""
     return SEP_PIXEL_STRIDE if eb == 4 else SEP_PIXEL_STRIDE_BF16
+
+
+def fused_separable_col_warps(pixels: int) -> int:
+    """Warps of the bf16 build sharing one m16 row group across the c_out
+    tile (separable.cu's ``mma_col_warps``): 4 at up to 16 pixels, 2 at up
+    to 32, else 1 (each of the 4 warps its own group)."""
+    return 4 if pixels <= 16 else 2 if pixels <= 32 else 1
 
 
 def fused_separable_window_smem_bytes(k: int, in_rows: int, in_cols: int,
@@ -551,53 +598,75 @@ def fused_separable_window_smem_bytes(k: int, in_rows: int, in_cols: int,
     wrapper checks against this): SEP_SLOTS ring slots in the storage
     type, each the padded ``in_rows x in_cols`` window of one
     SEP_CI_CHUNK-channel chunk, its (k, k) taps and its (chunk, NC)
-    pointwise rows, and two padded fp32 (pixels, chunk) depthwise
-    tiles."""
-    slot = (in_rows * in_cols * fused_separable_pixel_stride(eb)
-            + k * k * SEP_CI_CHUNK + SEP_CI_CHUNK * nc)
-    return eb * SEP_SLOTS * slot + 4 * 2 * pixels * SEP_PIXEL_STRIDE
+    pointwise rows; then in fp32 two padded fp32 (pixels, chunk) depthwise
+    tiles; in bf16 (rows padded to an odd number of 16-byte units) two sets
+    of the three bf16 (pixels, SEP_BF16_TERM_STRIDE) depthwise terms, or,
+    where larger, the fp32 (pixels, NC + 4) product tile the cluster's fold
+    reads in the same bytes."""
+    if eb == 4:
+        slot = (in_rows * in_cols * SEP_PIXEL_STRIDE + k * k * SEP_CI_CHUNK
+                + SEP_CI_CHUNK * nc)
+        return 4 * SEP_SLOTS * slot + 4 * 2 * pixels * SEP_PIXEL_STRIDE
+    row = nc if (nc // 8) % 2 else nc + 8
+    slot = (in_rows * in_cols * SEP_PIXEL_STRIDE_BF16 + k * k * SEP_CI_CHUNK
+            + SEP_CI_CHUNK * row)
+    ring = 2 * SEP_SLOTS * slot + 2 * 2 * 3 * pixels * SEP_BF16_TERM_STRIDE
+    return max(ring, 4 * pixels * (nc + 4))
 
 
 def fused_separable_smem_bytes(shape: SeparableShape, tile_h: int,
-                               tile_w: int) -> int:
-    """Dynamic shared memory of the fused-separable kernel at one tile."""
+                               tile_w: int, nc: Optional[int] = None) -> int:
+    """Dynamic shared memory of the fused-separable kernel at one tile and
+    c_out tile (the launch plan's by default)."""
+    if nc is None:
+        nc = fused_separable_launch_plan(
+            shape.b, shape.h, shape.w, shape.c_in, shape.c_out, shape.k,
+            shape.s, tile_h, tile_w, shape.dtype_bytes)[0]
     return fused_separable_window_smem_bytes(
         shape.k, window_extent(tile_h, shape.k, shape.s),
-        window_extent(tile_w, shape.k, shape.s), tile_h * tile_w,
-        fused_separable_chunk(shape.c_out, shape.k), shape.dtype_bytes)
+        window_extent(tile_w, shape.k, shape.s), tile_h * tile_w, nc,
+        shape.dtype_bytes)
 
 
 def fused_separable_split_counts(c_in: int, c_out: int,
                                  eb: int = 4) -> Tuple[int, ...]:
     """The C_in splits a fused-separable launch may take at ``eb``-byte
     storage: 1, and every count whose splits each sum whole SEP_CI_CHUNK
-    chunks, none empty, with 4 * splits * C_out < eb * C_in, so the fp32
-    partials the split sum (B4') reads back move fewer bytes than the
-    depthwise tensor the staged route writes at the storage type."""
+    chunks, none empty; in fp32 with 4 * splits * C_out < 4 * C_in, so the
+    fp32 partials the split sum (B4') reads back move fewer bytes than the
+    depthwise tensor the staged route writes; in bf16 up to
+    SEP_BF16_MAX_SPLITS (a cluster's CTAs), with no byte bar, since no
+    partial leaves the SMs."""
     chunks = -(-c_in // SEP_CI_CHUNK)
-    return (1,) + tuple(n for n in range(2, chunks + 1)
-                        if 4 * n * c_out < eb * c_in
+    top = chunks if eb == 4 else min(chunks, SEP_BF16_MAX_SPLITS)
+    return (1,) + tuple(n for n in range(2, top + 1)
+                        if (eb == 2 or 4 * n * c_out < eb * c_in)
                         and -(-chunks // -(-chunks // n)) == n)
 
 
 def fused_separable_cost(shape: SeparableShape, tile_h: int, tile_w: int,
-                         splits: int) -> Optional[float]:
+                         splits: int, nc: Optional[int] = None
+                         ) -> Optional[float]:
     """Modeled SM clocks of one fused-separable launch (its split sum in) at
-    a tile and C_in split count, None where it does not fit.  At
-    MobileNet-V2's widths a CTA is bound by latency: it pays SEP_CTA_CLOCKS
-    to start and, per chunk it sums, SEP_CHUNK_CLOCKS of barriers and
-    loads, SEP_DW_ITEM_CLOCKS per depthwise item (one pixel x 4 channels)
-    each thread computes, and one clock per FMA instruction of a pointwise
-    warp; the busiest SM runs ceil(CTAs / SM_COUNT) CTAs, ``occ`` of them at
-    once, and never faster than its FMAs at FMA_PER_CLK.  A split adds its
-    split sum (B4', folded into the launch's last CTAs): the partials read
-    back and the output written at the card's byte rate.  The constants
-    are fitted to a sweep of tiles and splits over MobileNet-V2's 17
-    blocks at 224 batch 8 on the card; with the sum folded in, the card's
+    a tile, C_in split count and (bf16) c_out tile, None where it does not
+    fit.  At MobileNet-V2's widths a CTA is bound by latency: it pays
+    SEP_CTA_CLOCKS to start and, per chunk it sums, SEP_CHUNK_CLOCKS of
+    barriers and loads, SEP_DW_ITEM_CLOCKS per depthwise item (one pixel x
+    4 channels) each thread computes, and one clock per FMA instruction of a
+    pointwise warp; the busiest SM runs ceil(CTAs / SM_COUNT) CTAs, ``occ``
+    of them at once, and never faster than its FMAs at FMA_PER_CLK.  A
+    split adds its split sum (B4', folded into the launch's last CTAs): the
+    partials read back and the output written at the card's byte rate.  The
+    constants are fitted to a sweep of tiles and splits over MobileNet-V2's
+    17 blocks at 224 batch 8 on the card; with the sum folded in, the card's
     sweep of every split count (``kernel_bench --fused --measure
-    --separable-splits``, fp32 and bf16) times the launch plan's pick
-    fastest on every block that may split, so the term stands."""
-    smem = fused_separable_smem_bytes(shape, tile_h, tile_w)
+    --separable-splits``) times the launch plan's pick fastest on every
+    fp32 block that may split, so the term stands.  bf16 storage is
+    ``_fused_separable_cost_bf16``'s."""
+    if shape.dtype_bytes == 2:
+        return _fused_separable_cost_bf16(shape, tile_h, tile_w, splits, nc)
+    smem = fused_separable_smem_bytes(
+        shape, tile_h, tile_w, fused_separable_chunk(shape.c_out, shape.k))
     if smem > SMEM_BYTES:
         return None
     out_h, out_w = -(-shape.h // shape.s), -(-shape.w // shape.s)
@@ -625,19 +694,78 @@ def fused_separable_cost(shape: SeparableShape, tile_h: int, tile_w: int,
     return cost
 
 
+def _fused_separable_cost_bf16(shape: SeparableShape, tile_h: int,
+                               tile_w: int, splits: int,
+                               nc: Optional[int]) -> Optional[float]:
+    """Modeled SM clocks of one bf16 fused-separable launch (the tensor-core
+    pointwise, its C_in splits a cluster) at a tile, split count and c_out
+    tile (the widest of ``fused_separable_out_tiles`` by default), None
+    where it does not fit.  ``occ`` CTAs share an SM, and a cluster's CTAs
+    sit in one of SEP_BF16_GPCS GPCs, so the card holds SEP_BF16_GPCS x
+    (SMs a GPC x occ // splits) clusters at once: the launch takes as many
+    rounds as it has clusters per that.  A round costs the latency of one
+    CTA: SEP_BF16_ROUND_CLOCKS, SEP_BF16_DW_ITEM_CLOCKS a chunk per
+    depthwise item (one pixel x 8 channels) a thread computes, and for a
+    split launch the cluster's fold (SEP_BF16_FOLD_CLOCKS and
+    SEP_BF16_FOLD_ITEM_CLOCKS per rank read of each fold item a thread
+    sums).  On top, the busiest SM issues, for each CTA it runs, per chunk
+    SEP_BF16_DW_ISSUE_CLOCKS per depthwise item and
+    SEP_BF16_MMA_ISSUE_CLOCKS per mma of its busiest warp (2 k16 steps x 3
+    terms x its n8 tiles).  Never faster than the compulsory bytes (x, the
+    weights and the output at 2 bytes) at SEP_BYTES_PER_CLK.  Fitted to the
+    card's sweep of tiles, c_out tiles and cluster sizes over
+    MobileNet-V2's 17 blocks at 224 batch 8."""
+    if nc is None:
+        nc = fused_separable_out_tiles(shape.c_out, shape.k, 2)[0]
+    pixels = tile_h * tile_w
+    smem = fused_separable_smem_bytes(shape, tile_h, tile_w, nc)
+    if smem > SMEM_BYTES or pixels > SEP_MAX_TILE_PIXELS:
+        return None
+    out_h, out_w = -(-shape.h // shape.s), -(-shape.w // shape.s)
+    clusters = (-(-out_h // tile_h) * -(-out_w // tile_w)
+                * -(-shape.c_out // nc) * shape.b)
+    chunks = -(-(-(-shape.c_in // SEP_CI_CHUNK)) // splits)
+    mmas = 2 * 3 * -(-(nc // 8) // fused_separable_col_warps(pixels))
+    items = -(-pixels * SEP_CI_CHUNK // 8 // SEP_THREADS)
+    latency = SEP_BF16_ROUND_CLOCKS + chunks * SEP_BF16_DW_ITEM_CLOCKS * items
+    if splits > 1:
+        fold_items = -(-(-(-pixels // splits)) * -(-nc // 4) // SEP_THREADS)
+        latency += (SEP_BF16_FOLD_CLOCKS
+                    + SEP_BF16_FOLD_ITEM_CLOCKS * fold_items * splits)
+    occ = min(SMEM_PER_SM // (smem + 1024), SEP_BF16_MAX_CTAS_PER_SM)
+    slots = SEP_BF16_GPCS * (SM_COUNT // SEP_BF16_GPCS * occ // splits)
+    if slots == 0:
+        return None
+    per_sm = -(-clusters * splits // SM_COUNT)
+    issue = per_sm * chunks * (SEP_BF16_DW_ISSUE_CLOCKS * items
+                               + SEP_BF16_MMA_ISSUE_CLOCKS * mmas)
+    compulsory = 2 * (shape.b * (shape.h * shape.w * shape.c_in
+                                 + out_h * out_w * shape.c_out)
+                      + shape.c_in * (shape.k ** 2 + shape.c_out))
+    return max(-(-clusters // slots) * latency + issue,
+               compulsory / SEP_BYTES_PER_CLK)
+
+
+@functools.lru_cache(maxsize=None)
 def fused_separable_launch_plan(b: int, h: int, w: int, c_in: int,
                                 c_out: int, k: int, s: int, tile_h: int,
                                 tile_w: int, eb: int = 4) -> Tuple[int, int]:
     """(NC, splits) of one fused-separable launch at a tile and
-    ``eb``-byte storage: the c_out tile, and the allowed split count of
-    least ``fused_separable_cost`` (ties to fewer splits)."""
+    ``eb``-byte storage: of the c_out tiles (``fused_separable_out_tiles``)
+    and allowed split counts, the pair of least ``fused_separable_cost``
+    (ties to fewer splits, then to the wider tile); cached, as every
+    launch asks for it."""
     shape = SeparableShape(b=b, h=h, w=w, c_in=c_in, c_out=c_out, k=k, s=s,
                            dtype_bytes=eb)
-    costs = [(fused_separable_cost(shape, tile_h, tile_w, n), n)
+    tiles = fused_separable_out_tiles(c_out, k, eb)
+    costs = [(fused_separable_cost(shape, tile_h, tile_w, n, nc), n, -nc)
+             for nc in tiles
              for n in fused_separable_split_counts(c_in, c_out, eb)]
     costs = [c for c in costs if c[0] is not None]
-    return (fused_separable_chunk(c_out, k),
-            min(costs)[1] if costs else 1)
+    if not costs:
+        return tiles[0], 1
+    _, splits, nc = min(costs)
+    return -nc, splits
 
 
 def pass1_cm_tile(c_mid: int) -> int:
@@ -1033,7 +1161,7 @@ def select_fused_schedule(shape: SeparableShape,
             nc, splits = fused_separable_launch_plan(
                 shape.b, shape.h, shape.w, shape.c_in, shape.c_out, shape.k,
                 shape.s, th, tw, shape.dtype_bytes)
-            cost = fused_separable_cost(shape, th, tw, splits)
+            cost = fused_separable_cost(shape, th, tw, splits, nc)
             if cost is not None:
                 cands.append((above, cost, -th * tw, -th, th, tw, nc, splits))
     if not cands:

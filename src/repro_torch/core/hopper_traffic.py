@@ -40,7 +40,8 @@ SE pool and of the split sums (one int per output tile) are not counted.  The in
 the retained DW tensor and the output are in the storage type
 (``shape.dtype_bytes``: fp32 or bf16); the SE pool, its partials, the
 gate and the split partials are fp32 at every storage type, as the
-kernels keep them.  The separable kernel (B4) is fp32.
+kernels keep them.  The separable kernel's bf16 build (B4) writes no split
+partials: its C_in splits sum in a cluster's distributed shared memory.
 
 ``mbconv_staged_bytes`` and ``fusedmb_staged_bytes`` are the gates' other
 side: the copied model's staged traffic with the intermediates at fp32,
@@ -324,8 +325,10 @@ def separable_hopper_traffic(shape: SeparableShape, sch) -> HopperTraffic:
     """B4 at ``sch``'s tile, c_out tile and C_in splits, its split sum B4'
     folded in: each CTA stages its split's SEP_CI_CHUNK-channel chunks (the
     halo'd window, the taps and the pointwise rows of its c_out tile).  x,
-    the taps, w_pw and the output at the storage type, the split partials
-    at fp32."""
+    the taps, w_pw and the output at the storage type; in fp32 the split
+    partials at fp32, written and read back; in bf16 the splits are one
+    cluster's CTAs, which sum in distributed shared memory, so a split
+    launch moves the unsplit launch's device-memory bytes."""
     b, hw_out, eb = shape.b, shape.out_h * shape.out_w, shape.dtype_bytes
     th, tw, tiles = _tiles(shape, sch.tile_h, sch.tile_w)
     nc, splits = fused_separable_launch_plan(
@@ -339,11 +342,12 @@ def separable_hopper_traffic(shape: SeparableShape, sch) -> HopperTraffic:
     w_pw = shape.c_in * shape.c_out * eb
     count = b * hw_out * shape.c_out
     chunks = -(-shape.c_in // SEP_CI_CHUNK)
-    return HopperTraffic((_split_sum(LaunchTraffic(
+    launch = LaunchTraffic(
         "separable", 1, tiles * n_co * splits * b,
         xl + tiles * b * (n_co * taps + w_pw), count * eb,
-        x_bytes + taps + w_pw, xl - x_bytes, tiles * n_co * b * chunks),
-        splits, count),))
+        x_bytes + taps + w_pw, xl - x_bytes, tiles * n_co * b * chunks)
+    return HopperTraffic((launch if eb == 2 else
+                          _split_sum(launch, splits, count),))
 
 
 def _mixed_staged_bytes(traffic, storage_words: int, eb: int) -> int:

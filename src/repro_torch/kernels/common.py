@@ -92,9 +92,10 @@ def bf16x3_split(a: torch.Tensor
     a - hi is exact in fp32; mid truncates that residual the same way, and
     its own residual has at most 8 bits left, which lo holds.  The bf16
     retain GEMM feeds the three to tensor cores in place of the gated fp32
-    operand d * gate, and the bf16 Fused-MBConv kernel in place of the
-    activated fp32 conv sums it projects, so each product with a bf16
-    weight is exact in fp32."""
+    operand d * gate, the bf16 Fused-MBConv kernel in place of the
+    activated fp32 conv sums it projects, and the bf16 fused separable
+    kernel in place of its activated fp32 depthwise, so each product with a
+    bf16 weight is exact in fp32."""
     hi = _top16(a)
     r = a - hi
     mid = _top16(r)

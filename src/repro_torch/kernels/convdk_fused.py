@@ -5,19 +5,23 @@ Counterpart of ``repro.kernels.convdk_fused``:
 
     depthwise k x k / s -> dw_act -> pointwise 1x1 (C_in -> C_out) -> act
 
-in ONE launch (``kernels/csrc/separable.cu`` ``fused_separable_kernel``):
-the depthwise output never reaches device memory, the input is read from
-its unstaged layout, and the block output is written once.  x, the taps,
-w_pw and the output are fp32 or bf16 (one storage type, the launch's),
+in ONE launch (``kernels/csrc/separable.cu``: ``fused_separable_kernel``
+in fp32, ``fused_separable_mma`` in bf16): the depthwise output never
+reaches device memory, the input is read from its unstaged layout, and the
+block output is written once.  x, the taps, w_pw and the output are fp32
+or bf16 (one storage type, the launch's), every product is exact or fp32,
 every sum is fp32 and the output is rounded once, as the JAX kernel
-widens its operands to fp32 and casts once to the output's dtype.  Where the
-schedule splits C_in across CTAs (the late MobileNet-V2 blocks, too small
-to fill the card otherwise), each split writes an fp32 partial product
-and the last CTA of each output tile sums the partials in split order and
-applies ``act`` (B4', folded into the launch); the splits keep
-``4 * splits * C_out < eb * C_in`` (``eb`` the storage type's bytes), so
-the fp32 partials are smaller than the depthwise tensor at the storage
-type.
+widens its operands to fp32 and casts once to the output's dtype (the
+bf16 build multiplies the fp32 depthwise on bf16 tensor cores split
+exactly into three bf16 terms).  Where the schedule splits C_in across
+CTAs (the late MobileNet-V2 blocks, too small to fill the card
+otherwise), the splits' products are summed in split order and ``act``
+applied in the same launch (B4', folded in): in fp32 each split writes an
+fp32 partial and the last CTA of each output tile sums them, the splits
+keeping ``splits * C_out < C_in``, so the partials are smaller than the
+depthwise tensor; in bf16 the splits (at most 8) are the CTAs of one
+thread-block cluster, which sum in distributed shared memory, so no
+partial reaches device memory unless the caller asks for them.
 
 ``fused_separable`` launches the kernel for CUDA tensors and runs its
 plain version for CPU tensors (``fused_separable_plain``, or for a split
@@ -25,9 +29,10 @@ launch the plain partials summed in the kernel's order: fp32 on the
 widened inputs, rounded once); any other device raises, as do fp16 and
 mixed storage types.
 ``fused_separable_with_partials`` also returns the split launch's
-partials.  ``fused_separable_partials_plain`` and
-``fused_separable_reduce_plain`` are the plain versions of the split
-route, summing in the kernel's order.  ``LAUNCHES`` counts kernel
+partials (a bf16 launch stores its ranks' products only for it).
+``fused_separable_partials_plain`` and ``fused_separable_reduce_plain``
+are the plain versions of the split route, summing in the kernel's
+order.  ``LAUNCHES`` counts kernel
 launches, the bf16 ones as ``fused_separable_bf16``.
 The kernel tiles the output in ``tile_h x tile_w`` pixels, its c_out tile
 and splits come from ``core.autotune.fused_separable_launch_plan`` (see
@@ -52,11 +57,16 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..core.autotune import (
+    SEP_BF16_MAX_OUT_TILE,
+    SEP_BF16_MAX_SPLITS,
+    SEP_BF16_TERM_STRIDE,
     SEP_CHUNK_LANES,
     SEP_CI_CHUNK,
     SEP_MAX_TILE_PIXELS,
     SEP_THREADS,
+    fused_separable_col_warps,
     fused_separable_launch_plan,
+    fused_separable_out_tiles,
     fused_separable_pixel_stride,
     fused_separable_split_counts,
     fused_separable_window_smem_bytes,
@@ -86,7 +96,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # (k, window rows, window cols, pixels, c_out tile) probes of the
 # shared-memory check
 _SMEM_PROBES = ((3, 10, 10, 64, 16), (3, 17, 17, 64, 24), (5, 11, 19, 63, 48),
-                (3, 3, 66, 32, 64), (3, 9, 9, 49, 32))
+                (3, 3, 66, 32, 64), (3, 9, 9, 49, 32), (3, 9, 9, 49, 160),
+                (3, 6, 9, 28, 56), (3, 3, 3, 1, 112))
 
 
 def reset_launches() -> None:
@@ -108,14 +119,21 @@ def _lib() -> ctypes.CDLL:
     lib.separable_error_string.restype = ctypes.c_char_p
     lib.fused_separable_smem_bytes.argtypes = [_I] * 6
     lib.fused_separable_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_separable_col_warps.argtypes = [_I]
+    pixels = range(1, SEP_MAX_TILE_PIXELS + 1)
     built = (lib.fused_separable_max_tile_pixels(),
              lib.fused_separable_ci_chunk(),
              [lib.fused_separable_pixel_stride(b) for b in (0, 1)],
              lib.fused_separable_threads(),
-             {nc: lib.fused_separable_chunk_lanes(nc) for nc in SEP_CHUNK_LANES})
+             {nc: lib.fused_separable_chunk_lanes(nc) for nc in SEP_CHUNK_LANES},
+             lib.fused_separable_max_out_tile_bf16(),
+             lib.fused_separable_max_cluster(),
+             lib.fused_separable_term_stride(),
+             [lib.fused_separable_col_warps(p) for p in pixels])
     want = (SEP_MAX_TILE_PIXELS, SEP_CI_CHUNK,
             [fused_separable_pixel_stride(eb) for eb in (4, 2)], SEP_THREADS,
-            SEP_CHUNK_LANES)
+            SEP_CHUNK_LANES, SEP_BF16_MAX_OUT_TILE, SEP_BF16_MAX_SPLITS,
+            SEP_BF16_TERM_STRIDE, [fused_separable_col_warps(p) for p in pixels])
     if built != want:
         raise RuntimeError(f"separable.cu tiles {built} disagree with "
                            f"core.autotune {want}")
@@ -205,42 +223,55 @@ def fused_separable_reduce_plain(partial: torch.Tensor, *,
 def fused_separable_with_partials(
         x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
         geo: MBConvGeometry, *, dw_act: Optional[str], act: Optional[str],
-        splits: Optional[int] = None
+        splits: Optional[int] = None, nc: Optional[int] = None,
+        partials: bool = True
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``fused_separable`` with its launch's fp32 split partials: (the
     output, the partials (splits, B, out_h, out_w, C_out), or None where
-    the launch does not split C_in).  On the card one launch writes both,
-    its last CTA per output tile summing the partials in split order and
-    applying act; on the CPU the plain partials and their sum.  ``splits``
-    pins the C_in split count (one of ``fused_separable_split_counts``;
-    the launch plan's by default)."""
+    the launch does not split C_in or ``partials`` is False).  On the card
+    one launch writes both, summing the partials in split order and
+    applying act (fp32: its last CTA per output tile, from the partials in
+    device memory; bf16: each cluster in distributed shared memory, its
+    ranks storing their products only where ``partials`` asks); on the CPU
+    the plain partials and their sum.  ``splits`` pins the C_in split count
+    (one of ``fused_separable_split_counts``) and ``nc`` the c_out tile
+    (one of ``fused_separable_out_tiles``), the launch plan's by
+    default."""
     _check_shapes(x, w_dw, w_pw, geo)
     dtype = storage_dtype(x, w_dw, w_pw)
     b, h, w, c_in = x.shape
     c_out = w_pw.shape[1]
     eb = dtype.itemsize
-    nc, plan = fused_separable_launch_plan(b, h, w, c_in, c_out, geo.k,
-                                           geo.s, geo.tile_h, geo.tile_w, eb)
+    plan_nc, plan = fused_separable_launch_plan(
+        b, h, w, c_in, c_out, geo.k, geo.s, geo.tile_h, geo.tile_w, eb)
     allowed = fused_separable_split_counts(c_in, c_out, eb)
+    tiles = fused_separable_out_tiles(c_out, geo.k, eb)
     if splits is None:
         splits = plan
     elif splits not in allowed:
         raise ValueError(f"{splits} C_in splits: the launch takes one of "
                          f"{allowed} at C_in {c_in}, C_out {c_out}, "
                          f"{eb}-byte storage")
+    if nc is None:
+        nc = plan_nc
+    elif nc not in tiles:
+        raise ValueError(f"c_out tile {nc}: the launch takes one of {tiles} "
+                         f"at C_out {c_out}, {eb}-byte storage")
     if on_cpu(x):
         if splits == 1:
             return fused_separable_plain(x, w_dw, w_pw, geo, dw_act=dw_act,
                                          act=act), None
         part = fused_separable_partials_plain(x, w_dw, w_pw, geo,
                                               splits=splits, dw_act=dw_act)
-        return fused_separable_reduce_plain(part, act=act, dtype=dtype), part
+        return (fused_separable_reduce_plain(part, act=act, dtype=dtype),
+                part if partials else None)
     check_cuda(x, w_dw, w_pw, dtypes=STORAGE)
     shape = (b, geo.out_h, geo.out_w, c_out)
     out = torch.empty(shape, device=x.device, dtype=dtype)
     part = counters = None
-    if splits > 1:
+    if splits > 1 and (partials or eb == 4):
         part = torch.empty((splits, *shape), device=x.device)
+    if splits > 1 and eb == 4:
         counters = arrival_counters(x.device,
                                     geo.n_tiles * -(-c_out // nc) * b,
                                     "fused_separable")
@@ -252,7 +283,7 @@ def fused_separable_with_partials(
         ACT_CODES[dw_act], ACT_CODES[act], int(dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream))
     LAUNCHES[launch_name("fused_separable", dtype)] += 1
-    return out, part
+    return out, part if partials else None
 
 
 def fused_separable(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
@@ -260,9 +291,9 @@ def fused_separable(x: torch.Tensor, w_dw: torch.Tensor, w_pw: torch.Tensor,
                     act: Optional[str]) -> torch.Tensor:
     """Depthwise -> dw_act -> pointwise -> act -> (B, out_h, out_w, C_out)
     at x's storage type (fp32 or bf16, the weights' too); on the card one
-    launch, split over C_in or not."""
+    launch, split over C_in or not (in bf16 with no partial tensor)."""
     return fused_separable_with_partials(x, w_dw, w_pw, geo, dw_act=dw_act,
-                                         act=act)[0]
+                                         act=act, partials=False)[0]
 
 
 def _fused_impl(x, w_dw, w_pw, geo: MBConvGeometry, *,

@@ -1,5 +1,6 @@
-// bf16 tensor-core helpers of the MBConv and Fused-MBConv kernels
-// (mbconv.cu, fusedmb.cu), which only their bf16 builds call: ldmatrix
+// bf16 tensor-core helpers of the MBConv, Fused-MBConv and fused separable
+// kernels (mbconv.cu, fusedmb.cu, separable.cu), which only their bf16
+// builds call: ldmatrix
 // loads, the m16n8k16 bf16 product with fp32 sums, and the exact
 // three-term bf16 split of an fp32 operand.
 //
@@ -36,6 +37,13 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
 __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// ... two of them (one k16 x n8 B fragment); lanes 0 .. 15 address the rows
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
 }
 

@@ -1,6 +1,7 @@
 // The split-K fold of the MBConv and separable kernels (mbconv.cu,
 // separable.cu).  Where a launch splits its reduction over the grid (retain
-// and recompute over C_mid, the fused separable kernel over C_in), every
+// and recompute over C_mid, the fp32 fused separable kernel over C_in; the
+// bf16 one sums its splits in a cluster's shared memory instead), every
 // CTA writes its fp32 partial of its output tile, counts itself in at the
 // tile's arrival counter, and the CTA that arrives last reads the tile's
 // partials back through L2 and sums them in split order,

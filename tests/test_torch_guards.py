@@ -699,27 +699,37 @@ def test_separable_split_fold_exact_on_card(shape, act):
             lambda p: tfs.fused_separable_reduce_plain(p, act=act))
 
 
-# B4 in bf16 (H, W, C_in, C_out, k, s, C_in splits): one split at odd
-# widths (C_in 27, C_out 13: the element copies and stores) and at C_in
-# 40; two splits at C_in 200 (not a multiple of 8: element copies) and at
-# 256 -> 24 (16-byte copies, k5 s2); five at C_in 300 -> 28 (C_out not a
-# multiple of 8, a multiple of 4)
+# B4 in bf16 (H, W, C_in, C_out, k, s, C_in splits: the cluster size): one
+# split at odd widths (C_in 27, C_out 13: the element copies and stores)
+# and at C_in 40; two splits at C_in 200 (not a multiple of 8: element
+# copies) and at 256 -> 24 (16-byte copies, k5 s2); three at 96 -> 40 (an
+# odd count of n8 tiles); four at 256 -> 130 (a 136-wide c_out tile, C_out
+# not a multiple of 4, k5); five at C_in 300 -> 28 (C_out not a multiple
+# of 8, a multiple of 4) and at 144 (the last split's chunk ragged, 16
+# channels); six at 192 -> 160 (one 160-wide c_out tile, s2); seven at 200
+# -> 96 (ragged C_in); eight at MobileNet-V2's last block, 960 -> 320 (two
+# c_out tiles): every cluster size the bf16 plan takes
 _SEP_BF16 = [(9, 7, 27, 13, 3, 1, 1), (13, 10, 40, 20, 3, 2, 1),
              (9, 7, 200, 18, 3, 1, 2), (11, 13, 256, 24, 5, 2, 2),
-             (7, 7, 300, 28, 3, 1, 5)]
+             (7, 7, 96, 40, 3, 1, 3), (9, 7, 256, 130, 5, 1, 4),
+             (7, 7, 300, 28, 3, 1, 5), (7, 7, 144, 64, 3, 1, 5),
+             (14, 14, 192, 160, 3, 2, 6), (7, 7, 200, 96, 3, 1, 7),
+             (7, 7, 960, 320, 3, 1, 8)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", [None, "relu", "relu6"])
 @pytest.mark.parametrize("case", _SEP_BF16)
 def test_separable_bf16_matches_plain_on_card(case, act):
-    """B4 in bf16: x, taps and w_pw bf16, the output bf16 within
-    ``_within_bf16_bar`` of the plain version's fp32 result on the same
-    bf16 values, at two tiles and the pinned C_in splits; a split launch's
-    output exactly its own fp32 partials summed in split order, act
-    applied, rounded once (``_fold_exact``: two launches and three CUDA
-    graph replays, the counters all 0 after each); an unsplit one bit for
-    bit on a second launch and on three graph replays."""
+    """B4 in bf16 (the tensor-core build, its C_in splits one cluster): x,
+    taps and w_pw bf16, the output bf16 within ``_within_bf16_bar`` of the
+    plain version's fp32 result on the same bf16 values, at two tiles and
+    the pinned C_in splits; a split launch's output exactly its ranks' fp32
+    products summed in rank order, act applied, rounded once
+    (``_fold_exact``: two launches and three CUDA graph replays, the
+    counters all 0 after each), and the same bits without the partial
+    tensor; an unsplit one bit for bit on a second launch and on three
+    graph replays."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     h, w, c_in, c_out, k, s, splits = case
@@ -748,6 +758,10 @@ def test_separable_bf16_matches_plain_on_card(case, act):
             assert part.shape[0] == splits and part.dtype == torch.float32
             _fold_exact(launch, lambda p: tfs.fused_separable_reduce_plain(
                 p, act=act, dtype=torch.bfloat16))
+            bare, none = tfs.fused_separable_with_partials(
+                x, w_dw, w_pw, geo, dw_act="relu", act=act, splits=splits,
+                partials=False)
+            assert none is None and torch.equal(bare, out)
             continue
         assert part is None and torch.equal(launch()[0], out)
         graph = torch.cuda.CUDAGraph()
@@ -765,6 +779,18 @@ def test_separable_bf16_cases_split_as_pinned():
     2-byte storage."""
     for h, w, c_in, c_out, k, s, splits in _SEP_BF16:
         assert splits in fused_separable_split_counts(c_in, c_out, 2)
+
+
+def test_separable_bf16_cases_cover_the_plans_clusters():
+    """The bf16 cases above launch every cluster size the bf16 plan picks
+    on MobileNet-V2's 17 blocks at 224, batch 8."""
+    from repro_torch.core.autotune import get_fused_schedule
+    from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
+    picked = {get_fused_schedule(8, l.h, l.w, l.c, c_out, l.k, l.s,
+                                 dtype_bytes=2).splits
+              for l, c_out in MOBILENET_V2_SEPARABLE}
+    assert picked <= {case[-1] for case in _SEP_BF16}
+    assert max(picked) > 1
 
 
 def test_fold_guard_cases_split():

@@ -35,8 +35,9 @@ from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
 from repro_torch.kernels import convdk_dw as td
 from repro_torch.kernels import convdk_fused as tf
 from repro_torch.kernels import ops
+from repro_torch.kernels.common import bf16x3_split
 from repro_torch.kernels.convdk_mbconv import MBConvGeometry
-from repro_torch.kernels.ref import separable_ref
+from repro_torch.kernels.ref import _act_ref, separable_ref
 
 TOL = 1e-4   # the JAX suite's fp32 kernel-vs-ref bar (max abs error)
 
@@ -391,7 +392,10 @@ def test_bf16_plain_rounds_once():
         *f32, geo, splits=2, dw_act="relu"))
     with pytest.raises(ValueError, match="C_in splits"):
         tf.fused_separable_with_partials(*tx, geo, dw_act="relu", act=None,
-                                         splits=3)
+                                         splits=4)
+    with pytest.raises(ValueError, match="c_out tile"):
+        tf.fused_separable_with_partials(*tx, geo, dw_act="relu", act=None,
+                                         nc=24)
 
 
 @pytest.mark.parametrize("dw_act,act", [("relu", "relu6"), (None, None)])
@@ -411,34 +415,44 @@ def test_separable_ref_bf16_matches_jax(dw_act, act):
 
 
 def test_bf16_split_counts_and_traffic_pinned():
-    """At 2-byte storage the split bar is 4 * splits * C_out < 2 * C_in
-    (fp32 partials against the staged depthwise tensor at bf16), and the
-    Hopper model prices x, the taps, w_pw and the output at 2 bytes and
-    the partials at 4: pinned on MobileNet-V2's blocks 4, 11 and 14 at
-    224 batch 8 (fp32 beside them)."""
+    """At 2-byte storage the C_in splits are a cluster's CTAs: every count
+    of whole chunks, none empty, up to 8, with no byte bar (fp32 keeps
+    4 * splits * C_out < 4 * C_in); the Hopper model prices x, the taps,
+    w_pw and the output at 2 bytes and no partial (the cluster sums in
+    distributed shared memory), so a split launch's device-memory bytes
+    are the compulsory ones: pinned with the bf16 plan (tile, c_out tile,
+    cluster size) on MobileNet-V2's blocks 4, 11, 13, 14 and 16 at 224
+    batch 8 (fp32 beside them)."""
     assert fused_separable_split_counts(192, 32, 4) == (1, 2, 3)
-    assert fused_separable_split_counts(192, 32, 2) == (1, 2)
-    assert fused_separable_split_counts(576, 96, 2) == (1, 2)
+    assert fused_separable_split_counts(192, 32, 2) == (1, 2, 3, 6)
+    assert fused_separable_split_counts(576, 96, 2) == (1, 2, 3, 4, 5, 6)
     assert fused_separable_split_counts(960, 160, 4) == (1, 2, 3, 4, 5)
-    assert fused_separable_split_counts(960, 160, 2) == (1, 2)
-    assert fused_separable_split_counts(384, 96, 2) == (1,)
-    want = {4: (2, (16, 2), 6036864, 12115968),
-            11: (2, (8, 2), 4636800, 25085952),
-            14: (2, (4, 4), 2206080, 19944960)}
-    for i, (splits, tile, dram, glob) in want.items():
+    assert fused_separable_split_counts(960, 160, 2) == \
+        (1, 2, 3, 4, 5, 6, 8)
+    assert fused_separable_split_counts(384, 96, 2) == (1, 2, 3, 4, 6)
+    assert fused_separable_split_counts(32, 16, 2) == (1,)
+    # block: (tile, c_out tile, cluster size, device-memory bytes, global)
+    want = {4: ((16, 4), 32, 3, 2825600, 5851136),
+            11: ((14, 2), 96, 6, 2228352, 10429440),
+            13: ((7, 4), 40, 6, 2126464, 11479552),
+            14: ((7, 4), 80, 8, 1202560, 7528960),
+            16: ((7, 4), 160, 8, 1635200, 12569600)}
+    for i, (tile, nc, splits, dram, glob) in want.items():
         layer, c_out = MOBILENET_V2_SEPARABLE[i]
         sch = get_fused_schedule(8, layer.h, layer.w, layer.c, c_out,
                                  layer.k, layer.s, dtype_bytes=2)
         shape = tperf.SeparableShape(8, layer.h, layer.w, layer.c, c_out,
                                      layer.k, layer.s, dtype_bytes=2)
         t = separable_hopper_traffic(shape, sch)
-        assert (sch.splits, (sch.tile_h, sch.tile_w)) == (splits, tile)
+        assert ((sch.tile_h, sch.tile_w), sch.co_tile, sch.splits) == \
+            (tile, nc, splits)
         assert (t.dram_bytes, t.global_bytes) == (dram, glob)
         launch = t.launches[0]
         out = 8 * shape.out_h * shape.out_w * c_out
-        assert launch.readback == splits * out * 4
-        assert launch.global_write == launch.readback + out * 2
-        # the same launch at fp32 storage moves more bytes
+        assert launch.readback == 0 and launch.global_write == out * 2
+        assert t.dram_bytes == 2 * (8 * layer.h * layer.w * layer.c + out
+                                    + layer.c * (layer.k ** 2 + c_out))
+        # the same block at fp32 storage moves more bytes
         f32 = tperf.SeparableShape(8, layer.h, layer.w, layer.c, c_out,
                                    layer.k, layer.s)
         assert t.dram_bytes < separable_hopper_traffic(
@@ -457,3 +471,90 @@ def test_separable_gate_holds_at_both_storage_types(dtype, capsys):
     assert f"dtype {dtype}" in out
     assert sum(line.startswith(("mbv2_dw", "effv2_k7_dw"))
                for line in out.splitlines()) == 19
+
+
+def _tensor_core_emulation(x, w_dw, w_pw, geo, dw_act, act, splits):
+    """Plain emulation of the bf16 build's arithmetic (separable.cu,
+    fused_separable_mma), fp32 out, with the rank products: the fp32
+    depthwise + dw_act on the widened bf16 inputs, split exactly into three
+    bf16 terms; per output tile its pixels in whole m16 row groups (rows
+    past the tile repeat its last pixel and are dropped); per C_in split
+    (a cluster rank, runs of whole 32-channel chunks) each k16 step's three
+    terms times the bf16 w_pw rows, each product exact in fp32, summed in
+    fp32; the ranks' products summed in rank order, then act."""
+    d = tf._depthwise_f32(x, w_dw, geo, dw_act)
+    terms = bf16x3_split(d)
+    assert torch.equal(terms[0].float() + terms[1].float()
+                       + terms[2].float(), d)
+    w = w_pw.float()
+    b, oh, ow, c_in = d.shape
+    ranks = torch.zeros((splits, b, oh, ow, w.shape[1]))
+    for r0 in range(0, oh, geo.tile_h):
+        for c0 in range(0, ow, geo.tile_w):
+            rows = [(i, j) for i in range(r0, min(oh, r0 + geo.tile_h))
+                    for j in range(c0, min(ow, c0 + geo.tile_w))]
+            pad = -len(rows) % 16
+            idx = rows + [rows[-1]] * pad
+            a = [torch.stack([t[:, i, j] for i, j in idx], 1) for t in terms]
+            for r, (lo, hi) in enumerate(tf.split_channels(c_in, splits)):
+                acc = torch.zeros((b, len(idx), w.shape[1]))
+                for k0 in range(lo, hi, 16):
+                    for t in a:
+                        acc = acc + t[..., k0:k0 + 16].float() @ w[k0:k0 + 16]
+                for n, (i, j) in enumerate(rows):
+                    ranks[r, :, i, j] = acc[:, n]
+    return _act_ref(tf.fused_separable_reduce_plain(ranks, act=None), act), \
+        ranks
+
+
+# MobileNet-V2's (C_in, C_out, stride) at small maps, with a tile and a
+# cluster size: 144 channels (a ragged last chunk) at a 16-pixel tile
+_EMULATED = [(144, 24, 1, 4, 4, 5), (144, 32, 2, 4, 4, 1),
+             (192, 64, 2, 4, 8, 6), (384, 96, 1, 7, 7, 4),
+             (576, 160, 2, 4, 4, 6), (960, 320, 1, 7, 7, 8)]
+
+
+@pytest.mark.parametrize("case", _EMULATED)
+def test_bf16_tensor_core_arithmetic_matches_plain(case):
+    """The bf16 build's arithmetic, emulated in plain PyTorch, against
+    ``fused_separable_plain``'s fp32 result on the same bf16 inputs, at
+    MobileNet-V2's widths on a small map, within the fp32 bar (1e-4 x
+    max|plain| + 1e-5): the exact three-term split of the activated
+    depthwise, the bf16 w_pw, fp32 sums, whole m16 row groups, and the
+    rank-order fold, which is the plain split-order sum of the ranks'
+    products (so the kernel's output is exactly that sum of the products it
+    stores for ``fused_separable_with_partials``)."""
+    c_in, c_out, s, th, tw, splits = case
+    assert splits in fused_separable_split_counts(c_in, c_out, 2)
+    rng = np.random.default_rng(c_in + c_out + s)
+    _, (x, w_dw, w_pw) = _bf16_pair(*_inputs(rng, h=9, w=7, c_in=c_in,
+                                             c_out=c_out, k=3, b=1))
+    geo = MBConvGeometry.make(9, 7, 3, s, "SAME", th, tw)
+    got, ranks = _tensor_core_emulation(x, w_dw, w_pw, geo, "relu6", "relu6",
+                                        splits)
+    ref = tf.fused_separable_plain(x.float(), w_dw.float(), w_pw.float(), geo,
+                                   dw_act="relu6", act="relu6")
+    assert got.shape == ref.shape
+    tol = 1e-4 * float(ref.abs().max()) + 1e-5
+    assert float((got - ref).abs().max()) <= tol
+    assert torch.equal(got.to(torch.bfloat16), tf.fused_separable_reduce_plain(
+        ranks, act="relu6", dtype=torch.bfloat16))
+
+
+def test_bf16_smem_mirror_worked_by_hand():
+    """The bf16 build's shared memory (separable.cu's mma_smem_bytes) at
+    MobileNet-V2's last block (7x7, 960 -> 320) on a 7x7 tile and a
+    160-wide c_out tile: three ring slots of the 9x9 window at 40 bf16 a
+    pixel (3240), the taps (9 x 32 = 288) and the pointwise rows (32 x
+    168: 160 is an even count of 16-byte units, so a row takes 8 more),
+    8904 bf16 a slot, 53424 bytes; two sets of three (49, 40) bf16 term
+    planes, 23520 bytes; together 76944, above the fold's fp32 (49, 164)
+    product tile (32144).  A 104-wide c_out tile (13 units, odd) takes no
+    padding: a 1-pixel tile's ring is 2 x 3 x (9 x 40 + 288 + 32 x 104) =
+    23856 bytes, its terms 2 x 2 x 3 x 40 = 480, its fold 4 x 108 = 432."""
+    assert fused_separable_window_smem_bytes(3, 9, 9, 49, 160, 2) == 76944
+    assert fused_separable_window_smem_bytes(3, 3, 3, 1, 104, 2) == \
+        23856 + 480
+    # 64 pixels, an 8-wide c_out tile (1 unit): 2 x 3 x (40 + 288 + 256)
+    # + 2 x 2 x 3 x 64 x 40 = 34224, against a fold of 4 x 64 x 12 = 3072
+    assert fused_separable_window_smem_bytes(3, 1, 1, 64, 8, 2) == 34224
