@@ -160,10 +160,13 @@ Phases, each of which must pass (exit 1 otherwise):
             the phase-2 bar, timed as in phase 2 (a split fused row also
             carries bound_split_ms, as in phase 2; the depthwise
             kernel also beside F.conv2d(groups=C)
-            on the unstaged input); the depthwise kernel in bf16 on the
-            trainer's blocks and on the 17 blocks (the fp32 rows' strips)
-            within 1 bf16 ulp of the fp32 sum rounded once, timed beside
-            bf16 F.conv2d(groups=C); the fused separable kernel in bf16
+            on the unstaged input); the depthwise kernel in bf16
+            (dw2d_bf16, at the launch shape dw2d_bf16_plan solves, printed)
+            on the trainer's blocks and on the 17 blocks (the fp32 rows'
+            strips) bit for bit the fp32 kernel's output on the widened
+            values rounded once and within 1 bf16 ulp of the fp32 sum
+            rounded once, timed beside bf16 F.conv2d(groups=C); the fused
+            separable kernel in bf16
             (fp32 sums, the pointwise on tensor cores, the C_in splits a
             cluster) on the 17 blocks at their bf16 schedules, within 1
             bf16 ulp of the plain version's fp32 result on the same bf16
@@ -175,8 +178,12 @@ Phases, each of which must pass (exit 1 otherwise):
             then the 17 blocks through
             separable_block, counts zeroed just before and read just
             after: exactly 17 fused separable launches and no reduce
-            launch; and again in bf16: exactly 17 fused_separable_bf16
-            launches.
+            launch; again in bf16: exactly 17 fused_separable_bf16
+            launches; and in bf16 on the staged route
+            (separable_block(..., fused=False)): exactly 17 dw2d_bf16
+            launches and no other, every output finite bf16 and within
+            the JAX suite's bf16 bar (rtol = atol = 2e-2) of the same route
+            on the CPU on the same bf16 values.
 14. grad        on the card, each op's input and weight gradients (fused
             separable and depthwise at a MobileNet-V2 block, MBConv retain
             and recompute with SE at a B0 block, MBConv without SE at a V3
@@ -406,6 +413,7 @@ REPLACES = {
     "fused_separable_bf16": "src/repro/kernels/convdk_fused.py:59",
     "fused_separable_reduce": "src/repro/kernels/convdk_fused.py:107",
     "dw2d": "src/repro/kernels/convdk_dw.py:32",
+    "dw2d_bf16": "src/repro/kernels/convdk_dw.py:32",
     "conv1d": "src/repro/kernels/convdk_conv1d.py:27",
 }
 # the bf16 builds of the MBConv and Fused-MBConv kernels, entries of their
@@ -423,7 +431,8 @@ SOURCES = {k: f"{CSRC}/{'fusedmb' if k.startswith('fusedmb') else 'mbconv'}.cu"
 SOURCES.update(fused_separable=f"{CSRC}/separable.cu",
                fused_separable_bf16=f"{CSRC}/separable.cu",
                fused_separable_reduce=f"{CSRC}/separable.cu",
-               dw2d=f"{CSRC}/separable.cu", conv1d=f"{CSRC}/conv1d.cu")
+               dw2d=f"{CSRC}/separable.cu", dw2d_bf16=f"{CSRC}/separable.cu",
+               conv1d=f"{CSRC}/conv1d.cu")
 
 
 def _bound(nbytes: float, flops: float, mma_flops: float = 0):
@@ -595,12 +604,19 @@ class KernelStats:
                 if kernel == "dw2d":
                     entry["paper_staged_launches"] = \
                         launches["paper_staged_dw2d"]
-                    n16, sums16 = self.sums(kernel, "mnv2_bf16", MNV2_RES)
-                    entry["bf16"] = dict(
-                        sums16, blocks=n16,
-                        shape=f"the same {n16} blocks' strips in bf16 (fp32 "
-                              f"sums), bound_ms at 2 bytes a stored "
-                              f"element; library: bf16 F.conv2d(groups=C)")
+            elif kernel == "dw2d_bf16":
+                n, sums = self.sums(kernel, "mnv2_bf16", MNV2_RES)
+                entry.update(
+                    launches=launches["mnv2_staged_bf16"][kernel], **sums,
+                    dtype="bfloat16",
+                    fp32_ms=self.sums("dw2d", "mnv2", MNV2_RES)[1]["ms"],
+                    shape=f"MobileNet-V2 {MNV2_RES}x{MNV2_RES} batch "
+                          f"{BATCH} in bf16 (fp32 sums), {n} blocks' strips "
+                          f"at the fp32 rows' tile_h, each at the launch "
+                          f"shape dw2d_bf16_plan solves; launches of those "
+                          f"blocks through separable_block(fused=False) in "
+                          f"bf16; bound_ms at 2 bytes a stored element; "
+                          f"library: bf16 F.conv2d(groups=C)")
             elif kernel == "fused_separable_bf16":
                 n, sums = self.sums(kernel, "mnv2_bf16", MNV2_RES)
                 entry.update(
@@ -704,7 +720,7 @@ PTXAS_SOURCES = ("mbconv", "mbconv_bf16", "fusedmb", "fusedmb_bf16",
 PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_recompute_kernel",
                  "mbconv_pass2_retain_kernel", "fusedmb_kernel",
                  "fused_separable_kernel", "fused_separable_mma",
-                 "dw2d_kernel")
+                 "dw2d_kernel", "dw2d_bf16_kernel")
 
 
 def ptxas_report():
@@ -2004,10 +2020,13 @@ def _separable_checks(torch, tfs, td, ops, stats, hx, net, res, i, b, h, w,
 
 def _dw2d_bf16_check(torch, td, ops, stats, hx, net, res, i, b, h, w, c,
                      c_out, k, s):
-    """The depthwise kernel in bf16 (strips, taps and output) on one block
-    at the fp32 row's strips (the fp32 schedule's tile_h at ``c_out``):
-    within 1 bf16 ulp of the plain version's fp32 sum of the same bf16
-    values, timed beside the plain version and grouped F.conv2d in bf16."""
+    """The depthwise kernel in bf16 (``dw2d_bf16``: strips, taps and
+    output) on one block at the fp32 row's strips (the fp32 schedule's
+    tile_h at ``c_out``), at the launch shape ``dw2d_bf16_plan`` solves:
+    bit for bit the fp32 kernel's output on the widened values rounded
+    once, and within 1 bf16 ulp of the plain version's fp32 sum of the same
+    bf16 values; timed beside the plain version and grouped F.conv2d in
+    bf16."""
     from repro_torch.core.autotune import get_fused_schedule
     from repro_torch.kernels.common import spatial_pads
     from repro_torch.kernels.ref import pad_nhwc
@@ -2019,13 +2038,16 @@ def _dw2d_bf16_check(torch, td, ops, stats, hx, net, res, i, b, h, w, c,
     w_dw = hx.rand(k, k, c, scale=1.0 / k).bfloat16()
     strips = ops.stage_row_strips(xp, k, s, tile_h)
     kw = dict(stride=s, out_w=ow, tile_h=tile_h)
+    plan = td.dw2d_bf16_plan(b, strips.shape[1], tile_h, ow, c, k, s)
     got = td.dw2d(strips, w_dw, **kw)
     ref = td.dw2d_plain(strips.float(), w_dw.float(), **kw)
+    exact = torch.equal(got, td.dw2d(strips.float(), w_dw.float(),
+                                     **kw).bfloat16())
     ulps = _bf16_ulps(got, ref)
-    good = got.dtype == torch.bfloat16 and ulps <= 1.0
+    good = got.dtype == torch.bfloat16 and ulps <= 1.0 and exact
     x_nchw, w_oihw = xp.permute(0, 3, 1, 2), w_dw.permute(2, 0, 1)[:, None]
     ok = stats.add(
-        "dw2d", net, res, i, net == "mnv2_bf16",
+        "dw2d_bf16", net, res, i, net == "mnv2_bf16",
         float((got.float() - ref).abs().max()),
         2.0 ** (int(torch.frexp(ref.abs().max())[1]) - 8),
         hx.times(True, lambda: td.dw2d(strips, w_dw, **kw),
@@ -2035,9 +2057,15 @@ def _dw2d_bf16_check(torch, td, ops, stats, hx, net, res, i, b, h, w, c,
         2 * (strips.numel() + k * k * c + got.numel()),
         2 * k * k * got.numel(), good=good, bf16_ulps=ulps, h=h, w=w,
         c_in=c, k=k, s=s, batch=b, dtype="bfloat16",
-        strips=tuple(strips.shape))
-    print(f"  {net} block{i:02d} dw2d bf16: worst {ulps:.3f} bf16 ulp "
-          f"(bar 1 ulp) {'ok' if good else 'FAIL'}")
+        strips=tuple(strips.shape), plan=plan._asdict(),
+        grid=td.dw2d_bf16_grid(b, strips.shape[1], tile_h, ow, c, plan),
+        exact_fp32_rounded=exact)
+    print(f"  {net} block{i:02d} dw2d_bf16: worst {ulps:.3f} bf16 ulp "
+          f"(bar 1 ulp), {'exactly' if exact else 'NOT'} the fp32 kernel "
+          f"rounded once; plan {tuple(plan)} (run, channels, rows, runs), "
+          f"grid "
+          f"{td.dw2d_bf16_grid(b, strips.shape[1], tile_h, ow, c, plan)} "
+          f"x {plan.threads} threads {'ok' if good else 'FAIL'}")
     _sync(torch)
     return ok
 
@@ -2047,9 +2075,11 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
     MobileNet-V2 blocks at MNV2_RES, batch BATCH, and on the trainer's 3
     blocks at its batch, the depthwise kernel also in bf16 on the
     trainer's blocks and B4 in bf16 on the 17 blocks; then the 17 blocks
-    through ``separable_block``, in fp32 and again in bf16, with the
-    launch counts zeroed just before and read just after each.  Returns
-    (ok, (fp32 counts, bf16 counts))."""
+    through ``separable_block``, in fp32, again in bf16, and in bf16 on the
+    staged route (``fused=False``: B6 in bf16, each block within the JAX
+    suite's bf16 bar of the same route on the CPU on the same bf16
+    values), with the launch counts zeroed just before and read just after
+    each.  Returns (ok, (fp32 counts, bf16 counts, staged bf16 counts))."""
     from repro_torch.core.autotune import get_fused_schedule
     from repro_torch.core.workloads import MOBILENET_V2_SEPARABLE
     from repro_torch.examples import train_mobilenet_cim as tr
@@ -2117,7 +2147,35 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
                       and bool(torch.isfinite(o).all()) for o in outs16))
     print(f"  the same blocks in bf16 through separable_block: launches "
           f"{counts16} (want {want16}) {'ok' if good16 else 'FAIL'}")
-    return bool(ok and good and good16), (counts, counts16)
+    # ... and on the staged route: the bf16 depthwise kernel's main path
+    with torch.inference_mode():
+        reset_launches()                        # the staged path starts here
+        outs_st = [separable_block(x, p, stride=st, fused=False)
+                   for x, p, st in inputs16]
+        _sync(torch)
+        counts_st = launches()                  # ... and ends here
+    want_st = {"dw2d_bf16": len(inputs)}
+    good_st = all(counts_st[k] == want_st.get(k, 0) for k in counts_st)
+    worst, worst_err = 0.0, 0.0
+    for i, ((x, p, st), o) in enumerate(zip(inputs16, outs_st)):
+        with torch.inference_mode():
+            cpu = separable_block(x.cpu(), {k: v.cpu() for k, v in p.items()},
+                                  stride=st, fused=False)
+        err = (o.float().cpu() - cpu.float()).abs()
+        ratio = float((err / (BF16_ATOL + BF16_RTOL
+                              * cpu.float().abs())).max())
+        fine = (o.dtype == torch.bfloat16 and o.shape == cpu.shape
+                and bool(torch.isfinite(o).all()) and ratio <= 1.0)
+        worst, worst_err = max(worst, ratio), max(worst_err, float(err.max()))
+        good_st &= fine
+        print(f"  staged bf16 block{i:02d}: max |card - cpu| "
+              f"{float(err.max()):.3e}, {ratio:.3f} of the bar (rtol "
+              f"{BF16_RTOL}, atol {BF16_ATOL}) {'ok' if fine else 'FAIL'}")
+    print(f"  the same blocks in bf16 through separable_block(fused=False): "
+          f"launches {counts_st} (want {want_st}); worst {worst_err:.3e}, "
+          f"{worst:.3f} of the bar {'ok' if good_st else 'FAIL'}")
+    return (bool(ok and good and good16 and good_st),
+            (counts, counts16, counts_st))
 
 
 def _grad_case(torch, name, fn_name, op, plain, args):
@@ -3204,7 +3262,8 @@ def main() -> int:
     phase("sep-kernels", f"sep-kernels: MobileNet-V2 batch {BATCH} at "
                          f"{MNV2_RES}, every separable block, fp32 and "
                          "bf16; the trainer's blocks")
-    phases["sep-kernels"], (mnv2_launches, mnv2_bf16_launches) = \
+    phases["sep-kernels"], (mnv2_launches, mnv2_bf16_launches,
+                            mnv2_staged_bf16_launches) = \
         sep_kernel_phase(torch, tfs, td, ops, stats)
     phase("grad", "grad: each op's gradients on the card vs its plain "
                   "version; B0's vs the CPU")
@@ -3252,6 +3311,7 @@ def main() -> int:
                    "train": train, "train_launches": train_launches,
                    "mnv2_launches": mnv2_launches,
                    "mnv2_bf16_launches": mnv2_bf16_launches,
+                   "mnv2_staged_bf16_launches": mnv2_staged_bf16_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "both_modes": both_modes,
                    "bf16": bf16, "bf16_past_one_ulp": past,
@@ -3266,6 +3326,7 @@ def main() -> int:
         {"b0": b0_launches, "v2s": v2s_launches, "v3": v3_launches,
          "train": train_launches, "mnv2": mnv2_launches,
          "mnv2_bf16": mnv2_bf16_launches,
+         "mnv2_staged_bf16": mnv2_staged_bf16_launches,
          "lm": lm_launches, "paper_staged_dw2d": paper_dw,
          "b0_bf16": bf16["b0"]["launches"],
          "v2s_bf16": bf16["v2s"]["launches"],

@@ -8,6 +8,10 @@ the ``BENCH_<host>.json`` trajectory.
         [--mesh DxM [--collective MODE]] [--network]
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --measure \\
         [--family b0,v3l,v2s] [--bench-out DIR]
+    PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --dw2d \\
+        --measure --dtype bf16 [--sweep-out FILE]
+    PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench \\
+        --dw2d-fit FILE
 
 Counterpart of the ``--fused`` / ``--family`` / ``--measure`` parts of the
 JAX package's ``benchmarks/kernel_bench.py``.  ``--fused`` prints, for
@@ -60,6 +64,15 @@ block, also at every c_out tile and at a few tiles besides the solver's,
 each point beside its modeled clocks (``--sweep-out FILE`` writes the rows
 as JSON).  Both sweeps time each point as the median of SWEEP_REPS
 interleaved rounds.
+
+``--dw2d --measure --dtype bf16`` times B6's bf16 kernel (``kernels.
+convdk_dw``) on every MobileNet-V2 block at every launch shape its plan
+chooses from (``dw2d_bf16_plans``: run, channels, rows and runs a CTA),
+each point checked bit for bit against the fp32 kernel rounded once,
+beside the plan's pick, bf16 ``F.conv2d(groups=C)`` and the fp32 kernel
+(``--sweep-out FILE``: the rows as JSON).  ``--dw2d-fit FILE`` fits the
+plan's rule to such a file on the host and prints, per block, the pick's
+measured time beside the fastest point's.
 
 ``--fused --measure`` runs each family block on the card, fused
 (``models.mbconv.apply_block``) and staged (``fused=False``) on the same
@@ -906,6 +919,160 @@ def measure_separable_splits(batch: int, device: torch.device,
     return ok, out
 
 
+def _dw2d_strips_geometry(batch: int, layer, c_out: int
+                          ) -> Tuple[int, int, int, Tuple]:
+    """(tile_h, n_th, out_w, pads) of a MobileNet-V2 block's staged strips
+    at the fp32 schedule's tile_h (``chip_smoke.py``'s depthwise rows)."""
+    from ..kernels.common import spatial_pads
+    tile_h = get_fused_schedule(batch, layer.h, layer.w, layer.c, c_out,
+                                layer.k, layer.s).tile_h
+    oh, ow, pads = spatial_pads(layer.h, layer.w, layer.k, layer.k, layer.s,
+                                "SAME")
+    tile_h = min(tile_h, oh)
+    return tile_h, -(-oh // tile_h), ow, pads
+
+
+def measure_dw2d_bf16(batch: int, device: torch.device, seed: int = 0,
+                      log=print) -> Tuple[bool, List[Dict]]:
+    """B6's bf16 kernel at every launch shape ``dw2d_bf16_plans`` gives on
+    each MobileNet-V2 block (224, ``batch``; blocks of one depthwise shape
+    timed once, their indices listed), at the strips of the fp32
+    schedule's tile_h: each point checked bit for bit against the fp32
+    kernel's output on the widened values rounded once, then timed warm
+    (the median of SWEEP_REPS interleaved rounds of WARM_ITERS graph
+    replays, with their spread), beside the plan's pick; per shape also
+    bf16 ``F.conv2d(groups=C)`` on the unstaged input and the fp32 kernel
+    on the widened strips.  Returns (every point exact, rows)."""
+    from ..kernels import convdk_dw as td
+    from ..kernels.ops import stage_row_strips
+    from ..kernels.ref import pad_nhwc
+
+    gen = torch.Generator().manual_seed(seed)
+    log(f"# B6 bf16 launch-shape sweep, MobileNet-V2 at batch {batch}, on "
+        f"{torch.cuda.get_device_name(0)}")
+    shapes: Dict[Tuple, List[int]] = {}
+    for i, (layer, c_out) in enumerate(MOBILENET_V2_SEPARABLE):
+        key = (layer.c, layer.h, layer.w, layer.k, layer.s,
+               _dw2d_strips_geometry(batch, layer, c_out)[0])
+        shapes.setdefault(key, []).append(i)
+    ok, out = True, []
+    with torch.inference_mode():
+        for (c, h, w, k, s, _), blocks in shapes.items():
+            layer, c_out = MOBILENET_V2_SEPARABLE[blocks[0]]
+            tile_h, n_th, ow, pads = _dw2d_strips_geometry(batch, layer,
+                                                           c_out)
+            xp = pad_nhwc((torch.randn(batch, h, w, c, generator=gen)
+                           .to(device, torch.bfloat16)), pads)
+            w_dw = (torch.randn(k, k, c, generator=gen) / k).to(
+                device, torch.bfloat16)
+            strips = stage_row_strips(xp, k, s, tile_h)
+            kw = dict(stride=s, out_w=ow, tile_h=tile_h)
+            s32, w32 = strips.float(), w_dw.float()
+            want = td.dw2d(s32, w32, **kw).bfloat16()
+            geo = (batch, n_th, tile_h, ow, c)
+            plans = td.dw2d_bf16_plans(*geo, k, s)
+            pick = td.dw2d_bf16_plan(*geo, k, s)
+            x_nchw = xp.permute(0, 3, 1, 2)
+            w_oihw = w_dw.permute(2, 0, 1)[:, None]
+            fns = [lambda p=p: td.dw2d(strips, w_dw, plan=p, **kw)
+                   for p in plans]
+            fns += [lambda: torch.nn.functional.conv2d(
+                        x_nchw, w_oihw, stride=s, groups=c),
+                    lambda: td.dw2d(s32, w32, **kw)]
+            exact = [torch.equal(fn(), want) for fn in fns[:len(plans)]]
+            warm = _timed_points(fns)
+            lib_ms, fp32_ms = _median(warm[-2]), _median(warm[-1])
+            rows = []
+            for p, good, times in zip(plans, exact, warm):
+                row = dict(blocks=blocks, b=batch, c=c, hw=h, k=k, s=s,
+                           n_th=n_th, tile_h=tile_h, out_w=ow,
+                           plan=list(p), threads=p.threads,
+                           grid=list(td.dw2d_bf16_grid(*geo, p)),
+                           picked=p == pick, exact=good,
+                           warm_ms=_median(times),
+                           warm_spread_ms=max(times) - min(times),
+                           library_ms=lib_ms, fp32_ms=fp32_ms)
+                ok &= good
+                rows.append(row)
+            out += rows
+            best = sorted(rows, key=lambda r: r["warm_ms"])
+            picked = next(r for r in rows if r["picked"])
+            log(f"  blocks {blocks} {h}x{w}x{c} k{k} s{s} tile_h {tile_h}: "
+                f"{len(rows)} points, {sum(r['exact'] for r in rows)} exact; "
+                f"pick {tuple(pick)} {picked['warm_ms']:.4f} ms; best "
+                + "; ".join(f"{tuple(r['plan'])} {r['warm_ms']:.4f} "
+                            f"(+-{r['warm_spread_ms'] / 2:.4f})"
+                            for r in best[:4])
+                + f"; bf16 F.conv2d {lib_ms:.4f}, fp32 kernel {fp32_ms:.4f} "
+                  f"ms (plan: run, channels, rows, runs)")
+    return ok, out
+
+
+def fit_dw2d_bf16(rows: Sequence[Dict], log=print) -> Tuple:
+    """``kernels.convdk_dw.dw2d_bf16_plan``'s rule fitted to a ``--dw2d``
+    sweep's rows (host arithmetic): its constants (the run at each stride,
+    the widest channel block, the most threads a CTA) searched for the
+    least measured sum over MobileNet-V2's blocks, each block at the
+    rule's pick; then, at the module's constants, per swept shape the
+    pick beside the fastest point, and the sums beside bf16
+    ``F.conv2d(groups=C)``'s.  Points that were not exact are left out.
+    Returns the best (run at stride 1 and 2, channels, threads)."""
+    from ..kernels import convdk_dw as td
+
+    shapes: Dict[Tuple, Dict] = {}
+    for r in rows:
+        if r["exact"]:
+            sh = shapes.setdefault(tuple(r["blocks"]), {"row": r, "ms": {}})
+            sh["ms"][td.DwPlan(*r["plan"])] = r["warm_ms"]
+
+    def picks(*rule):
+        out = {}
+        for blocks, sh in shapes.items():
+            r = sh["row"]
+            geo = (r["b"], r["n_th"], r["tile_h"], r["out_w"], r["c"],
+                   r["k"], r["s"])
+            plan = (td._dw2d_bf16_rule(*geo, *rule) if rule
+                    else td.dw2d_bf16_plan(*geo))
+            if plan not in sh["ms"]:
+                return None
+            out[blocks] = plan
+        return out
+
+    def total(chosen):
+        return sum(len(b) * 1e3 * shapes[b]["ms"][p]
+                   for b, p in chosen.items())
+
+    results = []
+    for s1, s2 in ((4, 2), (4, 4), (2, 2), (4, 1), (2, 1), (1, 1)):
+        for cpt in (32, 48, 64, 96, 128):
+            for threads in (64, 96, 128, 192, 256):
+                chosen = picks((s1, s2), cpt, threads)
+                if chosen is not None:
+                    results.append((total(chosen), (s1, s2, cpt, threads)))
+    results.sort()
+    best_us = sum(len(b) * 1e3 * min(sh["ms"].values())
+                  for b, sh in shapes.items())
+    log(f"# the plan's rule over {sum(len(sh['ms']) for sh in shapes.values())}"
+        f" swept points: the fastest point of every block sums to "
+        f"{best_us:.2f} us; the rule's constants (run at s 1, s 2, "
+        f"channels, threads) by the sum of their picks:")
+    for us, rule in results[:5]:
+        log(f"  {rule}: {us:.2f} us")
+    chosen = picks()
+    lib_us = 0.0
+    for blocks, plan in chosen.items():
+        sh = shapes[blocks]
+        fast = min(sh["ms"], key=sh["ms"].get)
+        lib_us += len(blocks) * 1e3 * sh["row"]["library_ms"]
+        log(f"  blocks {list(blocks)}: pick {tuple(plan)} "
+            f"{1e3 * sh['ms'][plan]:.2f} us, fastest {tuple(fast)} "
+            f"{1e3 * sh['ms'][fast]:.2f}, bf16 F.conv2d "
+            f"{1e3 * sh['row']['library_ms']:.2f}")
+    log(f"  at the module's constants: {total(chosen):.2f} us over the 17 "
+        f"blocks (fastest points {best_us:.2f}, bf16 F.conv2d {lib_us:.2f})")
+    return results[0][1]
+
+
 def _parse_blocks(text: str) -> List[int]:
     """``--block``: block indices as a comma list of I or I-J ranges."""
     blocks = []
@@ -1081,8 +1248,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="with --fused --measure: time B4 at every C_in "
                          "split count on MobileNet-V2 at --dtype")
     ap.add_argument("--sweep-out", default=None, metavar="FILE",
-                    help="with --separable-splits: also write the sweep's "
-                         "rows to FILE as JSON")
+                    help="with --separable-splits or --dw2d: also write the "
+                         "sweep's rows to FILE as JSON")
+    ap.add_argument("--dw2d", action="store_true",
+                    help="with --measure --dtype bf16: time B6's bf16 "
+                         "kernel at every launch shape of its plan's "
+                         "candidates on MobileNet-V2's blocks")
+    ap.add_argument("--dw2d-fit", default=None, metavar="FILE",
+                    help="fit B6 bf16's plan rule to a --dw2d sweep's "
+                         "JSON (host arithmetic) and print its picks")
     ap.add_argument("--measure", action="store_true",
                     help="with --fused: time fused and staged per block on "
                          "the card; alone: the measured per-block sweep")
@@ -1101,6 +1275,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="with --fused: the network layout DP against the "
                          "greedy per-layer plan, per family")
     args = ap.parse_args(argv)
+    if args.dw2d_fit:
+        with open(args.dw2d_fit) as f:
+            fit_dw2d_bf16(json.load(f))
+        return 0
+    if args.dw2d:
+        if args.fused or not args.measure or args.dtype != "bf16":
+            ap.error("--dw2d goes with --measure --dtype bf16 alone")
+        device = resolve_device(None)
+        ok, rows = measure_dw2d_bf16(args.batch, device)
+        if args.sweep_out:
+            with open(args.sweep_out, "w") as f:   # one point a line
+                f.write("[\n" + ",\n".join(json.dumps(r) for r in rows)
+                        + "\n]\n")
+        return 0 if ok else 1
     if not (args.fused or args.measure):
         ap.error("pass --fused (the report) or --measure (the sweep)")
     if args.bench_out and (args.fused or not args.measure):

@@ -112,7 +112,7 @@ def _lib() -> ctypes.CDLL:
     against ``core.autotune``."""
     lib = _build.load("separable")
     lib.fused_separable.argtypes = [_P] * 6 + [_I] * 18 + [_P]
-    lib.dw2d.argtypes = [_P] * 3 + [_I] * 10 + [_P]
+    lib.dw2d.argtypes = [_P] * 3 + [_I] * 14 + [_P]
     for fn in (lib.fused_separable, lib.dw2d):
         fn.restype = ctypes.c_int
     lib.separable_error_string.argtypes = [ctypes.c_int]

@@ -9,7 +9,8 @@
 //                             (:107-117) folded into the split launch (fp32
 //                             and bf16 storage respectively)
 //   dw2d_kernel            <- _dw2d_kernel (src/repro/kernels/convdk_dw.py:32),
-//                             launched by dw2d_pallas (:57)
+//   dw2d_bf16_kernel          launched by dw2d_pallas (:57): fp32 storage, and
+//                             bf16 storage
 //
 // What they compute (NHWC activations, w_dw (k, k, C) taps, w_pw (C_in, C_out)):
 //
@@ -84,12 +85,31 @@
 // results repeat bit for bit.  HMMA's fp32 additions round in another order
 // than FMAs, so the bf16 build is held to 1 bf16 ulp of the plain fp32 sum.
 //
-// Design of dw2d.  One CTA per (channel block of 32, strip, batch element);
-// each thread keeps the k*k taps of its 4 channels in registers and walks
-// the strip's output pixels, reading the strips straight from device memory
-// (one 16-byte fp32 or 8-byte bf16 load per 4 channels when C % 4 == 0,
-// else scalar loads) and writing each output once, rounded once from the
-// fp32 sum.  The k*k re-reads of each input hit L1/L2.
+// Design of dw2d in fp32 (dw2d_kernel).  One CTA per (channel block of 32,
+// strip, batch element); each thread keeps the k*k taps of its 4 channels
+// in registers and walks the strip's output pixels, reading the strips
+// straight from device memory (one 16-byte load per 4 channels when C % 4
+// == 0, else scalar loads) and writing each output once.  The k*k re-reads
+// of each input hit L1/L2.
+//
+// Design of dw2d in bf16 (dw2d_bf16_kernel).  The fp32 design at half the
+// bytes waits on latency: 8-byte loads, k*k of them per output, and on
+// MobileNet-V2's 112x112 block (C 32) 56 CTAs for 132 SMs.  Here a thread
+// owns 8 channels (one 16-byte load or store) and a run of R = 1, 2 or 4
+// consecutive output pixels of one row; per kernel row it loads the run's
+// (R - 1) * s + k input columns, all before its FMAs, widens each once
+// (exactly) and adds it into every output that reads it, so each output's
+// sum is one fmaf chain from 0 in the fp32 kernel's order (kh outer, kw
+// inner) and the bf16 output is bit for bit the fp32 kernel's output on the
+// widened values, rounded once.  CTAs are cut from the output, not from the
+// strip: a CTA covers a block of channels, a few rows of one strip and a
+// number of runs along them (the launch's plan, solved by the caller:
+// kernels.convdk_dw.dw2d_bf16_plan, fitted to a card sweep), so the
+// 112x112 block launches hundreds of CTAs.  A CTA window staged in shared
+// memory by cp.async (each input byte out of L2 once per CTA) was swept
+// beside this and lost on every MobileNet-V2 block.  Ragged channels (C % 8
+// != 0) take element loads; runs past out_w and rows past tile_h are
+// masked.
 //
 // SAME padding is a bounds mask in fused_separable (cp.async zero-fills an
 // input pixel outside the image; stride 2 puts the extra pad at the
@@ -103,7 +123,9 @@
 // microseconds of work, so CTA start-up and per-chunk latency weigh as
 // much as either: the bf16 build's clusters give the late blocks CTAs
 // without device-memory partials.  dw2d does k*k FMAs per 8 (fp32) or 4
-// (bf16) bytes moved and is bound by bytes.  The fp32 kernels use fp32 FMA
+// (bf16) bytes moved and is bound by bytes; with too few bytes in flight it
+// is bound by latency instead, which the bf16 design's 16-byte loads, runs
+// and CTA count address.  The fp32 kernels use fp32 FMA
 // on CUDA cores, no tensor cores and no TF32 (the JAX suite's 1e-4 fp32
 // bar).
 
@@ -889,8 +911,8 @@ struct StripGeom {
   int n_th, in_rows, W_pad, C, tile_h, out_w;
 };
 
-// 4 channels at p as fp32: one 16-byte (fp32) or 8-byte (bf16) load when
-// VEC (p aligned to it), else scalar loads of the first n
+// 4 fp32 channels at p: one 16-byte load when VEC (p aligned to it), else
+// scalar loads of the first n
 template <bool VEC>
 __device__ __forceinline__ float4 load4(const float* p, int n) {
   if constexpr (VEC) return __ldg(reinterpret_cast<const float4*>(p));
@@ -902,24 +924,7 @@ __device__ __forceinline__ float4 load4(const float* p, int n) {
   return v;
 }
 
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int n) {
-  if constexpr (VEC) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    return make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
-                       __high2float(hi));
-  }
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  v.x = __bfloat162float(p[0]);
-  if (n > 1) v.y = __bfloat162float(p[1]);
-  if (n > 2) v.z = __bfloat162float(p[2]);
-  if (n > 3) v.w = __bfloat162float(p[3]);
-  return v;
-}
-
-// the first n of 4 fp32 sums to p, each rounded once to the element type
+// the first n of 4 fp32 sums to p
 template <bool VEC>
 __device__ __forceinline__ void store4(float* p, const float4& v, int n) {
   if constexpr (VEC) {
@@ -932,28 +937,8 @@ __device__ __forceinline__ void store4(float* p, const float4& v, int n) {
   }
 }
 
-template <bool VEC>
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v, int n) {
-  if constexpr (VEC) {
-    __nv_bfloat162 lo, hi;
-    lo.x = __float2bfloat16_rn(v.x);
-    lo.y = __float2bfloat16_rn(v.y);
-    hi.x = __float2bfloat16_rn(v.z);
-    hi.y = __float2bfloat16_rn(v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const unsigned*>(&lo);
-    raw.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
-  } else {
-    p[0] = __float2bfloat16_rn(v.x);
-    if (n > 1) p[1] = __float2bfloat16_rn(v.y);
-    if (n > 2) p[2] = __float2bfloat16_rn(v.z);
-    if (n > 3) p[3] = __float2bfloat16_rn(v.w);
-  }
-}
-
 // grid (ceil(C / CT), n_th, B), NTHREADS threads; VEC when C % 4 == 0.  T is
-// float or __nv_bfloat16 (x, taps and output alike); the sums are fp32.
+// float (x, taps and output alike; the bf16 build is dw2d_bf16_kernel).
 template <int K, int S, bool VEC, typename T>
 __global__ void __launch_bounds__(NTHREADS)
 dw2d_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
@@ -1012,6 +997,159 @@ cudaError_t launch_dw2d_k(const void* x, const void* w, void* out, int B, int K,
     case 32: return launch_dw2d<3, 2, T>(xt, wt, ot, B, g, st);
     case 51: return launch_dw2d<5, 1, T>(xt, wt, ot, B, g, st);
     case 52: return launch_dw2d<5, 2, T>(xt, wt, ot, B, g, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// -------------------------------- dw2d in bf16 --------------------------------
+
+constexpr int DWB_THREADS = 256;        // most threads of a dw2d_bf16 CTA
+
+// the runs (output pixels of a row a thread) dw2d_bf16 takes
+constexpr bool dw_run_ok(int R) { return R == 1 || R == 2 || R == 4; }
+
+// One dw2d_bf16 launch's shape: R output pixels of one row a thread (run),
+// 8 channels a thread; a CTA covers cpt channels (a multiple of 8), rows
+// output rows of one strip and runs runs along each of them.
+struct DwPlan {
+  int run, cpt, rows, runs;
+};
+
+// 8 bf16 channels at p, packed: one 16-byte load when VEC (p 16-byte
+// aligned), else the first n (1 <= n <= 8) one at a time and zeros
+template <bool VEC>
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, int n) {
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    unsigned e[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) e[u] = u < n ? (unsigned)__ldg(q + u) : 0u;
+    return make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16,
+                      e[6] | e[7] << 16);
+  }
+}
+
+// the first n of 8 fp32 sums to p, each rounded once to bf16 (nearest
+// even): one 16-byte store when VEC
+template <bool VEC>
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8], int n) {
+  if constexpr (VEC) {
+    unsigned u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      u[i] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (u < n) p[u] = __float2bfloat16_rn(v[u]);
+  }
+}
+
+// grid (n_cb * ceil(ceil(out_w / R) / runs), n_th * n_rb, B), cpt / 8 *
+// rows * runs threads: n_cb channel blocks, n_rb row blocks a strip.  A
+// thread (its channel group fastest, then its run, then its row) computes R
+// consecutive outputs of one row for 8 channels.  Per kernel row it loads
+// the run's (R - 1) * S + K input columns, all before any FMA, widens each
+// once and adds it into every output that reads it; taken in ascending
+// column, each output's sum is one fmaf chain from 0 in the fp32 kernel's
+// order (kh outer, kw inner).  Columns past the strip are read only by
+// outputs past out_w, and load as zeros.  VEC when C % 8 == 0 and every
+// pointer is 16-byte aligned.
+template <int K, int S, int R, bool VEC>
+__global__ void __launch_bounds__(DWB_THREADS)
+dw2d_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                 __nv_bfloat16* __restrict__ out, StripGeom g, DwPlan p, int n_cb, int n_rb) {
+  constexpr int NCOL = (R - 1) * S + K;
+  const int n_cg = p.cpt / 8, rest = threadIdx.x / n_cg;
+  const int c = (blockIdx.x % n_cb) * p.cpt + (threadIdx.x % n_cg) * 8;
+  const int orow = (blockIdx.y % n_rb) * p.rows + rest / p.runs;
+  const int ow0 = ((blockIdx.x / n_cb) * p.runs + rest % p.runs) * R;
+  if (c >= g.C || orow >= g.tile_h || ow0 >= g.out_w) return;   // no barrier
+  const int n = min(8, g.C - c);
+  const size_t strip = (size_t)blockIdx.z * g.n_th + blockIdx.y / n_rb;
+  const __nv_bfloat16* xs =
+      x + ((strip * g.in_rows + orow * S) * g.W_pad + (size_t)ow0 * S) * g.C + c;
+  const int cols = min(NCOL, g.W_pad - ow0 * S);   // the run's columns in the strip
+  float acc[R][8] = {};
+#pragma unroll
+  for (int kh = 0; kh < K; ++kh) {
+    uint4 xv[NCOL];
+#pragma unroll
+    for (int j = 0; j < NCOL; ++j)
+      xv[j] = j < cols ? load8<VEC>(xs + ((size_t)kh * g.W_pad + j) * g.C, n)
+                       : make_uint4(0u, 0u, 0u, 0u);
+    float wt[K][8];
+#pragma unroll
+    for (int kw = 0; kw < K; ++kw) widen8(load8<VEC>(w + (size_t)(kh * K + kw) * g.C + c, n), wt[kw]);
+#pragma unroll
+    for (int j = 0; j < NCOL; ++j) {
+      float xf[8];
+      widen8(xv[j], xf);
+#pragma unroll
+      for (int kw = 0; kw < K; ++kw) {
+        const int d = j - kw;           // r * S for the output r it feeds
+        if (d < 0 || d % S != 0 || d / S >= R) continue;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc[d / S][u] = fmaf(xf[u], wt[kw][u], acc[d / S][u]);
+      }
+    }
+  }
+  __nv_bfloat16* os = out + ((strip * g.tile_h + orow) * g.out_w + ow0) * g.C + c;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (ow0 + r < g.out_w) store8<VEC>(os + (size_t)r * g.C, acc[r], n);
+}
+
+template <int K, int S, int R>
+cudaError_t launch_dw2d_bf16_r(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                               __nv_bfloat16* out, int B, const StripGeom& g, const DwPlan& p,
+                               bool vec, cudaStream_t stream) {
+  const int n_cb = (g.C + p.cpt - 1) / p.cpt, n_rb = (g.tile_h + p.rows - 1) / p.rows;
+  const int n_runs = (g.out_w + R - 1) / R;
+  const long long gx = (long long)n_cb * ((n_runs + p.runs - 1) / p.runs);
+  const long long gy = (long long)g.n_th * n_rb;
+  if (gx > 0x7fffffffLL || gy > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, (unsigned)gy, B);
+  const int threads = p.cpt / 8 * p.rows * p.runs;
+  if (vec)
+    dw2d_bf16_kernel<K, S, R, true><<<grid, threads, 0, stream>>>(x, w, out, g, p, n_cb, n_rb);
+  else
+    dw2d_bf16_kernel<K, S, R, false><<<grid, threads, 0, stream>>>(x, w, out, g, p, n_cb, n_rb);
+  return cudaGetLastError();
+}
+
+template <int K, int S>
+cudaError_t launch_dw2d_bf16_ks(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                __nv_bfloat16* out, int B, const StripGeom& g,
+                                const DwPlan& p, bool vec, cudaStream_t st) {
+  switch (p.run) {
+    case 1: return launch_dw2d_bf16_r<K, S, 1>(x, w, out, B, g, p, vec, st);
+    case 2: return launch_dw2d_bf16_r<K, S, 2>(x, w, out, B, g, p, vec, st);
+    case 4: return launch_dw2d_bf16_r<K, S, 4>(x, w, out, B, g, p, vec, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_dw2d_bf16(const void* x, const void* w, void* out, int B, int K, int S,
+                             const StripGeom& g, const DwPlan& p, cudaStream_t st) {
+  const auto* xt = static_cast<const __nv_bfloat16*>(x);
+  const auto* wt = static_cast<const __nv_bfloat16*>(w);
+  auto* ot = static_cast<__nv_bfloat16*>(out);
+  if (!dw_run_ok(p.run) || p.cpt <= 0 || p.cpt % 8 || p.rows <= 0 || p.runs <= 0 ||
+      p.cpt / 8 * p.rows * p.runs > DWB_THREADS)
+    return cudaErrorInvalidValue;
+  const bool vec = g.C % 8 == 0 && (reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w) |
+                                    reinterpret_cast<size_t>(out)) % 16 == 0;
+  switch (K * 10 + S) {
+    case 31: return launch_dw2d_bf16_ks<3, 1>(xt, wt, ot, B, g, p, vec, st);
+    case 32: return launch_dw2d_bf16_ks<3, 2>(xt, wt, ot, B, g, p, vec, st);
+    case 51: return launch_dw2d_bf16_ks<5, 1>(xt, wt, ot, B, g, p, vec, st);
+    case 52: return launch_dw2d_bf16_ks<5, 2>(xt, wt, ot, B, g, p, vec, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1089,9 +1227,13 @@ int fused_separable(const void* x, const void* w_dw, const void* w_pw, float* pa
                                              S, nc, dw_act, act, st));
 }
 
-// x_strips, w and out all fp32 (bf16 = 0) or all bf16 (bf16 = 1)
+// x_strips, w and out all fp32 (bf16 = 0: dw2d_kernel, the plan's four ints
+// 0) or all bf16 (bf16 = 1: dw2d_bf16_kernel at the plan (run, cpt, rows,
+// runs), which the caller solves; a plan it cannot launch returns
+// cudaErrorInvalidValue)
 int dw2d(const void* x_strips, const void* w, void* out, int B, int n_th, int in_rows,
-         int W_pad, int C, int K, int S, int tile_h, int out_w, int bf16, void* stream) {
+         int W_pad, int C, int K, int S, int tile_h, int out_w, int bf16, int run, int cpt,
+         int rows, int runs, void* stream) {
   StripGeom g;
   g.n_th = n_th; g.in_rows = in_rows; g.W_pad = W_pad; g.C = C;
   g.tile_h = tile_h; g.out_w = out_w;
@@ -1099,8 +1241,13 @@ int dw2d(const void* x_strips, const void* w, void* out, int B, int n_th, int in
       out_w <= 0 || in_rows != (tile_h - 1) * S + K || W_pad < (out_w - 1) * S + K)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(bf16 ? launch_dw2d_k<__nv_bfloat16>(x_strips, w, out, B, K, S, g, st)
-                    : launch_dw2d_k<float>(x_strips, w, out, B, K, S, g, st));
+  if (!bf16) {
+    if (run || cpt || rows || runs) return (int)cudaErrorInvalidValue;
+    return (int)launch_dw2d_k<float>(x_strips, w, out, B, K, S, g, st);
+  }
+  DwPlan p;
+  p.run = run; p.cpt = cpt; p.rows = rows; p.runs = runs;
+  return (int)launch_dw2d_bf16(x_strips, w, out, B, K, S, g, p, st);
 }
 
 }  // extern "C"

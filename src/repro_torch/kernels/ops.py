@@ -126,10 +126,14 @@ def convdk_separable_staged(
     """The STAGED two-kernel separable pipeline (the comparison baseline):
     strips -> depthwise kernel -> device memory -> dw_act -> pointwise
     matmul -> act, the double trip ``convdk_fused_separable`` fuses away.
+    As the JAX route rounds: the depthwise output widened to fp32, dw_act,
+    the matmul against fp32 ``w_pw`` and act in fp32, one rounding to
+    ``x.dtype`` (every cast a no-op in fp32).
     """
     y = convdk_depthwise2d(x, w_dw, stride=stride, padding=padding,
                            tile_h=tile_h)
-    return _act_ref(torch.matmul(_act_ref(y, dw_act), w_pw), act)
+    z = torch.matmul(_act_ref(y.float(), dw_act), w_pw.float())
+    return _act_ref(z, act).to(x.dtype)
 
 
 def _conv1d_impl(x: torch.Tensor, w: torch.Tensor,

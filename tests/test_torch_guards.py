@@ -247,7 +247,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert "mbconv_pool_reduce" not in launches()   # folded into pass 1
     assert set(launches()) == set(tk.KERNELS) | {
         "fusedmb", "fusedmb_bf16", "fused_separable", "fused_separable_bf16",
-        "dw2d", "conv1d"}
+        "dw2d", "dw2d_bf16", "conv1d"}
     assert all(n == 0 for n in launches().values())
 
 
@@ -822,15 +822,31 @@ def _within_bf16_ulp(got, ref32):
     return bool(((got.float() - ref32).abs() <= _bf16_ulp(ref32)).all())
 
 
+def _dw2d_bf16_test_plans(c):
+    """Launch shapes the bf16 depthwise test pins beside the solved one:
+    the shortest and the longest run the C entry takes, with one channel
+    group and four runs a CTA, and with all of C (up to 64 channels) over
+    two rows."""
+    runs = td.DW_BF16_RUNS
+    return [td.DwPlan(r, cpt, rows, n) for r in (runs[0], runs[-1])
+            for cpt, rows, n in ((8, 1, 4), (min(64, 8 * -(-c // 8)), 2, 1))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,c", [(13, 10, 40), (9, 1, 3), (16, 16, 16),
-                                   (23, 23, 70)])
+                                   (23, 23, 70), (4, 4, 96), (4, 4, 160),
+                                   (2, 2, 576), (1, 1, 960)])
 @pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 2)])
 def test_dw2d_bf16_matches_fp32_sum_on_card(k, s, h, w, c, monkeypatch):
-    """B6 in bf16: strips and taps in bf16, the output in bf16 within 1
-    bf16 ulp of the plain version's fp32 sum (the fp32 conv of the same
-    bf16 values) rounded once; ragged channels (3, 70) take the scalar
-    path.  Through the op, ``convdk_depthwise2d`` returns bf16."""
+    """B6 in bf16 (``dw2d_bf16_kernel``): strips and taps in bf16, the
+    output in bf16 bit for bit the fp32 kernel's output on the widened
+    values rounded once, and within 1 bf16 ulp of the plain version's fp32
+    sum (the fp32 conv of the same bf16 values), at the solved plan and at
+    the shortest and the longest run the C entry takes; ragged channels
+    (3, 70) take the element path; maps of 1x1 to 4x4 outputs at wide C
+    (96 to 960) have a plan; three CUDA graph replays repeat bit for
+    bit; a plan the C entry cannot launch raises.  Through the op,
+    ``convdk_depthwise2d`` returns bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -842,10 +858,29 @@ def test_dw2d_bf16_matches_fp32_sum_on_card(k, s, h, w, c, monkeypatch):
         strips = ops.stage_row_strips(pad_nhwc(x, geo.pads), k, s,
                                       geo.tile_h)
         kw = dict(stride=s, out_w=geo.out_w, tile_h=geo.tile_h)
-        got = td.dw2d(strips, w_dw, **kw)
-        assert got.dtype == torch.bfloat16
-        assert _within_bf16_ulp(got, td.dw2d_plain(strips.float(),
-                                                   w_dw.float(), **kw))
+        want = td.dw2d(strips.float(), w_dw.float(), **kw).bfloat16()
+        plain = td.dw2d_plain(strips.float(), w_dw.float(), **kw)
+        for plan in [None] + _dw2d_bf16_test_plans(c):
+            got = td.dw2d(strips, w_dw, plan=plan, **kw)
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(got, want), plan
+            assert _within_bf16_ulp(got, plain)
+    fn = lambda: td.dw2d(strips, w_dw, **kw)  # noqa: E731
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    with pytest.raises(RuntimeError, match="did not launch"):
+        td.dw2d(strips, w_dw, plan=td.DwPlan(3, 8, 1, 1), **kw)
     out = ops.convdk_depthwise2d(x, w_dw, stride=s, tile_h=4)
     assert out.dtype == torch.bfloat16
     assert _within_bf16_ulp(out, depthwise2d_ref(x.float(), w_dw.float(), s))

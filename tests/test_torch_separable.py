@@ -4,6 +4,8 @@ interpret-mode Pallas kernel, the staged pipeline (strips, the depthwise
 op, the staged block), the copied separable traffic model and MobileNet-V2
 table, and the Hopper schedule solver."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -558,3 +560,217 @@ def test_bf16_smem_mirror_worked_by_hand():
     # 64 pixels, an 8-wide c_out tile (1 unit): 2 x 3 x (40 + 288 + 256)
     # + 2 x 2 x 3 x 64 x 40 = 34224, against a fold of 4 x 64 x 12 = 3072
     assert fused_separable_window_smem_bytes(3, 1, 1, 64, 8, 2) == 34224
+
+
+# the staged route's activation pairs held to the JAX route at bf16
+_STAGED_BF16_ACTS = [("relu", "relu"), ("relu", "silu"), (None, "hard_swish"),
+                     ("relu6", "relu6")]
+
+
+def _bf16_ulp(ref32: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of the fp32 ``ref32`` (2^-133 at 0)."""
+    exp = torch.frexp(ref32)[1]
+    return torch.where(ref32 == 0, torch.full_like(ref32, 2.0 ** -133),
+                       torch.ldexp(torch.ones_like(ref32), exp - 8))
+
+
+@pytest.mark.parametrize("dw_act,act", _STAGED_BF16_ACTS)
+def test_separable_staged_bf16_matches_jax_interpret(dw_act, act):
+    """The staged route at bf16 rounds as the JAX route does (the
+    depthwise output widened to fp32, dw_act, the matmul against fp32
+    w_pw and act in fp32, one rounding to bf16): within 1 bf16 ulp of the
+    JAX output in interpret mode everywhere, on the same bf16 values (the
+    ulp leaves room for the order of fp32 sums only)."""
+    rng = np.random.default_rng(27)
+    x, w_dw, w_pw = _inputs(rng, h=10, w=7, c_in=40, c_out=24, k=3)
+    (jx, jdw, jpw), (tx, tdw, tpw) = _bf16_pair(x, w_dw, w_pw)
+    ref = jax_staged(jx, jdw, jpw, stride=1, tile_h=4, dw_act=dw_act,
+                     act=act, interpret=True)
+    port = ops.convdk_separable_staged(tx, tdw, tpw, stride=1, tile_h=4,
+                                       dw_act=dw_act, act=act)
+    assert port.dtype == torch.bfloat16 and port.shape == ref.shape
+    ref32 = torch.from_numpy(np.asarray(ref.astype(jnp.float32)))
+    assert bool(((port.float() - ref32).abs() <= _bf16_ulp(ref32)).all())
+
+
+@pytest.mark.parametrize("dw_act,act", [("relu", "relu6"), (None, "silu")])
+def test_separable_staged_fp32_is_unchanged(dw_act, act):
+    """At fp32 every cast of the staged route is a no-op: its output is
+    bit for bit act(matmul(dw_act(depthwise), w_pw)) on fp32 operands."""
+    rng = np.random.default_rng(28)
+    x, w_dw, w_pw = _t(*_inputs(rng, h=9, w=11, c_in=12, c_out=10, k=3))
+    port = ops.convdk_separable_staged(x, w_dw, w_pw, stride=2, tile_h=3,
+                                       dw_act=dw_act, act=act)
+    y = ops.convdk_depthwise2d(x, w_dw, stride=2, tile_h=3)
+    assert port.dtype == torch.float32
+    assert torch.equal(port, _act_ref(torch.matmul(_act_ref(y, dw_act),
+                                                   w_pw), act))
+
+
+def _dw2d_geometry(b, h, w, c, k, s, tile_h):
+    """(b, n_th, tile_h, out_w, c) of a block's staged strips at tile_h."""
+    out_h, out_w = -(-h // s), -(-w // s)
+    tile_h = min(tile_h, out_h)
+    return b, -(-out_h // tile_h), tile_h, out_w, c
+
+
+def _dw2d_cases():
+    """(id, geometry, k, s): MobileNet-V2's 17 blocks at 224 (strips at the
+    fp32 schedule's tile_h, the kernels line's rows, and the bf16
+    schedule's, the staged route's), the trainer's 3 blocks, ragged
+    ones (C 3 and 70, out_w not a multiple of any run, k 5 s 2), and
+    small maps at wide C (outputs 1x1, 2x2 and 4x4 at C 96, 160, 576 and
+    960, stride 1 and 2: MobileNet-V2's late blocks on small inputs)."""
+    from repro_torch.examples import train_mobilenet_cim as tr
+
+    cases = []
+    for i, (l, co) in enumerate(MOBILENET_V2_SEPARABLE):
+        for eb in (4, 2):
+            th = get_fused_schedule(2, l.h, l.w, l.c, co, l.k, l.s,
+                                    dtype_bytes=eb).tile_h
+            cases.append((f"mnv2-{i}-{eb}", _dw2d_geometry(
+                2, l.h, l.w, l.c, l.k, l.s, th), l.k, l.s))
+    side, c = tr.SIDE // 2, tr.model_def()["stem"].shape[-1]
+    for i in range(3):
+        h, ci = side >> i, c << i
+        th = get_fused_schedule(tr.BATCH, h, h, ci, 2 * ci, 3, 2).tile_h
+        cases.append((f"trainer-{i}", _dw2d_geometry(tr.BATCH, h, h, ci, 3,
+                                                     2, th), 3, 2))
+    for b, h, w, c, k, s, th in ((2, 9, 11, 3, 3, 1, 4),
+                                 (3, 23, 23, 70, 3, 2, 5),
+                                 (2, 13, 10, 40, 5, 2, 3),
+                                 (1, 17, 13, 70, 5, 1, 8)):
+        cases.append((f"ragged-{c}-{h}x{w}-k{k}s{s}",
+                      _dw2d_geometry(b, h, w, c, k, s, th), k, s))
+    for out in (1, 2, 4):
+        for c in (96, 160, 576, 960):
+            for s in (1, 2):
+                cases.append((f"small-{c}-{out}x{out}-s{s}", _dw2d_geometry(
+                    2, out * s, out * s, c, 3, s, 4), 3, s))
+    return cases
+
+
+_DW2D_CASES = _dw2d_cases()
+
+
+def _dw2d_bf16_coverage(b: int, n_th: int, tile_h: int, out_w: int, c: int,
+                        plan: td.DwPlan) -> np.ndarray:
+    """How many threads of the bf16 depthwise kernel write each output
+    element (image, strip, row, column, channel), by the kernel's own index
+    arithmetic and masks (``separable.cu`` ``dw2d_bf16_kernel``): a plan
+    covers the output when every count is 1."""
+    gx, gy, gz = td.dw2d_bf16_grid(b, n_th, tile_h, out_w, c, plan)
+    n_cb = -(-c // plan.cpt)
+    n_rb = -(-tile_h // plan.rows)
+    n_cg = plan.cpt // 8
+    t = np.arange(plan.threads)
+    rest = t // n_cg
+    bx, by = np.arange(gx), np.arange(gy)
+    # (bx, thread) -> first channel, first column; (by, thread) -> row
+    c0 = (bx % n_cb)[:, None] * plan.cpt + (t % n_cg)[None, :] * 8
+    ow0 = ((bx // n_cb)[:, None] * plan.runs
+           + (rest % plan.runs)[None, :]) * plan.run
+    row = (by % n_rb)[:, None] * plan.rows + (rest // plan.runs)[None, :]
+    strip = by // n_rb
+    live_x = (c0 < c) & (ow0 < out_w)
+    counts = np.zeros(b * n_th * tile_h * out_w * c, np.int64)
+    ch = c0[:, :, None, None] + np.arange(8)[None, None, None, :]
+    col = ow0[:, :, None, None] + np.arange(plan.run)[None, None, :, None]
+    for z in range(gz):
+        for iy in range(gy):
+            ok = ((live_x & (row[iy] < tile_h)[None, :])[:, :, None, None]
+                  & (ch < c) & (col < out_w))
+            rows = np.broadcast_to(row[iy][None, :, None, None], ok.shape)
+            flat = (((z * n_th + strip[iy]) * tile_h + rows) * out_w
+                    + col) * c + ch
+            counts += np.bincount(flat[ok], minlength=counts.size)
+    return counts.reshape(b, n_th, tile_h, out_w, c)
+
+
+@pytest.mark.parametrize("name,geo,k,s", _DW2D_CASES,
+                         ids=[c[0] for c in _DW2D_CASES])
+def test_dw2d_bf16_grid_covers_output_once(name, geo, k, s):
+    """The bf16 depthwise kernel's grid decomposition, mirrored in Python
+    by its own index arithmetic, writes each (image, strip, row, column,
+    channel) of the output exactly once: at the plan's pick and at the
+    first, middle and last of its candidates."""
+    plans = td.dw2d_bf16_plans(*geo, k, s)
+    pick = td.dw2d_bf16_plan(*geo, k, s)
+    assert pick in plans
+    assert all(td.dw2d_bf16_launchable(p) for p in plans)
+    for plan in {pick, plans[0], plans[len(plans) // 2], plans[-1]}:
+        counts = _dw2d_bf16_coverage(*geo, plan)
+        assert counts.shape == (geo[0], geo[1], geo[2], geo[3], geo[4])
+        assert (counts == 1).all(), (name, plan)
+
+
+@pytest.mark.parametrize("k,s", [(3, 1), (3, 2), (5, 1), (5, 2)])
+def test_dw2d_bf16_plan_solves_every_small_shape(k, s):
+    """The plan has a launchable pick among its candidates at every
+    output of 1 to 9 rows and columns, every tile_h up to 8 and C from 3
+    to 960 (a CTA short of 32 threads only where no candidate at its run
+    and channel block reaches 32)."""
+    for c in (3, 8, 16, 40, 70, 96, 160, 576, 960):
+        for out_h in range(1, 10):
+            for out_w in range(1, 10):
+                for th in {1, 2, 4, 8, out_h}:
+                    geo = _dw2d_geometry(1, out_h * s, out_w * s, c, k, s,
+                                         th)
+                    plans = td.dw2d_bf16_plans(*geo, k, s)
+                    pick = td.dw2d_bf16_plan(*geo, k, s)
+                    assert pick in plans and td.dw2d_bf16_launchable(pick)
+                    most = max(p.threads for p in plans
+                               if (p.run, p.cpt) == (pick.run, pick.cpt))
+                    assert pick.threads >= min(32, most), (geo, pick)
+
+
+def test_dw2d_bf16_launchable_mirrors_the_c_entry():
+    """What the C entry refuses: a run it does not take (3, 7, 8),
+    channels not in whole 8-channel groups, more than 256 threads."""
+    ok = td.DwPlan(4, 32, 4, 2)
+    assert td.dw2d_bf16_launchable(ok)
+    for run in (3, 7, 8):
+        assert not td.dw2d_bf16_launchable(ok._replace(run=run))
+    assert not td.dw2d_bf16_launchable(ok._replace(cpt=12))
+    assert not td.dw2d_bf16_launchable(ok._replace(rows=64))
+    assert td.dw2d_bf16_launchable(td.DwPlan(1, 256, 8, 1))
+
+
+# the bf16 depthwise plan on MobileNet-V2's blocks at 224 batch 8, the
+# fp32 rows' strips: block -> (run, channels, rows, runs a CTA), threads
+_DW2D_PLANS = {0: ((4, 32, 16, 2), 128), 2: ((4, 48, 8, 2), 96),
+               4: ((4, 64, 2, 7), 112), 11: ((4, 64, 8, 2), 128),
+               16: ((4, 64, 4, 2), 64)}
+
+
+@pytest.mark.parametrize("block", sorted(_DW2D_PLANS))
+def test_dw2d_bf16_plan_pinned(block):
+    """The plan's picks on blocks 0, 2, 4, 11 and 16: the run by stride,
+    the widest even channel block within 64, the fewest CTAs of at most
+    128 threads (ties: the most rows)."""
+    l, co = MOBILENET_V2_SEPARABLE[block]
+    th = get_fused_schedule(8, l.h, l.w, l.c, co, l.k, l.s).tile_h
+    plan = td.dw2d_bf16_plan(*_dw2d_geometry(8, l.h, l.w, l.c, l.k, l.s,
+                                             th), l.k, l.s)
+    assert (tuple(plan), plan.threads) == _DW2D_PLANS[block]
+
+
+def test_dw2d_bf16_plan_rule_is_the_sweeps_best():
+    """The plan's constants are the best of the fit's search on the card's
+    committed sweep (``results/dw2d_bf16/sweep_h100.json``), and its picks
+    sum to within 3 % of the sweep's fastest points."""
+    import json
+    import pathlib
+
+    from repro_torch.benchmarks import kernel_bench
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "results" / \
+        "dw2d_bf16" / "sweep_h100.json"
+    lines = []
+    rule = kernel_bench.fit_dw2d_bf16(json.loads(path.read_text()),
+                                      log=lines.append)
+    assert rule == (*td.DW_BF16_PLAN_RUN, td.DW_BF16_PLAN_CPT,
+                    td.DW_BF16_PLAN_THREADS)
+    picked, fastest = [float(v) for v in re.findall(
+        r"constants: ([\d.]+) us .*fastest points ([\d.]+)", lines[-1])[0]]
+    assert picked <= 1.03 * fastest
