@@ -241,7 +241,8 @@ Phases, each of which must pass (exit 1 otherwise):
             two ranks spawned on the one card over gloo (the kernels built
             above, before the spawn) run full-width B0 224 b8,
             MobileNet-V3-Large 224 b8, V2-S 384 b8 and the 17 MobileNet-V2
-            separable blocks at 224 b8 (through the separable wrapper), each
+            separable blocks at 224 b8 (through separable_block's mesh
+            route, the sharded separable wrapper under it), each
             gathered to its global result and held to the single-device
             fused result within 1e-4 x max|ref|: every block of each
             network on the single-device activation it takes (its plan's
@@ -262,7 +263,21 @@ Phases, each of which must pass (exit 1 otherwise):
             block by block on its plan at 2-byte words and its logits, and
             the 17 separable blocks in bf16, each held to the single card's
             bf16 result within 2e-2 x max|ref|, the counted model-axis
-            words equal to the plan's (the bf16 cases' seconds printed);
+            words equal to the plan's (the bf16 cases' seconds printed).
+            Then the backward on the same two ranks: full-width B0 224 b8
+            forward and backward through the mesh, fp32 and again with
+            dtype bfloat16, the trainer's cross-entropy at labels from a
+            seeded generator, every parameter's gradient summed over the
+            batch axes (launch.mesh.sum_batch_grads) and held to the single
+            card's loss.backward() at the same weights within 1e-4 (bf16:
+            2e-2) x |grad| + the same x max|grad| over the tree, each leaf's
+            error at its own scale reported beside it, with each rank's
+            forward + backward ms (a parity run's time) and the card's name
+            and power limit; at (1, 2) a bf16 MBConv wrapper case forced
+            to the psum_scatter exit (B0 block 1's shape), held to the
+            unsharded op within 2e-2 x max|ref|, passing where gloo ran
+            its bf16 reduce-scatter of CUDA tensors natively or through
+            the host with Mesh.host_calls counting it (which one printed);
             and tears torch.distributed down.
 
 The line before the last is {"kernels": [...]} (the SE pool reduce listed
@@ -2124,7 +2139,7 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
           f"launch (B4' folded in)")
     with torch.inference_mode():
         reset_launches()                        # the path starts here
-        outs = [separable_block(x, p, stride=st) for x, p, st in inputs]
+        outs = [separable_block(x, p, stride=st)[0] for x, p, st in inputs]
         _sync(torch)
         counts = launches()                     # ... and ends here
     want = {"fused_separable": len(inputs)}
@@ -2138,7 +2153,8 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
                 for x, p, st in inputs]
     with torch.inference_mode():
         reset_launches()                        # the bf16 path starts here
-        outs16 = [separable_block(x, p, stride=st) for x, p, st in inputs16]
+        outs16 = [separable_block(x, p, stride=st)[0]
+                  for x, p, st in inputs16]
         _sync(torch)
         counts16 = launches()                   # ... and ends here
     want16 = {"fused_separable_bf16": len(inputs)}
@@ -2150,7 +2166,7 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
     # ... and on the staged route: the bf16 depthwise kernel's main path
     with torch.inference_mode():
         reset_launches()                        # the staged path starts here
-        outs_st = [separable_block(x, p, stride=st, fused=False)
+        outs_st = [separable_block(x, p, stride=st, fused=False)[0]
                    for x, p, st in inputs16]
         _sync(torch)
         counts_st = launches()                  # ... and ends here
@@ -2160,7 +2176,7 @@ def sep_kernel_phase(torch, tfs, td, ops, stats):
     for i, ((x, p, st), o) in enumerate(zip(inputs16, outs_st)):
         with torch.inference_mode():
             cpu = separable_block(x.cpu(), {k: v.cpu() for k, v in p.items()},
-                                  stride=st, fused=False)
+                                  stride=st, fused=False)[0]
         err = (o.float().cpu() - cpu.float()).abs()
         ratio = float((err / (BF16_ATOL + BF16_RTOL
                               * cpu.float().abs())).max())
@@ -2806,9 +2822,9 @@ def _mesh_rank(rank, shape, port, out_dir):
     import torch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.core.autotune import get_fused_schedule
     from repro_torch.kernels import convdk_sharded as S
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import separable_block
     from repro_torch.models.mbconv import network_plan
 
     mesh = make_mesh(shape, device=DEVICE, backend="gloo",
@@ -2844,24 +2860,26 @@ def _mesh_rank(rank, shape, port, out_dir):
                              for p in plan.blocks])
                 del params, images
             for x, w_dw, w_pw, layer, c_out in _mnv2_blocks(torch):
-                sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c,
-                                         c_out, layer.k, layer.s,
-                                         mesh_shape=S.conv_mesh_shape(mesh))
                 mesh.reset_counts()
-                out = S.convdk_fused_separable_sharded(
-                    S.shard_to_layout(x, mesh), w_dw, w_pw, mesh=mesh,
-                    stride=layer.s, tile_h=sch.tile_h, tile_w=sch.tile_w,
-                    dw_act="relu6", act=None)
+                out, layout = separable_block(
+                    S.shard_to_layout(x, mesh), {"dw": w_dw, "pw": w_pw},
+                    stride=layer.s, dw_act="relu6", act=None, mesh=mesh)
                 words = dp * mesh.model_wire_words()
                 res["sep"].append(dict(out=S.gather_global(
-                    out, mesh, "model_sharded", c_out).cpu(),
-                    wire_words=words))
+                    out, mesh, layout, c_out).cpu(), wire_words=words))
             t0 = time.perf_counter()
             res["bf16"] = _mesh_rank_bf16(torch, S, mesh)
             res["bf16_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["grad"] = {dt: _b0_step(torch, dt, mesh)
+                       for dt in ("float32", "bfloat16")}
+        res["forced_scatter"] = _mesh_forced_scatter(torch, S, mesh)
+        res["grad_s"] = time.perf_counter() - t0
         res["transports"] = dict(mesh.transports)
         res["host_calls"] = dict(mesh.host_calls)
         res["rank_ms"] = {n: r["ms"] for n, r in res["nets"].items()}
+        res["rank_ms"].update({f"grad {dt}": r[2]
+                               for dt, r in res["grad"].items()})
         tag = "x".join(map(str, shape))
         torch.save(res["rank_ms"], os.path.join(out_dir,
                                                 f"mesh_{tag}_{rank}_ms.pt"))
@@ -2876,7 +2894,7 @@ def _mesh_rank_bf16(torch, S, mesh):
     block by block on the plan at 2-byte words and its whole forward, and
     the 17 MobileNet-V2 separable blocks in bf16, each gathered."""
     import dataclasses
-    from repro_torch.core.autotune import get_fused_schedule
+    from repro_torch.models.common import separable_block
     from repro_torch.models.mbconv import network_plan
 
     dp = S.conv_mesh_shape(mesh)[0]
@@ -2899,19 +2917,166 @@ def _mesh_rank_bf16(torch, S, mesh):
     del params, images
     for x, w_dw, w_pw, layer, c_out in _mnv2_blocks(torch):
         x, w_dw, w_pw = x.bfloat16(), w_dw.bfloat16(), w_pw.bfloat16()
-        sch = get_fused_schedule(BATCH, layer.h, layer.w, layer.c, c_out,
-                                 layer.k, layer.s, dtype_bytes=2,
-                                 mesh_shape=S.conv_mesh_shape(mesh))
         mesh.reset_counts()
-        y = S.convdk_fused_separable_sharded(
-            S.shard_to_layout(x, mesh), w_dw, w_pw, mesh=mesh,
-            stride=layer.s, tile_h=sch.tile_h, tile_w=sch.tile_w,
-            dw_act="relu6", act=None)
+        y, layout = separable_block(
+            S.shard_to_layout(x, mesh), {"dw": w_dw, "pw": w_pw},
+            stride=layer.s, dw_act="relu6", act=None, mesh=mesh)
         words = dp * mesh.model_wire_words()
         out["sep"].append(dict(
-            out=S.gather_global(y, mesh, "model_sharded", c_out).cpu(),
+            out=S.gather_global(y, mesh, layout, c_out).cpu(),
             wire_words=words))
     return out
+
+
+MESH_GRAD_SEED = 12                        # the mesh backward's labels
+
+
+def _b0_step(torch, dtype, mesh=None):
+    """Full-width B0 at RES, batch BATCH, in ``dtype``, from the mesh
+    phase's seeded weights and images: the trainer's cross-entropy at
+    seeded labels, forward and backward, on ``mesh`` (its gradients summed
+    over the batch axes) or on the single card (``loss.backward()``).
+    Returns (loss, {leaf: gradient on the host}, ms of the second of two
+    steps, forward and backward)."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.launch.mesh import sum_batch_grads
+
+    _, cfg, def_fn, apply, side, _ = _mesh_nets()[0]
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    params, images = _mesh_inputs(torch, def_fn, cfg, side, 10)
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=torch
+                           .Generator().manual_seed(MESH_GRAD_SEED)
+                           ).to(DEVICE)
+    names = sorted(_flat_tree(params))
+    for _ in range(2):
+        tree = _fresh_leaves(params)
+        flat = _flat_tree(tree)
+        _sync(torch)
+        t0 = time.perf_counter()
+        logits = apply(tree, images, cfg, mesh=mesh)
+        loss = F.cross_entropy(logits.float(), labels)
+        if mesh is None:
+            loss.backward()
+            grads = [flat[n].grad for n in names]
+        else:
+            grads = sum_batch_grads(mesh, torch.autograd.grad(
+                loss, [flat[n] for n in names]))
+        _sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+    return (float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)},
+            ms)
+
+
+def _mesh_forced_scatter(torch, S, mesh):
+    """B0 block 1's shape at RES, batch BATCH, in bf16 (the SE FCs fp32)
+    through the MBConv wrapper forced to the psum_scatter exit, which no
+    bf16 plan at (1, 2) picks, against the unsharded op on the card: (the
+    worst max|err| over 2e-2 x max|ref|, gloo's transport of the bf16
+    reduce-scatter of CUDA tensors, the host calls this case made); None
+    without a model axis (no scatter to make)."""
+    if S.conv_mesh_shape(mesh)[1] == 1:
+        return None
+    from repro_torch.core.autotune import get_mbconv_schedule
+    from repro_torch.kernels.convdk_mbconv import convdk_mbconv_fused
+    from repro_torch.models.mbconv import (
+        EffNetConfig, block_chain_rows, effnet_block_specs)
+
+    i = 1
+    specs = effnet_block_specs(EffNetConfig())
+    sp = specs[i]
+    h, w, c_in, c_mid, c_out, k, s = block_chain_rows(
+        specs, -(-RES // 2), -(-RES // 2))[i][:7]
+    hx = _Harness(torch, 5000)
+    bf = torch.bfloat16
+    x = hx.rand(BATCH, h, w, c_in).to(bf)
+    w_exp = hx.rand(c_in, c_mid, scale=c_in ** -0.5).to(bf)
+    w_dw = hx.rand(k, k, c_mid, scale=1 / k).to(bf)
+    se = (hx.rand(c_mid, sp.c_se, scale=c_mid ** -0.5),
+          hx.rand(sp.c_se, scale=0.1),
+          hx.rand(sp.c_se, c_mid, scale=sp.c_se ** -0.5),
+          hx.rand(c_mid, scale=0.1))
+    w_proj = hx.rand(c_mid, c_out, scale=c_mid ** -0.5).to(bf)
+    acts = dict(exp_act=sp.act, dw_act=sp.act, se_act=sp.se_act,
+                gate_act=sp.gate_act)
+    key = "reduce_scatter.bfloat16"
+    before = mesh.host_calls.get(key, 0)
+    with torch.inference_mode():
+        sch = get_mbconv_schedule(
+            BATCH, h, w, c_in, c_mid, c_out, k, s, se_ratio=sp.se_ratio,
+            dtype_bytes=2, mesh_shape=S.conv_mesh_shape(mesh),
+            collective="psum_scatter")
+        y = S.convdk_mbconv_fused_sharded(
+            S.shard_to_layout(x, mesh), w_exp, w_dw, *se, w_proj, mesh=mesh,
+            stride=s, tile_h=sch.tile_h, tile_w=sch.tile_w, mode=sch.mode,
+            collective="psum_scatter", retain_splits=sch.retain_splits,
+            **acts)
+        got = S.gather_global(y, mesh, "model_sharded", c_out)
+        one = get_mbconv_schedule(BATCH, h, w, c_in, c_mid, c_out, k, s,
+                                  se_ratio=sp.se_ratio, dtype_bytes=2)
+        ref = convdk_mbconv_fused(
+            x, w_exp, w_dw, *se, w_proj, stride=s, tile_h=one.tile_h,
+            tile_w=one.tile_w, mode=one.mode,
+            retain_splits=one.retain_splits, **acts)
+    err = float((got.float() - ref.float()).abs().max())
+    fine = (got.dtype == bf and got.shape == ref.shape
+            and bool(torch.isfinite(got).all()))
+    return dict(ratio=err / (BF16_RTOL * float(ref.float().abs().max())),
+                err=err, fine=fine, transport=mesh.transports.get(key),
+                host_calls=mesh.host_calls.get(key, 0) - before,
+                shape=(BATCH, h, w, c_in, c_mid, c_out))
+
+
+def _mesh_grad_verdict(torch, tag, res, refs, rank_ms, smi):
+    """The mesh backward of one shape against the single card's: every
+    leaf's gradient, fp32 and bf16, and the forced bf16 scatter."""
+    ok = True
+    for dt, bar in (("float32", MESH_RTOL), ("bfloat16", BF16_RTOL)):
+        (got_loss, got, _), (loss, want, one_ms) = res["grad"][dt], refs[dt]
+        tree = max(float(g.float().abs().max()) for g in want.values())
+        good = set(got) == set(want)
+        worst, own, max_err = (0.0, ""), (0.0, ""), 0.0
+        for n, r in want.items():
+            g, r = got[n].float(), r.float()
+            err = (g - r).abs()
+            good &= g.shape == r.shape and bool(torch.isfinite(g).all())
+            scale = float(r.abs().max())
+            worst = max(worst, (float((err / (bar * r.abs() + bar * tree))
+                                      .max()), n))
+            if scale > 0:
+                own = max(own, (float((err / (bar * r.abs() + bar * scale))
+                                      .max()), n))
+            max_err = max(max_err, float(err.max()))
+        good &= worst[0] <= 1.0
+        ok &= good
+        ms = " / ".join(f"{m['grad ' + dt]:.3f}" for m in rank_ms)
+        print(f"    b0 {RES} b{BATCH} {dt} forward + backward, the trainer's "
+              f"cross-entropy: loss {got_loss!r} (single card {loss!r}); "
+              f"{len(want)} parameter gradients summed over the batch axes "
+              f"vs the single card's loss.backward(): max|err| "
+              f"{max_err:.3e}, worst {worst[0]:.3f} of the bar (rtol "
+              f"{bar:g}, atol {bar:g} x max|grad| over the tree "
+              f"{tree:.3e}; {worst[1]}); at each leaf's own scale "
+              f"{own[0]:.3f} ({own[1]}; reported); forward + backward ms "
+              f"per rank {ms} (single card {one_ms:.3f}; parity run, two "
+              f"ranks on one card: {smi}) {'ok' if good else 'FAIL'}")
+    fs = res["forced_scatter"]
+    if fs is None:
+        print(f"    forced bf16 psum_scatter: mesh {tag} has no model axis, "
+              f"nothing to scatter")
+        return ok
+    carried = fs["transport"] == "native" or (
+        fs["transport"] == "host" and fs["host_calls"] >= 1)
+    good = fs["fine"] and fs["ratio"] <= 1.0 and carried
+    how = {"native": "natively", "host": "through the host"}.get(
+        fs["transport"], f"with no transport recorded ({fs['transport']})")
+    print(f"    forced bf16 psum_scatter, the MBConv wrapper at B0 block 1's "
+          f"shape {fs['shape']}: max|err| {fs['err']:.3e}, {fs['ratio']:.3f} "
+          f"x its tol ({BF16_RTOL:g} x max|ref|) against the unsharded op; "
+          f"gloo's bf16 reduce_scatter of CUDA tensors ran {how} "
+          f"({fs['host_calls']} host calls counted) "
+          f"{'ok' if good else 'FAIL'}")
+    return ok and good
 
 
 def _net_specs(name, cfg):
@@ -3024,9 +3189,10 @@ def _mesh_bf16_verdict(torch, r, ref16, sep_refs16):
     return good and sep_ok
 
 
-def mesh_phase(torch, tk):
+def mesh_phase(torch, tk, smi):
     """The one-rank NCCL mesh, then two gloo ranks on the card at each of
-    MESH_SHAPES against the single-device fused results (parity runs)."""
+    MESH_SHAPES against the single-device fused results (parity runs),
+    forward and backward; ``smi`` the card's name and power limit."""
     import dataclasses
     import torch.multiprocessing as mp
     from repro_torch.kernels.convdk_fused import convdk_fused_separable
@@ -3068,6 +3234,8 @@ def mesh_phase(torch, tk):
         ref16 = apply(params, images, cfg16).cpu()
         del params, images
         _sync(torch)
+    # the single card's B0 forward + backward: the mesh backward's reference
+    grad_refs = {dt: _b0_step(torch, dt) for dt in ("float32", "bfloat16")}
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     summary = {}
     for shape in MESH_SHAPES:
@@ -3138,7 +3306,16 @@ def mesh_phase(torch, tk):
               f"{max(errs):.3e}, no model-axis words "
               f"{'ok' if good else 'FAIL'}")
         ok &= _mesh_bf16_verdict(torch, res["bf16"], ref16, sep_refs16)
+        print(f"    the backward ({res['grad_s']:.1f} s on rank 0):")
+        ok &= _mesh_grad_verdict(torch, tag, res, grad_refs, rank_ms, smi)
         summary[tag] = {"transports": res["transports"],
+                        "grad_s": res["grad_s"],
+                        "grad_loss": {dt: r[0]
+                                      for dt, r in res["grad"].items()},
+                        "grad_rank_ms": [{dt: m["grad " + dt]
+                                          for dt in res["grad"]}
+                                         for m in rank_ms],
+                        "forced_scatter": res["forced_scatter"],
                         "host_calls": res["host_calls"],
                         "bf16_s": res["bf16_s"],
                         "bf16_worst_block": res["bf16"]["worst_block"],
@@ -3285,7 +3462,7 @@ def main() -> int:
     phase("mesh", f"mesh: the sharded wrappers and the network plan over "
                   f"torch.distributed on the one card, meshes (1, 1) NCCL "
                   f"and {MESH_SHAPES} gloo (parity runs)")
-    phases["mesh"], mesh = mesh_phase(torch, tk)
+    phases["mesh"], mesh = mesh_phase(torch, tk, smi)
     marks.append(("end", time.perf_counter()))
     past = {}
     for r in stats.rows:

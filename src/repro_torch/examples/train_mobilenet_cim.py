@@ -53,8 +53,8 @@ def forward(params: dict, x: torch.Tensor, *,
     while f"sep{i}" in params:
         # DW + ReLU + PW + ReLU: ONE fused kernel per block (the staged
         # pipeline with fused=False)
-        x = separable_block(x, params[f"sep{i}"], stride=2, dw_act="relu",
-                            act="relu", fused=fused)
+        x, _ = separable_block(x, params[f"sep{i}"], stride=2,
+                               dw_act="relu", act="relu", fused=fused)
         i += 1
     return x.mean(dim=(1, 2)) @ params["head"]     # global average pool
 

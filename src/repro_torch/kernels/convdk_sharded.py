@@ -39,15 +39,30 @@ single-card kernels do, and reduces as the JAX wrappers reduce: the SE
 squeeze partial in fp32, the projection and pointwise partials at the
 storage type after the kernel's one rounding, so the wire carries the
 plan's words at the storage type's bytes.
-The wrappers have no backward yet (the JAX package's ``custom_vjp``
-through its oracles): with an operand that requires grad they raise.
+
+Each wrapper is differentiable, as the JAX package's ``custom_vjp``s are:
+its forward runs the kernels and their collectives under no grad, and its
+backward is the unsharded oracle's VJP (``kernels.ref``, through
+``common.vjp_through``) on the rank's batch slice with the full weights.
+The backward gathers what the oracle needs whole over "model": the output's
+cotangent after a ``psum_scatter`` exit or a replicated separable entry
+(its padded columns cut), and a ``model_sharded`` input.  It follows the
+cotangent rule of ``launch.mesh``: a tensor every rank of "model" holds
+whole has the same whole cotangent on each of them.  So ``x``'s gradient
+comes back in ``x``'s own layout (the rank's channel slice where
+``model_sharded``), the same on every model rank where ``x`` is
+replicated; the weights' gradients are this rank's batch contribution,
+the same on every model rank, and ``launch.mesh.sum_batch_grads`` sums
+them over the batch axes.  At bf16 the oracle runs at the bf16 operands,
+as the single-card ops' backwards do.  The backward's collectives count
+under ``"<kind>.model.backward"``.
 The bytes and collective words are priced by ``core.perfmodel``'s
 ``sharded_*_traffic`` under the same axes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,10 +76,11 @@ from ..core.perfmodel import (
     validate_layout,
 )
 from ..launch.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS
-from .common import needs_grad
+from .common import needs_grad, vjp_through
 from .convdk_fused import _fused_impl
 from .convdk_fusedmb import _fusedmb_impl
 from .convdk_mbconv import MBConvGeometry, _mbconv_impl
+from .ref import fusedmb_ref, mbconv_ref, separable_ref
 
 
 def conv_mesh_shape(mesh) -> Tuple[int, int]:
@@ -103,12 +119,6 @@ def _require_shardable(mesh, batch: int, channels: int,
     if channels % mp != 0:
         raise ValueError(f"{channel_name} {channels} not divisible by "
                          f"{MODEL_AXIS}={mp}")
-
-
-def _no_grad(*tensors) -> None:
-    if needs_grad(*tensors):
-        raise NotImplementedError(
-            "the sharded wrappers have no backward yet")
 
 
 def model_chunk(t: torch.Tensor, mesh, width: int = 0) -> torch.Tensor:
@@ -154,6 +164,47 @@ def _geometry(x, k: int, stride: int, padding: str, tile_h: int,
                                tile_h, tile_w)
 
 
+class _ShardedFn(torch.autograd.Function):
+    """A sharded wrapper: ``run`` (its kernels and in-op collectives)
+    forward; backward the VJP of its unsharded oracle ``ref`` (``x``
+    first, then the weights) on the rank's batch slice, with the output's
+    cotangent all-gathered over "model" where the rank holds a slice of
+    c_out (``sliced_out``) and cut to ``c_out``, and ``x`` all-gathered
+    where it arrives ``model_sharded`` (``sharded_in``), its gradient cut
+    back to the rank's slice."""
+
+    @staticmethod
+    def forward(ctx, run, ref, mesh, conf, *tensors):
+        ctx.conf = (ref, mesh, *conf)
+        ctx.save_for_backward(*tensors)
+        return run(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ref, mesh, sharded_in, sliced_out, c_out = ctx.conf
+        x, *weights = ctx.saved_tensors
+        if sliced_out:
+            grad_out = mesh.backward_gather(grad_out, MODEL_AXIS)[
+                ..., :c_out].contiguous()
+        if sharded_in:
+            x = mesh.backward_gather(x, MODEL_AXIS)
+        grads = vjp_through(ref, (x, *weights), grad_out,
+                            ctx.needs_input_grad[4:])
+        if sharded_in and grads[0] is not None:
+            grads = (mesh.chunk(grads[0], MODEL_AXIS), *grads[1:])
+        return (None, None, None, None, *grads)
+
+
+def _apply(run: Callable[..., torch.Tensor],
+           ref: Callable[..., torch.Tensor], mesh, *tensors,
+           sharded_in: bool, sliced_out: bool, c_out: int) -> torch.Tensor:
+    """``run(*tensors)``, through ``_ShardedFn`` where autograd records."""
+    if needs_grad(*tensors):
+        return _ShardedFn.apply(run, ref, mesh,
+                                (sharded_in, sliced_out, c_out), *tensors)
+    return run(*tensors)
+
+
 # ---------------------------------------------------------------------------
 # separable: batch on "data", c_out (or c_in) on "model"
 # ---------------------------------------------------------------------------
@@ -175,15 +226,23 @@ def convdk_fused_separable_sharded(
     follows.  Layouts as ``convdk_fused_separable``."""
     collective = validate_collective(collective or DEFAULT_COLLECTIVE)
     in_layout = validate_layout(in_layout or DEFAULT_LAYOUT)
-    _no_grad(x, w_dw, w_pw)
     dp, mp = conv_mesh_shape(mesh)
     c_out = w_pw.shape[1]
     geo = _geometry(x, w_dw.shape[0], stride, padding, tile_h, tile_w)
     telemetry.counter("sharded.dispatch.separable")
-    if in_layout == DEFAULT_LAYOUT:
+    sharded_in = in_layout == "model_sharded"
+
+    def ref(x, w_dw, w_pw):
+        return separable_ref(x, w_dw, w_pw, stride, padding, dw_act, act)
+
+    layout = dict(sharded_in=sharded_in, c_out=c_out,
+                  sliced_out=not sharded_in or collective == "psum_scatter")
+    if not sharded_in:
         _require_shardable(mesh, x.shape[0] * dp, c_out, "c_out")
-        return _fused_impl(x, w_dw, mesh.chunk(w_pw, MODEL_AXIS, dim=1),
-                           geo, dw_act=dw_act, act=act)
+        return _apply(
+            lambda x, w_dw, w_pw: _fused_impl(
+                x, w_dw, mesh.chunk(w_pw, MODEL_AXIS, dim=1), geo,
+                dw_act=dw_act, act=act), ref, mesh, x, w_dw, w_pw, **layout)
     telemetry.counter(f"sharded.collective.{collective}")
     c_in = x.shape[-1] * mp
     if w_dw.shape[-1] != c_in:
@@ -192,10 +251,12 @@ def convdk_fused_separable_sharded(
                          f"{w_dw.shape[-1]} channels")
     _require_shardable(mesh, x.shape[0] * dp, c_in, "c_in")
     cw = scatter_c_out(c_out, mp) if collective == "psum_scatter" else c_out
-    return _fused_impl(x, mesh.chunk(w_dw, MODEL_AXIS),
-                       mesh.chunk(w_pw, MODEL_AXIS, dim=0), geo,
-                       dw_act=dw_act, act=act, mesh=mesh,
-                       collective=collective, scatter_width=cw)
+    return _apply(
+        lambda x, w_dw, w_pw: _fused_impl(
+            x, mesh.chunk(w_dw, MODEL_AXIS),
+            mesh.chunk(w_pw, MODEL_AXIS, dim=0), geo, dw_act=dw_act,
+            act=act, mesh=mesh, collective=collective, scatter_width=cw),
+        ref, mesh, x, w_dw, w_pw, **layout)
 
 
 # ---------------------------------------------------------------------------
@@ -240,37 +301,47 @@ def convdk_mbconv_fused_sharded(
     batch and c_mid to divide the mesh's factors."""
     collective = validate_collective(collective or DEFAULT_COLLECTIVE)
     in_layout = validate_layout(in_layout or DEFAULT_LAYOUT)
-    _no_grad(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj)
     dp, mp = conv_mesh_shape(mesh)
     c_mid, c_out = w_proj.shape
     _require_shardable(mesh, x.shape[0] * dp, c_mid, "c_mid")
     sharded_in = in_layout == "model_sharded"
     c_in = x.shape[-1] * (mp if sharded_in else 1)
-    if w_exp is None:
-        if c_in != c_mid:
-            raise ValueError(f"identity expand with c_in {c_in} != "
-                             f"c_mid {c_mid}")
-        if not sharded_in:
-            x = mesh.chunk(x, MODEL_AXIS)   # the slice of c_mid it feeds
-    else:
-        if sharded_in:
-            x = mesh.all_gather(x, MODEL_AXIS, dim=-1)
-        w_exp = mesh.chunk(w_exp, MODEL_AXIS, dim=1)
+    if w_exp is None and c_in != c_mid:
+        raise ValueError(f"identity expand with c_in {c_in} != "
+                         f"c_mid {c_mid}")
     se = w_se1 is not None
     cw = scatter_c_out(c_out, mp) if collective == "psum_scatter" else c_out
     telemetry.counter("sharded.dispatch.mbconv")
     telemetry.counter(f"sharded.collective.{collective}")
-    return _mbconv_impl(
-        x, w_exp, mesh.chunk(w_dw, MODEL_AXIS),
-        mesh.chunk(w_se1, MODEL_AXIS, dim=0) if se else None,
-        b_se1,
-        mesh.chunk(w_se2, MODEL_AXIS, dim=1) if se else None,
-        mesh.chunk(b_se2, MODEL_AXIS, dim=0) if se else None,
-        mesh.chunk(w_proj, MODEL_AXIS, dim=0),
-        stride=stride, padding=padding, tile_h=tile_h, tile_w=tile_w,
-        mode=mode, exp_act=exp_act, dw_act=dw_act, se_act=se_act,
-        gate_act=gate_act, retain_splits=retain_splits, mesh=mesh,
-        collective=collective, scatter_width=cw)
+
+    def run(x, w_exp, w_dw, w_se1, b_se1, w_se2, b_se2, w_proj):
+        if w_exp is None:
+            if not sharded_in:
+                x = mesh.chunk(x, MODEL_AXIS)   # the slice of c_mid it feeds
+        else:
+            if sharded_in:
+                x = mesh.all_gather(x, MODEL_AXIS, dim=-1)
+            w_exp = mesh.chunk(w_exp, MODEL_AXIS, dim=1)
+        return _mbconv_impl(
+            x, w_exp, mesh.chunk(w_dw, MODEL_AXIS),
+            mesh.chunk(w_se1, MODEL_AXIS, dim=0) if se else None,
+            b_se1,
+            mesh.chunk(w_se2, MODEL_AXIS, dim=1) if se else None,
+            mesh.chunk(b_se2, MODEL_AXIS, dim=0) if se else None,
+            mesh.chunk(w_proj, MODEL_AXIS, dim=0),
+            stride=stride, padding=padding, tile_h=tile_h, tile_w=tile_w,
+            mode=mode, exp_act=exp_act, dw_act=dw_act, se_act=se_act,
+            gate_act=gate_act, retain_splits=retain_splits, mesh=mesh,
+            collective=collective, scatter_width=cw)
+
+    def ref(*args):
+        return mbconv_ref(*args, stride=stride, padding=padding,
+                          exp_act=exp_act, dw_act=dw_act, se_act=se_act,
+                          gate_act=gate_act)
+
+    return _apply(run, ref, mesh, x, w_exp, w_dw, w_se1, b_se1, w_se2,
+                  b_se2, w_proj, sharded_in=sharded_in, c_out=c_out,
+                  sliced_out=collective == "psum_scatter")
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +364,6 @@ def convdk_fusedmb_fused_sharded(
     if validate_layout(in_layout or DEFAULT_LAYOUT) != DEFAULT_LAYOUT:
         raise ValueError(
             f"fusedmb consumes replicated arrivals only, got {in_layout!r}")
-    _no_grad(x, w_conv, w_proj)
     dp, mp = conv_mesh_shape(mesh)
     c_mid, c_out = w_proj.shape
     _require_shardable(mesh, x.shape[0] * dp, c_mid, "c_mid")
@@ -304,7 +374,14 @@ def convdk_fusedmb_fused_sharded(
     telemetry.counter("sharded.dispatch.fusedmb")
     telemetry.counter(f"sharded.collective.{collective}")
     geo = _geometry(x, k_h, stride, padding, tile_h, tile_w)
-    return _fusedmb_impl(x, mesh.chunk(w_conv, MODEL_AXIS),
-                         mesh.chunk(w_proj, MODEL_AXIS, dim=0), geo, act=act,
-                         mesh=mesh, collective=collective,
-                         scatter_width=cw)
+
+    def ref(x, w_conv, w_proj):
+        return fusedmb_ref(x, w_conv, w_proj, stride, padding, act)
+
+    return _apply(
+        lambda x, w_conv, w_proj: _fusedmb_impl(
+            x, mesh.chunk(w_conv, MODEL_AXIS),
+            mesh.chunk(w_proj, MODEL_AXIS, dim=0), geo, act=act, mesh=mesh,
+            collective=collective, scatter_width=cw),
+        ref, mesh, x, w_conv, w_proj, sharded_in=False, c_out=c_out,
+        sliced_out=collective == "psum_scatter")

@@ -17,6 +17,21 @@ call is counted by kind and axis with the elements it carried
 words ``core.perfmodel`` prices.  A group of one device runs no collective
 and counts none.
 
+Autograd passes through the three collectives and through ``chunk`` (a
+rank's slice of a tensor every rank of an axis holds) under one rule, that
+of ``shard_map``'s replicated outputs: **a tensor that every rank of an
+axis holds whole has the same whole cotangent on every rank of that
+axis**.  So ``all_gather``'s backward takes the rank's slice,
+``all_reduce``'s is the identity, ``reduce_scatter``'s all-gathers and
+``chunk``'s all-gathers.  The parameters are the one exception: every rank
+holds them whole and applies them to its own batch slice, so each rank's
+gradient is its batch's contribution, and ``sum_batch_grads`` sums those
+over the batch axes ("pod" and "data"), the reduction XLA's partitioner
+inserts for ``jax.grad`` on a mesh.  Nothing sums over "model": its ranks
+compute the replicated weights' gradients identically.  The backward's
+collectives count apart from the forward's, under
+``"<kind>.<axis>.backward"``, so ``model_wire_words`` stays the forward's.
+
 Backends: NCCL when every rank has a GPU of its own, gloo for CPU tensors.
 NCCL does not admit two ranks on one device, so ranks sharing a card need
 ``backend="gloo"``, named by the caller: ``make_mesh`` never picks it for
@@ -24,8 +39,9 @@ CUDA tensors by itself.  gloo carries some collectives of CUDA tensors
 natively; where one is missing the mesh copies the tensor to the host, runs
 the collective there and copies it back (``transports`` records which, per
 kind and dtype, and ``host_calls`` counts the calls that went through the
-host).  That path is for parity runs only.  The collectives run at the
-tensor's dtype, fp32 or bf16: a bf16 tensor is never widened for them.
+host), the backward's collectives included.  That path is for parity runs
+only.  The collectives run at the tensor's dtype, fp32 or bf16: a bf16
+tensor is never widened for them.
 """
 
 from __future__ import annotations
@@ -33,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -101,11 +117,13 @@ class Mesh:
 
     def chunk(self, t: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
         """This rank's contiguous slice of ``t`` along ``dim``, the axis
-        dividing it evenly."""
+        dividing it evenly; its backward all-gathers over ``axis``."""
         n = self.size(axis)
         if t.shape[dim] % n:
             raise ValueError(f"dim of {t.shape[dim]} does not divide "
                              f"{axis}={n}")
+        if n > 1 and _records(t):
+            return _Chunk.apply(t, self, axis, dim % t.dim())
         w = t.shape[dim] // n
         return t.narrow(dim, self.index(axis) * w, w).contiguous()
 
@@ -114,18 +132,20 @@ class Mesh:
     def reset_counts(self) -> None:
         self.counts.clear()
 
-    def _count(self, kind: str, axis: str, elements: int) -> None:
-        c = self.counts.setdefault(f"{kind}.{axis}", CollectiveCount())
+    def _count(self, kind: str, axis: str, elements: int,
+               backward: bool = False) -> None:
+        key = f"{kind}.{axis}" + (".backward" if backward else "")
+        c = self.counts.setdefault(key, CollectiveCount())
         c.calls += 1
         c.elements += elements
 
     def model_wire_words(self) -> int:
-        """Interconnect words of this rank's model-axis collectives, priced
-        per model group as ``core.perfmodel`` does: 2 (mp-1) per reduced
-        word of a ring all-reduce, (mp-1) per word of a reduce-scatter's
-        input and of an all-gather's output.  Every rank of a group counts
-        the same calls, and every data group the same shapes, so the
-        mesh-wide words are ``dp`` times this."""
+        """Interconnect words of this rank's forward model-axis collectives,
+        priced per model group as ``core.perfmodel`` does: 2 (mp-1) per
+        reduced word of a ring all-reduce, (mp-1) per word of a
+        reduce-scatter's input and of an all-gather's output.  Every rank
+        of a group counts the same calls, and every data group the same
+        shapes, so the mesh-wide words are ``dp`` times this."""
         g = self.mp - 1
         get = self.counts.get
         ar = get(f"all_reduce.{MODEL_AXIS}", CollectiveCount()).elements
@@ -154,13 +174,8 @@ class Mesh:
         self.host_calls[key] = self.host_calls.get(key, 0) + 1
         return fn(t.cpu()).to(t.device)
 
-    def all_reduce(self, t: torch.Tensor, axis: str = MODEL_AXIS
-                   ) -> torch.Tensor:
-        """The sum of ``t`` over ``axis`` (a new tensor), on every rank."""
+    def _all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         group = self._groups[axis]
-        if group is None:
-            return t
-        self._count("all_reduce", axis, t.numel())
 
         def fn(u):
             u = u.clone()
@@ -169,19 +184,9 @@ class Mesh:
 
         return self._run("all_reduce", t.contiguous(), fn)
 
-    def reduce_scatter(self, t: torch.Tensor, axis: str = MODEL_AXIS,
-                       dim: int = -1) -> torch.Tensor:
-        """The sum of ``t`` over ``axis``, each rank keeping its slice of
-        ``dim`` (which the axis must divide): ``psum_scatter(tiled=True)``."""
-        group = self._groups[axis]
-        if group is None:
-            return t
-        n = self.size(axis)
-        dim = dim % t.dim()
-        if t.shape[dim] % n:
-            raise ValueError(f"reduce_scatter: dim of {t.shape[dim]} does "
-                             f"not divide {axis}={n}")
-        self._count("reduce_scatter", axis, t.numel())
+    def _reduce_scatter(self, t: torch.Tensor, axis: str,
+                        dim: int) -> torch.Tensor:
+        group, n = self._groups[axis], self.size(axis)
 
         def fn(u):
             parts = [p.contiguous() for p in u.chunk(n, dim)]
@@ -191,15 +196,9 @@ class Mesh:
 
         return self._run("reduce_scatter", t.contiguous(), fn)
 
-    def all_gather(self, t: torch.Tensor, axis: str = MODEL_AXIS,
-                   dim: int = -1) -> torch.Tensor:
-        """Every rank's ``t`` along ``axis`` concatenated over ``dim`` in
-        rank order: ``all_gather(tiled=True)``."""
-        group = self._groups[axis]
-        if group is None:
-            return t
-        n = self.size(axis)
-        self._count("all_gather", axis, t.numel() * n)
+    def _all_gather(self, t: torch.Tensor, axis: str,
+                    dim: int) -> torch.Tensor:
+        group, n = self._groups[axis], self.size(axis)
 
         def fn(u):
             parts = [torch.empty_like(u) for _ in range(n)]
@@ -207,6 +206,58 @@ class Mesh:
             return torch.cat(parts, dim)
 
         return self._run("all_gather", t.contiguous(), fn)
+
+    def all_reduce(self, t: torch.Tensor, axis: str = MODEL_AXIS
+                   ) -> torch.Tensor:
+        """The sum of ``t`` over ``axis`` (a new tensor), on every rank;
+        its backward is the identity."""
+        if self._groups[axis] is None:
+            return t
+        self._count("all_reduce", axis, t.numel())
+        if _records(t):
+            return _AllReduce.apply(t, self, axis)
+        return self._all_reduce(t, axis)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str = MODEL_AXIS,
+                       dim: int = -1) -> torch.Tensor:
+        """The sum of ``t`` over ``axis``, each rank keeping its slice of
+        ``dim`` (which the axis must divide): ``psum_scatter(tiled=True)``;
+        its backward all-gathers."""
+        if self._groups[axis] is None:
+            return t
+        n = self.size(axis)
+        dim = dim % t.dim()
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim of {t.shape[dim]} does "
+                             f"not divide {axis}={n}")
+        self._count("reduce_scatter", axis, t.numel())
+        if _records(t):
+            return _ReduceScatter.apply(t, self, axis, dim)
+        return self._reduce_scatter(t, axis, dim)
+
+    def all_gather(self, t: torch.Tensor, axis: str = MODEL_AXIS,
+                   dim: int = -1) -> torch.Tensor:
+        """Every rank's ``t`` along ``axis`` concatenated over ``dim`` in
+        rank order: ``all_gather(tiled=True)``; its backward takes the
+        rank's slice."""
+        if self._groups[axis] is None:
+            return t
+        dim = dim % t.dim()
+        self._count("all_gather", axis, t.numel() * self.size(axis))
+        if _records(t):
+            return _AllGather.apply(t, self, axis, dim)
+        return self._all_gather(t, axis, dim)
+
+    def backward_gather(self, g: torch.Tensor, axis: str = MODEL_AXIS,
+                        dim: int = -1) -> torch.Tensor:
+        """``all_gather`` as a backward runs it (of a cotangent, or of an
+        operand the backward needs whole), counted under
+        ``"all_gather.<axis>.backward"``."""
+        if self._groups[axis] is None:
+            return g
+        self._count("all_gather", axis, g.numel() * self.size(axis),
+                    backward=True)
+        return self._all_gather(g, axis, dim % g.dim())
 
     # -- teardown ------------------------------------------------------------
 
@@ -281,3 +332,85 @@ def make_mesh(shape: Sequence[int], axes: Tuple[str, ...] = AXES, *,
         raise ValueError(f"torch.distributed runs {dist.get_backend()}, "
                          f"asked for {backend}")
     return Mesh(dict(zip(axes, shape)), rank, backend, dev, owns)
+
+
+def sum_batch_grads(mesh: Mesh, grads: Iterable[Optional[torch.Tensor]]
+                    ) -> List[Optional[torch.Tensor]]:
+    """The parameters' gradients summed over the batch axes ("pod" and
+    "data"; ``None`` entries kept): each rank's gradient is its batch
+    slice's contribution, and the sum is the whole batch's, the same on
+    every rank.  One all-reduce per dtype, of the gradients flattened
+    together, counted under ``"all_reduce.data.backward"``.  The port's
+    twin of the reduction XLA's partitioner inserts for ``jax.grad`` on a
+    mesh; nothing is summed over "model", whose ranks compute the
+    replicated weights' gradients identically."""
+    grads = list(grads)
+    if mesh._groups[DATA_AXIS] is None:
+        return grads
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, g in enumerate(grads):
+        if g is not None:
+            by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([grads[i].detach().reshape(-1) for i in idx])
+        mesh._count("all_reduce", DATA_AXIS, flat.numel(), backward=True)
+        flat = mesh._all_reduce(flat, DATA_AXIS)
+        for i, part in zip(idx, flat.split([grads[i].numel()
+                                            for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
+def _records(t: torch.Tensor) -> bool:
+    """True when autograd records an op on ``t``."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh._all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.conf = (mesh, axis, dim)
+        return mesh._reduce_scatter(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.conf
+        return mesh.backward_gather(g, axis, dim), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.conf = (mesh, axis, dim, t.shape[dim])
+        return mesh._all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, w = ctx.conf
+        return (g.narrow(dim, mesh.index(axis) * w, w).contiguous(), None,
+                None, None)
+
+
+class _Chunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.conf = (mesh, axis, dim)
+        w = t.shape[dim] // mesh.size(axis)
+        return t.narrow(dim, mesh.index(axis) * w, w).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.conf
+        return mesh.backward_gather(g, axis, dim), None, None, None

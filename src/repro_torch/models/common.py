@@ -11,19 +11,29 @@ Counterpart of ``repro.models.common``:
   ``separable_block`` applies it, through the fused kernel
   (``kernels.convdk_fused``) or, with ``fused=False``, the staged pipeline
   (``kernels.ops``) that the JAX package selects with
-  ``ConvKernelConfig.fused_separable``.  The tile comes from
-  ``core.autotune.get_fused_schedule``.  Single device: the mesh, the
-  schedule pin and the layouts of the JAX block are not ported yet.
+  ``ConvKernelConfig.fused_separable``, or on a mesh through
+  ``kernels.convdk_fused_separable_sharded``; it returns ``(y,
+  out_layout)``, as ``models.mbconv``'s blocks do.  The tile comes from
+  ``core.autotune.get_fused_schedule``.  The JAX block's ``cfg`` and
+  ``pin`` are not ported: the caller passes ``fused`` and ``schedule``;
+* ``mesh_route`` decides whether a block shards on a mesh, for the
+  separable block and ``models.mbconv``'s.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.autotune import FusedSchedule, get_fused_schedule
+from ..core.perfmodel import DEFAULT_LAYOUT, validate_layout
 from ..kernels.convdk_fused import convdk_fused_separable
+from ..kernels.convdk_sharded import (
+    can_shard_fused,
+    conv_mesh_shape,
+    convdk_fused_separable_sharded,
+)
 from ..kernels.ops import convdk_separable_staged
 from .param import P
 
@@ -73,6 +83,26 @@ def separable_def(c_in: int, c_out: int, k: int = 3) -> dict:
     return {"dw": P((k, k, c_in)), "pw": P((c_in, c_out), scale=2.0)}
 
 
+def mesh_route(mesh, x: torch.Tensor, c_grid: int, fused: bool,
+               in_layout: str) -> Tuple[int, int, bool, str, torch.Tensor]:
+    """(global batch, model factor, sharded?, effective in layout, x) of a
+    block on ``mesh``: it shards where the global batch and its channel
+    grid divide the factors, and an input arriving sharded to a block that
+    does not shard is all-gathered first."""
+    validate_layout(in_layout)
+    if mesh is None:
+        if in_layout != DEFAULT_LAYOUT:
+            raise ValueError("a model-sharded input needs its mesh")
+        return x.shape[0], 1, False, DEFAULT_LAYOUT, x
+    dp, mp = conv_mesh_shape(mesh)
+    b = x.shape[0] * dp
+    sharded = fused and can_shard_fused(mesh, b, c_grid)
+    if in_layout == "model_sharded" and not sharded:
+        x = mesh.all_gather(x, "model", dim=-1)
+        in_layout = DEFAULT_LAYOUT
+    return b, mp, sharded, in_layout, x
+
+
 def separable_block(
     x: torch.Tensor,
     params: dict,
@@ -83,27 +113,61 @@ def separable_block(
     act: Optional[str] = "relu",
     fused: bool = True,
     schedule: Optional[FusedSchedule] = None,
-) -> torch.Tensor:
-    """Apply one separable block: ``act(pw(dw_act(dw(x))))``.
+    mesh=None,
+    in_layout: str = DEFAULT_LAYOUT,
+) -> Tuple[torch.Tensor, str]:
+    """Apply one separable block, ``act(pw(dw_act(dw(x))))``; returns
+    ``(y, out_layout)``.
 
     ``fused`` runs it as ONE kernel launch (one read of ``x``, one write
     of the output); otherwise the staged pipeline runs (row strips ->
-    depthwise kernel -> device memory -> pointwise matmul).  The tile comes
-    from ``schedule`` when the caller solved it, else from
-    ``get_fused_schedule`` for this shape.
+    depthwise kernel -> device memory -> pointwise matmul).  The weights
+    are cast to ``x``'s dtype, as in the JAX package.  The tile comes from
+    ``schedule`` when the caller solved it, else from
+    ``get_fused_schedule`` for this shape and partitioning.
+
+    With a ``mesh``, ``x`` is this rank's batch slice, all of its channels
+    or (``in_layout="model_sharded"``) the rank's slice of them.  The
+    fused block shards where ``can_shard_fused`` allows, as the JAX
+    block routes: c_out on "model" for a replicated arrival (no
+    collective; the rank keeps its c_out slice), c_in for a model-sharded
+    one (the pointwise partial reduced per the schedule's collective).
+    ``out_layout`` is where the output's channels are: ``model_sharded``
+    where the rank holds a slice of them (the replicated entry, or a
+    psum_scatter exit, padded as ``shard_to_layout`` pads), else
+    ``replicated``.  Where the block does not shard, a sharded arrival is
+    all-gathered and the single-card route runs on the rank's batch.
     x: (B, H, W, C_in) NHWC -> (B, H', W', C_out).
     """
-    w_dw, w_pw = params["dw"], params["pw"]
+    w_dw, w_pw = params["dw"].to(x.dtype), params["pw"].to(x.dtype)
+    c_out, k = w_pw.shape[1], w_dw.shape[0]
+    mp = conv_mesh_shape(mesh)[1] if mesh is not None else 1
+    c_grid = x.shape[-1] * mp if in_layout == "model_sharded" else c_out
+    b, mp, sharded, in_layout, x = mesh_route(mesh, x, c_grid, fused,
+                                              in_layout)
+    _, h, w, c_in = x.shape
+    if in_layout == "model_sharded":
+        c_in *= mp
     if schedule is None:
-        b, h, w, c_in = x.shape
-        schedule = get_fused_schedule(b, h, w, c_in, w_pw.shape[1],
-                                      w_dw.shape[0], stride,
-                                      dtype_bytes=x.element_size())
+        schedule = get_fused_schedule(
+            b, h, w, c_in, c_out, k, stride, dtype_bytes=x.element_size(),
+            mesh_shape=conv_mesh_shape(mesh) if sharded else (1, 1),
+            in_layout=in_layout)
+    if sharded:
+        out = convdk_fused_separable_sharded(
+            x, w_dw, w_pw, mesh=mesh, stride=stride, padding=padding,
+            tile_h=schedule.tile_h, tile_w=schedule.tile_w, dw_act=dw_act,
+            act=act, collective=schedule.collective, in_layout=in_layout)
+        sliced = mp > 1 and (in_layout == DEFAULT_LAYOUT
+                             or schedule.collective == "psum_scatter")
+        return out, "model_sharded" if sliced else DEFAULT_LAYOUT
     if fused:
-        return convdk_fused_separable(
+        out = convdk_fused_separable(
             x, w_dw, w_pw, stride=stride, padding=padding,
             tile_h=schedule.tile_h, tile_w=schedule.tile_w, dw_act=dw_act,
             act=act)
-    return convdk_separable_staged(
-        x, w_dw, w_pw, stride=stride, padding=padding,
-        tile_h=schedule.tile_h, dw_act=dw_act, act=act)
+    else:
+        out = convdk_separable_staged(
+            x, w_dw, w_pw, stride=stride, padding=padding,
+            tile_h=schedule.tile_h, dw_act=dw_act, act=act)
+    return out, DEFAULT_LAYOUT

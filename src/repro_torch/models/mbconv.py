@@ -28,7 +28,12 @@ leaves model-sharded after a psum_scatter.  The residual adds rank-local
 tensors, so a replicated operand is cut to the rank's channel slice when
 the other is sharded; where a block takes a sharded input and leaves
 replicated, its projection is reduce-scattered, the residual added on the
-slice and the sum all-gathered, the ring's words exactly.
+slice and the sum all-gathered, the ring's words exactly.  Autograd
+passes through every wrapper, gather and chunk on the route under
+``launch.mesh``'s cotangent rule, so a block or a network on a mesh takes
+``loss.backward()``: each rank's parameter gradients are its batch
+slice's, and ``launch.mesh.sum_batch_grads`` sums them over the batch
+axes.
 
 Each network lowers its block chain through ``models.blockgraph``.  Given
 a ``mesh`` or a ``plan`` (``core.autotune.NetworkPlan``; solved per call
@@ -76,7 +81,6 @@ from ..kernels.convdk_fusedmb import (
 )
 from ..kernels.convdk_mbconv import convdk_mbconv_fused, convdk_mbconv_staged
 from ..kernels.convdk_sharded import (
-    can_shard_fused,
     conv_mesh_shape,
     convdk_fusedmb_fused_sharded,
     convdk_mbconv_fused_sharded,
@@ -84,6 +88,7 @@ from ..kernels.convdk_sharded import (
     model_chunk,
 )
 from ..kernels.ref import pad_nhwc
+from .common import mesh_route
 from .param import P, materialize
 # the stems' and heads' activations
 _ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -316,26 +321,6 @@ def _residual(out: torch.Tensor, x: torch.Tensor, stride: int
     return out
 
 
-def _mesh_route(mesh, x: torch.Tensor, c_grid: int, fused: bool,
-                in_layout: str) -> Tuple[int, int, bool, str, torch.Tensor]:
-    """(global batch, model factor, sharded?, effective in layout, x) of a
-    block on ``mesh``: it shards where the global batch and its channel
-    grid divide the factors, and an input arriving sharded to a block that
-    does not shard is all-gathered first."""
-    validate_layout(in_layout)
-    if mesh is None:
-        if in_layout != DEFAULT_LAYOUT:
-            raise ValueError("a model-sharded input needs its mesh")
-        return x.shape[0], 1, False, DEFAULT_LAYOUT, x
-    dp, mp = conv_mesh_shape(mesh)
-    b = x.shape[0] * dp
-    sharded = fused and can_shard_fused(mesh, b, c_grid)
-    if in_layout == "model_sharded" and not sharded:
-        x = mesh.all_gather(x, "model", dim=-1)
-        in_layout = DEFAULT_LAYOUT
-    return b, mp, sharded, in_layout, x
-
-
 def mbconv_block(
     x: torch.Tensor,
     params: dict,
@@ -368,8 +353,8 @@ def mbconv_block(
     """
     c_mid = params["dw"].shape[-1]
     c_out = params["proj"].shape[-1]
-    b, mp, sharded, in_layout, x = _mesh_route(mesh, x, c_mid, fused,
-                                               in_layout)
+    b, mp, sharded, in_layout, x = mesh_route(mesh, x, c_mid, fused,
+                                              in_layout)
     _, h, w, c_in = x.shape
     if in_layout == "model_sharded":
         c_in *= mp
@@ -446,7 +431,7 @@ def fusedmb_block(
                          f"{in_layout!r}")
     k, _, _, c_mid = params["conv"].shape
     c_out = params["proj"].shape[-1]
-    b, mp, sharded, _, x = _mesh_route(mesh, x, c_mid, fused, in_layout)
+    b, mp, sharded, _, x = mesh_route(mesh, x, c_mid, fused, in_layout)
     _, h, w, c_in = x.shape
     if schedule is None:
         schedule = get_fusedmb_schedule(

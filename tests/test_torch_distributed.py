@@ -1,7 +1,7 @@
 """The sharded ConvDK wrappers and the network forwards on a mesh of CPU
 ranks (gloo over ``torch.distributed``), against the port's single-device
 ops and forwards, the JAX package's unsharded ops and networks at the same
-seed, and its own sharded wrappers at mesh (2, 2).
+seed, and its own sharded wrappers at mesh (2, 2); forward and backward.
 
 Every case of one mesh shape runs in one spawn of ranks
 (``_rank_cases``, which imports no JAX): the three wrappers with ring and
@@ -9,10 +9,19 @@ scatter exits, the sharded-in entries, a scatter that pads an indivisible
 c_out, two chained blocks whose layouts match, and a small B0, V3 and V2-S
 forward, each with the collectives it counted; then the bf16 cases: the
 wrappers' ring and scatter exits and sharded-in entries on bf16 operands
-and B0 with ``dtype="bfloat16"``.  Rank 0 saves the global outputs; the
-tests compare them here within the JAX suite's sharded bar (rtol 1e-4,
+and B0 with ``dtype="bfloat16"``.  The same spawn takes gradients: of a
+seeded loss sum(out * r) through every wrapper case (fp32 and bf16), of
+``mbconv_block`` and ``separable_block`` routed on the mesh and where they
+fall back, and of each network's cross-entropy at seeded labels; the
+inputs' gradients come back through the chunks that shard them, the
+weights' are summed over the batch axes (``launch.mesh.sum_batch_grads``).
+It also checks that every collective keeps its ``grad_fn`` and passes the
+cotangents ``launch.mesh``'s rule says.  Rank 0 saves the global results;
+the tests compare them here within the JAX suite's sharded bar (rtol 1e-4,
 atol 1e-4; bf16: its bf16 bar, 2e-2, the absolute part at the output's
-scale), and the counted collectives with the model's.
+scale, each case's error against the absolute 2e-2 printed beside it; the
+JAX sharded wrappers' gradients: the JAX suite's gradient bar, 2e-3), and
+the counted collectives with the model's.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
@@ -39,23 +49,49 @@ from repro_torch.kernels import convdk_sharded as S
 from repro_torch.kernels.convdk_fused import convdk_fused_separable
 from repro_torch.kernels.convdk_fusedmb import convdk_fusedmb_fused
 from repro_torch.kernels.convdk_mbconv import convdk_mbconv_fused
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.core import telemetry
+from repro_torch.launch.mesh import make_mesh, sum_batch_grads
 from repro_torch.models import mbconv as tm
+from repro_torch.models.common import separable_block
 from repro_torch.models.param import materialize
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
+GRAD_TOL = dict(rtol=2e-3, atol=2e-3)     # tests/test_distributed_fused.py
 BF16_RTOL = 2e-2                          # tests/test_kernels.py's bf16 bar
+BF16_ATOL = 2e-2                          # ... and its absolute part
 
 
-def _close_bf16(got, ref, err_msg=""):
-    """Within the bf16 bar: rtol 2e-2, and atol 2e-2 x max|ref|.  A mesh
-    sums its ranks' bf16-rounded partials (as the JAX package's psum
-    does), whose rounding scales with the partials, not with each output
-    element, so the absolute part is taken at the output's scale."""
-    np.testing.assert_allclose(
-        got, ref, rtol=BF16_RTOL,
-        atol=BF16_RTOL * float(np.abs(ref).max()), err_msg=err_msg)
+def _bf16_report(got, ref, err_msg="", scale=None):
+    """(the line reporting ``got`` against the bf16 bar at ``scale``,
+    default max|ref|, and against the JAX suite's absolute bf16 bar, atol
+    2e-2; the atol at ``scale``)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = np.abs(got - ref)
+    if scale is None:
+        scale = float(np.abs(ref).max())
+    scaled = float((err / np.maximum(BF16_RTOL * scale
+                                     + BF16_RTOL * np.abs(ref), 1e-30)).max())
+    absolute = float((err / (BF16_ATOL + BF16_RTOL * np.abs(ref))).max())
+    return (f"{err_msg}: max|err| {float(err.max()):.3e}, {scaled:.3f} of "
+            f"the scaled bar, {absolute:.3f} of the absolute bar"
+            f"{'' if absolute <= 1 else ' (MISSES it)'}"), BF16_RTOL * scale
+
+
+def _close_bf16(got, ref, err_msg="", scale=None):
+    """Within the bf16 bar: rtol 2e-2, and atol 2e-2 x ``scale`` (default
+    max|ref|).  A mesh sums its ranks' bf16-rounded partials (as the JAX
+    package's psum does), whose rounding scales with the partials, not
+    with each output element, so the absolute part is taken at the
+    output's scale; for a network's gradients, at the gradient tree's
+    (``scale``).  Also measured against the JAX suite's absolute bar (atol
+    2e-2), which is reported, not gated: the returned line (printed by the
+    callers) and the failure message give max|err| and the worst ratio to
+    each bar."""
+    line, atol = _bf16_report(got, ref, err_msg, scale)
+    np.testing.assert_allclose(got, ref, rtol=BF16_RTOL, atol=atol,
+                               err_msg=line)
+    return line
 
 
 # the wrapper cases run again on bf16 operands (the SE FCs stay fp32)
@@ -214,6 +250,174 @@ def _counts(mesh) -> dict:
     return {k: (c.calls, c.elements) for k, c in mesh.counts.items()}
 
 
+# the wrapper cases' global activations; every other input is a weight
+ACTIVATIONS = ("x", "xm")
+
+
+def _cotangent(c_out: int) -> np.ndarray:
+    """The seeded r of a wrapper case's loss sum(out * r), at its global
+    output's shape (every case keeps H and W)."""
+    return np.random.default_rng(100 + c_out).normal(
+        size=(B, HW, HW, c_out)).astype(np.float32)
+
+
+def _leaves(w: dict) -> dict:
+    """The inputs as torch leaves that require grad."""
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(v))
+            .detach().clone().requires_grad_() for k, v in w.items()}
+
+
+def _global_grads(mesh, t: dict, grads) -> dict:
+    """One rank's gradients in their global form: the activations' as the
+    chunks that sharded them gathered them, the weights' summed over the
+    batch axes; fp32 arrays, keyed by input, unused inputs left out."""
+    keys = list(t)
+    weights = [k for k in keys if k not in ACTIVATIONS]
+    summed = dict(zip(weights, sum_batch_grads(
+        mesh, [grads[keys.index(k)] for k in weights])))
+    out = {}
+    for k, g in zip(keys, grads):
+        g = summed.get(k, g)
+        if g is not None:
+            out[k] = g.detach().float().numpy()
+    return out
+
+
+def _wrapper_grads(mesh, w: dict, names=None) -> dict:
+    """name -> (the gradients of sum(out * r) through the case, in global
+    form; its dtype; the forward's model-axis words before and after the
+    backward; the backward's counted collectives)."""
+    dp = S.conv_mesh_shape(mesh)[0]
+    t = _leaves(w)
+    res = {}
+    for name in names or _wrapper_cases(mesh, t):
+        # built per case: each backward frees its graph, the chunks' too
+        run, layout, c_out, _ = _wrapper_cases(mesh, t)[name]
+        mesh.reset_counts()
+        y = run()
+        words = dp * mesh.model_wire_words()
+        r = S.shard_to_layout(torch.from_numpy(_cotangent(c_out)).to(y.dtype),
+                              mesh, layout)
+        grads = torch.autograd.grad(y, list(t.values()), r, allow_unused=True)
+        after = dp * mesh.model_wire_words()
+        res[name] = dict(
+            grads=_global_grads(mesh, t, grads),
+            dtypes={k: str(g.dtype) for k, g in zip(t, grads)
+                    if g is not None},
+            words=words, words_after=after,
+            backward={k: v for k, v in _counts(mesh).items()
+                      if k.endswith(".backward")})
+    return res
+
+
+def _route_inputs() -> dict:
+    """The block routing cases' global input and parameters (seeded): an
+    MBConv block (c_mid 32), one whose c_mid (15) a model factor of 2 does
+    not divide, a separable block, and one whose c_out (15) it does not
+    divide."""
+    rng = np.random.default_rng(4)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32))
+
+    gen = torch.Generator().manual_seed(0)
+    return {"x": r(B, HW, HW, 16),
+            "mb": materialize(tm.mbconv_def(16, 16, k=3, expand_ratio=2),
+                              gen, device="cpu"),
+            "mb15": materialize(tm.mbconv_def(16, 16, k=3, c_mid=15), gen,
+                                device="cpu"),
+            "sep": {"dw": r(3, 3, 16, scale=0.3), "pw": r(16, 16)},
+            "sep15": {"dw": r(3, 3, 16, scale=0.3), "pw": r(16, 15)}}
+
+
+# name -> (block, its params, in layout, c_out, shards at model factor 2)
+ROUTES = {
+    "mbconv": ("mbconv", "mb", "replicated", 16, True),
+    "mbconv_sharded_in": ("mbconv", "mb", "model_sharded", 16, True),
+    "mbconv_c_mid_15": ("mbconv", "mb15", "replicated", 16, False),
+    "separable": ("separable", "sep", "replicated", 16, True),
+    "separable_sharded_in": ("separable", "sep", "model_sharded", 16, True),
+    "separable_c_out_15": ("separable", "sep15", "replicated", 15, False),
+}
+
+
+def _route(kind, x, params, **kw):
+    if kind == "mbconv":
+        return tm.mbconv_block(x, params, **kw)
+    return separable_block(x, params, dw_act="relu", act="relu6", **kw)
+
+
+def _block_routes(mesh) -> dict:
+    """name -> (the block on the mesh gathered to its global output, its
+    out layout, the sharded dispatches it made, the gradients of sum(out *
+    r) in global form), ``mbconv_block`` and ``separable_block`` at
+    their own schedules."""
+    res = {}
+    for name, (kind, pkey, layout, c_out, _) in ROUTES.items():
+        w = _route_inputs()
+        t = _leaves({"x": w["x"], **w[pkey]})
+        x = S.shard_to_layout(t["x"], mesh, layout)
+        telemetry.reset()
+        y, out_layout = _route(kind, x, {k: v for k, v in t.items()
+                                         if k != "x"},
+                               mesh=mesh, in_layout=layout)
+        dispatched = telemetry.get_telemetry().get(
+            f"sharded.dispatch.{kind}") or 0
+        r = torch.from_numpy(_cotangent(c_out))
+        grads = torch.autograd.grad(
+            y, list(t.values()), S.shard_to_layout(r, mesh, out_layout),
+            allow_unused=True)
+        res[name] = dict(
+            out=S.gather_global(y.detach(), mesh, out_layout, c_out).numpy(),
+            layout=out_layout, dispatched=dispatched,
+            grads=_global_grads(mesh, t, grads))
+    return res
+
+
+def _collective_checks(mesh) -> dict:
+    """(axis, op) -> (kept a grad_fn, the cotangent it passed is the rule's)
+    for every collective and ``chunk`` on each axis of more than one rank,
+    on an input that differs by rank; and the batch-axis sum of gradients
+    of two dtypes."""
+    res = {}
+    rank = mesh.rank
+    for axis in ("data", "model"):
+        n, i = mesh.size(axis), mesh.index(axis)
+        if n == 1:
+            continue
+        w = 3
+        g = torch.arange(4.0 * w * n).reshape(4, w * n)   # whole, same
+        part = g[:, i * w:(i + 1) * w]                     # this rank's
+        t = (torch.arange(4.0 * w * n).reshape(4, w * n) * 0.5
+             + rank).requires_grad_()
+        ts = (torch.arange(4.0 * w).reshape(4, w) + rank).requires_grad_()
+        cases = {"all_reduce": (lambda: mesh.all_reduce(t, axis), t, g, g),
+                 "reduce_scatter": (
+                     lambda: mesh.reduce_scatter(t, axis, dim=1), t, part, g),
+                 "all_gather": (lambda: mesh.all_gather(ts, axis, dim=1), ts,
+                                g, part),
+                 "chunk": (lambda: mesh.chunk(t, axis, dim=1), t, part, g)}
+        for op, (fn, leaf, cot, want) in cases.items():
+            out = fn()
+            got, = torch.autograd.grad(out, leaf, cot)
+            res[(axis, op)] = (out.grad_fn is not None,
+                               bool(torch.equal(got, want)))
+    dp, di = S.conv_mesh_shape(mesh)[0], mesh.index("data")
+    grads = [torch.full((3, 2), di + 1.0), None,
+             torch.full((5,), di + 1.0, dtype=torch.bfloat16)]
+    mesh.reset_counts()
+    summed = sum_batch_grads(mesh, grads)
+    total = dp * (dp + 1) / 2
+    res["sum_batch_grads"] = (
+        summed[1] is None
+        and bool(torch.equal(summed[0], torch.full((3, 2), total)))
+        and summed[2].dtype == torch.bfloat16
+        and bool(torch.equal(summed[2].float(), torch.full((5,), total))),
+        _counts(mesh))
+    return res
+
+
 def _rank_cases(rank, shape, axes, port, out_path):
     """One rank of one mesh: every case, rank 0 saving the results."""
     torch.set_num_threads(1)
@@ -244,11 +448,13 @@ def _rank_cases(rank, shape, axes, port, out_path):
                 out=S.gather_global(out, mesh, layout, c_out).float().numpy(),
                 dtype=str(out.dtype), counts=counted, wire_words=wire,
                 model_words=words)
+        res["grads"] = _wrapper_grads(mesh, _inputs())
+        res["bf16_grads"] = _wrapper_grads(mesh, _bf16_inputs(_inputs()),
+                                           BF16_CASES)
+        res["routes"] = _block_routes(mesh)
+        res["collectives"] = _collective_checks(mesh)
         for name, (cfg, def_fn, apply) in _net_runs():
-            params = materialize(def_fn(cfg), torch.Generator().manual_seed(3),
-                                 device="cpu")
-            images = torch.from_numpy(np.random.default_rng(5).random(
-                (NET_BATCH, NET_SIDE, NET_SIDE, 3), np.float32))
+            params, images, labels = _net_inputs(cfg, def_fn)
             plan = tm.network_plan(tm_specs(name.split("_")[0], cfg),
                                    NET_BATCH, NET_SIDE, NET_SIDE,
                                    S.conv_mesh_shape(mesh),
@@ -257,10 +463,12 @@ def _rank_cases(rank, shape, axes, port, out_path):
             logits = apply(params, images, cfg, mesh=mesh)
             model_counts = {k: v for k, v in _counts(mesh).items()
                             if k.endswith(".model")}
+            words = dp * mesh.model_wire_words()
             res["networks"][name] = dict(
-                logits=logits.float().numpy(), dtype=str(logits.dtype),
-                counts=model_counts,
-                wire_words=dp * mesh.model_wire_words(),
+                grads=_net_grads(mesh, params, logits, labels),
+                logits=logits.detach().float().numpy(),
+                dtype=str(logits.dtype),
+                counts=model_counts, wire_words=words,
                 model_words=plan.interconnect_words,
                 gathering_boundaries=sum(
                     1 for a, p in zip(
@@ -275,6 +483,43 @@ def _rank_cases(rank, shape, axes, port, out_path):
             torch.save(res, out_path)
     finally:
         mesh.close()
+
+
+def _net_inputs(cfg, def_fn):
+    """A network's seeded parameters (leaves that require grad), images and
+    labels."""
+    params = materialize(def_fn(cfg), torch.Generator().manual_seed(3),
+                         device="cpu")
+    for leaf in _flat(params).values():
+        leaf.requires_grad_()
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.random((NET_BATCH, NET_SIDE, NET_SIDE, 3),
+                                         np.float32))
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, NET_BATCH))
+    return params, images, labels
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _net_grads(mesh, params: dict, logits: torch.Tensor,
+               labels: torch.Tensor) -> dict:
+    """The parameters' gradients of the trainer's loss (cross-entropy of
+    the fp32 logits at ``labels``), summed over the batch axes on a mesh
+    (``mesh`` None: one device); name -> fp32 array."""
+    flat = _flat(params)
+    grads = torch.autograd.grad(F.cross_entropy(logits.float(), labels),
+                                list(flat.values()))
+    if mesh is not None:
+        grads = sum_batch_grads(mesh, grads)
+    return {k: g.float().numpy() for k, g in zip(flat, grads)}
 
 
 def _net_runs():
@@ -311,80 +556,107 @@ def mesh_runs(tmp_path_factory):
     return out
 
 
-@pytest.fixture(scope="module")
-def port_refs():
-    """The single-device results of every wrapper case and network."""
-    w = {k: torch.from_numpy(v) for k, v in _inputs().items()}
-    ref = {}
+def _single_device_cases(w: dict) -> dict:
+    """name -> the single-device op of every wrapper case on the global
+    inputs ``w`` (torch tensors)."""
+    se = (w["w_se1"], w["b_se1"], w["w_se2"], w["b_se2"])
 
     def mb(x, w_exp, w_proj, mode="retain", se_on=True, **acts):
-        s = ((w["w_se1"], w["b_se1"], w["w_se2"], w["b_se2"]) if se_on
-             else (None,) * 4)
-        return convdk_mbconv_fused(x, w_exp, w["w_dw"], *s, w_proj,
-                                   tile_h=3, tile_w=4, mode=mode, **acts)
+        return lambda: convdk_mbconv_fused(
+            x, w_exp, w["w_dw"], *(se if se_on else (None,) * 4), w_proj,
+            tile_h=3, tile_w=4, mode=mode, **acts)
 
+    def sep():
+        return convdk_fused_separable(w["xm"], w["w_sdw"], w["w_pw"],
+                                      tile_h=3, tile_w=4, dw_act="relu",
+                                      act="relu6")
+
+    cases = {}
     for coll in ("ring_allreduce", "psum_scatter"):
         for mode in ("retain", "recompute"):
-            ref[f"mbconv_{mode}_{coll}"] = mb(w["x"], w["w_exp"],
-                                              w["w_proj"], mode)
-        ref[f"mbconv_identity_in_{coll}"] = mb(w["xm"], None, w["w_projm"],
-                                               exp_act=None)
-        ref[f"fusedmb_{coll}"] = convdk_fusedmb_fused(
+            cases[f"mbconv_{mode}_{coll}"] = mb(w["x"], w["w_exp"],
+                                                w["w_proj"], mode)
+        cases[f"mbconv_identity_in_{coll}"] = mb(w["xm"], None, w["w_projm"],
+                                                 exp_act=None)
+        cases[f"fusedmb_{coll}"] = lambda: convdk_fusedmb_fused(
             w["x"], w["w_conv"], w["w_proj"], tile_h=3, tile_w=4)
-        ref[f"separable_in_{coll}"] = convdk_fused_separable(
-            w["xm"], w["w_sdw"], w["w_pw"], tile_h=3, tile_w=4,
-            dw_act="relu", act="relu6")
-    ref["mbconv_v3_no_se_recompute"] = mb(
+        cases[f"separable_in_{coll}"] = sep
+    cases["mbconv_v3_no_se_recompute"] = mb(
         w["x"], w["w_exp"], w["w_proj"], "recompute", se_on=False,
         exp_act="hard_swish", dw_act="hard_swish")
-    ref["mbconv_v3_se_gate"] = mb(w["x"], w["w_exp"], w["w_proj"],
-                                  exp_act="relu", dw_act="relu",
-                                  se_act="relu", gate_act="hard_sigmoid")
-    ref["mbconv_expand_in"] = mb(w["x"], w["w_exp"], w["w_proj"])
-    ref["mbconv_pad_scatter"] = mb(w["x"], w["w_exp"], w["w_proj9"])
-    ref["fusedmb_pad_scatter"] = convdk_fusedmb_fused(
+    cases["mbconv_v3_se_gate"] = mb(w["x"], w["w_exp"], w["w_proj"],
+                                    exp_act="relu", dw_act="relu",
+                                    se_act="relu", gate_act="hard_sigmoid")
+    cases["mbconv_expand_in"] = mb(w["x"], w["w_exp"], w["w_proj"])
+    cases["mbconv_pad_scatter"] = mb(w["x"], w["w_exp"], w["w_proj9"])
+    cases["fusedmb_pad_scatter"] = lambda: convdk_fusedmb_fused(
         w["x"], w["w_conv"], w["w_proj9"], tile_h=3, tile_w=4)
-    ref["separable_replicated"] = ref["separable_in_ring_allreduce"]
-    ref["chain_scatter_into_identity"] = mb(
-        mb(w["x"], w["w_exp"], w["w_projm"]), None, w["w_projm"],
-        exp_act=None)
+    cases["separable_replicated"] = sep
+    first = mb(w["x"], w["w_exp"], w["w_projm"])
+    cases["chain_scatter_into_identity"] = lambda: mb(
+        first(), None, w["w_projm"], exp_act=None)()
+    return cases
+
+
+def _single_device_grads(w: dict, names) -> dict:
+    """name -> the gradients of sum(out * r) through the single-device op,
+    fp32 arrays keyed by input (unused inputs left out)."""
+    res = {}
+    for name in names:
+        t = _leaves(w)
+        y = _single_device_cases(t)[name]()
+        r = torch.from_numpy(_cotangent(y.shape[-1])).to(y.dtype)
+        grads = torch.autograd.grad(y, list(t.values()), r, allow_unused=True)
+        res[name] = {k: g.float().numpy() for k, g in zip(t, grads)
+                     if g is not None}
+    return res
+
+
+@pytest.fixture(scope="module")
+def port_refs():
+    """The single-device results of every wrapper case and network, and
+    their gradients."""
+    w = {k: torch.from_numpy(v) for k, v in _inputs().items()}
+    cases = _single_device_cases(w)
+    ref = {k: f() for k, f in cases.items()}
     nets = {}
     for name, (cfg, def_fn, apply) in _net_runs():
-        params = materialize(def_fn(cfg), torch.Generator().manual_seed(3),
-                             device="cpu")
-        images = torch.from_numpy(np.random.default_rng(5).random(
-            (NET_BATCH, NET_SIDE, NET_SIDE, 3), np.float32))
-        nets[name] = (params, images, apply(params, images, cfg))
-    return {k: v.numpy() for k, v in ref.items()}, nets
+        params, images, labels = _net_inputs(cfg, def_fn)
+        logits = apply(params, images, cfg)
+        nets[name] = (params, images, logits.detach(),
+                      _net_grads(None, params, logits, labels))
+    return ({k: v.numpy() for k, v in ref.items()}, nets,
+            _single_device_grads(_inputs(), cases))
 
 
 @pytest.fixture(scope="module")
 def port_refs_bf16():
     """The single-device results of the bf16 wrapper cases, on the same
-    bf16 operands (fp32 arrays of the bf16 outputs)."""
+    bf16 operands (fp32 arrays of the bf16 outputs), and their
+    gradients."""
     w = _bf16_inputs(_inputs())
-    se = (w["w_se1"], w["b_se1"], w["w_se2"], w["b_se2"])
-
-    def mb(x, w_exp, w_proj, mode="retain", **acts):
-        return convdk_mbconv_fused(x, w_exp, w["w_dw"], *se, w_proj,
-                                   tile_h=3, tile_w=4, mode=mode, **acts)
-
-    sep = convdk_fused_separable(w["xm"], w["w_sdw"], w["w_pw"], tile_h=3,
-                                 tile_w=4, dw_act="relu", act="relu6")
-    ref = {"mbconv_retain_ring_allreduce": mb(w["x"], w["w_exp"],
-                                              w["w_proj"]),
-           "mbconv_recompute_ring_allreduce": mb(w["x"], w["w_exp"],
-                                                 w["w_proj"], "recompute"),
-           "mbconv_identity_in_psum_scatter": mb(w["xm"], None,
-                                                 w["w_projm"], exp_act=None),
-           "fusedmb_ring_allreduce": convdk_fusedmb_fused(
-               w["x"], w["w_conv"], w["w_proj"], tile_h=3, tile_w=4),
-           "separable_in_ring_allreduce": sep, "separable_replicated": sep}
-    ref["mbconv_retain_psum_scatter"] = ref["mbconv_retain_ring_allreduce"]
-    ref["fusedmb_psum_scatter"] = ref["fusedmb_ring_allreduce"]
-    ref["separable_in_psum_scatter"] = sep
+    cases = _single_device_cases(w)
+    ref = {k: cases[k]() for k in BF16_CASES}
     assert all(v.dtype == torch.bfloat16 for v in ref.values())
-    return {k: v.float().numpy() for k, v in ref.items()}
+    return ({k: v.float().numpy() for k, v in ref.items()},
+            _single_device_grads(w, BF16_CASES))
+
+
+@pytest.fixture(scope="module")
+def route_refs():
+    """The routing cases' blocks without a mesh: output and gradients."""
+    res = {}
+    for name, (kind, pkey, _, c_out, _) in ROUTES.items():
+        w = _route_inputs()
+        t = _leaves({"x": w["x"], **w[pkey]})
+        y, _ = _route(kind, t["x"], {k: v for k, v in t.items() if k != "x"})
+        grads = torch.autograd.grad(y, list(t.values()),
+                                    torch.from_numpy(_cotangent(c_out)),
+                                    allow_unused=True)
+        res[name] = (y.detach().numpy(),
+                     {k: g.numpy() for k, g in zip(t, grads)
+                      if g is not None})
+    return res
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -393,7 +665,7 @@ def test_sharded_wrappers_match_single_device(mesh_runs, port_refs, mesh):
     (identity free, a real expand gathered), the padded scatters and the
     chained pair, gathered to their global form, equal the single-device
     ops within the sharded bar."""
-    refs, _ = port_refs
+    refs = port_refs[0]
     got = mesh_runs[mesh]["wrappers"]
     assert set(got) == set(refs)
     for name, r in got.items():
@@ -438,14 +710,15 @@ def test_network_forwards_on_the_mesh(mesh_runs, port_refs, mesh, net):
     counted collectives are the plan's words (at the config's dtype),
     all-gathering only where a sharded boundary meets a replicated
     entry."""
-    _, nets = port_refs
+    nets = port_refs[1]
     r = mesh_runs[mesh]["networks"][net]
     ref = nets[net][2]
     assert r["dtype"] == str(ref.dtype)
     if net in NETS:
         np.testing.assert_allclose(r["logits"], ref.numpy(), **TOL)
     else:
-        _close_bf16(r["logits"], ref.float().numpy())
+        print(_close_bf16(r["logits"], ref.float().numpy(),
+                          f"{mesh} {net} logits"))
     assert r["wire_words"] == r["model_words"]
     gathers = r["counts"].get("all_gather.model", (0, 0))[0]
     # the split ring of an identity block with a sharded input and a
@@ -470,8 +743,153 @@ def test_bf16_wrappers_match_single_device(mesh_runs, port_refs_bf16,
     assert set(got) == set(BF16_CASES)
     for name, r in got.items():
         assert r["dtype"] == "torch.bfloat16", name
-        _close_bf16(r["out"], port_refs_bf16[name], name)
+        print(_close_bf16(r["out"], port_refs_bf16[0][name],
+                          f"{mesh} {name}"))
         assert r["wire_words"] == r["model_words"], name
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_wrapper_grads_match_single_device(mesh_runs, port_refs,
+                                                   mesh):
+    """Every wrapper case's gradients of sum(out * r), the weights' summed
+    over the batch axes and the inputs' gathered by the chunks that
+    sharded them, equal the single-device op's within the sharded bar:
+    no gradient is lost or counted twice across "model"."""
+    refs = port_refs[2]
+    got = mesh_runs[mesh]["grads"]
+    assert set(got) == set(refs)
+    for name, r in got.items():
+        assert set(r["grads"]) == set(refs[name]), name
+        for k, g in r["grads"].items():
+            np.testing.assert_allclose(g, refs[name][k],
+                                       err_msg=f"{name} {k}", **TOL)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_bf16_wrapper_grads_match_single_device(mesh_runs, port_refs_bf16,
+                                                mesh):
+    """The bf16 wrapper cases' gradients, at the types of the operands
+    (bf16 but the SE FCs' fp32), within the bf16 bar of the single-device
+    op's, whose backward follows JAX's ``custom_vjp`` at the bf16
+    operands."""
+    refs = port_refs_bf16[1]
+    got = mesh_runs[mesh]["bf16_grads"]
+    assert set(got) == set(BF16_CASES)
+    for name, r in got.items():
+        assert set(r["grads"]) == set(refs[name]), name
+        for k, g in r["grads"].items():
+            fp32 = k.startswith(("w_se", "b_se"))
+            assert r["dtypes"][k] == ("torch.float32" if fp32
+                                      else "torch.bfloat16"), (name, k)
+            print(_close_bf16(g, refs[name][k], f"{mesh} {name} {k}"))
+
+
+# the cases whose backward gathers nothing over "model": a replicated
+# input and a ring exit (the cotangent whole on every rank)
+RING_REPLICATED = ("mbconv_retain_ring_allreduce",
+                   "mbconv_recompute_ring_allreduce", "fusedmb_ring_allreduce",
+                   "mbconv_v3_no_se_recompute")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_backward_counts_apart_from_the_forward(mesh_runs, mesh):
+    """A backward leaves the forward's model-axis words as the model prices
+    them; its own collectives count under ``.backward``: the output
+    gathered after a scatter exit (and a sharded input gathered) over
+    "model", the inputs' chunks over the batch axes, and one all-reduce of
+    the weights' gradients per dtype over "data"."""
+    (dp, mp) = S.conv_mesh_shape(types.SimpleNamespace(
+        shape=dict(zip(MESHES[mesh][1], MESHES[mesh][0]))))
+    for kind in ("grads", "bf16_grads"):
+        for name, r in mesh_runs[mesh][kind].items():
+            words = mesh_runs[mesh]["wrappers"][name]["model_words"]
+            assert r["words"] == r["words_after"] == words, (kind, name)
+            back = r["backward"]
+            assert ("all_gather.model.backward" in back) == (
+                mp > 1 and name not in RING_REPLICATED), (kind, name, back)
+            assert ("all_reduce.data.backward" in back) == (dp > 1), back
+    back = mesh_runs[mesh]["grads"]["separable_in_psum_scatter"]["backward"]
+    if mp > 1:
+        # the cotangent's slices and the input's, gathered over "model"
+        assert back["all_gather.model.backward"][0] == 3
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_block_routes_match_the_mesh_free_blocks(mesh_runs, route_refs,
+                                                 mesh):
+    """The port's twin of the JAX suite's routing test: ``mbconv_block``
+    and ``separable_block`` with a mesh route through the sharded wrappers
+    where the channel grid divides (replicated and model-sharded
+    arrivals), fall back to the single-card kernels on the rank's batch
+    where it does not (c_mid 15, c_out 15 at a model factor of 2), and give
+    the mesh-free block's output and gradients either way.  (A global
+    batch the data factor does not divide cannot reach a port block, which
+    takes the rank's batch slice: the network raises on it, in
+    ``test_sharded_wrappers_reject_bad_grids``.)"""
+    mp = MESHES[mesh][0][-1]
+    got = mesh_runs[mesh]["routes"]
+    assert set(got) == set(ROUTES)
+    for name, (kind, _, layout, _, shards) in ROUTES.items():
+        r, (want, want_grads) = got[name], route_refs[name]
+        assert r["dispatched"] == (1 if shards or mp == 1 else 0), name
+        if kind == "separable":
+            sliced = mp > 1 and shards and layout == "replicated"
+            assert r["layout"] == ("model_sharded" if sliced
+                                   else "replicated"), name
+        np.testing.assert_allclose(r["out"], want, err_msg=name, **TOL)
+        assert set(r["grads"]) == set(want_grads), name
+        for k, g in r["grads"].items():
+            np.testing.assert_allclose(g, want_grads[k],
+                                       err_msg=f"{name} {k}", **TOL)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("net", list(NETS) + ["b0_bf16"])
+def test_network_grads_on_the_mesh(mesh_runs, port_refs, mesh, net):
+    """Each network's parameter gradients of the trainer's loss through
+    the mesh forward (every wrapper, collective and chunk on its route),
+    summed over the batch axes, equal the single device's: in fp32 within
+    the sharded bar and within 1e-4 of each tensor's own largest gradient
+    (which holds the SE FCs' gradients deep in the chain, near 1e-10,
+    too); B0 in bf16 at the bf16 bar taken at the gradient tree's scale
+    (each block's rounding reaches the cotangents of every block before
+    it), each tensor's error against its own scale printed."""
+    ref = port_refs[1][net][3]
+    got = mesh_runs[mesh]["networks"][net]["grads"]
+    assert set(got) == set(ref)
+    tree = max(float(np.abs(v).max()) for v in ref.values())
+    for k, g in got.items():
+        if net in NETS:
+            np.testing.assert_allclose(g, ref[k], err_msg=k, **TOL)
+            own = float(np.abs(ref[k]).max())
+            assert float(np.abs(g - ref[k]).max()) <= TOL["rtol"] * own, k
+        else:
+            print(_close_bf16(g, ref[k], f"{mesh} {net} {k} (tree scale)",
+                              scale=tree))
+            print(_bf16_report(g, ref[k], f"{mesh} {net} {k} (own scale, "
+                                          "not gated)")[0])
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_every_collective_keeps_its_grad_fn(mesh_runs, mesh):
+    """On every axis of more than one rank, ``all_reduce``,
+    ``reduce_scatter``, ``all_gather`` and ``chunk`` return a tensor with a
+    ``grad_fn`` for an input that requires grad, and pass the cotangent
+    the rule gives (identity, all-gather, the rank's slice, all-gather);
+    ``sum_batch_grads`` sums over the batch axes per dtype, keeps
+    ``None``, and counts one all-reduce per dtype."""
+    dp, mp = (math.prod(MESHES[mesh][0][:-1]), MESHES[mesh][0][-1])
+    res = mesh_runs[mesh]["collectives"]
+    want = {(axis, op) for axis, n in (("data", dp), ("model", mp)) if n > 1
+            for op in ("all_reduce", "reduce_scatter", "all_gather",
+                       "chunk")}
+    assert set(res) - {"sum_batch_grads"} == want
+    for key in want:
+        assert res[key] == (True, True), key
+    ok, counts = res["sum_batch_grads"]
+    assert ok
+    assert counts == ({"all_reduce.data.backward": (2, 11)} if dp > 1
+                      else {})
 
 
 def test_plans_shard_the_identity_entries(mesh_runs):
@@ -494,8 +912,9 @@ def test_plans_shard_the_identity_entries(mesh_runs):
 
 def test_sharded_wrappers_reject_bad_grids():
     """A mesh without both axes, a c_mid or c_in the model factor does not
-    divide, a sharded input to Fused-MBConv, a batch the data factor does
-    not divide, and a gradient all raise before any collective."""
+    divide, a sharded input to Fused-MBConv and a batch the data factor
+    does not divide all raise before any collective; a gradient goes
+    through (the single-device op's on a one-rank mesh)."""
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 2}, dp=2, mp=2)
     x = torch.zeros(2, 5, 5, 8)
     w_dw, w_proj = torch.zeros(3, 3, 15), torch.zeros(15, 8)
@@ -525,10 +944,26 @@ def test_sharded_wrappers_reject_bad_grids():
             torch.zeros(2, 5, 5, 3), torch.zeros(3, 3, 6), torch.zeros(6, 8),
             mesh=types.SimpleNamespace(shape={"data": 2, "model": 4}),
             in_layout="model_sharded")
-    with pytest.raises(NotImplementedError, match="backward"):
-        S.convdk_fusedmb_fused_sharded(
-            x, torch.zeros(3, 3, 8, 16, requires_grad=True),
-            torch.zeros(16, 8), mesh=mesh)
+    # a gradient no longer raises: on a one-rank mesh the wrapper's
+    # backward is the single-device op's, bit for bit
+    rng = np.random.default_rng(9)
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((2, 5, 5, 8), (3, 3, 8, 16), (16, 8))]
+    leaves = [a.clone().requires_grad_() for a in args]
+    one = make_mesh((1, 1), device="cpu",
+                    init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                    world_size=1)
+    try:
+        y = S.convdk_fusedmb_fused_sharded(*leaves, mesh=one, tile_h=3,
+                                           tile_w=4)
+        got = torch.autograd.grad((y ** 2).sum(), leaves)
+    finally:
+        one.close()
+    assert type(y.grad_fn).__name__ == "_ShardedFnBackward"
+    leaves = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad((convdk_fusedmb_fused(
+        *leaves, tile_h=3, tile_w=4) ** 2).sum(), leaves)
+    assert all(torch.equal(g, r) for g, r in zip(got, want))
     cfg, def_fn, apply = NETS["b0"]
     params = materialize(def_fn(cfg), torch.Generator().manual_seed(0),
                          device="cpu")
@@ -597,7 +1032,7 @@ def test_wrappers_match_the_jax_ops(mesh_runs):
 
 
 _JAX_SHARDED = textwrap.dedent("""
-    import os, sys
+    import functools, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax, jax.numpy as jnp, numpy as np
     from repro.compat import make_mesh
@@ -606,66 +1041,135 @@ _JAX_SHARDED = textwrap.dedent("""
                                convdk_mbconv_fused_sharded)
     w = {k: jnp.asarray(v) for k, v in np.load(sys.argv[1]).items()}
     mesh = make_mesh((2, 2), ("data", "model"))
-    se = (w["w_se1"], w["b_se1"], w["w_se2"], w["b_se2"])
-    out = {}
+    SE = ("w_se1", "b_se1", "w_se2", "b_se2")
+    mb = functools.partial(convdk_mbconv_fused_sharded, mesh=mesh, tile_h=3)
+    fmb = functools.partial(convdk_fusedmb_fused_sharded, mesh=mesh,
+                            tile_h=3)
+    sep = functools.partial(convdk_fused_separable_sharded, mesh=mesh,
+                            tile_h=3, dw_act="relu", act="relu6")
+    eye = jnp.eye(w["xm"].shape[-1], dtype=jnp.float32)
+    # name -> (the wrapper, its inputs' keys, its output's c_out)
+    cases = {}
     for coll in ("ring_allreduce", "psum_scatter"):
-        out["mbconv_retain_" + coll] = convdk_mbconv_fused_sharded(
-            w["x"], w["w_exp"], w["w_dw"], *se, w["w_proj"], mesh=mesh,
-            tile_h=3, collective=coll)
-        out["fusedmb_" + coll] = convdk_fusedmb_fused_sharded(
-            w["x"], w["w_conv"], w["w_proj"], mesh=mesh, tile_h=3,
-            collective=coll)
-        out["separable_in_" + coll] = convdk_fused_separable_sharded(
-            w["xm"], w["w_sdw"], w["w_pw"], mesh=mesh, tile_h=3,
-            dw_act="relu", act="relu6", collective=coll,
-            in_layout="model_sharded")
-    out["mbconv_identity_in_psum_scatter"] = convdk_mbconv_fused_sharded(
-        w["xm"], jnp.eye(w["xm"].shape[-1], dtype=jnp.float32), w["w_dw"],
-        *se, w["w_projm"], mesh=mesh, tile_h=3, exp_act=None,
-        collective="psum_scatter", in_layout="model_sharded")
-    out["separable_replicated"] = convdk_fused_separable_sharded(
-        w["xm"], w["w_sdw"], w["w_pw"], mesh=mesh, tile_h=3, dw_act="relu",
-        act="relu6")
+        cases["mbconv_retain_" + coll] = (
+            lambda x, e, d, s1, b1, s2, b2, p, coll=coll: mb(
+                x, e, d, s1, b1, s2, b2, p, collective=coll),
+            ("x", "w_exp", "w_dw") + SE + ("w_proj",), 12)
+        cases["fusedmb_" + coll] = (
+            lambda x, c, p, coll=coll: fmb(x, c, p, collective=coll),
+            ("x", "w_conv", "w_proj"), 12)
+        cases["separable_in_" + coll] = (
+            lambda x, d, p, coll=coll: sep(x, d, p, collective=coll,
+                                           in_layout="model_sharded"),
+            ("xm", "w_sdw", "w_pw"), 12)
+    cases["mbconv_identity_in_psum_scatter"] = (
+        lambda x, d, s1, b1, s2, b2, p: mb(
+            x, eye, d, s1, b1, s2, b2, p, exp_act=None,
+            collective="psum_scatter", in_layout="model_sharded"),
+        ("xm", "w_dw") + SE + ("w_projm",), 16)
+    cases["separable_replicated"] = (sep, ("xm", "w_sdw", "w_pw"), 12)
     b = {k: (v.astype(jnp.bfloat16) if k in sys.argv[3].split(",") else v)
          for k, v in w.items()}
-    se16 = (b["w_se1"], b["b_se1"], b["w_se2"], b["b_se2"])
-    bf16 = {
-        "mbconv_retain_psum_scatter": convdk_mbconv_fused_sharded(
-            b["x"], b["w_exp"], b["w_dw"], *se16, b["w_proj"], mesh=mesh,
-            tile_h=3, collective="psum_scatter"),
-        "fusedmb_ring_allreduce": convdk_fusedmb_fused_sharded(
-            b["x"], b["w_conv"], b["w_proj"], mesh=mesh, tile_h=3),
-        "separable_in_ring_allreduce": convdk_fused_separable_sharded(
-            b["xm"], b["w_sdw"], b["w_pw"], mesh=mesh, tile_h=3,
-            dw_act="relu", act="relu6", in_layout="model_sharded"),
-    }
-    out.update({"bf16_" + k: np.asarray(v.astype(jnp.float32))
-                for k, v in bf16.items()})
-    np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
+    bf16 = ("mbconv_retain_psum_scatter", "fusedmb_ring_allreduce",
+            "separable_in_ring_allreduce")
+    out, grads = {}, {}
+    for tag, arrays, names in (("", w, tuple(cases)), ("bf16_", b, bf16)):
+        for name in names:
+            fn, keys, c_out = cases[name]
+            y, vjp = jax.vjp(fn, *(arrays[k] for k in keys))
+            # the loss sum(out * r), r the port's seeded cotangent
+            g = vjp(w["r_%d" % c_out].astype(y.dtype))
+            out[tag + name] = np.asarray(y.astype(jnp.float32))
+            for k, gk in zip(keys, g):
+                grads[tag + name + "__" + k] = np.asarray(
+                    gk.astype(jnp.float32))
+    # the unsharded oracle's VJP at the bf16 operands, the gradient the
+    # JAX wrappers' custom_vjp defines
+    from repro.kernels.ref import separable_ref
+    y, vjp = jax.vjp(lambda *a: separable_ref(*a, dw_act="relu",
+                                              act="relu6"),
+                     b["xm"], b["w_sdw"], b["w_pw"])
+    for k, gk in zip(("xm", "w_sdw", "w_pw"),
+                     vjp(w["r_12"].astype(y.dtype))):
+        grads["bf16_oracle_separable_in_ring_allreduce__" + k] = np.asarray(
+            gk.astype(jnp.float32))
+    np.savez(sys.argv[2], **out)
+    np.savez(sys.argv[4], **grads)
 """)
 
 
-def test_wrappers_match_the_jax_sharded_wrappers(mesh_runs, tmp_path):
+@pytest.fixture(scope="module")
+def jax_sharded(tmp_path_factory):
+    """The JAX package's own sharded wrappers at mesh (2, 2) (4 virtual
+    host devices, one subprocess): their outputs and their gradients
+    (``jax.vjp``, ``residual_barrier`` at its default) of sum(out * r) at
+    the port's cotangents."""
+    tmp = tmp_path_factory.mktemp("jax_sharded")
+    np.savez(tmp / "in.npz", **_inputs(),
+             **{f"r_{c}": _cotangent(c) for c in (CO, CM)})
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-c", _JAX_SHARDED, str(tmp / "in.npz"),
+         str(tmp / "out.npz"), ",".join(BF16_WEIGHTS), str(tmp / "grad.npz")],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return np.load(tmp / "out.npz"), np.load(tmp / "grad.npz")
+
+
+def test_wrappers_match_the_jax_sharded_wrappers(mesh_runs, jax_sharded):
     """The JAX package's own sharded wrappers at mesh (2, 2) (4 virtual
     host devices, one subprocess) on the same inputs; three of them on the
     bf16 operands too, at the bf16 bar."""
-    np.savez(tmp_path / "in.npz", **_inputs())
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    res = subprocess.run(
-        [sys.executable, "-c", _JAX_SHARDED, str(tmp_path / "in.npz"),
-         str(tmp_path / "out.npz"), ",".join(BF16_WEIGHTS)], env=env,
-        capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-4000:]
-    ref = np.load(tmp_path / "out.npz")
+    ref = jax_sharded[0]
     got = mesh_runs["2x2"]["wrappers"]
     got16 = mesh_runs["2x2"]["bf16_wrappers"]
     assert len(ref.files) == 11
     for name in ref.files:
         if name.startswith("bf16_"):
-            _close_bf16(got16[name[5:]]["out"], ref[name], name)
+            print(_close_bf16(got16[name[5:]]["out"], ref[name], name))
         else:
             np.testing.assert_allclose(got[name]["out"], ref[name],
                                        err_msg=name, **TOL)
+
+
+# Faults of the reference at mesh (2, 2) (ROADMAP C): its separable
+# wrapper with a replicated input returns w_dw's cotangent twice over
+# (right at (1, 4) and (4, 1), the residual barrier on or not), and in bf16
+# its sharded-in separable backward parts from its own oracle's VJP at the
+# bf16 operands (relu / relu6 kinks on other sides at 28 elements of xm's
+# gradient), which the port's equals; that case is held to the oracle.
+JAX_DOUBLED = {"separable_replicated__w_sdw": 2.0}
+JAX_BF16_PARTED = "bf16_separable_in_ring_allreduce"
+
+
+def test_wrapper_grads_match_the_jax_sharded_wrappers(mesh_runs,
+                                                      jax_sharded):
+    """Every gradient the mesh (2, 2) took through a wrapper, against
+    ``jax.grad`` through the JAX package's sharded wrapper on the same
+    inputs and loss, within the JAX suite's gradient bar (rtol 2e-3, atol
+    2e-3); the bf16 cases at the bf16 bar.  The identity expand's
+    ``jnp.eye`` has no port twin (the port passes ``None``).  Where the
+    reference is at fault (above), the fault itself is asserted, and the
+    bf16 case is held to the reference's unsharded oracle instead (its
+    sharded gradient reported, not gated)."""
+    ref = jax_sharded[1]
+    got = mesh_runs["2x2"]["grads"]
+    got16 = mesh_runs["2x2"]["bf16_grads"]
+    assert len(ref.files) == 55
+    for key in ref.files:
+        name, leaf = key.split("__")
+        if name.startswith("bf16_oracle_"):
+            print(_close_bf16(got16[name[12:]]["grads"][leaf], ref[key],
+                              key))
+        elif name == JAX_BF16_PARTED:
+            print(_bf16_report(got16[name[5:]]["grads"][leaf], ref[key],
+                               key + " (not gated)")[0])
+        elif name.startswith("bf16_"):
+            print(_close_bf16(got16[name[5:]]["grads"][leaf], ref[key], key))
+        else:
+            np.testing.assert_allclose(
+                JAX_DOUBLED.get(key, 1.0) * got[name]["grads"][leaf],
+                ref[key], err_msg=key, **GRAD_TOL)
 
 
 def test_network_forwards_match_jax(mesh_runs, port_refs):
@@ -676,7 +1180,7 @@ def test_network_forwards_match_jax(mesh_runs, port_refs):
     import jax.numpy as jnp
     from repro.models import mbconv as jm
 
-    _, nets = port_refs
+    nets = port_refs[1]
     jcfgs = {"b0": jm.EffNetConfig(width_mult=0.125, num_classes=4),
              "b0_bf16": jm.EffNetConfig(width_mult=0.125, num_classes=4,
                                         dtype="bfloat16"),
@@ -687,8 +1191,9 @@ def test_network_forwards_match_jax(mesh_runs, port_refs):
     japply = {"b0": jm.efficientnet_b0_apply, "v3": jm.mobilenet_v3_apply,
               "v2s": jm.efficientnet_v2_s_apply,
               "b0_bf16": jm.efficientnet_b0_apply}
-    for net, (params, images, _) in nets.items():
-        jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
+    for net, (params, images, _, _) in nets.items():
+        jparams = jax.tree.map(lambda t: jnp.asarray(t.detach().numpy()),
+                               params)
         ref = np.asarray(japply[net](jparams, jnp.asarray(images.numpy()),
                                      jcfgs[net]).astype(jnp.float32))
         for mesh in MESHES:
@@ -697,4 +1202,4 @@ def test_network_forwards_match_jax(mesh_runs, port_refs):
                 np.testing.assert_allclose(got, ref, err_msg=f"{mesh} {net}",
                                            **TOL)
             else:
-                _close_bf16(got, ref, f"{mesh} {net}")
+                print(_close_bf16(got, ref, f"{mesh} {net}"))

@@ -235,9 +235,10 @@ def test_launch_counters_stay_zero_on_cpu():
                                        t(12, 8), stride=s)
         assert out.shape == (2, -(-9 // s), -(-11 // s), 8)
         for fused in (True, False):
-            out = separable_block(
+            out, layout = separable_block(
                 t(2, 9, 11, 6), {"dw": t(3, 3, 6), "pw": t(6, 10)},
                 stride=s, fused=fused)
+            assert layout == "replicated"
             assert out.shape == (2, -(-9 // s), -(-11 // s), 10)
     for bias in (None, t(6)):
         out = ops.convdk_causal_conv1d(t(2, 19, 6), t(4, 6), bias,
