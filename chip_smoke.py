@@ -231,8 +231,25 @@ Phases, each of which must pass (exit 1 otherwise):
             in fp32 the engine's decode-loop prefill of 2 prompts of 32
             tokens against the kernel path's forward (last row) within
             1e-3 relative.
-
-19. mesh        the sharded wrappers and the network plan over
+19. dense-model full-width Gemma-2B (18 layers, d_model 2048, 8 query
+            heads over 1 KV head of 256, GeGLU 16384, the tied
+            256000-word table; seeded fp32 weights, materialized once
+            after the Mamba-2 tree is freed, timed, its parameter count
+            equal to the definition's): in fp32 at 1 x 4096 tokens, past
+            q_chunk 2048, the forward through the chunked online softmax
+            against the same forward with dense scores within 1e-3
+            relative; a 2-layer full-width copy at 2 x 256 against the
+            CPU run within 1e-3 relative; then the bf16 prefill step at
+            1 x 4096 timed on CUDA events (tokens/s, peak memory) and
+            traced.  No kernel of B1-B7 is on this path: every launch
+            count is 0 around the forward and the prefill step.
+20. dense-serve the LM engine on full-width Gemma-2B in bf16: generate_many
+            on the lm-serve phase's 8 requests, 16 new tokens each, every
+            one answered, no kernel launch, with prefill tokens/s and
+            decode ms per token; then in fp32 the engine's decode-loop
+            prefill of 2 prompts of 32 tokens against the forward (last
+            row) within 1e-3 relative.
+21. mesh        the sharded wrappers and the network plan over
             torch.distributed, parity runs (one H100 has no model axis):
             first a one-rank NCCL mesh (1, 1) runs full-width B0 at 224,
             batch 8, through the sharded path of every block, its logits
@@ -329,6 +346,8 @@ LM_CPU = (2, 256)                          # 2-layer copy vs the CPU
 LM_CONVS = (("conv_x", 5120), ("conv_b", 128), ("conv_c", 128))
 LM_REQUESTS = (12, 20, 28, 30, 40, 60, 300, 300)   # lm-serve prompt lengths
 LM_NEW_TOKENS = 16
+DENSE_TOKENS = 4096                        # dense-model: past q_chunk 2048
+DENSE_CPU = (2, 256)                       # 2-layer Gemma copy vs the CPU
 MESH_SHAPES = ((1, 2), (2, 1))             # the mesh phase's two-rank meshes
 MESH_RTOL = 1e-4                           # x max|single-device result|
 BF16_RTOL = 2e-2                           # x max|ref|: the JAX bf16 bar
@@ -2576,7 +2595,10 @@ def _first_layers(tree, n):
 
 
 def _rel(got, ref):
-    return float((got.float().cpu() - ref.float().cpu()).abs().max()) \
+    """max|got - ref| / max|ref|, on ``got``'s device (the logits are
+    GBs)."""
+    ref = ref.to(got.device)
+    return float((got.float() - ref.float()).abs_().max()) \
         / float(ref.float().abs().max())
 
 
@@ -2657,17 +2679,16 @@ def lm_model_phase(torch, params):
     return bool(ok), counts, {"prefill_ms": fwd.mean_ms, "trace": trace}
 
 
-def lm_serve_phase(torch, params):
-    """The engine at full width in bf16 on LM_REQUESTS, then its fp32
-    decode-loop prefill against the kernel path's forward."""
+def _engine_phase(torch, cfg, params):
+    """The LM engine serving ``cfg`` (bf16) at full width on LM_REQUESTS
+    with LM_NEW_TOKENS each, then in fp32 its decode-loop prefill of 2 x 32
+    tokens against the forward's last row."""
     import dataclasses
     import numpy as np
-    from repro_torch.configs.mamba2_2p7b import CONFIG
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.models.model import forward, init_decode_state
     from repro_torch.serve import Engine, ServeConfig
 
-    cfg = dataclasses.replace(CONFIG, use_convdk_kernel=True)
     eng = Engine(cfg, params, ServeConfig(max_new_tokens=LM_NEW_TOKENS,
                                           little_threshold=256),
                  device=DEVICE)
@@ -2688,7 +2709,7 @@ def lm_serve_phase(torch, params):
     eng.prefill = timed(eng.prefill, "prefill", lambda tok, st: tok.numel())
     eng._step = timed(eng._step, "decode", lambda st, tok, g: tok.numel())
     rng = np.random.default_rng(7)
-    reqs = [rng.integers(0, CONFIG.vocab, n).astype(np.int32)
+    reqs = [rng.integers(0, cfg.vocab, n).astype(np.int32)
             for n in LM_REQUESTS]
     batches = eng.schedule(reqs)
     reset_launches()
@@ -2699,13 +2720,13 @@ def lm_serve_phase(torch, params):
     counts = launches()
     ok = (len(outs) == len(reqs)
           and all(o.shape == (LM_NEW_TOKENS,) and (o >= 0).all()
-                  and (o < CONFIG.vocab).all() for o in outs))
+                  and (o < cfg.vocab).all() for o in outs))
     stats = {"wall_s": wall, "batches": batches,
              "prefill_tokens": work["prefill"],
              "prefill_tokens_per_s": work["prefill"] / spent["prefill"],
              "decode_tokens": work["decode"],
              "decode_ms_per_token": spent["decode"] / work["decode"] * 1e3,
-             "decode_steps_s": spent["decode"]}
+             "decode_steps_s": spent["decode"], "launches": counts}
     print(f"  {len(reqs)} requests ({', '.join(map(str, LM_REQUESTS))} "
           f"tokens) in batches {batches}: all answered "
           f"{'ok' if ok else 'FAIL'} in {wall:.2f} s; launches {counts}")
@@ -2717,7 +2738,7 @@ def lm_serve_phase(torch, params):
 
     f32 = dataclasses.replace(cfg, dtype="float32")
     eng32 = Engine(f32, params, device=DEVICE)
-    tokens = torch.randint(0, CONFIG.vocab, (2, 32),
+    tokens = torch.randint(0, cfg.vocab, (2, 32),
                            generator=torch.Generator().manual_seed(8))
     with torch.inference_mode():
         state = init_decode_state(f32, 2, 32, torch.float32, DEVICE)
@@ -2725,11 +2746,135 @@ def lm_serve_phase(torch, params):
         full = forward(params, {"tokens": tokens.to(DEVICE)}, f32)[:, -1]
     rel = _rel(last, full)
     good = bool(torch.isfinite(last).all()) and rel <= MODEL_RTOL
-    print(f"  fp32 decode-loop prefill of 2 x 32 tokens vs the kernel "
-          f"path's forward: rel err {rel:.3e} (tol {MODEL_RTOL:g}) "
-          f"{'ok' if good else 'FAIL'}")
+    print(f"  fp32 decode-loop prefill of 2 x 32 tokens vs the forward: rel "
+          f"err {rel:.3e} (tol {MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
     return bool(ok and good), dict(stats, fp32_prefill_rel_err=rel)
 
+
+def lm_serve_phase(torch, params):
+    """The engine at full width in bf16 on LM_REQUESTS (the conv1d kernel's
+    path), then its fp32 decode-loop prefill against the kernel path's
+    forward."""
+    import dataclasses
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+
+    return _engine_phase(
+        torch, dataclasses.replace(CONFIG, use_convdk_kernel=True), params)
+
+
+def dense_init(torch):
+    """Full-width Gemma-2B, fp32 weights from a seeded CPU generator,
+    materialized once for the dense phases; its parameter count against
+    the definition's."""
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.models.model import model_def
+    from repro_torch.models.param import count_params, materialize
+
+    t0 = time.perf_counter()
+    tree = model_def(CONFIG)
+    params = materialize(tree, torch.Generator().manual_seed(0), DEVICE)
+    _sync(torch)
+    n = count_params(params)
+    init_s = time.perf_counter() - t0
+    print(f"  Gemma-2B ({CONFIG.n_layers} layers, d_model {CONFIG.d_model}, "
+          f"{CONFIG.n_heads} query heads over {CONFIG.n_kv_heads} KV head, "
+          f"head_dim {CONFIG.head_dim}, GeGLU {CONFIG.d_ff}, vocab "
+          f"{CONFIG.vocab} tied): {n} parameters (the definition: "
+          f"{count_params(tree)}), {4 * n / 1e9:.2f} GB fp32, materialized "
+          f"in {init_s:.1f} s")
+    return params, {"params": n, "init_s": init_s,
+                    "count_ok": n == count_params(tree)}
+
+
+def dense_model_phase(torch, params, info):
+    """Full-width Gemma-2B: in fp32 at 1 x DENSE_TOKENS the forward through
+    the chunked online softmax (S past q_chunk) against the same forward
+    with dense scores, a 2-layer copy at DENSE_CPU against the CPU, then
+    the bf16 prefill step at 1 x DENSE_TOKENS timed and traced; no kernel
+    of B1-B7 launches on this path."""
+    import dataclasses
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.core.telemetry import measure
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.model import forward
+    from repro_torch.train.step import make_prefill_step
+
+    gen = torch.Generator().manual_seed(9)
+    ok = info["count_ok"]
+    f32 = dataclasses.replace(CONFIG, dtype="float32")
+    shape = (1, DENSE_TOKENS, CONFIG.vocab)
+    with torch.inference_mode():
+        tokens = torch.randint(0, CONFIG.vocab, (1, DENSE_TOKENS),
+                               generator=gen).to(DEVICE)
+        reset_launches()                        # the main path starts here
+        chunked = forward(params, {"tokens": tokens}, f32)
+        _sync(torch)
+        counts = launches()                     # ... and ends here
+        dense = forward(params, {"tokens": tokens}, f32, use_chunked=False)
+        rel = _rel(chunked, dense)
+        good = (bool(torch.isfinite(chunked).all()) and rel <= MODEL_RTOL
+                and tuple(chunked.shape) == shape
+                and not any(counts.values()))
+        print(f"  fp32 forward 1 x {DENSE_TOKENS} (q_chunk "
+              f"{CONFIG.q_chunk}, kv_chunk {CONFIG.kv_chunk}): chunked "
+              f"online softmax vs dense scores, max|dense| "
+              f"{float(dense.abs().max()):.4e}, rel err {rel:.3e} (tol "
+              f"{MODEL_RTOL:g}); launches {counts} (want none) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        del chunked, dense
+
+        two = dataclasses.replace(f32, n_layers=2)
+        p2 = _first_layers(params, 2)
+        tokens = torch.randint(0, CONFIG.vocab, DENSE_CPU, generator=gen)
+        got = forward(p2, {"tokens": tokens.to(DEVICE)}, two)
+        ref = forward(_cpu_tree(torch, p2), {"tokens": tokens}, two)
+        cpu_rel = _rel(got, ref)
+        good = bool(torch.isfinite(got).all()) and cpu_rel <= MODEL_RTOL
+        print(f"  2-layer full-width copy, {DENSE_CPU[0]} x {DENSE_CPU[1]}, "
+              f"vs the CPU run: max|cpu| {float(ref.abs().max()):.4e} rel "
+              f"err {cpu_rel:.3e} (tol {MODEL_RTOL:g}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        del got, ref, p2
+
+        step = make_prefill_step(CONFIG)        # bf16
+        batch = {"tokens": torch.randint(0, CONFIG.vocab, (1, DENSE_TOKENS),
+                                         generator=gen).to(DEVICE)}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                        # the main path starts here
+        nxt = step(params, batch)
+        _sync(torch)
+        step_counts = launches()                # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        good = (not any(step_counts.values()) and nxt.shape == (1,)
+                and 0 <= int(nxt) < CONFIG.vocab)
+        print(f"  bf16 prefill step 1 x {DENSE_TOKENS}: next token "
+              f"{int(nxt)}, launches {step_counts} (want none), peak "
+              f"{peak:.1f} GB {'ok' if good else 'FAIL'}")
+        ok &= good
+        fwd = measure(lambda: step(params, batch), iters=3, warmup=1)
+    print(f"  bf16 prefill step (1 x {DENSE_TOKENS}): {fwd.mean_ms:.3f} ms "
+          f"(CUDA events, mean of 3), {DENSE_TOKENS / fwd.mean_ms * 1e3:.0f} "
+          f"tokens/s")
+    trace = trace_phase(torch, lambda: step(params, batch), fwd.mean_ms)
+    launched = sum(counts.values()) + sum(step_counts.values())
+    return bool(ok), launched, dict(
+        info, chunked_rel_err=rel, cpu_rel_err=cpu_rel,
+        prefill_ms=fwd.mean_ms, prefill_tokens_per_s=DENSE_TOKENS
+        / fwd.mean_ms * 1e3, peak_gb=peak, trace=trace)
+
+
+def dense_serve_phase(torch, params):
+    """The engine on full-width Gemma-2B in bf16 on LM_REQUESTS, then its
+    fp32 decode-loop prefill against the forward."""
+    from repro_torch.configs.gemma_2b import CONFIG
+
+    ok, stats = _engine_phase(torch, CONFIG, params)
+    good = not any(stats["launches"].values())
+    print(f"  launches {stats['launches']} (want none) "
+          f"{'ok' if good else 'FAIL'}")
+    return ok and good, stats
 
 
 # ---------------------------------------------------------------------------
@@ -3459,6 +3604,18 @@ def main() -> int:
     phase("lm-serve", "lm-serve: the LM engine at full width")
     phases["lm-serve"], lm_serve = lm_serve_phase(torch, lm_params)
     del lm_params
+    torch.cuda.empty_cache()
+    phase("dense-model", f"dense-model: full-width Gemma-2B, chunked vs "
+                         f"dense attention at 1 x {DENSE_TOKENS}, vs the "
+                         f"CPU, the bf16 prefill timed")
+    dense_params, dense_info = dense_init(torch)
+    phases["dense-model"], dense_launches, dense = dense_model_phase(
+        torch, dense_params, dense_info)
+    phase("dense-serve", "dense-serve: the LM engine on full-width Gemma-2B")
+    phases["dense-serve"], dense_serve = dense_serve_phase(torch,
+                                                           dense_params)
+    del dense_params
+    torch.cuda.empty_cache()
     phase("mesh", f"mesh: the sharded wrappers and the network plan over "
                   f"torch.distributed on the one card, meshes (1, 1) NCCL "
                   f"and {MESH_SHAPES} gloo (parity runs)")
@@ -3490,7 +3647,8 @@ def main() -> int:
                    "mnv2_bf16_launches": mnv2_bf16_launches,
                    "mnv2_staged_bf16_launches": mnv2_staged_bf16_launches,
                    "lm": lm, "lm_launches": lm_launches,
-                   "lm_serve": lm_serve, "both_modes": both_modes,
+                   "lm_serve": lm_serve, "dense": dense,
+                   "dense_serve": dense_serve, "both_modes": both_modes,
                    "bf16": bf16, "bf16_past_one_ulp": past,
                    "paper": paper, "bench": bench, "mesh": mesh,
                    "rows": stats.rows}, f,
@@ -3508,7 +3666,8 @@ def main() -> int:
          "b0_bf16": bf16["b0"]["launches"],
          "v2s_bf16": bf16["v2s"]["launches"],
          "v3_bf16": bf16["v3"]["launches"]}),
-        "lm_launches_per_prefill_forward": lm_launches}))
+        "lm_launches_per_prefill_forward": lm_launches,
+        "dense_launches": dense_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

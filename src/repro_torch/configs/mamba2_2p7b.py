@@ -6,6 +6,7 @@ dim 64, d_conv 4.  The causal depthwise conv stem is the ConvDK hot-spot.
 kernel path is ``dataclasses.replace(CONFIG, use_convdk_kernel=True)``."""
 
 from ..models.model import ModelConfig
+from .base import ArchSpec, register
 
 CONFIG = ModelConfig(
     name="mamba2-2.7b", family="ssm",
@@ -19,3 +20,5 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, vocab=64, d_state=16, d_conv=4, expand=2,
     ssd_chunk=16, n_heads=2, n_kv_heads=2, head_dim=64, dtype="float32",
 )
+
+register(ArchSpec("mamba2-2.7b", CONFIG, SMOKE, skips={}))

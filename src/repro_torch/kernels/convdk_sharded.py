@@ -54,7 +54,12 @@ comes back in ``x``'s own layout (the rank's channel slice where
 replicated; the weights' gradients are this rank's batch contribution,
 the same on every model rank, and ``launch.mesh.sum_batch_grads`` sums
 them over the batch axes.  At bf16 the oracle runs at the bf16 operands,
-as the single-card ops' backwards do.  The backward's collectives count
+as the single-card ops' backwards do, except that the bf16 weights the
+oracle widens to fp32 itself keep their fp32 cotangents unrounded until
+the backward has summed them over the batch axes; it rounds them once
+and leaves the sums on the batch group's first rank (zeros on the
+others, which ``sum_batch_grads`` adds exactly), so they round as one
+device's do.  The backward's collectives count
 under ``"<kind>.model.backward"``.
 The bytes and collective words are priced by ``core.perfmodel``'s
 ``sharded_*_traffic`` under the same axes.
@@ -75,7 +80,12 @@ from ..core.perfmodel import (
     validate_collective,
     validate_layout,
 )
-from ..launch.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS
+from ..launch.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    POD_AXIS,
+    sum_batch_grads_once,
+)
 from .common import needs_grad, vjp_through
 from .convdk_fused import _fused_impl
 from .convdk_fusedmb import _fusedmb_impl
@@ -171,7 +181,12 @@ class _ShardedFn(torch.autograd.Function):
     cotangent all-gathered over "model" where the rank holds a slice of
     c_out (``sliced_out``) and cut to ``c_out``, and ``x`` all-gathered
     where it arrives ``model_sharded`` (``sharded_in``), its gradient cut
-    back to the rank's slice."""
+    back to the rank's slice.  The weights at positions ``widened`` (of
+    ``tensors``) are the ones ``ref`` widens to fp32 itself: where they
+    are not fp32, the VJP runs at their widened copies, and their fp32
+    cotangents are summed over the batch axes and rounded once
+    (``launch.mesh.sum_batch_grads_once``), as one device rounds the
+    whole batch's."""
 
     @staticmethod
     def forward(ctx, run, ref, mesh, conf, *tensors):
@@ -181,27 +196,37 @@ class _ShardedFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        ref, mesh, sharded_in, sliced_out, c_out = ctx.conf
-        x, *weights = ctx.saved_tensors
+        ref, mesh, sharded_in, sliced_out, c_out, widened = ctx.conf
+        inputs = list(ctx.saved_tensors)
+        needs = ctx.needs_input_grad[4:]
         if sliced_out:
             grad_out = mesh.backward_gather(grad_out, MODEL_AXIS)[
                 ..., :c_out].contiguous()
         if sharded_in:
-            x = mesh.backward_gather(x, MODEL_AXIS)
-        grads = vjp_through(ref, (x, *weights), grad_out,
-                            ctx.needs_input_grad[4:])
+            inputs[0] = mesh.backward_gather(inputs[0], MODEL_AXIS)
+        once = [i for i in widened if needs[i] and inputs[i] is not None
+                and inputs[i].dtype != torch.float32]
+        dtypes = [inputs[i].dtype for i in once]
+        for i in once:
+            inputs[i] = inputs[i].float()   # the same values ref widens
+        grads = list(vjp_through(ref, inputs, grad_out, needs))
+        for i, g in zip(once, sum_batch_grads_once(
+                mesh, [grads[i] for i in once], dtypes)):
+            grads[i] = g
         if sharded_in and grads[0] is not None:
-            grads = (mesh.chunk(grads[0], MODEL_AXIS), *grads[1:])
+            grads[0] = mesh.chunk(grads[0], MODEL_AXIS)
         return (None, None, None, None, *grads)
 
 
 def _apply(run: Callable[..., torch.Tensor],
            ref: Callable[..., torch.Tensor], mesh, *tensors,
-           sharded_in: bool, sliced_out: bool, c_out: int) -> torch.Tensor:
+           sharded_in: bool, sliced_out: bool, c_out: int,
+           widened: Tuple[int, ...]) -> torch.Tensor:
     """``run(*tensors)``, through ``_ShardedFn`` where autograd records."""
     if needs_grad(*tensors):
-        return _ShardedFn.apply(run, ref, mesh,
-                                (sharded_in, sliced_out, c_out), *tensors)
+        return _ShardedFn.apply(
+            run, ref, mesh, (sharded_in, sliced_out, c_out, widened),
+            *tensors)
     return run(*tensors)
 
 
@@ -235,8 +260,11 @@ def convdk_fused_separable_sharded(
     def ref(x, w_dw, w_pw):
         return separable_ref(x, w_dw, w_pw, stride, padding, dw_act, act)
 
+    # separable_ref widens w_pw only: its depthwise runs at x's dtype, as
+    # JAX's oracle does, so w_dw's cotangent keeps that rounding
     layout = dict(sharded_in=sharded_in, c_out=c_out,
-                  sliced_out=not sharded_in or collective == "psum_scatter")
+                  sliced_out=not sharded_in or collective == "psum_scatter",
+                  widened=(2,))
     if not sharded_in:
         _require_shardable(mesh, x.shape[0] * dp, c_out, "c_out")
         return _apply(
@@ -341,7 +369,8 @@ def convdk_mbconv_fused_sharded(
 
     return _apply(run, ref, mesh, x, w_exp, w_dw, w_se1, b_se1, w_se2,
                   b_se2, w_proj, sharded_in=sharded_in, c_out=c_out,
-                  sliced_out=collective == "psum_scatter")
+                  sliced_out=collective == "psum_scatter",
+                  widened=tuple(range(1, 8)))   # mbconv_ref widens all
 
 
 # ---------------------------------------------------------------------------
@@ -384,4 +413,4 @@ def convdk_fusedmb_fused_sharded(
             mesh.chunk(w_proj, MODEL_AXIS, dim=0), geo, act=act, mesh=mesh,
             collective=collective, scatter_width=cw),
         ref, mesh, x, w_conv, w_proj, sharded_in=False, c_out=c_out,
-        sliced_out=collective == "psum_scatter")
+        sliced_out=collective == "psum_scatter", widened=(1, 2))

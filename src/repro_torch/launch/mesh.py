@@ -27,7 +27,10 @@ axis**.  So ``all_gather``'s backward takes the rank's slice,
 holds them whole and applies them to its own batch slice, so each rank's
 gradient is its batch's contribution, and ``sum_batch_grads`` sums those
 over the batch axes ("pod" and "data"), the reduction XLA's partitioner
-inserts for ``jax.grad`` on a mesh.  Nothing sums over "model": its ranks
+inserts for ``jax.grad`` on a mesh.  A sharded wrapper's backward sums the
+bf16 weights that its oracle widens itself, in fp32, and rounds once
+(``sum_batch_grads_once``), as one device rounds the whole batch's
+gradient once; ``sum_batch_grads`` then adds only exact zeros to them.  Nothing sums over "model": its ranks
 compute the replicated weights' gradients identically.  The backward's
 collectives count apart from the forward's, under
 ``"<kind>.<axis>.backward"``, so ``model_wire_words`` stays the forward's.
@@ -360,6 +363,30 @@ def sum_batch_grads(mesh: Mesh, grads: Iterable[Optional[torch.Tensor]]
                                             for i in idx])):
             out[i] = part.view_as(grads[i])
     return out
+
+
+def sum_batch_grads_once(mesh: Mesh, grads: Sequence[torch.Tensor],
+                         dtypes: Sequence[torch.dtype]) -> List[torch.Tensor]:
+    """Gradients that a backward computed unrounded in fp32 (the bf16
+    weights its oracle widens) summed over the batch axes in fp32, then
+    each rounded once to its weight's dtype in ``dtypes``, as one device
+    rounds the whole batch's sum once.  The first rank of the batch group
+    holds the rounded sums and every other rank zeros, so
+    ``sum_batch_grads`` adds only exact zeros to them afterwards; the
+    ranks' gradients still sum to the whole batch's.  One fp32 all-reduce
+    of them flattened together, counted under
+    ``"all_reduce.data.backward"``; without a batch group, each gradient
+    rounded once."""
+    grads = list(grads)
+    if not grads or mesh._groups[DATA_AXIS] is None:
+        return [g.to(d) for g, d in zip(grads, dtypes)]
+    flat = torch.cat([g.detach().reshape(-1) for g in grads])
+    mesh._count("all_reduce", DATA_AXIS, flat.numel(), backward=True)
+    flat = mesh._all_reduce(flat, DATA_AXIS)
+    if mesh.data_index:
+        flat = torch.zeros_like(flat)
+    return [part.view_as(g).to(d) for g, d, part in zip(
+        grads, dtypes, flat.split([g.numel() for g in grads]))]
 
 
 def _records(t: torch.Tensor) -> bool:

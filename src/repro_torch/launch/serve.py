@@ -1,11 +1,15 @@
 """Serving launcher: batched generation with the LM engine.
 
 Run (on the card):  PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch mamba2-2.7b [--smoke] [--batch 4] [--prompt-len 32] \
+        --arch gemma-2b [--smoke] [--batch 4] [--prompt-len 32] \
         [--new-tokens 16] [--device cpu]
 
-Twin of ``repro.launch.serve``.  Only ``mamba2-2.7b`` is ported; any other
-``--arch`` exits saying so.  Weights and prompts are random, from seed 0.
+Twin of ``repro.launch.serve``: ``--arch`` resolves through the port's
+registry (``configs.base.get_arch``: ``mamba2-2.7b`` and the dense
+decoders ``gemma-2b``, ``phi3-mini-3.8b``, ``qwen1.5-4b``,
+``mistral-large-123b``).  An encoder-only arch exits, as in the JAX
+launcher; an arch the port does not register (every family it does not
+run yet) exits naming ROADMAP A item 12.  Weights and prompts are random, from seed 0.
 """
 
 from __future__ import annotations
@@ -17,13 +21,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..configs import mamba2_2p7b
+from ..configs.base import get_arch, list_archs
 from ..kernels.common import resolve_device
-from ..models.model import model_def
+from ..models.model import NOT_PORTED, model_def
 from ..models.param import materialize
 from ..serve.engine import Engine, ServeConfig
-
-ARCHS = {"mamba2-2.7b": mamba2_2p7b}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
@@ -37,12 +39,14 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
                     help="default: the CUDA card (raises without one)")
     args = ap.parse_args(argv)
 
-    if args.arch not in ARCHS:
-        raise SystemExit(f"{args.arch} is not ported yet (ROADMAP A item "
-                         f"12); ported: {', '.join(ARCHS)}")
+    if args.arch not in list_archs():
+        raise SystemExit(f"{args.arch} is {NOT_PORTED}; ported: "
+                         f"{', '.join(list_archs())}")
+    spec = get_arch(args.arch)
+    cfg = spec.smoke if args.smoke else spec.config
+    if cfg.family == "encoder":
+        raise SystemExit(f"{args.arch} is encoder-only: no decode")
     device = resolve_device(args.device)
-    arch = ARCHS[args.arch]
-    cfg = arch.SMOKE if args.smoke else arch.CONFIG
     params = materialize(model_def(cfg),
                          torch.Generator().manual_seed(0), device)
     engine = Engine(cfg, params, ServeConfig(max_new_tokens=args.new_tokens),

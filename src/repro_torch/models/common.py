@@ -1,12 +1,16 @@
-"""Shared building blocks: RMSNorm, dense projections, embeddings and the
-depthwise-separable block (the MobileNet building block).
+"""Shared building blocks: RMSNorm, dense projections, rotary position
+embeddings, activations, embeddings and the depthwise-separable block (the
+MobileNet building block).
 
 Counterpart of ``repro.models.common``:
 
-* ``rmsnorm`` (fp32 inside, the input's dtype out), ``dense`` (the weight
-  cast to the input's dtype on every call, as the JAX package writes it),
-  ``embed`` / ``unembed`` / ``head_def``, with their ``*_def``
-  declarations;
+* ``rmsnorm`` (fp32 inside, the input's dtype out), ``dense`` (the weight,
+  and the bias where the definition has one, cast to the input's dtype on
+  every call, as the JAX package writes it), ``embed`` / ``unembed`` /
+  ``head_def``, with their ``*_def`` declarations;
+* ``rope_freqs`` / ``apply_rope`` (split halves, fp32 angles, the input's
+  dtype out) and ``act_fn`` (``"gelu"`` the tanh approximation, JAX's
+  default, ``"gelu_exact"`` the erf form, ``"silu"``, ``"relu"``);
 * ``separable_def`` declares one separable block's parameters and
   ``separable_block`` applies it, through the fused kernel
   (``kernels.convdk_fused``) or, with ``fused=False``, the staged pipeline
@@ -25,6 +29,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.autotune import FusedSchedule, get_fused_schedule
 from ..core.perfmodel import DEFAULT_LAYOUT, validate_layout
@@ -50,12 +55,49 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * params["scale"].float()).to(dtype)
 
 
-def dense_def(d_in: int, d_out: int) -> dict:
-    return {"w": P((d_in, d_out))}
+def dense_def(d_in: int, d_out: int, bias: bool = False,
+              scale: Optional[float] = None) -> dict:
+    d = {"w": P((d_in, d_out), scale=scale)}
+    if bias:
+        d["b"] = P((d_out,), init="zeros")
+    return d
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"].to(x.dtype)
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D) with positions (..., S) (broadcastable)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (D/2,)
+    angles = positions[..., None].float() * freqs              # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_exact": F.gelu,
+    "relu": F.relu,
+}
+
+
+def act_fn(name: str):
+    return _ACTS[name]
 
 
 def embed_def(vocab: int, d: int) -> dict:

@@ -3,16 +3,20 @@ tree, the full-sequence forward and the single-token decode step.
 
 Counterpart of ``repro.models.model``.  ``ModelConfig`` carries every field
 of the JAX package's, so its configs copy over unchanged.  The ported
-family is ``"ssm"`` (Mamba-2: a stack of SSD layers, ``models.ssd``); any
-other family raises ``NotImplementedError`` (ROADMAP A item 12 lists them
-in port order).
+families are ``"ssm"`` (Mamba-2: a stack of SSD layers, ``models.ssd``)
+and ``"dense"`` (decoder LMs: attention and an FFN per layer,
+``models.attention`` and ``models.ffn``); the other families, and MLA,
+raise ``NotImplementedError`` (ROADMAP A item 12 lists them in port
+order).
 
 Per-layer parameters are stacked on a leading layer axis (the key
-``"stack"``, the block's layer ``"0_S"``), the JAX package's
-scan-over-layers layout, so its param trees carry over key for key.  The
-JAX ``lax.scan`` over the stack becomes a Python loop that indexes the
-stacked tensors layer by layer (views, no copies); ``remat`` and
-``scan_layers`` are kept as fields with no effect until training is ported.
+``"stack"``, the block's layer ``"0_S"`` or ``"0_A"``), the JAX package's
+scan-over-layers layout, so its param trees carry over key for key; the
+decode state is stacked the same way (the KV caches' positions one per
+layer).  The JAX ``lax.scan`` over the stack becomes a Python loop that
+indexes the stacked tensors layer by layer (views, no copies); ``remat``
+and ``scan_layers`` are kept as fields with no effect until training is
+ported.
 """
 
 from __future__ import annotations
@@ -23,10 +27,12 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from ..kernels.common import resolve_device
+from . import attention as attn_mod
 from . import ssd as ssd_mod
 from .common import (
     dense, embed, embed_def, head_def, rmsnorm, rmsnorm_def, unembed,
 )
+from .ffn import ffn, ffn_def
 from .param import stack_defs
 
 NOT_PORTED = "not ported yet (ROADMAP A item 12)"
@@ -110,6 +116,16 @@ class ModelConfig:
     def ssd_heads(self) -> int:
         return self.d_inner // 64 if self.family == "ssm" else 0
 
+    def attn_cfg(self, window: Optional[int] = None) -> attn_mod.AttnConfig:
+        return attn_mod.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+            rope_theta=self.rope_theta, qkv_bias=self.qkv_bias,
+            causal=self.family != "encoder",
+            window=window, q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
+            logit_cap=self.logit_cap, seq_shard=self.seq_shard_attn,
+        )
+
     def ssd_cfg(self) -> ssd_mod.SSDConfig:
         return ssd_mod.SSDConfig(
             d_model=self.d_model, d_inner=self.d_inner,
@@ -129,45 +145,68 @@ class ModelConfig:
         return ("A",) * self.n_layers
 
 
+PORTED = ("ssm", "dense")
+
+
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "ssm":
+    if cfg.family not in PORTED or cfg.use_mla:
+        what = ("use_mla" if cfg.family in PORTED
+                else f"family {cfg.family!r}")
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is {NOT_PORTED}; the port "
-            f"runs family 'ssm'")
+            f"{what} ({cfg.name}) is {NOT_PORTED}; the port runs families "
+            f"{', '.join(map(repr, PORTED))} without MLA")
 
 
 # ---------------------------------------------------------------------------
-# per-layer definitions (every layer of the "ssm" family is an SSD layer)
+# per-layer definitions: "S" an SSD layer, "A" attention + FFN
 # ---------------------------------------------------------------------------
 
-BLOCK = "0_S"   # the stacked block's one layer (the JAX key f"{i}_{kind}")
+def _layer_def(cfg: ModelConfig, kind: str) -> dict:
+    d = cfg.d_model
+    if kind == "S":
+        return {"norm": rmsnorm_def(d), "ssd": ssd_mod.ssd_def(cfg.ssd_cfg())}
+    return {"ln1": rmsnorm_def(d),
+            "attn": attn_mod.attn_def(cfg.attn_cfg()),
+            "ln2": rmsnorm_def(d),
+            "ffn": ffn_def(d, cfg.d_ff, cfg.act, cfg.glu)}
 
 
-def _layer_def(cfg: ModelConfig) -> dict:
-    return {"norm": rmsnorm_def(cfg.d_model),
-            "ssd": ssd_mod.ssd_def(cfg.ssd_cfg())}
+def _apply_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 positions: torch.Tensor,
+                 use_chunked: Optional[bool] = None) -> torch.Tensor:
+    if kind == "S":
+        return x + ssd_mod.ssd_block(lp["ssd"], rmsnorm(lp["norm"], x),
+                                     cfg.ssd_cfg())
+    h = attn_mod.attention(lp["attn"], rmsnorm(lp["ln1"], x),
+                           cfg.attn_cfg(), positions, use_chunked)
+    x = x + h
+    return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x), cfg.act)
 
 
-def _apply_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + ssd_mod.ssd_block(lp["ssd"], rmsnorm(lp["norm"], x),
-                                 cfg.ssd_cfg())
+def _layer_groups(cfg: ModelConfig):
+    """(prefix kinds, unrolled; the stacked block's kinds; its count): the
+    JAX package's split.  The hybrid family's pattern blocks and remainder
+    layers come with RecurrentGemma, so here the stack's block is one
+    layer and no remainder exists."""
+    kinds = cfg.layer_kinds()
+    prefix = kinds[:cfg.n_dense_prefix]
+    rest = kinds[cfg.n_dense_prefix:]
+    return prefix, (rest[0],) if rest else (), len(rest)
 
 
-def _layer_groups(cfg: ModelConfig) -> Tuple[int, int]:
-    """(unrolled prefix layers, stacked layers): the JAX package's split
-    without the hybrid family's pattern blocks and remainder."""
-    n_prefix = min(cfg.n_dense_prefix, cfg.n_layers)
-    return n_prefix, cfg.n_layers - n_prefix
+def _block_key(i: int, kind: str) -> str:
+    return f"{i}_{kind}"
 
 
 def model_def(cfg: ModelConfig) -> dict:
     _require_ported(cfg)
     p: Dict[str, Any] = {"embed": embed_def(cfg.padded_vocab, cfg.d_model)}
-    n_prefix, n_stack = _layer_groups(cfg)
-    if n_prefix:
-        p["prefix"] = [_layer_def(cfg) for _ in range(n_prefix)]
-    if n_stack:
-        p["stack"] = stack_defs({BLOCK: _layer_def(cfg)}, n_stack)
+    prefix, pat, n_blocks = _layer_groups(cfg)
+    if prefix:
+        p["prefix"] = [_layer_def(cfg, k) for k in prefix]
+    if n_blocks:
+        p["stack"] = stack_defs({_block_key(i, k): _layer_def(cfg, k)
+                                 for i, k in enumerate(pat)}, n_blocks)
     p["final_norm"] = rmsnorm_def(cfg.d_model)
     if not cfg.tie_embeddings:
         p["head"] = head_def(cfg.d_model, cfg.padded_vocab)
@@ -232,18 +271,25 @@ def _embed_input(params: dict, batch: Dict[str, torch.Tensor],
     return x
 
 
-def forward(params: dict, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
+def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            use_chunked: Optional[bool] = None) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V).
 
-    batch: {"tokens": (B, S)} or {"embeds": (B, S, D)}.
+    batch: {"tokens": (B, S)} or {"embeds": (B, S, D)}.  ``use_chunked``
+    picks the attention layers' chunked online softmax (default: where S
+    passes ``q_chunk``).
     """
     _require_ported(cfg)
     x = _embed_input(params, batch, cfg)
-    for lp in params.get("prefix", []):
-        x = _apply_layer(lp, x, cfg)
-    for n in range(_layer_groups(cfg)[1]):
-        x = _apply_layer(_index(params["stack"], n)[BLOCK], x, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    prefix, pat, n_blocks = _layer_groups(cfg)
+    for lp, k in zip(params.get("prefix", []), prefix):
+        x = _apply_layer(lp, x, cfg, k, positions, use_chunked)
+    for n in range(n_blocks):
+        lp = _index(params["stack"], n)
+        for i, k in enumerate(pat):
+            x = _apply_layer(lp[_block_key(i, k)], x, cfg, k, positions,
+                             use_chunked)
     return _logits(params, x, cfg)
 
 
@@ -251,32 +297,45 @@ def forward(params: dict, batch: Dict[str, torch.Tensor],
 # decode (single-token serve step)
 # ---------------------------------------------------------------------------
 
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
+                 dtype: torch.dtype, device: torch.device):
+    if kind == "S":
+        return ssd_mod.init_ssd_state(batch, cfg.ssd_cfg(), dtype, device)
+    return attn_mod.init_kv_cache(batch, s_max, cfg.attn_cfg(), dtype, device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
                       dtype: torch.dtype = torch.bfloat16,
                       device: Optional[Union[str, torch.device]] = None
                       ) -> dict:
-    """Per-layer state tree, stacked along the layer axis for the stack.
-    ``s_max`` sizes attention caches; the SSM state is constant-size.
+    """Per-layer state tree, stacked along the layer axis for the stack:
+    the SSM state (constant-size) or the KV cache of ``s_max`` positions.
     ``device`` defaults to the card (``resolve_device``)."""
     _require_ported(cfg)
     device = resolve_device(device)
-    n_prefix, n_stack = _layer_groups(cfg)
-
-    def layer():
-        return ssd_mod.init_ssd_state(batch, cfg.ssd_cfg(), dtype, device)
-
+    prefix, pat, n_blocks = _layer_groups(cfg)
     state: Dict[str, Any] = {}
-    if n_prefix:
-        state["prefix"] = [layer() for _ in range(n_prefix)]
-    if n_stack:
-        state["stack"] = _stack([{BLOCK: layer()}] * n_stack)
+    if prefix:
+        state["prefix"] = [_layer_cache(cfg, k, batch, s_max, dtype, device)
+                           for k in prefix]
+    if n_blocks:
+        block = {_block_key(i, k): _layer_cache(cfg, k, batch, s_max, dtype,
+                                                device)
+                 for i, k in enumerate(pat)}
+        state["stack"] = _stack([block] * n_blocks)
     return state
 
 
-def _decode_layer(lp: dict, x: torch.Tensor, cache, cfg: ModelConfig):
-    y, nc = ssd_mod.ssd_decode_step(lp["ssd"], rmsnorm(lp["norm"], x),
-                                    cache, cfg.ssd_cfg())
-    return x + y, nc
+def _decode_layer(lp: dict, x: torch.Tensor, cache, cfg: ModelConfig,
+                  kind: str):
+    if kind == "S":
+        y, nc = ssd_mod.ssd_decode_step(lp["ssd"], rmsnorm(lp["norm"], x),
+                                        cache, cfg.ssd_cfg())
+        return x + y, nc
+    y, nc = attn_mod.decode_attention(lp["attn"], rmsnorm(lp["ln1"], x),
+                                      cache, cfg.attn_cfg())
+    x = x + y
+    return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x), cfg.act), nc
 
 
 def decode_step(params: dict, state: dict, batch_t: Dict[str, torch.Tensor],
@@ -284,18 +343,23 @@ def decode_step(params: dict, state: dict, batch_t: Dict[str, torch.Tensor],
     """One serve step: next-token logits (B, V) + the updated state."""
     _require_ported(cfg)
     x = _embed_input(params, batch_t, cfg)
+    prefix, pat, n_blocks = _layer_groups(cfg)
     new_state: Dict[str, Any] = {}
-    if "prefix" in params:
+    if prefix:
         caches = []
-        for lp, c in zip(params["prefix"], state["prefix"]):
-            x, nc = _decode_layer(lp, x, c, cfg)
+        for lp, k, c in zip(params["prefix"], prefix, state["prefix"]):
+            x, nc = _decode_layer(lp, x, c, cfg, k)
             caches.append(nc)
         new_state["prefix"] = caches
-    if "stack" in params:
-        layers = []
-        for n in range(_layer_groups(cfg)[1]):
-            x, nc = _decode_layer(_index(params["stack"], n)[BLOCK], x,
-                                  _index(state["stack"], n)[BLOCK], cfg)
-            layers.append({BLOCK: nc})
-        new_state["stack"] = _stack(layers)
+    if n_blocks:
+        blocks = []
+        for n in range(n_blocks):
+            lp, cache = _index(params["stack"], n), _index(state["stack"], n)
+            new_blk = {}
+            for i, k in enumerate(pat):
+                key = _block_key(i, k)
+                x, new_blk[key] = _decode_layer(lp[key], x, cache[key], cfg,
+                                                k)
+            blocks.append(new_blk)
+        new_state["stack"] = _stack(blocks)
     return _logits(params, x, cfg)[:, 0], new_state

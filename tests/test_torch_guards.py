@@ -5,8 +5,9 @@ than fall back to the CPU; its kernel counters stay at 0 on the CPU;
 agrees with its plain version (B7 in fp32 and bf16), pass 1's folded SE
 pool is its partials' tile-order sum and a split launch's folded split-K
 sum (retain, recompute, the fused separable kernel) the split-order sum
-of its own partials, eagerly and under CUDA graph replay, and each op's
-gradient on the card matches autograd through its plain version."""
+of its own partials, eagerly and under CUDA graph replay, each op's
+gradient on the card matches autograd through its plain version, and the
+dense LM's chunked attention matches its dense scores."""
 
 import ast
 import os
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.configs import mamba2_2p7b
+from repro_torch.configs import gemma_2b, mamba2_2p7b
 from repro_torch.configs.efficientnet_b0 import efficientnet_b0_smoke
 from repro_torch.configs.efficientnet_v2_s import efficientnet_v2_s_smoke
 from repro_torch.core.autotune import fused_separable_launch_plan as launch_plan
@@ -65,6 +66,8 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import model as lm
 from repro_torch.models.common import separable_block
 from repro_torch.models.param import from_numpy, materialize
+from repro_torch.models.attention import _chunked_sdpa, _mask_bias, _sdpa
+from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.ssd import init_ssd_state
 from repro_torch.serve import Engine, VisionEngine
 
@@ -107,6 +110,11 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.models.model", "repro_torch.serve.engine",
             "repro_torch.train.step", "repro_torch.launch.serve",
             "repro_torch.configs.mamba2_2p7b",
+            "repro_torch.models.attention", "repro_torch.models.ffn",
+            "repro_torch.configs.base", "repro_torch.configs.gemma_2b",
+            "repro_torch.configs.phi3_mini_3p8b",
+            "repro_torch.configs.qwen1p5_4b",
+            "repro_torch.configs.mistral_large_123b",
             "repro_torch.core.schedule", "repro_torch.core.tiling",
             "repro_torch.core.convdk", "repro_torch.core.perfmodel",
             "repro_torch.benchmarks.cim_tables",
@@ -191,6 +199,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         init_ssd_state(2, smoke.ssd_cfg())
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "mamba2-2.7b", "--smoke"])
+    dense = gemma_2b.SMOKE
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", "gemma-2b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_decode_state(dense, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_kv_cache(2, 8, dense.attn_cfg())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        materialize(lm.model_def(dense), torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh((1, 1), init_method="tcp://localhost:1", rank=0,
                   world_size=1)
@@ -1284,4 +1301,35 @@ def test_ops_take_gradients_on_card(monkeypatch):
         want = torch.autograd.grad((plain(*leaves) ** 2).sum(), leaves)
         for a, b in zip(got, want):
             _close_on_card(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_attention_matches_dense_on_card(dtype, monkeypatch):
+    """The chunked online softmax against the dense scores on the card, at
+    Gemma-2B's heads (8 over 1 KV head, head_dim 256), 1100 causal queries
+    over padded chunks of 256 queries and 384 keys, with and without a
+    window: fp32 within 1e-4 * max|dense| + 1e-6; bf16 (both round the
+    fp32 result once) within the JAX suite's bf16 bar, 2e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(0)
+    r = lambda *sh: torch.randn(*sh, generator=g).cuda().to(dtype)  # noqa: E731
+    q, k, v = r(2, 1100, 8, 256), r(2, 1100, 1, 256), r(2, 1100, 1, 256)
+    pos = torch.arange(1100, device="cuda")
+    for window in (None, 300):
+        want = _sdpa(q, k, v, _mask_bias(pos, pos, True, window), 256 ** -0.5,
+                     0.0)
+        got = _chunked_sdpa(q, k, v, pos, pos, True, window, 256 ** -0.5,
+                            0.0, 256, 384)
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if dtype == torch.float32:
+            assert err <= 1e-4 * scale + 1e-6, err
+        else:
+            assert bool(((got.float() - want.float()).abs()
+                         <= 2e-2 + 2e-2 * want.float().abs()).all()), err
     torch.cuda.synchronize()

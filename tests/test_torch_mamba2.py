@@ -150,10 +150,16 @@ def test_decode_step_matches_jax(weights):
 
 
 def test_other_families_raise():
-    for family in ("dense", "hybrid", "moe"):
-        cfg = dataclasses.replace(SMOKE, family=family)
+    """The families not ported yet, and MLA on a ported one, raise naming
+    ROADMAP A item 12 ("ssm" and "dense" run)."""
+    cfgs = [dataclasses.replace(SMOKE, family=family)
+            for family in ("hybrid", "moe", "encoder", "vlm")]
+    cfgs.append(dataclasses.replace(SMOKE, family="dense", use_mla=True))
+    for cfg in cfgs:
         with pytest.raises(NotImplementedError, match="ROADMAP A item 12"):
             model.model_def(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP A item 12"):
             model.forward({}, {"tokens": torch.zeros(1, 2, dtype=torch.long)},
                           cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP A item 12"):
+            model.init_decode_state(cfg, 1, 2, device="cpu")
