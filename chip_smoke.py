@@ -224,10 +224,11 @@ Phases, each of which must pass (exit 1 otherwise):
             against the CPU plain run within 1e-3 relative; then the bf16
             prefill step at 1 x 32768 (the main path of the conv1d kernel)
             timed on CUDA events and traced.
-18. lm-serve    the LM engine at full width in bf16: generate_many on 8
-            mixed requests (prompts of 12, 20, 28, 30, 40, 60, 300 and 300
-            tokens, 16 new tokens each, LITTLE below 256), every one
-            answered, with prefill tokens/s and decode ms per token; then
+18. lm-serve    the LM engine at full width in bf16: generate_many on 7
+            mixed requests (prompts of 12, 20, 28, 30, 40, 60 and 80
+            tokens, 16 new tokens each, LITTLE below 64: two LITTLE packs
+            and one BIG prompt), every one answered, with prefill
+            tokens/s and decode ms per token; then
             in fp32 the engine's decode-loop prefill of 2 prompts of 32
             tokens against the kernel path's forward (last row) within
             1e-3 relative.
@@ -244,12 +245,39 @@ Phases, each of which must pass (exit 1 otherwise):
             traced.  No kernel of B1-B7 is on this path: every launch
             count is 0 around the forward and the prefill step.
 20. dense-serve the LM engine on full-width Gemma-2B in bf16: generate_many
-            on the lm-serve phase's 8 requests, 16 new tokens each, every
+            on the lm-serve phase's 7 requests, 16 new tokens each, every
             one answered, no kernel launch, with prefill tokens/s and
             decode ms per token; then in fp32 the engine's decode-loop
             prefill of 2 prompts of 32 tokens against the forward (last
             row) within 1e-3 relative.
-21. mesh        the sharded wrappers and the network plan over
+21. rg-kernels  the causal conv1d kernel without an activation on
+            RecurrentGemma-9B's temporal conv (D 4096, k 4, bias) at batch
+            1 x 4096 tokens, in bf16 (within 1 bf16 ulp of the plain
+            version's fp32 sum rounded once) and in fp32 (the phase-2
+            bar), timed as in phase 2 beside grouped F.conv1d.
+22. rg-model    full-width RecurrentGemma-9B (38 layers: 26 RG-LRU and 12
+            local attention over 2048 positions, 12 (R, R, A) blocks and an
+            (R, R) remainder; seeded fp32 weights, materialized once after
+            the Gemma tree is freed, timed, 9,396,195,328 parameters, equal
+            to the definition's): in fp32 at 1 x 4096 tokens, past the
+            window and q_chunk 2048, the kernel route (exactly 26 conv1d
+            launches, one per RG-LRU layer, nothing else) against the
+            plain route (none) and the chunked online softmax against
+            dense scores, each within 1e-3 relative; a 3-layer (R, R, A)
+            full-width copy at 2 x 256 against the CPU run within 1e-3
+            relative; then the bf16 prefill step at 1 x 4096 (26 launches)
+            timed on CUDA events (tokens/s, peak memory) and traced.
+23. rg-serve    the LM engine on full-width RecurrentGemma-9B in bf16:
+            generate_many on 4 LITTLE prompts (12, 24, 40 and 60 tokens,
+            8 new tokens each), every one answered, no kernel launch (the
+            decode step takes the plain conv update, as in JAX), with
+            prefill tokens/s and decode ms per token; the fp32 decode-loop
+            prefill of 2 x 32 tokens against the forward (last row); then
+            in fp32 on the 3-layer copy with the window cut to 64 (reduced
+            from 2048 so that the 64-slot ring cache wraps), every decode
+            step's logits over 2 x 96 tokens against the forward's rows
+            within 1e-3 relative.
+24. mesh        the sharded wrappers and the network plan over
             torch.distributed, parity runs (one H100 has no model axis):
             first a one-rank NCCL mesh (1, 1) runs full-width B0 at 224,
             batch 8, through the sharded path of every block, its logits
@@ -272,7 +300,13 @@ Phases, each of which must pass (exit 1 otherwise):
             forward on the CPU), so at (1, 2) they are printed beside the
             single card's own spread, not gated.  Every rank's counted
             model-axis collectives per forward equal the words the network
-            plan prices (none for the separable blocks).  It prints each
+            plan prices (none for the separable blocks).  At (1, 2) one
+            full-width RecurrentGemma-9B attention layer (16 query heads
+            over one KV head of 256, window 2048, seq_shard_attn) at 1 x
+            4096 in fp32 takes the sequence-parallel route (each rank its
+            2048 query rows against the whole K/V, one all-gather of the
+            output over "model"), held to the unsharded layer within
+            1e-4 x max|ref|.  It prints each
             rank's forward ms (a parity run's time, not a speed) and the
             transport gloo used for each collective of CUDA tensors and
             dtype (native or through the host, the host calls counted).
@@ -344,10 +378,19 @@ LM_TOKENS = 32768                          # the bf16 prefill: 1 x 32768
 LM_CHECK = (2, 2048)                       # fp32 kernel vs plain path
 LM_CPU = (2, 256)                          # 2-layer copy vs the CPU
 LM_CONVS = (("conv_x", 5120), ("conv_b", 128), ("conv_c", 128))
-LM_REQUESTS = (12, 20, 28, 30, 40, 60, 300, 300)   # lm-serve prompt lengths
+# lm-serve's prompt lengths: LITTLE below LM_LITTLE in buckets of 32, one BIG
+# (two BIG prompts of 300 tokens with LITTLE below 256 did not leave the
+# RecurrentGemma phases room in the time limit)
+LM_REQUESTS = (12, 20, 28, 30, 40, 60, 80)
+LM_LITTLE = 64
 LM_NEW_TOKENS = 16
 DENSE_TOKENS = 4096                        # dense-model: past q_chunk 2048
 DENSE_CPU = (2, 256)                       # 2-layer Gemma copy vs the CPU
+RG_TOKENS = 4096                           # rg-model: past window, q_chunk
+RG_PARAMS = 9_396_195_328                  # RecurrentGemma-9B, the definition
+RG_REQUESTS = (12, 24, 40, 60)             # rg-serve: one LITTLE pack
+RG_NEW_TOKENS = 8
+RG_WRAP = (2, 96, 64)                      # rg-serve fp32: B, tokens, window
 MESH_SHAPES = ((1, 2), (2, 1))             # the mesh phase's two-rank meshes
 MESH_RTOL = 1e-4                           # x max|single-device result|
 BF16_RTOL = 2e-2                           # x max|ref|: the JAX bf16 bar
@@ -590,6 +633,20 @@ class KernelStats:
                           f"layer (D {', '.join(str(d) for _, d in LM_CONVS)}, "
                           f"k 4, SiLU), each timed once; library: grouped "
                           f"F.conv1d + F.silu")
+                n_rg, rg = self.sums(kernel, "rgemma", RG_TOKENS)
+                rg_launches = launches["rgemma"][kernel]
+                entry["rgemma"] = dict(
+                    {k: v * rg_launches if isinstance(v, float) else v
+                     for k, v in rg.items()},
+                    launches=rg_launches, per_layer=dict(rg, launches=n_rg),
+                    max_abs_err=max(r["max_abs_err"] for r in self.rows
+                                    if r["kernel"] == kernel
+                                    and r["net"] == "rgemma"),
+                    shape=f"RecurrentGemma-9B bf16 prefill, batch 1 x "
+                          f"{RG_TOKENS} tokens: {rg_launches} RG-LRU layers "
+                          f"x its temporal conv (D 4096, k 4, bias, no "
+                          f"activation), timed once; library: grouped "
+                          f"F.conv1d")
             elif kernel == "fused_separable_reduce":
                 n, sums = self.sums(kernel, "mnv2", MNV2_RES)
                 entry.update(launches=0, folded_into="fused_separable",
@@ -1430,8 +1487,8 @@ def trace_phase(torch, forward, fwd_ms, grad=False):
     device_ms = sum(by_name.values())
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {group:36s} {ms:.4f} ms per forward")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    {ms:.4f} ms  {name[:100]}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:16]:
+        print(f"    {ms:.4f} ms  {name[:160]}")
     print(f"  device time per forward {device_ms:.4f} ms of {fwd_ms:.4f} ms: "
           f"busy {device_ms / fwd_ms:.1%}")
     return {"device_ms_per_forward": device_ms, "forward_ms": fwd_ms,
@@ -2679,18 +2736,20 @@ def lm_model_phase(torch, params):
     return bool(ok), counts, {"prefill_ms": fwd.mean_ms, "trace": trace}
 
 
-def _engine_phase(torch, cfg, params):
-    """The LM engine serving ``cfg`` (bf16) at full width on LM_REQUESTS
-    with LM_NEW_TOKENS each, then in fp32 its decode-loop prefill of 2 x 32
-    tokens against the forward's last row."""
+def _engine_phase(torch, cfg, params, requests=LM_REQUESTS,
+                  new_tokens=LM_NEW_TOKENS):
+    """The LM engine serving ``cfg`` (bf16) at full width on ``requests``
+    (prompt lengths; LITTLE below LM_LITTLE) with ``new_tokens`` each,
+    then in fp32 its decode-loop prefill of 2 x 32 tokens against the
+    forward's last row."""
     import dataclasses
     import numpy as np
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.models.model import forward, init_decode_state
     from repro_torch.serve import Engine, ServeConfig
 
-    eng = Engine(cfg, params, ServeConfig(max_new_tokens=LM_NEW_TOKENS,
-                                          little_threshold=256),
+    eng = Engine(cfg, params, ServeConfig(max_new_tokens=new_tokens,
+                                          little_threshold=LM_LITTLE),
                  device=DEVICE)
     spent = {"prefill": 0.0, "decode": 0.0}
     work = {"prefill": 0, "decode": 0}
@@ -2710,7 +2769,7 @@ def _engine_phase(torch, cfg, params):
     eng._step = timed(eng._step, "decode", lambda st, tok, g: tok.numel())
     rng = np.random.default_rng(7)
     reqs = [rng.integers(0, cfg.vocab, n).astype(np.int32)
-            for n in LM_REQUESTS]
+            for n in requests]
     batches = eng.schedule(reqs)
     reset_launches()
     t0 = time.perf_counter()
@@ -2719,7 +2778,7 @@ def _engine_phase(torch, cfg, params):
     wall = time.perf_counter() - t0
     counts = launches()
     ok = (len(outs) == len(reqs)
-          and all(o.shape == (LM_NEW_TOKENS,) and (o >= 0).all()
+          and all(o.shape == (new_tokens,) and (o >= 0).all()
                   and (o < cfg.vocab).all() for o in outs))
     stats = {"wall_s": wall, "batches": batches,
              "prefill_tokens": work["prefill"],
@@ -2727,7 +2786,7 @@ def _engine_phase(torch, cfg, params):
              "decode_tokens": work["decode"],
              "decode_ms_per_token": spent["decode"] / work["decode"] * 1e3,
              "decode_steps_s": spent["decode"], "launches": counts}
-    print(f"  {len(reqs)} requests ({', '.join(map(str, LM_REQUESTS))} "
+    print(f"  {len(reqs)} requests ({', '.join(map(str, requests))} "
           f"tokens) in batches {batches}: all answered "
           f"{'ok' if ok else 'FAIL'} in {wall:.2f} s; launches {counts}")
     print(f"  prefill {work['prefill']} tokens (padded) in "
@@ -2735,6 +2794,9 @@ def _engine_phase(torch, cfg, params):
           f"tokens/s; decode {work['decode']} tokens in "
           f"{spent['decode']:.2f} s: {stats['decode_ms_per_token']:.2f} ms "
           f"per token (host clock, synchronized)")
+    # the timed wrappers hold the engine's bound methods: drop them, or the
+    # cycle keeps the engine and its weights alive past the phase
+    del eng.prefill, eng._step
 
     f32 = dataclasses.replace(cfg, dtype="float32")
     eng32 = Engine(f32, params, device=DEVICE)
@@ -2878,6 +2940,244 @@ def dense_serve_phase(torch, params):
 
 
 # ---------------------------------------------------------------------------
+# RecurrentGemma-9B: the hybrid family, B7 without an activation
+# ---------------------------------------------------------------------------
+
+def rg_kernel_phase(torch, tc, stats) -> bool:
+    """The conv1d kernel at ``activation=None`` on RecurrentGemma-9B's
+    temporal conv (batch 1 x RG_TOKENS, D 4096, k 4, bias) against its
+    plain version, in bf16 (the main path's type: within 1 bf16 ulp;
+    timed) and in fp32 (the phase-2 bar); the library yardstick is grouped
+    F.conv1d with no activation on a channels-first copy made outside the
+    timed region."""
+    import torch.nn.functional as F
+    from repro_torch.configs.recurrentgemma_9b import CONFIG
+
+    hx = _Harness(torch, 7000)
+    ok = True
+    k, d = CONFIG.d_conv, CONFIG.lru_width
+    tile = min(512, -(-RG_TOKENS // 8) * 8)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = hx.rand(1, RG_TOKENS, d).to(dtype)
+        w = hx.rand(k, d, scale=0.5)
+        bias = hx.rand(d, scale=0.1)
+        got = tc.conv1d(x, w, bias, None, tile)
+        ref = tc.conv1d_plain(x, w, bias, None)
+        err = float((got.float() - ref.float()).abs().max())
+        if dtype == torch.float32:
+            _, tol = hx.check(got, ref)
+            good, bar = None, {}
+        else:
+            ulps = _bf16_ulps(got, ref)
+            tol = 2.0 ** (int(torch.frexp(ref.float().abs().max())[1]) - 8)
+            good, bar = ulps <= 1.0, {"bf16_ulps": ulps}
+            print(f"  conv bf16: worst {ulps:.3f} bf16 ulp (bar 1 ulp)")
+        xt = x.transpose(1, 2).contiguous()
+        w_lib = w.t().unsqueeze(1).to(dtype)
+        b_lib = bias.to(dtype)
+        elt = x.element_size()
+        ok &= stats.add(
+            "conv1d", "rgemma", RG_TOKENS, 0, dtype == torch.bfloat16, err,
+            tol,
+            hx.times(True,
+                     lambda: tc.conv1d(x, w, bias, None, tile),
+                     lambda: tc.conv1d_plain(x, w, bias, None),
+                     lambda: F.conv1d(xt, w_lib, b_lib, padding=k - 1,
+                                      groups=d)[..., :RG_TOKENS]),
+            2 * elt * x.numel() + 4 * (k * d + d), 2 * k * x.numel(),
+            good=good, conv="rec/conv", d=d, k=k, tile_l=tile,
+            dtype=str(dtype).split(".")[-1], **bar)
+        del x, got, ref, xt
+    _sync(torch)
+    return bool(ok)
+
+
+def rg_init(torch):
+    """Full-width RecurrentGemma-9B, fp32 weights from a seeded CPU
+    generator, materialized once for the rg phases; its parameter count
+    against the definition's and RG_PARAMS."""
+    from repro_torch.configs.recurrentgemma_9b import CONFIG
+    from repro_torch.models.model import model_def
+    from repro_torch.models.param import count_params, materialize
+
+    t0 = time.perf_counter()
+    tree = model_def(CONFIG)
+    params = materialize(tree, torch.Generator().manual_seed(0), DEVICE)
+    _sync(torch)
+    n = count_params(params)
+    init_s = time.perf_counter() - t0
+    kinds = CONFIG.layer_kinds()
+    print(f"  RecurrentGemma-9B ({CONFIG.n_layers} layers: "
+          f"{kinds.count('R')} RG-LRU, {kinds.count('A')} local attention "
+          f"over {CONFIG.window} positions, as 12 (R, R, A) blocks and an "
+          f"(R, R) remainder; d_model {CONFIG.d_model}, {CONFIG.n_heads} "
+          f"query heads over {CONFIG.n_kv_heads} KV head of "
+          f"{CONFIG.head_dim}, GeGLU {CONFIG.d_ff}, vocab {CONFIG.vocab} "
+          f"tied): {n} parameters (the definition: {count_params(tree)}, "
+          f"want {RG_PARAMS}), {4 * n / 1e9:.2f} GB fp32, materialized in "
+          f"{init_s:.1f} s")
+    return params, {"params": n, "init_s": init_s,
+                    "count_ok": n == count_params(tree) == RG_PARAMS}
+
+
+def _rg_block(params):
+    """The first (R, R, A) block of a hybrid tree (views), no remainder."""
+    return {k: (_first_layers(v, 1) if k == "stack" else v)
+            for k, v in params.items() if k != "rem"}
+
+
+def rg_model_phase(torch, params, info):
+    """Full-width RecurrentGemma-9B: in fp32 at 1 x RG_TOKENS (past the
+    window 2048 and q_chunk 2048) the kernel route against the plain
+    route and the chunked online softmax against dense scores, with the
+    launch counts of both routes; a 3-layer (R, R, A) copy at DENSE_CPU
+    against the CPU; then the bf16 prefill step at 1 x RG_TOKENS timed and
+    traced."""
+    import dataclasses
+    from repro_torch.configs.recurrentgemma_9b import CONFIG
+    from repro_torch.core.telemetry import measure
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.model import forward
+    from repro_torch.train.step import make_prefill_step
+
+    per_forward = CONFIG.layer_kinds().count("R")
+    gen = torch.Generator().manual_seed(13)
+    ok = info["count_ok"]
+    f32 = dataclasses.replace(CONFIG, dtype="float32")
+    shape = (1, RG_TOKENS, CONFIG.vocab)
+
+    def counted(kernel):
+        counts = launches()
+        want = per_forward if kernel else 0
+        good = (counts["conv1d"] == want
+                and not any(v for k, v in counts.items() if k != "conv1d"))
+        return counts, want, good
+
+    res = {}
+    with torch.inference_mode():
+        tokens = torch.randint(0, CONFIG.vocab, (1, RG_TOKENS),
+                               generator=gen).to(DEVICE)
+        out = {}
+        for kernel in (True, False):
+            cfg = dataclasses.replace(f32, use_convdk_kernel=kernel)
+            reset_launches()                    # the main path starts here
+            out[kernel] = forward(params, {"tokens": tokens}, cfg)
+            _sync(torch)
+            counts, want, good = counted(kernel)  # ... and ends here
+            good &= tuple(out[kernel].shape) == shape
+            print(f"  fp32 forward 1 x {RG_TOKENS}, kernel {kernel}: logits "
+                  f"{tuple(out[kernel].shape)}, launches {counts} (want "
+                  f"{want} conv1d) {'ok' if good else 'FAIL'}")
+            ok &= good
+            if kernel:
+                res["fp32_launches"] = counts
+        rel = _rel(out[True], out[False])
+        good = bool(torch.isfinite(out[True]).all()) and rel <= MODEL_RTOL
+        print(f"  kernel route vs plain route on the card: max|plain| "
+              f"{float(out[False].abs().max()):.4e}, rel err {rel:.3e} (tol "
+              f"{MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        res["kernel_vs_plain_rel_err"] = rel
+        del out[False]
+        dense = forward(params, {"tokens": tokens},
+                        dataclasses.replace(f32, use_convdk_kernel=True),
+                        use_chunked=False)
+        rel = _rel(out[True], dense)
+        good = bool(torch.isfinite(dense).all()) and rel <= MODEL_RTOL
+        print(f"  chunked online softmax (q_chunk {CONFIG.q_chunk}, kv_chunk "
+              f"{CONFIG.kv_chunk}) vs dense scores, window {CONFIG.window}: "
+              f"rel err {rel:.3e} (tol {MODEL_RTOL:g}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        res["chunked_rel_err"] = rel
+        del out, dense
+
+        three = dataclasses.replace(f32, n_layers=3, use_convdk_kernel=True)
+        p3 = _rg_block(params)
+        tokens = torch.randint(0, CONFIG.vocab, DENSE_CPU, generator=gen)
+        got = forward(p3, {"tokens": tokens.to(DEVICE)}, three)
+        ref = forward(_cpu_tree(torch, p3), {"tokens": tokens}, three)
+        rel = _rel(got, ref)
+        good = bool(torch.isfinite(got).all()) and rel <= MODEL_RTOL
+        print(f"  3-layer (R, R, A) full-width copy, {DENSE_CPU[0]} x "
+              f"{DENSE_CPU[1]}, vs the CPU run: max|cpu| "
+              f"{float(ref.abs().max()):.4e} rel err {rel:.3e} (tol "
+              f"{MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        res["cpu_rel_err"] = rel
+        del got, ref, p3
+
+        step = make_prefill_step(dataclasses.replace(
+            CONFIG, use_convdk_kernel=True))            # bf16
+        batch = {"tokens": torch.randint(0, CONFIG.vocab, (1, RG_TOKENS),
+                                         generator=gen).to(DEVICE)}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                        # the main path starts here
+        nxt = step(params, batch)
+        _sync(torch)
+        counts, want, good = counted(True)      # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        good &= nxt.shape == (1,) and 0 <= int(nxt) < CONFIG.vocab
+        print(f"  bf16 prefill step 1 x {RG_TOKENS}: next token {int(nxt)}, "
+              f"launches {counts} (want {want} conv1d), peak {peak:.1f} GB "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        fwd = measure(lambda: step(params, batch), iters=3, warmup=1)
+    print(f"  bf16 prefill step (1 x {RG_TOKENS}): {fwd.mean_ms:.3f} ms "
+          f"(CUDA events, mean of 3), {RG_TOKENS / fwd.mean_ms * 1e3:.0f} "
+          f"tokens/s")
+    trace = trace_phase(torch, lambda: step(params, batch), fwd.mean_ms)
+    return bool(ok), counts, dict(
+        info, **res, prefill_ms=fwd.mean_ms,
+        prefill_tokens_per_s=RG_TOKENS / fwd.mean_ms * 1e3, peak_gb=peak,
+        trace=trace)
+
+
+def rg_serve_phase(torch, params):
+    """The engine on full-width RecurrentGemma-9B in bf16 on RG_REQUESTS
+    (its decode steps take the plain conv update, as in JAX: no launch),
+    its fp32 decode-loop prefill against the forward; then in fp32 on the
+    3-layer (R, R, A) copy with the window cut to RG_WRAP's, every decode
+    step's logits over RG_WRAP's tokens (the ring cache wraps) against the
+    forward's rows."""
+    import dataclasses
+    from repro_torch.configs.recurrentgemma_9b import CONFIG
+    from repro_torch.models.model import decode_step, forward, \
+        init_decode_state
+
+    cfg = dataclasses.replace(CONFIG, use_convdk_kernel=True)
+    ok, stats = _engine_phase(torch, cfg, params, RG_REQUESTS, RG_NEW_TOKENS)
+    good = not any(stats["launches"].values())
+    print(f"  launches {stats['launches']} (want none) "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    batch, n, window = RG_WRAP
+    three = dataclasses.replace(cfg, dtype="float32", n_layers=3,
+                                window=window)
+    p3 = _rg_block(params)
+    tokens = torch.randint(0, CONFIG.vocab, (batch, n),
+                           generator=torch.Generator().manual_seed(14)
+                           ).to(DEVICE)
+    with torch.inference_mode():
+        full = forward(p3, {"tokens": tokens}, three)
+        state = init_decode_state(three, batch, n, torch.float32, DEVICE)
+        ring = state["stack"]["2_A"].k.shape[2]
+        rows = []
+        for t in range(n):
+            logits, state = decode_step(p3, state, {"tokens": tokens[:, t]},
+                                        three)
+            rows.append(logits)
+        rel = _rel(torch.stack(rows, 1), full)
+    good = (bool(torch.isfinite(full).all()) and rel <= MODEL_RTOL
+            and ring == window)
+    print(f"  fp32 decode loop over {batch} x {n} tokens on the 3-layer copy, "
+          f"window cut to {window} (a ring of {ring} slots, rewritten from "
+          f"token {ring} on), every row vs the forward: rel err {rel:.3e} "
+          f"(tol {MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
+    return bool(ok and good), dict(stats, ring_wrap_rel_err=rel)
+
+
+# ---------------------------------------------------------------------------
 # mesh: the sharded wrappers and the network plan over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -2959,6 +3259,23 @@ def _block_parity(torch, S, mesh, specs, params, images, plan, stem_act,
     return worst, words_ok, worst_abs
 
 
+def _rg_attn(torch):
+    """One full-width RecurrentGemma-9B attention layer with
+    ``seq_shard_attn`` (16 query heads over one KV head of 256, window
+    2048), seeded weights and x at 1 x RG_TOKENS in fp32, on the card."""
+    import dataclasses
+    from repro_torch.configs.recurrentgemma_9b import CONFIG
+    from repro_torch.models.attention import attn_def
+    from repro_torch.models.param import materialize
+
+    cfg = dataclasses.replace(CONFIG, seq_shard_attn=True).attn_cfg(
+        CONFIG.window)
+    gen = torch.Generator().manual_seed(15)
+    params = materialize(attn_def(cfg), gen, DEVICE)
+    x = torch.randn(1, RG_TOKENS, CONFIG.d_model, generator=gen).to(DEVICE)
+    return params, x, cfg
+
+
 def _mesh_rank(rank, shape, port, out_dir):
     """One of two ranks on the one card (gloo): every network forward and
     the 17 separable blocks on the mesh, each gathered; rank 0 saves the
@@ -3012,6 +3329,15 @@ def _mesh_rank(rank, shape, port, out_dir):
                 words = dp * mesh.model_wire_words()
                 res["sep"].append(dict(out=S.gather_global(
                     out, mesh, layout, c_out).cpu(), wire_words=words))
+            if mesh.size("model") > 1:
+                # the sequence-parallel route: this rank's 2048 query rows
+                from repro_torch.models.attention import attention
+                params, x, cfg = _rg_attn(torch)
+                mesh.reset_counts()
+                out = attention(params, x, cfg, mesh=mesh)
+                res["seq_attn"] = dict(out=out.cpu(), counts={
+                    k: (c.calls, c.elements) for k, c in mesh.counts.items()})
+                del params, x, out
             t0 = time.perf_counter()
             res["bf16"] = _mesh_rank_bf16(torch, S, mesh)
             res["bf16_s"] = time.perf_counter() - t0
@@ -3381,6 +3707,13 @@ def mesh_phase(torch, tk, smi):
         _sync(torch)
     # the single card's B0 forward + backward: the mesh backward's reference
     grad_refs = {dt: _b0_step(torch, dt) for dt in ("float32", "bfloat16")}
+    # RecurrentGemma's attention layer unsharded: the reference of the
+    # sequence-parallel route
+    from repro_torch.models.attention import attention
+    with torch.inference_mode():
+        params, x, cfg = _rg_attn(torch)
+        seq_ref = attention(params, x, cfg).cpu()
+        del params, x
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     summary = {}
     for shape in MESH_SHAPES:
@@ -3450,6 +3783,22 @@ def mesh_phase(torch, tk, smi):
         print(f"    MobileNet-V2's {len(sep_refs)} separable blocks: max|err| "
               f"{max(errs):.3e}, no model-axis words "
               f"{'ok' if good else 'FAIL'}")
+        if "seq_attn" in res:
+            r = res["seq_attn"]
+            err = float((r["out"] - seq_ref).abs().max())
+            tol = MESH_RTOL * float(seq_ref.abs().max())
+            # the gathered (1, S, 16, 256) rows
+            want = {"all_gather.model": (1, seq_ref.numel())}
+            good = (r["out"].shape == seq_ref.shape and err <= tol
+                    and r["counts"] == want)
+            ok &= good
+            summary.setdefault("seq_attn", {})[tag] = dict(
+                max_abs_err=err, tol=tol, counts=r["counts"])
+            print(f"    RecurrentGemma-9B attention, 1 x {RG_TOKENS} fp32, "
+                  f"sequence-parallel ({RG_TOKENS // shape[1]} query rows a "
+                  f"rank against the whole K/V) vs the unsharded layer: "
+                  f"max|err| {err:.3e} (tol {tol:.3e}); collectives "
+                  f"{r['counts']} (want {want}) {'ok' if good else 'FAIL'}")
         ok &= _mesh_bf16_verdict(torch, res["bf16"], ref16, sep_refs16)
         print(f"    the backward ({res['grad_s']:.1f} s on rank 0):")
         ok &= _mesh_grad_verdict(torch, tag, res, grad_refs, rank_ms, smi)
@@ -3616,6 +3965,21 @@ def main() -> int:
                                                            dense_params)
     del dense_params
     torch.cuda.empty_cache()
+    phase("rg-kernels", f"rg-kernels: the conv1d kernel without an "
+                        f"activation on RecurrentGemma-9B's temporal conv, "
+                        f"1 x {RG_TOKENS} tokens")
+    phases["rg-kernels"] = rg_kernel_phase(torch, tc, stats)
+    phase("rg-model", f"rg-model: full-width RecurrentGemma-9B, kernel vs "
+                      f"plain route and chunked vs dense attention at 1 x "
+                      f"{RG_TOKENS}, vs the CPU, the bf16 prefill timed")
+    rg_params, rg_info = rg_init(torch)
+    phases["rg-model"], rg_launches, rg = rg_model_phase(torch, rg_params,
+                                                         rg_info)
+    phase("rg-serve", "rg-serve: the LM engine on full-width "
+                      "RecurrentGemma-9B; decode across a ring wrap")
+    phases["rg-serve"], rg_serve = rg_serve_phase(torch, rg_params)
+    del rg_params
+    torch.cuda.empty_cache()
     phase("mesh", f"mesh: the sharded wrappers and the network plan over "
                   f"torch.distributed on the one card, meshes (1, 1) NCCL "
                   f"and {MESH_SHAPES} gloo (parity runs)")
@@ -3648,7 +4012,9 @@ def main() -> int:
                    "mnv2_staged_bf16_launches": mnv2_staged_bf16_launches,
                    "lm": lm, "lm_launches": lm_launches,
                    "lm_serve": lm_serve, "dense": dense,
-                   "dense_serve": dense_serve, "both_modes": both_modes,
+                   "dense_serve": dense_serve, "rgemma": rg,
+                   "rgemma_launches": rg_launches, "rgemma_serve": rg_serve,
+                   "both_modes": both_modes,
                    "bf16": bf16, "bf16_past_one_ulp": past,
                    "paper": paper, "bench": bench, "mesh": mesh,
                    "rows": stats.rows}, f,
@@ -3662,11 +4028,13 @@ def main() -> int:
          "train": train_launches, "mnv2": mnv2_launches,
          "mnv2_bf16": mnv2_bf16_launches,
          "mnv2_staged_bf16": mnv2_staged_bf16_launches,
-         "lm": lm_launches, "paper_staged_dw2d": paper_dw,
+         "lm": lm_launches, "rgemma": rg_launches,
+         "paper_staged_dw2d": paper_dw,
          "b0_bf16": bf16["b0"]["launches"],
          "v2s_bf16": bf16["v2s"]["launches"],
          "v3_bf16": bf16["v3"]["launches"]}),
         "lm_launches_per_prefill_forward": lm_launches,
+        "rgemma_launches_per_prefill_forward": rg_launches,
         "dense_launches": dense_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

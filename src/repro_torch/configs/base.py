@@ -3,10 +3,10 @@ and per-cell skip rules of the language-model archs the port runs.
 
 Counterpart of the registry half of ``repro.configs.base`` (``ShapeCell``,
 ``SHAPES``, ``ArchSpec``, ``register``, ``get_arch``, ``list_archs`` and
-the skip rules).  Only the ported archs register: Mamba-2 and the dense
-decoders (ROADMAP A item 12 lists the rest in port order).  The JAX
-module's ``ConvKernelConfig`` and ``SchedulePin`` are not ported: the
-port's blocks take their pins as arguments.
+the skip rules).  Only the ported archs register: Mamba-2, the dense
+decoders and RecurrentGemma (ROADMAP A item 12 lists the rest in port
+order).  The JAX module's ``ConvKernelConfig`` and ``SchedulePin`` are
+not ported: the port's blocks take their pins as arguments.
 
 Shape cells:
   train_4k     seq 4,096   global_batch 256   (train_step)
@@ -86,5 +86,5 @@ def _ensure_loaded() -> None:
     # import the per-arch modules once (they register themselves)
     from . import (  # noqa: F401
         gemma_2b, mamba2_2p7b, mistral_large_123b, phi3_mini_3p8b,
-        qwen1p5_4b,
+        qwen1p5_4b, recurrentgemma_9b,
     )

@@ -9,9 +9,15 @@ materialized repeat).  Scores and the softmax run in fp32 through
 einsums, as the JAX package computes them; no library attention kernel is
 called.
 
-The JAX package's sequence-parallel route (``_seq_shard_mesh``,
-``_seq_parallel_sdpa``) needs a mesh, which the port's attention does not
-take: ``seq_shard`` has no effect here, as in JAX without a mesh.
+The sequence-parallel route (``_seq_shard_mesh``, ``_seq_parallel_sdpa``)
+runs over a ``launch.mesh`` mesh: ``attention(..., mesh=mesh)`` with
+``seq_shard`` set takes it where the JAX package's engages (a "model" axis
+of M > 1 devices dividing S, and the KV heads not dividing M, so that the
+heads cannot shard).  Each rank then holds its own activations (its batch
+slice where the caller shards the batch over "data"), computes its S/M
+query rows, with their positions, against the whole K/V, and one
+all-gather over "model" puts the output's rows back in order.  Without a
+mesh, or where the conditions fail, the route is a no-op, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from ..kernels.common import resolve_device
+from ..launch.mesh import MODEL_AXIS
 from .common import apply_rope, dense, dense_def
 
 NEG_INF = -2.0e38
@@ -154,9 +161,10 @@ def _chunked_sdpa(q, k, v, q_pos, k_pos, causal, window, scale, logit_cap,
 
 def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
               positions: Optional[torch.Tensor] = None,
-              use_chunked: Optional[bool] = None) -> torch.Tensor:
+              use_chunked: Optional[bool] = None, mesh=None) -> torch.Tensor:
     """Self-attention over x (B, S, D); the chunked online softmax where
-    ``use_chunked``, by default where S passes ``q_chunk``."""
+    ``use_chunked``, by default where S passes ``q_chunk``; on ``mesh``
+    the sequence-parallel route where ``_seq_shard_mesh`` admits it."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if positions is None:
@@ -170,7 +178,10 @@ def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
     scale = hd ** -0.5
     if use_chunked is None:
         use_chunked = s > cfg.q_chunk
-    if use_chunked:
+    if _seq_shard_mesh(cfg, s, mesh) is not None:
+        out = _seq_parallel_sdpa(mesh, q, k, v, positions, cfg, scale,
+                                 use_chunked)
+    elif use_chunked:
         out = _chunked_sdpa(q, k, v, positions, positions, cfg.causal,
                             cfg.window, scale, cfg.logit_cap,
                             cfg.q_chunk, cfg.kv_chunk)
@@ -178,6 +189,39 @@ def attention(params: dict, x: torch.Tensor, cfg: AttnConfig,
         bias = _mask_bias(positions, positions, cfg.causal, cfg.window)
         out = _sdpa(q, k, v, bias, scale, cfg.logit_cap)
     return dense(params["o"], out.reshape(b, s, h * hd))
+
+
+def _seq_shard_mesh(cfg: AttnConfig, s: int, mesh):
+    """``mesh`` where sequence-parallel attention engages, else None: JAX's
+    conditions on its mesh's "model" axis."""
+    if not cfg.seq_shard or mesh is None:
+        return None
+    m = mesh.size(MODEL_AXIS)
+    if m <= 1 or s % m != 0:
+        return None
+    if cfg.n_kv_heads % m == 0:
+        return None   # heads shard fine; no need for SP
+    return mesh
+
+
+def _seq_parallel_sdpa(mesh, q, k, v, positions, cfg: AttnConfig, scale,
+                       use_chunked):
+    """Context parallelism: this "model" rank computes its s/M query rows
+    (``Mesh.chunk`` of q and of the positions) against the whole K/V; the
+    causal and window masks follow the rows' positions, and the chunked
+    choice is made on the local length, as in JAX.  One all-gather of the
+    (B, s/M, H, Dv) rows over "model" returns the whole output."""
+    s_loc = q.shape[1] // mesh.size(MODEL_AXIS)
+    q_l = mesh.chunk(q, MODEL_AXIS, dim=1)
+    pos_l = mesh.chunk(positions, MODEL_AXIS, dim=0)
+    if use_chunked and s_loc > cfg.q_chunk:
+        out = _chunked_sdpa(q_l, k, v, pos_l, positions, cfg.causal,
+                            cfg.window, scale, cfg.logit_cap, cfg.q_chunk,
+                            cfg.kv_chunk)
+    else:
+        bias = _mask_bias(pos_l, positions, cfg.causal, cfg.window)
+        out = _sdpa(q_l, k, v, bias, scale, cfg.logit_cap)
+    return mesh.all_gather(out, MODEL_AXIS, dim=1)
 
 
 # ---------------------------------------------------------------------------

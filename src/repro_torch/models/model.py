@@ -3,20 +3,29 @@ tree, the full-sequence forward and the single-token decode step.
 
 Counterpart of ``repro.models.model``.  ``ModelConfig`` carries every field
 of the JAX package's, so its configs copy over unchanged.  The ported
-families are ``"ssm"`` (Mamba-2: a stack of SSD layers, ``models.ssd``)
-and ``"dense"`` (decoder LMs: attention and an FFN per layer,
-``models.attention`` and ``models.ffn``); the other families, and MLA,
-raise ``NotImplementedError`` (ROADMAP A item 12 lists them in port
-order).
+families are ``"ssm"`` (Mamba-2: a stack of SSD layers, ``models.ssd``),
+``"dense"`` (decoder LMs: attention and an FFN per layer,
+``models.attention`` and ``models.ffn``) and ``"hybrid"`` (RecurrentGemma:
+``"R"`` layers of an RG-LRU block and an FFN, ``models.rglru``, between
+``"A"`` layers of local attention over ``window`` positions, whose decode
+caches are rings of ``window`` slots); the other families, and MLA, raise
+``NotImplementedError`` (ROADMAP A item 12 lists them in port order).
 
 Per-layer parameters are stacked on a leading layer axis (the key
-``"stack"``, the block's layer ``"0_S"`` or ``"0_A"``), the JAX package's
-scan-over-layers layout, so its param trees carry over key for key; the
-decode state is stacked the same way (the KV caches' positions one per
-layer).  The JAX ``lax.scan`` over the stack becomes a Python loop that
-indexes the stacked tensors layer by layer (views, no copies); ``remat``
-and ``scan_layers`` are kept as fields with no effect until training is
-ported.
+``"stack"``; the block's layers ``"0_S"``, ``"0_A"``, or the hybrid
+pattern's ``"0_R"``, ``"1_R"``, ``"2_A"``), the JAX package's
+scan-over-layers layout, so its param trees carry over key for key; a
+hybrid stack's layers past the last whole pattern block are a list under
+``"rem"``, unrolled, as in JAX.  The decode state is stacked the same way
+(the KV caches' positions one per layer).  The JAX ``lax.scan`` over the
+stack becomes a Python loop that indexes the stacked tensors layer by
+layer (views, no copies); ``remat`` and ``scan_layers`` are kept as fields
+with no effect until training is ported.
+
+``forward`` takes a ``launch.mesh`` mesh for the attention layers only:
+with ``seq_shard_attn`` they run the sequence-parallel route where JAX's
+would engage (``models.attention``); the rest of the model runs unsharded
+on each rank's tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 
 from ..kernels.common import resolve_device
 from . import attention as attn_mod
+from . import rglru as rglru_mod
 from . import ssd as ssd_mod
 from .common import (
     dense, embed, embed_def, head_def, rmsnorm, rmsnorm_def, unembed,
@@ -134,6 +144,12 @@ class ModelConfig:
             use_kernel=self.use_convdk_kernel,
         )
 
+    def rglru_cfg(self) -> rglru_mod.RGLRUConfig:
+        return rglru_mod.RGLRUConfig(
+            d_model=self.d_model, width=self.lru_width or self.d_model,
+            d_conv=self.d_conv, use_kernel=self.use_convdk_kernel,
+        )
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer kind sequence, e.g. ('A',)*n or ('R','R','A')*m."""
         if self.family == "hybrid":
@@ -145,7 +161,7 @@ class ModelConfig:
         return ("A",) * self.n_layers
 
 
-PORTED = ("ssm", "dense")
+PORTED = ("ssm", "dense", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -158,40 +174,60 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 # ---------------------------------------------------------------------------
-# per-layer definitions: "S" an SSD layer, "A" attention + FFN
+# per-layer definitions: "S" an SSD layer, "R" an RG-LRU block + FFN, "A"
+# attention + FFN
 # ---------------------------------------------------------------------------
 
 def _layer_def(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
     if kind == "S":
         return {"norm": rmsnorm_def(d), "ssd": ssd_mod.ssd_def(cfg.ssd_cfg())}
+    if kind == "R":
+        return {"norm": rmsnorm_def(d),
+                "rec": rglru_mod.rglru_def(cfg.rglru_cfg()),
+                "ln2": rmsnorm_def(d),
+                "ffn": ffn_def(d, cfg.d_ff, cfg.act, cfg.glu)}
     return {"ln1": rmsnorm_def(d),
             "attn": attn_mod.attn_def(cfg.attn_cfg()),
             "ln2": rmsnorm_def(d),
             "ffn": ffn_def(d, cfg.d_ff, cfg.act, cfg.glu)}
 
 
+def _window(cfg: ModelConfig) -> Optional[int]:
+    """The local-attention window of the hybrid family's "A" layers."""
+    return cfg.window if cfg.family == "hybrid" and cfg.window else None
+
+
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                 positions: torch.Tensor,
-                 use_chunked: Optional[bool] = None) -> torch.Tensor:
+                 positions: torch.Tensor, use_chunked: Optional[bool] = None,
+                 mesh=None) -> torch.Tensor:
     if kind == "S":
         return x + ssd_mod.ssd_block(lp["ssd"], rmsnorm(lp["norm"], x),
                                      cfg.ssd_cfg())
+    if kind == "R":
+        h = x + rglru_mod.rglru_block(lp["rec"], rmsnorm(lp["norm"], x),
+                                      cfg.rglru_cfg())
+        return h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), cfg.act)
     h = attn_mod.attention(lp["attn"], rmsnorm(lp["ln1"], x),
-                           cfg.attn_cfg(), positions, use_chunked)
+                           cfg.attn_cfg(_window(cfg)), positions, use_chunked,
+                           mesh=mesh)
     x = x + h
     return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x), cfg.act)
 
 
 def _layer_groups(cfg: ModelConfig):
-    """(prefix kinds, unrolled; the stacked block's kinds; its count): the
-    JAX package's split.  The hybrid family's pattern blocks and remainder
-    layers come with RecurrentGemma, so here the stack's block is one
-    layer and no remainder exists."""
+    """(prefix kinds, unrolled; the stacked block's kinds; the block count;
+    the remainder's kinds, unrolled): the JAX package's split.  A hybrid
+    stack's block is its pattern, the layers past the last whole block the
+    remainder; otherwise the block is one layer and no remainder exists."""
     kinds = cfg.layer_kinds()
     prefix = kinds[:cfg.n_dense_prefix]
     rest = kinds[cfg.n_dense_prefix:]
-    return prefix, (rest[0],) if rest else (), len(rest)
+    if cfg.family == "hybrid":
+        pat = cfg.pattern or ("R", "R", "A")
+        n_blocks = len(rest) // len(pat)
+        return prefix, pat, n_blocks, rest[n_blocks * len(pat):]
+    return prefix, (rest[0],) if rest else (), len(rest), ()
 
 
 def _block_key(i: int, kind: str) -> str:
@@ -201,12 +237,14 @@ def _block_key(i: int, kind: str) -> str:
 def model_def(cfg: ModelConfig) -> dict:
     _require_ported(cfg)
     p: Dict[str, Any] = {"embed": embed_def(cfg.padded_vocab, cfg.d_model)}
-    prefix, pat, n_blocks = _layer_groups(cfg)
+    prefix, pat, n_blocks, rem = _layer_groups(cfg)
     if prefix:
         p["prefix"] = [_layer_def(cfg, k) for k in prefix]
     if n_blocks:
         p["stack"] = stack_defs({_block_key(i, k): _layer_def(cfg, k)
                                  for i, k in enumerate(pat)}, n_blocks)
+    if rem:
+        p["rem"] = [_layer_def(cfg, k) for k in rem]
     p["final_norm"] = rmsnorm_def(cfg.d_model)
     if not cfg.tie_embeddings:
         p["head"] = head_def(cfg.d_model, cfg.padded_vocab)
@@ -272,24 +310,28 @@ def _embed_input(params: dict, batch: Dict[str, torch.Tensor],
 
 
 def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            use_chunked: Optional[bool] = None) -> torch.Tensor:
+            use_chunked: Optional[bool] = None, mesh=None) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V).
 
     batch: {"tokens": (B, S)} or {"embeds": (B, S, D)}.  ``use_chunked``
     picks the attention layers' chunked online softmax (default: where S
-    passes ``q_chunk``).
+    passes ``q_chunk``).  ``mesh`` (a ``launch.mesh.Mesh``) reaches the
+    attention layers only: with ``seq_shard_attn`` each takes the
+    sequence-parallel route where JAX's would engage.
     """
     _require_ported(cfg)
     x = _embed_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    prefix, pat, n_blocks = _layer_groups(cfg)
+    prefix, pat, n_blocks, rem = _layer_groups(cfg)
     for lp, k in zip(params.get("prefix", []), prefix):
-        x = _apply_layer(lp, x, cfg, k, positions, use_chunked)
+        x = _apply_layer(lp, x, cfg, k, positions, use_chunked, mesh)
     for n in range(n_blocks):
         lp = _index(params["stack"], n)
         for i, k in enumerate(pat):
             x = _apply_layer(lp[_block_key(i, k)], x, cfg, k, positions,
-                             use_chunked)
+                             use_chunked, mesh)
+    for lp, k in zip(params.get("rem", []), rem):
+        x = _apply_layer(lp, x, cfg, k, positions, use_chunked, mesh)
     return _logits(params, x, cfg)
 
 
@@ -301,19 +343,25 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
                  dtype: torch.dtype, device: torch.device):
     if kind == "S":
         return ssd_mod.init_ssd_state(batch, cfg.ssd_cfg(), dtype, device)
-    return attn_mod.init_kv_cache(batch, s_max, cfg.attn_cfg(), dtype, device)
+    if kind == "R":
+        return rglru_mod.init_rglru_state(batch, cfg.rglru_cfg(), dtype,
+                                          device)
+    return attn_mod.init_kv_cache(batch, s_max, cfg.attn_cfg(_window(cfg)),
+                                  dtype, device)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
                       dtype: torch.dtype = torch.bfloat16,
                       device: Optional[Union[str, torch.device]] = None
                       ) -> dict:
-    """Per-layer state tree, stacked along the layer axis for the stack:
-    the SSM state (constant-size) or the KV cache of ``s_max`` positions.
-    ``device`` defaults to the card (``resolve_device``)."""
+    """Per-layer state tree, stacked along the layer axis for the stack
+    (the remainder's a list): the SSM or RG-LRU state (constant-size) or
+    the KV cache of ``s_max`` positions (a ring of ``min(s_max, window)``
+    slots on the hybrid family's local attention).  ``device`` defaults to
+    the card (``resolve_device``)."""
     _require_ported(cfg)
     device = resolve_device(device)
-    prefix, pat, n_blocks = _layer_groups(cfg)
+    prefix, pat, n_blocks, rem = _layer_groups(cfg)
     state: Dict[str, Any] = {}
     if prefix:
         state["prefix"] = [_layer_cache(cfg, k, batch, s_max, dtype, device)
@@ -323,6 +371,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
                                                 device)
                  for i, k in enumerate(pat)}
         state["stack"] = _stack([block] * n_blocks)
+    if rem:
+        state["rem"] = [_layer_cache(cfg, k, batch, s_max, dtype, device)
+                        for k in rem]
     return state
 
 
@@ -332,10 +383,26 @@ def _decode_layer(lp: dict, x: torch.Tensor, cache, cfg: ModelConfig,
         y, nc = ssd_mod.ssd_decode_step(lp["ssd"], rmsnorm(lp["norm"], x),
                                         cache, cfg.ssd_cfg())
         return x + y, nc
+    if kind == "R":
+        y, nc = rglru_mod.rglru_decode_step(lp["rec"], rmsnorm(lp["norm"], x),
+                                            cache, cfg.rglru_cfg())
+        h = x + y
+        return h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), cfg.act), nc
     y, nc = attn_mod.decode_attention(lp["attn"], rmsnorm(lp["ln1"], x),
-                                      cache, cfg.attn_cfg())
+                                      cache, cfg.attn_cfg(_window(cfg)))
     x = x + y
     return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x), cfg.act), nc
+
+
+def _decode_unrolled(layers: list, kinds, caches: list, x: torch.Tensor,
+                     cfg: ModelConfig):
+    """Decode steps through a list of unrolled layers (the prefix or the
+    remainder): (x, their new caches)."""
+    new = []
+    for lp, k, c in zip(layers, kinds, caches):
+        x, nc = _decode_layer(lp, x, c, cfg, k)
+        new.append(nc)
+    return x, new
 
 
 def decode_step(params: dict, state: dict, batch_t: Dict[str, torch.Tensor],
@@ -343,14 +410,11 @@ def decode_step(params: dict, state: dict, batch_t: Dict[str, torch.Tensor],
     """One serve step: next-token logits (B, V) + the updated state."""
     _require_ported(cfg)
     x = _embed_input(params, batch_t, cfg)
-    prefix, pat, n_blocks = _layer_groups(cfg)
+    prefix, pat, n_blocks, rem = _layer_groups(cfg)
     new_state: Dict[str, Any] = {}
     if prefix:
-        caches = []
-        for lp, k, c in zip(params["prefix"], prefix, state["prefix"]):
-            x, nc = _decode_layer(lp, x, c, cfg, k)
-            caches.append(nc)
-        new_state["prefix"] = caches
+        x, new_state["prefix"] = _decode_unrolled(
+            params["prefix"], prefix, state["prefix"], x, cfg)
     if n_blocks:
         blocks = []
         for n in range(n_blocks):
@@ -362,4 +426,7 @@ def decode_step(params: dict, state: dict, batch_t: Dict[str, torch.Tensor],
                                                 k)
             blocks.append(new_blk)
         new_state["stack"] = _stack(blocks)
+    if rem:
+        x, new_state["rem"] = _decode_unrolled(params["rem"], rem,
+                                               state["rem"], x, cfg)
     return _logits(params, x, cfg)[:, 0], new_state

@@ -1,7 +1,8 @@
 """Parameter-definition trees and the weight bridge from the JAX package.
 
-Models declare their parameters once as a nested dict of ``P`` leaves
-(shape + initializer), as ``repro.models.param`` does.  From it:
+Models declare their parameters once as a nested tree of dicts and lists
+(a model's unrolled layers) with ``P`` leaves (shape + initializer), as
+``repro.models.param`` does.  From it:
 
 * ``materialize`` — initialized tensors from an explicit
   ``torch.Generator``, with the JAX package's shapes and fan-in scaled
@@ -21,7 +22,7 @@ import torch
 
 from ..kernels.common import resolve_device
 
-ParamTree = Any  # nested dict of P (defs) or torch.Tensor (materialized)
+ParamTree = Any  # nested dicts / lists of P (defs) or torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +63,12 @@ def _init_leaf(p: P, generator: torch.Generator) -> torch.Tensor:
 
 
 def _map(tree: ParamTree, fn) -> ParamTree:
-    """Apply ``fn`` to every leaf in sorted-key order (the order the JAX
-    package's tree flattening uses)."""
+    """Apply ``fn`` to every leaf, dicts in sorted-key order and lists in
+    index order (the order the JAX package's tree flattening uses)."""
     if isinstance(tree, dict):
         return {k: _map(tree[k], fn) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_map(t, fn) for t in tree]
     return fn(tree)
 
 
@@ -73,6 +76,8 @@ def count_params(tree: ParamTree) -> int:
     """Entries over every leaf of a definition (or tensor) tree."""
     if isinstance(tree, dict):
         return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(count_params(v) for v in tree)
     return int(np.prod(tree.shape))
 
 

@@ -117,9 +117,11 @@ def test_full_config_matches_jax(arch):
 
 
 def test_registry_matches_jax():
-    """The port registers Mamba-2 and the four dense archs, each spec as
-    the JAX registry has it; the rest of the JAX registry is not ported."""
-    assert base.list_archs() == sorted(ARCHS + ("mamba2-2.7b",))
+    """The port registers Mamba-2, the four dense archs and RecurrentGemma,
+    each spec as the JAX registry has it; the rest of the JAX registry is
+    not ported."""
+    assert base.list_archs() == sorted(ARCHS + ("mamba2-2.7b",
+                                                "recurrentgemma-9b"))
     assert set(base.list_archs()) < set(jax_base.list_archs())
     for arch in base.list_archs():
         spec, jspec = _specs(arch)
@@ -134,7 +136,7 @@ def test_registry_matches_jax():
     assert (base.SKIP_LONG, base.SKIP_ENC) == (jax_base.SKIP_LONG,
                                                jax_base.SKIP_ENC)
     with pytest.raises(KeyError):
-        base.get_arch("recurrentgemma-9b")
+        base.get_arch("granite-moe-3b-a800m")
 
 
 def test_forward_matches_jax(smoke):

@@ -16,7 +16,11 @@ fall back, and of each network's cross-entropy at seeded labels; the
 inputs' gradients come back through the chunks that shard them, the
 weights' are summed over the batch axes (``launch.mesh.sum_batch_grads``).
 It also checks that every collective keeps its ``grad_fn`` and passes the
-cotangents ``launch.mesh``'s rule says.  Rank 0 saves the global results;
+cotangents ``launch.mesh``'s rule says, and runs the sequence-parallel
+attention (``models.attention``, ``seq_shard``) on RecurrentGemma
+``SMOKE``'s MQA heads with its window, dense and chunked, against the
+unsharded attention and (at (2, 2)) the JAX package's own route, and
+where it must be a no-op.  Rank 0 saves the global results;
 the tests compare them here within the JAX suite's sharded bar (rtol 1e-4,
 atol 1e-4; bf16: its bf16 bar, 2e-2, the absolute part at the output's
 scale, each case's error against the absolute 2e-2 printed beside it; the
@@ -51,6 +55,8 @@ from repro_torch.kernels.convdk_fusedmb import convdk_fusedmb_fused
 from repro_torch.kernels.convdk_mbconv import convdk_mbconv_fused
 from repro_torch.core import telemetry
 from repro_torch.launch.mesh import make_mesh, sum_batch_grads
+from repro_torch.configs.recurrentgemma_9b import SMOKE as RG_SMOKE
+from repro_torch.models import attention as ta
 from repro_torch.models import mbconv as tm
 from repro_torch.models.common import separable_block
 from repro_torch.models.param import materialize
@@ -422,6 +428,75 @@ def _collective_checks(mesh) -> dict:
     return res
 
 
+# sequence-parallel attention: RecurrentGemma SMOKE's heads (4 query
+# heads over 1 KV head, head_dim 16) and window 8, at batch 2 x 16 tokens
+SA_B, SA_S = 2, 16
+SA_CASES = {"dense": {}, "chunked": {"q_chunk": 4, "kv_chunk": 3}}
+
+
+def _seq_attn_cfg(**kw) -> ta.AttnConfig:
+    return dataclasses.replace(RG_SMOKE, seq_shard_attn=True,
+                               **kw).attn_cfg(RG_SMOKE.window)
+
+
+def _seq_attn_inputs() -> dict:
+    """Seeded numpy inputs: x and the four projections (``sa_*``), and q,
+    k, v, for ``_seq_parallel_sdpa`` alone (``sq_*``)."""
+    rng = np.random.default_rng(11)
+    d, hd = RG_SMOKE.d_model, RG_SMOKE.head_dim
+    h, kv = RG_SMOKE.n_heads, RG_SMOKE.n_kv_heads
+
+    def r(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return {"sa_x": r(SA_B, SA_S, d), "sa_q": r(d, h * hd, scale=d ** -0.5),
+            "sa_k": r(d, kv * hd, scale=d ** -0.5),
+            "sa_v": r(d, kv * hd, scale=d ** -0.5),
+            "sa_o": r(h * hd, d, scale=(h * hd) ** -0.5),
+            "sq_q": r(SA_B, SA_S, h, hd), "sq_k": r(SA_B, SA_S, kv, hd),
+            "sq_v": r(SA_B, SA_S, kv, hd)}
+
+
+def _seq_attn_params(w: dict) -> dict:
+    return {n: {"w": torch.from_numpy(w["sa_" + n])} for n in "qkvo"}
+
+
+def _seq_attn_cases(mesh) -> dict:
+    """This rank's part of each sequence-parallel case, gathered over the
+    batch to its global form, with the collectives it counted: the
+    attention layer (``seq_shard`` on, dense and chunked), the route
+    alone on q, k, v, and the no-op cases (``seq_shard`` off; two KV
+    heads, which a model axis of 2 divides)."""
+    w = _seq_attn_inputs()
+    params = _seq_attn_params(w)
+    x = mesh.chunk(torch.from_numpy(w["sa_x"]), "data", dim=0)
+
+    def run(fn):
+        mesh.reset_counts()
+        out = fn()
+        counts = _counts(mesh)
+        return dict(out=mesh.all_gather(out.contiguous(), "data",
+                                        dim=0).numpy(), counts=counts)
+
+    res = {}
+    for name, kw in SA_CASES.items():
+        cfg = _seq_attn_cfg(**kw)
+        res[name] = run(lambda: ta.attention(params, x, cfg, mesh=mesh))
+        q, k, v = (mesh.chunk(torch.from_numpy(w["sq_" + n]), "data", dim=0)
+                   for n in "qkv")
+        res["sdpa_" + name] = run(lambda: ta._seq_parallel_sdpa(
+            mesh, q, k, v, torch.arange(SA_S), cfg, RG_SMOKE.head_dim ** -0.5,
+            bool(kw)))
+    off = _seq_attn_cfg()._replace(seq_shard=False)
+    res["off"] = run(lambda: ta.attention(params, x, off, mesh=mesh))
+    # two KV heads: the projections of k and v take 32 columns
+    two = _seq_attn_cfg(n_kv_heads=2)
+    p2 = dict(params, k={"w": params["k"]["w"].repeat(1, 2)},
+              v={"w": params["v"]["w"].repeat(1, 2)})
+    res["kv2"] = run(lambda: ta.attention(p2, x, two, mesh=mesh))
+    return res
+
+
 def _rank_cases(rank, shape, axes, port, out_path):
     """One rank of one mesh: every case, rank 0 saving the results."""
     torch.set_num_threads(1)
@@ -457,6 +532,7 @@ def _rank_cases(rank, shape, axes, port, out_path):
                                            BF16_CASES)
         res["routes"] = _block_routes(mesh)
         res["collectives"] = _collective_checks(mesh)
+        res["seq_attn"] = _seq_attn_cases(mesh)
         for name, (cfg, def_fn, apply) in _net_runs():
             params, images, labels = _net_inputs(cfg, def_fn)
             plan = tm.network_plan(tm_specs(name.split("_")[0], cfg),
@@ -1111,6 +1187,39 @@ _JAX_SHARDED = textwrap.dedent("""
             gk.astype(jnp.float32))
     np.savez(sys.argv[2], **out)
     np.savez(sys.argv[4], **grads)
+    # the sequence-parallel attention on RecurrentGemma SMOKE's heads: the
+    # layer under the mesh (its route engages inside the jit) and the route
+    # alone on q, k, v
+    import dataclasses
+    from repro.compat import activate_mesh
+    from repro.configs.recurrentgemma_9b import SMOKE as RG
+    from repro.models import attention as ja
+    ap = {n: {"w": w["sa_" + n]} for n in "qkvo"}
+    s = w["sa_x"].shape[1]
+    sa = {}
+    for name, kw in (("dense", {}), ("chunked", {"q_chunk": 4,
+                                                 "kv_chunk": 3})):
+        cfg = dataclasses.replace(RG, seq_shard_attn=True,
+                                  **kw).attn_cfg(RG.window)
+        engaged = []
+
+        def layer(p, x, cfg=cfg, engaged=engaged):
+            engaged.append(ja._seq_shard_mesh(cfg, x.shape[1]) is not None)
+            return ja.attention(p, x, cfg)
+
+        def route(q, k, v, cfg=cfg, chunked=bool(kw)):
+            return ja._seq_parallel_sdpa(mesh, q, k, v, jnp.arange(s), cfg,
+                                         RG.head_dim ** -0.5, chunked)
+
+        try:
+            with activate_mesh(mesh):
+                sa[name] = np.asarray(jax.jit(layer)(ap, w["sa_x"]))
+                sa["sdpa_" + name] = np.asarray(jax.jit(route)(
+                    w["sq_q"], w["sq_k"], w["sq_v"]))
+        except Exception as e:       # a fault of the reference, recorded
+            sa["error_" + name] = np.asarray(f"{type(e).__name__}: {e}")
+        sa["engaged_" + name] = np.asarray(engaged)
+    np.savez(sys.argv[5], **sa)
 """)
 
 
@@ -1119,17 +1228,19 @@ def jax_sharded(tmp_path_factory):
     """The JAX package's own sharded wrappers at mesh (2, 2) (4 virtual
     host devices, one subprocess): their outputs and their gradients
     (``jax.vjp``, ``residual_barrier`` at its default) of sum(out * r) at
-    the port's cotangents."""
+    the port's cotangents; and its sequence-parallel attention."""
     tmp = tmp_path_factory.mktemp("jax_sharded")
-    np.savez(tmp / "in.npz", **_inputs(),
+    np.savez(tmp / "in.npz", **_inputs(), **_seq_attn_inputs(),
              **{f"r_{c}": _cotangent(c) for c in (CO, CM)})
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     res = subprocess.run(
         [sys.executable, "-c", _JAX_SHARDED, str(tmp / "in.npz"),
-         str(tmp / "out.npz"), ",".join(BF16_WEIGHTS), str(tmp / "grad.npz")],
+         str(tmp / "out.npz"), ",".join(BF16_WEIGHTS), str(tmp / "grad.npz"),
+         str(tmp / "seq_attn.npz")],
         env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
-    return np.load(tmp / "out.npz"), np.load(tmp / "grad.npz")
+    return (np.load(tmp / "out.npz"), np.load(tmp / "grad.npz"),
+            np.load(tmp / "seq_attn.npz"))
 
 
 def test_wrappers_match_the_jax_sharded_wrappers(mesh_runs, jax_sharded):
@@ -1223,3 +1334,105 @@ def test_network_forwards_match_jax(mesh_runs, port_refs):
                                            **TOL)
             else:
                 print(_close_bf16(got, ref, f"{mesh} {net}"))
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel attention
+# ---------------------------------------------------------------------------
+
+SA_TOL = 1e-5                    # x max|ref|, + 1e-6
+
+
+def _sa_close(got, want, err_msg=""):
+    err = float(np.abs(got - want).max())
+    assert got.shape == want.shape, err_msg
+    assert err <= SA_TOL * float(np.abs(want).max()) + 1e-6, (err_msg, err)
+
+
+@pytest.fixture(scope="module")
+def seq_attn_refs():
+    """Each sequence-parallel case computed unsharded on this process."""
+    w = _seq_attn_inputs()
+    params = _seq_attn_params(w)
+    x = torch.from_numpy(w["sa_x"])
+    q, k, v = (torch.from_numpy(w["sq_" + n]) for n in "qkv")
+    refs = {}
+    for name, kw in SA_CASES.items():
+        cfg = _seq_attn_cfg(**kw)
+        refs[name] = ta.attention(params, x, cfg).numpy()
+        pos = torch.arange(SA_S)
+        if kw:
+            out = ta._chunked_sdpa(q, k, v, pos, pos, True, cfg.window,
+                                   RG_SMOKE.head_dim ** -0.5, 0.0,
+                                   cfg.q_chunk, cfg.kv_chunk)
+        else:
+            out = ta._sdpa(q, k, v, ta._mask_bias(pos, pos, True, cfg.window),
+                           RG_SMOKE.head_dim ** -0.5, 0.0)
+        refs["sdpa_" + name] = out.numpy()
+    refs["off"] = refs["dense"]
+    p2 = dict(params, k={"w": params["k"]["w"].repeat(1, 2)},
+              v={"w": params["v"]["w"].repeat(1, 2)})
+    refs["kv2"] = ta.attention(p2, x, _seq_attn_cfg(n_kv_heads=2)).numpy()
+    return refs
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_seq_parallel_attention_matches_unsharded(mesh_runs, seq_attn_refs,
+                                                  mesh):
+    """RecurrentGemma ``SMOKE``'s attention (one KV head, window 8) with
+    ``seq_shard`` on a mesh equals the unsharded layer, dense and chunked
+    (q_chunk 4 under the local length 8), and so does the route alone.
+    Where the model axis has 2 ranks (1x2, 2x2, 2x1x2) each case takes
+    one all-gather of its rows over "model"; at (2, 1) the route does not
+    engage, and neither does it with ``seq_shard`` off or with two KV
+    heads, which the model axis divides: no model-axis collective."""
+    got = mesh_runs[mesh]["seq_attn"]
+    mp = MESHES[mesh][0][-1]
+    assert set(got) == set(seq_attn_refs)
+    for name, ref in seq_attn_refs.items():
+        _sa_close(got[name]["out"], ref, f"{mesh} {name}")
+        model = {k: v for k, v in got[name]["counts"].items()
+                 if ".model" in k}
+        engages = mp > 1 and name not in ("off", "kv2")
+        # the gathered output: this rank's batch slice, every row and head
+        dp = math.prod(MESHES[mesh][0]) // mp
+        words = SA_B // dp * SA_S * RG_SMOKE.n_heads * RG_SMOKE.head_dim
+        want = {"all_gather.model": (1, words)} if engages else {}
+        assert model == want, (mesh, name, model)
+
+
+def test_seq_parallel_attention_without_a_mesh_is_a_noop():
+    """Without a mesh ``seq_shard`` changes nothing, in the layer and in
+    the whole model: bit for bit the output with it off, as in JAX."""
+    w = _seq_attn_inputs()
+    params = _seq_attn_params(w)
+    x = torch.from_numpy(w["sa_x"])
+    on = ta.attention(params, x, _seq_attn_cfg())
+    off = ta.attention(params, x, _seq_attn_cfg()._replace(seq_shard=False))
+    assert torch.equal(on, off)
+    from repro_torch.models import model as lm
+    cfg = dataclasses.replace(RG_SMOKE, seq_shard_attn=True)
+    params = materialize(lm.model_def(cfg), torch.Generator().manual_seed(4),
+                         "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 12)))
+    assert torch.equal(
+        lm.forward(params, {"tokens": tokens}, cfg),
+        lm.forward(params, {"tokens": tokens}, RG_SMOKE))
+
+
+def test_seq_parallel_attention_matches_jax(mesh_runs, jax_sharded):
+    """At mesh (2, 2) the port's route and layer equal the JAX package's:
+    its ``attention`` jitted under the mesh, where ``_seq_shard_mesh``
+    engaged, and its ``_seq_parallel_sdpa`` alone, within 1e-5 of
+    max|JAX|.  The JAX chunked route does not trace inside its
+    ``shard_map`` (its online softmax's ``lax.scan`` starts from a carry
+    that is not varying over the mesh; ROADMAP C), so that case is held
+    to the unsharded layer only and the reference's error is asserted."""
+    ref = jax_sharded[2]
+    got = mesh_runs["2x2"]["seq_attn"]
+    assert ref["engaged_dense"].tolist() == [True]
+    for key in ("dense", "sdpa_dense"):
+        _sa_close(got[key]["out"], ref[key], key)
+    assert "error_dense" not in ref.files
+    assert "scan" in str(ref["error_chunked"]) and "chunked" not in ref.files

@@ -151,9 +151,9 @@ def test_decode_step_matches_jax(weights):
 
 def test_other_families_raise():
     """The families not ported yet, and MLA on a ported one, raise naming
-    ROADMAP A item 12 ("ssm" and "dense" run)."""
+    ROADMAP A item 12 ("ssm", "dense" and "hybrid" run)."""
     cfgs = [dataclasses.replace(SMOKE, family=family)
-            for family in ("hybrid", "moe", "encoder", "vlm")]
+            for family in ("moe", "encoder", "vlm")]
     cfgs.append(dataclasses.replace(SMOKE, family="dense", use_mla=True))
     for cfg in cfgs:
         with pytest.raises(NotImplementedError, match="ROADMAP A item 12"):
