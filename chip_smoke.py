@@ -232,7 +232,30 @@ Phases, each of which must pass (exit 1 otherwise):
             in fp32 the engine's decode-loop prefill of 2 prompts of 32
             tokens against the kernel path's forward (last row) within
             1e-3 relative.
-19. dense-model full-width Gemma-2B (18 layers, d_model 2048, 8 query
+19. lm-train    the LM training step on the same full-width Mamba-2 tree:
+            in fp32 at 1 x 2048 tokens of the synthetic stream
+            (data.pipeline), two make_train_step steps (AdamW, remat) on
+            the kernel route (exactly 384 conv1d launches a step: 3 per
+            layer in the forward and again in the recompute) and two on the
+            plain route (none), each from its own copy of the weights: the
+            losses and grad norms within 1e-4 relative, and the parameter
+            deltas (after - before) of the kernel route against the plain
+            route's within 1e-4 x max|plain delta|; whether a second
+            kernel-route run repeats the losses bit for bit is printed
+            (where it does not, the embedding's backward is checked for
+            repeating by itself).  Then launch.train.Trainer.run in bf16
+            (fp32 params and AdamW state; its materialize timed) at 2 x
+            2048 for 3 steps, no checkpoint, counts zeroed just before and
+            read just after (384 a step): each step's loss, lr and grad
+            norm, finite losses, step ms on CUDA events (mean of steps 2-3),
+            tokens/s, peak memory, a trace of the step and the optimizer's
+            update timed alone on CUDA events (its share of a step).  Then,
+            under deterministic algorithms, a full-width 2-layer Trainer at
+            2 x 512: 2 steps, a checkpoint saved under build/chip_smoke/,
+            restored in a fresh Trainer and run to step 4, equal bit for
+            bit (losses, params, optimizer state) to 4 straight steps; the
+            checkpoint's bytes and its save and restore seconds printed.
+20. dense-model full-width Gemma-2B (18 layers, d_model 2048, 8 query
             heads over 1 KV head of 256, GeGLU 16384, the tied
             256000-word table; seeded fp32 weights, materialized once
             after the Mamba-2 tree is freed, timed, its parameter count
@@ -244,18 +267,18 @@ Phases, each of which must pass (exit 1 otherwise):
             1 x 4096 timed on CUDA events (tokens/s, peak memory) and
             traced.  No kernel of B1-B7 is on this path: every launch
             count is 0 around the forward and the prefill step.
-20. dense-serve the LM engine on full-width Gemma-2B in bf16: generate_many
+21. dense-serve the LM engine on full-width Gemma-2B in bf16: generate_many
             on the lm-serve phase's 7 requests, 16 new tokens each, every
             one answered, no kernel launch, with prefill tokens/s and
             decode ms per token; then in fp32 the engine's decode-loop
             prefill of 2 prompts of 32 tokens against the forward (last
             row) within 1e-3 relative.
-21. rg-kernels  the causal conv1d kernel without an activation on
+22. rg-kernels  the causal conv1d kernel without an activation on
             RecurrentGemma-9B's temporal conv (D 4096, k 4, bias) at batch
             1 x 4096 tokens, in bf16 (within 1 bf16 ulp of the plain
             version's fp32 sum rounded once) and in fp32 (the phase-2
             bar), timed as in phase 2 beside grouped F.conv1d.
-22. rg-model    full-width RecurrentGemma-9B (38 layers: 26 RG-LRU and 12
+23. rg-model    full-width RecurrentGemma-9B (38 layers: 26 RG-LRU and 12
             local attention over 2048 positions, 12 (R, R, A) blocks and an
             (R, R) remainder; seeded fp32 weights, materialized once after
             the Gemma tree is freed, timed, 9,396,195,328 parameters, equal
@@ -267,7 +290,7 @@ Phases, each of which must pass (exit 1 otherwise):
             full-width copy at 2 x 256 against the CPU run within 1e-3
             relative; then the bf16 prefill step at 1 x 4096 (26 launches)
             timed on CUDA events (tokens/s, peak memory) and traced.
-23. rg-serve    the LM engine on full-width RecurrentGemma-9B in bf16:
+24. rg-serve    the LM engine on full-width RecurrentGemma-9B in bf16:
             generate_many on 4 LITTLE prompts (12, 24, 40 and 60 tokens,
             8 new tokens each), every one answered, no kernel launch (the
             decode step takes the plain conv update, as in JAX), with
@@ -277,7 +300,7 @@ Phases, each of which must pass (exit 1 otherwise):
             from 2048 so that the 64-slot ring cache wraps), every decode
             step's logits over 2 x 96 tokens against the forward's rows
             within 1e-3 relative.
-24. mesh        the sharded wrappers and the network plan over
+25. mesh        the sharded wrappers and the network plan over
             torch.distributed, parity runs (one H100 has no model axis):
             first a one-rank NCCL mesh (1, 1) runs full-width B0 at 224,
             batch 8, through the sharded path of every block, its logits
@@ -384,6 +407,13 @@ LM_CONVS = (("conv_x", 5120), ("conv_b", 128), ("conv_c", 128))
 LM_REQUESTS = (12, 20, 28, 30, 40, 60, 80)
 LM_LITTLE = 64
 LM_NEW_TOKENS = 16
+LM_TRAIN_CHECK = (1, 2048)                 # lm-train fp32 parity: B x tokens
+LM_TRAIN_BATCH = (2, 2048)                 # lm-train bf16 Trainer.run
+LM_TRAIN_STEPS = 3
+LM_RESUME = (2, 2, 512)                    # resume: layers, B, tokens
+LM_DELTA_RTOL = 1e-4                       # x max|plain route's delta|
+LM_BF16_ROUTE_RTOL = 1e-3                  # bf16 kernel vs its plain version
+LM_TRAIN_OPTIM = {"peak_lr": 3e-4, "warmup_steps": 2, "decay_steps": 100}
 DENSE_TOKENS = 4096                        # dense-model: past q_chunk 2048
 DENSE_CPU = (2, 256)                       # 2-layer Gemma copy vs the CPU
 RG_TOKENS = 4096                           # rg-model: past window, q_chunk
@@ -633,6 +663,22 @@ class KernelStats:
                           f"layer (D {', '.join(str(d) for _, d in LM_CONVS)}, "
                           f"k 4, SiLU), each timed once; library: grouped "
                           f"F.conv1d + F.silu")
+                train = launches["lm_train"][kernel]
+                n_tr, tr = self.sums(kernel, "mamba2_train", LM_TRAIN_BATCH[1])
+                per_step = train // LM_TRAIN_STEPS // n_tr
+                entry["lm_train"] = dict(
+                    {k: v * per_step if isinstance(v, float) else v
+                     for k, v in tr.items()},
+                    launches=train, steps=LM_TRAIN_STEPS,
+                    per_layer=dict(tr, launches=n_tr),
+                    max_abs_err=max(r["max_abs_err"] for r in self.rows
+                                    if r["kernel"] == kernel
+                                    and r["net"] == "mamba2_train"),
+                    shape=f"Mamba-2 2.7B bf16 training step, batch "
+                          f"{LM_TRAIN_BATCH[0]} x {LM_TRAIN_BATCH[1]} tokens, "
+                          f"remat: {n_layers} layers x the {n_tr} convs, in "
+                          f"the forward and the recompute; times are one "
+                          f"step's ({per_step} x each conv timed once)")
                 n_rg, rg = self.sums(kernel, "rgemma", RG_TOKENS)
                 rg_launches = launches["rgemma"][kernel]
                 entry["rgemma"] = dict(
@@ -1451,18 +1497,19 @@ def model_phase(torch, tk):
     return bool(ok), params, params_cpu, forward, fwd.mean_ms
 
 
-def trace_phase(torch, forward, fwd_ms, grad=False):
-    """Device time by kernel over 3 calls of ``forward`` (torch.profiler,
-    under ``inference_mode`` unless ``grad``, when ``forward`` takes a
-    backward too); the busy share is kernel time per call over the
-    event-timed call."""
+def trace_phase(torch, forward, fwd_ms, grad=False, calls=3):
+    """Device time by kernel over ``calls`` calls of ``forward``
+    (torch.profiler, under ``inference_mode`` unless ``grad``, when
+    ``forward`` takes a backward too); the busy share is kernel time per
+    call over the event-timed call.  Only the device's activity is
+    recorded: the host's ops would add nothing read here and cost most of
+    a training step's trace."""
     from torch.profiler import ProfilerActivity, profile
 
     mode = contextlib.nullcontext() if grad else torch.inference_mode()
     try:
-        with mode, profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
+        with mode, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
                 forward()
             _sync(torch)
     except RuntimeError as exc:   # the trace is a diagnostic, not a check
@@ -1474,7 +1521,7 @@ def trace_phase(torch, forward, fwd_ms, grad=False):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0 and str(e.device_type).endswith("CUDA"):
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 3e3
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / calls / 1e3
     if not by_name:
         print("  the profiler shows no device time: not measured")
         return None
@@ -2575,24 +2622,25 @@ def _bf16_ulps(got, ref):
     return float(((got.float() - ref32).abs() / _bf16_ulp(ref32)).max())
 
 
-def lm_kernel_phase(torch, tc, stats) -> bool:
-    """The conv1d kernel on every conv of a Mamba-2 2.7B layer at batch 1
-    x LM_TOKENS (k 4, SiLU, bias) against its plain version, in bf16 (the
-    main path's type; timed) and in fp32; the library yardstick is grouped
-    F.conv1d on a channels-first copy made outside the timed region, then
-    F.silu."""
+def _conv1d_checks(torch, tc, stats, hx, net, b, seq, convs, k, act,
+                   flops_per_x) -> bool:
+    """The conv1d kernel on each ``(name, D)`` of ``convs`` at batch ``b``
+    x ``seq`` (bias, activation ``act``) against its plain version, in
+    bf16 (the main path's type: within 1 bf16 ulp per element; timed) and
+    in fp32 (the phase-2 bar); the library yardstick is grouped F.conv1d
+    on a channels-first copy made outside the timed region (then F.silu
+    where ``act`` is SiLU).  Rows under ``net`` at ``res`` = ``seq``."""
     import torch.nn.functional as F
 
-    hx = _Harness(torch, 5000)
     ok = True
-    k, tile = 4, min(512, -(-LM_TOKENS // 8) * 8)
+    tile = min(512, -(-seq // 8) * 8)
     for dtype in (torch.bfloat16, torch.float32):
-        for i, (name, d) in enumerate(LM_CONVS):
-            x = hx.rand(1, LM_TOKENS, d).to(dtype)
+        for i, (name, d) in enumerate(convs):
+            x = hx.rand(b, seq, d).to(dtype)
             w = hx.rand(k, d, scale=0.5)
             bias = hx.rand(d, scale=0.1)
-            got = tc.conv1d(x, w, bias, "silu", tile)
-            ref = tc.conv1d_plain(x, w, bias, "silu")
+            got = tc.conv1d(x, w, bias, act, tile)
+            ref = tc.conv1d_plain(x, w, bias, act)
             err = float((got.float() - ref.float()).abs().max())
             if dtype == torch.float32:
                 _, tol = hx.check(got, ref)
@@ -2603,38 +2651,57 @@ def lm_kernel_phase(torch, tc, stats) -> bool:
                 ulps = _bf16_ulps(got, ref)
                 tol = 2.0 ** (int(torch.frexp(ref.float().abs().max())[1]) - 8)
                 good, bar = ulps <= 1.0, {"bf16_ulps": ulps}
-                print(f"  {name} bf16: worst {ulps:.3f} bf16 ulp (bar 1 ulp)")
+                print(f"  {name} bf16 at {b} x {seq}: worst {ulps:.3f} bf16 "
+                      f"ulp (bar 1 ulp)")
             xt = x.transpose(1, 2).contiguous()
             w_lib = w.t().unsqueeze(1).to(dtype)
             b_lib = bias.to(dtype)
+
+            def library(xt=xt, w_lib=w_lib, b_lib=b_lib, d=d):
+                y = F.conv1d(xt, w_lib, b_lib, padding=k - 1,
+                             groups=d)[..., :seq]
+                return F.silu(y) if act == "silu" else y
+
             elt = x.element_size()
             ok &= stats.add(
-                "conv1d", "mamba2", LM_TOKENS, i, dtype == torch.bfloat16,
-                err, tol,
+                "conv1d", net, seq, i, dtype == torch.bfloat16, err, tol,
                 hx.times(True,
-                         lambda: tc.conv1d(x, w, bias, "silu", tile),
-                         lambda: tc.conv1d_plain(x, w, bias, "silu"),
-                         lambda: F.silu(F.conv1d(xt, w_lib, b_lib,
-                                                 padding=k - 1,
-                                                 groups=d)[..., :LM_TOKENS])),
+                         lambda: tc.conv1d(x, w, bias, act, tile),
+                         lambda: tc.conv1d_plain(x, w, bias, act), library),
                 2 * elt * x.numel() + 4 * (k * d + d),
-                (2 * k + 5) * x.numel(), good=good, conv=name, d=d, k=k,
-                tile_l=tile, dtype=str(dtype).split(".")[-1], **bar)
+                flops_per_x * x.numel(), good=good, conv=name, d=d, k=k,
+                tile_l=tile, batch=b, dtype=str(dtype).split(".")[-1], **bar)
             del x, got, ref, xt
     _sync(torch)
     return bool(ok)
 
 
+def lm_kernel_phase(torch, tc, stats) -> bool:
+    """The conv1d kernel on every conv of a Mamba-2 2.7B layer at batch 1
+    x LM_TOKENS (k 4, SiLU, bias) against its plain version
+    (``_conv1d_checks``)."""
+    return _conv1d_checks(torch, tc, stats, _Harness(torch, 5000), "mamba2",
+                          1, LM_TOKENS, LM_CONVS, 4, "silu", 2 * 4 + 5)
+
+
+def _card_generator(torch, seed):
+    """A seeded generator on DEVICE: the full-width LM trees draw their
+    weights on the card (seconds, where a CPU generator takes 8.6 ns a
+    parameter); every check they feed is on the card or on a copy of their
+    first layers moved to the CPU, so their numbers need not match a CPU
+    generator's."""
+    return torch.Generator(device=DEVICE).manual_seed(seed)
+
+
 def lm_init(torch):
-    """Full-width Mamba-2 2.7B, fp32 weights from a seeded CPU generator,
-    materialized once for the LM phases."""
+    """Full-width Mamba-2 2.7B, fp32 weights from a seeded generator on the
+    card, materialized once for the LM phases."""
     from repro_torch.configs.mamba2_2p7b import CONFIG
     from repro_torch.models.model import model_def
     from repro_torch.models.param import count_params, materialize
 
     t0 = time.perf_counter()
-    params = materialize(model_def(CONFIG), torch.Generator().manual_seed(0),
-                         DEVICE)
+    params = materialize(model_def(CONFIG), _card_generator(torch, 0), DEVICE)
     _sync(torch)
     n = count_params(params)
     print(f"  Mamba-2 2.7B ({CONFIG.n_layers} layers, d_model "
@@ -2824,17 +2891,345 @@ def lm_serve_phase(torch, params):
         torch, dataclasses.replace(CONFIG, use_convdk_kernel=True), params)
 
 
+def _lm_batches(torch, dcfg, n):
+    """The first ``n`` batches of the synthetic stream, on DEVICE."""
+    from repro_torch.data.pipeline import DataState, make_batch
+
+    state, out = DataState(seed=dcfg.seed, step=0), []
+    for _ in range(n):
+        batch, state = make_batch(dcfg, state)
+        out.append({k: torch.from_numpy(v).to(DEVICE)
+                    for k, v in batch.items()})
+    return out
+
+
+def _lm_steps(torch, cfg, tcfg, params, batches):
+    """make_train_step's steps on ``params`` (updated in place), one per
+    batch: (loss, grad norm, launch counts) each, the counts zeroed just
+    before the step and read just after."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.train.step import make_train_step
+
+    init_opt, step = make_train_step(cfg, tcfg)
+    opt, out = init_opt(params), []
+    for batch in batches:
+        reset_launches()                        # the main path starts here
+        _, _, m = step(params, opt, batch)
+        _sync(torch)
+        out.append((float(m["loss"]), float(m["grad_norm"]), launches()))
+    return out
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _only_conv1d(counts, want):
+    return counts["conv1d"] == want and not any(
+        v for k, v in counts.items() if k != "conv1d")
+
+
+def _lm_train_parity(torch, params, tcfg, per_step):
+    """fp32 at LM_TRAIN_CHECK: two steps on each route from its own copy of
+    the weights, the parameter deltas compared; then whether a second
+    kernel-route run repeats its losses."""
+    import dataclasses
+    import math
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.param import _map
+    from repro_torch.train.checkpoint import _leaf_names
+
+    f32 = dataclasses.replace(CONFIG, dtype="float32")
+    dcfg = DataConfig(vocab=CONFIG.vocab, seq_len=LM_TRAIN_CHECK[1],
+                      global_batch=LM_TRAIN_CHECK[0])
+    batches = _lm_batches(torch, dcfg, 2)
+    before = _leaf_names(params)
+    ok, runs, deltas = True, {}, {}
+    for kernel in (True, False):
+        cfg = dataclasses.replace(f32, use_convdk_kernel=kernel)
+        p = _map(params, lambda t: t.clone())
+        t0 = time.perf_counter()
+        runs[kernel] = _lm_steps(torch, cfg, tcfg, p, batches)
+        secs = time.perf_counter() - t0
+        for name, d in _leaf_names(p).items():
+            d.sub_(before[name])
+        deltas[kernel] = p
+        del p
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        want = per_step if kernel else 0
+        for i, (loss, gnorm, counts) in enumerate(runs[kernel]):
+            good = _only_conv1d(counts, want) and math.isfinite(loss)
+            print(f"  fp32 step {i + 1} ({LM_TRAIN_CHECK[0]} x "
+                  f"{LM_TRAIN_CHECK[1]}), kernel route {kernel}: loss "
+                  f"{loss:.6f} grad norm {gnorm:.6f}, launches "
+                  f"{_nonzero(counts)} (want {want} conv1d) "
+                  f"{'ok' if good else 'FAIL'}")
+            ok &= good
+        print(f"  two fp32 steps, kernel route {kernel}: {secs:.1f} s")
+    for i, (k, pl) in enumerate(zip(runs[True], runs[False])):
+        rel = [abs(a - b) / abs(b) for a, b in zip(k[:2], pl[:2])]
+        good = max(rel) <= LM_DELTA_RTOL
+        print(f"  step {i + 1} kernel vs plain route: loss rel diff "
+              f"{rel[0]:.3e}, grad norm rel diff {rel[1]:.3e} (tol "
+              f"{LM_DELTA_RTOL:g}) {'ok' if good else 'FAIL'}")
+        ok &= good
+    plain = _leaf_names(deltas.pop(False))
+    scale = max(float(d.abs().max()) for d in plain.values())
+    first = _leaf_names(deltas.pop(True))
+    errs = {name: float((d - plain[name]).abs_().max())
+            for name, d in first.items()}
+    worst = max(errs, key=errs.get)
+    rel = errs[worst] / scale
+    good = rel <= LM_DELTA_RTOL and scale > 0
+    print(f"  parameter deltas after 2 steps, kernel vs plain route: max|err| "
+          f"{errs[worst]:.4e} ({worst}) at max|plain delta| {scale:.4e}: rel "
+          f"{rel:.3e} (tol {LM_DELTA_RTOL:g}) {'ok' if good else 'FAIL'}")
+    ok &= good
+    del plain
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # the repeat: its losses and, leaf by leaf in JAX's order, its deltas
+    # against the first kernel-route run's; the first leaf that differs
+    # names the op that writes it
+    p = _map(params, lambda t: t.clone())
+    again = _lm_steps(torch, dataclasses.replace(f32, use_convdk_kernel=True),
+                      tcfg, p, batches)
+    differs = next((name for name, d in _leaf_names(p).items()
+                    if not torch.equal(d.sub_(before[name]), first[name])),
+                   None)
+    del p, first
+    repeats = [r[0] for r in again] == [r[0] for r in runs[True]]
+    print(f"  a second kernel-route run repeats the losses bit for bit: "
+          f"{repeats} ({[r[0] for r in again]}); its parameter deltas "
+          f"{'too' if differs is None else 'differ first at ' + differs}")
+    return bool(ok), {
+        "fp32_losses": {f"kernel={k}": [r[0] for r in v]
+                        for k, v in runs.items()},
+        "fp32_grad_norms": {f"kernel={k}": [r[1] for r in v]
+                            for k, v in runs.items()},
+        "delta_rel_err": rel, "delta_worst_leaf": worst,
+        "delta_scale": scale, "repeats_bit_for_bit": repeats,
+        "deltas_first_differ_at": differs}
+
+
+def lm_train_phase(torch, tc, stats, params):
+    """The LM training step on the full-width Mamba-2 tree (left as it
+    was): the conv1d kernel at the bf16 step's shapes, fp32 parity of the
+    kernel and plain routes, the bf16 Trainer.run and its weights' loss and
+    gradients on both routes, and a checkpoint resume at 2 layers."""
+    import dataclasses
+    import math
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.core.telemetry import measure
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.param import _map
+    from repro_torch.train.checkpoint import _leaf_names
+    from repro_torch.train.optim import OptimConfig, make_optimizer
+    from repro_torch.train.step import TrainConfig
+
+    per_step = 2 * len(LM_CONVS) * CONFIG.n_layers      # forward + recompute
+    tcfg = TrainConfig(optim=OptimConfig(**LM_TRAIN_OPTIM))
+    b, seq = LM_TRAIN_BATCH
+    marks = [time.perf_counter()]
+    ok = _conv1d_checks(torch, tc, stats, _Harness(torch, 5100),
+                        "mamba2_train", b, seq, LM_CONVS, 4, "silu", 2 * 4 + 5)
+    good, info = _lm_train_parity(torch, params, tcfg, per_step)
+    ok &= good
+    marks.append(time.perf_counter())
+
+    # the bf16 main path through the entry point
+    cfg = dataclasses.replace(CONFIG, use_convdk_kernel=True)
+    dcfg = DataConfig(vocab=CONFIG.vocab, seq_len=seq, global_batch=b)
+    held = torch.cuda.memory_allocated() / 1e9  # the lm phases' own tree
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tcfg, dcfg, device=DEVICE)
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    print(f"  Trainer at full width (bf16 activations, fp32 params and AdamW "
+          f"state): materialized from the CPU generator in {init_s:.1f} s")
+    events, real_step = [], tr.train_step
+
+    def timed(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real_step(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    tr.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launches()                            # the main path starts here
+    losses = tr.run(LM_TRAIN_STEPS, ckpt_every=0, log_every=1)
+    _sync(torch)
+    counts = launches()                         # ... and ends here
+    run_s = time.perf_counter() - t0
+    tr.train_step = real_step
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = [a.elapsed_time(b) for a, b in events]
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    good = (_only_conv1d(counts, per_step * LM_TRAIN_STEPS)
+            and len(losses) == LM_TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses))
+    print(f"  bf16 Trainer.run, {LM_TRAIN_STEPS} steps at {b} x {seq} in "
+          f"{run_s:.1f} s: losses {losses}, launches {_nonzero(counts)} "
+          f"(want {per_step * LM_TRAIN_STEPS} conv1d) "
+          f"{'ok' if good else 'FAIL'}")
+    print(f"  step on CUDA events {', '.join(f'{x:.1f}' for x in ms)} ms; "
+          f"steps 2-{LM_TRAIN_STEPS} {step_ms:.1f} ms: "
+          f"{b * seq / step_ms * 1e3:.0f} tokens/s; peak {peak:.1f} GB, "
+          f"{peak - held:.1f} GB above the {held:.1f} GB held before the "
+          f"Trainer")
+    ok &= good
+    batch = _lm_batches(torch, dcfg, 1)[0]
+    good, info["bf16_routes"] = _lm_bf16_routes(torch, cfg, tr.params, batch)
+    ok &= good
+    t0 = time.perf_counter()
+    trace = trace_phase(
+        torch, lambda: tr.train_step(tr.params, tr.opt_state, batch),
+        step_ms, grad=True, calls=1)
+    print(f"  the trace of one step took {time.perf_counter() - t0:.1f} s")
+    _, update = make_optimizer(tcfg.optim)
+    grads = _map(tr.params, torch.zeros_like)
+    opt_ms = measure(lambda: update(grads, tr.opt_state, tr.params),
+                     iters=2, warmup=1).mean_ms
+    print(f"  the optimizer's update alone (AdamW over "
+          f"{sum(t.numel() for t in _leaf_names(tr.params).values())} fp32 "
+          f"parameters): {opt_ms:.1f} ms on CUDA events, "
+          f"{opt_ms / step_ms:.1%} of a step")
+    info.update(trainer_init_s=init_s, losses=losses, step_ms=step_ms,
+                tokens_per_s=b * seq / step_ms * 1e3, peak_gb=peak,
+                held_gb=held,
+                optimizer_ms=opt_ms, trace=trace, launches=counts)
+    del tr, grads, batch
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    marks.append(time.perf_counter())
+    good, info["resume"] = _lm_resume(torch, cfg, tcfg)
+    ok &= good
+    marks.append(time.perf_counter())
+    info["seconds"] = dict(zip(("parity", "trainer", "resume"),
+                               (b - a for a, b in zip(marks, marks[1:]))))
+    print(f"  lm-train seconds: {info['seconds']}")
+    return bool(ok), counts["conv1d"] // LM_TRAIN_STEPS, info
+
+
+def _lm_bf16_routes(torch, cfg, params, batch):
+    """One bf16 loss and gradient (no update) from the trained weights at
+    LM_TRAIN_BATCH on the kernel route, against the same route with the
+    kernel's plain version (``conv1d_plain``) in its place: losses and
+    gradient norms within LM_BF16_ROUTE_RTOL, B7 launched 2 x 3 x 64 times
+    on the kernel route and never in the other run.  The model's plain
+    route (bf16 taps, every partial sum rounded to bf16, as the JAX
+    package's reference) rounds the same conv differently; it is printed
+    beside them, not gated."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.kernels import convdk_conv1d, launches, ops, \
+        reset_launches
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.step import loss_and_grads
+
+    def run(kernel):
+        reset_launches()
+        loss, grads = loss_and_grads(
+            params, batch, dataclasses.replace(cfg, use_convdk_kernel=kernel))
+        return float(loss), float(global_norm(grads)), launches()["conv1d"]
+
+    def plain(x, w, bias, activation, tile_l):
+        return convdk_conv1d.conv1d_plain(x, w, bias, activation)
+
+    out = {"kernel": run(True)}
+    with mock.patch.object(ops, "conv1d", plain):
+        out["kernel_plain"] = run(True)
+    out["model_plain"] = run(False)
+    want = 2 * len(LM_CONVS) * cfg.n_layers
+    rel = {k: [abs(a - b) / abs(b) for a, b in zip(out["kernel"][:2],
+                                                   out[k][:2])]
+           for k in ("kernel_plain", "model_plain")}
+    good = (max(rel["kernel_plain"]) <= LM_BF16_ROUTE_RTOL
+            and out["kernel"][2] == want and out["kernel_plain"][2] == 0)
+    for k, v in out.items():
+        print(f"  bf16 loss and gradients from the trained weights at "
+              f"{LM_TRAIN_BATCH[0]} x {LM_TRAIN_BATCH[1]}, {k}: loss "
+              f"{v[0]:.6f} grad norm {v[1]:.6f} ({v[2]} conv1d)"
+              + (f"; against the kernel: rel diff {rel[k][0]:.3e} / "
+                 f"{rel[k][1]:.3e}" if k in rel else ""))
+    print(f"  the kernel against its plain version in the same route: tol "
+          f"{LM_BF16_ROUTE_RTOL:g}, {want} launches "
+          f"{'ok' if good else 'FAIL'}; the model's plain route not gated")
+    return good, {**out, "rel": rel}
+
+
+def _lm_resume(torch, cfg, tcfg):
+    """A full-width LM_RESUME[0]-layer Trainer under deterministic
+    algorithms: 2 steps, a checkpoint, a fresh Trainer restored from it to
+    step 4, against 4 straight steps, bit for bit."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import Trainer
+    from repro_torch.train.checkpoint import _leaf_names
+
+    layers, b, seq = LM_RESUME
+    small = dataclasses.replace(cfg, n_layers=layers)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=b)
+    d = os.path.join(ROOT, "build", "chip_smoke", "lm_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        straight = Trainer(small, tcfg, dcfg, device=DEVICE)
+        want = straight.run(4, ckpt_every=0, log_every=0)
+        first = Trainer(small, tcfg, dcfg, device=DEVICE)
+        got = first.run(2, ckpt_every=0, log_every=0)
+        first.ckpt_dir = d
+        t0 = time.perf_counter()
+        first.save()
+        save_s = time.perf_counter() - t0
+        del first
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(d) for f in files)
+        second = Trainer(small, tcfg, dcfg, ckpt_dir=d, device=DEVICE)
+        t0 = time.perf_counter()
+        restored = second.maybe_restore()
+        _sync(torch)
+        restore_s = time.perf_counter() - t0
+        second.ckpt_dir = None                  # no save at its end
+        got += second.run(4, ckpt_every=0, log_every=0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a = _leaf_names({"params": second.params, "opt": second.opt_state})
+    w = _leaf_names({"params": straight.params, "opt": straight.opt_state})
+    same = (restored and got == want and a.keys() == w.keys()
+            and all(torch.equal(a[k], w[k]) for k in w))
+    print(f"  resume at full width, {layers} layers, {b} x {seq}: checkpoint "
+          f"at step 2, {nbytes} bytes, saved in {save_s:.2f} s, restored in "
+          f"{restore_s:.2f} s; losses {got} against 4 straight {want}: "
+          f"params and optimizer state "
+          f"{'equal bit for bit, ok' if same else 'differ, FAIL'}")
+    shutil.rmtree(d, ignore_errors=True)
+    return same, {"checkpoint_bytes": nbytes, "save_s": save_s,
+                  "restore_s": restore_s, "losses": got,
+                  "bit_for_bit": same}
+
+
 def dense_init(torch):
-    """Full-width Gemma-2B, fp32 weights from a seeded CPU generator,
-    materialized once for the dense phases; its parameter count against
-    the definition's."""
+    """Full-width Gemma-2B, fp32 weights from a seeded generator on the
+    card, materialized once for the dense phases; its parameter count
+    against the definition's."""
     from repro_torch.configs.gemma_2b import CONFIG
     from repro_torch.models.model import model_def
     from repro_torch.models.param import count_params, materialize
 
     t0 = time.perf_counter()
     tree = model_def(CONFIG)
-    params = materialize(tree, torch.Generator().manual_seed(0), DEVICE)
+    params = materialize(tree, _card_generator(torch, 0), DEVICE)
     _sync(torch)
     n = count_params(params)
     init_s = time.perf_counter() - t0
@@ -2946,55 +3341,18 @@ def dense_serve_phase(torch, params):
 def rg_kernel_phase(torch, tc, stats) -> bool:
     """The conv1d kernel at ``activation=None`` on RecurrentGemma-9B's
     temporal conv (batch 1 x RG_TOKENS, D 4096, k 4, bias) against its
-    plain version, in bf16 (the main path's type: within 1 bf16 ulp;
-    timed) and in fp32 (the phase-2 bar); the library yardstick is grouped
-    F.conv1d with no activation on a channels-first copy made outside the
-    timed region."""
-    import torch.nn.functional as F
+    plain version (``_conv1d_checks``)."""
     from repro_torch.configs.recurrentgemma_9b import CONFIG
 
-    hx = _Harness(torch, 7000)
-    ok = True
-    k, d = CONFIG.d_conv, CONFIG.lru_width
-    tile = min(512, -(-RG_TOKENS // 8) * 8)
-    for dtype in (torch.bfloat16, torch.float32):
-        x = hx.rand(1, RG_TOKENS, d).to(dtype)
-        w = hx.rand(k, d, scale=0.5)
-        bias = hx.rand(d, scale=0.1)
-        got = tc.conv1d(x, w, bias, None, tile)
-        ref = tc.conv1d_plain(x, w, bias, None)
-        err = float((got.float() - ref.float()).abs().max())
-        if dtype == torch.float32:
-            _, tol = hx.check(got, ref)
-            good, bar = None, {}
-        else:
-            ulps = _bf16_ulps(got, ref)
-            tol = 2.0 ** (int(torch.frexp(ref.float().abs().max())[1]) - 8)
-            good, bar = ulps <= 1.0, {"bf16_ulps": ulps}
-            print(f"  conv bf16: worst {ulps:.3f} bf16 ulp (bar 1 ulp)")
-        xt = x.transpose(1, 2).contiguous()
-        w_lib = w.t().unsqueeze(1).to(dtype)
-        b_lib = bias.to(dtype)
-        elt = x.element_size()
-        ok &= stats.add(
-            "conv1d", "rgemma", RG_TOKENS, 0, dtype == torch.bfloat16, err,
-            tol,
-            hx.times(True,
-                     lambda: tc.conv1d(x, w, bias, None, tile),
-                     lambda: tc.conv1d_plain(x, w, bias, None),
-                     lambda: F.conv1d(xt, w_lib, b_lib, padding=k - 1,
-                                      groups=d)[..., :RG_TOKENS]),
-            2 * elt * x.numel() + 4 * (k * d + d), 2 * k * x.numel(),
-            good=good, conv="rec/conv", d=d, k=k, tile_l=tile,
-            dtype=str(dtype).split(".")[-1], **bar)
-        del x, got, ref, xt
-    _sync(torch)
-    return bool(ok)
+    k = CONFIG.d_conv
+    return _conv1d_checks(torch, tc, stats, _Harness(torch, 7000), "rgemma",
+                          1, RG_TOKENS, (("rec/conv", CONFIG.lru_width),), k,
+                          None, 2 * k)
 
 
 def rg_init(torch):
-    """Full-width RecurrentGemma-9B, fp32 weights from a seeded CPU
-    generator, materialized once for the rg phases; its parameter count
+    """Full-width RecurrentGemma-9B, fp32 weights from a seeded generator
+    on the card, materialized once for the rg phases; its parameter count
     against the definition's and RG_PARAMS."""
     from repro_torch.configs.recurrentgemma_9b import CONFIG
     from repro_torch.models.model import model_def
@@ -3002,7 +3360,7 @@ def rg_init(torch):
 
     t0 = time.perf_counter()
     tree = model_def(CONFIG)
-    params = materialize(tree, torch.Generator().manual_seed(0), DEVICE)
+    params = materialize(tree, _card_generator(torch, 0), DEVICE)
     _sync(torch)
     n = count_params(params)
     init_s = time.perf_counter() - t0
@@ -3952,6 +4310,10 @@ def main() -> int:
     phases["lm-model"], lm_launches, lm = lm_model_phase(torch, lm_params)
     phase("lm-serve", "lm-serve: the LM engine at full width")
     phases["lm-serve"], lm_serve = lm_serve_phase(torch, lm_params)
+    phase("lm-train", "lm-train: the LM training step at full width, "
+                      "kernel vs plain route, Trainer.run, resume")
+    phases["lm-train"], lm_train_launches, lm_train = lm_train_phase(
+        torch, tc, stats, lm_params)
     del lm_params
     torch.cuda.empty_cache()
     phase("dense-model", f"dense-model: full-width Gemma-2B, chunked vs "
@@ -4011,7 +4373,8 @@ def main() -> int:
                    "mnv2_bf16_launches": mnv2_bf16_launches,
                    "mnv2_staged_bf16_launches": mnv2_staged_bf16_launches,
                    "lm": lm, "lm_launches": lm_launches,
-                   "lm_serve": lm_serve, "dense": dense,
+                   "lm_serve": lm_serve, "lm_train": lm_train,
+                   "dense": dense,
                    "dense_serve": dense_serve, "rgemma": rg,
                    "rgemma_launches": rg_launches, "rgemma_serve": rg_serve,
                    "both_modes": both_modes,
@@ -4028,12 +4391,14 @@ def main() -> int:
          "train": train_launches, "mnv2": mnv2_launches,
          "mnv2_bf16": mnv2_bf16_launches,
          "mnv2_staged_bf16": mnv2_staged_bf16_launches,
-         "lm": lm_launches, "rgemma": rg_launches,
+         "lm": lm_launches, "lm_train": lm_train["launches"],
+         "rgemma": rg_launches,
          "paper_staged_dw2d": paper_dw,
          "b0_bf16": bf16["b0"]["launches"],
          "v2s_bf16": bf16["v2s"]["launches"],
          "v3_bf16": bf16["v3"]["launches"]}),
         "lm_launches_per_prefill_forward": lm_launches,
+        "lm_train_launches_per_step": lm_train_launches,
         "rgemma_launches_per_prefill_forward": rg_launches,
         "dense_launches": dense_launches}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ Counterpart of ``repro.models.common``:
 * ``rope_freqs`` / ``apply_rope`` (split halves, fp32 angles, the input's
   dtype out) and ``act_fn`` (``"gelu"`` the tanh approximation, JAX's
   default, ``"gelu_exact"`` the erf form, ``"silu"``, ``"relu"``);
+* ``softmax_cross_entropy``, the LM loss (fp32, mean or masked mean);
 * ``separable_def`` declares one separable block's parameters and
   ``separable_block`` applies it, through the fused kernel
   (``kernels.convdk_fused``) or, with ``fused=False``, the staged pipeline
@@ -98,6 +99,27 @@ _ACTS = {
 
 def act_fn(name: str):
     return _ACTS[name]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean cross-entropy over valid positions: logits (..., V) in any
+    dtype, taken in fp32; labels (...) integer; ``mask`` (...) weights the
+    positions, the sum divided by max(mask.sum(), 1).
+
+    The gold logit is a ``torch.gather``: it selects the same single value
+    that the JAX package's one-hot masked reduction sums (every other term
+    of that sum is an exact 0), so the loss is the same.  Pad logits are
+    already -1e30 (``models.model._mask_pad_logits``)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def embed_def(vocab: int, d: int) -> dict:

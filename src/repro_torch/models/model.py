@@ -19,8 +19,14 @@ hybrid stack's layers past the last whole pattern block are a list under
 ``"rem"``, unrolled, as in JAX.  The decode state is stacked the same way
 (the KV caches' positions one per layer).  The JAX ``lax.scan`` over the
 stack becomes a Python loop that indexes the stacked tensors layer by
-layer (views, no copies); ``remat`` and ``scan_layers`` are kept as fields
-with no effect until training is ported.
+layer (views, no copies; a stacked leaf may also come as a list of its
+layers, as ``grad_aliases`` makes it for the backward).  With ``remat`` each
+pattern block of the stack (the JAX scan body) runs under
+``torch.utils.checkpoint`` while grad is enabled, so the backward
+recomputes its activations from the block's input, as ``jax.checkpoint``
+does; the prefix and remainder layers are not rematerialized, as in JAX.
+It changes no value.  ``scan_layers`` has no effect: the stack is a Python
+loop either way.
 
 ``forward`` takes a ``launch.mesh`` mesh for the attention layers only:
 with ``seq_shard_attn`` they run the sequence-parallel route where JAX's
@@ -34,6 +40,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
 from . import attention as attn_mod
@@ -43,7 +50,7 @@ from .common import (
     dense, embed, embed_def, head_def, rmsnorm, rmsnorm_def, unembed,
 )
 from .ffn import ffn, ffn_def
-from .param import stack_defs
+from .param import _leaves, _map, stack_defs
 
 NOT_PORTED = "not ported yet (ROADMAP A item 12)"
 
@@ -252,12 +259,37 @@ def model_def(cfg: ModelConfig) -> dict:
 
 
 def _index(tree, i: int):
-    """Layer ``i`` of a stacked tree: views of every leaf."""
+    """Layer ``i`` of a stacked tree: views of every leaf (element ``i``
+    of a leaf given as the list of its layers)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     if isinstance(tree, tuple):          # a NamedTuple of state tensors
         return type(tree)(*(_index(v, i) for v in tree))
     return tree[i]
+
+
+def grad_aliases(params: dict, grads: dict) -> dict:
+    """Aliases of ``params`` (the same storage) that autograd sees as
+    leaves, each with its ``.grad`` preset to its place in ``grads`` (the
+    same layout), so a backward adds into ``grads`` in place.  Under
+    ``"stack"`` one alias per layer (a list, which ``_index`` takes as the
+    stacked leaf), so a layer's gradient lands in its slice as the
+    backward reaches it (``jax.lax.scan``'s stacked cotangent), not in a
+    leaf-sized buffer per layer."""
+    def alias(p, g):
+        a = p.detach().requires_grad_()
+        a.grad = g
+        return a
+
+    def layers(p, g):
+        return [alias(p_i, g_i) for p_i, g_i in zip(p.unbind(0), g.unbind(0))]
+
+    def tree(p_tree, g_tree, fn):
+        it = (fn(p, g) for p, g in _leaves(p_tree, g_tree))
+        return _map(p_tree, lambda _: next(it))
+
+    return {k: tree(params[k], grads[k], layers if k == "stack" else alias)
+            for k in params}
 
 
 def _stack(layers):
@@ -325,11 +357,18 @@ def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     prefix, pat, n_blocks, rem = _layer_groups(cfg)
     for lp, k in zip(params.get("prefix", []), prefix):
         x = _apply_layer(lp, x, cfg, k, positions, use_chunked, mesh)
-    for n in range(n_blocks):
-        lp = _index(params["stack"], n)
+
+    def block(x, lp):
         for i, k in enumerate(pat):
             x = _apply_layer(lp[_block_key(i, k)], x, cfg, k, positions,
                              use_chunked, mesh)
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for n in range(n_blocks):
+        lp = _index(params["stack"], n)
+        x = (checkpoint(block, x, lp, use_reentrant=False) if remat
+             else block(x, lp))
     for lp, k in zip(params.get("rem", []), rem):
         x = _apply_layer(lp, x, cfg, k, positions, use_chunked, mesh)
     return _logits(params, x, cfg)

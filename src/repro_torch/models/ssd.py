@@ -106,10 +106,15 @@ def ssd_chunked(
     # ---- intra-chunk (dense) ----
     cb = torch.einsum("bcqgn,bctgn->bcgqt", cc, bc)    # (B,nc,G,Q_q,Q_t)
     cst = csg.permute(0, 1, 3, 4, 2)                   # (B,nc,G,HG,Q)
-    # decay[..., q, t] = exp(cs[q] - cs[t]); causal within the chunk
-    decay = torch.exp(cst[..., :, None] - cst[..., None, :])
+    # decay[..., q, t] = exp(cs[q] - cs[t]); causal within the chunk.  The
+    # mask goes in before the exp (exp(-inf) = 0, the same forward as JAX's
+    # mask after it): above the diagonal cs[q] - cs[t] grows with t - q and
+    # passes fp32's exp range (88.7) within a 256-step chunk, and an inf
+    # masked after the exp makes the backward's 0 * inf a NaN in every
+    # gradient (ROADMAP C, the reference's fault)
     tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
-    decay = decay.masked_fill(~tri, 0.0)
+    decay = torch.exp((cst[..., :, None] - cst[..., None, :])
+                      .masked_fill(~tri, float("-inf")))
     w_qt = decay * dtg.permute(0, 1, 3, 4, 2)[..., None, :]
     del decay
     # "bcgqt,bcghqt,bctghp->bcqghp" as one product, then one batched matmul

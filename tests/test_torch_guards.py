@@ -128,7 +128,10 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.benchmarks.serve_report",
             "repro_torch.benchmarks.run",
             "repro_torch.launch.mesh",
-            "repro_torch.kernels.convdk_sharded"} <= set(mods)
+            "repro_torch.kernels.convdk_sharded",
+            "repro_torch.train.optim", "repro_torch.train.checkpoint",
+            "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.examples.train_lm"} <= set(mods)
     smoke = sorted(_smoke_imports())
     assert {"repro_torch.models.mbconv", "repro_torch.core.convdk",
             "repro_torch.benchmarks.cim_tables",
