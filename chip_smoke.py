@@ -11,7 +11,8 @@ Phases, each of which must pass (exit 1 otherwise):
             nvcc per library, all started together (mbconv.cu and fusedmb.cu
             twice: fp32 and bf16 storage), each with -Xptxas -v, whose
             registers, shared memory and spills per kernel are printed for
-            the MBConv, Fused-MBConv and separable libraries; then the HMMA
+            the MBConv, Fused-MBConv, separable and conv1d libraries, and
+            each nvcc's seconds (conv1d.cu's on a line of its own); then the HMMA
             (tensor-core product) instructions per kernel in both mbconv
             and both fusedmb builds' and the separable library's SASS
             (cuobjdump -sass): the bf16 builds' pass 1, recompute, retain
@@ -213,8 +214,12 @@ Phases, each of which must pass (exit 1 otherwise):
 16. lm-kernels  the causal conv1d kernel on each conv of a Mamba-2 2.7B
             layer (D 5120, 128, 128; k 4; SiLU; bias) at batch 1 x 32768
             tokens, in bf16 (within 1 bf16 ulp of the plain version's
-            fp32 sum rounded once) and in fp32 (the phase-2 bar), timed as
-            in phase 2 beside grouped F.conv1d + F.silu.
+            fp32 sum rounded once) and in fp32 (the phase-2 bar), and in
+            both bit for bit the plain version, timed as in phase 2 beside
+            grouped F.conv1d + F.silu; each conv's launch plan (CTAs,
+            waves, walk; its bytes requested ahead, modelled), the resident
+            CTAs per SM of its instance (at least the plan's 4) and its
+            share of the bound printed.
 17. lm-model    full-width Mamba-2 2.7B (64 layers, seeded fp32 weights,
             materialized once and timed): the prefill forward with the
             kernel (exactly 192 conv1d launches, 3 per layer) and without it
@@ -277,7 +282,8 @@ Phases, each of which must pass (exit 1 otherwise):
             RecurrentGemma-9B's temporal conv (D 4096, k 4, bias) at batch
             1 x 4096 tokens, in bf16 (within 1 bf16 ulp of the plain
             version's fp32 sum rounded once) and in fp32 (the phase-2
-            bar), timed as in phase 2 beside grouped F.conv1d.
+            bar), bit for bit in both, timed as in phase 2 beside grouped
+            F.conv1d, its plan printed as in lm-kernels.
 23. rg-model    full-width RecurrentGemma-9B (38 layers: 26 RG-LRU and 12
             local attention over 2048 positions, 12 (R, R, A) blocks and an
             (R, R) remainder; seeded fp32 weights, materialized once after
@@ -380,12 +386,6 @@ os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, bf16
-# tensor-core products (exact in fp32 and summed there, as the bf16 builds
-# compute them), HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_MMA_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5      # x max|plain|, absolute
 MODEL_RTOL = 1e-3                          # x max|cpu logits|
 BATCH, RES = 8, 224
@@ -544,11 +544,11 @@ SOURCES.update(fused_separable=f"{CSRC}/separable.cu",
 
 def _bound(nbytes: float, flops: float, mma_flops: float = 0):
     """(bound, bytes term, operations term) in ms: ``flops`` at the fp32
-    rate, ``mma_flops`` (bf16 products) at the tensor cores', the two
-    pipes side by side, so the operations term is the larger of the two."""
-    t_bytes = nbytes / PEAK_HBM_BYTES
-    t_ops = max(flops / PEAK_FP32_FLOPS, mma_flops / PEAK_BF16_MMA_FLOPS)
-    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
+    rate, ``mma_flops`` (bf16 products, exact in fp32 and summed there, as
+    the bf16 builds compute them) at the tensor cores' (the H100 data
+    sheet's peaks, ``core.telemetry.bound_ms``)."""
+    from repro_torch.core.telemetry import bound_ms
+    return bound_ms(nbytes, flops, mma_flops)
 
 
 class KernelStats:
@@ -602,6 +602,17 @@ class KernelStats:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": total("library_ms"), "host_ms": total("host_ms"),
         }
+
+    def conv1d_per_conv(self, net, res):
+        """Per conv of ``net``'s main path at ``res`` (its bf16 rows), what
+        the run measured: ms, its share of the bound, and the resident
+        CTAs per SM the occupancy calculator gives the kernel's instance
+        (the plans, modelled, stay in the rows of kernels.json)."""
+        return {r["conv"]: {
+            "ms": r["ms"], "share_of_bound": r["bound_ms"] / r["ms"],
+            "resident_ctas_per_sm": r["resident_ctas"]}
+            for r in self.rows if r["kernel"] == "conv1d"
+            and r["net"] == net and r["res"] == res and r["on_path"]}
 
     def both_modes(self, net, res):
         """Per block of ``net`` at ``res``, the device ms of its two pass-2
@@ -658,6 +669,7 @@ class KernelStats:
                     **{k: v * n_layers if isinstance(v, float) else v
                        for k, v in layer.items()},
                     per_layer=dict(layer, launches=n),
+                    per_conv=self.conv1d_per_conv("mamba2", LM_TOKENS),
                     shape=f"Mamba-2 2.7B bf16 prefill, batch 1 x {LM_TOKENS} "
                           f"tokens: {n_layers} layers x the {n} convs of a "
                           f"layer (D {', '.join(str(d) for _, d in LM_CONVS)}, "
@@ -671,6 +683,8 @@ class KernelStats:
                      for k, v in tr.items()},
                     launches=train, steps=LM_TRAIN_STEPS,
                     per_layer=dict(tr, launches=n_tr),
+                    per_conv=self.conv1d_per_conv("mamba2_train",
+                                                  LM_TRAIN_BATCH[1]),
                     max_abs_err=max(r["max_abs_err"] for r in self.rows
                                     if r["kernel"] == kernel
                                     and r["net"] == "mamba2_train"),
@@ -685,6 +699,7 @@ class KernelStats:
                     {k: v * rg_launches if isinstance(v, float) else v
                      for k, v in rg.items()},
                     launches=rg_launches, per_layer=dict(rg, launches=n_rg),
+                    per_conv=self.conv1d_per_conv("rgemma", RG_TOKENS),
                     max_abs_err=max(r["max_abs_err"] for r in self.rows
                                     if r["kernel"] == kernel
                                     and r["net"] == "rgemma"),
@@ -853,11 +868,11 @@ class KernelStats:
 LIBRARIES = ("mbconv", "mbconv_bf16", "fusedmb", "fusedmb_bf16", "separable",
              "conv1d")
 PTXAS_SOURCES = ("mbconv", "mbconv_bf16", "fusedmb", "fusedmb_bf16",
-                 "separable")
+                 "separable", "conv1d")
 PTXAS_KERNELS = ("mbconv_pass1_kernel", "mbconv_pass2_recompute_kernel",
                  "mbconv_pass2_retain_kernel", "fusedmb_kernel",
                  "fused_separable_kernel", "fused_separable_mma",
-                 "dw2d_kernel", "dw2d_bf16_kernel")
+                 "dw2d_kernel", "dw2d_bf16_kernel", "causal_conv1d_kernel")
 
 
 def ptxas_report():
@@ -2622,25 +2637,32 @@ def _bf16_ulps(got, ref):
     return float(((got.float() - ref32).abs() / _bf16_ulp(ref32)).max())
 
 
-def _conv1d_checks(torch, tc, stats, hx, net, b, seq, convs, k, act,
-                   flops_per_x) -> bool:
+def _conv1d_checks(torch, tc, stats, hx, net, b, seq, convs, k,
+                   act) -> bool:
     """The conv1d kernel on each ``(name, D)`` of ``convs`` at batch ``b``
     x ``seq`` (bias, activation ``act``) against its plain version, in
     bf16 (the main path's type: within 1 bf16 ulp per element; timed) and
-    in fp32 (the phase-2 bar); the library yardstick is grouped F.conv1d
-    on a channels-first copy made outside the timed region (then F.silu
-    where ``act`` is SiLU).  Rows under ``net`` at ``res`` = ``seq``."""
+    in fp32 (the phase-2 bar), and in both bit for bit (``torch.equal``);
+    the library yardstick is grouped F.conv1d on a channels-first copy
+    made outside the timed region (then F.silu where ``act`` is SiLU).
+    Each row carries its launch plan and the plan's modelled bytes
+    requested ahead (``conv1d_plan``, ``plan_info``: arithmetic, not
+    measured), the resident CTAs per SM the occupancy calculator gives its
+    instance (at least the plan's RESIDENT_CTAS) and its share of the
+    bound; bytes and operations are ``conv1d_cost``'s.  Rows under ``net``
+    at ``res`` = ``seq``."""
     import torch.nn.functional as F
 
     ok = True
-    tile = min(512, -(-seq // 8) * 8)
+    n_sm = tc.sm_count(torch.cuda.current_device())
     for dtype in (torch.bfloat16, torch.float32):
         for i, (name, d) in enumerate(convs):
             x = hx.rand(b, seq, d).to(dtype)
             w = hx.rand(k, d, scale=0.5)
             bias = hx.rand(d, scale=0.1)
-            got = tc.conv1d(x, w, bias, act, tile)
+            got = tc.conv1d(x, w, bias, act)
             ref = tc.conv1d_plain(x, w, bias, act)
+            exact = bool(torch.equal(got, ref))
             err = float((got.float() - ref.float()).abs().max())
             if dtype == torch.float32:
                 _, tol = hx.check(got, ref)
@@ -2663,14 +2685,31 @@ def _conv1d_checks(torch, tc, stats, hx, net, b, seq, convs, k, act,
                 return F.silu(y) if act == "silu" else y
 
             elt = x.element_size()
+            plan = tc.plan_info(tc.conv1d_plan(b, seq, d, elt, n_sm), seq, d,
+                                k, elt, n_sm)
+            resident = tc._lib().conv1d_resident_ctas(
+                k, int(dtype == torch.bfloat16), int(d % (16 // elt) == 0))
+            good = (err <= tol if good is None else good) and exact \
+                and resident >= tc.RESIDENT_CTAS
             ok &= stats.add(
                 "conv1d", net, seq, i, dtype == torch.bfloat16, err, tol,
                 hx.times(True,
-                         lambda: tc.conv1d(x, w, bias, act, tile),
+                         lambda: tc.conv1d(x, w, bias, act),
                          lambda: tc.conv1d_plain(x, w, bias, act), library),
-                2 * elt * x.numel() + 4 * (k * d + d),
-                flops_per_x * x.numel(), good=good, conv=name, d=d, k=k,
-                tile_l=tile, batch=b, dtype=str(dtype).split(".")[-1], **bar)
+                *tc.conv1d_cost(b, seq, d, k, elt, act), good=good, conv=name, d=d, k=k,
+                batch=b, dtype=str(dtype).split(".")[-1], exact=exact,
+                resident_ctas=resident, **plan, **bar)
+            row = stats.rows[-1]
+            print(f"  {name} {str(dtype).split('.')[-1]} at {b} x {seq}: "
+                  f"bit for bit {exact}; plan {plan['ctas']} CTAs "
+                  f"({plan['waves']:.2f} waves of {n_sm} x "
+                  f"{tc.RESIDENT_CTAS}, last {plan['wave_fill']:.1%} full), "
+                  f"walk {plan['walk']}, modelled "
+                  f"{plan['modeled_bytes_requested_ahead'] / 1e6:.2f} MB "
+                  f"requested ahead, halo {plan['halo_share']:.1%} of "
+                  f"the loads, resident CTAs/SM {resident}; "
+                  f"{row['ms']:.4f} ms, {row['bound_ms'] / row['ms']:.1%} "
+                  f"of its bound")
             del x, got, ref, xt
     _sync(torch)
     return bool(ok)
@@ -2681,7 +2720,7 @@ def lm_kernel_phase(torch, tc, stats) -> bool:
     x LM_TOKENS (k 4, SiLU, bias) against its plain version
     (``_conv1d_checks``)."""
     return _conv1d_checks(torch, tc, stats, _Harness(torch, 5000), "mamba2",
-                          1, LM_TOKENS, LM_CONVS, 4, "silu", 2 * 4 + 5)
+                          1, LM_TOKENS, LM_CONVS, 4, "silu")
 
 
 def _card_generator(torch, seed):
@@ -3037,7 +3076,7 @@ def lm_train_phase(torch, tc, stats, params):
     b, seq = LM_TRAIN_BATCH
     marks = [time.perf_counter()]
     ok = _conv1d_checks(torch, tc, stats, _Harness(torch, 5100),
-                        "mamba2_train", b, seq, LM_CONVS, 4, "silu", 2 * 4 + 5)
+                        "mamba2_train", b, seq, LM_CONVS, 4, "silu")
     good, info = _lm_train_parity(torch, params, tcfg, per_step)
     ok &= good
     marks.append(time.perf_counter())
@@ -3347,7 +3386,7 @@ def rg_kernel_phase(torch, tc, stats) -> bool:
     k = CONFIG.d_conv
     return _conv1d_checks(torch, tc, stats, _Harness(torch, 7000), "rgemma",
                           1, RG_TOKENS, (("rec/conv", CONFIG.lru_width),), k,
-                          None, 2 * k)
+                          None)
 
 
 def rg_init(torch):
@@ -4225,7 +4264,11 @@ def main() -> int:
         tf._lib(dtype)
     tfs._lib()
     tc._lib()
-    print(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s")
+    print(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s;"
+          f" each nvcc, in parallel: " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in _build.BUILD_SECONDS.items()))
+    if "conv1d" in _build.BUILD_SECONDS:
+        print(f"  conv1d.cu compiled in {_build.BUILD_SECONDS['conv1d']:.1f} s")
     ptxas = ptxas_report()
     hmma, sass_ok = sass_mma_counts()
 
@@ -4360,6 +4403,7 @@ def main() -> int:
 
     with open(os.path.join(out_dir, "kernels.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__, "ptxas": ptxas,
+                   "build_seconds": _build.BUILD_SECONDS,
                    "hmma": hmma,
                    "cuda": torch.version.cuda, "forward_ms": fwd_ms,
                    "trace": trace, "v2s_forward_ms": v2s_ms,

@@ -3,7 +3,9 @@
 Counterpart of ``repro.core.telemetry``: the same process-wide registry
 (``counter``/``span``/``record``/``series``/``percentiles``/``reset``/
 ``snapshot``), with ``measure`` timing on CUDA events after a
-``torch.cuda.synchronize()`` in place of ``jax.block_until_ready``.
+``torch.cuda.synchronize()`` in place of ``jax.block_until_ready``, and
+``bound_ms``, the least time of a kernel's bytes and operations at the
+H100's peaks, beside it.
 PyTorch runs eagerly, so every counter ticks per call.  ``host_fingerprint``
 and ``host_slug`` name where a measurement ran, for the ``BENCH_<host>.json``
 artifacts of ``core.trajectory``.
@@ -27,9 +29,13 @@ import torch
 
 __all__ = [
     "Measurement",
+    "PEAK_BF16_MMA_FLOPS",
+    "PEAK_FP32_FLOPS",
+    "PEAK_HBM_BYTES",
     "SERIES_CAP",
     "SpanStat",
     "Telemetry",
+    "bound_ms",
     "counter",
     "get_telemetry",
     "host_fingerprint",
@@ -228,6 +234,24 @@ def measure(fn: Callable[[], object], *, iters: int = 20, warmup: int = 3,
     end.record()
     end.synchronize()
     return Measurement(iters=iters, total_ms=start.elapsed_time(end))
+
+
+# NVIDIA H100 SXM data sheet, dense: fp32 outside the tensor cores, bf16
+# tensor-core products (exact in fp32 and summed there), HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_MMA_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound_ms(nbytes: float, flops: float,
+             mma_flops: float = 0) -> Tuple[float, float, float]:
+    """(bound, bytes term, operations term) in ms, the least time of work
+    that moves ``nbytes`` through device memory and does ``flops`` fp32
+    operations and ``mma_flops`` bf16 tensor-core products: the two pipes
+    side by side, so the operations term is the larger of the two."""
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = max(flops / PEAK_FP32_FLOPS, mma_flops / PEAK_BF16_MMA_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, t_bytes * 1e3, t_ops * 1e3
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,8 @@ A library is a source (``csrc/<name>.cu``) or a build of one with extra
 flags (``VARIANTS``: the bf16 instantiations of the MBConv and
 Fused-MBConv kernels).  Libraries build in parallel, one ``nvcc`` each,
 with ``-Xptxas -v``, whose report (registers, shared memory, spills per
-kernel) is kept beside the library (``build_log``).  A failed build
-raises.
+kernel) is kept beside the library (``build_log``); each ``nvcc``'s wall
+time lands in ``BUILD_SECONDS``.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
@@ -36,6 +37,8 @@ VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# library -> seconds its nvcc ran, for the libraries this process built
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -84,10 +87,23 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
         procs[name] = (subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, *_flags(name), "-o", str(tmp),
              str(source(name))],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp,
+            time.perf_counter())
+    outs = {}
+
+    def wait(name, proc, start):
+        outs[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - start
+
+    waits = [threading.Thread(target=wait, args=(n, p, t))
+             for n, (p, _, t) in procs.items()]
+    for th in waits:
+        th.start()
+    for th in waits:
+        th.join()
     errors = []
-    for name, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
+    for name, (proc, tmp, _) in procs.items():
+        out = outs[name]
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {source(name).name} "
                           f"({name}):\n{out}")

@@ -117,10 +117,11 @@ def storage_dtype(*tensors: Optional[torch.Tensor]) -> torch.dtype:
 
 
 def check_cuda(*tensors: Optional[torch.Tensor],
-               dtypes: Tuple[torch.dtype, ...]) -> None:
-    """What a kernel takes: contiguous, 16-byte aligned tensors of one of
-    ``dtypes`` (each wrapper names its kernel's) on the current CUDA device
-    (``None`` entries are skipped)."""
+               dtypes: Tuple[torch.dtype, ...], align: int = 16) -> None:
+    """What a kernel takes: contiguous tensors of one of ``dtypes`` (each
+    wrapper names its kernel's), aligned to ``align`` bytes (16 unless the
+    kernel masks its own vector loads), on the current CUDA device (``None``
+    entries are skipped)."""
     for t in tensors:
         if t is None:
             continue
@@ -130,8 +131,9 @@ def check_cuda(*tensors: Optional[torch.Tensor],
         if t.dtype not in dtypes:
             raise ValueError(f"kernel takes {', '.join(map(str, dtypes))}, "
                              f"got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("kernels take contiguous 16-byte-aligned tensors")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"the kernel takes contiguous {align}-byte-"
+                             f"aligned tensors")
 
 
 # Arrival counters of the kernels whose last CTA folds a sum across CTAs

@@ -139,9 +139,7 @@ def convdk_separable_staged(
 def _conv1d_impl(x: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor], activation: Optional[str],
                  tile_l: int) -> torch.Tensor:
-    # the JAX wrapper's effective tile: whole sequences shorter than tile_l
-    tile = min(tile_l, -(-x.shape[1] // 8) * 8)
-    return conv1d(x.contiguous(), w, bias, activation, tile)
+    return conv1d(x.contiguous(), w, bias, activation, tile_l)
 
 
 class _CausalConv1dFn(torch.autograd.Function):
@@ -168,7 +166,9 @@ def convdk_causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                          tile_l: int = 512) -> torch.Tensor:
     """Causal depthwise Conv1D (+ fused bias / SiLU) through the conv1d
     kernel.  x: (B, L, D); w: (k, D); bias: (D,) or None.  Returns
-    (B, L, D) in x's dtype."""
+    (B, L, D) in x's dtype.  ``tile_l`` is the JAX API's L tile, checked
+    and otherwise unused: the kernel's launch plan is the card's
+    (``convdk_conv1d.conv1d_plan``)."""
     if needs_grad(x, w, bias):
         return _CausalConv1dFn.apply(x, w, bias, activation, tile_l)
     return _conv1d_impl(x, w, bias, activation, tile_l)

@@ -1218,21 +1218,38 @@ def test_dw2d_at_mbconv_widths_on_card(b, h, w, c, k, s, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [40, 42, 128, 5120])
+@pytest.mark.parametrize("d", [36, 40, 42, 128, 5120])
 @pytest.mark.parametrize("k", [2, 3, 4])
 def test_conv1d_kernel_matches_plain_on_card(k, d, dtype):
     """B7 at odd lengths (1, 7, 513 and 4097 tokens: one row, a ragged
-    tile, a ragged last tile of 512), a ragged D (42: not a multiple of
-    the 4-channel group, the scalar path), both activations, with and
-    without bias.  fp32 within 1e-4 * max|plain| + 1e-5; bf16 within 1
-    bf16 ulp of the plain version's fp32 sum rounded once."""
+    tile, a ragged last tile of 512) and at the shortest lengths that end
+    one row past a CTA's row tile and past a walk of 2 rows or more in the
+    launch plan on this card, a ragged D (42: not a multiple of the
+    4-channel group; 36: of the 8-channel bf16 group, the scalar path),
+    both activations, with and without bias, and x at a pointer one
+    element past 16-byte alignment (the scalar path), and x scaled by 64
+    under SiLU (sums past +-88).  fp32 within 1e-4 * max|plain| + 1e-5;
+    bf16 within 1 bf16 ulp of the plain version's fp32 sum rounded once;
+    and in both, bit for bit the plain version (``torch.equal``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     g = torch.Generator().manual_seed(100 * k + d)
     r = lambda *sh: torch.randn(*sh, generator=g).cuda()  # noqa: E731
     w, bias = r(k, d) * 0.5, r(d) * 0.1
-    for l in (1, 7, 513, 4097):
+    n_sm, elt = tc.sm_count(torch.cuda.current_device()), dtype.itemsize
+
+    def past_edges(l):
+        p = tc.conv1d_plan(2, l, d, elt, n_sm)
+        tile = p.walk * p.walks_per_cta
+        return l > tile and l % tile == 1, p.walk > 1 and l % p.walk == 1
+
+    edges = {next(l for l in range(2, 20000) if past_edges(l)[i])
+             for i in range(2)}
+    for l in (1, 7, 513, 4097, *sorted(edges)):
         x = r(2, l, d).to(dtype)
+        shifted = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        x_odd = shifted[1:].view_as(x).copy_(x)
+        assert x_odd.data_ptr() % 16
         for act in (None, "silu"):
             for b in (bias, None):
                 got = tc.conv1d(x, w, b, act, min(512, -(-l // 8) * 8))
@@ -1248,6 +1265,13 @@ def test_conv1d_kernel_matches_plain_on_card(k, d, dtype):
                                       torch.ldexp(torch.ones_like(ref32),
                                                   exp - 8))
                     assert bool(((got.float() - ref32).abs() <= ulp).all())
+                assert torch.equal(got, ref)
+                assert torch.equal(tc.conv1d(x_odd, w, b, act), ref)
+        # sums past +-88: 1 + exp(-acc) overflows or passes 2^126, the
+        # SiLU's rare path
+        x_far = (x.float() * 64).to(dtype)
+        assert torch.equal(tc.conv1d(x_far, w, bias, "silu"),
+                           tc.conv1d_plain(x_far, w, bias, "silu"))
     torch.cuda.synchronize()
 
 
