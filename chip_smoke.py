@@ -306,7 +306,49 @@ Phases, each of which must pass (exit 1 otherwise):
             from 2048 so that the 64-slot ring cache wraps), every decode
             step's logits over 2 x 96 tokens against the forward's rows
             within 1e-3 relative.
-25. mesh        the sharded wrappers and the network plan over
+25. moe-model   full-width Granite-MoE 3B-A800M (all 32 layers, 40
+            experts padded to 48, top-8, seeded fp32 weights drawn on the
+            card, 3,903,166,464 parameters, equal to the definition's): a
+            2-layer full-width copy at 2 x 256 against the CPU run by the
+            routing rule below; the fp32 forward at 1 x 4096 twice, equal
+            bit for bit (logits and every layer's choices), the pairs
+            dropped at capacity_factor 1.25 printed per layer; then the
+            bf16 prefill step at 1 x 4096 timed on CUDA events (tokens/s,
+            peak memory, its drops per layer) and traced.  No kernel of
+            B1-B7 launches on the MoE path (JAX's is XLA).
+            The routing rule: the card and the CPU (or two attention
+            routes) may resolve a router near-tie between the k-th and
+            (k+1)-th expert differently, and that token then takes another
+            expert's output.  So a MoE comparison first compares every
+            layer's top-k choices (models.moe.route_flips) and prints how
+            many tokens differ, with the first one's probability gap.
+            Where none differs, the logits are held to 1e-3 relative.
+            Where some differ, the first flip (in flat B x S order, in its
+            earliest layer) must be a near tie, a gap in the reference's
+            probabilities under 1e-4, and the logits of the tokens before
+            it, which route alike in every layer (a capacity and a causal
+            attention pass a flip only to later tokens), are held to 1e-3
+            relative.  No other bar is loosened for it.
+26. moe-serve   the LM engine on full-width Granite-MoE in bf16:
+            generate_many on 4 LITTLE prompts (12, 24, 40 and 60 tokens,
+            16 new tokens each), every one answered, no kernel launch, with
+            prefill tokens/s, decode ms per token and tokens/s; the fp32
+            decode-loop prefill of 2 x 32 tokens against the forward (last
+            row), both at capacity_factor 8, where neither drops (the JAX
+            tests' convention).
+27. mla-model   DeepSeek-V2 236B at full width and reduced depth: 2 of its
+            60 layers (the dense-prefix layer and one MoE layer of 160
+            routed experts at top-6 and 2 shared; MLA at 128 heads,
+            q_lora 1536, kv_lora 512), 5,358,679,040 parameters, 21.4 GB
+            in fp32 (the 60 layers, about 3.97 B parameters a MoE layer,
+            do not fit 80 GB): in fp32 the model at 2 x 256 against the
+            CPU run by the routing rule; at 1 x 4096 the chunked online
+            softmax (q_chunk 2048) against dense scores by the routing
+            rule; the decode loop over 2 x 32 tokens, absorbed and
+            expanded, against the forward's rows and against each other
+            within 1e-3 relative (capacity_factor 8); then the bf16 prefill
+            step at 1 x 4096 timed on CUDA events and traced.
+28. mesh        the sharded wrappers and the network plan over
             torch.distributed, parity runs (one H100 has no model axis):
             first a one-rank NCCL mesh (1, 1) runs full-width B0 at 224,
             batch 8, through the sharded path of every block, its logits
@@ -335,7 +377,11 @@ Phases, each of which must pass (exit 1 otherwise):
             4096 in fp32 takes the sequence-parallel route (each rank its
             2048 query rows against the whole K/V, one all-gather of the
             output over "model"), held to the unsharded layer within
-            1e-4 x max|ref|.  It prints each
+            1e-4 x max|ref|, and one full-width Granite-MoE layer (48
+            experts, top-8, 1 x 4096 tokens, fp32) runs expert-parallel
+            (each rank 24 experts, one counted all-reduce of the output
+            over "model"), held to the single card within 1e-4 x max|ref|.
+            It prints each
             rank's forward ms (a parity run's time, not a speed) and the
             transport gloo used for each collective of CUDA tensors and
             dtype (native or through the host, the host calls counted).
@@ -421,6 +467,14 @@ RG_PARAMS = 9_396_195_328                  # RecurrentGemma-9B, the definition
 RG_REQUESTS = (12, 24, 40, 60)             # rg-serve: one LITTLE pack
 RG_NEW_TOKENS = 8
 RG_WRAP = (2, 96, 64)                      # rg-serve fp32: B, tokens, window
+MOE_TOKENS = 4096                          # moe-/mla-model: 1 x 4096 tokens
+MOE_PARAMS = 3_903_166_464                 # Granite-MoE 3B-A800M's definition
+MOE_REQUESTS = (12, 24, 40, 60)            # moe-serve: one LITTLE pack
+MOE_NEW_TOKENS = 16
+MLA_LAYERS = 2                             # DeepSeek-V2: prefix + 1 MoE layer
+MLA_PARAMS = 5_358_679_040                 # ... those 2 layers, the definition
+MLA_DECODE = (2, 32)                       # mla-model's decode loop: B, tokens
+NEAR_TIE = 1e-4                            # the routing rule's probability gap
 MESH_SHAPES = ((1, 2), (2, 1))             # the mesh phase's two-rank meshes
 MESH_RTOL = 1e-4                           # x max|single-device result|
 BF16_RTOL = 2e-2                           # x max|ref|: the JAX bf16 bar
@@ -1452,8 +1506,11 @@ def kernel_phase(torch, tk, tf, stats) -> bool:
 
 
 def _cpu_tree(torch, tree):
-    return {k: (v.cpu() if torch.is_tensor(v) else _cpu_tree(torch, v))
-            for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return tree.cpu()
+    if isinstance(tree, list):
+        return [_cpu_tree(torch, v) for v in tree]
+    return {k: _cpu_tree(torch, v) for k, v in tree.items()}
 
 
 def model_phase(torch, tk):
@@ -2843,11 +2900,11 @@ def lm_model_phase(torch, params):
 
 
 def _engine_phase(torch, cfg, params, requests=LM_REQUESTS,
-                  new_tokens=LM_NEW_TOKENS):
+                  new_tokens=LM_NEW_TOKENS, check=None):
     """The LM engine serving ``cfg`` (bf16) at full width on ``requests``
     (prompt lengths; LITTLE below LM_LITTLE) with ``new_tokens`` each,
-    then in fp32 its decode-loop prefill of 2 x 32 tokens against the
-    forward's last row."""
+    then in fp32 (and the fields of ``check``) its decode-loop prefill of
+    2 x 32 tokens against the forward's last row."""
     import dataclasses
     import numpy as np
     from repro_torch.kernels import launches, reset_launches
@@ -2891,7 +2948,8 @@ def _engine_phase(torch, cfg, params, requests=LM_REQUESTS,
              "prefill_tokens_per_s": work["prefill"] / spent["prefill"],
              "decode_tokens": work["decode"],
              "decode_ms_per_token": spent["decode"] / work["decode"] * 1e3,
-             "decode_steps_s": spent["decode"], "launches": counts}
+             "decode_steps_s": spent["decode"], "launches": counts,
+             "decode_tokens_per_s": work["decode"] / spent["decode"]}
     print(f"  {len(reqs)} requests ({', '.join(map(str, requests))} "
           f"tokens) in batches {batches}: all answered "
           f"{'ok' if ok else 'FAIL'} in {wall:.2f} s; launches {counts}")
@@ -2904,7 +2962,7 @@ def _engine_phase(torch, cfg, params, requests=LM_REQUESTS,
     # cycle keeps the engine and its weights alive past the phase
     del eng.prefill, eng._step
 
-    f32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = dataclasses.replace(cfg, dtype="float32", **(check or {}))
     eng32 = Engine(f32, params, device=DEVICE)
     tokens = torch.randint(0, cfg.vocab, (2, 32),
                            generator=torch.Generator().manual_seed(8))
@@ -2914,7 +2972,8 @@ def _engine_phase(torch, cfg, params, requests=LM_REQUESTS,
         full = forward(params, {"tokens": tokens.to(DEVICE)}, f32)[:, -1]
     rel = _rel(last, full)
     good = bool(torch.isfinite(last).all()) and rel <= MODEL_RTOL
-    print(f"  fp32 decode-loop prefill of 2 x 32 tokens vs the forward: rel "
+    print(f"  fp32 decode-loop prefill of 2 x 32 tokens vs the forward"
+          f"{''.join(f', {k} {v}' for k, v in (check or {}).items())}: rel "
           f"err {rel:.3e} (tol {MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
     return bool(ok and good), dict(stats, fp32_prefill_rel_err=rel)
 
@@ -3575,6 +3634,327 @@ def rg_serve_phase(torch, params):
 
 
 # ---------------------------------------------------------------------------
+# the MoE family: Granite-MoE 3B-A800M, and DeepSeek-V2 with MLA
+# ---------------------------------------------------------------------------
+
+def _routed_verdict(torch, what, got, ref, got_log, ref_log):
+    """The routing rule (phase 25): a MoE forward's logits ``got`` against
+    ``ref`` (B, S, V), their runs' route records beside them."""
+    from repro_torch.models.moe import route_flips
+
+    n, first, gap = route_flips(got_log, ref_log)
+    b, s = ref.shape[:2]
+    if n == 0:
+        rel = _rel(got, ref)
+        good = bool(torch.isfinite(got).all()) and rel <= MODEL_RTOL
+        print(f"  {what}: top-k choices equal in all {len(ref_log)} MoE "
+              f"layers; max|ref| {float(ref.abs().max()):.4e} rel err "
+              f"{rel:.3e} (tol {MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
+    else:
+        rows = got.reshape(b * s, -1)[:first]
+        rel = _rel(rows, ref.reshape(b * s, -1)[:first]) if first else 0.0
+        good = (gap <= NEAR_TIE and rel <= MODEL_RTOL
+                and bool(torch.isfinite(got).all()))
+        print(f"  {what}: top-k choices differ at {n} tokens (over "
+              f"{len(ref_log)} MoE layers); the first at flat token {first},"
+              f" gap {gap:.3e} (a near tie under {NEAR_TIE:g}); the {first} "
+              f"tokens before it: rel err {rel:.3e} (tol {MODEL_RTOL:g}) "
+              f"{'ok' if good else 'FAIL'}")
+    return good, {"flips": n, "first_flip": first, "gap": gap,
+                  "rel_err": rel}
+
+
+def _drops(log):
+    return [int(r.dropped) for r in log]
+
+
+def _timed_prefill(torch, cfg, params, tokens, gen, what):
+    """The bf16 prefill step at 1 x ``tokens``: launches (want none), its
+    drops per MoE layer, peak memory, CUDA-event ms (mean of 3), trace."""
+    from repro_torch.core.telemetry import measure
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.moe import recording
+    from repro_torch.train.step import make_prefill_step
+
+    step = make_prefill_step(cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, tokens),
+                                     generator=gen).to(DEVICE)}
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                        # the main path starts here
+        with recording() as log:
+            nxt = step(params, batch)
+            _sync(torch)
+        counts = launches()                     # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        drops = _drops(log)
+        good = (not any(counts.values()) and nxt.shape == (1,)
+                and 0 <= int(nxt) < cfg.vocab)
+        print(f"  bf16 prefill step 1 x {tokens}: next token {int(nxt)}, "
+              f"launches {counts} (want none), peak {peak:.1f} GB; pairs "
+              f"dropped per MoE layer {drops} (of {tokens * cfg.top_k} a "
+              f"layer) {'ok' if good else 'FAIL'}")
+        fwd = measure(lambda: step(params, batch), iters=3, warmup=1)
+    print(f"  {what} bf16 prefill step (1 x {tokens}): {fwd.mean_ms:.3f} ms "
+          f"(CUDA events, mean of 3), {tokens / fwd.mean_ms * 1e3:.0f} "
+          f"tokens/s")
+    trace = trace_phase(torch, lambda: step(params, batch), fwd.mean_ms)
+    return good, counts, {"prefill_ms": fwd.mean_ms,
+                          "prefill_tokens_per_s": tokens / fwd.mean_ms * 1e3,
+                          "peak_gb": peak, "bf16_drops": drops,
+                          "trace": trace}
+
+
+def moe_init(torch):
+    """Full-width Granite-MoE 3B-A800M, fp32 weights from a seeded
+    generator on the card, materialized once for the MoE phases; its
+    parameter count against the definition's and MOE_PARAMS."""
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG
+    from repro_torch.models.model import model_def
+    from repro_torch.models.param import count_params, materialize
+
+    t0 = time.perf_counter()
+    tree = model_def(CONFIG)
+    params = materialize(tree, _card_generator(torch, 0), DEVICE)
+    _sync(torch)
+    n = count_params(params)
+    init_s = time.perf_counter() - t0
+    print(f"  Granite-MoE 3B-A800M ({CONFIG.n_layers} layers, d_model "
+          f"{CONFIG.d_model}, {CONFIG.n_heads} query heads over "
+          f"{CONFIG.n_kv_heads} KV heads of {CONFIG.head_dim}; "
+          f"{CONFIG.n_experts} experts padded to {CONFIG.n_experts_pad}, "
+          f"top-{CONFIG.top_k}, d_ff {CONFIG.d_ff_expert} an expert; vocab "
+          f"{CONFIG.vocab} tied): {n} parameters (the definition: "
+          f"{count_params(tree)}, want {MOE_PARAMS}), {4 * n / 1e9:.2f} GB "
+          f"fp32, materialized in {init_s:.1f} s")
+    return params, {"params": n, "init_s": init_s,
+                    "count_ok": n == count_params(tree) == MOE_PARAMS}
+
+
+def moe_model_phase(torch, params, info):
+    """Full-width Granite-MoE: a 2-layer copy at LM_CPU against the CPU by
+    the routing rule; the fp32 forward at 1 x MOE_TOKENS twice, bit for
+    bit, with its drops per layer; the bf16 prefill timed and traced."""
+    import dataclasses
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.model import forward
+    from repro_torch.models.moe import recording
+
+    gen = torch.Generator().manual_seed(16)
+    ok = info["count_ok"]
+    f32 = dataclasses.replace(CONFIG, dtype="float32")
+    res = {}
+    with torch.inference_mode():
+        two = dataclasses.replace(f32, n_layers=2)
+        p2 = _first_layers(params, 2)
+        tokens = torch.randint(0, CONFIG.vocab, LM_CPU, generator=gen)
+        with recording() as got_log:
+            got = forward(p2, {"tokens": tokens.to(DEVICE)}, two)
+        with recording() as ref_log:
+            ref = forward(_cpu_tree(torch, p2), {"tokens": tokens}, two)
+        good, res["cpu"] = _routed_verdict(
+            torch, f"2-layer full-width copy, {LM_CPU[0]} x {LM_CPU[1]}, vs "
+            f"the CPU run", got, ref, got_log, ref_log)
+        ok &= good
+        del got, ref, p2
+
+        tokens = torch.randint(0, CONFIG.vocab, (1, MOE_TOKENS),
+                               generator=gen).to(DEVICE)
+        out, logs = [], []
+        for _ in range(2):
+            reset_launches()                    # the main path starts here
+            with recording() as log:
+                out.append(forward(params, {"tokens": tokens}, f32))
+                _sync(torch)
+            counts = launches()                 # ... and ends here
+            logs.append(log)
+        same = torch.equal(out[0], out[1]) and all(
+            torch.equal(a.top_e, b.top_e) for a, b in zip(*logs))
+        drops = _drops(logs[0])
+        good = (same and bool(torch.isfinite(out[0]).all())
+                and tuple(out[0].shape) == (1, MOE_TOKENS, CONFIG.vocab)
+                and len(drops) == CONFIG.n_layers
+                and not any(counts.values()))
+        print(f"  fp32 forward 1 x {MOE_TOKENS}, all {CONFIG.n_layers} "
+              f"layers, twice: logits {tuple(out[0].shape)} "
+              f"{'equal bit for bit' if same else 'DIFFER'}, every layer's "
+              f"choices {'equal' if same else 'compared'}; launches {counts}"
+              f" (want none) {'ok' if good else 'FAIL'}")
+        print(f"  pairs dropped at capacity_factor {CONFIG.capacity_factor} "
+              f"(capacity {_moe_capacity(CONFIG, MOE_TOKENS)} an expert, "
+              f"{MOE_TOKENS * CONFIG.top_k} pairs a layer), per layer: "
+              f"{drops}")
+        ok &= good
+        res.update(fp32_bit_equal=same, fp32_drops=drops)
+        del out, logs
+
+    good, counts, prefill = _timed_prefill(torch, CONFIG, params, MOE_TOKENS,
+                                           gen, "Granite-MoE")
+    ok &= good
+    return bool(ok), sum(counts.values()), dict(info, **res, **prefill)
+
+
+def _moe_capacity(cfg, tokens):
+    from repro_torch.models.moe import _capacity
+    return _capacity(tokens, cfg.moe_cfg())
+
+
+def moe_serve_phase(torch, params):
+    """The engine on full-width Granite-MoE in bf16 on MOE_REQUESTS, then
+    its fp32 decode-loop prefill against the forward, both at
+    capacity_factor 8, where neither drops."""
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG
+
+    ok, stats = _engine_phase(torch, CONFIG, params, MOE_REQUESTS,
+                              MOE_NEW_TOKENS, check={"capacity_factor": 8.0})
+    good = not any(stats["launches"].values())
+    print(f"  decode {stats['decode_tokens_per_s']:.1f} tokens/s; launches "
+          f"{stats['launches']} (want none) {'ok' if good else 'FAIL'}")
+    return ok and good, stats
+
+
+def mla_init(torch):
+    """DeepSeek-V2 at full width and reduced depth (MLA_LAYERS of its 60
+    layers), fp32 weights from a seeded generator on the card; its
+    parameter count against the definition's and MLA_PARAMS."""
+    import dataclasses
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.models.model import model_def
+    from repro_torch.models.param import count_params, materialize
+
+    cfg = dataclasses.replace(CONFIG, n_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    tree = model_def(cfg)
+    params = materialize(tree, _card_generator(torch, 0), DEVICE)
+    _sync(torch)
+    n = count_params(params)
+    init_s = time.perf_counter() - t0
+    print(f"  DeepSeek-V2 236B at reduced depth: {cfg.n_layers} of "
+          f"{CONFIG.n_layers} layers ({cfg.n_dense_prefix} dense-prefix, "
+          f"{cfg.n_layers - cfg.n_dense_prefix} MoE of {cfg.n_experts} "
+          f"routed experts at top-{cfg.top_k} and {cfg.n_shared_experts} "
+          f"shared, d_ff {cfg.d_ff_expert} an expert); MLA at "
+          f"{cfg.n_heads} heads, q_lora {cfg.q_lora}, kv_lora "
+          f"{cfg.kv_lora}, d_nope {cfg.d_nope}, d_rope {cfg.d_rope}; d_model"
+          f" {cfg.d_model}, vocab {cfg.vocab}: {n} parameters (the "
+          f"definition: {count_params(tree)}, want {MLA_PARAMS}), "
+          f"{4 * n / 1e9:.2f} GB fp32, materialized in {init_s:.1f} s")
+    return params, {"params": n, "init_s": init_s, "layers": cfg.n_layers,
+                    "count_ok": n == count_params(tree) == MLA_PARAMS}
+
+
+def mla_model_phase(torch, params, info):
+    """DeepSeek-V2 at reduced depth: in fp32 the model at LM_CPU against
+    the CPU and, at 1 x MOE_TOKENS, chunked against dense MLA, both by the
+    routing rule; the decode loop, absorbed and expanded, against the
+    forward and each other; the bf16 prefill timed and traced."""
+    import dataclasses
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.model import (decode_step, forward,
+                                          init_decode_state)
+    from repro_torch.models.moe import recording
+
+    gen = torch.Generator().manual_seed(18)
+    ok = info["count_ok"]
+    cfg = dataclasses.replace(CONFIG, n_layers=MLA_LAYERS)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    res = {}
+    with torch.inference_mode():
+        tokens = torch.randint(0, cfg.vocab, LM_CPU, generator=gen)
+        with recording() as got_log:
+            got = forward(params, {"tokens": tokens.to(DEVICE)}, f32)
+        t0 = time.perf_counter()
+        cpu = _cpu_tree(torch, params)
+        with recording() as ref_log:
+            ref = forward(cpu, {"tokens": tokens}, f32)
+        del cpu
+        good, res["cpu"] = _routed_verdict(
+            torch, f"the model, {LM_CPU[0]} x {LM_CPU[1]}, vs the CPU run "
+            f"({time.perf_counter() - t0:.1f} s with the copy)", got, ref,
+            got_log, ref_log)
+        ok &= good
+        del got, ref
+
+        tokens = torch.randint(0, cfg.vocab, (1, MOE_TOKENS),
+                               generator=gen).to(DEVICE)
+        reset_launches()                        # the main path starts here
+        with recording() as chunked_log:
+            chunked = forward(params, {"tokens": tokens}, f32)
+            _sync(torch)
+        counts = launches()                     # ... and ends here
+        with recording() as dense_log:
+            dense = forward(params, {"tokens": tokens}, f32,
+                            use_chunked=False)
+        good, res["chunked"] = _routed_verdict(
+            torch, f"fp32 forward 1 x {MOE_TOKENS}, chunked MLA (q_chunk "
+            f"{cfg.q_chunk}, kv_chunk {cfg.kv_chunk}) vs dense scores",
+            chunked, dense, chunked_log, dense_log)
+        good &= (not any(counts.values())
+                 and tuple(chunked.shape) == (1, MOE_TOKENS, cfg.vocab))
+        res["fp32_drops"] = _drops(chunked_log)
+        print(f"  launches {counts} (want none); pairs dropped at "
+              f"capacity_factor {cfg.capacity_factor} (capacity "
+              f"{_moe_capacity(cfg, MOE_TOKENS)} an expert): "
+              f"{res['fp32_drops']} {'ok' if good else 'FAIL'}")
+        ok &= good
+        del chunked, dense
+
+        b, n = MLA_DECODE
+        d8 = dataclasses.replace(f32, capacity_factor=8.0)
+        tokens = torch.randint(0, cfg.vocab, (b, n), generator=gen
+                               ).to(DEVICE)
+        full = forward(params, {"tokens": tokens}, d8)
+        rows = {}
+        for absorb in (True, False):
+            c = dataclasses.replace(d8, mla_absorb=absorb)
+            state = init_decode_state(c, b, n, torch.float32, DEVICE)
+            steps = []
+            for t in range(n):
+                logits, state = decode_step(params, state,
+                                            {"tokens": tokens[:, t]}, c)
+                steps.append(logits)
+            rows[absorb] = torch.stack(steps, 1)
+            rel = _rel(rows[absorb], full)
+            good = bool(torch.isfinite(rows[absorb]).all()) \
+                and rel <= MODEL_RTOL
+            print(f"  fp32 decode loop over {b} x {n} tokens, "
+                  f"{'absorbed' if absorb else 'expanded'}, vs the forward "
+                  f"(capacity_factor 8): rel err {rel:.3e} (tol "
+                  f"{MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
+            ok &= good
+            res[f"decode_{'absorbed' if absorb else 'expanded'}_rel_err"] \
+                = rel
+        rel = _rel(rows[True], rows[False])
+        good = rel <= MODEL_RTOL
+        print(f"  absorbed vs expanded decode: rel err {rel:.3e} (tol "
+              f"{MODEL_RTOL:g}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        res["absorbed_vs_expanded_rel_err"] = rel
+        del full, rows
+
+    good, counts, prefill = _timed_prefill(torch, cfg, params, MOE_TOKENS,
+                                           gen, "DeepSeek-V2 (2 layers)")
+    ok &= good
+    return bool(ok), sum(counts.values()), dict(info, **res, **prefill)
+
+
+def _granite_moe_layer(torch):
+    """One full-width Granite-MoE layer's experts and router, seeded, and
+    x at 1 x MOE_TOKENS in fp32, on the card."""
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG
+    from repro_torch.models.moe import moe_def
+    from repro_torch.models.param import materialize
+
+    cfg = CONFIG.moe_cfg()
+    gen = torch.Generator().manual_seed(17)
+    params = materialize(moe_def(cfg), gen, DEVICE)
+    x = torch.randn(1, MOE_TOKENS, cfg.d_model, generator=gen).to(DEVICE)
+    return params, x, cfg
+
+
+# ---------------------------------------------------------------------------
 # mesh: the sharded wrappers and the network plan over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -3733,6 +4113,14 @@ def _mesh_rank(rank, shape, port, out_dir):
                 mesh.reset_counts()
                 out = attention(params, x, cfg, mesh=mesh)
                 res["seq_attn"] = dict(out=out.cpu(), counts={
+                    k: (c.calls, c.elements) for k, c in mesh.counts.items()})
+                del params, x, out
+                # the expert-parallel MoE: this rank's 24 of 48 experts
+                from repro_torch.models.moe import moe_apply
+                params, x, cfg = _granite_moe_layer(torch)
+                mesh.reset_counts()
+                out = moe_apply(params, x, cfg, mesh=mesh)
+                res["moe"] = dict(out=out.cpu(), counts={
                     k: (c.calls, c.elements) for k, c in mesh.counts.items()})
                 del params, x, out
             t0 = time.perf_counter()
@@ -4107,9 +4495,13 @@ def mesh_phase(torch, tk, smi):
     # RecurrentGemma's attention layer unsharded: the reference of the
     # sequence-parallel route
     from repro_torch.models.attention import attention
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+    from repro_torch.models.moe import moe_apply
     with torch.inference_mode():
         params, x, cfg = _rg_attn(torch)
         seq_ref = attention(params, x, cfg).cpu()
+        params, x, cfg = _granite_moe_layer(torch)
+        moe_ref = moe_apply(params, x, cfg).cpu()
         del params, x
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     summary = {}
@@ -4196,6 +4588,23 @@ def mesh_phase(torch, tk, smi):
                   f"rank against the whole K/V) vs the unsharded layer: "
                   f"max|err| {err:.3e} (tol {tol:.3e}); collectives "
                   f"{r['counts']} (want {want}) {'ok' if good else 'FAIL'}")
+        if "moe" in res:
+            r = res["moe"]
+            err = float((r["out"] - moe_ref).abs().max())
+            tol = MESH_RTOL * float(moe_ref.abs().max())
+            want = {"all_reduce.model": (1, moe_ref.numel())}
+            good = (r["out"].shape == moe_ref.shape and err <= tol
+                    and r["counts"] == want)
+            ok &= good
+            summary.setdefault("moe", {})[tag] = dict(
+                max_abs_err=err, tol=tol, counts=r["counts"])
+            print(f"    Granite-MoE layer, 1 x {MOE_TOKENS} fp32, "
+                  f"expert-parallel ({GRANITE.n_experts_pad // shape[1]} of "
+                  f"{GRANITE.n_experts_pad} experts a rank, capacity "
+                  f"{_moe_capacity(GRANITE, MOE_TOKENS)}) vs the single "
+                  f"card: max|err| {err:.3e} (tol {tol:.3e}); "
+                  f"collectives {r['counts']} (want {want}) "
+                  f"{'ok' if good else 'FAIL'}")
         ok &= _mesh_bf16_verdict(torch, res["bf16"], ref16, sep_refs16)
         print(f"    the backward ({res['grad_s']:.1f} s on rank 0):")
         ok &= _mesh_grad_verdict(torch, tag, res, grad_refs, rank_ms, smi)
@@ -4385,6 +4794,28 @@ def main() -> int:
     phases["rg-serve"], rg_serve = rg_serve_phase(torch, rg_params)
     del rg_params
     torch.cuda.empty_cache()
+    phase("moe-model", f"moe-model: full-width Granite-MoE 3B-A800M, all 32 "
+                       f"layers: a 2-layer copy vs the CPU, the fp32 forward "
+                       f"at 1 x {MOE_TOKENS} twice, drops per layer, the "
+                       f"bf16 prefill timed")
+    moe_params, moe_info = moe_init(torch)
+    phases["moe-model"], moe_launches, moe = moe_model_phase(
+        torch, moe_params, moe_info)
+    phase("moe-serve", "moe-serve: the LM engine on full-width Granite-MoE "
+                       "3B-A800M")
+    phases["moe-serve"], moe_serve = moe_serve_phase(torch, moe_params)
+    del moe_params
+    torch.cuda.empty_cache()
+    phase("mla-model", f"mla-model: DeepSeek-V2 236B at full width, reduced "
+                       f"to {MLA_LAYERS} of its 60 layers (the dense prefix "
+                       f"and one MoE layer): vs the CPU, chunked vs dense "
+                       f"MLA at 1 x {MOE_TOKENS}, decode vs prefill, "
+                       f"absorbed vs expanded, the bf16 prefill timed")
+    mla_params, mla_info = mla_init(torch)
+    phases["mla-model"], mla_launches, mla = mla_model_phase(
+        torch, mla_params, mla_info)
+    del mla_params
+    torch.cuda.empty_cache()
     phase("mesh", f"mesh: the sharded wrappers and the network plan over "
                   f"torch.distributed on the one card, meshes (1, 1) NCCL "
                   f"and {MESH_SHAPES} gloo (parity runs)")
@@ -4421,6 +4852,7 @@ def main() -> int:
                    "dense": dense,
                    "dense_serve": dense_serve, "rgemma": rg,
                    "rgemma_launches": rg_launches, "rgemma_serve": rg_serve,
+                   "moe": moe, "moe_serve": moe_serve, "mla": mla,
                    "both_modes": both_modes,
                    "bf16": bf16, "bf16_past_one_ulp": past,
                    "paper": paper, "bench": bench, "mesh": mesh,
@@ -4444,7 +4876,8 @@ def main() -> int:
         "lm_launches_per_prefill_forward": lm_launches,
         "lm_train_launches_per_step": lm_train_launches,
         "rgemma_launches_per_prefill_forward": rg_launches,
-        "dense_launches": dense_launches}))
+        "dense_launches": dense_launches, "moe_launches": moe_launches,
+        "mla_launches": mla_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ and per-cell skip rules of the language-model archs the port runs.
 Counterpart of the registry half of ``repro.configs.base`` (``ShapeCell``,
 ``SHAPES``, ``ArchSpec``, ``register``, ``get_arch``, ``list_archs`` and
 the skip rules).  Only the ported archs register: Mamba-2, the dense
-decoders and RecurrentGemma (ROADMAP A item 12 lists the rest in port
-order).  The JAX module's ``ConvKernelConfig`` and ``SchedulePin`` are
+decoders, RecurrentGemma and the MoE family (Granite-MoE 3B-A800M and
+DeepSeek-V2 with MLA); the encoder and the VLM are ROADMAP A items
+12.4.3-12.4.4.  The JAX module's ``ConvKernelConfig`` and ``SchedulePin`` are
 not ported: the port's blocks take their pins as arguments.
 
 Shape cells:
@@ -85,6 +86,6 @@ SKIP_ENC = {"decode_32k": "encoder-only: no autoregressive decode step",
 def _ensure_loaded() -> None:
     # import the per-arch modules once (they register themselves)
     from . import (  # noqa: F401
-        gemma_2b, mamba2_2p7b, mistral_large_123b, phi3_mini_3p8b,
-        qwen1p5_4b, recurrentgemma_9b,
+        deepseek_v2_236b, gemma_2b, granite_moe_3b_a800m, mamba2_2p7b,
+        mistral_large_123b, phi3_mini_3p8b, qwen1p5_4b, recurrentgemma_9b,
     )

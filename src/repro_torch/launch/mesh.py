@@ -23,15 +23,19 @@ of ``shard_map``'s replicated outputs: **a tensor that every rank of an
 axis holds whole has the same whole cotangent on every rank of that
 axis**.  So ``all_gather``'s backward takes the rank's slice,
 ``all_reduce``'s is the identity, ``reduce_scatter``'s all-gathers and
-``chunk``'s all-gathers.  The parameters are the one exception: every rank
+``chunk``'s all-gathers.  A whole tensor that feeds only a rank's partial
+of a result the axis then all-reduces (the expert-parallel MoE's tokens
+and router) passes through ``replicated``, whose backward sums the
+partial cotangents over the axis.  The parameters are the one exception: every rank
 holds them whole and applies them to its own batch slice, so each rank's
 gradient is its batch's contribution, and ``sum_batch_grads`` sums those
 over the batch axes ("pod" and "data"), the reduction XLA's partitioner
 inserts for ``jax.grad`` on a mesh.  A sharded wrapper's backward sums the
 bf16 weights that its oracle widens itself, in fp32, and rounds once
 (``sum_batch_grads_once``), as one device rounds the whole batch's
-gradient once; ``sum_batch_grads`` then adds only exact zeros to them.  Nothing sums over "model": its ranks
-compute the replicated weights' gradients identically.  The backward's
+gradient once; ``sum_batch_grads`` then adds only exact zeros to them.
+Nothing else sums over "model": its ranks compute the replicated weights'
+gradients identically.  The backward's
 collectives count apart from the forward's, under
 ``"<kind>.<axis>.backward"``, so ``model_wire_words`` stays the forward's.
 
@@ -262,6 +266,17 @@ class Mesh:
                     backward=True)
         return self._all_gather(g, axis, dim % g.dim())
 
+    def replicated(self, t: torch.Tensor, axis: str = MODEL_AXIS
+                   ) -> torch.Tensor:
+        """``t``, which every rank of ``axis`` holds whole, where it feeds
+        a partial result that the axis then sums: the identity, whose
+        backward sums the cotangent over ``axis`` (counted under
+        ``"all_reduce.<axis>.backward"``), as ``shard_map`` transposes an
+        input replicated over an axis its output is summed over."""
+        if self._groups[axis] is None or not _records(t):
+            return t
+        return _Replicated.apply(t, self, axis)
+
     # -- teardown ------------------------------------------------------------
 
     def close(self) -> None:
@@ -402,6 +417,19 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.conf = (mesh, axis)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.conf
+        mesh._count("all_reduce", axis, g.numel(), backward=True)
+        return mesh._all_reduce(g, axis), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):

@@ -7,10 +7,11 @@ Run (on the card):  PYTHONPATH=src python -m repro_torch.launch.serve \
 Twin of ``repro.launch.serve``: ``--arch`` resolves through the port's
 registry (``configs.base.get_arch``: ``mamba2-2.7b``, the dense
 decoders ``gemma-2b``, ``phi3-mini-3.8b``, ``qwen1.5-4b``,
-``mistral-large-123b``, and the hybrid ``recurrentgemma-9b``).  An
-encoder-only arch exits, as in the JAX launcher; an arch the port does
-not register (every family it does not run yet) exits naming ROADMAP A
-item 12.  Weights and prompts are random, from seed 0.
+``mistral-large-123b``, the hybrid ``recurrentgemma-9b``, and the MoE
+``granite-moe-3b-a800m`` and ``deepseek-v2-236b``, the latter with MLA).
+An encoder-only arch exits, as in the JAX launcher; an arch the port does
+not register (the encoder and the VLM) exits naming ROADMAP A item 12.4.
+Weights and prompts are random, from seed 0.
 """
 
 from __future__ import annotations

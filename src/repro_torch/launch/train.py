@@ -4,7 +4,11 @@ Run (on the card):  PYTHONPATH=src python -m repro_torch.launch.train \
         --arch mamba2-2.7b --smoke [--steps 20] [--ckpt-dir DIR] \
         [--device cpu]
 
-Twin of ``repro.launch.train`` on one device:
+Twin of ``repro.launch.train`` on one device.  ``--arch`` takes every arch
+the port registers (``configs.base.list_archs``: ``mamba2-2.7b``, the
+dense decoders, ``recurrentgemma-9b``, ``granite-moe-3b-a800m`` and
+``deepseek-v2-236b``); the encoder and the VLM exit naming ROADMAP A item
+12.4.  As in JAX:
 
 * deterministic resumable data pipeline (``data.pipeline``),
 * periodic + SIGTERM-triggered checkpointing (atomic publish),

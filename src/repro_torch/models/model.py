@@ -5,18 +5,25 @@ Counterpart of ``repro.models.model``.  ``ModelConfig`` carries every field
 of the JAX package's, so its configs copy over unchanged.  The ported
 families are ``"ssm"`` (Mamba-2: a stack of SSD layers, ``models.ssd``),
 ``"dense"`` (decoder LMs: attention and an FFN per layer,
-``models.attention`` and ``models.ffn``) and ``"hybrid"`` (RecurrentGemma:
+``models.attention`` and ``models.ffn``), ``"hybrid"`` (RecurrentGemma:
 ``"R"`` layers of an RG-LRU block and an FFN, ``models.rglru``, between
 ``"A"`` layers of local attention over ``window`` positions, whose decode
-caches are rings of ``window`` slots); the other families, and MLA, raise
-``NotImplementedError`` (ROADMAP A item 12 lists them in port order).
+caches are rings of ``window`` slots) and ``"moe"`` (Granite-MoE,
+DeepSeek-V2: attention and a mixture of experts per layer,
+``models.moe``, with shared experts as an FFN beside it where
+``n_shared_experts`` is set, and dense FFN layers for the first
+``n_dense_prefix``); ``use_mla`` puts Multi-head Latent Attention
+(``models.mla``, its latent caches stacked per layer as the KV caches are)
+in place of attention.  The encoder and the VLM raise
+``NotImplementedError`` (ROADMAP A items 12.4.3-12.4.4).
 
 Per-layer parameters are stacked on a leading layer axis (the key
 ``"stack"``; the block's layers ``"0_S"``, ``"0_A"``, or the hybrid
 pattern's ``"0_R"``, ``"1_R"``, ``"2_A"``), the JAX package's
 scan-over-layers layout, so its param trees carry over key for key; a
 hybrid stack's layers past the last whole pattern block are a list under
-``"rem"``, unrolled, as in JAX.  The decode state is stacked the same way
+``"rem"``, and the dense prefix a list under ``"prefix"``, both unrolled,
+as in JAX.  The decode state is stacked the same way
 (the KV caches' positions one per layer).  The JAX ``lax.scan`` over the
 stack becomes a Python loop that indexes the stacked tensors layer by
 layer (views, no copies; a stacked leaf may also come as a list of its
@@ -28,10 +35,12 @@ does; the prefix and remainder layers are not rematerialized, as in JAX.
 It changes no value.  ``scan_layers`` has no effect: the stack is a Python
 loop either way.
 
-``forward`` takes a ``launch.mesh`` mesh for the attention layers only:
-with ``seq_shard_attn`` they run the sequence-parallel route where JAX's
-would engage (``models.attention``); the rest of the model runs unsharded
-on each rank's tensors.
+``forward`` takes a ``launch.mesh`` mesh for the attention and MoE layers:
+with ``seq_shard_attn`` the attention layers run the sequence-parallel
+route where JAX's would engage (``models.attention``), and the MoE layers
+run expert-parallel over a "model" axis of more than one rank
+(``models.moe``); the rest of the model runs unsharded on each rank's
+tensors.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
 from . import attention as attn_mod
+from . import mla as mla_mod
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssd as ssd_mod
 from .common import (
@@ -52,7 +63,8 @@ from .common import (
 from .ffn import ffn, ffn_def
 from .param import _leaves, _map, stack_defs
 
-NOT_PORTED = "not ported yet (ROADMAP A item 12)"
+NOT_PORTED = ("not ported yet (ROADMAP A item 12.4: the encoder, 12.4.3, "
+              "and the VLM, 12.4.4)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +155,22 @@ class ModelConfig:
             logit_cap=self.logit_cap, seq_shard=self.seq_shard_attn,
         )
 
+    def mla_cfg(self) -> mla_mod.MLAConfig:
+        return mla_mod.MLAConfig(
+            d_model=self.d_model, n_heads=self.n_heads, q_lora=self.q_lora,
+            kv_lora=self.kv_lora, d_nope=self.d_nope, d_rope=self.d_rope,
+            d_v=self.head_dim, rope_theta=self.rope_theta,
+            q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
+        )
+
+    def moe_cfg(self) -> moe_mod.MoEConfig:
+        return moe_mod.MoEConfig(
+            d_model=self.d_model, n_experts=self.n_experts,
+            n_experts_pad=self.n_experts_pad or self.n_experts,
+            top_k=self.top_k, d_ff=self.d_ff_expert, act=self.act,
+            capacity_factor=self.capacity_factor,
+        )
+
     def ssd_cfg(self) -> ssd_mod.SSDConfig:
         return ssd_mod.SSDConfig(
             d_model=self.d_model, d_inner=self.d_inner,
@@ -168,24 +196,22 @@ class ModelConfig:
         return ("A",) * self.n_layers
 
 
-PORTED = ("ssm", "dense", "hybrid")
+PORTED = ("ssm", "dense", "hybrid", "moe")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED or cfg.use_mla:
-        what = ("use_mla" if cfg.family in PORTED
-                else f"family {cfg.family!r}")
+    if cfg.family not in PORTED:
         raise NotImplementedError(
-            f"{what} ({cfg.name}) is {NOT_PORTED}; the port runs families "
-            f"{', '.join(map(repr, PORTED))} without MLA")
+            f"family {cfg.family!r} ({cfg.name}) is {NOT_PORTED}; the port "
+            f"runs families {', '.join(map(repr, PORTED))}")
 
 
 # ---------------------------------------------------------------------------
 # per-layer definitions: "S" an SSD layer, "R" an RG-LRU block + FFN, "A"
-# attention + FFN
+# attention (or MLA) + an FFN (or a mixture of experts, where ``moe``)
 # ---------------------------------------------------------------------------
 
-def _layer_def(cfg: ModelConfig, kind: str) -> dict:
+def _layer_def(cfg: ModelConfig, kind: str, moe: bool) -> dict:
     d = cfg.d_model
     if kind == "S":
         return {"norm": rmsnorm_def(d), "ssd": ssd_mod.ssd_def(cfg.ssd_cfg())}
@@ -194,10 +220,20 @@ def _layer_def(cfg: ModelConfig, kind: str) -> dict:
                 "rec": rglru_mod.rglru_def(cfg.rglru_cfg()),
                 "ln2": rmsnorm_def(d),
                 "ffn": ffn_def(d, cfg.d_ff, cfg.act, cfg.glu)}
-    return {"ln1": rmsnorm_def(d),
-            "attn": attn_mod.attn_def(cfg.attn_cfg()),
-            "ln2": rmsnorm_def(d),
-            "ffn": ffn_def(d, cfg.d_ff, cfg.act, cfg.glu)}
+    p: Dict[str, Any] = {"ln1": rmsnorm_def(d)}
+    if cfg.use_mla:
+        p["attn"] = mla_mod.mla_def(cfg.mla_cfg())
+    else:
+        p["attn"] = attn_mod.attn_def(cfg.attn_cfg())
+    p["ln2"] = rmsnorm_def(d)
+    if moe:
+        p["moe"] = moe_mod.moe_def(cfg.moe_cfg())
+        if cfg.n_shared_experts:
+            p["shared"] = ffn_def(d, cfg.n_shared_experts * cfg.d_ff_expert,
+                                  cfg.act, cfg.glu)
+    else:
+        p["ffn"] = ffn_def(d, cfg.d_ff, cfg.act, cfg.glu)
+    return p
 
 
 def _window(cfg: ModelConfig) -> Optional[int]:
@@ -215,11 +251,27 @@ def _apply_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         h = x + rglru_mod.rglru_block(lp["rec"], rmsnorm(lp["norm"], x),
                                       cfg.rglru_cfg())
         return h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), cfg.act)
-    h = attn_mod.attention(lp["attn"], rmsnorm(lp["ln1"], x),
-                           cfg.attn_cfg(_window(cfg)), positions, use_chunked,
-                           mesh=mesh)
+    h = rmsnorm(lp["ln1"], x)
+    if cfg.use_mla:
+        h = mla_mod.mla_attention(lp["attn"], h, cfg.mla_cfg(), positions,
+                                  use_chunked)
+    else:
+        h = attn_mod.attention(lp["attn"], h, cfg.attn_cfg(_window(cfg)),
+                               positions, use_chunked, mesh=mesh)
     x = x + h
-    return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x), cfg.act)
+    return x + _channel_mix(lp, rmsnorm(lp["ln2"], x), cfg, mesh)
+
+
+def _channel_mix(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+                 mesh=None) -> torch.Tensor:
+    """An "A" layer's FFN, or its mixture of experts plus the shared
+    experts' FFN where the layer has them."""
+    if "moe" not in lp:
+        return ffn(lp["ffn"], h, cfg.act)
+    y = moe_mod.moe_apply(lp["moe"], h, cfg.moe_cfg(), mesh=mesh)
+    if "shared" in lp:
+        y = y + ffn(lp["shared"], h, cfg.act)
+    return y
 
 
 def _layer_groups(cfg: ModelConfig):
@@ -245,13 +297,14 @@ def model_def(cfg: ModelConfig) -> dict:
     _require_ported(cfg)
     p: Dict[str, Any] = {"embed": embed_def(cfg.padded_vocab, cfg.d_model)}
     prefix, pat, n_blocks, rem = _layer_groups(cfg)
-    if prefix:
-        p["prefix"] = [_layer_def(cfg, k) for k in prefix]
+    moe = cfg.family == "moe"
+    if prefix:       # the dense prefix
+        p["prefix"] = [_layer_def(cfg, k, moe=False) for k in prefix]
     if n_blocks:
-        p["stack"] = stack_defs({_block_key(i, k): _layer_def(cfg, k)
+        p["stack"] = stack_defs({_block_key(i, k): _layer_def(cfg, k, moe)
                                  for i, k in enumerate(pat)}, n_blocks)
     if rem:
-        p["rem"] = [_layer_def(cfg, k) for k in rem]
+        p["rem"] = [_layer_def(cfg, k, moe) for k in rem]
     p["final_norm"] = rmsnorm_def(cfg.d_model)
     if not cfg.tie_embeddings:
         p["head"] = head_def(cfg.d_model, cfg.padded_vocab)
@@ -346,10 +399,11 @@ def forward(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Full-sequence forward -> logits (B, S, V).
 
     batch: {"tokens": (B, S)} or {"embeds": (B, S, D)}.  ``use_chunked``
-    picks the attention layers' chunked online softmax (default: where S
-    passes ``q_chunk``).  ``mesh`` (a ``launch.mesh.Mesh``) reaches the
-    attention layers only: with ``seq_shard_attn`` each takes the
-    sequence-parallel route where JAX's would engage.
+    picks the attention layers' (and MLA's) chunked online softmax
+    (default: where S passes ``q_chunk``).  ``mesh`` (a
+    ``launch.mesh.Mesh``) reaches the attention layers, which with
+    ``seq_shard_attn`` take the sequence-parallel route where JAX's would
+    engage, and the MoE layers, expert-parallel over its "model" axis.
     """
     _require_ported(cfg)
     x = _embed_input(params, batch, cfg)
@@ -385,6 +439,9 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
     if kind == "R":
         return rglru_mod.init_rglru_state(batch, cfg.rglru_cfg(), dtype,
                                           device)
+    if cfg.use_mla:
+        return mla_mod.init_mla_cache(batch, s_max, cfg.mla_cfg(), dtype,
+                                      device)
     return attn_mod.init_kv_cache(batch, s_max, cfg.attn_cfg(_window(cfg)),
                                   dtype, device)
 
@@ -394,9 +451,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, s_max: int,
                       device: Optional[Union[str, torch.device]] = None
                       ) -> dict:
     """Per-layer state tree, stacked along the layer axis for the stack
-    (the remainder's a list): the SSM or RG-LRU state (constant-size) or
-    the KV cache of ``s_max`` positions (a ring of ``min(s_max, window)``
-    slots on the hybrid family's local attention).  ``device`` defaults to
+    (the prefix and remainder lists): the SSM or RG-LRU state
+    (constant-size), the KV cache of ``s_max`` positions (a ring of
+    ``min(s_max, window)`` slots on the hybrid family's local attention)
+    or MLA's latent cache of ``s_max`` positions.  ``device`` defaults to
     the card (``resolve_device``)."""
     _require_ported(cfg)
     device = resolve_device(device)
@@ -427,10 +485,15 @@ def _decode_layer(lp: dict, x: torch.Tensor, cache, cfg: ModelConfig,
                                             cache, cfg.rglru_cfg())
         h = x + y
         return h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), cfg.act), nc
-    y, nc = attn_mod.decode_attention(lp["attn"], rmsnorm(lp["ln1"], x),
-                                      cache, cfg.attn_cfg(_window(cfg)))
+    h = rmsnorm(lp["ln1"], x)
+    if cfg.use_mla:
+        y, nc = mla_mod.mla_decode(lp["attn"], h, cache, cfg.mla_cfg(),
+                                   absorb=cfg.mla_absorb)
+    else:
+        y, nc = attn_mod.decode_attention(lp["attn"], h, cache,
+                                          cfg.attn_cfg(_window(cfg)))
     x = x + y
-    return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x), cfg.act), nc
+    return x + _channel_mix(lp, rmsnorm(lp["ln2"], x), cfg), nc
 
 
 def _decode_unrolled(layers: list, kinds, caches: list, x: torch.Tensor,

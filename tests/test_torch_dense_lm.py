@@ -117,11 +117,12 @@ def test_full_config_matches_jax(arch):
 
 
 def test_registry_matches_jax():
-    """The port registers Mamba-2, the four dense archs and RecurrentGemma,
-    each spec as the JAX registry has it; the rest of the JAX registry is
-    not ported."""
-    assert base.list_archs() == sorted(ARCHS + ("mamba2-2.7b",
-                                                "recurrentgemma-9b"))
+    """The port registers Mamba-2, the four dense archs, RecurrentGemma and
+    the two MoE archs, each spec as the JAX registry has it; the rest of
+    the JAX registry (the encoder and the VLM) is not ported."""
+    assert base.list_archs() == sorted(ARCHS + (
+        "mamba2-2.7b", "recurrentgemma-9b", "granite-moe-3b-a800m",
+        "deepseek-v2-236b"))
     assert set(base.list_archs()) < set(jax_base.list_archs())
     for arch in base.list_archs():
         spec, jspec = _specs(arch)
@@ -135,8 +136,10 @@ def test_registry_matches_jax():
         k: dataclasses.asdict(v) for k, v in jax_base.SHAPES.items()}
     assert (base.SKIP_LONG, base.SKIP_ENC) == (jax_base.SKIP_LONG,
                                                jax_base.SKIP_ENC)
+    assert sorted(set(jax_base.list_archs()) - set(base.list_archs())) == [
+        "hubert-xlarge", "llava-next-34b"]
     with pytest.raises(KeyError):
-        base.get_arch("granite-moe-3b-a800m")
+        base.get_arch("hubert-xlarge")
 
 
 def test_forward_matches_jax(smoke):

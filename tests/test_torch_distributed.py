@@ -20,7 +20,11 @@ cotangents ``launch.mesh``'s rule says, and runs the sequence-parallel
 attention (``models.attention``, ``seq_shard``) on RecurrentGemma
 ``SMOKE``'s MQA heads with its window, dense and chunked, against the
 unsharded attention and (at (2, 2)) the JAX package's own route, and
-where it must be a no-op.  Rank 0 saves the global results;
+where it must be a no-op; and runs Granite ``SMOKE``'s MoE layer
+expert-parallel (``models.moe``; the (2, 2) spawn's four ranks also as one
+(1, 4) model axis), forward and backward, against the unsharded layer on
+the same batch slices and (at (2, 2)) the JAX package's ``shard_map``
+route.  Rank 0 saves the global results;
 the tests compare them here within the JAX suite's sharded bar (rtol 1e-4,
 atol 1e-4; bf16: its bf16 bar, 2e-2, the absolute part at the output's
 scale, each case's error against the absolute 2e-2 printed beside it; the
@@ -55,8 +59,10 @@ from repro_torch.kernels.convdk_fusedmb import convdk_fusedmb_fused
 from repro_torch.kernels.convdk_mbconv import convdk_mbconv_fused
 from repro_torch.core import telemetry
 from repro_torch.launch.mesh import make_mesh, sum_batch_grads
+from repro_torch.configs.granite_moe_3b_a800m import SMOKE as GRANITE_SMOKE
 from repro_torch.configs.recurrentgemma_9b import SMOKE as RG_SMOKE
 from repro_torch.models import attention as ta
+from repro_torch.models import moe as tmoe
 from repro_torch.models import mbconv as tm
 from repro_torch.models.common import separable_block
 from repro_torch.models.param import materialize
@@ -497,6 +503,58 @@ def _seq_attn_cases(mesh) -> dict:
     return res
 
 
+# expert-parallel MoE: Granite SMOKE's layer (5 experts padded to 8, top-2)
+# at the default capacity, on 4 sequences of 8 tokens that share a mean
+# direction, so that each data slice drops pairs
+MOE_B, MOE_S = 4, 8
+MOE_KEYS = ("router", "gate", "up", "down")
+MOE_CFG = GRANITE_SMOKE.moe_cfg()
+MOE_TOL = 1e-4                   # x max|ref|, + 1e-6
+
+
+def _moe_inputs() -> dict:
+    """Seeded numpy inputs (``moe_*``): x, the four weights and the
+    cotangent r of the loss sum(out * r)."""
+    rng = np.random.default_rng(13)
+    e, d, f = MOE_CFG.n_experts_pad, MOE_CFG.d_model, MOE_CFG.d_ff
+
+    def r(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return {"moe_x": r(MOE_B, MOE_S, d) + r(d),
+            "moe_router": r(d, e, scale=d ** -0.5),
+            "moe_gate": r(e, d, f, scale=d ** -0.5),
+            "moe_up": r(e, d, f, scale=d ** -0.5),
+            "moe_down": r(e, f, d, scale=f ** -0.5),
+            "moe_r": r(MOE_B, MOE_S, d)}
+
+
+def _moe_cases(mesh) -> dict:
+    """This rank's expert-parallel layer on its batch slice (its capacity
+    that slice's): the output gathered over the batch, the forward's
+    collectives, the pairs it dropped, and the gradients of sum(out * r)
+    (x's gathered, the weights' summed over the batch axes) with the
+    backward's collectives."""
+    w = _moe_inputs()
+    params = {n: torch.from_numpy(w["moe_" + n]).requires_grad_()
+              for n in MOE_KEYS}
+    x = mesh.chunk(torch.from_numpy(w["moe_x"]), "data",
+                   dim=0).clone().requires_grad_()
+    r = mesh.chunk(torch.from_numpy(w["moe_r"]), "data", dim=0)
+    mesh.reset_counts()
+    with tmoe.recording() as drops:
+        out = tmoe.moe_apply(params, x, MOE_CFG, mesh=mesh)
+    counts = _counts(mesh)
+    mesh.reset_counts()
+    (out * r).sum().backward()
+    grads = sum_batch_grads(mesh, [params[n].grad for n in MOE_KEYS])
+    return dict(out=mesh.all_gather(out.detach(), "data", dim=0).numpy(),
+                counts=counts, backward_counts=_counts(mesh),
+                dropped=[int(d.dropped) for d in drops],
+                x_grad=mesh.all_gather(x.grad, "data", dim=0).numpy(),
+                grads={n: g.numpy() for n, g in zip(MOE_KEYS, grads)})
+
+
 def _rank_cases(rank, shape, axes, port, out_path):
     """One rank of one mesh: every case, rank 0 saving the results."""
     torch.set_num_threads(1)
@@ -533,6 +591,10 @@ def _rank_cases(rank, shape, axes, port, out_path):
         res["routes"] = _block_routes(mesh)
         res["collectives"] = _collective_checks(mesh)
         res["seq_attn"] = _seq_attn_cases(mesh)
+        res["moe"] = _moe_cases(mesh)
+        if shape == (2, 2):
+            # the same four ranks as one model axis
+            res["moe_1x4"] = _moe_cases(make_mesh((1, 4), device="cpu"))
         for name, (cfg, def_fn, apply) in _net_runs():
             params, images, labels = _net_inputs(cfg, def_fn)
             plan = tm.network_plan(tm_specs(name.split("_")[0], cfg),
@@ -1219,6 +1281,19 @@ _JAX_SHARDED = textwrap.dedent("""
         except Exception as e:       # a fault of the reference, recorded
             sa["error_" + name] = np.asarray(f"{type(e).__name__}: {e}")
         sa["engaged_" + name] = np.asarray(engaged)
+    # the expert-parallel MoE on Granite SMOKE's layer: its shard_map route
+    # engages inside the jit under the mesh
+    from repro.configs.granite_moe_3b_a800m import SMOKE as GR
+    from repro.models import moe as jm
+    mw = {n: w["moe_" + n] for n in ("router", "gate", "up", "down")}
+
+    def moe_layer(p, x):
+        return jm.moe_apply(p, x, GR.moe_cfg())
+
+    with activate_mesh(mesh):
+        sa["moe"] = np.asarray(jax.jit(moe_layer)(mw, w["moe_x"]))
+        sa["moe_engaged"] = np.asarray(
+            "shard_map" in str(jax.make_jaxpr(moe_layer)(mw, w["moe_x"])))
     np.savez(sys.argv[5], **sa)
 """)
 
@@ -1228,9 +1303,11 @@ def jax_sharded(tmp_path_factory):
     """The JAX package's own sharded wrappers at mesh (2, 2) (4 virtual
     host devices, one subprocess): their outputs and their gradients
     (``jax.vjp``, ``residual_barrier`` at its default) of sum(out * r) at
-    the port's cotangents; and its sequence-parallel attention."""
+    the port's cotangents; its sequence-parallel attention; and its
+    expert-parallel MoE layer."""
     tmp = tmp_path_factory.mktemp("jax_sharded")
     np.savez(tmp / "in.npz", **_inputs(), **_seq_attn_inputs(),
+             **_moe_inputs(),
              **{f"r_{c}": _cotangent(c) for c in (CO, CM)})
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     res = subprocess.run(
@@ -1436,3 +1513,80 @@ def test_seq_parallel_attention_matches_jax(mesh_runs, jax_sharded):
         _sa_close(got[key]["out"], ref[key], key)
     assert "error_dense" not in ref.files
     assert "scan" in str(ref["error_chunked"]) and "chunked" not in ref.files
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+def _moe_close(got, want, err_msg=""):
+    err = float(np.abs(got - want).max())
+    assert got.shape == want.shape, err_msg
+    assert err <= MOE_TOL * float(np.abs(want).max()) + 1e-6, (err_msg, err)
+
+
+@pytest.fixture(scope="module")
+def moe_refs():
+    """dp -> the unsharded layer on each of dp batch slices (its capacity
+    that slice's, as each rank's): the output, the pairs each slice
+    dropped, and the gradients of sum(out * r)."""
+    w = _moe_inputs()
+    refs = {}
+    for dp in (1, 2):
+        params = {n: torch.from_numpy(w["moe_" + n]).requires_grad_()
+                  for n in MOE_KEYS}
+        x = torch.from_numpy(w["moe_x"]).clone().requires_grad_()
+        with tmoe.recording() as drops:
+            out = torch.cat([tmoe.moe_apply(params, xs, MOE_CFG)
+                             for xs in x.chunk(dp)])
+        (out * torch.from_numpy(w["moe_r"])).sum().backward()
+        refs[dp] = dict(out=out.detach().numpy(),
+                        dropped=[int(d.dropped) for d in drops],
+                        x_grad=x.grad.numpy(),
+                        grads={n: params[n].grad.numpy() for n in MOE_KEYS})
+    return refs
+
+
+@pytest.mark.parametrize("mesh", list(MESHES) + ["1x4"])
+def test_expert_parallel_moe_matches_unsharded(mesh_runs, moe_refs, mesh):
+    """Granite ``SMOKE``'s MoE layer at the default capacity on each mesh
+    (and, in the (2, 2) spawn's four ranks, at (1, 4)) equals the
+    unsharded layer on the same batch slices, drops included: its output
+    and the gradients of sum(out * r).  Where the model axis has M > 1
+    ranks (each holding 8 / M experts) the forward takes one all-reduce of
+    the slice's output over "model"; the backward sums x's and the
+    router's cotangents over "model" and gathers the experts' gradient
+    chunks; on a model axis of 1 the layer runs locally, no model-axis
+    collective."""
+    got = (mesh_runs["2x2"]["moe_1x4"] if mesh == "1x4"
+           else mesh_runs[mesh]["moe"])
+    shape = (1, 4) if mesh == "1x4" else MESHES[mesh][0]
+    mp = shape[-1]
+    dp = math.prod(shape) // mp
+    ref = moe_refs[dp]
+    _moe_close(got["out"], ref["out"], f"{mesh} out")
+    _moe_close(got["x_grad"], ref["x_grad"], f"{mesh} x grad")
+    for n in MOE_KEYS:
+        _moe_close(got["grads"][n], ref["grads"][n], f"{mesh} {n} grad")
+    # rank 0 holds the first batch slice, which drops pairs
+    assert got["dropped"] == ref["dropped"][:1] and got["dropped"][0] > 0
+    d, f, e = MOE_CFG.d_model, MOE_CFG.d_ff, MOE_CFG.n_experts_pad
+    tokens = MOE_B // dp * MOE_S
+    model = {k: v for k, v in got["counts"].items() if ".model" in k}
+    assert model == ({"all_reduce.model": (1, tokens * d)} if mp > 1
+                     else {}), (mesh, model)
+    back = {k: v for k, v in got["backward_counts"].items()
+            if ".model" in k}
+    want = {"all_reduce.model.backward": (2, tokens * d + d * e),
+            "all_gather.model.backward": (3, 3 * e * d * f)} if mp > 1 \
+        else {}
+    assert back == want, (mesh, back)
+
+
+def test_expert_parallel_moe_matches_jax(mesh_runs, jax_sharded):
+    """At mesh (2, 2) the port's expert-parallel layer equals the JAX
+    package's ``shard_map`` route (it engaged under the mesh) on the same
+    inputs, its capacity each data shard's tokens."""
+    ref = jax_sharded[2]
+    assert bool(ref["moe_engaged"])
+    _moe_close(mesh_runs["2x2"]["moe"]["out"], ref["moe"], "2x2 vs JAX")

@@ -44,7 +44,8 @@ from repro_torch.train import optim
 from repro_torch.train import step as train_step
 
 ARCHS = ("mamba2-2.7b", "gemma-2b", "phi3-mini-3.8b", "qwen1.5-4b",
-         "mistral-large-123b", "recurrentgemma-9b")
+         "mistral-large-123b", "recurrentgemma-9b", "granite-moe-3b-a800m",
+         "deepseek-v2-236b")
 B, S = 2, 16
 
 
